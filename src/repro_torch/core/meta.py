@@ -32,6 +32,9 @@ class ParamMeta:
     init:       "normal" | "zeros"  (zeros for query weights per App. D.2
                 and for norm gains under the (1 + gain) convention).
     init_scale: extra per-tensor sigma factor (per-layer HP, Table 2).
+    lr_scale:   extra per-tensor LR factor (per-layer HP, Table 2).
+    lr_axis:    which LR drives this tensor: "lr" (master) or "lr_embed"
+                (the App. D.7 per-layer embedding LR).
     owns_scale: the forward pass honors this tensor's abc multiplier and the
                 tensor owns its init scale (see AbcParametrization.rule).
     """
@@ -41,6 +44,8 @@ class ParamMeta:
     role: Optional[Role] = None
     init: str = "normal"
     init_scale: float = 1.0
+    lr_scale: float = 1.0
+    lr_axis: str = "lr"
     owns_scale: bool = True
 
     def resolved_role(self) -> Role:

@@ -17,8 +17,8 @@ model shape (Eq. (4)).
 Rules are instances of :class:`AbcParametrization` looked up by name in a
 registry; config strings (``cfg.parametrization = "mup"``) resolve through
 :func:`resolve`.  Built-ins: ``sp``, ``mup`` (Table 8), ``mup_table3``,
-``mup_table9``, ``ntk`` and ``umup`` (unit-scaled µP).  The HP-space hook of
-the reference arrives with the sweep.
+``mup_table9``, ``ntk`` and ``umup`` (unit-scaled µP).  Each rule owns the
+HP space it sweeps (:meth:`AbcParametrization.hp_space`, core/hpspace.py).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import enum
 import math
 from typing import Dict, Optional, Tuple, Union
 
+from repro_torch.core import hpspace as hpspace_lib
 from repro_torch.core.infshape import InfShape
 
 
@@ -67,6 +68,9 @@ class AbcRule:
     adam_lr_mult: float    # per-tensor LR factor under Adam-like optimizers
     wd_mult: float = 1.0   # weight-decay factor
 
+    def lr_mult(self, adam_like: bool) -> float:
+        return self.adam_lr_mult if adam_like else self.sgd_lr_mult
+
 
 class AbcParametrization(str):
     """Base class for registrable abc-parametrization rules.
@@ -74,7 +78,8 @@ class AbcParametrization(str):
     Instances are ``str`` subclasses whose value is the registry name:
     hashable, comparable with plain strings, usable as config values.
     Subclasses implement :meth:`rule` and may override
-    :meth:`attention_scale` and :meth:`validate_config`.
+    :meth:`attention_scale`, :meth:`hp_space` and :meth:`validate_config`.
+    ``is_mup`` marks the µP-class rules (1/d attention, scaled Adam eps).
     """
 
     is_mup: bool = False
@@ -112,6 +117,10 @@ class AbcParametrization(str):
         if self.is_mup:
             return alpha_attn * math.sqrt(base_d_head) / d_head
         return alpha_attn / math.sqrt(d_head)
+
+    def hp_space(self) -> hpspace_lib.HPSpace:
+        """The muTransferable HP space this rule sweeps (see core.hpspace)."""
+        return hpspace_lib.mup_space()
 
     def validate_config(self, cfg) -> None:
         """Raise if a ModelConfig is incompatible with this rule."""
@@ -152,6 +161,11 @@ def get_parametrization(name: str) -> AbcParametrization:
             f"unknown parametrization {name!r}; registered: "
             f"{sorted(_REGISTRY)}"
         ) from None
+
+
+def available_parametrizations() -> Tuple[AbcParametrization, ...]:
+    """All registered rules, in registration order (aliases once)."""
+    return tuple(dict.fromkeys(_REGISTRY.values()))
 
 
 def resolve(
@@ -327,6 +341,9 @@ class UnitMuP(AbcParametrization):
             adam_lr_mult=base.adam_lr_mult / theta,
             wd_mult=base.wd_mult,
         )
+
+    def hp_space(self) -> hpspace_lib.HPSpace:
+        return hpspace_lib.umup_space()
 
     def validate_config(self, cfg) -> None:
         sigma = getattr(cfg, "sigma", 1.0)

@@ -32,6 +32,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
     "repro_rmsnorm": ((_P, _P, _P, _I, _I, _F, _I, _P), _I),
+    "repro_rmsnorm_bwd_blocks": ((_I, _I), _I),
+    "repro_rmsnorm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "repro_ce_fwd": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
+    "repro_ce_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     "repro_flash_decode": (
         (_P, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P),

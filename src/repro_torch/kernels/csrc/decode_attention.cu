@@ -32,16 +32,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using repro::from_f32;
+using repro::to_f32;
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -2.3819763e38f;  // the reference's masking constant

@@ -1,0 +1,17 @@
+// float32 / bfloat16 loads and stores shared by the port's kernels: every
+// kernel computes in float32 whatever the storage type.
+#pragma once
+#include <cuda_bf16.h>
+
+namespace repro {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+}  // namespace repro

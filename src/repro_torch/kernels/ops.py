@@ -11,11 +11,16 @@ Dispatch contract (shared by every op here):
 
 A CUDA tensor either launches its kernel or raises: there is no fallback on
 error, by environment or by shape.
+
+The differentiable ops (``fused_rmsnorm``, ``softmax_cross_entropy``) are
+``torch.autograd.Function``s whose forward and backward follow the same
+choice: on the card the backward is a kernel too.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cross_entropy as ce
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
@@ -59,7 +64,94 @@ def decode_attention(
     )
 
 
-def fused_rmsnorm(x, gain, *, eps: float = 1e-6, impl: str = "auto"):
-    if resolve_impl(impl, x) == "ref":
+def launch_counts() -> dict:
+    """Kernel launches counted by the wrappers in this process (B2 counts
+    one per backward call)."""
+    return {
+        "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
+        "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
+        "flash_decode": da.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    rn.launches = rn.bwd_launches = 0
+    ce.fwd_launches = ce.bwd_launches = 0
+    da.launches = 0
+
+
+class _RMSNorm(torch.autograd.Function):
+    """B1 forward, B2 backward (or their plain versions).  Saves only
+    ``(x, gain)``: the backward recomputes the row's rsqrt, as the TPU
+    kernel's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, x, gain, eps, kernel):
+        ctx.save_for_backward(x, gain)
+        ctx.eps, ctx.kernel = eps, kernel
+        if kernel:
+            return rn.rmsnorm(x, gain.float().contiguous(), eps)
         return ref.rmsnorm_ref(x, gain, eps)
-    return rn.rmsnorm(x.contiguous(), gain.float().contiguous(), eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gain = ctx.saved_tensors
+        if ctx.kernel:
+            dx, dgain = rn.rmsnorm_bwd(x, gain.float().contiguous(),
+                                       dy.contiguous(), ctx.eps)
+        else:
+            dx, dgain = ref.rmsnorm_bwd_ref(x, gain, dy, ctx.eps)
+        # dgain in the gain's dtype, as the reference's custom_vjp returns it
+        return dx, dgain.to(gain.dtype), None, None
+
+
+def fused_rmsnorm(x, gain, *, eps: float = 1e-6, impl: str = "auto"):
+    """RMSNorm with the ``(1 + gain)`` convention, differentiable in x and
+    gain."""
+    kernel = resolve_impl(impl, x) == "kernel"
+    if kernel:
+        x = x.contiguous()
+    return _RMSNorm.apply(x, gain, eps, kernel)
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    """B3 forward, B4 backward (or their plain versions) over (N, V) logits
+    and (N,) clamped int32 labels.  The residuals are the logits, the labels
+    and the (N,) lse; labels get no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, kernel):
+        if kernel:
+            loss, lse = ce.ce_fwd(logits, labels)
+        else:
+            loss, lse = ref.softmax_cross_entropy_ref(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.kernel = kernel
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        g = g.float().contiguous()
+        if ctx.kernel:
+            dlogits = ce.ce_bwd(logits, labels, lse, g)
+        else:
+            dlogits = ref.softmax_cross_entropy_bwd_ref(logits, labels, lse, g)
+        return dlogits, None, None
+
+
+def softmax_cross_entropy(logits, labels, *, impl: str = "auto"):
+    """Per-position softmax CE, float32, shaped ``logits.shape[:-1]``.
+
+    Negative (masked) labels are clamped to [0, V), as the reference's
+    ``cross_entropy`` does; the caller applies its own mask to the returned
+    losses, so masked rows get a zero cotangent and their dlogits vanish.
+    The CUDA kernels take any V: there is no shape rule to fall back on.
+    """
+    kernel = resolve_impl(impl, logits) == "kernel"
+    V = logits.shape[-1]
+    x2 = logits.reshape(-1, V)
+    lab2 = labels.reshape(-1).clamp(0, V - 1).to(torch.int32)
+    if kernel:
+        x2 = x2.contiguous()
+    return _SoftmaxXent.apply(x2, lab2, kernel).reshape(logits.shape[:-1])

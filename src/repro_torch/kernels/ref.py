@@ -61,3 +61,43 @@ def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps) * (1.0 + gain.float())
     return y.to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """The gradients of :func:`rmsnorm_ref`: ``(dx, dgain)``, recomputing r
+    from x.  ``dx = r (1 + g) dy - x r^3 / D * sum_j dy_j (1 + g_j) x_j``,
+    ``dgain = sum_rows dy * x * r``; dx in x's dtype, dgain float32."""
+    D = x.shape[-1]
+    x32 = x.float().reshape(-1, D)
+    dy32 = dy.float().reshape(-1, D)
+    w = 1.0 + gain.float()
+    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    dyw = dy32 * w
+    rowdot = torch.sum(dyw * x32, dim=-1, keepdim=True)
+    dx = r * dyw - x32 * (r * r * r / D) * rowdot
+    dgain = torch.sum(dy32 * x32 * r, dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dgain
+
+
+def softmax_cross_entropy_ref(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-position ``(loss, lse)``, float32, shaped like ``labels``:
+    ``lse = logsumexp(logits)`` and ``loss = lse - logits[label]``, with
+    labels clamped to [0, V) (masking is the caller's)."""
+    V = logits.shape[-1]
+    x = logits.float()
+    lse = torch.logsumexp(x, dim=-1)
+    safe = labels.long().clamp(0, V - 1)
+    picked = torch.gather(x, -1, safe[..., None])[..., 0]
+    return lse - picked, lse
+
+
+def softmax_cross_entropy_bwd_ref(logits: torch.Tensor, labels: torch.Tensor,
+                                  lse: torch.Tensor, g: torch.Tensor):
+    """``dlogits = (exp(logits - lse) - onehot(label)) * g``, typed like
+    logits; labels clamped to [0, V) as in the forward."""
+    V = logits.shape[-1]
+    d = torch.exp(logits.float() - lse[..., None])
+    safe = labels.long().clamp(0, V - 1)
+    d.scatter_add_(-1, safe[..., None], torch.full_like(d[..., :1], -1.0))
+    return (d * g.float()[..., None]).to(logits.dtype)

@@ -33,6 +33,7 @@ def wmeta(
     role: Optional[Role] = None,
     init_scale: float = 1.0,
     owns_scale: bool = True,
+    lr_axis: str = "lr",
 ) -> ParamMeta:
     ish = make_infshape(
         shape, base_shape, width_axes, fan_in_axes=fan_in_axes, fan_out_axes=fan_out_axes
@@ -44,6 +45,7 @@ def wmeta(
         init=init,
         init_scale=init_scale,
         owns_scale=owns_scale,
+        lr_axis=lr_axis,
     )
 
 

@@ -1,4 +1,5 @@
-"""Top-level model: ``build_model(cfg, device)`` -> Model (init / forward / prefill).
+"""Top-level model: ``build_model(cfg, device)`` -> Model (init / forward /
+loss / prefill).
 
 The port's counterpart of ``repro.models.model`` for the dense decoder-only
 ("lm", all-"attn") architectures.  Params are a flat ``{dotted name:
@@ -16,6 +17,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.init import init_params
 from repro_torch.core.meta import ParamMeta, flatten_meta
 from repro_torch.core.parametrization import AbcParametrization, Role, resolve
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import gain_meta, mult_of, rmsnorm, softcap, wmeta
 
@@ -25,11 +27,13 @@ ACT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def _embed_meta(cfg) -> ParamMeta:
     V, D, bD = cfg.vocab_size, cfg.d_model, cfg.base_d_model
     # word embedding: input weight with conceptual fan_in 1 (one-hot input);
-    # init var sigma^2 independent of both width and vocab (App. B.1)
+    # init var sigma^2 independent of both width and vocab (App. B.1).
+    # lr_axis="lr_embed": its LR follows the App. D.7 per-layer embedding LR
+    # instead of the master lr.
     return wmeta(
         "embed", (V, D), (V, bD), width_axes=(1,),
         fan_in_axes=(0,), fan_out_axes=(1,), role=Role.INPUT,
-        init_scale=math.sqrt(V),
+        init_scale=math.sqrt(V), lr_axis="lr_embed",
     )
 
 
@@ -71,7 +75,8 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 class Model:
     """The µP decoder on one device.  ``device`` defaults to the card; the
     CPU runs only when asked for (``device="cpu"``).  ``impl`` selects the
-    kernel dispatch of every norm and decode attention (kernels/ops.py)."""
+    kernel dispatch of every norm, the loss and decode attention
+    (kernels/ops.py)."""
 
     def __init__(self, cfg, device="cuda", impl: str = "auto"):
         self.cfg = cfg
@@ -154,6 +159,24 @@ class Model:
         )
         x = rmsnorm(x, tree["final_norm"], cfg.norm_eps, impl=self.impl)
         return self._readout(tree, x), new_cache
+
+    def loss_fn(self, params, batch, collect_acts: bool = False):
+        """Next-token CE.  batch: tokens (B, S), labels (B, S) (-100 = masked).
+
+        The per-token CE goes through ops.softmax_cross_entropy: the chunked
+        CUDA kernels on the card (never a (B, S, V) log-prob tensor or its
+        autograd residual), the plain version on the CPU.  Masked rows get
+        zero weight here and so a zero cotangent: their dlogits vanish.
+        ``collect_acts`` returns ``(loss, {"logits": logits})``.
+        """
+        logits, _ = self.forward(params, batch["tokens"], mode="train")
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        losses = ops.softmax_cross_entropy(logits, labels, impl=self.impl)
+        loss = torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        if collect_acts:
+            return loss, {"logits": logits}
+        return loss
 
     def prefill(self, params, tokens, cache_len: int = 0):
         cache_len = cache_len or tokens.shape[1]

@@ -4,7 +4,7 @@ A config declares a repeating *group* of blocks (``cfg.pattern``).  The
 parameters of each block position in the group are stacked over
 ``n_groups`` on a leading layer axis, exactly as in the reference, so weights
 transfer 1:1 by dotted name; where the reference scans over the stack, the
-port runs a Python loop and slices layer ``l`` out of every stacked tensor.
+port runs a Python loop over the layers of every stacked tensor.
 
 The port serves the "attn" block kind (global self-attention + MLP) in two
 modes: full sequence ("train" / "prefill", plain attention; prefill also
@@ -265,10 +265,15 @@ def run_stack(
             ctx.positions, paged.global_table, paged.active, paged.page_size
         )
     emitted = {k: [] for k in keys}
+    # each stacked tensor split into its layers once per forward: under
+    # autograd one UnbindBackward stacks the layers' gradients, where a
+    # ``t[layer]`` per layer would write a stack-sized gradient per layer
+    layers = {k: tree_map(lambda t: torch.unbind(t, 0), group_params[k])
+              for k in keys}
     for layer in range(cfg.n_groups):
         for i, kind in enumerate(cfg.pattern):
             k = keys[i]
-            p = tree_map(lambda t: t[layer], group_params[k])
+            p = tree_map(lambda ts: ts[layer], layers[k])
             c_in = None
             if caches is not None:
                 c_in = tree_map(lambda t: t[layer], caches["groups"][k])

@@ -31,13 +31,22 @@ def test_port_imports_without_jax_or_reference():
         "'repro_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    mods = set(res.stdout.split())
+    assert len(mods) >= 34
+    training = {
+        "repro_torch.core.hpspace", "repro_torch.core.transfer",
+        "repro_torch.kernels.cross_entropy", "repro_torch.optim.optimizer",
+        "repro_torch.optim.schedules", "repro_torch.optim.grad",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
+        "repro_torch.launch.steps", "repro_torch.launch.train",
+    }
+    assert training <= mods, training - mods
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -7,9 +7,15 @@ in interpret mode and against the reference's jnp oracles, on the same numpy
 inputs.  Tolerances are the reference's (docs/kernels.md § Tolerance
 policy): float32 atol 2e-5, bfloat16 atol 2e-2.
 
-B1 is the fused RMSNorm, B8 the paged flash-decode kernel.  The B8 cases
-cover GQA / MQA / MHA x window x softcap, with a half-filled last page, a
-permuted page table, stale bytes in unwritten entries and a q_pos = -1 slot.
+B1 is the fused RMSNorm, B2 its backward, B3/B4 the chunked softmax
+cross-entropy forward and backward, B8 the paged flash-decode kernel.  The
+B8 cases cover GQA / MQA / MHA x window x softcap, with a half-filled last
+page, a permuted page table, stale bytes in unwritten entries and a
+q_pos = -1 slot.  Gradients (B2, B4 and the autograd Functions of
+``ops.fused_rmsnorm`` / ``ops.softmax_cross_entropy``) are held to the
+gradient tiers: float32 atol 2e-4 / rtol 1e-3, bfloat16 atol 5e-2; the
+cross-entropy cases include masked (-100) labels and V that no chunk
+divides.
 """
 import types
 
@@ -18,11 +24,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import cross_entropy as ce  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
+            "bfloat16": dict(atol=5e-2, rtol=0)}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -30,14 +39,16 @@ TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def jx():
     """The reference's kernels, imported only by the tests that compare with
     them (the machine with the card runs the GPU tests without JAX)."""
-    pytest.importorskip("jax")
+    jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels import ref as jref
+    from repro.kernels.cross_entropy import cross_entropy
     from repro.kernels.decode_attention import flash_decode
     from repro.kernels.rmsnorm import rmsnorm
 
     return types.SimpleNamespace(
-        jnp=jnp, ref=jref, flash_decode=flash_decode, rmsnorm=rmsnorm,
+        jax=jax, jnp=jnp, ref=jref, flash_decode=flash_decode, rmsnorm=rmsnorm,
+        cross_entropy=cross_entropy,
         dt={"float32": jnp.float32, "bfloat16": jnp.bfloat16},
     )
 
@@ -84,6 +95,136 @@ def test_rmsnorm_plain_matches_reference_kernel(jx, shape, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want_kernel), atol=ATOL[dtype])
     np.testing.assert_allclose(_f32(got), _f32(want_ref), atol=ATOL[dtype])
 
+
+
+# ---------------------------------------------------------------------------
+# B2 rmsnorm backward
+# ---------------------------------------------------------------------------
+
+def _rmsnorm_grad_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (3.0 * rng.standard_normal(shape)).astype(np.float32)
+    g = (0.5 * rng.standard_normal(shape[-1])).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    return x, g, dy
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 48), (8, 576), (3, 7, 40), (21, 1024)])
+def test_rmsnorm_bwd_plain_matches_reference_vjp(jx, shape, dtype):
+    """ref.rmsnorm_bwd_ref and the autograd Function's backward against
+    jax.vjp of the reference's Pallas RMSNorm (its custom_vjp backward
+    kernel, in interpret mode)."""
+    x, g, dy = _rmsnorm_grad_inputs(shape)
+    tx, jxx = _both(jx, x, dtype)
+    tdy, jdy = _both(jx, dy, dtype)
+    tg, jg = torch.from_numpy(g), jx.jnp.asarray(g)
+    _, vjp = jx.jax.vjp(
+        lambda a, b: jx.rmsnorm(a, b, eps=1e-6, block_rows=8, interpret=True),
+        jxx, jg)
+    want_dx, want_dg = vjp(jdy)
+    dx, dg = ref.rmsnorm_bwd_ref(tx, tg, tdy, 1e-6)
+    assert dx.dtype == tx.dtype and dg.dtype == torch.float32
+    tol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(_f32(dx), _f32(want_dx), **tol)
+    np.testing.assert_allclose(_f32(dg), _f32(want_dg), **GRAD_TOL["float32"])
+
+    lx = tx.clone().requires_grad_(True)
+    lg = tg.clone().requires_grad_(True)
+    y = ops.fused_rmsnorm(lx, lg, eps=1e-6)
+    ax, ag = torch.autograd.grad(y, (lx, lg), tdy)
+    assert ag.dtype == lg.dtype
+    torch.testing.assert_close(ax, dx, rtol=0, atol=0)
+    torch.testing.assert_close(ag, dg, rtol=0, atol=0)
+
+
+def test_rmsnorm_autograd_matches_autodiff_of_plain_forward():
+    """The hand-derived backward equals torch autodiff of the plain forward
+    (float32 gradient tier: the two sum in different orders)."""
+    x, g, dy = (torch.from_numpy(a) for a in _rmsnorm_grad_inputs((6, 40)))
+    lx, lg = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    want = torch.autograd.grad(ref.rmsnorm_ref(lx, lg), (lx, lg), dy)
+    got = ref.rmsnorm_bwd_ref(x, g, dy)
+    torch.testing.assert_close(got[0], want[0], **GRAD_TOL["float32"])
+    torch.testing.assert_close(got[1], want[1], **GRAD_TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# B3 / B4 chunked softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+def _ce_inputs(N, V, seed=0):
+    """Logits with a wide range, labels with masked (-100) rows and one on
+    the last column, and a loss cotangent that is zero on masked rows."""
+    rng = np.random.default_rng(seed)
+    logits = (4.0 * rng.standard_normal((N, V))).astype(np.float32)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[::3] = -100
+    labels[-1] = V - 1
+    g = rng.uniform(0.5, 1.5, N).astype(np.float32) * (labels >= 0)
+    return logits, labels, g
+
+
+# (N, V, block_v of the reference kernel: it needs V % block_v == 0)
+CE_CASES = [(8, 96, 32), (13, 40, 40), (32, 256, 128)]
+
+
+@pytest.mark.parametrize("N,V,bv", CE_CASES)
+def test_cross_entropy_plain_matches_reference_kernel(jx, N, V, bv):
+    logits, labels, g = _ce_inputs(N, V)
+    jl, jlab = jx.jnp.asarray(logits), jx.jnp.asarray(labels)
+
+    def jloss(x):
+        return jx.cross_entropy(x, jlab, block_rows=8, block_v=bv, interpret=True)
+
+    want_loss, vjp = jx.jax.vjp(jloss, jl)
+    (want_dx,) = vjp(jx.jnp.asarray(g))
+    tl, tlab = torch.from_numpy(logits), torch.from_numpy(labels)
+    loss, lse = ref.softmax_cross_entropy_ref(tl, tlab)
+    np.testing.assert_allclose(_f32(loss), _f32(want_loss), atol=ATOL["float32"])
+    np.testing.assert_allclose(
+        _f32(loss), _f32(jx.ref.softmax_cross_entropy_ref(jl, jlab)),
+        atol=ATOL["float32"])
+    dx = ref.softmax_cross_entropy_bwd_ref(tl, tlab, lse, torch.from_numpy(g))
+    np.testing.assert_allclose(_f32(dx), _f32(want_dx), **GRAD_TOL["float32"])
+    assert torch.count_nonzero(dx[torch.from_numpy(labels < 0)]) == 0
+
+    lx = tl.clone().requires_grad_(True)
+    per_row = ops.softmax_cross_entropy(lx, tlab)
+    torch.testing.assert_close(per_row, loss, rtol=0, atol=0)
+    (ax,) = torch.autograd.grad(per_row, lx, torch.from_numpy(g))
+    torch.testing.assert_close(ax, dx, rtol=0, atol=0)
+
+
+def test_cross_entropy_op_keeps_leading_dims_and_no_label_grad():
+    logits, labels, _ = _ce_inputs(12, 50, seed=3)
+    x = torch.from_numpy(logits).reshape(3, 4, 50).requires_grad_(True)
+    lab = torch.from_numpy(labels).reshape(3, 4)
+    loss = ops.softmax_cross_entropy(x, lab)
+    assert loss.shape == (3, 4) and loss.dtype == torch.float32
+    want = torch.nn.functional.cross_entropy(
+        x.detach().reshape(12, 50), lab.reshape(12).clamp(min=0).long(),
+        reduction="none").reshape(3, 4)
+    torch.testing.assert_close(loss.detach(), want, atol=2e-5, rtol=0)
+    mask = (lab >= 0).float()
+    (dx,) = torch.autograd.grad((loss * mask).sum(), x)
+    assert torch.count_nonzero(dx[lab < 0]) == 0
+
+
+def test_new_kernels_on_cpu_raise_and_count_nothing():
+    x, g, dy = (torch.from_numpy(a) for a in _rmsnorm_grad_inputs((4, 48)))
+    logits, labels, gg = (torch.from_numpy(a) for a in _ce_inputs(6, 40))
+    ops.reset_launch_counts()
+    ops.softmax_cross_entropy(logits, labels)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.softmax_cross_entropy(logits, labels, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_bwd(x, g, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        ce.ce_fwd(logits, labels)
+    with pytest.raises(ValueError, match="CUDA"):
+        ce.ce_bwd(logits, labels, gg, gg)
+    assert set(ops.launch_counts().values()) == {0}
 
 # ---------------------------------------------------------------------------
 # B8 flash decode
@@ -221,3 +362,40 @@ def test_decode_kernel_matches_plain_on_card(K, G, window, softcap, dtype):
                                 impl="ref")
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=ATOL[dtype])
     assert torch.count_nonzero(got[2]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,D", [(1, 48), (37, 576), (4097, 1024)])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(rows, D, dtype):
+    _need_card()
+    x = (3 * torch.randn(rows, D, device="cuda")).to(TORCH_DT[dtype])
+    g = 0.5 * torch.randn(D, device="cuda")
+    dy = torch.randn(rows, D, device="cuda").to(TORCH_DT[dtype])
+    n0 = rn.bwd_launches
+    dx, dg = rn.rmsnorm_bwd(x, g, dy)
+    assert rn.bwd_launches == n0 + 1
+    want_dx, want_dg = ref.rmsnorm_bwd_ref(x, g, dy)
+    torch.testing.assert_close(dx.float(), want_dx.float(), **GRAD_TOL[dtype])
+    torch.testing.assert_close(dg, want_dg, **GRAD_TOL["float32"])
+    again = rn.rmsnorm_bwd(x, g, dy)[1]
+    assert torch.equal(again, dg)            # fixed summation order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,V", [(1, 7), (37, 1000), (256, 2048), (64, 50257)])
+def test_cross_entropy_kernels_match_plain_on_card(N, V):
+    _need_card()
+    logits, labels, g = (torch.from_numpy(a).cuda() for a in _ce_inputs(N, V))
+    lab = labels.clamp(0, V - 1)
+    n0 = ops.launch_counts()
+    loss, lse = ce.ce_fwd(logits, lab)
+    dx = ce.ce_bwd(logits, lab, lse, g)
+    n1 = ops.launch_counts()
+    assert (n1["ce_fwd"] - n0["ce_fwd"], n1["ce_bwd"] - n0["ce_bwd"]) == (1, 1)
+    want_loss, want_lse = ref.softmax_cross_entropy_ref(logits, lab)
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=ATOL["float32"])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATOL["float32"])
+    want_dx = ref.softmax_cross_entropy_bwd_ref(logits, lab, want_lse, g)
+    torch.testing.assert_close(dx, want_dx, **GRAD_TOL["float32"])
+    assert torch.count_nonzero(dx[labels < 0]) == 0
