@@ -47,6 +47,11 @@ class ModelConfig:
 
     # paged-KV pool storage dtype for serving; "" inherits `dtype`
     kv_dtype: str = ""
+    # amp: mixed-precision matmul policy for the train step ("" = off,
+    # "bf16", "int8"); resolved via quant.policy_of into a QuantPolicy that
+    # routes the flash-attention tile matmuls and the readout logit matmul.
+    # Master weights and optimizer state stay f32.
+    amp: str = ""
 
     # ---- muP / HPs (the muTransferable set, Table 2) ----------------------
     parametrization: str = "mup"      # resolved via core.parametrization
@@ -72,6 +77,8 @@ class ModelConfig:
                 object.__setattr__(self, f"base_{f}", getattr(self, f))
         if self.kv_dtype not in ("", "bfloat16", "float32"):
             raise ValueError(f"{self.name}: unknown kv_dtype {self.kv_dtype!r}")
+        if self.amp not in ("", "bf16", "int8"):
+            raise ValueError(f"{self.name}: unknown amp policy {self.amp!r}")
         ng, rem = divmod(self.n_layers - len(self.tail), max(len(self.pattern), 1))
         if rem != 0:
             raise ValueError(

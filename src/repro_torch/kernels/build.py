@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_FLASH_ARGS = (_I,) * 6 + (_F, _I, _I, _F, _I, _I, _P)
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
@@ -42,6 +43,11 @@ _SIGNATURES = {
         _I,
     ),
     "repro_flash_decode_smem_bytes": ((_I, _I, _I), _LL),
+    # flash attention: pointers, then B, S, T, H, K, d, scale, causal,
+    # window, softcap, mode, dtype, stream
+    "repro_flash_fwd": ((_P,) * 5 + _FLASH_ARGS, _I),
+    "repro_flash_bwd_dq": ((_P,) * 7 + _FLASH_ARGS, _I),
+    "repro_flash_bwd_dkv": ((_P,) * 8 + _FLASH_ARGS, _I),
     "repro_error_string": ((_I,), ctypes.c_char_p),
 }
 

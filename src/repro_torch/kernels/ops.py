@@ -12,9 +12,12 @@ Dispatch contract (shared by every op here):
 A CUDA tensor either launches its kernel or raises: there is no fallback on
 error, by environment or by shape.
 
-The differentiable ops (``fused_rmsnorm``, ``softmax_cross_entropy``) are
-``torch.autograd.Function``s whose forward and backward follow the same
-choice: on the card the backward is a kernel too.
+The differentiable ops (``fused_rmsnorm``, ``softmax_cross_entropy``,
+``attention``) are ``torch.autograd.Function``s whose forward and backward
+follow the same choice: on the card the backward is a kernel too.
+``attention_plain_flash`` is attention's kernel path over the plain
+versions of its kernels, for holding a model that runs them against one
+that rounds where they round.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.kernels import cross_entropy as ce
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
 
@@ -71,6 +75,8 @@ def launch_counts() -> dict:
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
         "flash_decode": da.launches,
+        "flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.dq_launches,
+        "flash_bwd_dkv": fa.dkv_launches,
     }
 
 
@@ -78,6 +84,7 @@ def reset_launch_counts() -> None:
     rn.launches = rn.bwd_launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
     da.launches = 0
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -155,3 +162,81 @@ def softmax_cross_entropy(logits, labels, *, impl: str = "auto"):
     if kernel:
         x2 = x2.contiguous()
     return _SoftmaxXent.apply(x2, lab2, kernel).reshape(logits.shape[:-1])
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward, then its backward from ``(q, k, v, o, lse)``: the
+    backward recomputes p from lse, never saving an (S, T) matrix.  ``fwd``
+    and ``bwd`` are B5 and B6 + B7 (:func:`_kernel_bwd`), or their plain
+    versions at the same contract."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, policy, fwd, bwd):
+        kw = dict(causal=causal, window=window, softcap=softcap, policy=policy)
+        o, lse = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        ctx.bwd = bwd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        # softmax-jacobian correction rowsum(do * o), laid out (B, H, S) like
+        # lse, in plain torch between the kernels as the reference does it
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = ctx.bwd(q, k, v, do, lse, delta, **ctx.kw)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def _kernel_bwd(q, k, v, do, lse, delta, **kw):
+    """(dq, dk, dv) from B6 and B7."""
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+def attention(q, k, v, *, scale, causal: bool = True, window: int = 0,
+              softcap: float = 0.0, impl: str = "auto", policy=None):
+    """Flash attention with GQA / causal / sliding window / softcap,
+    differentiable in q, k and v.
+
+    q (B, S, H, d), k and v (B, T, K, d); returns (B, S, H, d) in q's dtype.
+    ``policy`` (a quant.QuantPolicy or None) selects the tile-matmul
+    precision; an inactive one is None.  The kernel path folds ``scale``
+    into q outside the autograd Function (the kernels' own scale is 1), as
+    the reference does; the plain path applies it to the logits.  The CUDA
+    kernels take any S and T: there is no shape rule to fall back on.
+    """
+    if policy is not None and not policy.active:
+        policy = None
+    if resolve_impl(impl, q) == "ref":
+        if policy is not None:
+            return ref.attention_policy_ref(
+                q, k, v, scale=scale, causal=causal, window=window,
+                softcap=softcap, policy=policy,
+            )
+        return ref.attention_ref(q, k, v, scale=scale, causal=causal,
+                                 window=window, softcap=softcap)
+    return _flash(q, k, v, scale, causal, window, softcap, policy,
+                  fa.flash_fwd, _kernel_bwd)
+
+
+def attention_plain_flash(q, k, v, *, scale, causal: bool = True,
+                          window: int = 0, softcap: float = 0.0, policy=None):
+    """The kernel path of :func:`attention` with B5-B7 replaced by their
+    plain versions at the kernels' contract (``ref.flash_fwd_ref``,
+    ``ref.flash_bwd_ref``): the same scale fold, delta and casts, and bf16
+    rounding where the kernels round it.  Launches nothing, on any device.
+    """
+    if policy is not None and not policy.active:
+        policy = None
+    return _flash(q, k, v, scale, causal, window, softcap, policy,
+                  ref.flash_fwd_ref, ref.flash_bwd_ref)
+
+
+def _flash(q, k, v, scale, causal, window, softcap, policy, fwd, bwd):
+    qs = (q.float() * scale).to(q.dtype).contiguous()
+    return _FlashAttention.apply(qs, k.contiguous(), v.contiguous(), causal,
+                                 window, softcap, policy, fwd, bwd)

@@ -1,14 +1,194 @@
 """Plain PyTorch versions of the ported kernels (the correctness ground truth).
 
-Straight-line tensor code (no tiling, no online softmax), the counterparts of
-``repro.kernels.ref``.  The CPU path runs them; on the card they are what
-each hand-written kernel is held against.
+Straight-line tensor code, the counterparts of ``repro.kernels.ref``.  The
+CPU path runs them; on the card they are what each hand-written kernel is
+held against.  One exception keeps tiles: :func:`flash_fwd_ref`, the plain
+version of the flash-attention forward at the kernels' own contract, walks
+the 64-key tiles because in the bf16 operand mode the kernel rounds the
+unnormalized p of each tile, relative to the running row max, before it
+multiplies it into v.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.quant.core import kernel_dot, quant_matmul
+
 NEG_INF = -2.3819763e38
+
+
+def _visible(S: int, T: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(S, T) bool: query i sees key j (causal: j <= i; window: i - j < w)."""
+    q_idx = torch.arange(S, device=device)[:, None]
+    k_idx = torch.arange(T, device=device)[None, :]
+    mask = torch.ones(S, T, dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window:
+        mask &= (q_idx - k_idx) < window
+    return mask
+
+
+def attention_ref(
+    q: torch.Tensor,          # (B, S, H, d)
+    k: torch.Tensor,          # (B, T, K, d)
+    v: torch.Tensor,          # (B, T, K, d)
+    *,
+    scale,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Causal / sliding-window / softcapped GQA attention in f32 (the
+    flash-attention oracle); returns (B, S, H, d) in q's dtype.  Query head
+    h reads kv head h // G."""
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, d).float()
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = _visible(S, T, causal, window, q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return out.reshape(B, S, H, d).to(q.dtype)
+
+
+def attention_policy_ref(
+    q: torch.Tensor,          # (B, S, H, d)
+    k: torch.Tensor,          # (B, T, K, d)
+    v: torch.Tensor,          # (B, T, K, d)
+    *,
+    scale,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    policy=None,
+) -> torch.Tensor:
+    """:func:`attention_ref` with the q·kᵀ and p·v matmuls routed through
+    the mixed-precision policy (``quant.quant_matmul``): the plain version
+    of the dtype choices the flash kernels make per tile.  Differentiable,
+    with the backward matmuls under the same policy; p·v multiplies the
+    normalized softmax, where the kernels multiply the unnormalized p and
+    divide after."""
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    kf = torch.repeat_interleave(k, G, dim=2)           # (B, T, H, d)
+    vf = torch.repeat_interleave(v, G, dim=2)
+    qt = q.transpose(1, 2).float()                      # (B, H, S, d)
+    kt = kf.permute(0, 2, 3, 1).float()                 # (B, H, d, T)
+    vt = vf.transpose(1, 2).float()                     # (B, H, T, d)
+    logits = quant_matmul(qt, kt, policy) * scale       # (B, H, S, T)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = _visible(S, T, causal, window, q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = quant_matmul(p, vt, policy)                   # (B, H, S, d)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+FLASH_TILE = 64     # query rows and keys per tile of csrc/flash_attention.cu
+
+
+def _heads(q, k, v):
+    """q (B, H, S, d) and k, v repeated over each group, (B, H, T, d), f32."""
+    G = q.shape[2] // k.shape[2]
+    return (q.transpose(1, 2).float(),
+            k.repeat_interleave(G, 2).transpose(1, 2).float(),
+            v.repeat_interleave(G, 2).transpose(1, 2).float())
+
+
+def _capped_logits(q, k, scale, softcap, policy):
+    """(s, t): the logits before the mask, and the softcap's tanh (None
+    without one)."""
+    s = kernel_dot(q, k.transpose(-1, -2), policy) * scale
+    if not softcap:
+        return s, None
+    t = torch.tanh(s / softcap)
+    return softcap * t, t
+
+
+def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
+                  window: int = 0, softcap: float = 0.0, policy=None):
+    """The plain version of the flash forward (B5) at the kernel's contract:
+    ``(o, lse)``, o in q's dtype, lse (B, H, S) float32.
+
+    It keeps the kernel's algorithm where it decides the numbers: the
+    64-key tiles, skipped where no pair of the (query tile, key tile) is
+    visible, the online softmax (m, l, acc) with its alpha rescale, and
+    under a bf16 policy each tile-matmul operand rounded to bf16 where the
+    kernel rounds it: q and k, the unnormalized p = exp(s - m) of the tile
+    and v.  Every query row is carried at once."""
+    B, S, H, d = q.shape
+    T = k.shape[1]
+    qh, kh, vh = _heads(q, k, v)
+    rows = torch.arange(S, device=q.device)
+    q0 = rows // FLASH_TILE * FLASH_TILE              # each row's tile start
+    m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, H, S, d, device=q.device)
+    for k0 in range(0, T, FLASH_TILE):
+        on = torch.ones_like(rows, dtype=torch.bool)  # _block_visible per row
+        if causal:
+            on &= k0 <= q0 + FLASH_TILE - 1
+        if window:
+            on &= k0 + FLASH_TILE - 1 >= q0 - window + 1
+        if not bool(on.any()):
+            continue
+        ks = slice(k0, k0 + FLASH_TILE)
+        s, _ = _capped_logits(qh, kh[:, :, ks], scale, softcap, policy)
+        mask = _visible(S, T, causal, window, q.device)[:, ks]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        on = on[:, None]
+        l = torch.where(on, alpha * l + p.sum(-1, keepdim=True), l)
+        acc = torch.where(on, acc * alpha + kernel_dot(p, vh[:, :, ks], policy), acc)
+        m = torch.where(on, m_new, m)
+    lc = torch.clamp(l, min=1e-30)
+    o = (acc / lc).transpose(1, 2).to(q.dtype)
+    return o, (m + torch.log(lc))[..., 0]
+
+
+def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
+                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                  policy=None):
+    """The plain version of the flash backward (B6 and B7) at the kernels'
+    contract: ``(dq, dk, dv)`` float32, from the forward's lse and
+    ``delta = rowsum(do * o)``, both (B, H, S).
+
+    ``p = exp(s - lse)`` on the visible pairs and 0 elsewhere, ``ds = p (do
+    vᵀ - delta)``, times the softcap's ``1 - t²`` (t the pre-mask tanh) and
+    the scale; ``dq = ds k``, ``dk = dsᵀ q`` and ``dv = pᵀ do``, dk and dv
+    summed over the G query heads of each kv head.  Under a bf16 policy the
+    operands of every matmul are rounded to bf16, as the kernels round
+    them: q and k, do and v, ds and k, pᵀ and do, dsᵀ and q.  No tiles: p
+    and ds are elementwise, and a tile the kernels skip holds no visible
+    pair."""
+    B, S, H, d = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qh, kh, vh = _heads(q, k, v)
+    doh = do.transpose(1, 2).float()
+    s, t = _capped_logits(qh, kh, scale, softcap, policy)
+    mask = _visible(S, T, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    ds = p * (kernel_dot(doh, vh.transpose(-1, -2), policy) - delta[..., None])
+    if softcap:
+        ds = ds * (1 - t * t)
+    ds = ds * scale
+    dq = kernel_dot(ds, kh, policy)
+
+    def per_kv_head(x):                               # (B, H, T, d) -> (B, T, K, d)
+        return x.reshape(B, K, H // K, T, d).sum(2).transpose(1, 2)
+
+    dk = per_kv_head(kernel_dot(ds.transpose(-1, -2), qh, policy))
+    dv = per_kv_head(kernel_dot(p.transpose(-1, -2), doh, policy))
+    return dq.transpose(1, 2), dk, dv
 
 
 def decode_attention_ref(

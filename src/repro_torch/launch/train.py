@@ -4,6 +4,10 @@ On the card by default (``--device cpu`` for the CPU):
   - muP-parametrized model + muP AdamW with per-tensor LRs, the loss through
     the chunked cross-entropy kernels and every RMSNorm forward and backward
     through its kernel,
+  - ``--amp bf16``: the mixed-precision policy; attention forward and
+    backward through the flash-attention kernels with bf16 tile-matmul
+    operands, the readout logit matmul in bf16 operands (master weights and
+    optimizer state stay f32),
   - deterministic stateless-resumable synthetic data (the reference's
     batches, bit for bit),
   - step-atomic checkpoints with async writes,
@@ -13,12 +17,13 @@ On the card by default (``--device cpu`` for the CPU):
   - per-step wall-clock watchdog (straggler detection),
   - optional bf16 gradient compression and microbatch accumulation.
 
-Flags of parts not ported yet (``--amp``, ``--model-parallel`` above 1,
-``--fsdp``, ``--telemetry``, ``--obs-dir``) exit with an error naming the
+Flags of parts not ported yet (``--amp int8``, ``--model-parallel`` above
+1, ``--fsdp``, ``--telemetry``, ``--obs-dir``) exit with an error naming the
 slice that brings them.
 
 Usage:
     python -m repro_torch.launch.train --arch mup-gpt --steps 20 --seq-len 512
+    python -m repro_torch.launch.train --arch mup-gpt --amp bf16 --steps 20 --seq-len 512
     python -m repro_torch.launch.train --arch mup-gpt --smoke --steps 20 --device cpu
 """
 from __future__ import annotations
@@ -160,7 +165,9 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--amp", default="", choices=["", "bf16", "int8"],
-                    help="mixed-precision matmul policy (not ported yet)")
+                    help="mixed-precision matmul policy (attention q·k/p·v "
+                         "+ their backward + readout logits); master weights "
+                         "and optimizer state stay f32 (int8 not ported yet)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="tensor-parallel degree (not ported yet above 1)")
     ap.add_argument("--fsdp", action="store_true",
@@ -176,7 +183,8 @@ def main(argv=None):
 
     # flag -> (set?, the slice of the port that brings it)
     not_ported = {
-        "--amp": (bool(args.amp), "the flash-attention slice (B5-B7)"),
+        "--amp int8": (args.amp == "int8", "the int8 slice of the "
+                                           "flash-attention kernels (B5-B7)"),
         "--model-parallel": (args.model_parallel != 1, "the multi-GPU slice"),
         "--fsdp": (args.fsdp, "the multi-GPU slice"),
         "--telemetry": (args.telemetry, "the observability slice"),
@@ -187,7 +195,8 @@ def main(argv=None):
             ap.error(f"{flag} is not ported yet: it comes with {where}")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = cfg.replace(parametrization=args.parametrization, dtype="float32")
+    cfg = cfg.replace(parametrization=args.parametrization, dtype="float32",
+                      amp=args.amp)
     if args.width:
         cfg = cfg.scaled(args.width)
     hps = HParams(lr=args.lr, sigma=args.sigma)

@@ -20,6 +20,7 @@ from repro_torch.core.parametrization import AbcParametrization, Role, resolve
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import gain_meta, mult_of, rmsnorm, softcap, wmeta
+from repro_torch.quant import policy_of, quant_matmul
 
 ACT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -75,8 +76,7 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 class Model:
     """The µP decoder on one device.  ``device`` defaults to the card; the
     CPU runs only when asked for (``device="cpu"``).  ``impl`` selects the
-    kernel dispatch of every norm, the loss and decode attention
-    (kernels/ops.py)."""
+    kernel dispatch of every norm, the loss and attention (kernels/ops.py)."""
 
     def __init__(self, cfg, device="cuda", impl: str = "auto"):
         self.cfg = cfg
@@ -120,7 +120,13 @@ class Model:
     def _readout(self, params, x):
         cfg = self.cfg
         m = cfg.alpha_output * mult_of(self.readout_meta, self.p13n)
-        logits = torch.matmul(x, params["embed"].t().to(x.dtype))
+        if cfg.amp:
+            # the logit matmul under the mixed-precision policy, straight
+            # through; master weights stay f32
+            logits = quant_matmul(x.float(), params["embed"].t().float(),
+                                  policy_of(cfg))
+        else:
+            logits = torch.matmul(x, params["embed"].t().to(x.dtype))
         logits = logits.float() * m
         return softcap(logits, cfg.final_softcap)
 
@@ -145,6 +151,7 @@ class Model:
         """
         cfg = self.cfg
         B, S = tokens.shape
+        aligned = positions is None   # 0..S-1, made here
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
             positions = positions[None].expand(B, S)
@@ -152,7 +159,7 @@ class Model:
         x = self._embed(tree, tokens)
         ctx = tfm.Ctx(
             positions=positions, mode=mode, cache_len=cache_len,
-            paged=paged, impl=self.impl,
+            paged=paged, impl=self.impl, aligned_positions=aligned,
         )
         x, new_cache = tfm.run_stack(
             cfg, tree["groups"], self.layer_meta, x, ctx, cache,

@@ -6,10 +6,12 @@ parameters of each block position in the group are stacked over
 transfer 1:1 by dotted name; where the reference scans over the stack, the
 port runs a Python loop over the layers of every stacked tensor.
 
-The port serves the "attn" block kind (global self-attention + MLP) in two
-modes: full sequence ("train" / "prefill", plain attention; prefill also
-emits a cache) and paged decode (one token per slot through the flash-decode
-kernel).  The other kinds arrive with their blocks.
+The port runs the "attn" block kind (global self-attention + MLP) in two
+modes: full sequence ("train" / "prefill"; prefill also emits a cache) and
+paged decode (one token per slot through the flash-decode kernel).  Full
+sequences go through the flash-attention kernels when ``cfg.amp`` is set
+and the positions are 0..S-1, through plain attention otherwise, as in the
+reference.  The other kinds arrive with their blocks.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.models.layers import (
     wmeta,
 )
 from repro_torch.models.rope import rope_cos_sin, rotate
+from repro_torch.quant import policy_of
 from repro_torch.serving import kv_cache as paged_kv
 
 BLOCK_KINDS = ("attn",)
@@ -54,6 +57,8 @@ class Ctx:
     writes: Optional[Any] = None         # decode: where each slot's token
                                          # lands in the pools, shared by every
                                          # layer (kv_cache.write_slots)
+    aligned_positions: bool = False      # positions are 0..S-1 in every row
+                                         # (the flash kernels mask by index)
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +190,18 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
             new_cache = attn_lib.cache_from_prefill(
                 k, v, ctx.positions, ctx.cache_len, dtype=k.dtype
             )
-        mask = attn_lib.make_mask(ctx.positions, ctx.positions)
-        out = attn_lib.attend(q, k, v, mask, scale, cfg.attn_softcap)
+        if cfg.amp and ctx.aligned_positions:
+            # flash attention (B5 forward, B6/B7 backward) under the
+            # mixed-precision policy; the plain path below masks by the
+            # positions themselves, which the kernels' index mask matches
+            # only when they are 0..S-1
+            out = ops.attention(
+                q, k, v, scale=scale, causal=True, softcap=cfg.attn_softcap,
+                policy=policy_of(cfg), impl=ctx.impl,
+            )
+        else:
+            mask = attn_lib.make_mask(ctx.positions, ctx.positions)
+            out = attn_lib.attend(q, k, v, mask, scale, cfg.attn_softcap)
     elif ctx.mode == "decode":
         paged = ctx.paged
         if paged is None:

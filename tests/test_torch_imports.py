@@ -38,7 +38,7 @@ def test_port_imports_without_jax_or_reference():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
-    assert len(mods) >= 34
+    assert len(mods) >= 38
     training = {
         "repro_torch.core.hpspace", "repro_torch.core.transfer",
         "repro_torch.kernels.cross_entropy", "repro_torch.optim.optimizer",
@@ -47,6 +47,9 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.launch.steps", "repro_torch.launch.train",
     }
     assert training <= mods, training - mods
+    amp = {"repro_torch.quant", "repro_torch.quant.policy", "repro_torch.quant.core",
+           "repro_torch.kernels.flash_attention"}
+    assert amp <= mods, amp - mods
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -8,7 +8,9 @@ inputs.  Tolerances are the reference's (docs/kernels.md § Tolerance
 policy): float32 atol 2e-5, bfloat16 atol 2e-2.
 
 B1 is the fused RMSNorm, B2 its backward, B3/B4 the chunked softmax
-cross-entropy forward and backward, B8 the paged flash-decode kernel.  The
+cross-entropy forward and backward, B5/B6/B7 flash attention forward, dq
+and dk/dv (their plain versions against the reference are in
+tests/test_torch_amp.py), B8 the paged flash-decode kernel.  The
 B8 cases cover GQA / MQA / MHA x window x softcap, with a half-filled last
 page, a permuted page table, stale bytes in unwritten entries and a
 q_pos = -1 slot.  Gradients (B2, B4 and the autograd Functions of
@@ -17,7 +19,9 @@ gradient tiers: float32 atol 2e-4 / rtol 1e-3, bfloat16 atol 5e-2; the
 cross-entropy cases include masked (-100) labels and V that no chunk
 divides.
 """
+import importlib.util
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,8 +30,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cross_entropy as ce  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.quant import QuantPolicy  # noqa: E402
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": dict(atol=2e-4, rtol=1e-3),
@@ -399,3 +405,90 @@ def test_cross_entropy_kernels_match_plain_on_card(N, V):
     want_dx = ref.softmax_cross_entropy_bwd_ref(logits, lab, want_lse, g)
     torch.testing.assert_close(dx, want_dx, **GRAD_TOL["float32"])
     assert torch.count_nonzero(dx[labels < 0]) == 0
+
+
+# B, S, H, K, d, window, softcap, storage dtype, operand mode
+FLASH_CASES = [
+    (2, 128, 4, 4, 64, 0, 0.0, "float32", "none"),
+    (2, 200, 9, 3, 64, 0, 0.0, "float32", "none"),      # GQA, ragged S
+    (1, 256, 4, 2, 64, 48, 0.0, "float32", "bf16"),     # window
+    (1, 130, 4, 2, 128, 0, 20.0, "float32", "bf16"),    # softcap, d 128
+    (2, 96, 4, 1, 32, 0, 0.0, "bfloat16", "none"),      # MQA, d 32
+    (1, 192, 6, 2, 64, 0, 0.0, "bfloat16", "bf16"),
+]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its B5-B7 check (flash_pair, rounds_like
+    and their limits) is the one these cases use."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,d,window,softcap,dtype,mode", FLASH_CASES)
+def test_flash_kernels_match_plain_on_card(B, S, H, K, d, window, softcap, dtype,
+                                           mode):
+    """B5-B7 through ops.attention's autograd Function, one launch each, and
+    in the f32 operand mode against the plain attention under autograd (the
+    f32 tiers, or the bf16 tiers with bf16 storage).  Then each kernel
+    against its plain version at the kernels' contract (flash_fwd_ref,
+    flash_bwd_ref, which round where the kernels round), by chip_smoke.py's
+    check: lse at f32 (atol 2e-5 / rtol 1e-5); o and dq/dk/dv at the f32
+    tiers where nothing rounds to bf16, else chip_smoke.rounds_like (max
+    abs err within the bf16 tiers, mean within FLASH_MEAN_TOL), which in
+    the bf16 mode the f32-mode outputs must fail.  dk/dv the same bits when
+    repeated."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = TORCH_DT[dtype]
+    q, do = (torch.randn(B, S, H, d, device="cuda", generator=gen).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, K, d, device="cuda", generator=gen).to(dt)
+            for _ in range(2))
+    scale = 0.5 if softcap else 0.125
+    policy = QuantPolicy(mode)
+    kw = dict(causal=True, window=window, softcap=softcap, policy=policy)
+    outs = {}
+    for impl in ("kernel", "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = ops.launch_counts()
+        o = ops.attention(*leaves, impl=impl, scale=scale, **kw)
+        grads = torch.autograd.grad(o, leaves, do)
+        n1 = ops.launch_counts()
+        launched = [n1[n] - n0[n] for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+        assert launched == ([1, 1, 1] if impl == "kernel" else [0, 0, 0])
+        assert all(g.dtype == dt for g in grads)
+        outs[impl] = [o.detach(), *grads]
+    if mode == "none":
+        tier = dtype
+        got, want = outs["kernel"], outs["ref"]
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                                   atol=ATOL[tier])
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[tier])
+
+    cs = _chip_smoke()
+    qs = (q.float() * scale).to(dt)
+    got, want, _ = cs.flash_pair(fa, ref, qs, k, v, do, **kw)
+    torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=1e-5)
+    rounded = [mode == "bf16" or dtype == "bfloat16"] + [mode == "bf16"] * 3
+    for name, g, w, r in zip(("o", "dq", "dk", "dv"), got[:1] + got[2:],
+                             want[:1] + want[2:], rounded):
+        if r:
+            assert cs.rounds_like(name, cs.rounded_err(g, w)), (name, cs.rounded_err(g, w))
+            continue
+        tol = dict(rtol=0, atol=ATOL["float32"]) if name == "o" else GRAD_TOL["float32"]
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, do, got[1], _[0] if False else
+                              (do.float() * got[0].float()).sum(-1).transpose(1, 2).contiguous(),
+                              **kw)
+    assert torch.equal(dk, got[3]) and torch.equal(dv, got[4])
+    if mode == "bf16":
+        f32, _, _ = cs.flash_pair(fa, ref, qs, k, v, do, **dict(kw, policy=None))
+        for name, g, w in zip(("o", "dq", "dk", "dv"), f32[:1] + f32[2:],
+                              want[:1] + want[2:]):
+            assert not cs.rounds_like(name, cs.rounded_err(g, w)), name

@@ -374,7 +374,7 @@ def test_cli_refuses_to_run_without_a_card():
         ttrain.main(["--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--amp", "bf16"], ["--model-parallel", "2"],
+@pytest.mark.parametrize("flags", [["--amp", "int8"], ["--model-parallel", "2"],
                                    ["--fsdp"], ["--telemetry"], ["--obs-dir", "x"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -389,3 +389,14 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path):
                        "--ckpt-dir", str(tmp_path), "--simulate-failure", "1",
                        "--ckpt-every", "1", "--parametrization", "umup"])
     assert out["steps_run"] == 2 and math.isfinite(out["final_loss"])
+
+
+def test_cli_trains_under_amp_bf16_on_the_cpu():
+    """--amp bf16 sets cfg.amp: attention and the readout run their bf16
+    plain versions on the CPU, and the losses differ from the f32 run's."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "3", "--batch-size", "2",
+            "--seq-len", "16"]
+    amp = ttrain.main(argv + ["--amp", "bf16"])
+    f32 = ttrain.main(argv)
+    assert amp["steps_run"] == 3 and all(math.isfinite(x) for x in amp["losses"])
+    assert amp["losses"] != f32["losses"]
