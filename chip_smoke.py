@@ -28,13 +28,33 @@ raises on a failed check:
   f32-mode outputs must fail; dk/dv bit-identical when repeated; then
   ops.attention's autograd Function in the f32 mode against the plain
   attention under autograd (the f32 tiers); B8 paged flash decode
-  (8 cases: engine shape, MHA/MQA, window, softcap, bf16).
+  (8 cases: engine shape, MHA/MQA, window, softcap, bf16); B9 paged
+  multi-query flash decode (12 cases: the engine's chunk of 64 with the
+  history partly resident, its last chunk with rows past the prompt at -1,
+  T not a multiple of the row tile, the speculative-verify shape B = 4,
+  T = 5, MHA/MQA, window, softcap, bf16 and f32-over-bf16 pools, two slots
+  whose tables map the same pages; f32 atol 2e-5, bf16 2e-2, rows at -1
+  exactly zero) and at T = 1 against B8 on the same inputs.
 - serve: smollm-135m at its published full width through the static engine
   (random weights from a seed, ``zero_init_query=False``), once through the
   kernels and once through the plain versions: the same greedy tokens and
   steps, the first decode steps' logits within atol = rtol = 1e-4, and exact
   launch counts (B1 per forward, B8 per decode step, no B2/B3/B4); then a
   bf16 serve.
+- serve_dynamic: the same model through DynamicEngine (the serve CLI's
+  default): 4 slots, page 16, prompts up to 256, 64 tokens each,
+  prefill_chunk 64, prefix cache on, 16 requests made of 4 shared system
+  prompts of 96-160 tokens and unique suffixes of 16-96, all present at
+  t = 0.  (a) tokens and steps equal with the kernels and through the
+  plain versions (the serve phase's rule for near-ties); (b) greedy tokens
+  equal to the static engine's and (c) to the dynamic engine's without the
+  prefix cache, which shares nothing where this one shares (a request past
+  a near-tie, where a plain full-sequence forward's top-2 gap is below
+  TIE_GAP, may differ after it); (d) a second serve on the same engine
+  shares more prompt tokens (a warm cache); (e) exact launch counts: B9 30
+  per chunk forward, B8 30 per decode step, B1 61 per forward, no B2-B7,
+  with the chunk forwards counted from the model's calls and held against
+  the chunk schedule recomputed from prefill_cached.
 - train: mup-gpt at full width (8 layers, d_model 1024, vocab 2048), f32,
   batch 8 x seq 512.  The first step's loss (1e-5 relative) and every
   gradient (atol 2e-4 / rtol 1e-3) with the kernels against the plain
@@ -55,12 +75,13 @@ raises on a failed check:
   largest entry (AMP_* below); a third loop through the policy's own plain
   attention gives the plain time and memory; exact launch counts per step
   (8 B5, 8 B6, 8 B7, 17 B1, 17 B2, 1 B3, 1 B4, no B8).
-- profile: torch.profiler over a short serve and over one train step, f32
-  and amp: the device's busy share and the kernels that take it.
+- profile: torch.profiler over a short serve through each engine and over
+  one train step, f32 and amp: the device's busy share and the kernels
+  that take it.
 
-Launch counts are set to 0 just before each main path (serve, train,
-train --amp bf16) and read just after; launches made to compare or time a
-kernel do not count.
+Launch counts are set to 0 just before each main path (serve,
+serve_dynamic, train, train --amp bf16) and read just after; launches made
+to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
 catches no failure (the exit code is non-zero on any) and prints, last, one
 JSON line: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -135,6 +156,24 @@ def cuda_ms(fn, n=N_TIMED, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_us(fn, key, n=20):
+    """Microseconds on the card per launch of the kernels whose name holds
+    ``key``, from torch.profiler over ``n`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+    if not hits:
+        raise AssertionError(f"the profiler saw no kernel named like {key!r}")
+    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -309,6 +348,155 @@ def decode_phase(ops, da, F):
                 "pre-gathered K/V (attention only)",
     )
 
+
+
+def multi_case(B, T, K, G, d, P, C, hist, q_dtype, kv_dtype, seed, dead=(),
+               share=False):
+    """Slot b holds hist[b] tokens of history and a T-token chunk after them
+    (positions hist[b] .. hist[b] + T - 1), written through a permuted page
+    table; stale random bytes elsewhere.  ``dead`` (b, t) rows sit at
+    q_pos -1 (their chunk entries are not written).  With ``share`` slot 1's
+    first two table entries map slot 0's pages (a prefix shared through the
+    cache: slot 1's first 2P tokens are slot 0's)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N = B * C + 3
+    q = torch.randn(B, T, K * G, d, device="cuda", generator=gen).to(q_dtype)
+    kp = torch.randn(N, P, K, d, device="cuda", generator=gen).to(kv_dtype)
+    vp = torch.randn(N, P, K, d, device="cuda", generator=gen).to(kv_dtype)
+    perm = torch.randperm(N, device="cuda", generator=gen)
+    tab = perm[:B * C].reshape(B, C).to(torch.int32)
+    if share:
+        tab[1, :2] = tab[0, :2]
+    q_pos = torch.stack([torch.arange(h, h + T, device="cuda") for h in hist]).to(torch.int32)
+    for b, t in dead:
+        q_pos[b, t] = -1
+    pos = torch.full((N, P), -1, dtype=torch.int32, device="cuda")
+    for b, h in enumerate(hist):
+        t = torch.arange(h, device="cuda")
+        if share and b == 1:
+            t = t[t >= 2 * P]             # slot 0 wrote the shared span
+        t = torch.cat([t, q_pos[b][q_pos[b] >= 0].long()])
+        pos[tab[b, t // P].long(), t % P] = t.to(torch.int32)
+    return q, kp, vp, pos, tab, q_pos
+
+
+def check_multi_cases(ops, da):
+    """B9 against its plain version on the card (f32 atol 2e-5, bf16 2e-2),
+    rows at q_pos -1 exactly zero; T = 1 against B8 on the same inputs.
+    Returns the worst error per tier."""
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (label, B, T, K, G, hist, q_dtype, kv_dtype, window, softcap, dead, share)
+        ("engine chunk", 1, 64, 3, 3, [100], f32, f32, 0, 0.0, (), False),
+        ("engine chunk bf16", 1, 64, 3, 3, [192], bf16, bf16, 0, 0.0, (), False),
+        ("last chunk of a 200-token prompt (rows past it at -1)", 1, 64, 3, 3,
+         [192], f32, f32, 0, 0.0, tuple((0, t) for t in range(8, 64)), False),
+        ("T not a multiple of the row tile", 8, 37, 3, 3,
+         [0, 5, 16, 100, 200, 31, 64, 2], f32, f32, 0, 0.0, ((0, 36), (3, 0)), False),
+        ("speculative-verify shape", 4, 5, 3, 3, [70, 0, 250, 33], f32, f32, 0, 0.0,
+         tuple((1, t) for t in range(5)), False),
+        ("MHA", 2, 9, 9, 1, [40, 3], f32, f32, 0, 0.0, ((1, 8),), False),
+        ("MQA", 2, 9, 1, 9, [40, 3], f32, f32, 0, 0.0, ((0, 0),), False),
+        ("window", 2, 24, 3, 3, [100, 3], f32, f32, 48, 0.0, (), False),
+        ("softcap", 2, 24, 3, 3, [100, 3], f32, f32, 0, 20.0, (), False),
+        ("window + softcap bf16", 2, 24, 3, 3, [100, 3], bf16, bf16, 48, 20.0, (), False),
+        ("f32 q over bf16 pools", 2, 24, 3, 3, [100, 3], f32, bf16, 0, 0.0, (), False),
+        ("two slots share pages", 2, 12, 3, 3, [80, 80], f32, f32, 0, 0.0, (), True),
+    ]
+    worst = {f32: 0.0, bf16: 0.0}
+    d = 64
+    for i, case in enumerate(cases):
+        label, B, T, K, G, hist, qdt, kvdt, window, cap, dead, share = case
+        args = multi_case(B, T, K, G, d, 16, 20, hist, qdt, kvdt, 100 + i, dead, share)
+        kw = dict(scale=0.125, window=window, softcap=cap)
+        got = ops.decode_attention_multi(*args, impl="kernel", **kw)
+        want = ops.decode_attention_multi(*args, impl="ref", **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tier = bf16 if bf16 in (qdt, kvdt) else f32
+        worst[tier] = max(worst[tier], err)
+        dead_nonzero = sum(int(torch.count_nonzero(got[b, t])) for b, t in dead)
+        if not err <= ATOL[tier] or dead_nonzero:
+            raise AssertionError(f"flash_decode_multi case {label!r}: max err {err}, "
+                                 f"{dead_nonzero} nonzero entries in rows at -1")
+        tq = lib.repro_flash_decode_multi_rows(B, K, T, G, d, 16)
+        if label.startswith("T not a multiple") and T % tq == 0:
+            raise AssertionError(f"{label}: the row tile {tq} divides T={T}")
+        log(f"[kernels] flash_decode_multi {label}: max err {err:.3g} (atol "
+            f"{ATOL[tier]}), {T // tq + (T % tq > 0)} tiles of {tq} queries, "
+            f"{len(dead)} rows at -1 exactly zero")
+
+    # T = 1 against B8 on the same inputs
+    q, kp, vp, pos, tab, q_pos = multi_case(4, 1, 3, 3, 64, 16, 20, [57, 0, 300, 16],
+                                            f32, f32, 77, ((1, 0),))
+    got = ops.decode_attention_multi(q, kp, vp, pos, tab, q_pos, scale=0.125,
+                                     impl="kernel")[:, 0]
+    b8 = ops.decode_attention(q[:, 0].contiguous(), kp, vp, pos, tab,
+                              q_pos[:, 0].contiguous(), scale=0.125, impl="kernel")
+    torch.cuda.synchronize()
+    err = (got - b8).abs().max().item()
+    if not err <= ATOL[f32] or torch.count_nonzero(got[1]) != 0:
+        raise AssertionError(f"flash_decode_multi at T=1 against B8: max err {err}")
+    log(f"[kernels] flash_decode_multi T=1 against flash_decode (B8): max err {err:.3g}")
+    return worst
+
+
+def multi_phase(ops, da, F):
+    """B9's checks, then its time at the dynamic serve's chunk shape: one
+    slot, a 64-token chunk at positions 192..255 (the last chunk of a
+    256-token prompt), smollm-135m's 9/3 heads of 64, 16 live pages of 16."""
+    worst = check_multi_cases(ops, da)
+    T, hist = 64, 192
+    args = multi_case(1, T, 3, 3, 64, 16, 20, [hist], torch.float32,
+                      torch.float32, 99)
+    q, kp, vp, pos, tab, q_pos = args
+    err = (ops.decode_attention_multi(*args, scale=0.125, impl="kernel")
+           - ops.decode_attention_multi(*args, scale=0.125, impl="ref")).abs().max().item()
+    ms = cuda_ms(lambda: ops.decode_attention_multi(*args, scale=0.125, impl="kernel"))
+    plain_ms = cuda_ms(lambda: ops.decode_attention_multi(*args, scale=0.125, impl="ref"))
+    # yardstick: SDPA over the slot's pre-gathered live K/V with the boolean
+    # position mask (attention only: the gather is not timed)
+    L = hist + T
+    t = torch.arange(L, device="cuda")
+    page = tab[0, t // 16].long()
+    kk = kp[page, t % 16].permute(1, 0, 2)[None].contiguous()   # (1, 3, L, 64)
+    vv = vp[page, t % 16].permute(1, 0, 2)[None].contiguous()
+    kv_pos = pos[page, t % 16]
+    mask = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= q_pos[0][:, None])  # (T, L)
+    qq = q.permute(0, 2, 1, 3).contiguous()                      # (1, 9, T, 64)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask[None, None], scale=0.125, enable_gqa=True))
+    live_pages = (L - 1) // 16 + 1
+    H, d = 9, 64
+    visible = int(mask.sum())                   # (row, token) pairs this chunk needs
+    nbytes = (2 * live_pages * 16 * 3 * 64 * 4      # live K and V
+              + live_pages * 16 * 4 + live_pages * 4  # positions, table entries
+              + 2 * q.numel() * 4 + T * 4)            # q, out, q_pos
+    flops = 4 * H * d * visible
+    bound_ms, bound_by = bound(nbytes, flops)
+    dev_us = device_us(lambda: ops.decode_attention_multi(*args, scale=0.125,
+                                                          impl="kernel"),
+                       PORT_KERNELS["flash_decode_multi"][0])
+    log(f"[kernels] flash_decode_multi at the chunk shape: {ms:.5f} ms ({dev_us:.2f} "
+        f"us on the card), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {flops} flops over "
+        f"{visible} visible pairs)")
+    return dict(
+        name="flash_decode_multi", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:113",
+        shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, 64) "
+              "f32, 16 live pages",
+        max_abs_err=err, worst_err_f32=worst[torch.float32],
+        worst_err_bf16=worst[torch.bfloat16],
+        ms=ms, device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+        library="torch.nn.functional.scaled_dot_product_attention over "
+                "pre-gathered K/V with the boolean position mask (attention only)",
+    )
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -710,8 +898,10 @@ def flash_phase(ops, fa, ref, quant, F):
 
 def make_recording_model(Model):
     class RecordingModel(Model):
-        """Keeps, for every forward the engine runs, the top-2 logits of the
-        rows it samples from, and the full rows of the first 8 decodes."""
+        """Keeps, for every forward the engine runs, its mode and width, the
+        top-2 logits of the rows it samples from (a chunk's last real row),
+        and the full rows of the first 8 single-token decodes.  Forwards
+        without positions (the tie oracle's) are not recorded."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
@@ -721,21 +911,70 @@ def make_recording_model(Model):
         def forward(self, params, tokens, positions=None, mode="train", **kw):
             logits, cache = super().forward(params, tokens, positions=positions,
                                             mode=mode, **kw)
+            if positions is None:
+                return logits, cache
+            T = tokens.shape[1]
             if mode == "prefill":
                 plen = int((positions[0] < positions.shape[1]).sum())
                 rows = logits[:, plen - 1]
+                active = torch.ones(1, dtype=torch.bool, device=rows.device)
+            elif T > 1:
+                last = int((positions[0] >= 0).sum()) - 1
+                rows = logits[:, max(last, 0)]
                 active = torch.ones(1, dtype=torch.bool, device=rows.device)
             else:
                 rows = logits[:, 0]
                 active = positions[:, 0] >= 0
             top2 = rows.float().topk(2, dim=-1)
-            keep = mode == "decode" and self.n_decode < 8
-            self.n_decode += mode == "decode"
-            self.calls.append(dict(mode=mode, top2=top2.values, arg=top2.indices[:, 0],
-                                   active=active, rows=rows.clone() if keep else None))
+            single = mode == "decode" and T == 1
+            keep = single and self.n_decode < 8
+            self.n_decode += single
+            self.calls.append(dict(mode=mode, T=T, top2=top2.values,
+                                   arg=top2.indices[:, 0], active=active,
+                                   rows=rows.clone() if keep else None))
             return logits, cache
 
     return RecordingModel
+
+
+def compare_calls(what, kern, plain, out_k, out_r):
+    """Two serves of one schedule, with the kernels and through the plain
+    versions: the same steps and forwards, the same greedy token at every
+    sampled row unless the plain top-2 gap there is below TIE_GAP (after
+    which that request may differ), and the first 8 decode steps' logits
+    within atol = rtol = SERVE_LOGIT_TOL.  Returns (tie_at, worst, scale)."""
+    if out_k["steps"] != out_r["steps"] or len(kern.calls) != len(plain.calls):
+        raise AssertionError(f"{what}: steps differ: {out_k['steps']} vs "
+                             f"{out_r['steps']}")
+    tie_at = None
+    for i, (ck, cr) in enumerate(zip(kern.calls, plain.calls)):
+        differ = (ck["arg"] != cr["arg"]) & cr["active"]
+        if bool(differ.any()):
+            j = int(differ.nonzero()[0, 0])
+            gap = float(cr["top2"][j, 0] - cr["top2"][j, 1])
+            if gap >= TIE_GAP:
+                raise AssertionError(
+                    f"{what}: greedy token differs at forward {i} ({cr['mode']}, "
+                    f"T={cr['T']}) row {j}, plain top-2 gap {gap}")
+            log(f"[{what}] tie: forward {i} ({cr['mode']}) row {j}, plain top-2 gap "
+                f"{gap:.3g} < {TIE_GAP}; later tokens of that request may differ")
+            tie_at = i
+            break
+    if tie_at is None and not torch.equal(out_k["tokens"], out_r["tokens"]):
+        raise AssertionError(f"{what}: greedy tokens differ with and without the kernels")
+    worst = excess = scale = 0.0
+    for ck, cr in zip(kern.calls[:tie_at], plain.calls[:tie_at]):
+        if ck["rows"] is not None:
+            diff = (ck["rows"] - cr["rows"]).abs()
+            worst = max(worst, diff.max().item())
+            scale = max(scale, cr["rows"].abs().max().item())
+            # allclose: |a - b| <= atol + rtol * |b|
+            excess = max(excess, (diff - SERVE_LOGIT_TOL * (1 + cr["rows"].abs()))
+                         .max().item())
+    if not excess <= 0:
+        raise AssertionError(f"{what}: decode logits differ by {worst} "
+                             f"(|logit| <= {scale})")
+    return tie_at, worst, scale
 
 
 def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
@@ -773,8 +1012,8 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
     # final norm per forward (a decode step or an admission's prefill); no
     # backward and no loss
     L = cfg_f32.n_layers
-    want = {"flash_decode": L * steps, "rmsnorm": (2 * L + 1) * (steps + R),
-            "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
+    want = {"flash_decode": L * steps, "flash_decode_multi": 0,
+            "rmsnorm": (2 * L + 1) * (steps + R), "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     log(f"[serve] kernels: {steps} steps, launches {launches}, expected {want}")
     if launches != want:
@@ -789,35 +1028,7 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
         f"plain: {int(out_r['lengths'].sum())} tokens in {wall_r:.3f} s "
         f"({int(out_r['lengths'].sum()) / wall_r:.1f} tok/s)")
 
-    if out_k["steps"] != out_r["steps"] or len(kern.calls) != len(plain.calls):
-        raise AssertionError(f"steps differ: {out_k['steps']} vs {out_r['steps']}")
-    tie_at = None
-    for i, (ck, cr) in enumerate(zip(kern.calls, plain.calls)):
-        differ = (ck["arg"] != cr["arg"]) & cr["active"]
-        if bool(differ.any()):
-            j = int(differ.nonzero()[0, 0])
-            gap = float(cr["top2"][j, 0] - cr["top2"][j, 1])
-            if gap >= TIE_GAP:
-                raise AssertionError(
-                    f"greedy token differs at forward {i} ({cr['mode']}) row {j}, "
-                    f"plain top-2 gap {gap}")
-            log(f"[serve] tie: forward {i} ({cr['mode']}) row {j}, plain top-2 gap "
-                f"{gap:.3g} < {TIE_GAP}; later tokens of that request may differ")
-            tie_at = i
-            break
-    if tie_at is None and not torch.equal(out_k["tokens"], out_r["tokens"]):
-        raise AssertionError("greedy tokens differ with and without the kernels")
-    worst = excess = scale = 0.0
-    for ck, cr in zip(kern.calls[:tie_at], plain.calls[:tie_at]):
-        if ck["rows"] is not None:
-            diff = (ck["rows"] - cr["rows"]).abs()
-            worst = max(worst, diff.max().item())
-            scale = max(scale, cr["rows"].abs().max().item())
-            # allclose: |a - b| <= atol + rtol * |b|
-            excess = max(excess, (diff - SERVE_LOGIT_TOL * (1 + cr["rows"].abs()))
-                         .max().item())
-    if not excess <= 0:
-        raise AssertionError(f"decode logits differ by {worst} (|logit| <= {scale})")
+    tie_at, worst, scale = compare_calls("serve", kern, plain, out_k, out_r)
     log(f"[serve] greedy tokens identical: {tie_at is None}; steps identical; "
         f"first 8 decode steps' logits max abs diff {worst:.3g} at |logit| <= "
         f"{scale:.3g} (atol = rtol = {SERVE_LOGIT_TOL})")
@@ -838,6 +1049,178 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
                           bf16_token_agreement=agree)
 
 
+def shared_prefix_workload(V, R, Pmax, seed):
+    """R requests, each one of 4 system prompts of 96-160 tokens plus a
+    unique suffix of 16-96 tokens, drawn from a seeded generator; all
+    present at t = 0."""
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, V, int(rng.integers(96, 161))) for _ in range(4)]
+    prompts = np.zeros((R, Pmax), np.int64)
+    lens = np.zeros(R, np.int64)
+    for r in range(R):
+        p = np.concatenate([systems[int(rng.integers(0, 4))],
+                            rng.integers(0, V, int(rng.integers(16, 97)))])
+        prompts[r, :len(p)] = p
+        lens[r] = len(p)
+    return prompts, lens
+
+
+def greedy_agree(what, oracle, params, prompts, lens, got, want):
+    """Greedy tokens of two serves equal request by request, or the first
+    difference in a request is a near-tie: there, a plain full-sequence
+    forward over the prompt and ``want``'s tokens so far (the oracle, with
+    no engine and no cache) has a top-2 gap below TIE_GAP.  Returns the
+    number of requests that diverged at a tie."""
+    ties = 0
+    for r in range(len(lens)):
+        la, lb = int(got["lengths"][r]), int(want["lengths"][r])
+        a, b = got["tokens"][r, :la], want["tokens"][r, :lb]
+        n = min(la, lb)
+        diff = (a[:n] != b[:n]).nonzero()
+        if len(diff) == 0:
+            if la != lb:
+                raise AssertionError(f"{what}: request {r} lengths {la} != {lb}")
+            continue
+        j = int(diff[0, 0])
+        seq = np.concatenate([prompts[r, :lens[r]], b[:j].numpy()])
+        with torch.no_grad():
+            logits, _ = oracle.forward(params, torch.as_tensor(seq[None], device="cuda"))
+        top2 = logits[0, -1].float().topk(2).values
+        gap = float(top2[0] - top2[1])
+        if gap >= TIE_GAP:
+            raise AssertionError(f"{what}: request {r} differs at token {j} "
+                                 f"({int(a[j])} vs {int(b[j])}), oracle top-2 gap {gap}")
+        log(f"[{what}] tie: request {r} token {j}, oracle top-2 gap {gap:.3g} < "
+            f"{TIE_GAP}; later tokens of that request may differ")
+        ties += 1
+    return ties
+
+
+def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
+    """smollm-135m at full width through DynamicEngine: 4 slots, page 16,
+    prompts up to 256, 64 tokens each, chunks of 64, prefix cache on, 16
+    requests over 4 shared system prompts, all present at t = 0 (no
+    arrivals: the schedule, and so the step count, does not depend on host
+    speed).  Checks (a)-(e) of the module docstring."""
+    R, S, Pmax, Gmax, P, CH = 16, 4, 256, 64, 16, 64
+    prompts, lens = shared_prefix_workload(cfg.vocab_size, R, Pmax, seed=2)
+    kw = dict(n_slots=S, page_size=P, max_prompt_len=Pmax, max_gen_len=Gmax)
+    ecfg = EngineConfig(prefill_chunk=CH, prefix_cache=True, **kw)
+    Rec = make_recording_model(Model)
+    kern = Rec(cfg, device="cuda", impl="auto")
+    plain = Rec(cfg, device="cuda", impl="ref")
+    params = kern.init(seed=0)
+    log(f"[serve_dynamic] {R} requests, prompt lens {lens.tolist()}, {Gmax} tokens "
+        f"each, {S} slots, page {P}, prefill_chunk {CH}, prefix cache on")
+
+    # warm-up outside the counted run
+    DynamicEngine(kern, EngineConfig(prefill_chunk=CH, prefix_cache=True, n_slots=2,
+                                     page_size=P, max_prompt_len=Pmax, max_gen_len=2)
+                  ).serve(params, prompts[:1], lens[:1])
+    kern.calls.clear()
+    kern.n_decode = 0
+
+    engine = DynamicEngine(kern, ecfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_k = engine.serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    # (e) exact launch counts, from forwards counted apart from the engine
+    L = cfg.n_layers
+    n_chunk = sum(c["mode"] == "decode" and c["T"] > 1 for c in kern.calls)
+    n_dec = sum(c["mode"] == "decode" and c["T"] == 1 for c in kern.calls)
+    n_prefill = sum(c["mode"] == "prefill" for c in kern.calls)
+    cached = out_k["prefill_cached"]
+    # shared spans are whole chunks (floored to prefill_chunk), so request r
+    # runs ceil(plen / CH) - cached_r / CH chunk forwards
+    want_chunks = int(sum(-(-int(n) // CH) for n in lens)) - cached // CH
+    if cached % CH or n_chunk != want_chunks or n_prefill:
+        raise AssertionError(
+            f"chunk forwards {n_chunk} (prefill {n_prefill}) against the schedule "
+            f"{want_chunks} from prefill_cached {cached}")
+    if any(c["T"] != CH for c in kern.calls if c["mode"] == "decode" and c["T"] > 1):
+        raise AssertionError("a chunk forward is not prefill_chunk wide")
+    want = {"flash_decode": L * n_dec, "flash_decode_multi": L * n_chunk,
+            "rmsnorm": (2 * L + 1) * (n_chunk + n_dec), "rmsnorm_bwd": 0,
+            "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    log(f"[serve_dynamic] kernels: {out_k['steps']} steps, {n_chunk} chunk forwards, "
+        f"{n_dec} decode steps; launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+
+    # (a) the same serve through the plain versions
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_r = DynamicEngine(plain, ecfg).serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    if set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"the plain serve launched kernels: {ops.launch_counts()}")
+    tie_at, worst, scale = compare_calls("serve_dynamic", kern, plain, out_k, out_r)
+    n_tok = int(out_k["lengths"].sum())
+    log(f"[serve_dynamic] (a) kernels: {n_tok} tokens in {wall_k:.3f} s "
+        f"({n_tok / wall_k:.1f} tok/s); plain: {int(out_r['lengths'].sum())} tokens in "
+        f"{wall_r:.3f} s ({int(out_r['lengths'].sum()) / wall_r:.1f} tok/s); greedy "
+        f"tokens identical: {tie_at is None}; steps identical ({out_k['steps']}); first 8 "
+        f"decode steps' logits max abs diff {worst:.3g} at |logit| <= {scale:.3g}")
+
+    # (b) the static engine on the same requests
+    t0 = time.perf_counter()
+    out_s = Engine(kern, EngineConfig(**kw)).serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ties_b = greedy_agree("serve_dynamic (b)", plain, params, prompts, lens, out_k, out_s)
+    log(f"[serve_dynamic] (b) static engine: {int(out_s['lengths'].sum())} tokens in "
+        f"{wall_s:.3f} s ({int(out_s['lengths'].sum()) / wall_s:.1f} tok/s), "
+        f"{out_s['steps']} steps; greedy tokens equal, {ties_b} requests past a tie")
+
+    # (c) prefix cache off
+    t0 = time.perf_counter()
+    out_c = DynamicEngine(kern, EngineConfig(prefill_chunk=CH, **kw)).serve(
+        params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    ties_c = greedy_agree("serve_dynamic (c)", plain, params, prompts, lens, out_k, out_c)
+    if not (cached > 0 and out_c["prefill_cached"] == 0):
+        raise AssertionError(f"prefill_cached {cached} with the cache, "
+                             f"{out_c['prefill_cached']} without")
+    log(f"[serve_dynamic] (c) prefix cache off: {int(out_c['lengths'].sum())} tokens in "
+        f"{wall_c:.3f} s ({int(out_c['lengths'].sum()) / wall_c:.1f} tok/s), "
+        f"{out_c['steps']} steps; greedy tokens equal, {ties_c} requests past a tie; "
+        f"with the cache {cached}/{out_k['prefill_total']} prompt tokens from shared pages")
+
+    # (d) the same requests again on the same engine: a warm cache
+    t0 = time.perf_counter()
+    out_w = engine.serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    ties_d = greedy_agree("serve_dynamic (d)", plain, params, prompts, lens, out_k, out_w)
+    if not out_w["prefill_cached"] > cached:
+        raise AssertionError(f"warm serve shared {out_w['prefill_cached']} prompt "
+                             f"tokens, the cold one {cached}")
+    engine.blocks.check_invariants()
+    log(f"[serve_dynamic] (d) warm cache: {out_w['prefill_cached']}/"
+        f"{out_w['prefill_total']} prompt tokens from shared pages (cold {cached}); "
+        f"{int(out_w['lengths'].sum())} tokens in {wall_w:.3f} s "
+        f"({int(out_w['lengths'].sum()) / wall_w:.1f} tok/s), {out_w['steps']} steps; "
+        f"greedy tokens equal, "
+        f"{ties_d} requests past a tie")
+    return launches, dict(
+        requests=R, steps=out_k["steps"], chunk_forwards=n_chunk, decode_steps=n_dec,
+        tokens=n_tok, wall_s=wall_k, tok_per_s=n_tok / wall_k, plain_wall_s=wall_r,
+        plain_tok_per_s=int(out_r["lengths"].sum()) / wall_r,
+        prefill_cached=cached, prefill_total=out_k["prefill_total"],
+        warm_prefill_cached=out_w["prefill_cached"], warm_wall_s=wall_w,
+        warm_steps=out_w["steps"],
+        static_wall_s=wall_s, static_steps=out_s["steps"], no_cache_wall_s=wall_c,
+        no_cache_steps=out_c["steps"], ties=dict(b=ties_b, c=ties_c, d=ties_d),
+    )
+
+
 # the port's kernels, by the name of their __global__ function(s)
 PORT_KERNELS = {
     "rmsnorm": ("rmsnorm_kernel<",),
@@ -845,6 +1228,7 @@ PORT_KERNELS = {
     "ce_fwd": ("ce_fwd_kernel<",),
     "ce_bwd": ("ce_bwd_kernel<",),
     "flash_decode": ("flash_decode_kernel<",),
+    "flash_decode_multi": ("flash_decode_multi_kernel<",),
     "flash_fwd": ("flash_fwd_kernel<",),
     "flash_bwd_dq": ("flash_bwd_dq_kernel<",),
     "flash_bwd_dkv": ("flash_bwd_dkv_kernel<",),
@@ -872,10 +1256,13 @@ def port_kernel_times(kernels):
 
 
 
-def profile_phase(cfg, Model, Engine, EngineConfig):
+def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None):
     """Where a decode-heavy serve spends the card's time: torch.profiler over
     a short serve (4 requests x 16 tokens), device busy share and the
-    kernels that take it.  The profiler's own overhead inflates the wall."""
+    kernels that take it.  ``dynamic`` = (DynamicEngine, prefill_chunk):
+    the dynamic engine with chunked prefill and the prefix cache over 4
+    requests that share a 128-token system prompt.  The profiler's own
+    overhead inflates the wall."""
     from torch.profiler import ProfilerActivity, profile
 
     model = Model(cfg, device="cuda")
@@ -883,9 +1270,15 @@ def profile_phase(cfg, Model, Engine, EngineConfig):
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128))
     lens = np.full(4, 128)
-    engine = Engine(model, EngineConfig(n_slots=4, page_size=16, max_prompt_len=128,
-                                        max_gen_len=16))
-    engine.serve(params, prompts, lens)          # warm-up
+    kw = dict(n_slots=4, page_size=16, max_prompt_len=128, max_gen_len=16)
+    if dynamic is None:
+        make = lambda: Engine(model, EngineConfig(**kw))
+    else:
+        cls, chunk = dynamic
+        prompts = np.concatenate([np.repeat(prompts[:1, :96], 4, 0), prompts[:, 96:]], 1)
+        make = lambda: cls(model, EngineConfig(prefill_chunk=chunk, prefix_cache=True, **kw))
+    make().serve(params, prompts, lens)          # warm-up
+    engine = make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -895,15 +1288,18 @@ def profile_phase(cfg, Model, Engine, EngineConfig):
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"[profile] {out['steps']} steps in {wall_us / 1e3:.1f} ms under the profiler; "
-        f"device busy {busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), "
+    tag = "" if dynamic is None else " (dynamic engine)"
+    log(f"[profile] {out['steps']} steps{tag} in {wall_us / 1e3:.1f} ms under the "
+        f"profiler; device busy {busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
+    extra = {} if dynamic is None else dict(prefill_cached=out["prefill_cached"],
+                                            prefill_total=out["prefill_total"])
     return dict(steps=out["steps"], wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
                 launches=sum(e.count for e in kernels),
-                port_kernels=port_kernel_times(kernels))
+                port_kernels=port_kernel_times(kernels), **extra)
 
 
 
@@ -1047,7 +1443,8 @@ def train_phase(ops, amp="", control_losses=None):
     launches = ops.launch_counts()
     n_attn = cfg.n_layers if amp else 0       # B5-B7 only under --amp
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
-                "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0, "flash_fwd": n_attn,
+                "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0,
+                "flash_decode_multi": 0, "flash_fwd": n_attn,
                 "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
     want = {k: v * STEPS for k, v in per_step.items()}
     log(f"{tag} kernels: launches {launches}, expected {want}")
@@ -1170,7 +1567,7 @@ def main():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models.model import Model
-    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1200,27 +1597,40 @@ def main():
     rows += flash_phase(ops, fa, ref, quant, F)
     done("B5-B7 kernel phase")
     rows.append(decode_phase(ops, da, F))
+    rows.append(multi_phase(ops, da, F))
+    done("B8-B9 kernel phases")
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
     serve_launches, serve = serve_phase(cfg, Model, Engine, EngineConfig, ops)
     done("serve")
+    dyn_launches, dyn = dynamic_serve_phase(cfg, Model, Engine, DynamicEngine,
+                                            EngineConfig, ops)
+    done("serve_dynamic")
     train_launches, train = train_phase(ops)
     done("train")
     amp_launches, amp = train_phase(ops, amp="bf16", control_losses=train["losses"])
     done("train --amp bf16")
     serve["profile"] = profile_phase(cfg, Model, Engine, EngineConfig)
+    dyn["profile"] = profile_phase(cfg, Model, Engine, EngineConfig,
+                                   dynamic=(DynamicEngine, 64))
     train["profile"] = train_profile_phase()
     amp["profile"] = train_profile_phase(amp="bf16")
     done("profiles")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
+                   "serve_dynamic": dyn_launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]]}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
+        if row["name"] == "flash_decode_multi" and sum(by_path.values()) != \
+                by_path["serve_dynamic"]:
+            raise AssertionError(f"flash_decode_multi launched off the dynamic "
+                                 f"serve path: {by_path}")
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         log(json.dumps(row))
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"serve_dynamic": dyn}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
     log(json.dumps({"kernels": rows}))

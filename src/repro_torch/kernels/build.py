@@ -43,6 +43,14 @@ _SIGNATURES = {
         _I,
     ),
     "repro_flash_decode_smem_bytes": ((_I, _I, _I), _LL),
+    # B9: pointers, then B, T, H, K, d, N, P, C, scale, window, softcap,
+    # q dtype, kv dtype, stream
+    "repro_flash_decode_multi": (
+        (_P,) * 7 + (_I,) * 8 + (_F, _I, _F, _I, _I, _P),
+        _I,
+    ),
+    "repro_flash_decode_multi_rows": ((_I,) * 6, _I),
+    "repro_flash_decode_multi_smem_bytes": ((_I,) * 4, _LL),
     # flash attention: pointers, then B, S, T, H, K, d, scale, causal,
     # window, softcap, mode, dtype, stream
     "repro_flash_fwd": ((_P,) * 5 + _FLASH_ARGS, _I),

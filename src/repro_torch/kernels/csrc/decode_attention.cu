@@ -1,4 +1,10 @@
-// Paged single-query flash decode for Hopper (sm_90a).
+// Paged flash decode for Hopper (sm_90a): B8, one query per slot, and B9,
+// a chunk of T queries per slot.  Two separate __global__ functions, so the
+// launch counts say which path ran.
+//
+// ---------------------------------------------------------------------------
+// B8: flash_decode_kernel
+// ---------------------------------------------------------------------------
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::
 // _decode_kernel (pallas_call at decode_attention.py:264, reached through
@@ -29,8 +35,56 @@
 // Later work, not done here: split-KV across blocks (B * K blocks underfill
 // 132 SMs at small batch), and cp.async/TMA double buffering of the next
 // page behind the current page's math.
+//
+// ---------------------------------------------------------------------------
+// B9: flash_decode_multi_kernel
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU kernel src/repro/kernels/decode_attention.py::
+// _decode_multi_kernel (pallas_call at decode_attention.py:345, reached
+// through flash_decode_multi() :273), float32 and bfloat16 pools:
+//     out[b, t, h] = sum_s softmax_s(mask_t(softcap(scale * q[b, t, h] . k_s))) v_s
+// with mask_t(s) = pos_s >= 0 && pos_s <= q_pos[b, t] (&& q_pos - pos_s <
+// window): the per-row position mask gives the history and, since the
+// engine writes the chunk into the pages before attending, causality
+// inside the chunk.  Chunked prefill, prefix-cache suffixes and
+// speculative verify run it.
+//
+// What bounds it on the H100: at chunk sizes, the float32 operations.  A
+// live token's K and V rows (8 d bytes in f32) feed 4 d flops for each of
+// the T x G rows: T * G / 2 flop per byte, 96 at T = 64, G = 3, above the
+// f32 ridge of ~20 flop/byte (67 TFLOP/s over 3.35 TB/s); at T = 1 it is
+// B8's bandwidth bound.
+//
+// What the design does about it:
+//  - The TPU program holds all T x G rows of one (slot, kv head) in VMEM;
+//    at a 256-token chunk with G = 3, d = 64 the accumulators alone are
+//    196 KB, which no block holds.  So one block owns (slot, kv head, tile
+//    of tq queries): tq x G rows whose (m, l, acc) and q live in shared
+//    memory, and each live page is staged in shared memory once per block
+//    (coalesced, converted to f32, K rows padded by one float against bank
+//    conflicts), as in B8.
+//  - tq is chosen on the host (multi_rows): the most rows that fit the
+//    48 KB of shared memory, at most kMultiRows, then halved while the grid
+//    is smaller than the card's 132 SMs: at the engine's chunk (one slot,
+//    3 kv heads) the per-page latency, not the arithmetic, sets the time,
+//    so more blocks each walking the pages beat fewer sharing them.
+//  - Live pages: min(C, max_q_pos // P + 1) over the tile's rows, none when
+//    every row is at -1.  The reference bounds by the chunk's largest
+//    q_pos; a page past a row's own position is fully masked for that row
+//    and leaves its (m, l, acc) unchanged, so the numbers are the same.
+//  - Rows at q_pos -1 (and the rows past T in the last tile, which are
+//    never stored) see no entry: p is written as 0 on masked entries and
+//    the final divide is guarded, so they give exact zeros, as the
+//    reference's _finalize does.
+//  - Page ids are clamped to [0, N-1], as the reference wrapper does.
+//    Pages shared between slots by the prefix cache are only read here.
+// Later work, not done here: tensor-core MMA for the (tq G x d) . (d x P)
+// products, split-KV, cp.async/TMA double buffering.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "dtype.cuh"
 
@@ -188,6 +242,190 @@ void launch(const void* q, const void* k, const void* v, const void* pos,
       static_cast<TQ*>(out), H, K, d, N, P, C, scale, window, softcap);
 }
 
+// ---------------------------------------------------------------------------
+// B9
+// ---------------------------------------------------------------------------
+
+constexpr int kMultiRows = 48;  // most query rows (tq queries x G heads) a block holds
+constexpr int kSMs = 132;       // H100 SXM
+
+// Shared memory layout of a B9 block, in 4-byte words.
+__host__ __device__ inline size_t multi_smem_words(int tq, int G, int d, int P) {
+  const size_t R = (size_t)tq * G;
+  return (size_t)P * (d + 1)  // K page (padded rows)
+         + (size_t)P * d      // V page
+         + 2 * R * d          // q rows, acc
+         + R * P              // scores, then probabilities
+         + 2 * R              // m, l
+         + (size_t)tq * P     // visibility of each token to each query
+         + (size_t)tq         // q_pos of each query
+         + 1;                 // the tile's live page count
+}
+
+// Queries per block (see the design note); 0 if one query's rows do not fit.
+inline int multi_rows(int B, int K, int T, int G, int d, int P) {
+  int tq = std::max(1, kMultiRows / G);
+  while (tq > 0 && multi_smem_words(tq, G, d, P) * 4 > kMaxSmem) --tq;
+  if (tq == 0) return 0;
+  tq = std::min(tq, std::max(T, 1));
+  while (tq > 1 && (long long)B * K * ((T + tq - 1) / tq) < kSMs) tq = (tq + 1) / 2;
+  return tq;
+}
+
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_multi_kernel(const TQ* __restrict__ q,
+                          const TKV* __restrict__ k_pages,
+                          const TKV* __restrict__ v_pages,
+                          const int* __restrict__ pos_pages,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ q_pos, TQ* __restrict__ out,
+                          int T, int H, int K, int d, int N, int P, int C,
+                          int tq, float scale, int window, float softcap) {
+  const int b = blockIdx.x;
+  const int kh = blockIdx.y;
+  const int t0 = blockIdx.z * tq;
+  const int G = H / K;
+  const int nt = min(tq, T - t0);  // queries of this tile
+  const int R = nt * G;            // rows: r = i * G + g for query t0 + i
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int ldk = d + 1;
+
+  extern __shared__ float smem[];
+  float* ks = smem;                            // [P][d + 1]
+  float* vs = ks + (size_t)P * ldk;            // [P][d]
+  float* qs = vs + (size_t)P * d;              // [tq * G][d]
+  float* acc = qs + (size_t)tq * G * d;        // [tq * G][d]
+  float* sc = acc + (size_t)tq * G * d;        // [tq * G][P]
+  float* m_s = sc + (size_t)tq * G * P;        // [tq * G]
+  float* l_s = m_s + (size_t)tq * G;           // [tq * G]
+  int* vis = reinterpret_cast<int*>(l_s + (size_t)tq * G);  // [tq][P]
+  int* qp_s = vis + (size_t)tq * P;            // [tq]
+  int* live_s = qp_s + tq;                     // [1]
+
+  // row r of this tile is (query t0 + r / G, head kh * G + r % G)
+  auto row_offset = [&](int r) {
+    const int i = r / G;
+    return (((size_t)b * T + t0 + i) * H + (size_t)kh * G + (r - i * G)) * d;
+  };
+
+  for (int i = tid; i < nt; i += blockDim.x) qp_s[i] = q_pos[(size_t)b * T + t0 + i];
+  for (int i = tid; i < R * d; i += blockDim.x) {
+    const int r = i / d;
+    const int c = i - r * d;
+    qs[i] = to_f32(q[row_offset(r) + c]);
+    acc[i] = 0.f;
+  }
+  for (int r = tid; r < R; r += blockDim.x) {
+    m_s[r] = kNegInf;
+    l_s[r] = 0.f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int qmax = -1;
+    for (int i = 0; i < nt; ++i) qmax = max(qmax, qp_s[i]);
+    live_s[0] = qmax < 0 ? 0 : min(C, qmax / P + 1);
+  }
+  __syncthreads();
+  const int n_live = live_s[0];
+
+  for (int j = 0; j < n_live; ++j) {
+    int page = page_table[(size_t)b * C + j];
+    page = min(max(page, 0), N - 1);
+    __syncthreads();  // the previous page's readers are done
+
+    for (int i = tid; i < P * d; i += blockDim.x) {
+      const int p = i / d;
+      const int c = i - p * d;
+      const size_t src = (((size_t)page * P + p) * K + kh) * d + c;
+      ks[p * ldk + c] = to_f32(k_pages[src]);
+      vs[i] = to_f32(v_pages[src]);
+    }
+    for (int i = tid; i < nt * P; i += blockDim.x) {
+      const int qi = i / P;
+      const int p = i - qi * P;
+      const int t = pos_pages[(size_t)page * P + p];
+      const int qp = qp_s[qi];
+      vis[i] = t >= 0 && t <= qp && (window == 0 || qp - t < window);
+    }
+    __syncthreads();
+
+    // scores: one (row, token) dot product per thread
+    for (int i = tid; i < R * P; i += blockDim.x) {
+      const int r = i / P;
+      const int p = i - r * P;
+      const float* qr = qs + (size_t)r * d;
+      const float* kp = ks + (size_t)p * ldk;
+      float s = 0.f;
+      for (int c = 0; c < d; ++c) s += qr[c] * kp[c];
+      s *= scale;
+      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+      sc[i] = vis[(r / G) * P + p] ? s : kNegInf;
+    }
+    __syncthreads();
+
+    // online softmax + P.V: one warp per row
+    for (int r = warp; r < R; r += n_warps) {
+      float* sr = sc + (size_t)r * P;
+      const int* vr = vis + (size_t)(r / G) * P;
+      float m_cur = kNegInf;
+      for (int p = lane; p < P; p += 32) m_cur = fmaxf(m_cur, sr[p]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, m_cur);
+      float l_cur = 0.f;
+      for (int p = lane; p < P; p += 32) {
+        // explicit p = 0 on masked entries (a page past this row's
+        // position, or a row at -1): exp(s - m_new) would be 1 there
+        const float pv = vr[p] ? expf(sr[p] - m_new) : 0.f;
+        sr[p] = pv;
+        l_cur += pv;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        l_cur += __shfl_xor_sync(0xffffffffu, l_cur, o);
+      __syncwarp();
+      const float alpha = expf(m_prev - m_new);
+      float* ar = acc + (size_t)r * d;
+      for (int c = lane; c < d; c += 32) {
+        float pv_sum = 0.f;
+        for (int p = 0; p < P; ++p) pv_sum += sr[p] * vs[(size_t)p * d + c];
+        ar[c] = ar[c] * alpha + pv_sum;
+      }
+      if (lane == 0) {
+        l_s[r] = alpha * l_s[r] + l_cur;
+        m_s[r] = m_new;
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < R * d; i += blockDim.x) {
+    const int r = i / d;
+    const int c = i - r * d;
+    out[row_offset(r) + c] = from_f32<TQ>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+template <typename TQ, typename TKV>
+void launch_multi(const void* q, const void* k, const void* v, const void* pos,
+                  const void* table, const void* q_pos, void* out, int B,
+                  int T, int H, int K, int d, int N, int P, int C, int tq,
+                  float scale, int window, float softcap, size_t smem,
+                  cudaStream_t s) {
+  const dim3 grid(B, K, (T + tq - 1) / tq);
+  flash_decode_multi_kernel<TQ, TKV><<<grid, kThreads, smem, s>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(table), static_cast<const int*>(q_pos),
+      static_cast<TQ*>(out), T, H, K, d, N, P, C, tq, scale, window, softcap);
+}
+
 }  // namespace
 
 // Shared memory one block needs, in bytes; the wrapper refuses shapes above
@@ -210,6 +448,50 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
 #define REPRO_LAUNCH(TQ, TKV)                                                  \
   launch<TQ, TKV>(q, k, v, pos, table, q_pos, out, B, H, K, d, N, P, C, scale, \
                   window, softcap, smem, s)
+  if (q_dtype == 0 && kv_dtype == 0) {
+    REPRO_LAUNCH(float, float);
+  } else if (q_dtype == 1 && kv_dtype == 1) {
+    REPRO_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  } else if (q_dtype == 0 && kv_dtype == 1) {
+    REPRO_LAUNCH(float, __nv_bfloat16);
+  } else if (q_dtype == 1 && kv_dtype == 0) {
+    REPRO_LAUNCH(__nv_bfloat16, float);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9's queries per block for these shapes (0: one query's rows do not fit
+// the 48 KB of shared memory), and the shared memory one block then needs.
+extern "C" int repro_flash_decode_multi_rows(int B, int K, int T, int G, int d,
+                                             int P) {
+  return multi_rows(B, K, T, G, d, P);
+}
+
+extern "C" long long repro_flash_decode_multi_smem_bytes(int tq, int G, int d,
+                                                         int P) {
+  return static_cast<long long>(multi_smem_words(tq, G, d, P) * 4);
+}
+
+// q (B, T, H, d), q_pos (B, T), out like q; dtypes as repro_flash_decode.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int repro_flash_decode_multi(const void* q, const void* k,
+                                        const void* v, const void* pos,
+                                        const void* table, const void* q_pos,
+                                        void* out, int B, int T, int H, int K,
+                                        int d, int N, int P, int C,
+                                        float scale, int window, float softcap,
+                                        int q_dtype, int kv_dtype,
+                                        void* stream) {
+  const int tq = multi_rows(B, K, T, H / K, d, P);
+  if (tq == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = multi_smem_words(tq, H / K, d, P) * 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(TQ, TKV)                                               \
+  launch_multi<TQ, TKV>(q, k, v, pos, table, q_pos, out, B, T, H, K, d, N, \
+                        P, C, tq, scale, window, softcap, smem, s)
   if (q_dtype == 0 && kv_dtype == 0) {
     REPRO_LAUNCH(float, float);
   } else if (q_dtype == 1 && kv_dtype == 1) {

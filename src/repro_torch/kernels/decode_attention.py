@@ -1,11 +1,15 @@
-"""Paged single-query flash decode: the wrapper of the hand-written CUDA kernel.
+"""Paged flash decode: the wrappers of the hand-written CUDA kernels.
 
-Replaces the TPU kernel ``repro/kernels/decode_attention.py::_decode_kernel``
-(``flash_decode``) for float32 and bfloat16 pools; the source and its design
-note are ``csrc/decode_attention.cu``.  The wrapper launches the kernel on
-CUDA tensors or raises; the plain version is
-``kernels/ref.py::decode_attention_ref``, chosen by ``kernels/ops.py`` for
-CPU tensors.  The int8-pool path and the multi-query kernel come later.
+``flash_decode`` (B8, one query per slot) replaces the TPU kernel
+``repro/kernels/decode_attention.py::_decode_kernel``; ``flash_decode_multi``
+(B9, a chunk of T queries per slot: chunked prefill, prefix-cache
+suffixes, speculative verify) replaces ``_decode_multi_kernel``.  Both take
+float32 and bfloat16 pools; the source and its design note are
+``csrc/decode_attention.cu``.  Each wrapper launches its kernel on CUDA
+tensors or raises, and counts its own launches; the plain versions are
+``kernels/ref.py::decode_attention_ref`` and ``decode_attention_multi_ref``,
+chosen by ``kernels/ops.py`` for CPU tensors.  The int8-pool path comes
+later.
 """
 from __future__ import annotations
 
@@ -15,7 +19,52 @@ from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0   # kernel launches in this process (reset by callers that count)
+launches = 0         # B8 launches in this process (reset by callers that count)
+multi_launches = 0   # B9 launches
+
+
+def _check(what, q, k_pages, v_pages, pos_pages, page_table, q_pos, q_rank):
+    """Raise unless the arguments fit the kernel: CUDA, one device,
+    contiguous, shapes, dtypes, int32 indexing.  Returns (B, H, d)."""
+    tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
+                   page_table=page_table, q_pos=q_pos)
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what} kernel needs CUDA tensors; "
+                             f"{name} is on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous {name}")
+    if q.ndim != q_rank or k_pages.ndim != 4:
+        layout = "(B, H, d)" if q_rank == 3 else "(B, T, H, d)"
+        raise ValueError(f"q must be {layout} and pools (N, P, K, d), got "
+                         f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
+    B, H, d = q.shape[0], q.shape[-2], q.shape[-1]
+    N, P, K, dk = k_pages.shape
+    C = page_table.shape[-1]
+    if 0 in (N, P, K, d) or v_pages.shape != k_pages.shape or dk != d or H % K:
+        raise ValueError(
+            f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
+            f"v {tuple(v_pages.shape)}"
+        )
+    if tuple(pos_pages.shape) != (N, P) or tuple(page_table.shape) != (B, C) \
+            or tuple(q_pos.shape) != tuple(q.shape[:-2]):
+        raise ValueError(
+            f"pos {tuple(pos_pages.shape)}, table {tuple(page_table.shape)}, "
+            f"q_pos {tuple(q_pos.shape)} do not fit q {tuple(q.shape)}, "
+            f"N={N}, P={P}"
+        )
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES \
+            or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{what} kernel takes float32/bfloat16 q and "
+                         f"pools, got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    for name in ("pos_pages", "page_table", "q_pos"):
+        if tensors[name].dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
+    if k_pages.numel() >= 2**31 or q.numel() >= 2**31:
+        raise ValueError(f"{what} kernel: sizes exceed int32 indexing")
+    return B, H, d
 
 
 def flash_decode(
@@ -36,42 +85,10 @@ def flash_decode(
     Page ids are clamped to [0, N - 1]; rows with q_pos < 0 are zeros.
     """
     global launches
-    tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
-                   page_table=page_table, q_pos=q_pos)
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"flash_decode kernel needs CUDA tensors; "
-                             f"{name} is on {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_decode kernel needs contiguous {name}")
-    if q.ndim != 3 or k_pages.ndim != 4:
-        raise ValueError(f"q must be (B, H, d) and pools (N, P, K, d), got "
-                         f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
-    B, H, d = q.shape
-    N, P, K, dk = k_pages.shape
+    B, H, d = _check("flash_decode", q, k_pages, v_pages, pos_pages,
+                     page_table, q_pos, q_rank=3)
+    N, P, K, _ = k_pages.shape
     C = page_table.shape[-1]
-    if 0 in (N, P, K, d) or v_pages.shape != k_pages.shape or dk != d or H % K:
-        raise ValueError(
-            f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
-            f"v {tuple(v_pages.shape)}"
-        )
-    if tuple(pos_pages.shape) != (N, P) or tuple(page_table.shape) != (B, C) \
-            or tuple(q_pos.shape) != (B,):
-        raise ValueError(
-            f"pos {tuple(pos_pages.shape)}, table {tuple(page_table.shape)}, "
-            f"q_pos {tuple(q_pos.shape)} do not fit B={B}, N={N}, P={P}"
-        )
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES \
-            or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"flash_decode kernel takes float32/bfloat16 q and "
-                         f"pools, got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    for name in ("pos_pages", "page_table", "q_pos"):
-        if tensors[name].dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
-    if k_pages.numel() >= 2**31 or B * H * d >= 2**31:
-        raise ValueError("flash_decode kernel: sizes exceed int32 indexing")
     lib = build.library()
     smem = lib.repro_flash_decode_smem_bytes(H // K, d, P)
     if smem > 48 * 1024:
@@ -89,4 +106,51 @@ def flash_decode(
     )
     build.check(err, "flash_decode kernel")
     launches += 1
+    return out
+
+
+def flash_decode_multi(
+    q: torch.Tensor,            # (B, T, H, d) — T queries per slot
+    k_pages: torch.Tensor,      # (N, P, K, d) paged pool
+    v_pages: torch.Tensor,      # (N, P, K, d)
+    pos_pages: torch.Tensor,    # (N, P) int32; -1 = empty
+    page_table: torch.Tensor,   # (B, C) int32 page ids
+    q_pos: torch.Tensor,        # (B, T) int32; -1 rows -> zeros out
+    *,
+    scale: float = 1.0,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Paged multi-query flash attention; returns (B, T, H, d) in q's dtype.
+
+    Row (b, t) sees the entries of slot b's pages with 0 <= pos <=
+    q_pos[b, t] (and inside the window); the chunk must already be written
+    into the pages.  Query head h reads kv head h // G.  Page ids are
+    clamped to [0, N - 1]; rows with q_pos < 0 are zeros.
+    """
+    global multi_launches
+    B, H, d = _check("flash_decode_multi", q, k_pages, v_pages, pos_pages,
+                     page_table, q_pos, q_rank=4)
+    T = q.shape[1]
+    N, P, K, _ = k_pages.shape
+    C = page_table.shape[-1]
+    lib = build.library()
+    if lib.repro_flash_decode_multi_rows(max(B, 1), K, max(T, 1), H // K, d,
+                                         P) == 0:
+        smem = lib.repro_flash_decode_multi_smem_bytes(1, H // K, d, P)
+        raise ValueError(f"flash_decode_multi kernel: G={H // K}, d={d}, "
+                         f"P={P} needs {smem} bytes of shared memory for one "
+                         f"query (at most 49152)")
+    out = torch.empty_like(q)
+    if B == 0 or T == 0 or C == 0:
+        return out.zero_()
+    err = lib.repro_flash_decode_multi(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        pos_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
+        out.data_ptr(), B, T, H, K, d, N, P, C, float(scale), int(window),
+        float(softcap), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "flash_decode_multi kernel")
+    multi_launches += 1
     return out

@@ -68,13 +68,41 @@ def decode_attention(
     )
 
 
+def decode_attention_multi(
+    q, k_pages, v_pages, pos_pages, page_table, q_pos, *, scale,
+    window: int = 0, softcap: float = 0.0, impl: str = "auto",
+):
+    """Multi-query flash-decode: a T-token chunk per slot attends over the
+    paged KV cache (chunked prefill, prefix-cache suffixes, speculative
+    verify).
+
+    ``q`` (B, T, H, d), pools (N, P, K, d) + (N, P) stored positions,
+    ``page_table`` (B, C), ``q_pos`` (B, T) per-query positions (-1 rows ->
+    zeros).  The chunk must already be written into the pages; per-row
+    position masking then gives history visibility and causality within
+    the chunk.
+    """
+    if resolve_impl(impl, q) == "ref":
+        return ref.decode_attention_multi_ref(
+            q, k_pages, v_pages, pos_pages, page_table, q_pos,
+            scale=scale, window=window, softcap=softcap,
+        )
+    # the scale folded into q, as the reference's ops.decode_attention_multi
+    # does
+    qs = (q.float() * scale).to(q.dtype)
+    return da.flash_decode_multi(
+        qs, k_pages, v_pages, pos_pages, page_table, q_pos,
+        scale=1.0, window=window, softcap=softcap,
+    )
+
+
 def launch_counts() -> dict:
     """Kernel launches counted by the wrappers in this process (B2 counts
     one per backward call)."""
     return {
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
-        "flash_decode": da.launches,
+        "flash_decode": da.launches, "flash_decode_multi": da.multi_launches,
         "flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.dq_launches,
         "flash_bwd_dkv": fa.dkv_launches,
     }
@@ -83,7 +111,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     rn.launches = rn.bwd_launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
-    da.launches = 0
+    da.launches = da.multi_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 

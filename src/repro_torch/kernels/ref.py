@@ -236,6 +236,51 @@ def decode_attention_ref(
     return out.reshape(B, H, d).to(q.dtype)
 
 
+def decode_attention_multi_ref(
+    q: torch.Tensor,            # (B, T, H, d) — T queries per decode slot
+    k_pages: torch.Tensor,      # (N, P, K, d) — paged KV pool
+    v_pages: torch.Tensor,      # (N, P, K, d)
+    pos_pages: torch.Tensor,    # (N, P) int32 token positions; -1 = empty
+    page_table: torch.Tensor,   # (B, C) int32 page ids per slot
+    q_pos: torch.Tensor,        # (B, T) int32 per-query positions; -1 = masked
+    *,
+    scale,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Multi-query attention over a paged KV cache (the chunked-prefill and
+    speculative-verify oracle).
+
+    The visibility rule of :func:`decode_attention_ref`, per query row: an
+    entry is visible to row t iff pos >= 0, pos <= q_pos[:, t] and
+    (windowed) q_pos[:, t] - pos < window.  Rows with q_pos = -1 give exact
+    zeros.  The engine writes the chunk into the pages before attending, so
+    the same rule gives causality within the chunk.
+    """
+    B, T, H, d = q.shape
+    N, P, K, _ = k_pages.shape
+    C = page_table.shape[1]
+    G = H // K
+    tab = page_table.long().clamp(0, N - 1)
+    k = k_pages[tab].float().reshape(B, C * P, K, d)
+    v = v_pages[tab].float().reshape(B, C * P, K, d)
+    pos = pos_pages[tab].reshape(B, C * P)[:, None, :]      # (B, 1, CP)
+    qp = q_pos[:, :, None]                                  # (B, T, 1)
+    mask = (pos >= 0) & (pos <= qp)
+    if window:
+        mask &= (qp - pos) < window
+    qg = q.reshape(B, T, K, G, d).float()
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    m = mask[:, None, None]                                 # (B, 1, 1, T, CP)
+    logits = torch.where(m, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(m, p, torch.zeros_like(p))
+    out = torch.einsum("bkgts,bskd->btkgd", p, v)
+    return out.reshape(B, T, H, d).to(q.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)

@@ -1,14 +1,18 @@
-"""Serving CLI: the static continuous-batching engine on the card.
+"""Serving CLI: the continuous-batching engines on the card.
 
 The port's counterpart of ``python -m repro.launch.serve``, with the same
-flags and printout.  Flags of parts not ported yet (the dynamic engine's
-prefix cache, chunked prefill and pool override, speculation, int8 KV, the
-mesh, observability, the dense-loop driver) exit with an error saying so.
+flags and printout.  By default the dynamic engine (host-side page
+allocator, radix-tree prefix caching with ``--prefix-cache``, chunked
+prefill with ``--prefill-chunk``, pool size with ``--pool-pages``);
+``--static`` selects the static engine (fixed page tables).  Flags of parts
+not ported yet (speculation, int8 KV, the mesh, observability, the
+dense-loop driver) exit with an error saying so.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
         --requests 8 --prompt-len 128 --gen-len 32 --slots 4
-    python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu
+    python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --prefix-cache --prefill-chunk 16
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.model import build_model
-from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig
 from repro_torch.serving.kv_cache import kv_dtype_of, pool_bytes
 
 
@@ -45,14 +49,15 @@ def main(argv=None):
                     help="d_head floor for the drafter proxy")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--static", action="store_true",
-                    help="the static engine (fixed page tables); the only "
-                         "engine ported yet, so also the default")
+                    help="the static engine (fixed page tables) instead of "
+                         "the dynamic one")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="radix-tree prompt-prefix page sharing (not ported yet)")
+                    help="radix-tree prompt-prefix page sharing")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked prefill (not ported yet)")
+                    help="chunked prefill: tokens per chunk (a multiple of "
+                         "--page-size); 0 = one-shot")
     ap.add_argument("--pool-pages", type=int, default=None,
-                    help="global page-pool size override (not ported yet)")
+                    help="global page-pool size override (dynamic engine)")
     ap.add_argument("--kv-dtype", default="",
                     choices=["", "int8", "bfloat16", "float32"],
                     help="paged KV pool dtype (int8: not ported yet)")
@@ -72,9 +77,6 @@ def main(argv=None):
 
     not_ported = {
         "--draft-width": args.draft_width > 0,
-        "--prefix-cache": args.prefix_cache,
-        "--prefill-chunk": args.prefill_chunk != 0,
-        "--pool-pages": args.pool_pages is not None,
         "--kv-dtype int8": args.kv_dtype == "int8",
         "--adaptive-draft": args.adaptive_draft,
         "--dense": args.dense,
@@ -83,8 +85,11 @@ def main(argv=None):
     }
     for flag, used in not_ported.items():
         if used:
-            ap.error(f"{flag} is not ported yet: the PyTorch port serves "
-                     f"with the static engine only")
+            ap.error(f"{flag} is not ported yet in the PyTorch port")
+    if args.static and (args.prefix_cache or args.prefill_chunk
+                        or args.pool_pages is not None):
+        ap.error("--prefix-cache/--prefill-chunk/--pool-pages need the "
+                 "dynamic engine (drop --static)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype="float32", kv_dtype=args.kv_dtype)
@@ -106,12 +111,18 @@ def main(argv=None):
     ecfg = EngineConfig(
         n_slots=args.slots, page_size=args.page_size,
         max_prompt_len=P, max_gen_len=args.gen_len, eos_token_id=args.eos,
+        prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
+        n_pages=args.pool_pages,
     )
-    engine = Engine(model, ecfg)
+    cls = Engine if args.static else DynamicEngine
+    engine = cls(model, ecfg)
+    n_global = getattr(engine, "n_pages", None)
     print(f"[serve] paged KV pools ({kv_dtype_of(cfg)}): "
           f"{pool_bytes(cfg, engine.spec)/2**20:.1f} MiB "
           f"({engine.spec.n_slots} slots x {engine.spec.gp_cols} global"
-          f" pages of {engine.spec.page_size} tokens)")
+          f" pages of {engine.spec.page_size} tokens"
+          + (f"; dynamic pool of {n_global}" if n_global else "")
+          + ")")
     out = engine.serve(
         params, prompts.cpu().numpy(), lens.numpy(),
         temperature=torch.full((R,), args.temperature),
@@ -120,6 +131,10 @@ def main(argv=None):
         seed=args.seed,
     )
     toks, n_tok = out["tokens"], int(out["lengths"].sum())
+    if "prefill_cached" in out and out["prefill_total"]:
+        print(f"[serve] prefix cache: {out['prefill_cached']}/"
+              f"{out['prefill_total']} prompt tokens served from shared pages "
+              f"({out['prefill_cached']/out['prefill_total']:.1%})")
     dt = time.time() - t0
     print(f"[serve:engine] generated {tuple(toks.shape)} ({n_tok} tokens) "
           f"in {dt:.2f}s ({n_tok/dt:.1f} tok/s) on {dev}")

@@ -147,7 +147,8 @@ class Model:
         for every layer (what the engine pages into a slot).  ``mode="decode"``
         with ``paged`` (a serving.kv_cache.PagedState) writes the new tokens
         into the paged pools ``cache`` in place and attends through the
-        flash-decode kernel.
+        flash-decode kernel (one token per slot) or the multi-query one (a
+        chunk per slot; positions -1 mark rows that neither write nor see).
         """
         cfg = self.cfg
         B, S = tokens.shape

@@ -8,7 +8,8 @@ port runs a Python loop over the layers of every stacked tensor.
 
 The port runs the "attn" block kind (global self-attention + MLP) in two
 modes: full sequence ("train" / "prefill"; prefill also emits a cache) and
-paged decode (one token per slot through the flash-decode kernel).  Full
+paged decode (one token per slot through the flash-decode kernel, a chunk
+of tokens per slot through the multi-query one).  Full
 sequences go through the flash-attention kernels when ``cfg.amp`` is set
 and the positions are 0..S-1, through plain attention otherwise, as in the
 reference.  The other kinds arrive with their blocks.
@@ -54,8 +55,8 @@ class Ctx:
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                                          # (cos, sin) of the positions, shared
                                          # by every layer (models/rope.py)
-    writes: Optional[Any] = None         # decode: where each slot's token
-                                         # lands in the pools, shared by every
+    writes: Optional[Any] = None         # decode: where each slot's tokens
+                                         # land in the pools, shared by every
                                          # layer (kv_cache.write_slots)
     aligned_positions: bool = False      # positions are 0..S-1 in every row
                                          # (the flash kernels mask by index)
@@ -206,21 +207,26 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
         paged = ctx.paged
         if paged is None:
             raise NotImplementedError("the port decodes over the paged pool only")
-        if S != 1:
-            raise NotImplementedError(
-                "multi-token paged decode (speculative verify, chunked "
-                "prefill) is not ported yet"
-            )
         table = paged.global_table
         new_cache = paged_kv.paged_cache_write(
             cache, k, v, ctx.positions, table, paged.active, paged.page_size,
             slots=ctx.writes,
         )
-        out = ops.decode_attention(
-            q[:, 0], new_cache["k"], new_cache["v"], new_cache["pos"],
-            table, ctx.positions[:, 0], scale=scale,
-            softcap=cfg.attn_softcap, impl=ctx.impl,
-        )[:, None]
+        if S == 1:
+            out = ops.decode_attention(
+                q[:, 0], new_cache["k"], new_cache["v"], new_cache["pos"],
+                table, ctx.positions[:, 0], scale=scale,
+                softcap=cfg.attn_softcap, impl=ctx.impl,
+            )[:, None]
+        else:
+            # a chunk (chunked prefill, a prefix-cache suffix): written into
+            # the pages above, so the per-row position mask gives causality
+            # within the chunk too
+            out = ops.decode_attention_multi(
+                q, new_cache["k"], new_cache["v"], new_cache["pos"],
+                table, ctx.positions, scale=scale,
+                softcap=cfg.attn_softcap, impl=ctx.impl,
+            )
     else:
         raise ValueError(f"unknown mode {ctx.mode!r}")
     out = apply_w(out, params["wo"], meta["wo"], p13n, "bshk,hkd->bsd")

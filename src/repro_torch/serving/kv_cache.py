@@ -12,9 +12,11 @@ empty).  Layers of the repeated group are stacked over ``n_groups`` on a
 leading axis, mirroring the reference's layout.
 
 Indirection is by *page table*: slot ``s``'s logical page ``j`` lives at
-physical page ``table[s, j]``.  Tables are built once per engine with pages
-*interleaved* across slots (slot s's page j = j * n_slots + s), so
-correctness depends on the indirection being followed.
+physical page ``table[s, j]``.  The static engine builds its tables once
+with pages *interleaved* across slots (slot s's page j = j * n_slots + s),
+so correctness depends on the indirection being followed; the dynamic
+engine takes them from ``serving/allocator.py`` and sizes its pools apart
+from ``n_slots * gp_cols`` (``init_pools(n_global=)``).
 
 Writes update the pools in place (the reference builds new pools): in-place
 writes keep one copy of every pool.  Writes that must not land (inactive
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -68,8 +70,15 @@ class PagedSpec:
         return self.n_slots * self.gp_cols
 
 
-def build_spec(cfg, n_slots: int, max_total: int, page_size: int) -> PagedSpec:
-    """max_total = max prompt + max generation length per request."""
+def build_spec(cfg, n_slots: int, max_total: int, page_size: int,
+               lookahead: int = 0) -> PagedSpec:
+    """max_total = max prompt + max generation length per request.
+
+    ``lookahead`` is how far a forward's writes may run ahead of its
+    earliest query (a prefill chunk, a speculative verify chunk); the
+    reference widens its windowed rings by it.  The port serves global
+    layers only, whose pages never wrap, so it changes nothing here.
+    """
     check_servable(cfg)
     return PagedSpec(
         n_slots=n_slots, page_size=page_size,
@@ -98,12 +107,19 @@ class PagedState:
 # pools
 # ---------------------------------------------------------------------------
 
-def init_pools(cfg, spec: PagedSpec, device) -> Dict[str, Any]:
+def init_pools(cfg, spec: PagedSpec, device,
+               n_global: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed pools mirroring run_stack's cache layout:
-    {"groups": {"<i>_<kind>": {"attn": pool}}}, stacked over n_groups."""
+    {"groups": {"<i>_<kind>": {"attn": pool}}}, stacked over n_groups.
+
+    ``n_global`` overrides the pool size (default: the static interleaved
+    geometry ``spec.n_global_pages``): the dynamic allocator sizes its pool
+    apart from ``n_slots * gp_cols`` so prefix-cached pages can outlive
+    their slot."""
     K, hd = cfg.n_kv_heads, cfg.d_head
     dtype = _DTYPES[kv_dtype_of(cfg)]
-    L, N, P = cfg.n_groups, spec.n_global_pages, spec.page_size
+    N = spec.n_global_pages if n_global is None else n_global
+    L, P = cfg.n_groups, spec.page_size
 
     def pool():
         return {
@@ -203,3 +219,40 @@ def admit_slot(
         pool["k"][:, page, off] = src["k"][:, 0, :n].to(pool["k"].dtype)
         pool["v"][:, page, off] = src["v"][:, 0, :n].to(pool["v"].dtype)
     return pools
+
+
+# ---------------------------------------------------------------------------
+# page invalidation (dynamic allocator: freshly popped pages may hold a
+# previous occupant's entries)
+# ---------------------------------------------------------------------------
+
+def invalidate_pages(pools: Dict[str, Any], cfg, g_pages) -> Dict[str, Any]:
+    """Set pos = -1 on the given physical pages of every layer, in place;
+    returns the pools.  Ids at or past the pool size are skipped (the
+    reference pads its fixed-shape id arrays with the pool size and lets
+    JAX drop the out-of-bounds scatter; PyTorch would raise, so they are
+    masked out here).  Stale k/v bytes remain, masked by pos everywhere."""
+    for i, kind in enumerate(cfg.pattern):
+        pos = pools["groups"][f"{i}_{kind}"]["attn"]["pos"]
+        ids = torch.as_tensor(g_pages, dtype=torch.long).reshape(-1)
+        ids = ids[(ids >= 0) & (ids < pos.shape[1])].to(pos.device)
+        pos[:, ids] = -1
+    return pools
+
+
+# ---------------------------------------------------------------------------
+# test/oracle helper
+# ---------------------------------------------------------------------------
+
+def gather_slot(pool: Dict[str, torch.Tensor], table_row) -> Dict[str, torch.Tensor]:
+    """Contiguous {"k": (C*P, K, hd), "v": ..., "pos": (C*P,)} view of one
+    slot's pages from an *unstacked* pool leaf (page ids clamped to the
+    pool) — the dense-cache-shaped view the tests compare."""
+    N = pool["pos"].shape[-2]
+    tab = torch.as_tensor(table_row).long().clamp(0, N - 1).to(pool["pos"].device)
+    K, hd = pool["k"].shape[-2:]
+    return {
+        "k": pool["k"][tab].reshape(-1, K, hd),
+        "v": pool["v"][tab].reshape(-1, K, hd),
+        "pos": pool["pos"][tab].reshape(-1),
+    }

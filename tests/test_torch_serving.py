@@ -244,12 +244,21 @@ def test_engine_greedy_matches_reference_engine(served, with_eos):
         assert got["lengths"][0] == row.index(eos) + 1
 
 
-def test_serve_cli_on_cpu_and_unported_flags():
-    toks = tserve.main(["--smoke", "--device", "cpu", "--requests", "3",
-                        "--prompt-len", "8", "--gen-len", "4", "--slots", "2",
-                        "--page-size", "4", "--mixed-lens"])
+def test_serve_cli_on_cpu_and_unported_flags(capsys):
+    """The dynamic engine by default (with its prefix cache and chunked
+    prefill), the static one with --static: the same greedy tokens."""
+    base = ["--smoke", "--device", "cpu", "--requests", "3", "--prompt-len",
+            "8", "--gen-len", "4", "--slots", "2", "--page-size", "4",
+            "--mixed-lens"]
+    toks = tserve.main(base)
     assert tuple(toks.shape) == (3, 4)
-    for flag in (["--dense"], ["--kv-dtype", "int8"], ["--prefix-cache"],
-                 ["--draft-width", "0.25"], ["--mesh", "1,2"], ["--obs"]):
+    assert "dynamic pool of" in capsys.readouterr().out
+    cached = tserve.main([*base, "--prefix-cache", "--prefill-chunk", "8"])
+    assert "prompt tokens served from shared pages" in capsys.readouterr().out
+    static = tserve.main([*base, "--static"])
+    assert "dynamic pool" not in capsys.readouterr().out
+    assert torch.equal(cached, toks) and torch.equal(static, toks)
+    for flag in (["--dense"], ["--kv-dtype", "int8"], ["--draft-width", "0.25"],
+                 ["--mesh", "1,2"], ["--obs"], ["--static", "--prefix-cache"]):
         with pytest.raises(SystemExit):
             tserve.main(["--smoke", "--device", "cpu", *flag])
