@@ -34,7 +34,15 @@ raises on a failed check:
   T not a multiple of the row tile, the speculative-verify shape B = 4,
   T = 5, MHA/MQA, window, softcap, bf16 and f32-over-bf16 pools, two slots
   whose tables map the same pages; f32 atol 2e-5, bf16 2e-2, rows at -1
-  exactly zero) and at T = 1 against B8 on the same inputs.
+  exactly zero) and at T = 1 against B8 on the same inputs; the int8-pool
+  modes of B8 (8 cases at the engine's decode shape q (4, 9, 64) over
+  (83, 16, 3, 64) int8 pools with (83, 3) scales: an inactive slot,
+  MHA/MQA, window, softcap, bf16 q) and of B9 (8 cases: the engine's chunk
+  of 64 with history resident, its last chunk with rows at -1, the verify
+  shape B = 4, T = 5, MHA/MQA, window + softcap, bf16 q, two slots sharing
+  pages; and T = 1 against B8's int8 mode), each against its plain version
+  at atol 2e-5 (bf16 q 2e-2), rows at -1 exactly zero, timed beside SDPA
+  over the gathered dequantized K/V.
 - serve: smollm-135m at its published full width through the static engine
   (random weights from a seed, ``zero_init_query=False``), once through the
   kernels and once through the plain versions: the same greedy tokens and
@@ -55,6 +63,17 @@ raises on a failed check:
   per chunk forward, B8 30 per decode step, B1 61 per forward, no B2-B7,
   with the chunk forwards counted from the model's calls and held against
   the chunk schedule recomputed from prefill_cached.
+- serve_int8: the same model with int8 paged KV pools (``--kv-dtype
+  int8``) through DynamicEngine on serve_dynamic's workload and through
+  the static engine on 8 of its requests: (a) tokens and steps equal with
+  the kernels and through the plain versions on both engines; (b) the
+  dynamic engine's tokens equal with the prefix cache off and (c) on a
+  warm cache that shares more; (d) exact launch counts: B8 int8 30 per
+  decode step, B9 int8 30 per chunk forward, B1 61 per forward, no f32/bf16
+  B8/B9, no B2-B7.  Prints tok/s, the pools' MiB against f32 pools and the
+  greedy top-1 agreement with the f32 dynamic engine (not held).  Nothing
+  is cut: the int8 static serve runs 8 requests where the dynamic one runs
+  16, to keep the run short.
 - train: mup-gpt at full width (8 layers, d_model 1024, vocab 2048), f32,
   batch 8 x seq 512.  The first step's loss (1e-5 relative) and every
   gradient (atol 2e-4 / rtol 1e-3) with the kernels against the plain
@@ -75,13 +94,14 @@ raises on a failed check:
   largest entry (AMP_* below); a third loop through the policy's own plain
   attention gives the plain time and memory; exact launch counts per step
   (8 B5, 8 B6, 8 B7, 17 B1, 17 B2, 1 B3, 1 B4, no B8).
-- profile: torch.profiler over a short serve through each engine and over
-  one train step, f32 and amp: the device's busy share and the kernels
-  that take it.
+- profile: torch.profiler over a short serve through each engine, a short
+  int8 dynamic serve (with the card's time in the quantized writes of
+  serving/kv_cache.py) and one train step, f32 and amp: the device's busy
+  share and the kernels that take it.
 
 Launch counts are set to 0 just before each main path (serve,
-serve_dynamic, train, train --amp bf16) and read just after; launches made
-to compare or time a kernel do not count.
+serve_dynamic, serve_int8 dynamic and static, train, train --amp bf16) and
+read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
 catches no failure (the exit code is non-zero on any) and prints, last, one
 JSON line: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -158,9 +178,9 @@ def cuda_ms(fn, n=N_TIMED, warmup=10):
     return start.elapsed_time(end) / n
 
 
-def device_us(fn, key, n=20):
-    """Microseconds on the card per launch of the kernels whose name holds
-    ``key``, from torch.profiler over ``n`` calls of ``fn``."""
+def device_us(fn, name, n=20):
+    """Microseconds on the card per launch of the port kernel ``name`` (see
+    PORT_KERNELS), from torch.profiler over ``n`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -170,9 +190,10 @@ def device_us(fn, key, n=20):
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(is_kernel(name, k, e.key) for k in PORT_KERNELS[name])]
     if not hits:
-        raise AssertionError(f"the profiler saw no kernel named like {key!r}")
+        raise AssertionError(f"the profiler saw no kernel of {name!r}")
     return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
 
 
@@ -306,48 +327,80 @@ def decode_phase(ops, da, F):
 
     # timing at the main path's decode shape: 4 slots, smollm-135m heads,
     # 20 pages of 16 per slot, slots part-way through their requests
-    lens = [120, 200, 260, 310]
-    q, kp, vp, pos, tab, q_pos = paged_case(S, 3, 3, 64, 16, 20, lens,
+    q, kp, vp, pos, tab, q_pos = paged_case(S, 3, 3, 64, 16, 20, DECODE_LENS,
                                             torch.float32, torch.float32, 99)
-    args = (q, kp, vp, pos, tab, q_pos)
-    err = (ops.decode_attention(*args, scale=0.125, impl="kernel")
-           - ops.decode_attention(*args, scale=0.125, impl="ref")).abs().max().item()
-    ms = cuda_ms(lambda: ops.decode_attention(*args, scale=0.125, impl="kernel"))
-    plain_ms = cuda_ms(lambda: ops.decode_attention(*args, scale=0.125, impl="ref"))
-    # yardstick: SDPA over pre-gathered contiguous K/V of the same live
-    # lengths (attention only: the gather is not timed)
-    T = max(lens)
-    kk = torch.zeros(S, 3, T, 64, device="cuda")
-    vv = torch.zeros(S, 3, T, 64, device="cuda")
+    return dict(name="flash_decode",
+                shape="q (4, 9, 64) f32, pools (83, 16, 3, 64) f32, live lens "
+                      + ",".join(map(str, DECODE_LENS)),
+                **decode_row(ops, F, "flash_decode", (q, kp, vp, pos, tab, q_pos)))
+
+
+DECODE_LENS = [120, 200, 260, 310]   # the timed B8 shape's live lengths
+
+
+def gathered_kv(kp, vp, scales, tab, b, L, P):
+    """Slot b's first L entries as contiguous (1, K, L, d) f32 K and V,
+    dequantized when ``scales`` are given (the library yardstick's inputs:
+    the gather is not timed), and their page ids."""
+    t = torch.arange(L, device="cuda")
+    page = tab[b, t // P].long()
+    k, v = kp[page, t % P].float(), vp[page, t % P].float()
+    if scales is not None:
+        k = k * scales["k_scale"][page][:, :, None]
+        v = v * scales["v_scale"][page][:, :, None]
+    return (k.permute(1, 0, 2)[None].contiguous(), v.permute(1, 0, 2)[None].contiguous(),
+            page)
+
+
+def pool_bytes_read(tokens, pages, K, d, itemsize, scales):
+    """Bytes a paged decode must read of the pools: live K and V, their
+    scales (int8 pools), positions and table entries."""
+    return (2 * tokens * K * d * itemsize + (2 * pages * K * 4 if scales else 0)
+            + tokens * 4 + pages * 4)
+
+
+def decode_row(ops, F, name, args, scales=None):
+    """B8's time (over f32 pools, or int8 pools with ``scales``) at the
+    decode shape DECODE_LENS, beside its plain version, SDPA over the
+    pre-gathered (dequantized) K/V of the same live lengths (attention only)
+    and its bound."""
+    q, kp, vp, pos, tab, q_pos = args
+    S, K, d, P = q.shape[0], kp.shape[2], kp.shape[3], kp.shape[1]
+    kw = dict(scale=0.125, **(scales or {}))
+    err = (ops.decode_attention(*args, impl="kernel", **kw)
+           - ops.decode_attention(*args, impl="ref", **kw)).abs().max().item()
+    ms = cuda_ms(lambda: ops.decode_attention(*args, impl="kernel", **kw))
+    plain_ms = cuda_ms(lambda: ops.decode_attention(*args, impl="ref", **kw))
+    dev_us = device_us(lambda: ops.decode_attention(*args, impl="kernel", **kw), name)
+    T = max(DECODE_LENS)
+    kk = torch.zeros(S, K, T, d, device="cuda")
+    vv = torch.zeros(S, K, T, d, device="cuda")
     mask = torch.zeros(S, 1, 1, T, dtype=torch.bool, device="cuda")
-    for b, L in enumerate(lens):
-        t = torch.arange(L, device="cuda")
-        page = tab[b, t // 16].long()
-        kk[b, :, :L] = kp[page, t % 16].permute(1, 0, 2)
-        vv[b, :, :L] = vp[page, t % 16].permute(1, 0, 2)
+    for b, L in enumerate(DECODE_LENS):
+        kb, vb, _ = gathered_kv(kp, vp, scales, tab, b, L, P)
+        kk[b, :, :L], vv[b, :, :L] = kb[0], vb[0]
         mask[b, ..., :L] = True
     qq = q[:, :, None, :]
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, scale=0.125, enable_gqa=True))
-    B, H, d = q.shape
-    live_pages = sum(min(20, (L - 1) // 16 + 1) for L in lens)
-    nbytes = (2 * live_pages * 16 * 3 * 64 * 4      # live K and V
-              + live_pages * 16 * 4 + live_pages * 4  # positions, table entries
-              + 2 * q.numel() * 4 + S * 4)            # q, out, q_pos
-    flops = 4 * H * d * live_pages * 16
+    H = q.shape[1]
+    pages = sum(min(tab.shape[1], (L - 1) // P + 1) for L in DECODE_LENS)
+    tokens = pages * P
+    nbytes = (pool_bytes_read(tokens, pages, K, d, kp.element_size(), scales)
+              + 2 * q.numel() * q.element_size() + S * 4)      # q, out, q_pos
+    flops = 4 * H * d * tokens + (2 * K * d * tokens if scales else 0)  # + dequantization
     bound_ms, bound_by = bound(nbytes, flops)
+    log(f"[kernels] {name} at the decode shape: {ms:.5f} ms ({dev_us:.2f} us on the "
+        f"card), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {flops} flops)")
     return dict(
-        name="flash_decode", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:44",
-        shape="q (4, 9, 64) f32, pools (80, 16, 3, 64) f32, live lens "
-              + ",".join(map(str, lens)),
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        max_abs_err=err, ms=ms, device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
-        library="torch.nn.functional.scaled_dot_product_attention over "
-                "pre-gathered K/V (attention only)",
+        library="torch.nn.functional.scaled_dot_product_attention over pre-gathered "
+                + ("dequantized " if scales else "") + "K/V (attention only)",
     )
-
 
 
 def multi_case(B, T, K, G, d, P, C, hist, q_dtype, kv_dtype, seed, dead=(),
@@ -449,54 +502,189 @@ def multi_phase(ops, da, F):
     slot, a 64-token chunk at positions 192..255 (the last chunk of a
     256-token prompt), smollm-135m's 9/3 heads of 64, 16 live pages of 16."""
     worst = check_multi_cases(ops, da)
-    T, hist = 64, 192
-    args = multi_case(1, T, 3, 3, 64, 16, 20, [hist], torch.float32,
-                      torch.float32, 99)
+    args = multi_case(1, 64, 3, 3, 64, 16, 20, [192], torch.float32, torch.float32, 99)
+    return dict(name="flash_decode_multi",
+                shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, "
+                      "64) f32, 16 live pages",
+                worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
+                **multi_row(ops, F, "flash_decode_multi", args))
+
+
+def multi_row(ops, F, name, args, scales=None):
+    """B9's time (over f32 pools, or int8 pools with ``scales``) at the
+    dynamic serve's chunk shape, beside its plain version, SDPA over the
+    slot's pre-gathered (dequantized) live K/V with the boolean position
+    mask (attention only) and its bound (the (row, token) pairs visible)."""
     q, kp, vp, pos, tab, q_pos = args
-    err = (ops.decode_attention_multi(*args, scale=0.125, impl="kernel")
-           - ops.decode_attention_multi(*args, scale=0.125, impl="ref")).abs().max().item()
-    ms = cuda_ms(lambda: ops.decode_attention_multi(*args, scale=0.125, impl="kernel"))
-    plain_ms = cuda_ms(lambda: ops.decode_attention_multi(*args, scale=0.125, impl="ref"))
-    # yardstick: SDPA over the slot's pre-gathered live K/V with the boolean
-    # position mask (attention only: the gather is not timed)
-    L = hist + T
-    t = torch.arange(L, device="cuda")
-    page = tab[0, t // 16].long()
-    kk = kp[page, t % 16].permute(1, 0, 2)[None].contiguous()   # (1, 3, L, 64)
-    vv = vp[page, t % 16].permute(1, 0, 2)[None].contiguous()
-    kv_pos = pos[page, t % 16]
-    mask = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= q_pos[0][:, None])  # (T, L)
-    qq = q.permute(0, 2, 1, 3).contiguous()                      # (1, 9, T, 64)
+    T, H, d = q.shape[1:]
+    K, P = kp.shape[2], kp.shape[1]
+    kw = dict(scale=0.125, **(scales or {}))
+    err = (ops.decode_attention_multi(*args, impl="kernel", **kw)
+           - ops.decode_attention_multi(*args, impl="ref", **kw)).abs().max().item()
+    ms = cuda_ms(lambda: ops.decode_attention_multi(*args, impl="kernel", **kw))
+    plain_ms = cuda_ms(lambda: ops.decode_attention_multi(*args, impl="ref", **kw))
+    dev_us = device_us(lambda: ops.decode_attention_multi(*args, impl="kernel", **kw),
+                       name)
+    L = int(q_pos.max()) + 1
+    kk, vv, page = gathered_kv(kp, vp, scales, tab, 0, L, P)
+    kv_pos = pos[page, torch.arange(L, device="cuda") % P]
+    mask = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= q_pos[0][:, None])   # (T, L)
+    qq = q.permute(0, 2, 1, 3).contiguous()                                # (1, H, T, d)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask[None, None], scale=0.125, enable_gqa=True))
-    live_pages = (L - 1) // 16 + 1
-    H, d = 9, 64
+    pages = (L - 1) // P + 1
+    tokens = pages * P
     visible = int(mask.sum())                   # (row, token) pairs this chunk needs
-    nbytes = (2 * live_pages * 16 * 3 * 64 * 4      # live K and V
-              + live_pages * 16 * 4 + live_pages * 4  # positions, table entries
-              + 2 * q.numel() * 4 + T * 4)            # q, out, q_pos
-    flops = 4 * H * d * visible
+    nbytes = (pool_bytes_read(tokens, pages, K, d, kp.element_size(), scales)
+              + 2 * q.numel() * q.element_size() + T * 4)     # q, out, q_pos
+    flops = 4 * H * d * visible + (2 * K * d * tokens if scales else 0)
     bound_ms, bound_by = bound(nbytes, flops)
-    dev_us = device_us(lambda: ops.decode_attention_multi(*args, scale=0.125,
-                                                          impl="kernel"),
-                       PORT_KERNELS["flash_decode_multi"][0])
-    log(f"[kernels] flash_decode_multi at the chunk shape: {ms:.5f} ms ({dev_us:.2f} "
-        f"us on the card), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {flops} flops over "
-        f"{visible} visible pairs)")
+    log(f"[kernels] {name} at the chunk shape: {ms:.5f} ms ({dev_us:.2f} us on the "
+        f"card), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {bound_ms:.6f} "
+        f"ms ({bound_by}: {nbytes} bytes, {flops} flops over {visible} visible pairs)")
     return dict(
-        name="flash_decode_multi", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:113",
-        shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, 64) "
-              "f32, 16 live pages",
-        max_abs_err=err, worst_err_f32=worst[torch.float32],
-        worst_err_bf16=worst[torch.bfloat16],
-        ms=ms, device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
+        max_abs_err=err, ms=ms, device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
-        library="torch.nn.functional.scaled_dot_product_attention over "
-                "pre-gathered K/V with the boolean position mask (attention only)",
+        library="torch.nn.functional.scaled_dot_product_attention over pre-gathered "
+                + ("dequantized " if scales else "")
+                + "K/V with the boolean position mask (attention only)",
     )
+
+
+def int8_pools(kp, vp, seed):
+    """int8 pools and their (N, K) scales from f32 pools, each page and kv
+    head first scaled by its own factor in [0.1, 3.1) so that the scales
+    differ (quant.pack_kv: absmax/127 over the page)."""
+    from repro_torch import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N, _, K, _ = kp.shape
+    f = 0.1 + 3 * torch.rand(2, N, 1, K, 1, device="cuda", generator=gen)
+    kq, vq, ks, vs = quant.pack_kv(kp.float() * f[0], vp.float() * f[1])
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+def check_int8_decode_cases(ops):
+    """B8's int8 mode against its plain version on the card (f32 q at atol
+    2e-5, bf16 q at 2e-2), inactive slots exactly zero.  Returns the worst
+    error per q dtype."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (label, B, K, G, lens, q_dtype, window, softcap)
+        ("engine shape", 4, 3, 3, [120, 200, 260, 310], f32, 0, 0.0),
+        ("engine shape, an inactive slot", 4, 3, 3, [57, 0, 320, 16], f32, 0, 0.0),
+        ("bf16 q", 4, 3, 3, [300, 45, 0, 128], bf16, 0, 0.0),
+        ("MHA, half page", 4, 9, 1, [9, 0, 160, 300], f32, 0, 0.0),
+        ("MQA, half page", 4, 1, 9, [0, 41, 320, 72], f32, 0, 0.0),
+        ("window", 4, 3, 3, [300, 45, 0, 128], f32, 100, 0.0),
+        ("softcap", 4, 3, 3, [300, 45, 0, 128], f32, 0, 30.0),
+        ("window + softcap, bf16 q", 4, 3, 3, [300, 45, 0, 128], bf16, 64, 20.0),
+    ]
+    worst = {f32: 0.0, bf16: 0.0}
+    for i, (label, B, K, G, lens, qdt, window, cap) in enumerate(cases):
+        q, kp, vp, pos, tab, q_pos = paged_case(B, K, G, 64, 16, 20, lens, qdt,
+                                                torch.float32, 200 + i)
+        kq, vq, scales = int8_pools(kp, vp, 200 + i)
+        kw = dict(scale=0.125, window=window, softcap=cap, **scales)
+        got = ops.decode_attention(q, kq, vq, pos, tab, q_pos, impl="kernel", **kw)
+        want = ops.decode_attention(q, kq, vq, pos, tab, q_pos, impl="ref", **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst[qdt] = max(worst[qdt], err)
+        n_dead = int((q_pos < 0).sum())
+        if not err <= ATOL[qdt] or torch.count_nonzero(got[q_pos < 0]) != 0:
+            raise AssertionError(f"flash_decode int8 case {label!r}: max err {err}")
+        log(f"[kernels] flash_decode int8 {label}: max err {err:.3g} (atol "
+            f"{ATOL[qdt]}), {n_dead} inactive slots exactly zero")
+    return worst
+
+
+def check_int8_multi_cases(ops):
+    """B9's int8 mode against its plain version on the card (f32 q at atol
+    2e-5, bf16 q at 2e-2), rows at q_pos -1 exactly zero; at T = 1 against
+    B8's int8 mode on the same inputs.  Returns the worst error per q
+    dtype."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (label, B, T, K, G, hist, q_dtype, window, softcap, dead, share)
+        ("engine chunk, history resident", 1, 64, 3, 3, [128], f32, 0, 0.0, (), False),
+        ("engine chunk, bf16 q", 1, 64, 3, 3, [192], bf16, 0, 0.0, (), False),
+        ("last chunk of a 200-token prompt (rows past it at -1)", 1, 64, 3, 3,
+         [192], f32, 0, 0.0, tuple((0, t) for t in range(8, 64)), False),
+        ("speculative-verify shape", 4, 5, 3, 3, [70, 0, 250, 33], f32, 0, 0.0,
+         tuple((1, t) for t in range(5)), False),
+        ("MHA", 2, 9, 9, 1, [40, 3], f32, 0, 0.0, ((1, 8),), False),
+        ("MQA", 2, 9, 1, 9, [40, 3], f32, 0, 0.0, ((0, 0),), False),
+        ("window + softcap", 2, 24, 3, 3, [100, 3], f32, 48, 20.0, (), False),
+        ("two slots share pages", 2, 12, 3, 3, [80, 80], f32, 0, 0.0, (), True),
+    ]
+    worst = {f32: 0.0, bf16: 0.0}
+    for i, case in enumerate(cases):
+        label, B, T, K, G, hist, qdt, window, cap, dead, share = case
+        q, kp, vp, pos, tab, q_pos = multi_case(B, T, K, G, 64, 16, 20, hist, qdt,
+                                                torch.float32, 300 + i, dead, share)
+        kq, vq, scales = int8_pools(kp, vp, 300 + i)
+        kw = dict(scale=0.125, window=window, softcap=cap, **scales)
+        got = ops.decode_attention_multi(q, kq, vq, pos, tab, q_pos, impl="kernel", **kw)
+        want = ops.decode_attention_multi(q, kq, vq, pos, tab, q_pos, impl="ref", **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst[qdt] = max(worst[qdt], err)
+        dead_nonzero = sum(int(torch.count_nonzero(got[b, t])) for b, t in dead)
+        if not err <= ATOL[qdt] or dead_nonzero:
+            raise AssertionError(f"flash_decode_multi int8 case {label!r}: max err "
+                                 f"{err}, {dead_nonzero} nonzero entries in rows at -1")
+        log(f"[kernels] flash_decode_multi int8 {label}: max err {err:.3g} (atol "
+            f"{ATOL[qdt]}), {len(dead)} rows at -1 exactly zero")
+
+    # T = 1 against B8's int8 mode on the same inputs
+    q, kp, vp, pos, tab, q_pos = multi_case(4, 1, 3, 3, 64, 16, 20, [57, 0, 300, 16],
+                                            f32, f32, 377, ((1, 0),))
+    kq, vq, scales = int8_pools(kp, vp, 377)
+    got = ops.decode_attention_multi(q, kq, vq, pos, tab, q_pos, scale=0.125,
+                                     impl="kernel", **scales)[:, 0]
+    b8 = ops.decode_attention(q[:, 0].contiguous(), kq, vq, pos, tab,
+                              q_pos[:, 0].contiguous(), scale=0.125, impl="kernel",
+                              **scales)
+    torch.cuda.synchronize()
+    err = (got - b8).abs().max().item()
+    if not err <= ATOL[f32] or torch.count_nonzero(got[1]) != 0:
+        raise AssertionError(f"flash_decode_multi int8 at T=1 against B8 int8: max err {err}")
+    log(f"[kernels] flash_decode_multi int8 T=1 against flash_decode int8 (B8): "
+        f"max err {err:.3g}")
+    worst["t1_vs_b8"] = err
+    return worst
+
+
+def int8_decode_phase(ops, F):
+    """B8's int8 checks, then its time at the decode shape (decode_row)."""
+    worst = check_int8_decode_cases(ops)
+    q, kp, vp, pos, tab, q_pos = paged_case(4, 3, 3, 64, 16, 20, DECODE_LENS,
+                                            torch.float32, torch.float32, 99)
+    kq, vq, scales = int8_pools(kp, vp, 99)
+    return dict(name="flash_decode_int8",
+                shape="q (4, 9, 64) f32, pools (83, 16, 3, 64) int8 + (83, 3) f32 "
+                      "scales, live lens " + ",".join(map(str, DECODE_LENS)),
+                worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
+                **decode_row(ops, F, "flash_decode_int8", (q, kq, vq, pos, tab, q_pos),
+                             scales))
+
+
+def int8_multi_phase(ops, F):
+    """B9's int8 checks, then its time at the chunk shape (multi_row)."""
+    worst = check_int8_multi_cases(ops)
+    q, kp, vp, pos, tab, q_pos = multi_case(1, 64, 3, 3, 64, 16, 20, [192],
+                                            torch.float32, torch.float32, 99)
+    kq, vq, scales = int8_pools(kp, vp, 98)
+    return dict(name="flash_decode_multi_int8",
+                shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, "
+                      "64) int8 + (23, 3) f32 scales, 16 live pages",
+                worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
+                t1_vs_b8_err=worst["t1_vs_b8"],
+                **multi_row(ops, F, "flash_decode_multi_int8",
+                            (q, kq, vq, pos, tab, q_pos), scales))
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -937,12 +1125,13 @@ def make_recording_model(Model):
     return RecordingModel
 
 
-def compare_calls(what, kern, plain, out_k, out_r):
+def compare_calls(what, kern, plain, out_k, out_r, logit_tol=SERVE_LOGIT_TOL):
     """Two serves of one schedule, with the kernels and through the plain
     versions: the same steps and forwards, the same greedy token at every
     sampled row unless the plain top-2 gap there is below TIE_GAP (after
     which that request may differ), and the first 8 decode steps' logits
-    within atol = rtol = SERVE_LOGIT_TOL.  Returns (tie_at, worst, scale)."""
+    within atol = rtol = ``logit_tol`` (None: measured, not held).  Returns
+    (tie_at, worst, scale)."""
     if out_k["steps"] != out_r["steps"] or len(kern.calls) != len(plain.calls):
         raise AssertionError(f"{what}: steps differ: {out_k['steps']} vs "
                              f"{out_r['steps']}")
@@ -969,8 +1158,9 @@ def compare_calls(what, kern, plain, out_k, out_r):
             worst = max(worst, diff.max().item())
             scale = max(scale, cr["rows"].abs().max().item())
             # allclose: |a - b| <= atol + rtol * |b|
-            excess = max(excess, (diff - SERVE_LOGIT_TOL * (1 + cr["rows"].abs()))
-                         .max().item())
+            if logit_tol is not None:
+                excess = max(excess, (diff - logit_tol * (1 + cr["rows"].abs()))
+                             .max().item())
     if not excess <= 0:
         raise AssertionError(f"{what}: decode logits differ by {worst} "
                              f"(|logit| <= {scale})")
@@ -1013,6 +1203,7 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
     # backward and no loss
     L = cfg_f32.n_layers
     want = {"flash_decode": L * steps, "flash_decode_multi": 0,
+            "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (steps + R), "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     log(f"[serve] kernels: {steps} steps, launches {launches}, expected {want}")
@@ -1144,6 +1335,7 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
     if any(c["T"] != CH for c in kern.calls if c["mode"] == "decode" and c["T"] > 1):
         raise AssertionError("a chunk forward is not prefill_chunk wide")
     want = {"flash_decode": L * n_dec, "flash_decode_multi": L * n_chunk,
+            "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (n_chunk + n_dec), "rmsnorm_bwd": 0,
             "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
@@ -1209,7 +1401,7 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
         f"({int(out_w['lengths'].sum()) / wall_w:.1f} tok/s), {out_w['steps']} steps; "
         f"greedy tokens equal, "
         f"{ties_d} requests past a tie")
-    return launches, dict(
+    return launches, out_k["tokens"], dict(
         requests=R, steps=out_k["steps"], chunk_forwards=n_chunk, decode_steps=n_dec,
         tokens=n_tok, wall_s=wall_k, tok_per_s=n_tok / wall_k, plain_wall_s=wall_r,
         plain_tok_per_s=int(out_r["lengths"].sum()) / wall_r,
@@ -1221,6 +1413,204 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
     )
 
 
+def pool_diff(a, b):
+    """Two int8 pool trees of one schedule: positions must be equal; returns
+    how many int8 bytes differ and by how much, and the scales' largest
+    relative difference."""
+    out = dict(bytes=0, bytes_differ=0, max_byte_diff=0, scale_rel=0.0)
+    for key, pa in a["groups"].items():
+        pa, pb = pa["attn"], b["groups"][key]["attn"]
+        if not torch.equal(pa["pos"], pb["pos"]):
+            raise AssertionError(f"int8 pools {key}: positions differ")
+        for n in ("k", "v"):
+            d = (pa[n].int() - pb[n].int()).abs()
+            out["bytes"] += d.numel()
+            out["bytes_differ"] += int(torch.count_nonzero(d))
+            out["max_byte_diff"] = max(out["max_byte_diff"], int(d.max()))
+            sa, sb = pa[n + "_scale"], pb[n + "_scale"]
+            rel = ((sa - sb).abs() / sb.abs().clamp(min=1e-30)).max().item()
+            out["scale_rel"] = max(out["scale_rel"], rel)
+    return out
+
+
+def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_dyn):
+    """smollm-135m at full width with int8 paged KV pools (``--kv-dtype
+    int8``): through DynamicEngine on the serve_dynamic workload (16
+    requests over 4 shared system prompts, chunks of 64, prefix cache on)
+    and through the static engine on 8 of its requests.  (a) tokens and
+    steps equal with the kernels and through the plain versions, on both
+    engines (the serve phase's near-tie rule); (b) the dynamic engine's
+    tokens equal with the prefix cache off; (c) a warm second serve shares
+    more; (d) exact launch counts: B8 int8 30 per decode step, B9 int8 30
+    per chunk forward, B1 61 per forward, no f32/bf16 B8/B9 and no B2-B7.
+    Prints tok/s, the pools' MiB against f32 pools, and the top-1 agreement
+    with the f32 dynamic engine on the same requests (``f32_dyn``: its
+    tokens and tok/s in this run), which is printed, not held: at full width
+    with random weights the f32 top-2 gaps are small.  The static engine's
+    int8 tokens need not equal the dynamic engine's: a one-shot prefill
+    attends in f32, a chunk forward over the int8 pages it has just
+    written."""
+    from repro_torch.serving.kv_cache import pool_bytes
+
+    R, S, Pmax, Gmax, P, CH, R_STATIC = 16, 4, 256, 64, 16, 64, 8
+    cfg8 = cfg.replace(kv_dtype="int8")
+    prompts, lens = shared_prefix_workload(cfg.vocab_size, R, Pmax, seed=2)
+    kw = dict(n_slots=S, page_size=P, max_prompt_len=Pmax, max_gen_len=Gmax)
+    ecfg = EngineConfig(prefill_chunk=CH, prefix_cache=True, **kw)
+    Rec = make_recording_model(Model)
+    kern = Rec(cfg8, device="cuda", impl="auto")
+    plain = Rec(cfg8, device="cuda", impl="ref")
+    params = kern.init(seed=0)
+    L = cfg.n_layers
+
+    def expect(n_dec, n_chunk, n_fwd):
+        return {"rmsnorm": (2 * L + 1) * n_fwd, "rmsnorm_bwd": 0, "ce_fwd": 0,
+                "ce_bwd": 0, "flash_decode": 0, "flash_decode_multi": 0,
+                "flash_decode_int8": L * n_dec, "flash_decode_multi_int8": L * n_chunk,
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+    # warm-up outside the counted runs
+    DynamicEngine(kern, EngineConfig(prefill_chunk=CH, prefix_cache=True, n_slots=2,
+                                     page_size=P, max_prompt_len=Pmax, max_gen_len=2)
+                  ).serve(params, prompts[:1], lens[:1])
+    kern.calls.clear()
+    kern.n_decode = 0
+
+    engine = DynamicEngine(kern, ecfg)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_k = engine.serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_chunk = sum(c["mode"] == "decode" and c["T"] > 1 for c in kern.calls)
+    n_dec = sum(c["mode"] == "decode" and c["T"] == 1 for c in kern.calls)
+    n_prefill = sum(c["mode"] == "prefill" for c in kern.calls)
+    want = expect(n_dec, n_chunk, n_chunk + n_dec)
+    log(f"[serve_int8] dynamic, kernels: {out_k['steps']} steps, {n_chunk} chunk "
+        f"forwards, {n_dec} decode steps; launches {launches}, expected {want}")
+    if launches != want or n_prefill:
+        raise AssertionError(f"int8 dynamic launch counts {launches} != {want} "
+                             f"({n_prefill} one-shot prefills)")
+
+    # (a) the same serve through the plain versions.  The two paths' f32 k/v
+    # differ by ulps (B1 sums in another order than its plain version), so
+    # a value within an ulp of a half step rounds to the neighbouring byte
+    # on one side: the pools' positions must be equal, their bytes differ
+    # by at most one step where they differ, and the logits, which such a
+    # byte moves by up to ~1e-1, are measured, not held at SERVE_LOGIT_TOL
+    # (the kernels themselves are held at 2e-5 on the same bytes above)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine_r = DynamicEngine(plain, ecfg)
+    out_r = engine_r.serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    if set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"the plain serve launched kernels: {ops.launch_counts()}")
+    tie_at, worst, scale = compare_calls("serve_int8", kern, plain, out_k, out_r,
+                                         logit_tol=None)
+    pools = pool_diff(engine._pools, engine_r._pools)
+    log(f"[serve_int8] pools with the kernels against through the plain versions: "
+        f"positions equal; {pools['bytes_differ']} of {pools['bytes']} int8 bytes "
+        f"differ ({pools['bytes_differ'] / pools['bytes']:.2e}), by at most "
+        f"{pools['max_byte_diff']} steps; scales max rel diff {pools['scale_rel']:.3g}")
+    n_tok = int(out_k["lengths"].sum())
+    cached = out_k["prefill_cached"]
+    log(f"[serve_int8] (a) dynamic, kernels: {n_tok} tokens in {wall_k:.3f} s "
+        f"({n_tok / wall_k:.1f} tok/s); plain: {int(out_r['lengths'].sum())} tokens in "
+        f"{wall_r:.3f} s ({int(out_r['lengths'].sum()) / wall_r:.1f} tok/s); greedy "
+        f"tokens identical: {tie_at is None}; steps identical ({out_k['steps']}); first 8 "
+        f"decode steps' logits max abs diff {worst:.3g} at |logit| <= {scale:.3g}; "
+        f"{cached}/{out_k['prefill_total']} prompt tokens from shared pages")
+
+    # (b) prefix cache off
+    t0 = time.perf_counter()
+    out_c = DynamicEngine(kern, EngineConfig(prefill_chunk=CH, **kw)).serve(
+        params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    ties_b = greedy_agree("serve_int8 (b)", plain, params, prompts, lens, out_k, out_c)
+    if not (cached > 0 and out_c["prefill_cached"] == 0):
+        raise AssertionError(f"prefill_cached {cached} with the cache, "
+                             f"{out_c['prefill_cached']} without")
+    log(f"[serve_int8] (b) prefix cache off: {int(out_c['lengths'].sum())} tokens in "
+        f"{wall_c:.3f} s ({int(out_c['lengths'].sum()) / wall_c:.1f} tok/s), "
+        f"{out_c['steps']} steps; greedy tokens equal, {ties_b} requests past a tie")
+
+    # (c) a warm second serve on the same engine
+    t0 = time.perf_counter()
+    out_w = engine.serve(params, prompts, lens)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    ties_c = greedy_agree("serve_int8 (c)", plain, params, prompts, lens, out_k, out_w)
+    if not out_w["prefill_cached"] > cached:
+        raise AssertionError(f"warm int8 serve shared {out_w['prefill_cached']} prompt "
+                             f"tokens, the cold one {cached}")
+    engine.blocks.check_invariants()
+    log(f"[serve_int8] (c) warm cache: {out_w['prefill_cached']}/"
+        f"{out_w['prefill_total']} prompt tokens from shared pages (cold {cached}); "
+        f"{int(out_w['lengths'].sum())} tokens in {wall_w:.3f} s, {out_w['steps']} "
+        f"steps; greedy tokens equal, {ties_c} requests past a tie")
+
+    # the static engine on the first R_STATIC requests, kernels and plain
+    sp, sl = prompts[:R_STATIC], lens[:R_STATIC]
+    kern.calls.clear()
+    kern.n_decode = 0
+    plain.calls.clear()
+    plain.n_decode = 0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_s = Engine(kern, EngineConfig(**kw)).serve(params, sp, sl)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    static_launches = ops.launch_counts()
+    steps_s = out_s["steps"]
+    want_s = expect(steps_s, 0, steps_s + R_STATIC)
+    log(f"[serve_int8] static, kernels: {steps_s} steps; launches {static_launches}, "
+        f"expected {want_s}")
+    if static_launches != want_s:
+        raise AssertionError(f"int8 static launch counts {static_launches} != {want_s}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_sr = Engine(plain, EngineConfig(**kw)).serve(params, sp, sl)
+    torch.cuda.synchronize()
+    wall_sr = time.perf_counter() - t0
+    tie_s, worst_s, scale_s = compare_calls("serve_int8 static", kern, plain, out_s,
+                                            out_sr, logit_tol=None)
+    n_tok_s = int(out_s["lengths"].sum())
+    log(f"[serve_int8] (a) static, kernels: {n_tok_s} tokens in {wall_s:.3f} s "
+        f"({n_tok_s / wall_s:.1f} tok/s); plain {wall_sr:.3f} s "
+        f"({int(out_sr['lengths'].sum()) / wall_sr:.1f} tok/s); greedy tokens "
+        f"identical: {tie_s is None}; steps identical ({steps_s}); first 8 decode steps' "
+        f"logits max abs diff {worst_s:.3g} at |logit| <= {scale_s:.3g} (measured, not "
+        f"held: see (a))")
+
+    # what int8 buys and costs against the f32 dynamic engine in this run
+    f32_tokens, f32_tok_per_s = f32_dyn
+    mib8 = pool_bytes(cfg8, engine.spec) / 2**20
+    mib32 = pool_bytes(cfg, engine.spec) / 2**20
+    valid = torch.arange(Gmax)[None] < out_k["lengths"][:, None]
+    agree = float((out_k["tokens"][valid] == f32_tokens[valid]).float().mean())
+    log(f"[serve_int8] pools {mib8:.2f} MiB int8 against {mib32:.2f} MiB f32 "
+        f"({mib32 / mib8:.2f}x); {n_tok / wall_k:.1f} tok/s against the f32 dynamic "
+        f"engine's {f32_tok_per_s:.1f} in this run ({n_tok / wall_k / f32_tok_per_s:.1%});"
+        f" greedy top-1 agreement with it {agree:.1%} (printed, not held)")
+    return launches, static_launches, dict(
+        requests=R, steps=out_k["steps"], chunk_forwards=n_chunk, decode_steps=n_dec,
+        tokens=n_tok, wall_s=wall_k, tok_per_s=n_tok / wall_k, plain_wall_s=wall_r,
+        plain_tok_per_s=int(out_r["lengths"].sum()) / wall_r,
+        logit_max_abs_diff=worst, pools_vs_plain=pools,
+        prefill_cached=cached, prefill_total=out_k["prefill_total"],
+        warm_prefill_cached=out_w["prefill_cached"], warm_wall_s=wall_w,
+        no_cache_wall_s=wall_c, no_cache_steps=out_c["steps"],
+        ties=dict(b=ties_b, c=ties_c), pool_mib_int8=mib8, pool_mib_f32=mib32,
+        f32_tok_per_s=f32_tok_per_s, top1_agreement_with_f32=agree,
+        static=dict(requests=R_STATIC, steps=steps_s, tokens=n_tok_s, wall_s=wall_s,
+                    tok_per_s=n_tok_s / wall_s, plain_wall_s=wall_sr),
+    )
+
+
 # the port's kernels, by the name of their __global__ function(s)
 PORT_KERNELS = {
     "rmsnorm": ("rmsnorm_kernel<",),
@@ -1229,10 +1619,23 @@ PORT_KERNELS = {
     "ce_bwd": ("ce_bwd_kernel<",),
     "flash_decode": ("flash_decode_kernel<",),
     "flash_decode_multi": ("flash_decode_multi_kernel<",),
+    "flash_decode_int8": ("flash_decode_kernel<",),
+    "flash_decode_multi_int8": ("flash_decode_multi_kernel<",),
     "flash_fwd": ("flash_fwd_kernel<",),
     "flash_bwd_dq": ("flash_bwd_dq_kernel<",),
     "flash_bwd_dkv": ("flash_bwd_dkv_kernel<",),
 }
+
+
+# the int8-pool instantiations of B8 and B9 (TKV = int8_t) carry this in
+# their demangled names; the rows named *_int8 are those, the others not
+INT8_KV = "signed char>"
+
+
+def is_kernel(name, key, event_key):
+    """Whether a profiler event named ``event_key`` is a launch of the port
+    kernel ``name`` through its key ``key``."""
+    return key in event_key and (INT8_KV in event_key) == name.endswith("_int8")
 
 
 def port_kernel_times(kernels):
@@ -1240,7 +1643,7 @@ def port_kernel_times(kernels):
     the profiler's CUDA events."""
     out = {}
     for name, keys in PORT_KERNELS.items():
-        parts = {k: [e for e in kernels if k in e.key] for k in keys}
+        parts = {k: [e for e in kernels if is_kernel(name, k, e.key)] for k in keys}
         hits = [e for es in parts.values() for e in es]
         if not hits:
             continue
@@ -1256,14 +1659,41 @@ def port_kernel_times(kernels):
 
 
 
-def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None):
+@contextlib.contextmanager
+def labelled(module, names):
+    """While open, the functions ``names`` of ``module`` run inside a
+    torch.profiler range of the same name (for the kernels they launch)."""
+    from torch.profiler import record_function
+
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def run(*a, **kw):
+            with record_function(n):
+                return fn(*a, **kw)
+        return run
+
+    for n, fn in real.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None, ranges=()):
     """Where a decode-heavy serve spends the card's time: torch.profiler over
     a short serve (4 requests x 16 tokens), device busy share and the
     kernels that take it.  ``dynamic`` = (DynamicEngine, prefill_chunk):
     the dynamic engine with chunked prefill and the prefix cache over 4
-    requests that share a 128-token system prompt.  The profiler's own
-    overhead inflates the wall."""
+    requests that share a 128-token system prompt.  ``ranges``: functions
+    of serving/kv_cache.py whose launches are summed under their own name
+    (the int8 pools' quantized writes).  The profiler's own overhead
+    inflates the wall."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import kv_cache
 
     model = Model(cfg, device="cuda")
     params = model.init(seed=0)
@@ -1280,15 +1710,20 @@ def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None):
     make().serve(params, prompts, lens)          # warm-up
     engine = make()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with labelled(kv_cache, ranges), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = engine.serve(params, prompts, lens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    # a labelled range also shows on the device as an annotation spanning its
+    # first to its last kernel, gaps included: not a kernel, left out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == cuda and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     tag = "" if dynamic is None else " (dynamic engine)"
+    tag += f" ({cfg.kv_dtype} pools)" if cfg.kv_dtype else ""
     log(f"[profile] {out['steps']} steps{tag} in {wall_us / 1e3:.1f} ms under the "
         f"profiler; device busy {busy_us / 1e3:.2f} ms ({busy_us / wall_us:.1%}), "
         f"{sum(e.count for e in kernels)} kernel launches")
@@ -1297,6 +1732,16 @@ def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None):
             f"{e.key[:90]}")
     extra = {} if dynamic is None else dict(prefill_cached=out["prefill_cached"],
                                             prefill_total=out["prefill_total"])
+    for name in ranges:
+        # the kernels launched by the range's ops (its own annotation aside)
+        hits = [e for e in prof.events() if e.name == name and e.device_type != cuda]
+        dev_ms = sum(c.device_time_total for e in hits for c in e.cpu_children) / 1e3
+        calls = len(hits)
+        host_ms = sum(e.cpu_time_total for e in hits) / 1e3
+        log(f"[profile]   {name}: {calls} calls, {dev_ms:.3f} ms on the card "
+            f"({dev_ms / max(busy_us / 1e3, 1e-9):.1%} of busy), {host_ms:.1f} ms "
+            f"on the host under the profiler")
+        extra[name] = dict(calls=calls, device_ms=dev_ms, host_ms=host_ms)
     return dict(steps=out["steps"], wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
                 launches=sum(e.count for e in kernels),
                 port_kernels=port_kernel_times(kernels), **extra)
@@ -1444,7 +1889,8 @@ def train_phase(ops, amp="", control_losses=None):
     n_attn = cfg.n_layers if amp else 0       # B5-B7 only under --amp
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
                 "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0,
-                "flash_decode_multi": 0, "flash_fwd": n_attn,
+                "flash_decode_multi": 0, "flash_decode_int8": 0,
+                "flash_decode_multi_int8": 0, "flash_fwd": n_attn,
                 "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
     want = {k: v * STEPS for k, v in per_step.items()}
     log(f"{tag} kernels: launches {launches}, expected {want}")
@@ -1598,13 +2044,19 @@ def main():
     done("B5-B7 kernel phase")
     rows.append(decode_phase(ops, da, F))
     rows.append(multi_phase(ops, da, F))
-    done("B8-B9 kernel phases")
+    rows.append(int8_decode_phase(ops, F))
+    rows.append(int8_multi_phase(ops, F))
+    done("B8-B9 kernel phases (f32/bf16 and int8 pools)")
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
     serve_launches, serve = serve_phase(cfg, Model, Engine, EngineConfig, ops)
     done("serve")
-    dyn_launches, dyn = dynamic_serve_phase(cfg, Model, Engine, DynamicEngine,
-                                            EngineConfig, ops)
+    dyn_launches, dyn_tokens, dyn = dynamic_serve_phase(cfg, Model, Engine, DynamicEngine,
+                                                        EngineConfig, ops)
     done("serve_dynamic")
+    int8_launches, int8_static_launches, srv8 = serve_int8_phase(
+        cfg, Model, Engine, DynamicEngine, EngineConfig, ops,
+        (dyn_tokens, dyn["tok_per_s"]))
+    done("serve_int8")
     train_launches, train = train_phase(ops)
     done("train")
     amp_launches, amp = train_phase(ops, amp="bf16", control_losses=train["losses"])
@@ -1612,25 +2064,32 @@ def main():
     serve["profile"] = profile_phase(cfg, Model, Engine, EngineConfig)
     dyn["profile"] = profile_phase(cfg, Model, Engine, EngineConfig,
                                    dynamic=(DynamicEngine, 64))
+    srv8["profile"] = profile_phase(cfg.replace(kv_dtype="int8"), Model, Engine,
+                                    EngineConfig, dynamic=(DynamicEngine, 64),
+                                    ranges=("_quantized_write",))
     train["profile"] = train_profile_phase()
     amp["profile"] = train_profile_phase(amp="bf16")
     done("profiles")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_dynamic": dyn_launches[row["name"]],
+                   "serve_int8": int8_launches[row["name"]],
+                   "serve_int8_static": int8_static_launches[row["name"]],
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]]}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
-        if row["name"] == "flash_decode_multi" and sum(by_path.values()) != \
-                by_path["serve_dynamic"]:
-            raise AssertionError(f"flash_decode_multi launched off the dynamic "
-                                 f"serve path: {by_path}")
+        only = {"flash_decode_multi": ("serve_dynamic",),
+                "flash_decode_int8": ("serve_int8", "serve_int8_static"),
+                "flash_decode_multi_int8": ("serve_int8",)}.get(row["name"])
+        if only and sum(by_path.values()) != sum(by_path[p] for p in only):
+            raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         log(json.dumps(row))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"serve_dynamic": dyn}))
+    log(json.dumps({"serve_int8": srv8}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
     log(json.dumps({"kernels": rows}))

@@ -45,7 +45,8 @@ class ModelConfig:
     final_softcap: float = 0.0        # softcap on output logits
     rope_theta: float = 10000.0
 
-    # paged-KV pool storage dtype for serving; "" inherits `dtype`
+    # paged-KV pool storage dtype for serving; "" inherits `dtype`; "int8"
+    # stores quantized pages + per-page-per-head f32 scales (quant/kv.py)
     kv_dtype: str = ""
     # amp: mixed-precision matmul policy for the train step ("" = off,
     # "bf16", "int8"); resolved via quant.policy_of into a QuantPolicy that
@@ -75,7 +76,7 @@ class ModelConfig:
         for f in ("d_model", "n_heads", "n_kv_heads", "d_head", "d_ff"):
             if getattr(self, f"base_{f}") is None:
                 object.__setattr__(self, f"base_{f}", getattr(self, f))
-        if self.kv_dtype not in ("", "bfloat16", "float32"):
+        if self.kv_dtype not in ("", "int8", "bfloat16", "float32"):
             raise ValueError(f"{self.name}: unknown kv_dtype {self.kv_dtype!r}")
         if self.amp not in ("", "bf16", "int8"):
             raise ValueError(f"{self.name}: unknown amp policy {self.amp!r}")

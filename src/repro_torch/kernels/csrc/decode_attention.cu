@@ -2,20 +2,33 @@
 // a chunk of T queries per slot.  Two separate __global__ functions, so the
 // launch counts say which path ran.
 //
+// Pools are float32, bfloat16 or int8 (TKV).  Int8 pools come with (N, K)
+// float32 scales, one per page per kv head (the reference's kv_quant mode,
+// decode_attention.py:79-83 for B8 and :158-160 for B9): the kernel
+// dequantizes as it stages a page into shared memory, float(int8) * scale,
+// in the reference's order, and everything after staging (masks, online
+// softmax, exact zeros for rows at -1) is the float path's.  Each block
+// reads the page's two scales once per page (one broadcast load per warp).
+// The wrapper counts int8 launches apart, so a launch count says which
+// pool type ran.  Later work, not done here: int8 dp4a/MMA for q . k with
+// the scale applied to the logits, which would read 1 byte per element
+// straight from the pool.
+//
 // ---------------------------------------------------------------------------
 // B8: flash_decode_kernel
 // ---------------------------------------------------------------------------
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::
 // _decode_kernel (pallas_call at decode_attention.py:264, reached through
-// flash_decode() :193), float32 and bfloat16 pools:
+// flash_decode() :193), float32, bfloat16 and int8 pools:
 //     out[b, h] = sum_t softmax_t(mask(softcap(scale * q[b, h] . k_t))) v_t
 // over the tokens t stored in slot b's pages, for kv head h / G.
 //
 // What bounds it on the H100: device-memory bandwidth.  Each live K/V byte
 // feeds 2 * G flops (the G query heads of one kv head share it): about 1.5
-// flop/byte at G = 3 in float32, far below the ~295 flop/byte ridge.  The
-// floor is the live K/V bytes (plus positions, q and out) over 3.35 TB/s.
+// flop/byte at G = 3 in float32 (6 over int8 pages), far below the ~295
+// flop/byte ridge.  The floor is the live K/V bytes (plus positions, the
+// int8 scales, q and out) over 3.35 TB/s.
 //
 // What the design does about it:
 //  - One block per (slot, kv head).  The G query heads of a GQA group share
@@ -42,7 +55,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::
 // _decode_multi_kernel (pallas_call at decode_attention.py:345, reached
-// through flash_decode_multi() :273), float32 and bfloat16 pools:
+// through flash_decode_multi() :273), float32, bfloat16 and int8 pools:
 //     out[b, t, h] = sum_s softmax_s(mask_t(softcap(scale * q[b, t, h] . k_s))) v_s
 // with mask_t(s) = pos_s >= 0 && pos_s <= q_pos[b, t] (&& q_pos - pos_s <
 // window): the per-row position mask gives the history and, since the
@@ -85,6 +98,8 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "dtype.cuh"
 
@@ -92,6 +107,25 @@ namespace {
 
 using repro::from_f32;
 using repro::to_f32;
+
+// A pool element as f32: int8 bytes times their page's scale (the
+// reference's k.astype(f32) * ks), other types as they are.
+template <typename TKV>
+__device__ __forceinline__ float staged(TKV v, float) { return to_f32(v); }
+template <>
+__device__ __forceinline__ float staged<int8_t>(int8_t v, float s) { return to_f32(v) * s; }
+
+// The page's k and v scales for kv head kh (1 for pools without scales).
+template <typename TKV>
+__device__ __forceinline__ float2 page_scales(const float* k_scale, const float* v_scale,
+                                              int page, int K, int kh) {
+  if constexpr (std::is_same<TKV, int8_t>::value) {
+    const size_t i = (size_t)page * K + kh;
+    return make_float2(k_scale[i], v_scale[i]);
+  } else {
+    return make_float2(1.f, 1.f);
+  }
+}
 
 constexpr int kThreads = 128;
 constexpr float kNegInf = -2.3819763e38f;  // the reference's masking constant
@@ -113,7 +147,9 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
                     const TKV* __restrict__ v_pages,
                     const int* __restrict__ pos_pages,
                     const int* __restrict__ page_table,
-                    const int* __restrict__ q_pos, TQ* __restrict__ out,
+                    const int* __restrict__ q_pos,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, TQ* __restrict__ out,
                     int H, int K, int d, int N, int P, int C, float scale,
                     int window, float softcap) {
   const int b = blockIdx.x;
@@ -157,14 +193,15 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   for (int j = 0; j < n_live; ++j) {
     int page = page_table[(size_t)b * C + j];
     page = min(max(page, 0), N - 1);
+    const float2 sc2 = page_scales<TKV>(k_scale, v_scale, page, K, kh);
     __syncthreads();  // the previous page's readers are done
 
     for (int i = tid; i < P * d; i += blockDim.x) {
       const int p = i / d;
       const int c = i - p * d;
       const size_t src = (((size_t)page * P + p) * K + kh) * d + c;
-      ks[p * ldk + c] = to_f32(k_pages[src]);
-      vs[i] = to_f32(v_pages[src]);
+      ks[p * ldk + c] = staged(k_pages[src], sc2.x);
+      vs[i] = staged(v_pages[src], sc2.y);
     }
     for (int p = tid; p < P; p += blockDim.x) {
       const int t = pos_pages[(size_t)page * P + p];
@@ -231,14 +268,16 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
 
 template <typename TQ, typename TKV>
 void launch(const void* q, const void* k, const void* v, const void* pos,
-            const void* table, const void* q_pos, void* out, int B, int H,
-            int K, int d, int N, int P, int C, float scale, int window,
-            float softcap, size_t smem, cudaStream_t s) {
+            const void* table, const void* q_pos, const void* k_scale,
+            const void* v_scale, void* out, int B, int H, int K, int d, int N,
+            int P, int C, float scale, int window, float softcap, size_t smem,
+            cudaStream_t s) {
   const dim3 grid(B, K);
   flash_decode_kernel<TQ, TKV><<<grid, kThreads, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(pos),
       static_cast<const int*>(table), static_cast<const int*>(q_pos),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<TQ*>(out), H, K, d, N, P, C, scale, window, softcap);
 }
 
@@ -279,7 +318,10 @@ flash_decode_multi_kernel(const TQ* __restrict__ q,
                           const TKV* __restrict__ v_pages,
                           const int* __restrict__ pos_pages,
                           const int* __restrict__ page_table,
-                          const int* __restrict__ q_pos, TQ* __restrict__ out,
+                          const int* __restrict__ q_pos,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
+                          TQ* __restrict__ out,
                           int T, int H, int K, int d, int N, int P, int C,
                           int tq, float scale, int window, float softcap) {
   const int b = blockIdx.x;
@@ -335,14 +377,15 @@ flash_decode_multi_kernel(const TQ* __restrict__ q,
   for (int j = 0; j < n_live; ++j) {
     int page = page_table[(size_t)b * C + j];
     page = min(max(page, 0), N - 1);
+    const float2 sc2 = page_scales<TKV>(k_scale, v_scale, page, K, kh);
     __syncthreads();  // the previous page's readers are done
 
     for (int i = tid; i < P * d; i += blockDim.x) {
       const int p = i / d;
       const int c = i - p * d;
       const size_t src = (((size_t)page * P + p) * K + kh) * d + c;
-      ks[p * ldk + c] = to_f32(k_pages[src]);
-      vs[i] = to_f32(v_pages[src]);
+      ks[p * ldk + c] = staged(k_pages[src], sc2.x);
+      vs[i] = staged(v_pages[src], sc2.y);
     }
     for (int i = tid; i < nt * P; i += blockDim.x) {
       const int qi = i / P;
@@ -414,15 +457,16 @@ flash_decode_multi_kernel(const TQ* __restrict__ q,
 
 template <typename TQ, typename TKV>
 void launch_multi(const void* q, const void* k, const void* v, const void* pos,
-                  const void* table, const void* q_pos, void* out, int B,
-                  int T, int H, int K, int d, int N, int P, int C, int tq,
-                  float scale, int window, float softcap, size_t smem,
-                  cudaStream_t s) {
+                  const void* table, const void* q_pos, const void* k_scale,
+                  const void* v_scale, void* out, int B, int T, int H, int K,
+                  int d, int N, int P, int C, int tq, float scale, int window,
+                  float softcap, size_t smem, cudaStream_t s) {
   const dim3 grid(B, K, (T + tq - 1) / tq);
   flash_decode_multi_kernel<TQ, TKV><<<grid, kThreads, smem, s>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(pos),
       static_cast<const int*>(table), static_cast<const int*>(q_pos),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<TQ*>(out), T, H, K, d, N, P, C, tq, scale, window, softcap);
 }
 
@@ -434,20 +478,25 @@ extern "C" long long repro_flash_decode_smem_bytes(int G, int d, int P) {
   return static_cast<long long>(smem_words(G, d, P) * 4);
 }
 
-// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16; out has q's dtype.
-// Returns cudaGetLastError() after the launch (0 on success).
+// q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16,
+// 2 = int8 with (N, K) float32 k_scale / v_scale (null for the other pool
+// types); out has q's dtype.  Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* pos, const void* table,
-                                  const void* q_pos, void* out, int B, int H,
+                                  const void* q_pos, const void* k_scale,
+                                  const void* v_scale, void* out, int B, int H,
                                   int K, int d, int N, int P, int C,
                                   float scale, int window, float softcap,
                                   int q_dtype, int kv_dtype, void* stream) {
   const size_t smem = smem_words(H / K, d, P) * 4;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(TQ, TKV)                                                  \
-  launch<TQ, TKV>(q, k, v, pos, table, q_pos, out, B, H, K, d, N, P, C, scale, \
-                  window, softcap, smem, s)
+#define REPRO_LAUNCH(TQ, TKV)                                                 \
+  launch<TQ, TKV>(q, k, v, pos, table, q_pos, k_scale, v_scale, out, B, H, K, \
+                  d, N, P, C, scale, window, softcap, smem, s)
   if (q_dtype == 0 && kv_dtype == 0) {
     REPRO_LAUNCH(float, float);
   } else if (q_dtype == 1 && kv_dtype == 1) {
@@ -456,6 +505,10 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
     REPRO_LAUNCH(float, __nv_bfloat16);
   } else if (q_dtype == 1 && kv_dtype == 0) {
     REPRO_LAUNCH(__nv_bfloat16, float);
+  } else if (q_dtype == 0 && kv_dtype == 2) {
+    REPRO_LAUNCH(float, int8_t);
+  } else if (q_dtype == 1 && kv_dtype == 2) {
+    REPRO_LAUNCH(__nv_bfloat16, int8_t);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -475,11 +528,14 @@ extern "C" long long repro_flash_decode_multi_smem_bytes(int tq, int G, int d,
   return static_cast<long long>(multi_smem_words(tq, G, d, P) * 4);
 }
 
-// q (B, T, H, d), q_pos (B, T), out like q; dtypes as repro_flash_decode.
-// Returns cudaGetLastError() after the launch (0 on success).
+// q (B, T, H, d), q_pos (B, T), out like q; dtypes and scales as
+// repro_flash_decode.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int repro_flash_decode_multi(const void* q, const void* k,
                                         const void* v, const void* pos,
                                         const void* table, const void* q_pos,
+                                        const void* k_scale,
+                                        const void* v_scale,
                                         void* out, int B, int T, int H, int K,
                                         int d, int N, int P, int C,
                                         float scale, int window, float softcap,
@@ -488,10 +544,13 @@ extern "C" int repro_flash_decode_multi(const void* q, const void* k,
   const int tq = multi_rows(B, K, T, H / K, d, P);
   if (tq == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = multi_smem_words(tq, H / K, d, P) * 4;
+  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(TQ, TKV)                                               \
-  launch_multi<TQ, TKV>(q, k, v, pos, table, q_pos, out, B, T, H, K, d, N, \
-                        P, C, tq, scale, window, softcap, smem, s)
+#define REPRO_LAUNCH(TQ, TKV)                                                \
+  launch_multi<TQ, TKV>(q, k, v, pos, table, q_pos, k_scale, v_scale, out, \
+                        B, T, H, K, d, N, P, C, tq, scale, window, softcap, \
+                        smem, s)
   if (q_dtype == 0 && kv_dtype == 0) {
     REPRO_LAUNCH(float, float);
   } else if (q_dtype == 1 && kv_dtype == 1) {
@@ -500,6 +559,10 @@ extern "C" int repro_flash_decode_multi(const void* q, const void* k,
     REPRO_LAUNCH(float, __nv_bfloat16);
   } else if (q_dtype == 1 && kv_dtype == 0) {
     REPRO_LAUNCH(__nv_bfloat16, float);
+  } else if (q_dtype == 0 && kv_dtype == 2) {
+    REPRO_LAUNCH(float, int8_t);
+  } else if (q_dtype == 1 && kv_dtype == 2) {
+    REPRO_LAUNCH(__nv_bfloat16, int8_t);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

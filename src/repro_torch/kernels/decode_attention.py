@@ -4,12 +4,15 @@
 ``repro/kernels/decode_attention.py::_decode_kernel``; ``flash_decode_multi``
 (B9, a chunk of T queries per slot: chunked prefill, prefix-cache
 suffixes, speculative verify) replaces ``_decode_multi_kernel``.  Both take
-float32 and bfloat16 pools; the source and its design note are
+float32, bfloat16 and int8 pools; int8 pools come with ``(N, K)`` float32
+per-page-per-head scales (``k_scale``, ``v_scale``) and are dequantized in
+the kernel as each page is staged, as the TPU kernels do under
+``kv_quant``.  The source and its design note are
 ``csrc/decode_attention.cu``.  Each wrapper launches its kernel on CUDA
-tensors or raises, and counts its own launches; the plain versions are
+tensors or raises, and counts its own launches, the int8-pool launches
+apart (``int8_launches``, ``multi_int8_launches``); the plain versions are
 ``kernels/ref.py::decode_attention_ref`` and ``decode_attention_multi_ref``,
-chosen by ``kernels/ops.py`` for CPU tensors.  The int8-pool path comes
-later.
+chosen by ``kernels/ops.py`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -17,17 +20,28 @@ import torch
 
 from repro_torch.kernels import build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-launches = 0         # B8 launches in this process (reset by callers that count)
-multi_launches = 0   # B9 launches
+launches = 0              # B8 launches over f32/bf16 pools in this process
+multi_launches = 0        # B9 launches over f32/bf16 pools
+int8_launches = 0         # B8 launches over int8 pools
+multi_int8_launches = 0   # B9 launches over int8 pools
 
 
-def _check(what, q, k_pages, v_pages, pos_pages, page_table, q_pos, q_rank):
+def _check(what, q, k_pages, v_pages, pos_pages, page_table, q_pos, q_rank,
+           k_scale=None, v_scale=None):
     """Raise unless the arguments fit the kernel: CUDA, one device,
-    contiguous, shapes, dtypes, int32 indexing.  Returns (B, H, d)."""
+    contiguous, shapes, dtypes, int32 indexing, and (N, K) float32 scales
+    exactly when the pools are int8.  Returns (B, H, d)."""
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, pos_pages=pos_pages,
                    page_table=page_table, q_pos=q_pos)
+    int8 = k_pages.dtype == torch.int8
+    if int8 != (k_scale is not None) or int8 != (v_scale is not None):
+        raise ValueError(f"{what} kernel: k_scale and v_scale go with int8 pools "
+                         f"and only with them (pools {k_pages.dtype})")
+    if int8:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{what} kernel needs CUDA tensors; "
@@ -55,16 +69,27 @@ def _check(what, q, k_pages, v_pages, pos_pages, page_table, q_pos, q_rank):
             f"q_pos {tuple(q_pos.shape)} do not fit q {tuple(q.shape)}, "
             f"N={N}, P={P}"
         )
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype not in _DTYPE_CODES \
+    if q.dtype not in _Q_CODES or k_pages.dtype not in _KV_CODES \
             or v_pages.dtype != k_pages.dtype:
         raise ValueError(f"{what} kernel takes float32/bfloat16 q and "
-                         f"pools, got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+                         f"float32/bfloat16/int8 pools, got {q.dtype}, "
+                         f"{k_pages.dtype}, {v_pages.dtype}")
+    if int8:
+        for name in ("k_scale", "v_scale"):
+            t = tensors[name]
+            if tuple(t.shape) != (N, K) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be ({N}, {K}) float32, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
     for name in ("pos_pages", "page_table", "q_pos"):
         if tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
     if k_pages.numel() >= 2**31 or q.numel() >= 2**31:
         raise ValueError(f"{what} kernel: sizes exceed int32 indexing")
     return B, H, d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def flash_decode(
@@ -78,15 +103,18 @@ def flash_decode(
     scale: float = 1.0,
     window: int = 0,
     softcap: float = 0.0,
+    k_scale: torch.Tensor | None = None,   # (N, K) f32 — int8 pools only
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Paged single-query flash attention; returns (B, H, d) in q's dtype.
 
     Query head h reads kv head h // G (kv-major GQA layout, G = H // K).
     Page ids are clamped to [0, N - 1]; rows with q_pos < 0 are zeros.
+    Int8 pools are read as ``int8 * scale[page, kv head]`` in f32.
     """
-    global launches
+    global launches, int8_launches
     B, H, d = _check("flash_decode", q, k_pages, v_pages, pos_pages,
-                     page_table, q_pos, q_rank=3)
+                     page_table, q_pos, 3, k_scale, v_scale)
     N, P, K, _ = k_pages.shape
     C = page_table.shape[-1]
     lib = build.library()
@@ -100,12 +128,16 @@ def flash_decode(
     err = lib.repro_flash_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         pos_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale),
         out.data_ptr(), B, H, K, d, N, P, C, float(scale), int(window),
-        float(softcap), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+        float(softcap), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_decode kernel")
-    launches += 1
+    if k_scale is None:
+        launches += 1
+    else:
+        int8_launches += 1
     return out
 
 
@@ -120,17 +152,20 @@ def flash_decode_multi(
     scale: float = 1.0,
     window: int = 0,
     softcap: float = 0.0,
+    k_scale: torch.Tensor | None = None,   # (N, K) f32 — int8 pools only
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Paged multi-query flash attention; returns (B, T, H, d) in q's dtype.
 
     Row (b, t) sees the entries of slot b's pages with 0 <= pos <=
     q_pos[b, t] (and inside the window); the chunk must already be written
     into the pages.  Query head h reads kv head h // G.  Page ids are
-    clamped to [0, N - 1]; rows with q_pos < 0 are zeros.
+    clamped to [0, N - 1]; rows with q_pos < 0 are zeros.  Int8 pools as in
+    :func:`flash_decode`.
     """
-    global multi_launches
+    global multi_launches, multi_int8_launches
     B, H, d = _check("flash_decode_multi", q, k_pages, v_pages, pos_pages,
-                     page_table, q_pos, q_rank=4)
+                     page_table, q_pos, 4, k_scale, v_scale)
     T = q.shape[1]
     N, P, K, _ = k_pages.shape
     C = page_table.shape[-1]
@@ -147,10 +182,14 @@ def flash_decode_multi(
     err = lib.repro_flash_decode_multi(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         pos_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
+        _ptr(k_scale), _ptr(v_scale),
         out.data_ptr(), B, T, H, K, d, N, P, C, float(scale), int(window),
-        float(softcap), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+        float(softcap), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_decode_multi kernel")
-    multi_launches += 1
+    if k_scale is None:
+        multi_launches += 1
+    else:
+        multi_int8_launches += 1
     return out

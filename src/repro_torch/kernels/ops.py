@@ -45,19 +45,36 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def _scales_fit(k_pages, k_scale, v_scale):
+    """Raise unless int8 pools come with both scales and other pools with
+    none."""
+    given = (k_scale is not None, v_scale is not None)
+    if k_pages.dtype == torch.int8:
+        if given != (True, True):
+            raise ValueError("int8 pools need k_scale and v_scale, (N, K) float32")
+    elif any(given):
+        raise ValueError(f"k_scale/v_scale go with int8 pools, got {k_pages.dtype} pools")
+
+
 def decode_attention(
     q, k_pages, v_pages, pos_pages, page_table, q_pos, *, scale,
-    window: int = 0, softcap: float = 0.0, impl: str = "auto",
+    window: int = 0, softcap: float = 0.0, k_scale=None, v_scale=None,
+    impl: str = "auto",
 ):
     """Flash-decode: single-query attention over a paged KV cache.
 
     ``q`` (B, H, d), pools (N, P, K, d) + (N, P) stored positions,
     ``page_table`` (B, C), ``q_pos`` (B,) (-1 = inactive slot -> zeros).
+    With ``k_scale``/``v_scale`` ((N, K) f32) the pools hold int8 bytes,
+    dequantized by their per-page-per-head scales (in the kernel as it
+    stages a page; after the gather in the plain version).
     """
+    _scales_fit(k_pages, k_scale, v_scale)
     if resolve_impl(impl, q) == "ref":
         return ref.decode_attention_ref(
             q, k_pages, v_pages, pos_pages, page_table, q_pos,
             scale=scale, window=window, softcap=softcap,
+            k_scale=k_scale, v_scale=v_scale,
         )
     # fold the scale into q, as the reference's ops.decode_attention does,
     # so the kernel's own scale stays 1 and the numerics match
@@ -65,12 +82,14 @@ def decode_attention(
     return da.flash_decode(
         qs, k_pages, v_pages, pos_pages, page_table, q_pos,
         scale=1.0, window=window, softcap=softcap,
+        k_scale=k_scale, v_scale=v_scale,
     )
 
 
 def decode_attention_multi(
     q, k_pages, v_pages, pos_pages, page_table, q_pos, *, scale,
-    window: int = 0, softcap: float = 0.0, impl: str = "auto",
+    window: int = 0, softcap: float = 0.0, k_scale=None, v_scale=None,
+    impl: str = "auto",
 ):
     """Multi-query flash-decode: a T-token chunk per slot attends over the
     paged KV cache (chunked prefill, prefix-cache suffixes, speculative
@@ -80,12 +99,15 @@ def decode_attention_multi(
     ``page_table`` (B, C), ``q_pos`` (B, T) per-query positions (-1 rows ->
     zeros).  The chunk must already be written into the pages; per-row
     position masking then gives history visibility and causality within
-    the chunk.
+    the chunk.  ``k_scale``/``v_scale`` select the int8 pools, as in
+    :func:`decode_attention`.
     """
+    _scales_fit(k_pages, k_scale, v_scale)
     if resolve_impl(impl, q) == "ref":
         return ref.decode_attention_multi_ref(
             q, k_pages, v_pages, pos_pages, page_table, q_pos,
             scale=scale, window=window, softcap=softcap,
+            k_scale=k_scale, v_scale=v_scale,
         )
     # the scale folded into q, as the reference's ops.decode_attention_multi
     # does
@@ -93,16 +115,20 @@ def decode_attention_multi(
     return da.flash_decode_multi(
         qs, k_pages, v_pages, pos_pages, page_table, q_pos,
         scale=1.0, window=window, softcap=softcap,
+        k_scale=k_scale, v_scale=v_scale,
     )
 
 
 def launch_counts() -> dict:
     """Kernel launches counted by the wrappers in this process (B2 counts
-    one per backward call)."""
+    one per backward call; B8 and B9 count their int8-pool launches apart
+    from their f32/bf16 ones)."""
     return {
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
         "flash_decode": da.launches, "flash_decode_multi": da.multi_launches,
+        "flash_decode_int8": da.int8_launches,
+        "flash_decode_multi_int8": da.multi_int8_launches,
         "flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.dq_launches,
         "flash_bwd_dkv": fa.dkv_launches,
     }
@@ -112,6 +138,7 @@ def reset_launch_counts() -> None:
     rn.launches = rn.bwd_launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
     da.launches = da.multi_launches = 0
+    da.int8_launches = da.multi_int8_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 

@@ -191,6 +191,18 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
     return dq.transpose(1, 2), dk, dv
 
 
+def _gather_kv(k_pages, v_pages, tab, k_scale, v_scale):
+    """Gather pages to f32 (B, C, P, K, d) bands, dequantizing int8 pools
+    with their per-page-per-head scales when given (int8 · scale in f32, the
+    kernels' arithmetic as they stage a page)."""
+    k = k_pages[tab].float()
+    v = v_pages[tab].float()
+    if k_scale is not None:
+        k = k * k_scale[tab][:, :, None, :, None]
+        v = v * v_scale[tab][:, :, None, :, None]
+    return k, v
+
+
 def decode_attention_ref(
     q: torch.Tensor,            # (B, H, d) — one query per decode slot
     k_pages: torch.Tensor,      # (N, P, K, d) — paged KV pool
@@ -202,21 +214,25 @@ def decode_attention_ref(
     scale,
     window: int = 0,
     softcap: float = 0.0,
+    k_scale=None,               # (N, K) f32 per-page-per-head scales (int8 pools)
+    v_scale=None,
 ) -> torch.Tensor:
     """Single-query attention over a paged KV cache (the flash-decode oracle).
 
     Gathers each slot's pages into a contiguous (C*P) band and masks by the
     *stored* token positions: an entry is visible iff pos >= 0, pos <= q_pos
     and (windowed) q_pos - pos < window.  Fully-masked rows (inactive slots,
-    q_pos = -1) return exact zeros.
+    q_pos = -1) return exact zeros.  With ``k_scale``/``v_scale`` the pools
+    hold int8 bytes, dequantized to f32 after the gather.
     """
     B, H, d = q.shape
     N, P, K, _ = k_pages.shape
     C = page_table.shape[1]
     G = H // K
     tab = page_table.long().clamp(0, N - 1)
-    k = k_pages[tab].float().reshape(B, C * P, K, d)
-    v = v_pages[tab].float().reshape(B, C * P, K, d)
+    k, v = _gather_kv(k_pages, v_pages, tab, k_scale, v_scale)
+    k = k.reshape(B, C * P, K, d)
+    v = v.reshape(B, C * P, K, d)
     pos = pos_pages[tab].reshape(B, C * P)
     qp = q_pos[:, None]
     mask = (pos >= 0) & (pos <= qp)
@@ -247,9 +263,11 @@ def decode_attention_multi_ref(
     scale,
     window: int = 0,
     softcap: float = 0.0,
+    k_scale=None,               # (N, K) f32 per-page-per-head scales (int8 pools)
+    v_scale=None,
 ) -> torch.Tensor:
     """Multi-query attention over a paged KV cache (the chunked-prefill and
-    speculative-verify oracle).
+    speculative-verify oracle); int8 pools as in :func:`decode_attention_ref`.
 
     The visibility rule of :func:`decode_attention_ref`, per query row: an
     entry is visible to row t iff pos >= 0, pos <= q_pos[:, t] and
@@ -262,8 +280,9 @@ def decode_attention_multi_ref(
     C = page_table.shape[1]
     G = H // K
     tab = page_table.long().clamp(0, N - 1)
-    k = k_pages[tab].float().reshape(B, C * P, K, d)
-    v = v_pages[tab].float().reshape(B, C * P, K, d)
+    k, v = _gather_kv(k_pages, v_pages, tab, k_scale, v_scale)
+    k = k.reshape(B, C * P, K, d)
+    v = v.reshape(B, C * P, K, d)
     pos = pos_pages[tab].reshape(B, C * P)[:, None, :]      # (B, 1, CP)
     qp = q_pos[:, :, None]                                  # (B, T, 1)
     mask = (pos >= 0) & (pos <= qp)

@@ -4,15 +4,18 @@ The port's counterpart of ``python -m repro.launch.serve``, with the same
 flags and printout.  By default the dynamic engine (host-side page
 allocator, radix-tree prefix caching with ``--prefix-cache``, chunked
 prefill with ``--prefill-chunk``, pool size with ``--pool-pages``);
-``--static`` selects the static engine (fixed page tables).  Flags of parts
-not ported yet (speculation, int8 KV, the mesh, observability, the
-dense-loop driver) exit with an error saying so.
+``--static`` selects the static engine (fixed page tables).  ``--kv-dtype
+int8`` stores the paged KV pools as int8 with per-page-per-head scales, on
+either engine.  Flags of parts not ported yet (speculation, the mesh,
+observability, the dense-loop driver) exit with an error saying so.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
         --requests 8 --prompt-len 128 --gen-len 32 --slots 4
     python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --prefix-cache --prefill-chunk 16
+    python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --kv-dtype int8
 """
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ def main(argv=None):
                     help="global page-pool size override (dynamic engine)")
     ap.add_argument("--kv-dtype", default="",
                     choices=["", "int8", "bfloat16", "float32"],
-                    help="paged KV pool dtype (int8: not ported yet)")
+                    help="paged KV pool dtype; int8 stores per-page-per-head "
+                         "scaled pages, dequantized in the decode kernels "
+                         "(~2x the pages per byte of bfloat16)")
     ap.add_argument("--adaptive-draft", action="store_true",
                     help="adaptive draft length (not ported yet)")
     ap.add_argument("--dense", action="store_true",
@@ -77,7 +82,6 @@ def main(argv=None):
 
     not_ported = {
         "--draft-width": args.draft_width > 0,
-        "--kv-dtype int8": args.kv_dtype == "int8",
         "--adaptive-draft": args.adaptive_draft,
         "--dense": args.dense,
         "--mesh": args.mesh is not None,

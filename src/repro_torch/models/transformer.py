@@ -212,11 +212,14 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
             cache, k, v, ctx.positions, table, paged.active, paged.page_size,
             slots=ctx.writes,
         )
+        # int8 pools carry their per-page-per-head scales (None otherwise)
+        kv_scales = dict(k_scale=new_cache.get("k_scale"),
+                         v_scale=new_cache.get("v_scale"))
         if S == 1:
             out = ops.decode_attention(
                 q[:, 0], new_cache["k"], new_cache["v"], new_cache["pos"],
                 table, ctx.positions[:, 0], scale=scale,
-                softcap=cfg.attn_softcap, impl=ctx.impl,
+                softcap=cfg.attn_softcap, impl=ctx.impl, **kv_scales,
             )[:, None]
         else:
             # a chunk (chunked prefill, a prefix-cache suffix): written into
@@ -225,7 +228,7 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
             out = ops.decode_attention_multi(
                 q, new_cache["k"], new_cache["v"], new_cache["pos"],
                 table, ctx.positions, scale=scale,
-                softcap=cfg.attn_softcap, impl=ctx.impl,
+                softcap=cfg.attn_softcap, impl=ctx.impl, **kv_scales,
             )
     else:
         raise ValueError(f"unknown mode {ctx.mode!r}")
@@ -274,8 +277,9 @@ def run_stack(
     {"groups": {key: stacked cache}}.
 
     Prefill returns the emitted per-layer caches stacked over the layer
-    axis.  Decode writes the paged pools in place — each layer's pool is a
-    view into the stacked pool — and returns ``caches`` itself.
+    axis.  Decode writes the paged pools in place — each layer's pool, int8
+    scales included, is a view into the stacked pool — and returns
+    ``caches`` itself.
     """
     keys = [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
     if cfg.rope_theta > 0:

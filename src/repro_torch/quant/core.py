@@ -1,5 +1,10 @@
-"""Policy-routed matmuls: the port's copy of ``repro.quant.core`` (bf16 and
-f32; the int8 mode comes with its own slice).
+"""Quantize/dequantize primitives and policy-routed matmuls: the port's copy
+of ``repro.quant.core`` (the matmuls in bf16 and f32; their int8 mode comes
+with its own slice).
+
+  - :func:`quantize_int8` / :func:`dequantize_int8` — symmetric int8 with
+    absmax/127 scales along an axis (the int8 KV pools' scales are managed
+    in :mod:`repro_torch.quant.kv`).
 
   - :func:`kernel_dot` — ``a @ b`` with f32 output under the policy, the
     arithmetic each tile matmul of the flash-attention kernels performs.
@@ -17,6 +22,26 @@ accumulation away; it is never used here.
 from __future__ import annotations
 
 import torch
+
+INT8_MAX = 127.0
+_EPS = 1e-12
+
+
+def quantize_int8(x: torch.Tensor, axis=-1):
+    """Symmetric int8 quantization with absmax/127 scales along ``axis``.
+
+    Returns ``(q, scale)`` with ``q`` int8 and ``scale`` f32 keeping the
+    reduced axis as size 1, so ``q * scale`` broadcasts back.  Rounds half
+    to even (``torch.round``, as ``jnp.round``)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=axis, keepdim=True) / INT8_MAX
+    q = torch.round(xf / scale.clamp(min=_EPS))
+    return q.clamp(-INT8_MAX, INT8_MAX).to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8`: ``q * scale`` in f32."""
+    return q.float() * scale
 
 
 def kernel_dot(a: torch.Tensor, b: torch.Tensor, policy=None) -> torch.Tensor:

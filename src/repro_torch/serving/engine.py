@@ -25,6 +25,11 @@ interleaved with decode steps.  A chunk is a decode-mode forward of the
 chunk's tokens at their absolute positions: written into the pages first,
 then attended through the multi-query paged kernel.
 
+Both engines pass the pool dicts whole, so int8 pools (``cfg.kv_dtype ==
+"int8"``) need nothing here: ``serving/kv_cache.py`` keeps each page's
+scales with its bytes through admission, invalidation, prefix sharing and
+eviction, and the decode kernels read them.
+
 Per iteration the host reads back only the sampled tokens (one small copy):
 it owns the slot bookkeeping, so it needs them for EOS and for the output.
 Sampling keys are a pure function of (seed, request, position) (see

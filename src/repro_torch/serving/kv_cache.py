@@ -1,8 +1,8 @@
 """Slot-mapped paged KV cache: fixed block pool + per-slot page tables.
 
 The port's counterpart of ``repro.serving.kv_cache`` for global-attention
-layers with float32 / bfloat16 pools (the int8 pools and the windowed ring
-come later).  Each attention layer's cache is a *pool* of fixed-size pages
+layers with float32, bfloat16 or int8 pools (the windowed ring comes
+later).  Each attention layer's cache is a *pool* of fixed-size pages
 shared by every decode slot::
 
     {"k": (N, P, K, hd), "v": (N, P, K, hd), "pos": (N, P) int32}
@@ -10,6 +10,17 @@ shared by every decode slot::
 (``N`` pages of ``P`` tokens; ``pos`` is each entry's token position, -1 =
 empty).  Layers of the repeated group are stacked over ``n_groups`` on a
 leading axis, mirroring the reference's layout.
+
+With ``cfg.kv_dtype == "int8"`` the k/v leaves hold int8 bytes and the pool
+gains two f32 scale leaves ``{"k_scale", "v_scale"}: (N, K)`` — one
+absmax/127 scale per page per kv head (see ``repro_torch.quant.kv``).  A
+page's scale only grows while the page is live: every write scatter-maxes
+the new tokens' scales into the page, requantizes the page's existing bytes
+by old/new (round(int · old/new) — the same bytes when the scale did not
+grow), then writes the new tokens at the final scale.  Invalidation zeroes
+the scales with ``pos``.  Scales are indexed by the same physical page id
+as the payload, so prefix sharing, eviction and re-admission move both or
+neither.  The bytes and scales equal the reference's for the same inputs.
 
 Indirection is by *page table*: slot ``s``'s logical page ``j`` lives at
 physical page ``table[s, j]``.  The static engine builds its tables once
@@ -32,10 +43,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.quant.core import _EPS, INT8_MAX
+
 # block kinds the paged engine serves in the port
 SERVABLE_KINDS = ("attn",)
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
 
 
 def kv_dtype_of(cfg) -> str:
@@ -117,16 +131,21 @@ def init_pools(cfg, spec: PagedSpec, device,
     apart from ``n_slots * gp_cols`` so prefix-cached pages can outlive
     their slot."""
     K, hd = cfg.n_kv_heads, cfg.d_head
-    dtype = _DTYPES[kv_dtype_of(cfg)]
+    kv_name = kv_dtype_of(cfg)
+    dtype = _DTYPES[kv_name]
     N = spec.n_global_pages if n_global is None else n_global
     L, P = cfg.n_groups, spec.page_size
 
     def pool():
-        return {
+        p = {
             "k": torch.zeros((L, N, P, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((L, N, P, K, hd), dtype=dtype, device=device),
             "pos": torch.full((L, N, P), -1, dtype=torch.int32, device=device),
         }
+        if kv_name == "int8":
+            p["k_scale"] = torch.zeros((L, N, K), dtype=torch.float32, device=device)
+            p["v_scale"] = torch.zeros((L, N, K), dtype=torch.float32, device=device)
+        return p
 
     return {
         "groups": {f"{i}_{kind}": {"attn": pool()}
@@ -135,9 +154,13 @@ def init_pools(cfg, spec: PagedSpec, device,
 
 
 def pool_bytes(cfg, spec: PagedSpec) -> int:
-    """Total paged-pool footprint (all layers), for logging."""
-    itemsize = torch.tensor([], dtype=_DTYPES[kv_dtype_of(cfg)]).element_size()
+    """Total paged-pool footprint (all layers), for logging: k/v payload,
+    positions and, for int8 pools, the per-page-per-head f32 scales."""
+    kv_name = kv_dtype_of(cfg)
+    itemsize = torch.tensor([], dtype=_DTYPES[kv_name]).element_size()
     per_page = spec.page_size * (cfg.n_kv_heads * cfg.d_head * 2 * itemsize + 4)
+    if kv_name == "int8":
+        per_page += 2 * cfg.n_kv_heads * 4     # k and v scales
     return cfg.n_layers * spec.n_global_pages * per_page
 
 
@@ -172,14 +195,48 @@ def paged_cache_write(
     slots=None,                       # write_slots(...) of these arguments
 ) -> Dict[str, torch.Tensor]:
     """Write a T-token chunk per slot into its pages, in place; returns the
-    pools.  Dropped writes as in :func:`write_slots`."""
+    pools.  Dropped writes as in :func:`write_slots`; int8 pools through
+    :func:`_quantized_write`."""
     if slots is None:
         slots = write_slots(positions, table, active, page_size)
     b_idx, t_idx, pg, off = slots
     cache["pos"][pg, off] = positions[b_idx, t_idx].to(torch.int32)
+    if "k_scale" in cache:
+        _quantized_write(cache["k"], cache["k_scale"], k_new[b_idx, t_idx], pg, off)
+        _quantized_write(cache["v"], cache["v_scale"], v_new[b_idx, t_idx], pg, off)
+        return cache
     cache["k"][pg, off] = k_new[b_idx, t_idx].to(cache["k"].dtype)
     cache["v"][pg, off] = v_new[b_idx, t_idx].to(cache["v"].dtype)
     return cache
+
+
+def _quantized_write(store, scale, x_new, pg, off):
+    """Write the kept tokens ``x_new`` (n, K, hd) at cells (pg, off) of an
+    int8 pool ``store`` (N, P, K, hd) with scales ``scale`` (N, K), in place,
+    in the reference's three steps:
+
+      1. scatter-max the tokens' absmax/127 into their pages' scales
+         (duplicate pages combine through max);
+      2. requantize each touched page's bytes by old/new scale — ratio 1.0
+         where the new scale is 0, so the bytes stay the same when the scale
+         did not grow, and ratio 0 where a freshly invalidated page (scale 0)
+         gets its first write, which wipes its stale bytes (duplicate pages
+         write the same values);
+      3. write the tokens quantized at the final scale.
+
+    The ratio needs the scales from before step 1, which overwrites them in
+    place: they are read first."""
+    xf = x_new.float()
+    s_tok = xf.abs().amax(dim=-1) / INT8_MAX             # (n, K)
+    old = scale[pg]                                      # (n, K), a copy
+    scale.index_reduce_(0, pg, s_tok, "amax")
+    new = scale[pg]
+    sn = new.clamp(min=_EPS)
+    ratio = torch.where(new > 0, old / sn, 1.0)
+    requant = torch.round(store[pg].float() * ratio[:, None, :, None])
+    store[pg] = requant.clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
+    q = torch.round(xf / sn[..., None])
+    store[pg, off] = q.clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +257,8 @@ def admit_slot(
 
     The slot's pages are first invalidated (pos = -1) so a previous
     occupant's entries can never alias the new request's positions; stale
-    k/v bytes may remain but are masked by pos.
+    k/v bytes may remain but are masked by pos.  Int8 pools through
+    :func:`_admit_quantized`.
     """
     device = gtab_row.device
     rows = gtab_row.long()
@@ -216,9 +274,27 @@ def admit_slot(
         src = pcache["groups"][key]["attn"]
         pool["pos"][:, rows] = -1
         pool["pos"][:, page, off] = t.to(torch.int32)
+        if "k_scale" in pool:
+            for name in ("k", "v"):
+                _admit_quantized(pool[name], pool[name + "_scale"],
+                                 src[name][:, 0, :n], rows, page, off)
+            continue
         pool["k"][:, page, off] = src["k"][:, 0, :n].to(pool["k"].dtype)
         pool["v"][:, page, off] = src["v"][:, 0, :n].to(pool["v"].dtype)
     return pools
+
+
+def _admit_quantized(store, scale, src, rows, page, off):
+    """Admission write into a stacked int8 pool (L, N, P, K, hd) with scales
+    (L, N, K), in place: the scales of all the slot's ``rows`` start from
+    zero, the prompt's ``src`` (L, n, K, hd) scatter-maxes into them, then
+    every token is quantized at its page's final scale (nothing to
+    requantize: the pages start empty)."""
+    scale[:, rows] = 0.0
+    sf = src.float()
+    scale.index_reduce_(1, page, sf.abs().amax(dim=-1) / INT8_MAX, "amax")
+    sn = scale[:, page].clamp(min=_EPS)[..., None]       # (L, n, K, 1)
+    store[:, page, off] = torch.round(sf / sn).clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
 
 
 # ---------------------------------------------------------------------------
@@ -227,16 +303,22 @@ def admit_slot(
 # ---------------------------------------------------------------------------
 
 def invalidate_pages(pools: Dict[str, Any], cfg, g_pages) -> Dict[str, Any]:
-    """Set pos = -1 on the given physical pages of every layer, in place;
-    returns the pools.  Ids at or past the pool size are skipped (the
-    reference pads its fixed-shape id arrays with the pool size and lets
-    JAX drop the out-of-bounds scatter; PyTorch would raise, so they are
-    masked out here).  Stale k/v bytes remain, masked by pos everywhere."""
+    """Set pos = -1 on the given physical pages of every layer, in place,
+    and zero their int8 scales; returns the pools.  Ids at or past the pool
+    size are skipped (the reference pads its fixed-shape id arrays with the
+    pool size and lets JAX drop the out-of-bounds scatter; PyTorch would
+    raise, so they are masked out here).  Stale k/v bytes remain, masked by
+    pos everywhere; an int8 page's stale bytes are wiped by its next
+    write's requantization (old scale 0, ratio 0)."""
     for i, kind in enumerate(cfg.pattern):
-        pos = pools["groups"][f"{i}_{kind}"]["attn"]["pos"]
+        pool = pools["groups"][f"{i}_{kind}"]["attn"]
+        pos = pool["pos"]
         ids = torch.as_tensor(g_pages, dtype=torch.long).reshape(-1)
         ids = ids[(ids >= 0) & (ids < pos.shape[1])].to(pos.device)
         pos[:, ids] = -1
+        if "k_scale" in pool:
+            pool["k_scale"][:, ids] = 0.0
+            pool["v_scale"][:, ids] = 0.0
     return pools
 
 
@@ -247,12 +329,17 @@ def invalidate_pages(pools: Dict[str, Any], cfg, g_pages) -> Dict[str, Any]:
 def gather_slot(pool: Dict[str, torch.Tensor], table_row) -> Dict[str, torch.Tensor]:
     """Contiguous {"k": (C*P, K, hd), "v": ..., "pos": (C*P,)} view of one
     slot's pages from an *unstacked* pool leaf (page ids clamped to the
-    pool) — the dense-cache-shaped view the tests compare."""
+    pool) — the dense-cache-shaped view the tests compare; int8 pages are
+    dequantized to f32 by their scales."""
     N = pool["pos"].shape[-2]
     tab = torch.as_tensor(table_row).long().clamp(0, N - 1).to(pool["pos"].device)
     K, hd = pool["k"].shape[-2:]
+    k, v = pool["k"][tab], pool["v"][tab]
+    if "k_scale" in pool:
+        k = k.float() * pool["k_scale"][tab][:, None, :, None]
+        v = v.float() * pool["v_scale"][tab][:, None, :, None]
     return {
-        "k": pool["k"][tab].reshape(-1, K, hd),
-        "v": pool["v"][tab].reshape(-1, K, hd),
+        "k": k.reshape(-1, K, hd),
+        "v": v.reshape(-1, K, hd),
         "pos": pool["pos"][tab].reshape(-1),
     }

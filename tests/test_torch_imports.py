@@ -38,7 +38,7 @@ def test_port_imports_without_jax_or_reference():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
-    assert len(mods) >= 39
+    assert len(mods) >= 40
     training = {
         "repro_torch.core.hpspace", "repro_torch.core.transfer",
         "repro_torch.kernels.cross_entropy", "repro_torch.optim.optimizer",
@@ -48,7 +48,7 @@ def test_port_imports_without_jax_or_reference():
     }
     assert training <= mods, training - mods
     amp = {"repro_torch.quant", "repro_torch.quant.policy", "repro_torch.quant.core",
-           "repro_torch.kernels.flash_attention"}
+           "repro_torch.quant.kv", "repro_torch.kernels.flash_attention"}
     assert amp <= mods, amp - mods
     serving = {"repro_torch.serving.allocator", "repro_torch.serving.engine",
                "repro_torch.serving.kv_cache", "repro_torch.kernels.decode_attention"}

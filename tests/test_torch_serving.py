@@ -246,7 +246,8 @@ def test_engine_greedy_matches_reference_engine(served, with_eos):
 
 def test_serve_cli_on_cpu_and_unported_flags(capsys):
     """The dynamic engine by default (with its prefix cache and chunked
-    prefill), the static one with --static: the same greedy tokens."""
+    prefill), the static one with --static: the same greedy tokens; int8
+    pools on both; flags of parts not ported yet are refused."""
     base = ["--smoke", "--device", "cpu", "--requests", "3", "--prompt-len",
             "8", "--gen-len", "4", "--slots", "2", "--page-size", "4",
             "--mixed-lens"]
@@ -258,7 +259,12 @@ def test_serve_cli_on_cpu_and_unported_flags(capsys):
     static = tserve.main([*base, "--static"])
     assert "dynamic pool" not in capsys.readouterr().out
     assert torch.equal(cached, toks) and torch.equal(static, toks)
-    for flag in (["--dense"], ["--kv-dtype", "int8"], ["--draft-width", "0.25"],
+    # int8 pools on both engines: the pool line names them
+    for extra in (["--prefix-cache", "--prefill-chunk", "8"], ["--static"]):
+        int8 = tserve.main([*base, "--kv-dtype", "int8", *extra])
+        assert "paged KV pools (int8)" in capsys.readouterr().out
+        assert tuple(int8.shape) == (3, 4)
+    for flag in (["--dense"], ["--draft-width", "0.25"],
                  ["--mesh", "1,2"], ["--obs"], ["--static", "--prefix-cache"]):
         with pytest.raises(SystemExit):
             tserve.main(["--smoke", "--device", "cpu", *flag])
