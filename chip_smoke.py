@@ -17,17 +17,21 @@ raises on a failed check:
   ragged V, with masked rows and a cotangent of order 1 on the others (loss
   and lse at atol 2e-5, dlogits at atol 2e-4 / rtol 1e-3, bf16 2e-2,
   masked rows exactly zero); B5/B6/B7 flash attention forward, dq and dk/dv
-  in the f32 and bf16 operand modes at the train shape (8, 512, 16 heads
-  of 64, causal), smollm's 9/3 heads (GQA), a window of 48, softcap 20
-  (logits up to ~20), ragged S (200, 190), bf16 storage and d_head 128,
+  in the f32, bf16 and int8 operand modes at the train shape (8, 512, 16
+  heads of 64, causal), smollm's 9/3 heads (GQA), a window of 48, softcap
+  20 (logits up to ~20), ragged S (200, 190), bf16 storage and d_head 128,
   with a cotangent of order 1: each kernel against its plain version at
   its own contract (kernels/ref.py flash_fwd_ref, flash_bwd_ref, which
-  round where the kernels round) on the same inputs, lse at atol 2e-5 /
-  rtol 1e-5, o and dq/dk/dv at the f32 tiers where nothing rounds to bf16,
-  else max abs err within the bf16 tiers and mean within 3e-5, which the
-  f32-mode outputs must fail; dk/dv bit-identical when repeated; then
-  ops.attention's autograd Function in the f32 mode against the plain
-  attention under autograd (the f32 tiers); B8 paged flash decode
+  round or quantize where the kernels do, over the same tiles) on the same
+  inputs, lse at atol 2e-5 / rtol 1e-5, o and dq/dk/dv at the f32 tiers
+  where nothing rounds to bf16, else max abs err within the bf16 tiers (the
+  int8 tier, 5e-2, in the int8 mode) and mean within 3e-5, which the
+  f32-mode outputs must fail against the bf16 plain versions and the int8
+  outputs against the int8 plain versions tiled 64 wide; dk/dv
+  bit-identical when repeated; then ops.attention's autograd Function in
+  the f32 mode against the plain attention under autograd (the f32 tiers);
+  each mode timed at the train shape, the int8 kernels with their device
+  time per launch; B8 paged flash decode
   (8 cases: engine shape, MHA/MQA, window, softcap, bf16); B9 paged
   multi-query flash decode (12 cases: the engine's chunk of 64 with the
   history partly resident, its last chunk with rows past the prompt at -1,
@@ -94,13 +98,24 @@ raises on a failed check:
   largest entry (AMP_* below); a third loop through the policy's own plain
   attention gives the plain time and memory; exact launch counts per step
   (8 B5, 8 B6, 8 B7, 17 B1, 17 B2, 1 B3, 1 B4, no B8).
+- train --amp int8: the same with attention through B5-B7 in the int8
+  operand mode and the readout's int8 straight-through matmul; the plain
+  side's attention quantizes where the kernels do, tile by tile.  The first
+  step with the kernels equals it (INT8_* below), where two controls, the
+  bf16-mode kernels and the int8 plain versions tiled 64 wide, must fail
+  the loss limit; step 0 of the loop within a limit the f32 run fails;
+  exact launch counts per step (8 each of B5, B6 and B7 in the int8 mode,
+  none in the others, 17 B1, 17 B2, 1 B3, 1 B4); the mean of the last 3
+  losses against the f32 run's is printed (the reference's bar is 1%; not
+  held on the card).
 - profile: torch.profiler over a short serve through each engine, a short
   int8 dynamic serve (with the card's time in the quantized writes of
-  serving/kv_cache.py) and one train step, f32 and amp: the device's busy
-  share and the kernels that take it.
+  serving/kv_cache.py) and one train step, f32, --amp bf16 and --amp int8:
+  the device's busy share and the kernels that take it.
 
 Launch counts are set to 0 just before each main path (serve,
-serve_dynamic, serve_int8 dynamic and static, train, train --amp bf16) and
+serve_dynamic, serve_int8 dynamic and static, train, train --amp bf16,
+train --amp int8) and
 read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
 catches no failure (the exit code is non-zero on any) and prints, last, one
@@ -108,8 +123,9 @@ JSON line: ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.
 
 Bounds (``bound_ms``) use the H100 SXM data-sheet rates: 3.35 TB/s of
-device memory, 67 TFLOP/s of float32 outside the tensor cores, and 989
-TFLOP/s of dense bf16 on the tensor cores for B5-B7's bf16 operand mode.
+device memory, 67 TFLOP/s of float32 outside the tensor cores, 989 TFLOP/s
+of dense bf16 on the tensor cores for B5-B7's bf16 operand mode and 1,979
+TOP/s of dense int8 for their int8 mode.
 """
 from __future__ import annotations
 
@@ -129,6 +145,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
+INT8_TC_OP_PER_S = 1979e12
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # docs/kernels.md tiers
 GRAD_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (2e-2, 0.0)}  # (atol, rtol)
 # B5-B7 against their plain versions at the kernels' contract
@@ -142,18 +159,42 @@ GRAD_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (2e-2, 0.0)}  # (atol, 
 # 1.7e-4) is held at FLASH_MEAN_TOL.
 FLASH_MAX_TOL = {"o": 2e-2, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
 FLASH_MEAN_TOL = 3e-5
+# The int8 mode, against plain versions that quantize where the kernels do:
+# an ulp of exp or tanh between the two could move a quantized p or ds
+# across a half step, and a few entries would then differ by one step of
+# their tile's scale (on an H100 at 700 W none does: every output equal);
+# their max is held at the int8 tier against f32 (docs/kernels.md), the
+# mean at FLASH_MEAN_TOL, which plain versions tiled 64 wide (the scales
+# over other tiles; mean 9.0e-4 and more) must fail.
+INT8_MAX_TOL = {"o": 5e-2, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
+FLASH_MODES = ("none", "bf16", "int8")
 TRAIN_LOSS_RTOL = 1e-5
 # --amp bf16, kernels against the plain side whose attention rounds where
-# they do (an H100 at 700 W): the first step's loss 1.63e-6 relative apart,
-# 2.02e-5 with attention's kernels in the f32 operand mode (the control);
-# step 0 of the loop 6.3e-7, 1.66e-5 for the f32 run.  The gradients cannot
-# tell the modes apart: a few bf16 operands that round to the other
-# neighbour after an f32 ulp of difference upstream move them by up to
-# 1.1e-3 of a tensor's largest entry (wq), the f32 mode by 1.2e-4-1.7e-3;
-# their limit bounds that noise.
+# they do (an H100 at 700 W, B5 at 128-key tiles): the first step's loss
+# 4.65e-7 relative apart, 1.64e-5 with attention's kernels in the f32
+# operand mode (the control); step 0 of the loop 5.5e-7, 1.67e-5 for the
+# f32 run.  The gradients cannot tell the modes apart: a few bf16 operands
+# that round to the other neighbour after an f32 ulp of difference upstream
+# move them by up to 1.1e-3 of a tensor's largest entry (wq), the f32 mode
+# by 1.2e-4-1.7e-3; their limit bounds that noise.
 AMP_LOSS_RTOL = 5e-6
 AMP_GRAD_TOL = 3e-3        # times the tensor's largest plain gradient entry
 AMP_LOOP_LOSS_RTOL = 3e-6
+# --amp int8, the same checks: the plain side's attention quantizes where the
+# kernels do, tile by tile.  The two give the same bits for the same inputs
+# (B5's l summed in the kernel's order), so the first step is equal (an
+# H100 at 700 W: loss and gradients 0 apart), where the bf16-mode control
+# is 4.7e-6 / 7.8e-3 of a tensor's largest entry apart and the plain
+# versions tiled 64 wide 4.2e-6 / 6.3e-3.  Step 0 of the loop runs B1-B4's
+# plain versions on the plain side, whose ulps move int8 bytes: 4.4e-6,
+# against 1.9e-5 for the f32 run.
+INT8_LOSS_RTOL = 1e-6
+INT8_GRAD_TOL = 1e-3
+INT8_LOOP_LOSS_RTOL = 1e-5
+# (first-step loss, first-step gradients, step 0 of the loop) by --amp, and the
+# operand mode of the first step's control
+AMP_LIMITS = {"bf16": (AMP_LOSS_RTOL, AMP_GRAD_TOL, AMP_LOOP_LOSS_RTOL, "none"),
+              "int8": (INT8_LOSS_RTOL, INT8_GRAD_TOL, INT8_LOOP_LOSS_RTOL, "bf16")}
 SERVE_LOGIT_TOL = 1e-4   # atol and rtol, as the CPU tests hold logits
 TIE_GAP = 1e-5
 N_TIMED = 200
@@ -698,19 +739,19 @@ def check_close(what, got, want, atol, rtol=0.0):
     return err
 
 
-def check_rounded(what, name, got, want):
-    """Raise unless output ``name``'s max |got - want| <= FLASH_MAX_TOL[name]
-    and its mean <= FLASH_MEAN_TOL; return (max, mean)."""
+def check_rounded(what, name, got, want, limits=FLASH_MAX_TOL):
+    """Raise unless output ``name``'s max |got - want| <= limits[name] and
+    its mean <= FLASH_MEAN_TOL; return (max, mean)."""
     err = rounded_err(got, want)
-    if not rounds_like(name, err):
+    if not rounds_like(name, err, limits):
         raise AssertionError(f"{what} {name}: max abs err {err[0]} (limit "
-                             f"{FLASH_MAX_TOL[name]}), mean {err[1]} (limit "
+                             f"{limits[name]}), mean {err[1]} (limit "
                              f"{FLASH_MEAN_TOL})")
     return err
 
 
-def rounds_like(name, err):
-    return err[0] <= FLASH_MAX_TOL[name] and err[1] <= FLASH_MEAN_TOL
+def rounds_like(name, err, limits=FLASH_MAX_TOL):
+    return err[0] <= limits[name] and err[1] <= FLASH_MEAN_TOL
 
 
 def rounded_err(got, want):
@@ -904,51 +945,79 @@ def flash_pair(fa, ref, qs, k, v, do, **kw):
     return (o, lse, dq, dk, dv), plain, delta
 
 
+@contextlib.contextmanager
+def int8_tiles(ref, width):
+    """While open, the plain versions tile ``width`` wide in the int8 mode
+    (ref.FLASH_TILES): the control with the wrong tiles."""
+    saved = {k: dict(v) for k, v in ref.FLASH_TILES.items()}
+    for kernel in ref.FLASH_TILES:
+        ref.FLASH_TILES[kernel]["int8"] = (width, width)
+    try:
+        yield
+    finally:
+        for kernel, modes in saved.items():
+            ref.FLASH_TILES[kernel].update(modes)
+
+
 def flash_case(ops, fa, ref, quant, case, seed):
     """One FLASH_CASES row.  Per operand mode, each kernel against its plain
     version: lse at the f32 tier always; o and dq/dk/dv at the f32 tiers
-    where nothing rounds to bf16, else by check_rounded.  The control: the
-    f32-mode kernel outputs must fail the bf16 mode's check.  Then the
+    where nothing rounds to bf16, else by check_rounded (the bf16 tiers, or
+    the int8 one, for the max).  The controls: the f32-mode kernel outputs
+    must fail the bf16 mode's check, and the int8-mode kernel outputs must
+    fail the int8 check against the plain versions tiled 64 wide.  Then the
     autograd Function (scale fold, delta, casts) in the f32 mode against the
-    plain attention under autograd, and the bf16 mode's distance from the
-    policy's plain attention (printed, not held: that one rounds the
-    normalized p, and forms delta from the rounded do and v)."""
+    plain attention under autograd, and the bf16 and int8 modes' distance
+    from the policy's plain attention (printed, not held: that one rounds or
+    quantizes the normalized p over whole rows, and forms delta from the
+    rounded do and v)."""
     label, B, S, H, K, d, window, cap, scale, dt = case
     q, k, v, do = flash_inputs(B, S, H, K, d, dt, seed)
     qs = (q.float() * scale).to(dt)
     kw = dict(causal=True, window=window, softcap=cap)
     f32 = dt == torch.float32
     got, out = {}, {}
-    for mode in ("none", "bf16"):
+    for mode in FLASH_MODES:
         policy = quant.QuantPolicy(mode)
+        limits = INT8_MAX_TOL if mode == "int8" else FLASH_MAX_TOL
         got[mode], want, delta = flash_pair(fa, ref, qs, k, v, do, policy=policy, **kw)
         what = f"flash attention {label}, {mode} operands"
         e = {"lse": check_close(what + " lse", got[mode][1], want[1], 2e-5, 1e-5)}
         if mode == "none" and f32:
             e["o"] = check_close(what + " o", got[mode][0], want[0], ATOL[dt])
         else:
-            e["o"], e["o_mean"] = check_rounded(what, "o", got[mode][0], want[0])
+            e["o"], e["o_mean"] = check_rounded(what, "o", got[mode][0], want[0], limits)
         for name, g, w in zip(("dq", "dk", "dv"), got[mode][2:], want[2:]):
             if mode == "none":
                 e[name] = check_close(f"{what} {name}", g, w, *GRAD_TOL[torch.float32])
             else:
-                e[name], e[name + "_mean"] = check_rounded(what, name, g, w)
+                e[name], e[name + "_mean"] = check_rounded(what, name, g, w, limits)
         again = fa.flash_bwd_dkv(qs, k, v, do, got[mode][1], delta, policy=policy, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got[mode][3:], again)):
             raise AssertionError(f"{what}: dk/dv differ between two calls")
+        control = None
         if mode == "bf16":
             control = {n: rounded_err(g, w) for n, g, w in
                        zip(FLASH_OUTS, got["none"], want) if n != "lse"}
-            passed = [n for n, c in control.items() if rounds_like(n, c)]
+        elif mode == "int8":
+            with int8_tiles(ref, 64):
+                _, lse, _, _, _ = got[mode]
+                wrong = (ref.flash_fwd_ref(qs, k, v, policy=policy, **kw)[0],
+                         *ref.flash_bwd_ref(qs, k, v, do, lse, delta, policy=policy, **kw))
+            control = {n: rounded_err(g, w) for n, g, w in
+                       zip(("o", "dq", "dk", "dv"), got[mode][:1] + got[mode][2:], wrong)}
+            del wrong
+        if control is not None:
+            passed = [n for n, c in control.items() if rounds_like(n, c, limits)]
             if passed:
-                raise AssertionError(f"{what}: the f32-mode outputs {passed} pass the "
-                                     f"bf16 check: {control}")
+                raise AssertionError(f"{what}: the control's outputs {passed} pass the "
+                                     f"{mode} check: {control}")
             e["control_mean"] = {n: c[1] for n, c in control.items()}
         out[mode] = e
         del want, delta, again
 
     # the autograd Function, kernels against the plain attention under autograd
-    for mode in ("none", "bf16"):
+    for mode in FLASH_MODES:
         policy = quant.QuantPolicy(mode)
         res = {}
         for impl in ("kernel", "ref"):
@@ -968,36 +1037,48 @@ def flash_case(ops, fa, ref, quant, case, seed):
             out[mode]["vs_policy_plain"] = [rounded_err(g, w)[0] for g, w in
                                             zip(res["kernel"], res["ref"])]
         del res
-    e0, e1 = out["none"], out["bf16"]
-    log(f"[kernels] flash attention {label}, {str(dt)[6:]} storage: f32 operands max "
-        f"err o {e0['o']:.3g}, lse {e0['lse']:.3g}, dq {e0['dq']:.3g}, dk {e0['dk']:.3g}, "
-        f"dv {e0['dv']:.3g}; bf16 operands max / mean err o {e1['o']:.3g} / "
-        f"{e1['o_mean']:.3g}, lse {e1['lse']:.3g}, "
-        + ", ".join(f"{n} {e1[n]:.3g} / {e1[n + '_mean']:.3g}" for n in ("dq", "dk", "dv"))
-        + "; control (f32-mode outputs against the bf16 plain version) mean err "
-        + ", ".join(f"{n} {c:.3g}" for n, c in e1["control_mean"].items())
-        + "; bf16 through ops.attention against the policy's plain attention, max "
-        + ", ".join(f"{n} {c:.3g}" for n, c in zip(("o", "dq", "dk", "dv"),
-                                                  e1["vs_policy_plain"])))
+    e0 = out["none"]
+    text = (f"[kernels] flash attention {label}, {str(dt)[6:]} storage: f32 operands max "
+            f"err o {e0['o']:.3g}, lse {e0['lse']:.3g}, dq {e0['dq']:.3g}, dk "
+            f"{e0['dk']:.3g}, dv {e0['dv']:.3g}")
+    controls = {"bf16": "f32-mode outputs against the bf16 plain version",
+                "int8": "int8 outputs against the plain version tiled 64 wide"}
+    for mode in FLASH_MODES[1:]:
+        e1 = out[mode]
+        text += (f"; {mode} operands max / mean err o {e1['o']:.3g} / {e1['o_mean']:.3g}, "
+                 f"lse {e1['lse']:.3g}, "
+                 + ", ".join(f"{n} {e1[n]:.3g} / {e1[n + '_mean']:.3g}"
+                             for n in ("dq", "dk", "dv"))
+                 + f"; control ({controls[mode]}) mean err "
+                 + ", ".join(f"{n} {c:.3g}" for n, c in e1["control_mean"].items())
+                 + f"; {mode} through ops.attention against the policy's plain attention, "
+                 "max " + ", ".join(f"{n} {c:.3g}" for n, c in
+                                    zip(("o", "dq", "dk", "dv"), e1["vs_policy_plain"])))
+    log(text)
     return out
 
 
 def flash_phase(ops, fa, ref, quant, F):
-    """B5-B7 against their plain versions in both operand modes (see
-    flash_case); timed at the train shape."""
+    """B5-B7 against their plain versions in the three operand modes (see
+    flash_case); timed at the train shape, with the card's time per launch
+    of the int8 kernels."""
     errs = {}
     for i, case in enumerate(FLASH_CASES):
         errs[case[0]] = flash_case(ops, fa, ref, quant, case, i)
         torch.cuda.empty_cache()
     worst = {m: max(max(e[m][n] for n in ("o", "dq", "dk", "dv")) for e in errs.values())
-             for m in ("none", "bf16")}
-    worst_mean = max(e["bf16"][n + "_mean"] for e in errs.values() for n in ("o", "dq", "dk", "dv"))
-    least_control = min(c for e in errs.values() for c in e["bf16"]["control_mean"].values())
-    log(f"[kernels] flash attention: {len(FLASH_CASES)} cases x 2 operand modes agree, "
-        f"dk/dv deterministic; worst max err f32 operands {worst['none']:.3g}, bf16 "
-        f"operands {worst['bf16']:.3g} (limits {FLASH_MAX_TOL}); worst mean err bf16 "
-        f"{worst_mean:.3g} (limit {FLASH_MEAN_TOL}), least control mean err "
-        f"{least_control:.3g}")
+             for m in FLASH_MODES}
+    worst_mean = {m: max(e[m][n + "_mean"] for e in errs.values()
+                         for n in ("o", "dq", "dk", "dv")) for m in FLASH_MODES[1:]}
+    least_control = {m: min(c for e in errs.values() for c in e[m]["control_mean"].values())
+                     for m in FLASH_MODES[1:]}
+    log(f"[kernels] flash attention: {len(FLASH_CASES)} cases x {len(FLASH_MODES)} operand "
+        f"modes agree, dk/dv deterministic; worst max err f32 operands "
+        f"{worst['none']:.3g}, bf16 operands {worst['bf16']:.3g} (limits {FLASH_MAX_TOL}), "
+        f"int8 operands {worst['int8']:.3g} (limits {INT8_MAX_TOL}); worst mean err "
+        + ", ".join(f"{m} {v:.3g}" for m, v in worst_mean.items())
+        + f" (limit {FLASH_MEAN_TOL}); least control mean err "
+        + ", ".join(f"{m} {v:.3g}" for m, v in least_control.items()))
 
     # timing at the train shape: B 8, S 512, 16 heads of 64, causal, f32
     _, B, S, H, K, d, _, _, scale, dt = FLASH_CASES[0]
@@ -1006,7 +1087,7 @@ def flash_phase(ops, fa, ref, quant, F):
     pairs = B * H * S * (S + 1) // 2          # visible (query, key) pairs
     io = q.numel() * 4                        # one (B, S, H, d) f32 tensor
     rows = B * H * S * 4                      # one (B, H, S) f32 tensor
-    work = {  # bytes each kernel must move, and its tile-matmul flops
+    work = {  # bytes each kernel must move, and its tile-matmul operations
         "flash_fwd": (3 * io + io + rows, 4 * d * pairs),
         "flash_bwd_dq": (4 * io + 2 * rows + io, 6 * d * pairs),
         "flash_bwd_dkv": (4 * io + 2 * rows + 2 * io, 8 * d * pairs),
@@ -1020,8 +1101,9 @@ def flash_phase(ops, fa, ref, quant, F):
         lib_fwd = cuda_ms(sdpa)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True))
     lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qb, kb, vb), dob))
+    rates = {"none": F32_FLOP_PER_S, "bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}
     timed = {}
-    for mode in ("bf16", "none"):
+    for mode in ("bf16", "int8", "none"):
         policy = quant.QuantPolicy(mode)
         pol = policy if policy.active else None
         fkw = dict(causal=True, policy=pol)
@@ -1030,22 +1112,26 @@ def flash_phase(ops, fa, ref, quant, F):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         plain = lambda: ops.attention(*leaves, scale=scale, policy=policy, impl="ref")
         op = plain()
-        t = {
-            "flash_fwd": cuda_ms(lambda: fa.flash_fwd(qs, k, v, **fkw)),
-            "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq(qs, k, v, do, lse, delta, **fkw)),
-            "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv(qs, k, v, do, lse, delta, **fkw)),
+        calls = {
+            "flash_fwd": lambda: fa.flash_fwd(qs, k, v, **fkw),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(qs, k, v, do, lse, delta, **fkw),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(qs, k, v, do, lse, delta, **fkw),
         }
+        t = {n: cuda_ms(fn) for n, fn in calls.items()}
+        dev = ({n: device_us(fn, n + "_int8") for n, fn in calls.items()}
+               if mode == "int8" else {})
         with torch.no_grad():
             p_fwd = cuda_ms(lambda: plain(), n=20)
         p_dq = cuda_ms(lambda: torch.autograd.grad(op, leaves[0], do, retain_graph=True), n=20)
         p_dkv = cuda_ms(lambda: torch.autograd.grad(op, leaves[1:], do, retain_graph=True), n=20)
-        rate = BF16_TC_FLOP_PER_S if pol is not None else F32_FLOP_PER_S
-        b = {n: bound(*work[n], rate) for n in FLASH_NAMES}
-        timed[mode] = dict(ms=t, plain={"flash_fwd": p_fwd, "flash_bwd_dq": p_dq,
-                                        "flash_bwd_dkv": p_dkv}, bound=b)
+        b = {n: bound(*work[n], rates[mode]) for n in FLASH_NAMES}
+        timed[mode] = dict(ms=t, device_us=dev, plain={"flash_fwd": p_fwd, "flash_bwd_dq": p_dq,
+                                                      "flash_bwd_dkv": p_dkv}, bound=b)
         log(f"[kernels] flash attention (8, 512, 16, 64) causal f32, {mode} operands: "
             + "; ".join(f"{n} {t[n]:.4f} ms (plain {timed[mode]['plain'][n]:.4f}, "
-                        f"bound {b[n][0]:.4f} by {b[n][1]})" for n in FLASH_NAMES))
+                        f"bound {b[n][0]:.4f} by {b[n][1]}"
+                        + (f", {dev[n]:.2f} us on the card" if dev else "") + ")"
+                        for n in FLASH_NAMES))
         del o, lse, delta, leaves, op
         torch.cuda.empty_cache()
     log(f"[kernels] SDPA bf16 causal (8, 16, 512, 64): forward {lib_fwd:.4f} ms, "
@@ -1065,7 +1151,7 @@ def flash_phase(ops, fa, ref, quant, F):
     out = []
     for n in FLASH_NAMES:
         replaces, lib_ms, lib_name = lines[n]
-        bf, f32 = timed["bf16"], timed["none"]
+        bf, f32, i8 = timed["bf16"], timed["none"], timed["int8"]
         out.append(dict(
             name=n, replaces=replaces,
             max_abs_err=max(errs["train shape"]["bf16"][j] for j in err_at[n]),
@@ -1077,6 +1163,16 @@ def flash_phase(ops, fa, ref, quant, F):
                 bound_by=f32["bound"][n][1],
                 max_abs_err=max(errs["train shape"]["none"][j] for j in err_at[n])),
             **common))
+        out.append(dict(
+            name=n + "_int8", replaces=f"{replaces} (int8 operands: kernel_dot, "
+                                      "src/repro/quant/core.py:63-67)",
+            max_abs_err=max(errs["train shape"]["int8"][j] for j in err_at[n]),
+            ms=i8["ms"][n], device_us=i8["device_us"][n], plain_ms=i8["plain"][n],
+            bound_ms=i8["bound"][n][0], bound_by=i8["bound"][n][1], library_ms=None,
+            library="none: no PyTorch call computes int8-operand attention",
+            sdpa_bf16_ms_for_scale=lib_ms,
+            **dict(common, shape="q, k, v, do (8, 512, 16, 64) f32, causal; int8 operands "
+                                 "(the --amp int8 path)")))
     return out
 
 
@@ -1205,7 +1301,8 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
     want = {"flash_decode": L * steps, "flash_decode_multi": 0,
             "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (steps + R), "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0}
     log(f"[serve] kernels: {steps} steps, launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -1338,7 +1435,8 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
             "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (n_chunk + n_dec), "rmsnorm_bwd": 0,
             "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0,
+            "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0}
     log(f"[serve_dynamic] kernels: {out_k['steps']} steps, {n_chunk} chunk forwards, "
         f"{n_dec} decode steps; launches {launches}, expected {want}")
     if launches != want:
@@ -1467,7 +1565,8 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
         return {"rmsnorm": (2 * L + 1) * n_fwd, "rmsnorm_bwd": 0, "ce_fwd": 0,
                 "ce_bwd": 0, "flash_decode": 0, "flash_decode_multi": 0,
                 "flash_decode_int8": L * n_dec, "flash_decode_multi_int8": L * n_chunk,
-                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0}
 
     # warm-up outside the counted runs
     DynamicEngine(kern, EngineConfig(prefill_chunk=CH, prefix_cache=True, n_slots=2,
@@ -1624,17 +1723,23 @@ PORT_KERNELS = {
     "flash_fwd": ("flash_fwd_kernel<",),
     "flash_bwd_dq": ("flash_bwd_dq_kernel<",),
     "flash_bwd_dkv": ("flash_bwd_dkv_kernel<",),
+    "flash_fwd_int8": ("flash_fwd_i8_kernel<",),
+    "flash_bwd_dq_int8": ("flash_bwd_dq_i8_kernel<",),
+    "flash_bwd_dkv_int8": ("flash_bwd_dkv_i8_kernel<",),
 }
 
 
 # the int8-pool instantiations of B8 and B9 (TKV = int8_t) carry this in
-# their demangled names; the rows named *_int8 are those, the others not
+# their demangled names; the B8/B9 rows named *_int8 are those, the others
+# not (B5-B7's int8 mode has kernels of its own names)
 INT8_KV = "signed char>"
 
 
 def is_kernel(name, key, event_key):
     """Whether a profiler event named ``event_key`` is a launch of the port
     kernel ``name`` through its key ``key``."""
+    if not name.startswith("flash_decode"):
+        return key in event_key
     return key in event_key and (INT8_KV in event_key) == name.endswith("_int8")
 
 
@@ -1769,11 +1874,11 @@ def plain_flash(ops):
     return lambda q, k, v, *, impl="auto", **kw: ops.attention_plain_flash(q, k, v, **kw)
 
 
-def f32_operand_kernels(ops):
-    """B5-B7 in the f32 operand mode whatever the policy: a control."""
+def mode_kernels(ops, policy):
+    """B5-B7 in ``policy``'s operand mode whatever the model's: a control."""
     real = ops.attention
-    return lambda q, k, v, *, impl="auto", policy=None, **kw: real(
-        q, k, v, impl="kernel", policy=None, **kw)
+    return lambda q, k, v, *, impl="auto", policy=None, _p=policy, **kw: real(
+        q, k, v, impl="kernel", policy=_p, **kw)
 
 
 def max_rel(a, b):
@@ -1783,20 +1888,22 @@ def max_rel(a, b):
     return err / scale if scale else err
 
 
-def train_phase(ops, amp="", control_losses=None):
+def train_phase(ops, quant, amp="", control_losses=None):
     """mup-gpt at full width (``amp`` its mixed-precision policy, as
     ``--amp`` sets it): the first step's loss and gradients with and without
     the kernels, then 10 train_loop steps each way from the same init and
     batches; launch counts of the kernel run, peak memory of both.
 
-    Under amp the plain side's attention rounds where the kernels do
-    (plain_flash): the policy's own plain attention rounds the normalized p
-    and forms delta from the rounded do and v, which moves the numbers
-    about as far as the policy itself (its distance is printed, not held).
-    The loss limits must reject a control: attention's kernels in the f32
-    operand mode on the first step, ``control_losses`` (the f32 phase's) at
-    step 0 of the loop.  A third loop, through the policy's plain
-    attention, gives the plain time and peak memory."""
+    Under amp the plain side's attention rounds (bf16) or quantizes (int8)
+    where the kernels do (plain_flash): the policy's own plain attention
+    rounds or quantizes the normalized p over whole rows and forms delta
+    from the rounded do and v, which moves the numbers about as far as the
+    policy itself (its distance is printed, not held).  The loss limits
+    (AMP_LIMITS) must reject a control: attention's kernels in another
+    operand mode on the first step (f32 for bf16, bf16 for int8),
+    ``control_losses`` (the f32 phase's) at step 0 of the loop.  A third
+    loop, through the policy's plain attention, gives the plain time and
+    peak memory; the gap of its last losses to the f32 run's is printed."""
     from repro_torch.configs import get_config
     from repro_torch.core.transfer import HParams, transfer
     from repro_torch.data.pipeline import make_pipeline
@@ -1807,8 +1914,10 @@ def train_phase(ops, amp="", control_losses=None):
     B, S, STEPS = 8, 512, 10
     cfg = get_config("mup-gpt").replace(dtype="float32", amp=amp)
     tag = f"[train {amp}]" if amp else "[train]"
-    loss_rtol = AMP_LOSS_RTOL if amp else TRAIN_LOSS_RTOL
-    loop_rtol = AMP_LOOP_LOSS_RTOL if amp else TRAIN_LOSS_RTOL
+    if amp:
+        loss_rtol, grad_tol, loop_rtol, control_mode = AMP_LIMITS[amp]
+    else:
+        loss_rtol = loop_rtol = TRAIN_LOSS_RTOL
     hps = HParams()
     # the first-step check starts from a random query projection, so that
     # attention is not uniform (zero-init q makes it so at step 0)
@@ -1832,12 +1941,24 @@ def train_phase(ops, amp="", control_losses=None):
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     grad_rel = {n: max_rel(grads_k[n], grads_p[n]) for n in grads_p}
     if amp:
-        # the control: attention's kernels in the f32 operand mode
-        with models_attend_with(ops, f32_operand_kernels(ops)):
-            loss_c, grads_c = value_and_grad(kern.loss_fn, params, batch0)
-        rel_c = abs(float(loss_c) - float(loss_p)) / abs(float(loss_p))
-        ctrl_rel = {n: max_rel(grads_c[n], grads_p[n]) for n in grads_p}
-        del grads_c
+        # the controls: attention's kernels in another operand mode and, under
+        # int8, its plain versions tiled 64 wide (scales over other tiles)
+        from repro_torch.kernels import ref
+
+        other = quant.QuantPolicy(control_mode)
+        controls = {f"attention's kernels in the {control_mode} operand mode":
+                    (contextlib.nullcontext(),
+                     mode_kernels(ops, other if other.active else None))}
+        if amp == "int8":
+            controls["the plain versions tiled 64 wide"] = (int8_tiles(ref, 64),
+                                                            plain_flash(ops))
+        ctrl = {}
+        for what, (tiles, attention) in controls.items():
+            with tiles, models_attend_with(ops, attention):
+                loss_c, grads_c = value_and_grad(kern.loss_fn, params, batch0)
+            ctrl[what] = (abs(float(loss_c) - float(loss_p)) / abs(float(loss_p)),
+                          {n: max_rel(grads_c[n], grads_p[n]) for n in grads_p})
+            del grads_c
         loss_q, grads_q = value_and_grad(plain.loss_fn, params, batch0)
         rel_q = abs(float(loss_k) - float(loss_q)) / abs(float(loss_q))
         policy_rel = {n: max_rel(grads_k[n], grads_q[n]) for n in grads_q}
@@ -1845,14 +1966,16 @@ def train_phase(ops, amp="", control_losses=None):
         log(f"{tag} first step, max abs err over each tensor's largest plain entry: "
             f"kernels loss rel {rel:.3g}, "
             + ", ".join(f"{n} {e:.2g}" for n, e in grad_rel.items())
-            + f"; control, attention's kernels in the f32 operand mode: loss rel "
-            f"{rel_c:.3g}, " + ", ".join(f"{n} {e:.2g}" for n, e in ctrl_rel.items())
+            + "".join(f"; control, {what}: loss rel {c[0]:.3g}, "
+                      + ", ".join(f"{n} {e:.2g}" for n, e in c[1].items())
+                      for what, c in ctrl.items())
             + f"; kernels against the policy's plain attention (not held): loss "
             f"rel {rel_q:.3g}, " + ", ".join(f"{n} {e:.2g}" for n, e in policy_rel.items()))
-        if not rel_c > loss_rtol:
-            raise AssertionError(f"the control in the f32 operand mode passes the loss "
-                                 f"limit: rel {rel_c}")
-        bad = {n: e for n, e in grad_rel.items() if not e <= AMP_GRAD_TOL}
+        for what, (rel_c, _) in ctrl.items():
+            if not rel_c > loss_rtol:
+                raise AssertionError(f"the control, {what}, passes the loss limit: "
+                                     f"rel {rel_c}")
+        bad = {n: e for n, e in grad_rel.items() if not e <= grad_tol}
     else:
         for n in grads_p:
             check_close(f"first-step grad {n}", grads_k[n], grads_p[n],
@@ -1868,7 +1991,8 @@ def train_phase(ops, amp="", control_losses=None):
     first = dict(first_step_loss_rel_diff=rel, first_step_grad_max_abs_err=grad_err,
                  first_step_grad_rel_err=grad_rel)
     if amp:
-        first.update(control_loss_rel_diff=rel_c, control_grad_rel_err=ctrl_rel,
+        first.update(controls={what: dict(loss_rel_diff=c[0], grad_rel_err=c[1])
+                               for what, c in ctrl.items()},
                      policy_plain_loss_rel_diff=rel_q, policy_plain_grad_rel_err=policy_rel)
     # the loops make their own weights: nothing of this step stays on the card
     del grads_k, grads_p, params, batch0
@@ -1886,12 +2010,15 @@ def train_phase(ops, amp="", control_losses=None):
     ops.reset_launch_counts()
     out_k, peak_gib = loop("auto", log_every=1)
     launches = ops.launch_counts()
-    n_attn = cfg.n_layers if amp else 0       # B5-B7 only under --amp
+    n_attn = cfg.n_layers if amp == "bf16" else 0   # B5-B7 only under --amp,
+    n_int8 = cfg.n_layers if amp == "int8" else 0   # in its operand mode
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
                 "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0,
                 "flash_decode_multi": 0, "flash_decode_int8": 0,
                 "flash_decode_multi_int8": 0, "flash_fwd": n_attn,
-                "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
+                "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
+                "flash_fwd_int8": n_int8, "flash_bwd_dq_int8": n_int8,
+                "flash_bwd_dkv_int8": n_int8}
     want = {k: v * STEPS for k, v in per_step.items()}
     log(f"{tag} kernels: launches {launches}, expected {want}")
     if launches != want:
@@ -1919,8 +2046,12 @@ def train_phase(ops, amp="", control_losses=None):
         if not ctrl0 > loop_rtol:
             raise AssertionError(f"the f32 run's step-0 loss {control_losses[0]} passes "
                                  f"the amp loop's limit (rel {ctrl0})")
+        # the reference's amp bar (tests/test_quant.py): the mean of the last 3
+        # losses against the f32 run's; printed, not held on the card
+        f32_last = float(np.mean(control_losses[-3:]))
         extra = dict(control_step0_rel_diff=ctrl0, policy_plain_losses=ly,
-                     policy_plain_step0_rel_diff=abs(lk[0] - ly[0]) / abs(ly[0]))
+                     policy_plain_step0_rel_diff=abs(lk[0] - ly[0]) / abs(ly[0]),
+                     last3_gap_to_f32=(float(np.mean(lk[-3:])) - f32_last) / f32_last)
     # steady state: the first step builds cuBLAS handles and the allocator
     ms_k = 1e3 * float(np.median(out_k["step_seconds"][1:]))
     ms_p = 1e3 * float(np.median(out_y["step_seconds"][1:]))
@@ -1932,7 +2063,8 @@ def train_phase(ops, amp="", control_losses=None):
     if amp:
         log(f"{tag} losses through the policy's plain attention {[round(v, 4) for v in ly]}"
             f"; step 0 of the f32 run {control_losses[0]:.4f} (rel "
-            f"{extra['control_step0_rel_diff']:.3g} from the plain amp run)")
+            f"{extra['control_step0_rel_diff']:.3g} from the plain amp run); mean of the "
+            f"last 3 losses {extra['last3_gap_to_f32']:+.3%} from the f32 run's (not held)")
     log(f"{tag} step-0 loss rel diff {rel0:.3g}, max over steps {rel_all:.3g}; "
         f"ms/step (median of steps 1-{STEPS - 1}, batch generation included) "
         f"kernels {ms_k:.2f} ({B * S / ms_k * 1e3:.0f} tok/s, of which batch "
@@ -2057,10 +2189,12 @@ def main():
         cfg, Model, Engine, DynamicEngine, EngineConfig, ops,
         (dyn_tokens, dyn["tok_per_s"]))
     done("serve_int8")
-    train_launches, train = train_phase(ops)
+    train_launches, train = train_phase(ops, quant)
     done("train")
-    amp_launches, amp = train_phase(ops, amp="bf16", control_losses=train["losses"])
+    amp_launches, amp = train_phase(ops, quant, amp="bf16", control_losses=train["losses"])
     done("train --amp bf16")
+    amp8_launches, amp8 = train_phase(ops, quant, amp="int8", control_losses=train["losses"])
+    done("train --amp int8")
     serve["profile"] = profile_phase(cfg, Model, Engine, EngineConfig)
     dyn["profile"] = profile_phase(cfg, Model, Engine, EngineConfig,
                                    dynamic=(DynamicEngine, 64))
@@ -2069,6 +2203,7 @@ def main():
                                     ranges=("_quantized_write",))
     train["profile"] = train_profile_phase()
     amp["profile"] = train_profile_phase(amp="bf16")
+    amp8["profile"] = train_profile_phase(amp="int8")
     done("profiles")
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
@@ -2076,12 +2211,16 @@ def main():
                    "serve_int8": int8_launches[row["name"]],
                    "serve_int8_static": int8_static_launches[row["name"]],
                    "train": train_launches[row["name"]],
-                   "train_amp_bf16": amp_launches[row["name"]]}
+                   "train_amp_bf16": amp_launches[row["name"]],
+                   "train_amp_int8": amp8_launches[row["name"]]}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
         only = {"flash_decode_multi": ("serve_dynamic",),
                 "flash_decode_int8": ("serve_int8", "serve_int8_static"),
-                "flash_decode_multi_int8": ("serve_int8",)}.get(row["name"])
+                "flash_decode_multi_int8": ("serve_int8",),
+                "flash_fwd_int8": ("train_amp_int8",),
+                "flash_bwd_dq_int8": ("train_amp_int8",),
+                "flash_bwd_dkv_int8": ("train_amp_int8",)}.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
         row["launches"] = sum(by_path.values())
@@ -2092,6 +2231,7 @@ def main():
     log(json.dumps({"serve_int8": srv8}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
+    log(json.dumps({"train_amp_int8": amp8}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

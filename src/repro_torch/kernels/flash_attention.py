@@ -4,15 +4,17 @@ CUDA kernels.
 ``flash_fwd`` (B5) replaces the TPU kernel
 ``repro/kernels/flash_attention.py::_flash_kernel``, ``flash_bwd_dq`` (B6)
 ``_flash_bwd_dq_kernel`` and ``flash_bwd_dkv`` (B7)
-``_flash_bwd_dkv_kernel``, in the f32 and bf16 operand modes of the
+``_flash_bwd_dkv_kernel``, in the f32, bf16 and int8 operand modes of the
 mixed-precision policy; the source and its design note are
 ``csrc/flash_attention.cu``.  Each wrapper launches its kernel on CUDA
 tensors or raises.  Their plain versions at this contract, rounding where
 the kernels round, are ``kernels/ref.py::flash_fwd_ref`` and
-``flash_bwd_ref``; ``kernels/ops.py::attention`` wires the kernels into a
-``torch.autograd.Function`` and, for CPU tensors, runs the plain attention
-(``attention_ref`` / ``attention_policy_ref``) under autograd instead.  Any
-S and T: the kernels mask their ragged last tile.
+``flash_bwd_ref``, which walk the same tiles (``ref.FLASH_TILES``: B5's
+128-key tiles and, in the int8 mode, where the tiles carry the scales, B6's
+128-key and B7's 128-query tiles); ``kernels/ops.py::attention`` wires the
+kernels into a ``torch.autograd.Function`` and, for CPU tensors, runs the
+plain attention (``attention_ref`` / ``attention_policy_ref``) under
+autograd instead.  Any S and T: the kernels mask their ragged last tile.
 """
 from __future__ import annotations
 
@@ -21,22 +23,19 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MODES = {"none": 0, "bf16": 1}
+_MODES = {"none": 0, "bf16": 1, "int8": 2}
 MAX_D_HEAD = 128
 
 fwd_launches = 0   # B5 launches in this process (reset by callers that count)
 dq_launches = 0    # B6
 dkv_launches = 0   # B7
+fwd_int8_launches = 0   # the same three in the int8 operand mode, apart
+dq_int8_launches = 0
+dkv_int8_launches = 0
 
 
 def _mode_code(policy) -> int:
-    mode = getattr(policy, "matmul", "none") if policy is not None else "none"
-    if mode not in _MODES:
-        raise NotImplementedError(
-            f"flash attention kernels: operand mode {mode!r} is not ported yet "
-            f"(ported: {sorted(_MODES)}); int8 comes with the int8 slice of B5-B7"
-        )
-    return _MODES[mode]
+    return _MODES[getattr(policy, "matmul", "none") if policy is not None else "none"]
 
 
 def _check(what, q, k, v, extra=()):
@@ -97,9 +96,10 @@ def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
     q (B, S, H, d), k and v (B, T, K, d), one dtype (float32 or bfloat16),
     contiguous, on the card; query head h reads kv head h // (H // K).
     o is (B, S, H, d) in q's dtype, lse (B, H, S) float32.  ``policy`` (a
-    quant.QuantPolicy or None) selects f32 or bf16 tile-matmul operands.
+    quant.QuantPolicy or None) selects f32, bf16 or int8 tile-matmul
+    operands.
     """
-    global fwd_launches
+    global fwd_launches, fwd_int8_launches
     B, S, T, H, K, d = _check("flash_fwd", q, k, v)
     tail = _tail(scale, causal, window, softcap, policy, q.dtype, q.device)
     o = torch.empty_like(q)
@@ -108,7 +108,10 @@ def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, S, T, H, K, d, *tail)
     build.check(err, "flash_fwd kernel")
-    fwd_launches += 1
+    if tail[4] == _MODES["int8"]:
+        fwd_int8_launches += 1
+    else:
+        fwd_launches += 1
     return o, lse
 
 
@@ -120,7 +123,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float = 1.0,
     ``do`` is shaped and typed like q; ``lse`` and ``delta`` = rowsum(do * o)
     are float32 (B, H, S).
     """
-    global dq_launches
+    global dq_launches, dq_int8_launches
     B, S, T, H, K, d = _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
     tail = _tail(scale, causal, window, softcap, policy, q.dtype, q.device)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -128,7 +131,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float = 1.0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, S, T, H, K, d, *tail)
     build.check(err, "flash_bwd_dq kernel")
-    dq_launches += 1
+    if tail[4] == _MODES["int8"]:
+        dq_int8_launches += 1
+    else:
+        dq_launches += 1
     return dq
 
 
@@ -139,7 +145,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0,
     heads of its group inside one block in a fixed order (no atomics: a
     repeated call gives the same bits).  Inputs as :func:`flash_bwd_dq`.
     """
-    global dkv_launches
+    global dkv_launches, dkv_int8_launches
     B, S, T, H, K, d = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
     tail = _tail(scale, causal, window, softcap, policy, q.dtype, q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -148,5 +154,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, H, K, d, *tail)
     build.check(err, "flash_bwd_dkv kernel")
-    dkv_launches += 1
+    if tail[4] == _MODES["int8"]:
+        dkv_int8_launches += 1
+    else:
+        dkv_launches += 1
     return dk, dv

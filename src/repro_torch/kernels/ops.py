@@ -121,8 +121,8 @@ def decode_attention_multi(
 
 def launch_counts() -> dict:
     """Kernel launches counted by the wrappers in this process (B2 counts
-    one per backward call; B8 and B9 count their int8-pool launches apart
-    from their f32/bf16 ones)."""
+    one per backward call; B8 and B9 count their int8-pool launches, B5-B7
+    their int8-operand launches, apart from their f32/bf16 ones)."""
     return {
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
@@ -131,6 +131,9 @@ def launch_counts() -> dict:
         "flash_decode_multi_int8": da.multi_int8_launches,
         "flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.dq_launches,
         "flash_bwd_dkv": fa.dkv_launches,
+        "flash_fwd_int8": fa.fwd_int8_launches,
+        "flash_bwd_dq_int8": fa.dq_int8_launches,
+        "flash_bwd_dkv_int8": fa.dkv_int8_launches,
     }
 
 
@@ -140,6 +143,7 @@ def reset_launch_counts() -> None:
     da.launches = da.multi_launches = 0
     da.int8_launches = da.multi_int8_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.fwd_int8_launches = fa.dq_int8_launches = fa.dkv_int8_launches = 0
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -282,8 +286,9 @@ def attention_plain_flash(q, k, v, *, scale, causal: bool = True,
                           window: int = 0, softcap: float = 0.0, policy=None):
     """The kernel path of :func:`attention` with B5-B7 replaced by their
     plain versions at the kernels' contract (``ref.flash_fwd_ref``,
-    ``ref.flash_bwd_ref``): the same scale fold, delta and casts, and bf16
-    rounding where the kernels round it.  Launches nothing, on any device.
+    ``ref.flash_bwd_ref``): the same scale fold, delta and casts, and the
+    bf16 rounding or int8 quantization, tile by tile, where the kernels do
+    it.  Launches nothing, on any device.
     """
     if policy is not None and not policy.active:
         policy = None

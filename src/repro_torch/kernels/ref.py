@@ -2,11 +2,12 @@
 
 Straight-line tensor code, the counterparts of ``repro.kernels.ref``.  The
 CPU path runs them; on the card they are what each hand-written kernel is
-held against.  One exception keeps tiles: :func:`flash_fwd_ref`, the plain
-version of the flash-attention forward at the kernels' own contract, walks
-the 64-key tiles because in the bf16 operand mode the kernel rounds the
-unnormalized p of each tile, relative to the running row max, before it
-multiplies it into v.
+held against.  One exception keeps tiles: :func:`flash_fwd_ref` and
+:func:`flash_bwd_ref`, the plain versions of the flash-attention kernels at
+their own contract, walk the kernels' tiles (``FLASH_TILES``) where the
+tiling decides the numbers: the forward rounds (bf16) or quantizes (int8)
+the unnormalized p of each key tile relative to the running row max, and
+in the int8 mode every tile matmul takes its scales over the tile.
 """
 from __future__ import annotations
 
@@ -91,7 +92,26 @@ def attention_policy_ref(
     return out.transpose(1, 2).to(q.dtype)
 
 
-FLASH_TILE = 64     # query rows and keys per tile of csrc/flash_attention.cu
+# (query rows, keys) per tile of csrc/flash_attention.cu, by kernel and
+# operand mode.  The reference's model tiles 128 x 128 (repro kernels/ops.py
+# block_q = block_k = 128).  An axis whose width changes the numbers is 128
+# wide: B5's keys in every mode (p = exp(s - m) is rounded or quantized
+# relative to the running max over the tiles seen), B6's keys and B7's
+# queries in the int8 mode (ds·k takes its scales over the tile's keys, pᵀ·do
+# and dsᵀ·q over its queries).  The other axis stays 64: a row's numbers do
+# not depend on it.
+FLASH_TILES = {
+    "fwd": {"none": (64, 128), "bf16": (64, 128), "int8": (64, 128)},
+    "dq": {"none": (64, 64), "bf16": (64, 64), "int8": (64, 128)},
+    "dkv": {"none": (64, 64), "bf16": (64, 64), "int8": (128, 64)},
+}
+
+
+def flash_tile(kernel: str, policy) -> tuple:
+    """(query rows, keys) per tile of ``kernel`` ("fwd", "dq" or "dkv")
+    under ``policy``."""
+    mode = getattr(policy, "matmul", "none") if policy is not None else "none"
+    return FLASH_TILES[kernel][mode]
 
 
 def _heads(q, k, v):
@@ -108,8 +128,23 @@ def _capped_logits(q, k, scale, softcap, policy):
     s = kernel_dot(q, k.transpose(-1, -2), policy) * scale
     if not softcap:
         return s, None
-    t = torch.tanh(s / softcap)
+    t = torch.tanh(s / torch.full_like(s, softcap))   # a true division, as the kernels'
     return softcap * t, t
+
+
+def _lane_row_sum(p, width: int):
+    """Row sums of a (..., n <= width) tile in B5's order: each of 16 lanes
+    adds the keys lane, lane + 16, ... in turn (zeros beyond n), then a
+    butterfly over the lanes (xor 8, 4, 2, 1), so that the kernel and this
+    plain version form the same l bit for bit."""
+    x = torch.nn.functional.pad(p, (0, width - p.shape[-1])).unflatten(-1, (width // 16, 16))
+    acc = x[..., 0, :]
+    for j in range(1, width // 16):
+        acc = acc + x[..., j, :]
+    lane = torch.arange(16, device=p.device)
+    for o in (8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ o]
+    return acc[..., :1]
 
 
 def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
@@ -118,28 +153,31 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
     ``(o, lse)``, o in q's dtype, lse (B, H, S) float32.
 
     It keeps the kernel's algorithm where it decides the numbers: the
-    64-key tiles, skipped where no pair of the (query tile, key tile) is
-    visible, the online softmax (m, l, acc) with its alpha rescale, and
-    under a bf16 policy each tile-matmul operand rounded to bf16 where the
-    kernel rounds it: q and k, the unnormalized p = exp(s - m) of the tile
-    and v.  Every query row is carried at once."""
+    128-key tiles, skipped where no pair of the (64-row query tile, key
+    tile) is visible, the online softmax (m, l, acc) with its alpha
+    rescale and its row sums in the kernel's order, and each tile matmul
+    under the policy: q·kᵀ (scales over d in the int8 mode), then the
+    unnormalized p = exp(s - m) of the tile times v (p rounded or quantized
+    per row, v per column, over the tile's keys).  Every query row is
+    carried at once."""
     B, S, H, d = q.shape
     T = k.shape[1]
+    tq, tk = flash_tile("fwd", policy)
     qh, kh, vh = _heads(q, k, v)
     rows = torch.arange(S, device=q.device)
-    q0 = rows // FLASH_TILE * FLASH_TILE              # each row's tile start
+    q0 = rows // tq * tq                              # each row's tile start
     m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(B, H, S, d, device=q.device)
-    for k0 in range(0, T, FLASH_TILE):
+    for k0 in range(0, T, tk):
         on = torch.ones_like(rows, dtype=torch.bool)  # _block_visible per row
         if causal:
-            on &= k0 <= q0 + FLASH_TILE - 1
+            on &= k0 <= q0 + tq - 1
         if window:
-            on &= k0 + FLASH_TILE - 1 >= q0 - window + 1
+            on &= k0 + tk - 1 >= q0 - window + 1
         if not bool(on.any()):
             continue
-        ks = slice(k0, k0 + FLASH_TILE)
+        ks = slice(k0, k0 + tk)
         s, _ = _capped_logits(qh, kh[:, :, ks], scale, softcap, policy)
         mask = _visible(S, T, causal, window, q.device)[:, ks]
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -147,7 +185,7 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         on = on[:, None]
-        l = torch.where(on, alpha * l + p.sum(-1, keepdim=True), l)
+        l = torch.where(on, alpha * l + _lane_row_sum(p, tk), l)
         acc = torch.where(on, acc * alpha + kernel_dot(p, vh[:, :, ks], policy), acc)
         m = torch.where(on, m_new, m)
     lc = torch.clamp(l, min=1e-30)
@@ -164,14 +202,16 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
 
     ``p = exp(s - lse)`` on the visible pairs and 0 elsewhere, ``ds = p (do
     vᵀ - delta)``, times the softcap's ``1 - t²`` (t the pre-mask tanh) and
-    the scale; ``dq = ds k``, ``dk = dsᵀ q`` and ``dv = pᵀ do``, dk and dv
-    summed over the G query heads of each kv head.  Under a bf16 policy the
-    operands of every matmul are rounded to bf16, as the kernels round
-    them: q and k, do and v, ds and k, pᵀ and do, dsᵀ and q.  No tiles: p
-    and ds are elementwise, and a tile the kernels skip holds no visible
-    pair."""
+    the scale.  q·kᵀ and do·vᵀ take their int8 scales over d, so they run
+    untiled.  The products whose scales run over a tile axis are summed
+    tile by tile in the kernels' order, each quantized (int8) or rounded
+    (bf16) on its own: ``dq`` over B6's key tiles, ``dk = dsᵀ q`` and
+    ``dv = pᵀ do`` over the G query heads of each kv head and, inside,
+    B7's query tiles.  A tile the kernels skip holds no visible pair: its
+    p and ds are 0, and so is its product."""
     B, S, H, d = q.shape
     T, K = k.shape[1], k.shape[2]
+    G = H // K
     qh, kh, vh = _heads(q, k, v)
     doh = do.transpose(1, 2).float()
     s, t = _capped_logits(qh, kh, scale, softcap, policy)
@@ -181,14 +221,24 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
     if softcap:
         ds = ds * (1 - t * t)
     ds = ds * scale
-    dq = kernel_dot(ds, kh, policy)
+    _, tk = flash_tile("dq", policy)
+    dq = 0.0
+    for k0 in range(0, T, tk):
+        ks = slice(k0, k0 + tk)
+        dq = dq + kernel_dot(ds[..., ks], kh[:, :, ks], policy)
 
-    def per_kv_head(x):                               # (B, H, T, d) -> (B, T, K, d)
-        return x.reshape(B, K, H // K, T, d).sum(2).transpose(1, 2)
+    def groups(x):                                    # (B, H, ...) -> (B, K, G, ...)
+        return x.reshape(B, K, G, *x.shape[2:])
 
-    dk = per_kv_head(kernel_dot(ds.transpose(-1, -2), qh, policy))
-    dv = per_kv_head(kernel_dot(p.transpose(-1, -2), doh, policy))
-    return dq.transpose(1, 2), dk, dv
+    tq, _ = flash_tile("dkv", policy)
+    pg, dsg, qg, dog = groups(p), groups(ds), groups(qh), groups(doh)
+    dk = dv = 0.0
+    for g in range(G):
+        for q0 in range(0, S, tq):
+            qs = slice(q0, q0 + tq)
+            dk = dk + kernel_dot(dsg[:, :, g, qs].transpose(-1, -2), qg[:, :, g, qs], policy)
+            dv = dv + kernel_dot(pg[:, :, g, qs].transpose(-1, -2), dog[:, :, g, qs], policy)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
 def _gather_kv(k_pages, v_pages, tab, k_scale, v_scale):

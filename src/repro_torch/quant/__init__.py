@@ -1,5 +1,5 @@
 """Low-precision subsystem of the port: the mixed-precision policy and its
-policy-routed matmuls (bf16; the int8 matmul mode comes later), the int8
+policy-routed matmuls (bf16 and int8 operands), the int8
 quantize/dequantize primitives, and the per-page-per-head scales of the
 int8 paged KV pools (``quant/kv.py``).
 

@@ -1,6 +1,5 @@
 """Quantize/dequantize primitives and policy-routed matmuls: the port's copy
-of ``repro.quant.core`` (the matmuls in bf16 and f32; their int8 mode comes
-with its own slice).
+of ``repro.quant.core``.
 
   - :func:`quantize_int8` / :func:`dequantize_int8` — symmetric int8 with
     absmax/127 scales along an axis (the int8 KV pools' scales are managed
@@ -18,6 +17,16 @@ f32: each product of two bf16 values is exact in f32, so this is
 ``jax.lax.dot(bf16, bf16, preferred_element_type=f32)`` up to summation
 order.  A matmul of two bf16 tensors would return bf16 and round the f32
 accumulation away; it is never used here.
+
+int8 mode quantizes ``a`` per row and ``b`` per column over the contraction
+axis (:func:`quantize_int8`), sums the int8 products exactly and rescales
+in f32, ``acc * sa * sb`` in that order.  The sum runs as a float64 matmul
+of the int8 values: every partial sum is an integer below 2^53, so any
+summation order gives the exact int32 result, on the CPU and on the card,
+at any shape (an f32 matmul is exact only while k * 127^2 < 2^24, ~1,040
+terms; the readout's dW contracts all B * S rows).  ``acc.float()``
+rounds an integer above 2^24 to nearest even, as the reference's
+``astype(float32)`` of its int32 does.
 """
 from __future__ import annotations
 
@@ -27,6 +36,13 @@ INT8_MAX = 127.0
 _EPS = 1e-12
 
 
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """absmax / 127 by a true division on every device: on the card a tensor
+    divided by a Python number is multiplied by its reciprocal, which can be
+    an ulp off the reference's quotient and move a byte on a half step."""
+    return amax / torch.full_like(amax, INT8_MAX)
+
+
 def quantize_int8(x: torch.Tensor, axis=-1):
     """Symmetric int8 quantization with absmax/127 scales along ``axis``.
 
@@ -34,7 +50,7 @@ def quantize_int8(x: torch.Tensor, axis=-1):
     reduced axis as size 1, so ``q * scale`` broadcasts back.  Rounds half
     to even (``torch.round``, as ``jnp.round``)."""
     xf = x.float()
-    scale = xf.abs().amax(dim=axis, keepdim=True) / INT8_MAX
+    scale = int8_scale(xf.abs().amax(dim=axis, keepdim=True))
     q = torch.round(xf / scale.clamp(min=_EPS))
     return q.clamp(-INT8_MAX, INT8_MAX).to(torch.int8), scale
 
@@ -48,15 +64,20 @@ def kernel_dot(a: torch.Tensor, b: torch.Tensor, policy=None) -> torch.Tensor:
     """Policy-routed (batched) matmul ``a @ b`` with f32 output.
 
     ``"none"`` → f32 matmul; ``"bf16"`` → bf16-rounded operands, f32
-    products and accumulation; ``"int8"`` is not ported yet.
+    products and accumulation; ``"int8"`` → per-row scales of ``a`` (over
+    its last axis), per-column scales of ``b`` (over its axis -2), exact
+    integer accumulation, f32 rescale.  A batched call is the reference's
+    ``vmap`` of its 2-D ``kernel_dot``.
     """
     mode = getattr(policy, "matmul", "none") if policy is not None else "none"
     if mode == "bf16":
         # round to nearest even, then widen: the products are exact in f32
         return torch.matmul(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
     if mode == "int8":
-        raise NotImplementedError("int8 matmuls are not ported yet: they come with "
-                                  "the int8 slice of the flash-attention kernels")
+        qa, sa = quantize_int8(a, axis=-1)      # (..., m, k) -> scales (..., m, 1)
+        qb, sb = quantize_int8(b, axis=-2)      # (..., k, n) -> scales (..., 1, n)
+        acc = torch.matmul(qa.double(), qb.double())
+        return acc.float() * sa * sb
     return torch.matmul(a.float(), b.float())
 
 

@@ -20,14 +20,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant.core import _EPS, INT8_MAX
+from repro_torch.quant.core import _EPS, INT8_MAX, int8_scale
 
 
 def abs_scale(x: torch.Tensor) -> torch.Tensor:
     """Per-page-per-head absmax/127 scales for a ``(..., P, K, hd)`` pool.
 
     Reduces the page (token) and head-dim axes, returning ``(..., K)``."""
-    return x.float().abs().amax(dim=(-3, -1)) / INT8_MAX
+    return int8_scale(x.float().abs().amax(dim=(-3, -1)))
 
 
 def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

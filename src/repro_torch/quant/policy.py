@@ -16,9 +16,10 @@ class QuantPolicy:
     """What precision the hot matmuls run in.
 
     ``matmul``: ``"none"`` (full f32, the default), ``"bf16"`` (operands
-    rounded to bf16, f32 accumulation), or ``"int8"`` (scaled int8, not
-    ported yet).  Applies to the flash-attention tile matmuls (q·kᵀ, p·v and
-    their dq/dk/dv recompute counterparts) and the readout logit matmul.
+    rounded to bf16, f32 accumulation), or ``"int8"`` (per-row/per-column
+    absmax scales, int8 operands, exact integer accumulation).  Applies to
+    the flash-attention tile matmuls (q·kᵀ, p·v and their dq/dk/dv
+    recompute counterparts) and the readout logit matmul.
     Master weights and optimizer state are always f32.
     """
 

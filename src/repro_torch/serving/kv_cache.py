@@ -43,7 +43,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.quant.core import _EPS, INT8_MAX
+from repro_torch.quant.core import _EPS, INT8_MAX, int8_scale
 
 # block kinds the paged engine serves in the port
 SERVABLE_KINDS = ("attn",)
@@ -227,7 +227,7 @@ def _quantized_write(store, scale, x_new, pg, off):
     The ratio needs the scales from before step 1, which overwrites them in
     place: they are read first."""
     xf = x_new.float()
-    s_tok = xf.abs().amax(dim=-1) / INT8_MAX             # (n, K)
+    s_tok = int8_scale(xf.abs().amax(dim=-1))            # (n, K)
     old = scale[pg]                                      # (n, K), a copy
     scale.index_reduce_(0, pg, s_tok, "amax")
     new = scale[pg]
@@ -292,7 +292,7 @@ def _admit_quantized(store, scale, src, rows, page, off):
     requantize: the pages start empty)."""
     scale[:, rows] = 0.0
     sf = src.float()
-    scale.index_reduce_(1, page, sf.abs().amax(dim=-1) / INT8_MAX, "amax")
+    scale.index_reduce_(1, page, int8_scale(sf.abs().amax(dim=-1)), "amax")
     sn = scale[:, page].clamp(min=_EPS)[..., None]       # (L, n, K, 1)
     store[:, page, off] = torch.round(sf / sn).clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
 

@@ -6,10 +6,11 @@ weights.
 On the CPU the port's ``ops.attention`` runs its plain version
 (``kernels/ref.py``: ``attention_ref``, or ``attention_policy_ref`` under an
 active policy), differentiated by autograd.  It is held against the
-reference's Pallas flash-attention kernels in interpret mode (64 x 64
-tiles, ``jax.vjp``) and against the reference's jnp plain versions.  The
-plain versions at the CUDA kernels' own contract (``ref.flash_fwd_ref``:
-online softmax over 64-key tiles with the tile skip; ``ref.flash_bwd_ref``:
+reference's Pallas flash-attention kernels in interpret mode (128 x 128
+tiles, the blocks the reference's model runs them at, ``jax.vjp``) and
+against the reference's jnp plain versions.  The plain versions at the CUDA
+kernels' own contract (``ref.flash_fwd_ref``: online softmax over 128-key
+tiles with the tile skip; ``ref.flash_bwd_ref``:
 p recomputed from lse, ds = p (dp - delta); both rounding each tile-matmul
 operand where the kernels round it) are held to the interpret-mode kernel
 too, and mutants of them fail: no ``alpha`` rescale, no causal mask, no
@@ -31,7 +32,8 @@ near 1 that does moves o by ~4e-3 |v|).  The kernel-contract plain versions
 against the interpret-mode kernel, bf16 mode: each output's max abs error
 within the bf16 tier (o 2e-2, gradients 5e-2: such single roundings to the
 neighbour) and its mean within 3e-5 (measured here: up to 1.1e-5; the
-mutants above: 9.8e-5 and more).
+mutants above, on the two-tile case: 7.2e-5 and more).  The int8 mode has
+its own file, tests/test_torch_amp_int8.py.
 Model losses and gradients under amp: see the tests.
 """
 import inspect
@@ -76,6 +78,9 @@ ATTN_CASES = {
     "window": (1, 128, 4, 2, 32, 48, 0.0, 0.125),
     "softcap": (1, 128, 4, 2, 32, 0, 20.0, 0.5),
 }
+# two 128-key tiles a row, so that the online softmax rescales between them
+# (at S = 128 a row has one tile at the reference model's 128 x 128 blocks)
+TWO_TILE_CASES = {"gqa, 2 key tiles": (2, 256, 4, 2, 32, 0, 0.0, 0.125)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -120,7 +125,7 @@ def _reference_attention(arrays, *, scale, window, softcap, mode, impl):
 
     def f(q, k, v):
         return jops.attention(q, k, v, scale=scale, causal=True, window=window,
-                              softcap=softcap, block_q=64, block_k=64,
+                              softcap=softcap, block_q=128, block_k=128,
                               impl=impl, policy=_jpolicy(mode))
 
     o, vjp = jax.vjp(f, q, k, v)
@@ -143,7 +148,7 @@ def kernel_outputs():
 
     def get(case, mode):
         if (case, mode) not in cache:
-            B, S, H, K, d, window, softcap, scale = ATTN_CASES[case]
+            B, S, H, K, d, window, softcap, scale = {**ATTN_CASES, **TWO_TILE_CASES}[case]
             arrays = _attn_inputs(B, S, H, K, d)
             cache[case, mode] = arrays, _reference_attention(
                 arrays, scale=scale, window=window, softcap=softcap, mode=mode,
@@ -241,19 +246,19 @@ MUTANTS = {
         ref.flash_fwd_ref, _PV, "acc * alpha + kernel_dot(p / p.sum(-1, keepdim=True), "
         "vh[:, :, ks], policy) * p.sum(-1, keepdim=True)"))),
     "ds unrounded": (ROUNDING, lambda: dict(bwd=_mutant(
-        ref.flash_bwd_ref, "dq = kernel_dot(ds, kh, policy)",
-        "dq = kernel_dot(ds, kh.bfloat16().float(), None)"))),
+        ref.flash_bwd_ref, "kernel_dot(ds[..., ks], kh[:, :, ks], policy)",
+        "kernel_dot(ds[..., ks], kh[:, :, ks].bfloat16().float(), None)"))),
     "p of dv unrounded": (ROUNDING, lambda: dict(bwd=_mutant(
-        ref.flash_bwd_ref, "kernel_dot(p.transpose(-1, -2), doh, policy)",
-        "kernel_dot(p.transpose(-1, -2), doh.bfloat16().float(), None)"))),
+        ref.flash_bwd_ref, "dog[:, :, g, qs], policy)",
+        "dog[:, :, g, qs].bfloat16().float(), None)"))),
 }
 
 
 @pytest.mark.parametrize("mode", ["none", "bf16"])
-@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+@pytest.mark.parametrize("case", sorted(ATTN_CASES) + sorted(TWO_TILE_CASES))
 def test_tiled_model_of_the_kernels_matches_reference_kernel(kernel_outputs, case, mode):
     """f32 at the f32 tiers; bf16 by _assert_rounds_like."""
-    _, _, _, _, _, window, softcap, scale = ATTN_CASES[case]
+    _, _, _, _, _, window, softcap, scale = {**ATTN_CASES, **TWO_TILE_CASES}[case]
     arrays, want = kernel_outputs(case, mode)
     got = _kernel_contract(arrays, scale=scale, window=window, softcap=softcap, mode=mode)
     if mode == "none":
@@ -274,7 +279,7 @@ def test_tiled_model_takes_a_ragged_sequence(mode):
     _assert_attention_close(got, want, VS_KERNEL[mode])
 
 
-@pytest.mark.parametrize("mode", ["none", "bf16"])
+@pytest.mark.parametrize("mode", ["none", "bf16", "int8"])
 def test_plain_flash_path_is_the_kernel_contract(mode):
     """ops.attention_plain_flash under autograd (the kernel path's autograd
     Function over flash_fwd_ref / flash_bwd_ref) computes what
@@ -301,7 +306,7 @@ def test_the_checks_reject_a_broken_kernel(kernel_outputs, drop):
     mode."""
     modes, make = MUTANTS[drop]
     for mode in modes:
-        arrays, want = kernel_outputs("gqa", mode)
+        arrays, want = kernel_outputs("gqa, 2 key tiles", mode)
         got = _kernel_contract(arrays, scale=0.125, window=0, softcap=0.0, mode=mode,
                                **make())
         with pytest.raises(AssertionError):
@@ -360,8 +365,6 @@ def test_bf16_kernel_dot_is_exact_products_accumulated_in_f32():
     torch.testing.assert_close(got.double(), want, atol=1e-4, rtol=0)
     bf16_out = (a.to(torch.bfloat16) @ b.to(torch.bfloat16)).double()
     assert (bf16_out - want).abs().max() > 1e-2
-    with pytest.raises(NotImplementedError, match="int8"):
-        kernel_dot(a, b, QuantPolicy("int8"))
 
 
 # ---------------------------------------------------------------------------
@@ -512,10 +515,17 @@ def test_flash_kernels_on_cpu_raise_and_count_nothing():
         fa.flash_bwd_dq(q, k, v, do, lse, delta)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_bwd_dkv(q, k, v, do, lse, delta)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ops.attention(q, k, v, scale=0.25, policy=QuantPolicy("int8"))
+    int8 = QuantPolicy("int8")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_fwd(q, k, v, policy=int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd_dkv(q, k, v, do, lse, delta, policy=int8)
+    torch.testing.assert_close(     # the int8 plain version, on the CPU
+        ops.attention(q, k, v, scale=0.25, policy=int8),
+        ref.attention_policy_ref(q, k, v, scale=0.25, policy=int8), rtol=0, atol=0)
     counts = ops.launch_counts()
-    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(counts)
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_int8",
+            "flash_bwd_dq_int8", "flash_bwd_dkv_int8"} <= set(counts)
     assert set(counts.values()) == {0}
 
 

@@ -38,13 +38,14 @@ def test_port_imports_without_jax_or_reference():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
-    assert len(mods) >= 40
+    assert len(mods) >= 41
     training = {
         "repro_torch.core.hpspace", "repro_torch.core.transfer",
         "repro_torch.kernels.cross_entropy", "repro_torch.optim.optimizer",
         "repro_torch.optim.schedules", "repro_torch.optim.grad",
         "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
         "repro_torch.launch.steps", "repro_torch.launch.train",
+        "repro_torch.core.coord_check",
     }
     assert training <= mods, training - mods
     amp = {"repro_torch.quant", "repro_torch.quant.policy", "repro_torch.quant.core",
