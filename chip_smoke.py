@@ -4,12 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-``nvcc`` per source, all at once), then runs these phases, each of which
-raises on a failed check:
+``nvcc`` per source, all at once) and checks what the compiler made of the
+tensor-core flash kernels (B5 and B7 in the bf16 operand mode): no spills
+in ``ptxas -v`` at DP 64 and 128, and, where ``cuobjdump`` is on the
+machine, tensor-core instructions (HMMA/HGMMA) in their SASS, whose counts
+of HMMA, HGMMA, LDSM, LDGSTS and UTMALDG it prints for every flash kernel
+("not available" without the tool).  Then it runs these phases, each of
+which raises on a failed check:
 
 - kernels: each kernel against its plain PyTorch version on the card, with
   its time, the plain version's, a PyTorch library call's and the bound.
-  B1 RMSNorm (24 shapes, f32 atol 2e-5, bf16 2e-2); B2 RMSNorm backward at
+  B1 RMSNorm (24 shapes, f32 atol 2e-5, bf16 2e-2; at the decode shape the
+  card's time a launch beside F.rms_norm's, from the profiler); B2 RMSNorm backward at
   the train shape x (8, 512, 1024) and ragged rows/widths, f32 and bf16
   (dx at atol 2e-4 / rtol 1e-3, bf16 2e-2; dgain at the f32 gradient tier
   and bit-identical when repeated); B3/B4 chunked cross entropy at logits
@@ -19,19 +25,24 @@ raises on a failed check:
   masked rows exactly zero); B5/B6/B7 flash attention forward, dq and dk/dv
   in the f32, bf16 and int8 operand modes at the train shape (8, 512, 16
   heads of 64, causal), smollm's 9/3 heads (GQA), a window of 48, softcap
-  20 (logits up to ~20), ragged S (200, 190), bf16 storage and d_head 128,
-  with a cotangent of order 1: each kernel against its plain version at
+  20 (logits up to ~20), ragged S (200, 190), bf16 storage, d_head 128,
+  and the tensor-core kernels' edges (d_head 96 and 40, S = T = 1, S = 129,
+  d_head 20 in bf16, whose rows the copy engine cannot move), with a
+  cotangent of order 1: each kernel against its plain version at
   its own contract (kernels/ref.py flash_fwd_ref, flash_bwd_ref, which
   round or quantize where the kernels do, over the same tiles) on the same
   inputs, lse at atol 2e-5 / rtol 1e-5, o and dq/dk/dv at the f32 tiers
   where nothing rounds to bf16, else max abs err within the bf16 tiers (the
   int8 tier, 5e-2, in the int8 mode) and mean within 3e-5, which the
   f32-mode outputs must fail against the bf16 plain versions and the int8
-  outputs against the int8 plain versions tiled 64 wide; dk/dv
+  outputs against the int8 plain versions tiled 64 wide (where S > 64:
+  shorter sequences have no other tiles); dk/dv
   bit-identical when repeated; then ops.attention's autograd Function in
   the f32 mode against the plain attention under autograd (the f32 tiers);
-  each mode timed at the train shape, the int8 kernels with their device
-  time per launch; B8 paged flash decode
+  each mode timed at the train shape, the bf16 and int8 kernels with their
+  device time per launch, B5 and B7 in the bf16 mode against SDPA's bf16
+  forward and backward alone (printed ratios; the targets are <= 3x and <=
+  1x, not held); B8 paged flash decode
   (8 cases: engine shape, MHA/MQA, window, softcap, bf16); B9 paged
   multi-query flash decode (12 cases: the engine's chunk of 64 with the
   history partly resident, its last chunk with rows past the prompt at -1,
@@ -131,6 +142,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -238,6 +251,26 @@ def device_us(fn, name, n=20):
     return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
 
 
+def library_device_us(fn, n=20):
+    """(microseconds on the card, kernel launches) per call of ``fn``, over
+    every kernel it launches (a library call's own kernels), from
+    torch.profiler over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not hits:
+        raise AssertionError("the profiler saw no kernel of the library call")
+    return (sum(e.self_device_time_total for e in hits) / n,
+            sum(e.count for e in hits) / n)
+
+
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over their rate (float32 unless given)."""
@@ -277,6 +310,13 @@ def rmsnorm_phase(ops, rn, F):
     plain_ms = cuda_ms(lambda: ops.fused_rmsnorm(x, g, impl="ref"))
     w = (1 + g).to(x.dtype)
     library_ms = cuda_ms(lambda: F.rms_norm(x, (576,), weight=w, eps=1e-6))
+    # the card's own time a launch, to tell it from the host's time a call
+    dev_us = device_us(lambda: ops.fused_rmsnorm(x, g, impl="kernel"), "rmsnorm")
+    lib_dev_us, lib_launches = library_device_us(
+        lambda: F.rms_norm(x, (576,), weight=w, eps=1e-6))
+    log(f"[kernels] rmsnorm x (4, 1, 576) f32: {ms:.5f} ms a call, {dev_us:.2f} us on the "
+        f"card a launch; F.rms_norm {library_ms:.5f} ms a call, {lib_dev_us:.2f} us on "
+        f"the card in {lib_launches:.0f} launch(es) a call")
     nbytes = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
     bound_ms, bound_by = bound(nbytes, 4 * x.numel())
 
@@ -310,6 +350,7 @@ def rmsnorm_phase(ops, rn, F):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
         library="torch.nn.functional.rms_norm(weight=1+g)",
+        device_us=dev_us, library_device_us=lib_dev_us, library_launches=lib_launches,
         at_train_shape=train,
     )
 
@@ -915,7 +956,17 @@ FLASH_CASES = [
     ("ragged S 200", 3, 200, 6, 2, 64, 0, 0.0, 0.125, torch.float32),
     ("bf16 storage", 2, 256, 8, 4, 64, 0, 0.0, 0.125, torch.bfloat16),
     ("d_head 128, ragged S 190", 1, 190, 4, 4, 128, 0, 0.0, 0.125, torch.float32),
+    # the tensor-core kernels' edges: d_head zero-padded inside a 16-wide MMA
+    # step (at DP 128 and 64), one row and key, one row past a tile, and rows
+    # whose bf16 bytes are not 16-byte aligned (element-wise staging)
+    ("d_head 96", 2, 256, 4, 2, 96, 0, 0.0, 0.125, torch.float32),
+    ("d_head 40", 2, 256, 4, 2, 40, 0, 0.0, 0.125, torch.float32),
+    ("S = T = 1", 4, 1, 4, 2, 64, 0, 0.0, 0.125, torch.float32),
+    ("S 129", 2, 129, 4, 2, 64, 0, 0.0, 0.125, torch.float32),
+    ("d_head 20, bf16 storage", 2, 160, 4, 2, 20, 0, 0.0, 0.125, torch.bfloat16),
 ]
+# the bf16 operand mode of B5 and B7 runs these kernels (flash_attention.cu)
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_OUTS = ("o", "lse", "dq", "dk", "dv")
 
@@ -999,7 +1050,7 @@ def flash_case(ops, fa, ref, quant, case, seed):
         if mode == "bf16":
             control = {n: rounded_err(g, w) for n, g, w in
                        zip(FLASH_OUTS, got["none"], want) if n != "lse"}
-        elif mode == "int8":
+        elif mode == "int8" and S > 64:   # else 64-wide tiles are the same tiles
             with int8_tiles(ref, 64):
                 _, lse, _, _, _ = got[mode]
                 wrong = (ref.flash_fwd_ref(qs, k, v, policy=policy, **kw)[0],
@@ -1050,7 +1101,8 @@ def flash_case(ops, fa, ref, quant, case, seed):
                  + ", ".join(f"{n} {e1[n]:.3g} / {e1[n + '_mean']:.3g}"
                              for n in ("dq", "dk", "dv"))
                  + f"; control ({controls[mode]}) mean err "
-                 + ", ".join(f"{n} {c:.3g}" for n, c in e1["control_mean"].items())
+                 + (", ".join(f"{n} {c:.3g}" for n, c in e1["control_mean"].items())
+                    if "control_mean" in e1 else "not applicable (no tile wider than 64)")
                  + f"; {mode} through ops.attention against the policy's plain attention, "
                  "max " + ", ".join(f"{n} {c:.3g}" for n, c in
                                     zip(("o", "dq", "dk", "dv"), e1["vs_policy_plain"])))
@@ -1070,7 +1122,8 @@ def flash_phase(ops, fa, ref, quant, F):
              for m in FLASH_MODES}
     worst_mean = {m: max(e[m][n + "_mean"] for e in errs.values()
                          for n in ("o", "dq", "dk", "dv")) for m in FLASH_MODES[1:]}
-    least_control = {m: min(c for e in errs.values() for c in e[m]["control_mean"].values())
+    least_control = {m: min(c for e in errs.values()
+                            for c in e[m].get("control_mean", {}).values())
                      for m in FLASH_MODES[1:]}
     log(f"[kernels] flash attention: {len(FLASH_CASES)} cases x {len(FLASH_MODES)} operand "
         f"modes agree, dk/dv deterministic; worst max err f32 operands "
@@ -1118,8 +1171,8 @@ def flash_phase(ops, fa, ref, quant, F):
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(qs, k, v, do, lse, delta, **fkw),
         }
         t = {n: cuda_ms(fn) for n, fn in calls.items()}
-        dev = ({n: device_us(fn, n + "_int8") for n, fn in calls.items()}
-               if mode == "int8" else {})
+        dev = ({n: device_us(fn, n + ("_int8" if mode == "int8" else ""))
+                for n, fn in calls.items()} if mode != "none" else {})
         with torch.no_grad():
             p_fwd = cuda_ms(lambda: plain(), n=20)
         p_dq = cuda_ms(lambda: torch.autograd.grad(op, leaves[0], do, retain_graph=True), n=20)
@@ -1136,6 +1189,13 @@ def flash_phase(ops, fa, ref, quant, F):
         torch.cuda.empty_cache()
     log(f"[kernels] SDPA bf16 causal (8, 16, 512, 64): forward {lib_fwd:.4f} ms, "
         f"backward {lib_bwd:.4f} ms, forward + backward {lib_fwd_bwd:.4f} ms")
+    bt = timed["bf16"]["ms"]
+    ratios = {"flash_fwd": bt["flash_fwd"] / lib_fwd, "flash_bwd_dq": bt["flash_bwd_dq"] / lib_bwd,
+              "flash_bwd_dkv": bt["flash_bwd_dkv"] / lib_bwd}
+    log(f"[kernels] bf16 operands against SDPA in this call: flash_fwd "
+        f"{ratios['flash_fwd']:.2f}x SDPA's forward (target <= 3x), flash_bwd_dkv "
+        f"{ratios['flash_bwd_dkv']:.2f}x SDPA's backward alone (target <= 1x), flash_bwd_dq "
+        f"{ratios['flash_bwd_dq']:.2f}x SDPA's backward alone")
 
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
                   shape="q, k, v, do (8, 512, 16, 64) f32, causal; bf16 operands "
@@ -1158,6 +1218,9 @@ def flash_phase(ops, fa, ref, quant, F):
             ms=bf["ms"][n], plain_ms=bf["plain"][n], bound_ms=bf["bound"][n][0],
             bound_by=bf["bound"][n][1], library_ms=lib_ms, library=lib_name,
             library_bwd_ms=None if n == "flash_fwd" else lib_bwd,
+            device_us=bf["device_us"][n],
+            **({"ratio_to_sdpa_fwd": ratios[n]} if n == "flash_fwd"
+               else {"ratio_to_sdpa_bwd": ratios[n]}),
             f32_operands=dict(
                 ms=f32["ms"][n], plain_ms=f32["plain"][n], bound_ms=f32["bound"][n][0],
                 bound_by=f32["bound"][n][1],
@@ -1720,9 +1783,9 @@ PORT_KERNELS = {
     "flash_decode_multi": ("flash_decode_multi_kernel<",),
     "flash_decode_int8": ("flash_decode_kernel<",),
     "flash_decode_multi_int8": ("flash_decode_multi_kernel<",),
-    "flash_fwd": ("flash_fwd_kernel<",),
+    "flash_fwd": ("flash_fwd_kernel<", "flash_fwd_tc_kernel<"),
     "flash_bwd_dq": ("flash_bwd_dq_kernel<",),
-    "flash_bwd_dkv": ("flash_bwd_dkv_kernel<",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernel<", "flash_bwd_dkv_tc_kernel<"),
     "flash_fwd_int8": ("flash_fwd_i8_kernel<",),
     "flash_bwd_dq_int8": ("flash_bwd_dq_i8_kernel<",),
     "flash_bwd_dkv_int8": ("flash_bwd_dkv_i8_kernel<",),
@@ -2129,6 +2192,95 @@ def train_profile_phase(amp=""):
                 top=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top])
 
 # ---------------------------------------------------------------------------
+# what the compiler made of the flash kernels
+# ---------------------------------------------------------------------------
+
+FLASH_KERNEL_IDS = ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_fwd_i8_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dq_i8_kernel", "flash_bwd_dkv_kernel",
+                    "flash_bwd_dkv_tc_kernel", "flash_bwd_dkv_i8_kernel")
+SASS_OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG")
+
+
+def flash_instance(mangled):
+    """'kernel<storage, DP>' for a mangled flash kernel name, else None (the
+    identifier is length-prefixed in the mangled name)."""
+    kern = next((k for k in FLASH_KERNEL_IDS if f"{len(k)}{k}I" in mangled), None)
+    dp = re.search(r"Li(\d+)E", mangled)
+    if kern is None or dp is None:
+        return None
+    return f"{kern}<{'float' if f'{kern}If' in mangled else 'bf16'}, {dp.group(1)}>"
+
+
+def tc_resources(build_log):
+    """{instance: (registers, spill bytes)} of the tensor-core flash kernels
+    from ``ptxas -v``; raise if one spills."""
+    regs, spills, entry, props = {}, {}, None, None
+    for line in build_log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills[props] = int(m.group(1)) + int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            regs[entry] = int(m.group(1))
+    out = {}
+    for name, n in regs.items():
+        inst = flash_instance(name)
+        if inst and inst.split("<")[0] in TC_KERNELS:
+            out[inst] = (n, spills.get(name, 0))
+    log("[build] tensor-core flash kernels (registers, spill bytes): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    if len(out) != 2 * 2 * len(TC_KERNELS):
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, not every tensor-core kernel")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"tensor-core flash kernels spill: {spilled}")
+    return out
+
+
+def find_cuobjdump():
+    """cuobjdump's path (the CUDA toolkit's, or the copy in Triton's
+    package), or None."""
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        cands.append(str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+                         / "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and Path(c).exists()), None)
+
+
+def sass_check(lib_path):
+    """Per flash kernel instance, its count of tensor-core (HMMA, HGMMA),
+    ldmatrix (LDSM) and asynchronous-copy (LDGSTS, UTMALDG) instructions in
+    the built library.  Raise if cuobjdump is there and a tensor-core kernel
+    has no tensor-core instruction; None where cuobjdump is not."""
+    tool = find_cuobjdump()
+    if tool is None:
+        log("[sass] flash kernels' instructions: not available (no cuobjdump)")
+        return None
+    dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", dump)[1:]:
+        inst = flash_instance(chunk.split("\n", 1)[0].strip())
+        if inst:
+            counts[inst] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
+    for inst, c in sorted(counts.items()):
+        log(f"[sass] {inst}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    tc = {k: c for k, c in counts.items() if k.split("<")[0] in TC_KERNELS}
+    if len(tc) != 2 * 2 * len(TC_KERNELS):
+        raise AssertionError(f"cuobjdump ({tool}) shows {sorted(tc)}, not every "
+                             "tensor-core kernel")
+    none = [k for k, c in tc.items() if c["HMMA"] + c["HGMMA"] == 0]
+    if none:
+        raise AssertionError(f"no tensor-core instruction in {none}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     if not torch.cuda.is_available():
@@ -2164,6 +2316,8 @@ def main():
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
+    tc_regs = tc_resources(build.build_log)
+    sass = sass_check(build.library_path())
 
     def done(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t0:.0f} s")
@@ -2223,6 +2377,11 @@ def main():
                 "flash_bwd_dkv_int8": ("train_amp_int8",)}.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
+        if row["name"] in ("flash_fwd", "flash_bwd_dkv"):
+            tc = f"{row['name']}_tc_kernel"
+            row["registers_spills"] = {k: v for k, v in tc_regs.items() if k.startswith(tc)}
+            row["sass"] = (None if sass is None else
+                           {k: v for k, v in sass.items() if k.startswith(tc)})
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         log(json.dumps(row))

@@ -111,6 +111,8 @@ def _build() -> Path:
     out_dir = BUILD_ROOT / _digest()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
+        if not build_log and (out_dir / "build.log").exists():
+            build_log = (out_dir / "build.log").read_text()
         return lib_path
     t0 = time.monotonic()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -144,6 +146,12 @@ def library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
     return _lib
+
+
+def library_path() -> Path:
+    """The built library's path (built on first call)."""
+    with _lock:
+        return _build()
 
 
 def check(err: int, what: str) -> None:

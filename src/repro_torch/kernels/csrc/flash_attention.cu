@@ -15,14 +15,18 @@
 // _block_visible and the mask of _tile_mask (flash_attention.py:54-74).
 //
 // Operand modes (argument `mode`), each tile matmul being the reference's
-// kernel_dot(a, b) (src/repro/quant/core.py:48):
-//   0 = f32: every tile matmul in f32.
+// kernel_dot(a, b) (src/repro/quant/core.py:48), and the kernels that serve
+// them:
+//   0 = f32: every tile matmul in f32.  flash_fwd_kernel,
+//       flash_bwd_dq_kernel, flash_bwd_dkv_kernel (FFMA).
 //   1 = bf16: each operand of each tile matmul is rounded to bf16 (nearest
 //       even) where kernel_dot rounds it -- q and k^T; the unnormalized p and
-//       v; do and v^T; ds and k; p^T and do; ds^T and q -- and the rounded
-//       values are multiplied with FFMA in f32.  A product of two bf16
-//       values is exact in f32, so this is the bf16 MMA with f32
-//       accumulation up to the order of the sums.
+//       v; do and v^T; ds and k; p^T and do; ds^T and q -- and the products
+//       are summed in f32.  A product of two bf16 values is exact in f32, so
+//       the modes' kernels differ only in the order of the sums.  B5 and B7:
+//       flash_fwd_tc_kernel and flash_bwd_dkv_tc_kernel, on the tensor cores
+//       (mma.sync m16n8k16 bf16 -> f32); B6: flash_bwd_dq_kernel, FFMA on the
+//       rounded values.  This is the mode `train --amp bf16` runs.
 //   2 = int8: a is quantized per row and b per column over the contraction
 //       axis (scale = absmax / 127 by IEEE division, q = rint(x / max(scale,
 //       1e-12)) half to even, clipped to +-127), the int8 products summed
@@ -30,7 +34,7 @@
 //       sa * sb in that order (quant/core.py:31-41, :63-67).  q k^T and do
 //       v^T take their scales over d; p v and ds k over the tile's keys;
 //       p^T do and ds^T q over the tile's queries.  So k, q, do and v are
-//       each quantized along two axes inside one kernel.
+//       each quantized along two axes inside one kernel.  The *_i8_kernel.
 // Storage: q, k, v, do in f32 or bf16 (all one type); o in q's type; lse,
 // dq, dk, dv in f32.
 //
@@ -47,52 +51,123 @@
 // heads of 64, causal) the tile matmuls are 4, 6 and 8 d operations per
 // visible (query, key) pair (4.3, 6.5 and 8.6 G) over 67-101 MB of reads and
 // writes: bound by operations in f32 (67 TFLOP/s, 0.06-0.13 ms) and by bytes
-// with bf16 or int8 tensor cores (989 TFLOP/s, 1,979 TOP/s; 0.02-0.03 ms).
-// These kernels use neither the tensor cores nor asynchronous copies: they
-// are the simple, right first version, FFMA from shared memory in the f32
-// and bf16 modes and __dp4a on int8 words from shared memory in the int8
-// mode.
+// with bf16 or int8 tensor cores (3.35 TB/s against 989 TFLOP/s or 1,979
+// TOP/s; 0.02-0.03 ms).  So a bf16 kernel that reaches the tensor cores has
+// its time in moving and rounding tiles and in the softmax's exp, not in
+// its products.
 //
-// Design:
+// Design of the FFMA and int8 kernels (modes 0 and 2, and B6 in mode 1):
 //  - 256 threads as a 16 x 16 grid.  In a score tile of 64 rows by 64 or
 //    128 columns (queries by keys; B7 keys by queries) each thread owns rows
 //    ty + 16 i and columns tx + 16 j, and a 4 x d/16 block of the output
-//    accumulator.  Head dims up to 128
-//    are zero-padded to DP = 64 or 128 in shared memory (zeros change no
-//    absmax).
+//    accumulator.  Head dims up to 128 are zero-padded to DP = 64 or 128 in
+//    shared memory (zeros change no absmax).
 //  - Grids: B5 and B6 one block per (64-row q tile, head, batch), looping
 //    over the visible k tiles; B7 one block per (64-key k tile, kv head,
 //    batch), looping over the G query heads of the group and, inside, the
 //    visible q tiles, as the TPU grid (B, K, nk, G, nq) does.  The TPU grid
 //    carries the accumulators in VMEM across its sequential axes; here a
 //    loop inside the block carries them in registers.
-//  - Shared memory, f32 and bf16 modes (f32; rows padded by one word so the
-//    column reads of a warp fall in different banks): B5 q, k and v with the
-//    p tile over k's space once s is formed, 83 KB at DP = 64 and 165 KB at
-//    DP = 128; B6 q, do, k, v and the ds tile, 83 KB; B7 k, v, q, do, p^T and
-//    ds^T, 100 KB.  int8 mode: the quantized operands as int8 rows with a
-//    one-word pad (a 128 x 128 int8 tile is 16.5 KB) and their scales; no f32
-//    copy is kept (rows are quantized by one warp each straight from device
-//    memory, columns in two passes over it): B5 32 / 53 KB, B6 46 / 79 KB,
-//    B7 64 / 106 KB at DP = 64 / 128.  Most are above 48 KB, so each launch
-//    opts in to dynamic shared memory.
+//  - Shared memory (f32 rows padded by one word so the column reads of a
+//    warp fall in different banks): B5 q, k and v with the p tile over k's
+//    space once s is formed, 83 KB at DP = 64 and 165 KB at DP = 128; B6 q,
+//    do, k, v and the ds tile, 83 KB; B7 k, v, q, do, p^T and ds^T, 100 KB.
+//    int8 mode: the quantized operands as int8 rows with a one-word pad (a
+//    128 x 128 int8 tile is 16.5 KB) and their scales; no f32 copy is kept
+//    (rows are quantized by one warp each straight from device memory,
+//    columns in two passes over it): B5 32 / 53 KB, B6 46 / 79 KB, B7 64 /
+//    106 KB at DP = 64 / 128.  Most are above 48 KB, so each launch opts in
+//    to dynamic shared memory.
 //  - Reductions: the row max and row sum of a score tile, and an int8 row's
-//    absmax, by warp shuffles; every dot product in a fixed order.  dk and dv
-//    are summed over the group's heads and q tiles in a fixed order inside
-//    one block: no atomics, and a repeated call gives the same bits.  In the
+//    absmax, by warp shuffles; every dot product in a fixed order.  In the
 //    int8 mode the f32 steps before a quantization round as the reference
 //    rounds them (__fmul_rn/__fadd_rn: no fused multiply-add).
-//  - Any S and T: the ragged last tile is masked (k < T, q < S) and its
-//    rows load as zeros, so there is no S % 64 (or 128) rule.
-// Later work, not done here: mma.sync or wgmma on the tensor cores (bf16,
-// and s8 m16n8k32 for int8), cp.async/TMA double buffering of the next k
-// (or q) tile, larger per-thread register tiles.
+//
+// Design of the tensor-core kernels (B5 and B7 in mode 1; mma.cuh holds the
+// PTX):
+//  - Warps: each owns 16 rows of the score tile.  B5: 8 warps, 128 query
+//    rows an item (the k/v tiles it stages and rounds serve twice the rows
+//    of a 64-row tile), by the tile's 128 keys; one block an SM walks its
+//    share of the (q tile, head, batch) items, q tiles in reverse (the
+//    causal rows that see the most keys first), its tiles one stream, so the
+//    copies of the next item's q and first k/v tile fly while an item ends.
+//    B7: 4 warps, the block's 64 keys by each q tile's 64 queries, worked in
+//    halves of kQW = 32 (s^T = k q^T and dp^T = v do^T, keys as the M rows).
+//    The score tile lives in registers in the m16n8k16 accumulator layout,
+//    which is the A layout of the next product: p (B5), p^T and ds^T (B7)
+//    are rounded with cvt.rn.bf16x2.f32 straight into the A fragments of p
+//    v, p^T do and ds^T q and never touch shared memory.  B5 keeps q as A
+//    fragments for an item, rounded from its staged box; B7 reads its k and
+//    v fragments from shared memory at each step (at DP = 128 the dk
+//    and dv accumulators, 2 x 16 x 128 f32 a warp, leave no room for them).
+//  - Shared memory: bf16 tiles with rows padded by 8 elements (16 bytes), so
+//    the 8 rows one ldmatrix reads fall in 8 different 16-byte bank groups;
+//    ldmatrix for the k, q and do operands of s and dp, ldmatrix.trans for
+//    v, do and q as the B operand of p v, p^T do and ds^T q.  d < DP is
+//    zero-padded in both operands of both products (an exact 0).  B5: k, v
+//    and q staging tiles of 128 rows in the storage type and the bf16 k and
+//    v tiles, 132 KB at DP = 64 (f32 storage); at DP = 128 in f32 q is read
+//    from device memory (196 KB).  B7: staging for q and do with
+//    lse and delta, bf16 k, v, q and do tiles: 69 KB (three blocks an SM) /
+//    133 KB.
+//  - Copies: the copy engine (TMA) moves each staged tile as one box of a
+//    3-D tensor map (d, heads, batch x rows) built by the host, started by one
+//    thread and completing on an mbarrier, while the block multiplies the
+//    previous tile: in B5 k and v of the next tile of the stream (and q of
+//    the next item), in B7 the next (q, do) with lse and delta (4-byte
+//    cp.async: a q tile's rows of lse are not 16-byte aligned).  One
+//    16-byte cp.async a thread, or one bulk copy a row, took as long to
+//    start as the products took (measured); a box is one instruction.  f32
+//    storage (the --amp bf16 path) must be rounded before ldmatrix can read
+//    it, so the staging keeps the storage type and the whole block rounds
+//    each tile once into the bf16 tiles (16 bytes a thread); prefetching f32
+//    tiles into registers instead would need 64-128 more registers a thread
+//    beside the accumulators.  Rows the copy engine
+//    cannot move (d values of T not a multiple of 16 bytes, or a tensor not
+//    16-byte aligned) are staged element by element by the block.
+//  - Branches: the softcap and the mask are template flags of the
+//    element-wise steps (fwd_logits, dkv_grads), chosen once a tile (a tile
+//    with every pair visible is not masked), so the loops over a thread's
+//    elements have no branches.
+//  - Numbers: the logit is __fmul_rn(dot, scale) then the softcap's tanh;
+//    p = expf(s - m) (B5) or expf(x - lse) (B7) -- no exp2f with log2(e)
+//    folded into the scale, which would move p by ulps and, through the bf16
+//    rounding, flip operands.  B5's l sums the unrounded p in the
+//    fragments' order (n-tiles, then the pair, then lanes xor 1, 2; the
+//    plain version's ref._mma_row_sum) and updates as __fadd_rn(
+//    __fmul_rn(alpha, l), rowsum).  An MMA sums its 16 products in its own
+//    order; the plain versions sum in theirs, so the two agree to f32
+//    summation error before bf16 rounding, and to the bf16 tiers after it.
+//  - dk and dv (every mode) are summed over the group's heads and q tiles in
+//    a fixed order inside one block: no atomics, and a repeated call gives
+//    the same bits.  Any S and T: the ragged last tile is masked (k < T, q <
+//    S) and its rows load as zeros, so there is no S % 64 (or 128) rule.
+//  - No fallback: mode 1 of B5 and B7 always launches these kernels; a
+//    launch the card refuses (shared memory, attributes, a tensor map) is an
+//    error.
+//  - What holds them back (an H100 at the train shape, PERF.md section 6;
+//    scripts/torch_flash_probe.py): B5 runs at ~3.5x its bytes bound, B7 at
+//    ~3.0x.  Per 128-key tile, B5's warps spend most of their cycles in the
+//    softmax (expf on the MUFU pipe and its FMA work), then in the barriers
+//    and the rounding of the staged f32 tiles, then in the two products;
+//    all eight warps pass the same phases between the same barriers, so the
+//    tensor cores idle while the softmax runs.  Each item's epilogue (o = acc
+//    / l, two values a store) and q set-up cost most of a tile more.
+// Left for later: wgmma with a warpgroup per 64 rows; ping-pong of two
+// warpgroups (one's softmax under the other's products); warp
+// specialisation with setmaxnreg (a producer warpgroup that stages and
+// rounds); bf16 storage copied straight into swizzled bf16 tiles; TMA
+// multicast of a k/v tile to the q tiles of a cluster; B6 in mode 1 on the
+// tensor cores; s8 mma (m16n8k32) for the int8 mode.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -114,6 +189,7 @@ struct Params {
   int causal, window;
   float softcap;
   int mode;   // operand mode: 0 = f32, 1 = bf16, 2 = int8
+  int tma = 0;  // the tensor-core kernels: rows staged by the copy engine
 };
 
 __device__ __forceinline__ float rnd(float x, bool bf) {
@@ -255,7 +331,7 @@ __device__ __forceinline__ void store_dkv(float* __restrict__ dk, float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// B5: forward, f32 and bf16 operand modes
+// B5: forward, f32 operand mode (the bf16 mode is flash_fwd_tc_kernel)
 // ---------------------------------------------------------------------------
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -266,7 +342,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (p.H / p.K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool bf = p.mode == 1;
   extern __shared__ float smem[];
   float* qs = smem;                 // [BQ][LD]
   float* ks = qs + kBQ * LD;        // [FwdBK][LD]
@@ -277,7 +352,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
   const T* kb = k + ((size_t)b * p.T * p.K + kh) * p.d;
   const T* vb = v + ((size_t)b * p.T * p.K + kh) * p.d;
-  load_rows<T, DP>(qs, LD, qb, qstride, q0, kBQ, min(kBQ, p.S - q0), p.d, bf);
+  load_rows<T, DP>(qs, LD, qb, qstride, q0, kBQ, min(kBQ, p.S - q0), p.d, false);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -294,8 +369,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!tile_visible(q0, kBQ, k0, kFwdBK, p)) continue;   // uniform over the block
     __syncthreads();   // the previous tile's readers of ps (= ks) and vs are done
     const int kvalid = min(kFwdBK, p.T - k0);
-    load_rows<T, DP>(ks, LD, kb, kstride, k0, kFwdBK, kvalid, p.d, bf);
-    load_rows<T, DP>(vs, DP, vb, kstride, k0, kFwdBK, kvalid, p.d, bf);
+    load_rows<T, DP>(ks, LD, kb, kstride, k0, kFwdBK, kvalid, p.d, false);
+    load_rows<T, DP>(vs, DP, vb, kstride, k0, kFwdBK, kvalid, p.d, false);
     __syncthreads();
 
     float s[4][KJ];
@@ -334,7 +409,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < KJ; ++j) {
         const float pv = expf(s[i][j] - m_new);
         rs += pv;
-        ps[(ty + 16 * i) * LDP + tx + 16 * j] = rnd(pv, bf);
+        ps[(ty + 16 * i) * LDP + tx + 16 * j] = pv;
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = __fadd_rn(__fmul_rn(alpha, l[i]), row_sum(rs));
@@ -362,7 +437,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B6: dq
+// B6: dq, f32 and bf16 operand modes
 // ---------------------------------------------------------------------------
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -471,7 +546,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B7: dk, dv
+// B7: dk, dv, f32 operand mode (the bf16 mode is flash_bwd_dkv_tc_kernel)
 // ---------------------------------------------------------------------------
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -483,7 +558,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.K;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool bf = p.mode == 1;
   extern __shared__ float smem[];
   float* ks = smem;                 // [BK][LD]
   float* vs = ks + kBK * LD;        // [BK][LD]
@@ -497,8 +571,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
   const size_t koff = ((size_t)b * p.T * p.K + kh) * p.d;
   const int kvalid = min(kBK, p.T - k0);
-  load_rows<T, DP>(ks, LD, k + koff, kstride, k0, kBK, kvalid, p.d, bf);
-  load_rows<T, DP>(vs, LD, v + koff, kstride, k0, kBK, kvalid, p.d, bf);
+  load_rows<T, DP>(ks, LD, k + koff, kstride, k0, kBK, kvalid, p.d, false);
+  load_rows<T, DP>(vs, LD, v + koff, kstride, k0, kBK, kvalid, p.d, false);
 
   // this thread's rows of the k tile are ty + 16 i; its columns tx + 16 j
   float dk_acc[4][NJ], dv_acc[4][NJ];
@@ -518,8 +592,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!tile_visible(q0, kBQ, k0, kBK, p)) continue;
       __syncthreads();   // the previous tile's readers are done
       const int qvalid = min(kBQ, p.S - q0);
-      load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d, bf);
-      load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d, bf);
+      load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d, false);
+      load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d, false);
       for (int r = threadIdx.x; r < kBQ; r += kThreads) {
         lse_s[r] = r < qvalid ? lse_b[q0 + r] : 0.f;
         delta_s[r] = r < qvalid ? delta_b[q0 + r] : 0.f;
@@ -567,8 +641,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float pij = vis ? expf(x - lse_s[r]) : 0.f;
           float ds = pij * (dp[i][j] - delta_s[r]);
           if (p.softcap > 0.f) ds *= 1.f - t * t;
-          pT[kr * LQ + r] = rnd(pij, bf);
-          dsT[kr * LQ + r] = rnd(ds * p.scale, bf);
+          pT[kr * LQ + r] = pij;
+          dsT[kr * LQ + r] = ds * p.scale;
         }
       }
       __syncthreads();
@@ -1159,19 +1233,745 @@ flash_bwd_dkv_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// B5 and B7 in the bf16 operand mode: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;   // B7: 4 warps, 16 keys of the score tile each
+
+// bf16 row stride of a staged tile: 8 elements (16 bytes) of padding put
+// the 8 rows that one ldmatrix reads in 8 different 16-byte bank groups
+template <int DP> __host__ __device__ constexpr int tc_ld() { return DP + 8; }
+
+// B5: 8 warps of 16 query rows, 128 rows a block
+constexpr int kFwdTcBQ = 128;
+constexpr int kFwdTcThreads = 2 * kFwdTcBQ;
+// B5's shared memory: the staging tiles of k and v (128 rows of DP in the
+// storage type), of q where it fits (not at DP = 128 in f32, where q is
+// read from device memory), the bf16 k and v tiles and two mbarriers
+template <typename T, int DP> __host__ __device__ constexpr bool fwd_tc_q_staged() {
+  return sizeof(T) * kFwdTcBQ * DP <= 32768;
+}
+template <typename T, int DP> constexpr size_t fwd_tc_smem_bytes() {
+  return 128 + (fwd_tc_q_staged<T, DP>() ? 3 : 2) * smem_piece(sizeof(T) * kFwdBK * DP)
+       + 2 * smem_piece(2 * kFwdBK * tc_ld<DP>()) + smem_piece(16);
+}
+// B7: staging for q and do (64 rows each) with lse and delta; bf16 k, v, q
+// and do tiles of 64 rows; lse and delta of the tile's queries; the
+// staging's mbarrier
+template <typename T, int DP> constexpr size_t dkv_tc_smem_bytes() {
+  return 128 + smem_piece(sizeof(T) * 2 * kBQ * DP) + smem_piece(4 * 2 * kBQ)
+       + 4 * smem_piece(2 * kBQ * tc_ld<DP>()) + 2 * smem_piece(4 * kBQ) + smem_piece(8);
+}
+
+// the dynamic shared memory from its first 128-byte boundary (the copy
+// engine writes boxes to 128-byte aligned addresses; the sizes above hold
+// 128 bytes of slack)
+__device__ __forceinline__ unsigned char* align128(unsigned char* p) {
+  return p + ((128 - (repro::smem_addr(p) & 127)) & 127);
+}
+
+// Rows [row0, row0 + valid) of one head (rows `stride` elements apart, d
+// values each) into the staging tile F [.][DP], element by element by the
+// NTHR threads (this one `tid`): the path for rows that the copy engine
+// cannot move (d values of T not a multiple of 16 bytes, or a tensor not
+// 16-byte aligned).  Nothing is written beyond d or beyond `valid`;
+// to_bf16_tile zeroes those.
+template <typename T, int DP, int NTHR>
+__device__ __forceinline__ void load_rows_plain(T* F, const T* __restrict__ src, size_t stride,
+                                                int row0, int valid, int d, int tid) {
+  const T* base = src + (size_t)row0 * stride;
+  for (int i = tid; i < valid * d; i += NTHR) {
+    const int r = i / d, c = i - r * d;
+    F[r * DP + c] = base[r * stride + c];
+  }
+}
+
+// 8 staged values at F as f32
+__device__ __forceinline__ void load8(const float* F, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(F);
+  const float4 b = *reinterpret_cast<const float4*>(F + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* F, float (&x)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(F);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    x[2 * e] = __uint_as_float(w[e] << 16);
+    x[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+
+// The staged rows F [N][ldf] (ldf = d from the copy engine, DP from
+// load_rows_plain) rounded to bf16 (nearest even) into X [N][DP + 8], 16
+// bytes a thread at a time; zeros at rows >= valid and columns >= d (a zero
+// column of an operand adds an exact 0 to a product).
+template <typename T, int DP, int N, int NTHR>
+__device__ __forceinline__ void to_bf16_tile(bf16* X, const T* F, int ldf, int valid, int d,
+                                             int tid) {
+  constexpr int CPR = DP / 8;
+  static_assert(N * CPR % NTHR == 0, "whole rounds of 16-byte stores");
+#pragma unroll 2
+  for (int it = 0; it < N * CPR / NTHR; ++it) {
+    const int i = it * NTHR + tid, r = i / CPR, c = (i % CPR) * 8;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid && c < d) {
+      float x[8];
+      load8(F + r * ldf + c, x);
+      if (c + 8 > d)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = c + e < d ? x[e] : 0.f;
+      w = make_uint4(repro::pack_bf16(x[0], x[1]), repro::pack_bf16(x[2], x[3]),
+                     repro::pack_bf16(x[4], x[5]), repro::pack_bf16(x[6], x[7]));
+    }
+    *reinterpret_cast<uint4*>(X + r * tc_ld<DP>() + c) = w;
+  }
+}
+
+// ldmatrix addresses, for lane `lane` of a warp, into a bf16 tile X with
+// row stride LD:
+//  a_frag: the A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16)
+//  b_pair: the B fragments of the n-tiles [n0, n0 + 8) and [n0 + 8, n0 + 16)
+//          at k [k0, k0 + 16), X holding n as rows (k contiguous)
+//  bt_pair: the same with X holding k as rows (n contiguous), for .trans
+template <int LD>
+__device__ __forceinline__ const bf16* a_frag(const bf16* X, int r0, int c0, int lane) {
+  return X + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+template <int LD>
+__device__ __forceinline__ const bf16* b_pair(const bf16* X, int n0, int k0, int lane) {
+  return X + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 + ((lane >> 3) & 1) * 8;
+}
+template <int LD>
+__device__ __forceinline__ const bf16* bt_pair(const bf16* X, int k0, int n0, int lane) {
+  return X + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + n0 + (lane >> 4) * 8;
+}
+
+// (x0, x1) into the adjacent elements at dst (8-byte aligned for f32,
+// 4-byte for bf16) in one store, each rounded as from_f32 rounds it
+__device__ __forceinline__ void store_pair(float* dst, float x0, float x1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store_pair(bf16* dst, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+}
+
+// the visible tiles of one axis: [first, last + 1) of the n tiles for which
+// vis(tile) holds, or an empty range.  The causal and window rules each
+// bound the tile index from one side, so the visible tiles are contiguous.
+template <typename Vis>
+__device__ __forceinline__ int2 visible_range(int n, Vis vis) {
+  int lo = n, hi = 0;
+  for (int t = 0; t < n; ++t)
+    if (vis(t)) {
+      lo = min(lo, t);
+      hi = t + 1;
+    }
+  return make_int2(lo, max(lo, hi));
+}
+
+// The element-wise steps of the tensor-core kernels, with the softcap and
+// the mask as template flags: the callers branch once a tile (uniformly)
+// and the loops over a thread's score elements stay free of branches.  The
+// numbers are logit()'s and visible()'s.
+template <bool kCap>
+__device__ __forceinline__ float tc_logit(float dot, const Params& p, float& t) {
+  const float x = __fmul_rn(dot, p.scale);
+  if (!kCap) return x;
+  t = tanhf(x / p.softcap);
+  return __fmul_rn(p.softcap, t);
+}
+
+// B5: the masked logits of a thread's score elements (rows row0 and row0 +
+// 8; keys key0 + 8 j + 2 tq + e)
+template <bool kCap, bool kMask, int NT>
+__device__ __forceinline__ void fwd_logits(float (&s)[NT][4], int row0, int key0, int tq,
+                                           const Params& p) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float t;
+      const float x = tc_logit<kCap>(s[j][e], p, t);
+      s[j][e] = !kMask || visible(row0 + 8 * (e >> 1), key0 + 8 * j + 2 * tq + (e & 1), p)
+                    ? x : kNegInf;
+    }
+}
+
+// B7: p^T = exp(s^T - lse) on the visible pairs and ds^T = p^T (dp^T -
+// delta) (1 - t^2) scale of a thread's elements (keys key0 and key0 + 8;
+// queries q0 + qi, qi = qh + 8 j + 2 tq + e), in place of s^T and dp^T
+template <bool kCap, bool kMask, int QT>
+__device__ __forceinline__ void dkv_grads(float (&st)[QT][4], float (&dpt)[QT][4],
+                                          const float* ls, const float* dl, int key0, int q0,
+                                          int qh, int tq, const Params& p) {
+#pragma unroll
+  for (int j = 0; j < QT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + 8 * (e >> 1), qi = qh + 8 * j + 2 * tq + (e & 1), row = q0 + qi;
+      float t = 0.f;
+      const float x = tc_logit<kCap>(st[j][e], p, t);
+      const bool vis = !kMask || (row < p.S && visible(row, key, p));
+      const float pij = vis ? expf(x - ls[qi]) : 0.f;
+      float ds = pij * (dpt[j][e] - dl[qi]);
+      if (kCap) ds *= 1.f - t * t;
+      st[j][e] = pij;
+      dpt[j][e] = ds * p.scale;
+    }
+}
+
+// B5's work items, (q tile, head, batch), in the order the blocks take
+// them: the q tiles in reverse (under the causal mask the last rows see the
+// most keys, so the longest items start first); block c takes items c, c +
+// gridDim.x, ...
+struct FwdItem {
+  int q0, h, b, kh;
+  int2 kr;   // the visible key tiles
+};
+__device__ __forceinline__ FwdItem fwd_item(int i, const Params& p) {
+  const int nq = (p.S + kFwdTcBQ - 1) / kFwdTcBQ, hb = p.H * p.B;
+  FwdItem f;
+  f.q0 = (nq - 1 - i / hb) * kFwdTcBQ;
+  f.h = i % hb % p.H;
+  f.b = i % hb / p.H;
+  f.kh = f.h / (p.H / p.K);
+  const int q0 = f.q0;
+  f.kr = visible_range((p.T + kFwdBK - 1) / kFwdBK, [&](int t) {
+    return tile_visible(q0, kFwdTcBQ, t * kFwdBK, kFwdBK, p);
+  });
+  return f;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdTcThreads)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, Params p,
+                    const __grid_constant__ CUtensorMap tmq,
+                    const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv) {
+  constexpr int LD = tc_ld<DP>(), NT = kFwdBK / 8, DT = DP / 8, KS = DP / 16;
+  constexpr int BQ = kFwdTcBQ, NTHR = kFwdTcThreads;
+  const int items = (p.S + BQ - 1) / BQ * p.H * p.B, G = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  Carve cv{align128(smem_tc)};
+  T* Fk = cv.take<T>(kFwdBK * DP);      // staging of k and v (128-byte aligned)
+  T* Fv = cv.take<T>(kFwdBK * DP);
+  T* Fq = fwd_tc_q_staged<T, DP>() ? cv.take<T>(BQ * DP) : nullptr;   // and of q
+  bf16* Kb = cv.take<bf16>(kFwdBK * LD);
+  bf16* Vb = cv.take<bf16>(kFwdBK * LD);
+  uint64_t* staged = cv.take<uint64_t>(2);   // k and v; q
+  if (threadIdx.x == 0) {
+    repro::mbar_init(&staged[0], 1);
+    repro::mbar_init(&staged[1], 1);
+  }
+  __syncthreads();
+  const bool q_tma = p.tma && Fq != nullptr;
+  const int ldf = p.tma ? p.d : DP;     // the staging's row pitch
+
+  // The block's tiles form one stream, the visible key tiles of its items
+  // in turn: the copy of the next tile flies while one is multiplied, also
+  // across items, and q of the next item while an item runs.  k and v of a
+  // tile: one box each (128 rows of one head) for the copy engine, started
+  // by one thread (rows past T in the box are the next batch's, or zeros
+  // past the tensor, and are zeroed when rounded), or element by element
+  // by the whole block; then rounded to bf16 into Kb and Vb by the block.
+  auto first_tile = [&](int i, int& kt) {   // from item i on: (item, kt), or items
+    for (; i < items; i += G) {
+      const FwdItem f = fwd_item(i, p);
+      if (f.kr.x < f.kr.y) {
+        kt = f.kr.x;
+        return i;
+      }
+    }
+    return items;
+  };
+  auto next_tile = [&](int i, int kt, int& nkt) {
+    if (kt + 1 < fwd_item(i, p).kr.y) {
+      nkt = kt + 1;
+      return i;
+    }
+    return first_tile(i + G, nkt);
+  };
+  auto stage_kv = [&](int i, int kt) {
+    const FwdItem f = fwd_item(i, p);
+    const int k0 = kt * kFwdBK;
+    if (!p.tma) {
+      const size_t kstride = (size_t)p.K * p.d, off = ((size_t)f.b * p.T * p.K + f.kh) * p.d;
+      const int kvalid = min(kFwdBK, p.T - k0);
+      load_rows_plain<T, DP, NTHR>(Fk, k + off, kstride, k0, kvalid, p.d, threadIdx.x);
+      load_rows_plain<T, DP, NTHR>(Fv, v + off, kstride, k0, kvalid, p.d, threadIdx.x);
+    } else if (threadIdx.x == 0) {
+      repro::mbar_arrive_expect(&staged[0], 2 * kFwdBK * p.d * sizeof(T));
+      repro::tma_load_3d(Fk, &tmk, 0, f.kh, f.b * p.T + k0, &staged[0]);
+      repro::tma_load_3d(Fv, &tmv, 0, f.kh, f.b * p.T + k0, &staged[0]);
+    }
+  };
+  uint32_t kv_phase = 0, q_phase = 0;
+  auto round_kv = [&](int kt) {   // after a barrier that follows the tile's stage_kv
+    const int kvalid = min(kFwdBK, p.T - kt * kFwdBK);
+    if (p.tma) {
+      repro::mbar_wait(&staged[0], kv_phase);
+      kv_phase ^= 1;
+    }
+    to_bf16_tile<T, DP, kFwdBK, NTHR>(Kb, Fk, ldf, kvalid, p.d, threadIdx.x);
+    to_bf16_tile<T, DP, kFwdBK, NTHR>(Vb, Fv, ldf, kvalid, p.d, threadIdx.x);
+  };
+  auto stage_q = [&](int i) {
+    if (q_tma && threadIdx.x == 0 && i < items) {
+      const FwdItem f = fwd_item(i, p);
+      repro::mbar_arrive_expect(&staged[1], BQ * p.d * sizeof(T));
+      repro::tma_load_3d(Fq, &tmq, 0, f.h, f.b * p.S + f.q0, &staged[1]);
+    }
+  };
+
+  // (ri, rkt): the tile in Kb and Vb; (ni, nkt): the tile in flight
+  int rkt = 0, nkt = 0;
+  const int ri = first_tile(blockIdx.x, rkt);
+  if (ri < items) stage_kv(ri, rkt);
+  stage_q(blockIdx.x);
+  int ni = items;
+  if (ri < items) {
+    __syncthreads();
+    round_kv(rkt);
+    __syncthreads();   // Kb and Vb ready, staging free
+    ni = next_tile(ri, rkt, nkt);
+    if (ni < items) stage_kv(ni, nkt);
+  }
+
+  for (int i = blockIdx.x; i < items; i += G) {
+    const FwdItem f = fwd_item(i, p);
+    const int q0 = f.q0;
+    // this warp's 16 q rows as A fragments for the item, rounded to bf16
+    // (zeros beyond S and d): a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t +
+    // 8..), a3 (g + 8, 2t + 8..) of each k-step; from the staged box, or
+    // straight from device memory
+    uint32_t qa[KS][4];
+    if (q_tma) {
+      repro::mbar_wait(&staged[1], q_phase);
+      q_phase ^= 1;
+    }
+    const size_t qstride = (size_t)p.H * p.d;
+    const T* qb = q + ((size_t)f.b * p.S * p.H + f.h) * p.d;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * warp + g + 8 * (e & 1), c = 16 * ks + 8 * (e >> 1) + 2 * tq;
+        const bool in = q0 + r < p.S;
+        const T* qr = q_tma ? Fq + r * p.d : qb + (size_t)(q0 + r) * qstride;
+        qa[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(qr[c]) : 0.f,
+                                     in && c + 1 < p.d ? to_f32(qr[c + 1]) : 0.f);
+      }
+    __syncthreads();   // every thread has read Fq
+    stage_q(i + G);
+
+    // this thread's rows are q0 + 16 warp + g + 8 r (r = 0, 1); its columns
+    // of each 8-wide n-tile j are 8 j + 2 tq + e (e = 0, 1)
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    for (int kt = f.kr.x; kt < f.kr.y; ++kt) {   // Kb and Vb hold (i, kt)
+      const int k0 = kt * kFwdBK;
+
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kf[4];
+          repro::ldmatrix_x4(kf, b_pair<LD>(Kb, 8 * j, 16 * ks, lane));
+          repro::mma_bf16(s[j], qa[ks], kf[0], kf[1]);
+          repro::mma_bf16(s[j + 1], qa[ks], kf[2], kf[3]);
+        }
+
+      // the online softmax of each row over its four lanes; p = exp(s - m)
+      // unrounded into l (summed over n-tiles j, then e, then lanes xor 1, 2:
+      // ref._mma_row_sum), rounded to bf16 into the A fragments of p v
+      const bool whole = k0 + kFwdBK <= p.T && (!p.causal || k0 + kFwdBK - 1 <= q0) &&
+                         (!p.window || q0 + BQ - 1 - k0 < p.window);
+      const int row0 = q0 + 16 * warp + g;
+      if (p.softcap > 0.f) {
+        if (whole) fwd_logits<true, false>(s, row0, k0, tq, p);
+        else fwd_logits<true, true>(s, row0, k0, tq, p);
+      } else {
+        if (whole) fwd_logits<false, false>(s, row0, k0, tq, p);
+        else fwd_logits<false, true>(s, row0, k0, tq, p);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) mx = fmaxf(mx, s[j][2 * r + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[j][2 * r + e] = expf(s[j][2 * r + e] - m_new);
+            rs += s[j][2 * r + e];
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        const float alpha = expf(m[r] - m_new);
+        l[r] = __fadd_rn(__fmul_rn(alpha, l[r]), rs);
+        m[r] = m_new;
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          acc[j][2 * r] *= alpha;
+          acc[j][2 * r + 1] *= alpha;
+        }
+      }
+
+      // acc += p v, keys 16 kk.. of p's accumulator layout packed as A
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        const uint32_t pa[4] = {repro::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                repro::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                repro::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                repro::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t vf[4];
+          repro::ldmatrix_x4_trans(vf, bt_pair<LD>(Vb, 16 * kk, 8 * j, lane));
+          repro::mma_bf16(acc[j], pa, vf[0], vf[1]);
+          repro::mma_bf16(acc[j + 1], pa, vf[2], vf[3]);
+        }
+      }
+      if (ni < items) {   // the stream goes on: round the tile in flight, stage the next
+        __syncthreads();   // every warp is done with Kb and Vb
+        round_kv(nkt);
+        __syncthreads();   // Kb and Vb ready, staging free
+        const int ci = ni, ckt = nkt;
+        ni = next_tile(ci, ckt, nkt);
+        if (ni < items) stage_kv(ni, nkt);
+      }
+    }
+
+    // o = acc / max(l, 1e-30) in o's type, lse = m + log(max(l, 1e-30))
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row >= p.S) continue;
+      const float lc = fmaxf(l[r], 1e-30f);
+      T* orow = o + (((size_t)f.b * p.S + row) * p.H + f.h) * p.d;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
+        const int c = 8 * j + 2 * tq;
+        const float x0 = acc[j][2 * r] / lc, x1 = acc[j][2 * r + 1] / lc;
+        if (c + 1 < p.d && p.d % 2 == 0) {
+          store_pair(orow + c, x0, x1);
+        } else {
+          if (c < p.d) orow[c] = from_f32<T>(x0);
+          if (c + 1 < p.d) orow[c + 1] = from_f32<T>(x1);
+        }
+      }
+      if (tq == 0) lse[((size_t)f.b * p.H + f.h) * p.S + row] = m[r] + logf(lc);
+    }
+  }
+}
+
+// B7 works each 64-query tile in halves of kQW queries: the score tiles
+// s^T and dp^T of a half (2 x 16 x 32 f32 a warp) sit in registers beside
+// the dk and dv accumulators (2 x 16 x DP), which at DP = 128 leaves no
+// room for a whole tile's.  The halves add to dk and dv in the same order
+// as whole tiles.  Three blocks an SM at DP = 64 (69 KB, at most 168
+// registers), one at DP = 128.
+constexpr int kQW = 32;
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : 1)
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, Params p,
+                        const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv,
+                        const __grid_constant__ CUtensorMap tmq,
+                        const __grid_constant__ CUtensorMap tmdo) {
+  constexpr int LD = tc_ld<DP>(), QT = kQW / 8, DT = DP / 8, KS = DP / 16, QS = kQW / 16;
+  static_assert(kTcThreads == 2 * kBQ, "one thread a row of lse or delta");
+  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+  const int G = p.H / p.K;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  Carve cv{align128(smem_tc)};
+  T* F = cv.take<T>(2 * kBQ * DP);      // staging: k and v, then q and do (128-byte aligned)
+  float* Fr = cv.take<float>(2 * kBQ);  // staging: lse and delta of the tile's queries
+  bf16* Kb = cv.take<bf16>(kBK * LD);
+  bf16* Vb = cv.take<bf16>(kBK * LD);
+  bf16* Qb = cv.take<bf16>(kBQ * LD);
+  bf16* Db = cv.take<bf16>(kBQ * LD);
+  float* ls = cv.take<float>(kBQ);
+  float* dl = cv.take<float>(kBQ);
+  uint64_t* bar = cv.take<uint64_t>(1);
+
+  const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
+  const size_t koff = ((size_t)b * p.T * p.K + kh) * p.d;
+  const int kvalid = min(kBK, p.T - k0);
+  const int ldf = p.tma ? p.d : DP;     // the staging's row pitch
+  // k and v: one box each (64 rows of one head) for the copy engine (the
+  // barrier's phase 0; the q tile `it` below is its phase it + 1), or
+  // element by element by the block
+  if (threadIdx.x == 0) {
+    repro::mbar_init(bar, 1);
+    if (p.tma) {
+      repro::mbar_arrive_expect(bar, 2 * kBK * p.d * sizeof(T));
+      repro::tma_load_3d(F, &tmk, 0, kh, b * p.T + k0, bar);
+      repro::tma_load_3d(F + kBK * DP, &tmv, 0, kh, b * p.T + k0, bar);
+    }
+  }
+  if (!p.tma) {
+    load_rows_plain<T, DP, kTcThreads>(F, k + koff, kstride, k0, kvalid, p.d, threadIdx.x);
+    load_rows_plain<T, DP, kTcThreads>(F + kBK * DP, v + koff, kstride, k0, kvalid, p.d,
+                                       threadIdx.x);
+  }
+  __syncthreads();   // the barrier initialised, the element-wise rows in
+  if (p.tma) repro::mbar_wait(bar, 0);
+  to_bf16_tile<T, DP, kBK, kTcThreads>(Kb, F, ldf, kvalid, p.d, threadIdx.x);
+  to_bf16_tile<T, DP, kBK, kTcThreads>(Vb, F + kBK * DP, ldf, kvalid, p.d, threadIdx.x);
+  __syncthreads();
+
+  // the work: the G query heads of the group in turn and, inside, the
+  // visible q tiles in order; one staging tile, the next (q, do, lse,
+  // delta) in flight while the current one is multiplied
+  const int2 qr = visible_range((p.S + kBQ - 1) / kBQ, [&](int t) {
+    return tile_visible(t * kBQ, kBQ, k0, kBK, p);
+  });
+  const int nqt = qr.y - qr.x, n = G * nqt;
+  auto stage = [&](int it) {
+    const int h = kh * G + it / nqt, q0 = (qr.x + it % nqt) * kBQ;
+    const int qvalid = min(kBQ, p.S - q0);
+    if (p.tma) {
+      if (threadIdx.x == 0) {
+        repro::mbar_arrive_expect(bar, 2 * kBQ * p.d * sizeof(T));
+        repro::tma_load_3d(F, &tmq, 0, h, b * p.S + q0, bar);
+        repro::tma_load_3d(F + kBQ * DP, &tmdo, 0, h, b * p.S + q0, bar);
+      }
+    } else {
+      const size_t qoff = ((size_t)b * p.S * p.H + h) * p.d;
+      load_rows_plain<T, DP, kTcThreads>(F, q + qoff, qstride, q0, qvalid, p.d, threadIdx.x);
+      load_rows_plain<T, DP, kTcThreads>(F + kBQ * DP, dout + qoff, qstride, q0, qvalid, p.d,
+                                         threadIdx.x);
+    }
+    const int r = threadIdx.x % kBQ;   // lse by the first kBQ threads, delta by the rest
+    if (r < qvalid)
+      repro::cp_async4(Fr + threadIdx.x,
+                       (threadIdx.x < kBQ ? lse : delta) + ((size_t)b * p.H + h) * p.S + q0 + r);
+  };
+
+  // this thread's keys are k0 + 16 warp + g + 8 r (r = 0, 1); its queries
+  // of each 8-wide n-tile j are q0 + 8 j + 2 tq + e (e = 0, 1)
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  if (n > 0) stage(0);
+  for (int it = 0; it < n; ++it) {
+    const int q0 = (qr.x + it % nqt) * kBQ, qvalid = min(kBQ, p.S - q0);
+    if (p.tma) repro::mbar_wait(bar, (it + 1) & 1);
+    repro::cp_async_wait_all();
+    __syncthreads();   // staged; every warp is done with the last tile's Qb, Db
+    to_bf16_tile<T, DP, kBQ, kTcThreads>(Qb, F, ldf, qvalid, p.d, threadIdx.x);
+    to_bf16_tile<T, DP, kBQ, kTcThreads>(Db, F + kBQ * DP, ldf, qvalid, p.d, threadIdx.x);
+    for (int r = threadIdx.x; r < kBQ; r += kTcThreads) {
+      ls[r] = r < qvalid ? Fr[r] : 0.f;
+      dl[r] = r < qvalid ? Fr[kBQ + r] : 0.f;
+    }
+    __syncthreads();   // tiles ready, staging free
+    if (it + 1 < n) stage(it + 1);
+    // every pair of the tile visible: the queries lie below S and past (or,
+    // under a window, within it of) every key, and the keys below T
+    const bool whole = q0 + kBQ <= p.S && k0 + kBK <= p.T &&
+                       (!p.causal || k0 + kBK - 1 <= q0) &&
+                       (!p.window || q0 + kBQ - 1 - k0 < p.window);
+
+#pragma unroll 1
+    for (int qh = 0; qh < kBQ; qh += kQW) {
+      // s^T = k q^T and dp^T = v do^T: this warp's 16 keys by the half's queries
+      float st[QT][4], dpt[QT][4];
+#pragma unroll
+      for (int j = 0; j < QT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kf[4], vf[4];
+        repro::ldmatrix_x4(kf, a_frag<LD>(Kb, 16 * warp, 16 * ks, lane));
+        repro::ldmatrix_x4(vf, a_frag<LD>(Vb, 16 * warp, 16 * ks, lane));
+#pragma unroll
+        for (int j = 0; j < QT; j += 2) {
+          uint32_t qf[4], df[4];
+          repro::ldmatrix_x4(qf, b_pair<LD>(Qb, qh + 8 * j, 16 * ks, lane));
+          repro::ldmatrix_x4(df, b_pair<LD>(Db, qh + 8 * j, 16 * ks, lane));
+          repro::mma_bf16(st[j], kf, qf[0], qf[1]);
+          repro::mma_bf16(st[j + 1], kf, qf[2], qf[3]);
+          repro::mma_bf16(dpt[j], vf, df[0], df[1]);
+          repro::mma_bf16(dpt[j + 1], vf, df[2], df[3]);
+        }
+      }
+      // p^T and ds^T in place (dkv_grads), a tile with every pair visible
+      // unmasked
+      const int key0 = k0 + 16 * warp + g;
+      if (p.softcap > 0.f) {
+        if (whole) dkv_grads<true, false>(st, dpt, ls, dl, key0, q0, qh, tq, p);
+        else dkv_grads<true, true>(st, dpt, ls, dl, key0, q0, qh, tq, p);
+      } else {
+        if (whole) dkv_grads<false, false>(st, dpt, ls, dl, key0, q0, qh, tq, p);
+        else dkv_grads<false, true>(st, dpt, ls, dl, key0, q0, qh, tq, p);
+      }
+      // dv += p^T do and dk += ds^T q, p^T and ds^T rounded to bf16 into A
+      // fragments (queries qh + 16 kk.. of the accumulator layout)
+#pragma unroll
+      for (int kk = 0; kk < QS; ++kk) {
+        const uint32_t pa[4] = {repro::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                                repro::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                                repro::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                                repro::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+        const uint32_t da[4] = {repro::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+                                repro::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+                                repro::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                                repro::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t df[4], qf[4];
+          repro::ldmatrix_x4_trans(df, bt_pair<LD>(Db, qh + 16 * kk, 8 * j, lane));
+          repro::ldmatrix_x4_trans(qf, bt_pair<LD>(Qb, qh + 16 * kk, 8 * j, lane));
+          repro::mma_bf16(dva[j], pa, df[0], df[1]);
+          repro::mma_bf16(dva[j + 1], pa, df[2], df[3]);
+          repro::mma_bf16(dka[j], da, qf[0], qf[1]);
+          repro::mma_bf16(dka[j + 1], da, qf[2], qf[3]);
+        }
+      }
+    }
+  }
+
+  // this thread's rows of dk and dv among the tile's kvalid keys
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = 16 * warp + g + 8 * r;
+    if (kr >= kvalid) continue;
+    const size_t off = (((size_t)b * p.T + k0 + kr) * p.K + kh) * p.d;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
+      const int c = 8 * j + 2 * tq;
+      if (c + 1 < p.d && p.d % 2 == 0) {
+        store_pair(dk + off + c, dka[j][2 * r], dka[j][2 * r + 1]);
+        store_pair(dv + off + c, dva[j][2 * r], dva[j][2 * r + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < p.d) {
+            dk[off + c + e] = dka[j][2 * r + e];
+            dv[off + c + e] = dva[j][2 * r + e];
+          }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 enum class Which { kFwd, kDq, kDkv };
 
 // opt the kernel in to `smem` bytes of dynamic shared memory, then launch it
-template <typename Kern, typename... Args>
+template <int Threads = kThreads, typename Kern, typename... Args>
 cudaError_t start(Kern kern, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kern<<<grid, dim3(kThreads), smem, s>>>(args...);
+  kern<<<grid, dim3(Threads), smem, s>>>(args...);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, found once through the runtime (so the library
+// needs no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// the current device's SM count, read once
+cudaError_t sm_count(int* n) {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *n = count;
+  return cudaSuccess;
+}
+
+// Whether the copy engine can stage the rows of q, k, v and do: d values of
+// T a multiple of 16 bytes and every tensor 16-byte aligned.  Else the
+// tensor-core kernels stage element by element (load_rows_plain).
+template <typename T>
+bool tma_rows(int d, const void* q, const void* k, const void* v, const void* dout) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  return (d * sizeof(T)) % 16 == 0 && (any & 15) == 0;
+}
+
+// The tensor map of a (B, rows, heads, d) tensor of T as 3-D (d, heads, B *
+// rows), boxes of `box` rows of one head: a box at (0, head, b * rows + r0)
+// is rows r0.. of batch b, dense in shared memory (pitch d); rows past the
+// tensor arrive as zeros.
+template <typename T>
+cudaError_t rows_map(CUtensorMap* map, const void* base, int B, int rows, int heads, int d,
+                     int box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)B * rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(T), (cuuint64_t)d * heads * sizeof(T)};
+  const cuuint32_t boxd[3] = {(cuuint32_t)d, 1, (cuuint32_t)box};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, boxd, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T, int DP>
@@ -1180,7 +1980,7 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
                    void* out0, void* out1, const Params& p, cudaStream_t s) {
   const int nq = (p.S + kBQ - 1) / kBQ, nk = (p.T + kBK - 1) / kBK;
   const dim3 rows(nq, p.H, p.B), keys(nk, p.K, p.B);
-  const bool i8 = p.mode == 2;
+  const bool i8 = p.mode == 2, bf = p.mode == 1;
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
@@ -1193,6 +1993,28 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
     T* o = static_cast<T*>(out0);
     if (i8) return start(flash_fwd_i8_kernel<T, DP>, rows, fwd_i8_smem_bytes<DP>(), s,
                          qq, kk, vv, o, f1, p);
+    if (bf) {
+      Params pt = p;
+      pt.tma = tma_rows<T>(p.d, q, k, v, q);
+      CUtensorMap mq{}, mk{}, mv{};
+      if (pt.tma) {
+        cudaError_t err = rows_map<T>(&mq, q, p.B, p.S, p.H, p.d, kFwdTcBQ);
+        if (err == cudaSuccess) err = rows_map<T>(&mk, k, p.B, p.T, p.K, p.d, kFwdBK);
+        if (err == cudaSuccess) err = rows_map<T>(&mv, v, p.B, p.T, p.K, p.d, kFwdBK);
+        if (err != cudaSuccess) return err;
+      }
+      // one block an SM, each walking its share of the (q tile, head,
+      // batch) items (fwd_item)
+      int sms = 0;
+      cudaError_t err = sm_count(&sms);
+      if (err != cudaSuccess) return err;
+      const long long items = (long long)((p.S + kFwdTcBQ - 1) / kFwdTcBQ) * p.H * p.B;
+      if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+      return start<kFwdTcThreads>(flash_fwd_tc_kernel<T, DP>,
+                                  dim3((unsigned)(items < sms ? items : sms)),
+                                  fwd_tc_smem_bytes<T, DP>(), s, qq, kk, vv, o, f1, pt, mq, mk,
+                                  mv);
+    }
     return start(flash_fwd_kernel<T, DP>, rows, fwd_smem_words<DP>() * 4, s,
                  qq, kk, vv, o, f1, p);
   }
@@ -1204,6 +2026,20 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
   }
   if (i8) return start(flash_bwd_dkv_i8_kernel<T, DP>, keys, dkv_i8_smem_bytes<DP>(), s,
                        qq, kk, vv, dd, ls, dl, f0, f1, p);
+  if (bf) {
+    Params pt = p;
+    pt.tma = tma_rows<T>(p.d, q, k, v, dout);
+    CUtensorMap mk{}, mv{}, mq{}, mdo{};
+    if (pt.tma) {
+      cudaError_t err = rows_map<T>(&mk, k, p.B, p.T, p.K, p.d, kBK);
+      if (err == cudaSuccess) err = rows_map<T>(&mv, v, p.B, p.T, p.K, p.d, kBK);
+      if (err == cudaSuccess) err = rows_map<T>(&mq, q, p.B, p.S, p.H, p.d, kBQ);
+      if (err == cudaSuccess) err = rows_map<T>(&mdo, dout, p.B, p.S, p.H, p.d, kBQ);
+      if (err != cudaSuccess) return err;
+    }
+    return start<kTcThreads>(flash_bwd_dkv_tc_kernel<T, DP>, keys, dkv_tc_smem_bytes<T, DP>(),
+                             s, qq, kk, vv, dd, ls, dl, f0, f1, pt, mk, mv, mq, mdo);
+  }
   return start(flash_bwd_dkv_kernel<T, DP>, keys, dkv_smem_words<DP>() * 4, s,
                qq, kk, vv, dd, ls, dl, f0, f1, p);
 }

@@ -6,8 +6,15 @@ CUDA kernels.
 ``_flash_bwd_dq_kernel`` and ``flash_bwd_dkv`` (B7)
 ``_flash_bwd_dkv_kernel``, in the f32, bf16 and int8 operand modes of the
 mixed-precision policy; the source and its design note are
-``csrc/flash_attention.cu``.  Each wrapper launches its kernel on CUDA
-tensors or raises.  Their plain versions at this contract, rounding where
+``csrc/flash_attention.cu``.  Which kernel serves which mode: in the bf16
+mode (``train --amp bf16``) B5 and B7 run on the tensor cores
+(``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``: mma.sync, ldmatrix,
+cp.async) and B6 on FFMA over bf16-rounded values
+(``flash_bwd_dq_kernel``); in the f32 mode all three on FFMA
+(``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``);
+in the int8 mode on ``__dp4a`` (the ``*_i8_kernel``).  Each wrapper
+launches its kernel on CUDA tensors or raises: nothing falls back to
+another kernel.  Their plain versions at this contract, rounding where
 the kernels round, are ``kernels/ref.py::flash_fwd_ref`` and
 ``flash_bwd_ref``, which walk the same tiles (``ref.FLASH_TILES``: B5's
 128-key tiles and, in the int8 mode, where the tiles carry the scales, B6's

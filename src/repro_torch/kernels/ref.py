@@ -99,7 +99,10 @@ def attention_policy_ref(
 # relative to the running max over the tiles seen), B6's keys and B7's
 # queries in the int8 mode (ds·k takes its scales over the tile's keys, pᵀ·do
 # and dsᵀ·q over its queries).  The other axis stays 64: a row's numbers do
-# not depend on it.
+# not depend on it, so a kernel may block it otherwise (B5's tensor-core
+# kernel blocks 128 query rows): a tile that a block visits but a row sees
+# no key of adds exact zeros to that row, or is wiped by the next tile's
+# alpha = 0.
 FLASH_TILES = {
     "fwd": {"none": (64, 128), "bf16": (64, 128), "int8": (64, 128)},
     "dq": {"none": (64, 64), "bf16": (64, 64), "int8": (64, 128)},
@@ -133,16 +136,34 @@ def _capped_logits(q, k, scale, softcap, policy):
 
 
 def _lane_row_sum(p, width: int):
-    """Row sums of a (..., n <= width) tile in B5's order: each of 16 lanes
-    adds the keys lane, lane + 16, ... in turn (zeros beyond n), then a
-    butterfly over the lanes (xor 8, 4, 2, 1), so that the kernel and this
-    plain version form the same l bit for bit."""
+    """Row sums of a (..., n <= width) tile in the order of B5's f32 and int8
+    modes: each of 16 lanes adds the keys lane, lane + 16, ... in turn
+    (zeros beyond n), then a butterfly over the lanes (xor 8, 4, 2, 1), so
+    that the kernel and this plain version form the same l bit for bit."""
     x = torch.nn.functional.pad(p, (0, width - p.shape[-1])).unflatten(-1, (width // 16, 16))
     acc = x[..., 0, :]
     for j in range(1, width // 16):
         acc = acc + x[..., j, :]
     lane = torch.arange(16, device=p.device)
     for o in (8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ o]
+    return acc[..., :1]
+
+
+def _mma_row_sum(p, width: int):
+    """Row sums of a (..., n <= width) tile in the order of B5's bf16 mode,
+    whose tensor-core fragments give each of 4 lanes t the keys 8 j + 2 t
+    and 8 j + 2 t + 1 of every 8-key group j: each lane adds its keys in
+    that order, group by group (zeros beyond n), then a butterfly over the
+    lanes (xor 1, 2), so that the kernel and this plain version form the
+    same l from the same p."""
+    x = torch.nn.functional.pad(p, (0, width - p.shape[-1])).unflatten(-1, (width // 8, 4, 2))
+    acc = x[..., 0, :, 0]
+    for j in range(width // 8):
+        for e in range(1 if j == 0 else 0, 2):
+            acc = acc + x[..., j, :, e]
+    lane = torch.arange(4, device=p.device)
+    for o in (1, 2):
         acc = acc + acc[..., lane ^ o]
     return acc[..., :1]
 
@@ -155,7 +176,8 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
     It keeps the kernel's algorithm where it decides the numbers: the
     128-key tiles, skipped where no pair of the (64-row query tile, key
     tile) is visible, the online softmax (m, l, acc) with its alpha
-    rescale and its row sums in the kernel's order, and each tile matmul
+    rescale and its row sums in the kernel's order (the tensor-core
+    fragments' in the bf16 mode, the 16 lanes' otherwise), and each tile matmul
     under the policy: q·kᵀ (scales over d in the int8 mode), then the
     unnormalized p = exp(s - m) of the tile times v (p rounded or quantized
     per row, v per column, over the tile's keys).  Every query row is
@@ -163,6 +185,7 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
     B, S, H, d = q.shape
     T = k.shape[1]
     tq, tk = flash_tile("fwd", policy)
+    row_sum = _mma_row_sum if getattr(policy, "matmul", "none") == "bf16" else _lane_row_sum
     qh, kh, vh = _heads(q, k, v)
     rows = torch.arange(S, device=q.device)
     q0 = rows // tq * tq                              # each row's tile start
@@ -185,7 +208,7 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         on = on[:, None]
-        l = torch.where(on, alpha * l + _lane_row_sum(p, tk), l)
+        l = torch.where(on, alpha * l + row_sum(p, tk), l)
         acc = torch.where(on, acc * alpha + kernel_dot(p, vh[:, :, ks], policy), acc)
         m = torch.where(on, m_new, m)
     lc = torch.clamp(l, min=1e-30)

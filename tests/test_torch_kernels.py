@@ -415,6 +415,14 @@ FLASH_CASES = [
     (1, 130, 4, 2, 128, 0, 20.0, "float32", "bf16"),    # softcap, d 128
     (2, 96, 4, 1, 32, 0, 0.0, "bfloat16", "none"),      # MQA, d 32
     (1, 192, 6, 2, 64, 0, 0.0, "bfloat16", "bf16"),
+    # the edges of the tensor-core B5/B7 (the bf16 mode): d zero-padded
+    # inside a 16-wide MMA step at DP 128 and 64, one row and key, one row
+    # past a tile, rows that are not 16-byte aligned (element-wise staging)
+    (2, 256, 4, 2, 96, 0, 0.0, "float32", "bf16"),
+    (2, 256, 4, 2, 40, 0, 0.0, "float32", "bf16"),
+    (4, 1, 4, 2, 64, 0, 0.0, "float32", "bf16"),
+    (2, 129, 4, 2, 64, 0, 0.0, "float32", "bf16"),
+    (2, 160, 4, 2, 20, 0, 0.0, "bfloat16", "bf16"),
 ]
 
 
