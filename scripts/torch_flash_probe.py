@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the tensor-core flash kernels (B5 and B7 in the bf16 operand mode)
-spend the card's time.
+"""Where the tensor-core flash kernels (B5, B6 and B7 in the bf16 operand
+mode) spend the card's time.
 
     python3 scripts/torch_flash_probe.py
 
 On the GPU, prints the card's name and power limit, then:
 
 - sweep: device microseconds a launch (torch.profiler over 20 calls) of
-  ``flash_fwd`` (B5) and ``flash_bwd_dkv`` (B7) in the bf16 operand mode,
-  and of SDPA's bf16 forward as a yardstick, at mup-gpt's train shape (8,
+  ``flash_fwd`` (B5), ``flash_bwd_dq`` (B6) and ``flash_bwd_dkv`` (B7) in
+  the bf16 operand mode, and of SDPA's bf16 forward and backward (every
+  kernel of the call) as yardsticks, at mup-gpt's train shape (8,
   512, 16 heads of 64, causal, f32) and beside it: bf16 storage, no causal
   mask (all tiles full), B = 1 (one wave of blocks: the longest block's
   time), B = 64 (many waves), d_head 32 and 128, S = 2048;
@@ -71,10 +72,10 @@ def log(*a):
     print(*a, flush=True)
 
 
-def dev_us(fn, key, n=20, tries=3):
+def dev_us(fn, key, n=20, tries=3, per_call=False):
     """Device microseconds a launch of the kernels whose name holds ``key``
     (torch.profiler over ``n`` calls; a profile that caught none of them is
-    taken again)."""
+    taken again); with ``per_call``, a call's sum over them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -87,7 +88,8 @@ def dev_us(fn, key, n=20, tries=3):
         hits = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key]
         if hits:
-            return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
+            return sum(e.self_device_time_total for e in hits) / (
+                n if per_call else sum(e.count for e in hits))
     raise SystemExit(f"torch_flash_probe: the profiler saw no kernel {key!r}")
 
 
@@ -114,15 +116,24 @@ def sweep():
         o, lse = fa.flash_fwd(q, k, v, **kw)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         b5 = dev_us(lambda: fa.flash_fwd(q, k, v, **kw), "flash_fwd_tc_kernel")
+        b6 = dev_us(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    "flash_bwd_dq_tc_kernel")
         b7 = dev_us(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
                     "flash_bwd_dkv_tc_kernel")
-        qb, kb, vb = (t.transpose(1, 2).bfloat16().contiguous() for t in (q, k, v))
+        qb, kb, vb = (t.transpose(1, 2).bfloat16().contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dob = do.transpose(1, 2).bfloat16().contiguous()
         with torch.no_grad():
             sdpa = dev_us(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=causal), "")
+        ob = F.scaled_dot_product_attention(qb, kb, vb, is_causal=causal)
+        sdpa_bwd = dev_us(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True),
+                          "", per_call=True)
         pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
         log(f"[sweep] B={B} S={S} H={H} d={d} {str(dt)[6:]} storage, causal={causal}: "
-            f"B5 {b5:.1f} us ({4 * d * pairs / b5 / 1e6:.1f} TFLOP/s), B7 {b7:.1f} us "
-            f"({8 * d * pairs / b7 / 1e6:.1f} TFLOP/s), SDPA bf16 forward {sdpa:.1f} us")
+            f"B5 {b5:.1f} us ({4 * d * pairs / b5 / 1e6:.1f} TFLOP/s), B6 {b6:.1f} us "
+            f"({6 * d * pairs / b6 / 1e6:.1f} TFLOP/s), B7 {b7:.1f} us "
+            f"({8 * d * pairs / b7 / 1e6:.1f} TFLOP/s), SDPA bf16 forward {sdpa:.1f} us, "
+            f"backward {sdpa_bwd:.1f} us a call")
 
 
 def phases():

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -135,8 +137,11 @@ def _build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call; later calls take no
+    lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(_build()))
@@ -146,6 +151,12 @@ def library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
     return _lib
+
+
+def stream(t) -> int:
+    """The raw handle of PyTorch's current stream on the card that holds the
+    CUDA tensor ``t``, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def library_path() -> Path:

@@ -60,7 +60,7 @@ def ce_fwd(logits: torch.Tensor, labels: torch.Tensor):
     err = lib.repro_ce_fwd(
         logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
         N, V, _DTYPE_CODES[logits.dtype],
-        torch.cuda.current_stream(logits.device).cuda_stream,
+        build.stream(logits),
     )
     build.check(err, "ce_fwd kernel")
     fwd_launches += 1
@@ -88,7 +88,7 @@ def ce_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
     err = lib.repro_ce_bwd(
         logits.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
         dx.data_ptr(), N, V, _DTYPE_CODES[logits.dtype],
-        torch.cuda.current_stream(logits.device).cuda_stream,
+        build.stream(logits),
     )
     build.check(err, "ce_bwd kernel")
     bwd_launches += 1

@@ -23,10 +23,10 @@
 //       even) where kernel_dot rounds it -- q and k^T; the unnormalized p and
 //       v; do and v^T; ds and k; p^T and do; ds^T and q -- and the products
 //       are summed in f32.  A product of two bf16 values is exact in f32, so
-//       the modes' kernels differ only in the order of the sums.  B5 and B7:
-//       flash_fwd_tc_kernel and flash_bwd_dkv_tc_kernel, on the tensor cores
-//       (mma.sync m16n8k16 bf16 -> f32); B6: flash_bwd_dq_kernel, FFMA on the
-//       rounded values.  This is the mode `train --amp bf16` runs.
+//       the modes' kernels differ only in the order of the sums.
+//       flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel and
+//       flash_bwd_dkv_tc_kernel, on the tensor cores (mma.sync m16n8k16
+//       bf16 -> f32).  This is the mode `train --amp bf16` runs.
 //   2 = int8: a is quantized per row and b per column over the contraction
 //       axis (scale = absmax / 127 by IEEE division, q = rint(x / max(scale,
 //       1e-12)) half to even, clipped to +-127), the int8 products summed
@@ -56,7 +56,7 @@
 // its time in moving and rounding tiles and in the softmax's exp, not in
 // its products.
 //
-// Design of the FFMA and int8 kernels (modes 0 and 2, and B6 in mode 1):
+// Design of the FFMA and int8 kernels (modes 0 and 2):
 //  - 256 threads as a 16 x 16 grid.  In a score tile of 64 rows by 64 or
 //    128 columns (queries by keys; B7 keys by queries) each thread owns rows
 //    ty + 16 i and columns tx + 16 j, and a 4 x d/16 block of the output
@@ -83,8 +83,8 @@
 //    int8 mode the f32 steps before a quantization round as the reference
 //    rounds them (__fmul_rn/__fadd_rn: no fused multiply-add).
 //
-// Design of the tensor-core kernels (B5 and B7 in mode 1; mma.cuh holds the
-// PTX):
+// Design of the tensor-core kernels (mode 1; mma.cuh holds the PTX; B6's
+// own note is above flash_bwd_dq_tc_kernel):
 //  - Warps: each owns 16 rows of the score tile.  B5: 8 warps, 128 query
 //    rows an item (the k/v tiles it stages and rounds serve twice the rows
 //    of a 64-row tile), by the tile's 128 keys; one block an SM walks its
@@ -142,7 +142,7 @@
 //    a fixed order inside one block: no atomics, and a repeated call gives
 //    the same bits.  Any S and T: the ragged last tile is masked (k < T, q <
 //    S) and its rows load as zeros, so there is no S % 64 (or 128) rule.
-//  - No fallback: mode 1 of B5 and B7 always launches these kernels; a
+//  - No fallback: mode 1 of B5-B7 always launches these kernels; a
 //    launch the card refuses (shared memory, attributes, a tensor map) is an
 //    error.
 //  - What holds them back (an H100 at the train shape, PERF.md section 6;
@@ -157,8 +157,8 @@
 // warpgroups (one's softmax under the other's products); warp
 // specialisation with setmaxnreg (a producer warpgroup that stages and
 // rounds); bf16 storage copied straight into swizzled bf16 tiles; TMA
-// multicast of a k/v tile to the q tiles of a cluster; B6 in mode 1 on the
-// tensor cores; s8 mma (m16n8k32) for the int8 mode.
+// multicast of a k/v tile to the q tiles of a cluster; s8 mma (m16n8k32)
+// for the int8 mode.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,10 +191,6 @@ struct Params {
   int mode;   // operand mode: 0 = f32, 1 = bf16, 2 = int8
   int tma = 0;  // the tensor-core kernels: rows staged by the copy engine
 };
-
-__device__ __forceinline__ float rnd(float x, bool bf) {
-  return bf ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
 
 // _block_visible: could any (query, key) pair of the tile pair (nq query
 // rows from q0, nk keys from k0) be visible?
@@ -229,16 +225,15 @@ __device__ __forceinline__ float logit(float dot, const Params& p, float& t) {
 
 // rows [row0, row0 + n) of one head (rows `stride` elements apart) into a
 // (n, DP) f32 tile with leading dimension ld; zeros beyond `valid` rows and
-// beyond d columns; rounded to bf16 in the bf16 mode
+// beyond d columns
 template <typename T, int DP>
 __device__ void load_rows(float* dst, int ld, const T* __restrict__ src,
-                          size_t stride, int row0, int n, int valid, int d,
-                          bool bf) {
+                          size_t stride, int row0, int n, int valid, int d) {
   for (int i = threadIdx.x; i < n * DP; i += kThreads) {
     const int r = i / DP;
     const int c = i - r * DP;
     float x = 0.f;
-    if (r < valid && c < d) x = rnd(to_f32(src[(size_t)(row0 + r) * stride + c]), bf);
+    if (r < valid && c < d) x = to_f32(src[(size_t)(row0 + r) * stride + c]);
     dst[r * ld + c] = x;
   }
 }
@@ -352,7 +347,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
   const T* kb = k + ((size_t)b * p.T * p.K + kh) * p.d;
   const T* vb = v + ((size_t)b * p.T * p.K + kh) * p.d;
-  load_rows<T, DP>(qs, LD, qb, qstride, q0, kBQ, min(kBQ, p.S - q0), p.d, false);
+  load_rows<T, DP>(qs, LD, qb, qstride, q0, kBQ, min(kBQ, p.S - q0), p.d);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -369,8 +364,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!tile_visible(q0, kBQ, k0, kFwdBK, p)) continue;   // uniform over the block
     __syncthreads();   // the previous tile's readers of ps (= ks) and vs are done
     const int kvalid = min(kFwdBK, p.T - k0);
-    load_rows<T, DP>(ks, LD, kb, kstride, k0, kFwdBK, kvalid, p.d, false);
-    load_rows<T, DP>(vs, DP, vb, kstride, k0, kFwdBK, kvalid, p.d, false);
+    load_rows<T, DP>(ks, LD, kb, kstride, k0, kFwdBK, kvalid, p.d);
+    load_rows<T, DP>(vs, DP, vb, kstride, k0, kFwdBK, kvalid, p.d);
     __syncthreads();
 
     float s[4][KJ];
@@ -437,7 +432,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B6: dq, f32 and bf16 operand modes
+// B6: dq, f32 operand mode (the bf16 mode is flash_bwd_dq_tc_kernel)
 // ---------------------------------------------------------------------------
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -449,7 +444,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (p.H / p.K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool bf = p.mode == 1;
   extern __shared__ float smem[];
   float* qs = smem;                 // [BQ][LD]
   float* dos = qs + kBQ * LD;       // [BQ][LD]
@@ -462,8 +456,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((size_t)b * p.T * p.K + kh) * p.d;
   const T* vb = v + ((size_t)b * p.T * p.K + kh) * p.d;
   const int qvalid = min(kBQ, p.S - q0);
-  load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d, bf);
-  load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d, bf);
+  load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d);
+  load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d);
   const float* lse_b = lse + ((size_t)b * p.H + h) * p.S;
   const float* delta_b = delta + ((size_t)b * p.H + h) * p.S;
   float lse_r[4], delta_r[4], acc[4][NJ];
@@ -482,8 +476,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!tile_visible(q0, kBQ, k0, kBK, p)) continue;
     __syncthreads();
     const int kvalid = min(kBK, p.T - k0);
-    load_rows<T, DP>(ks, LD, kb, kstride, k0, kBK, kvalid, p.d, bf);
-    load_rows<T, DP>(vs, LD, vb, kstride, k0, kBK, kvalid, p.d, bf);
+    load_rows<T, DP>(ks, LD, kb, kstride, k0, kBK, kvalid, p.d);
+    load_rows<T, DP>(vs, LD, vb, kstride, k0, kBK, kvalid, p.d);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -523,7 +517,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float pij = visible(row, k0 + tx + 16 * j, p) ? expf(x - lse_r[i]) : 0.f;
         float ds = pij * (dp[i][j] - delta_r[i]);
         if (p.softcap > 0.f) ds *= 1.f - t * t;
-        dss[(ty + 16 * i) * LDP + tx + 16 * j] = rnd(ds * p.scale, bf);
+        dss[(ty + 16 * i) * LDP + tx + 16 * j] = ds * p.scale;
       }
     }
     __syncthreads();
@@ -571,8 +565,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
   const size_t koff = ((size_t)b * p.T * p.K + kh) * p.d;
   const int kvalid = min(kBK, p.T - k0);
-  load_rows<T, DP>(ks, LD, k + koff, kstride, k0, kBK, kvalid, p.d, false);
-  load_rows<T, DP>(vs, LD, v + koff, kstride, k0, kBK, kvalid, p.d, false);
+  load_rows<T, DP>(ks, LD, k + koff, kstride, k0, kBK, kvalid, p.d);
+  load_rows<T, DP>(vs, LD, v + koff, kstride, k0, kBK, kvalid, p.d);
 
   // this thread's rows of the k tile are ty + 16 i; its columns tx + 16 j
   float dk_acc[4][NJ], dv_acc[4][NJ];
@@ -592,8 +586,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!tile_visible(q0, kBQ, k0, kBK, p)) continue;
       __syncthreads();   // the previous tile's readers are done
       const int qvalid = min(kBQ, p.S - q0);
-      load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d, false);
-      load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d, false);
+      load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d);
+      load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d);
       for (int r = threadIdx.x; r < kBQ; r += kThreads) {
         lse_s[r] = r < qvalid ? lse_b[q0 + r] : 0.f;
         delta_s[r] = r < qvalid ? delta_b[q0 + r] : 0.f;
@@ -1233,11 +1227,11 @@ flash_bwd_dkv_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B5 and B7 in the bf16 operand mode: mma.sync on the tensor cores
+// B5-B7 in the bf16 operand mode: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcThreads = 128;   // B7: 4 warps, 16 keys of the score tile each
+constexpr int kTcThreads = 128;   // B6 and B7: 4 warps of 16 rows of the score tile
 
 // bf16 row stride of a staged tile: 8 elements (16 bytes) of padding put
 // the 8 rows that one ldmatrix reads in 8 different 16-byte bank groups
@@ -1420,6 +1414,28 @@ __device__ __forceinline__ void dkv_grads(float (&st)[QT][4], float (&dpt)[QT][4
       if (kCap) ds *= 1.f - t * t;
       st[j][e] = pij;
       dpt[j][e] = ds * p.scale;
+    }
+}
+
+// B6: ds = p (dp - delta) (1 - t^2) scale of a thread's elements (rows row0
+// and row0 + 8, their lse lr and delta dr; keys key0 + 8 j + 2 tq + e), p
+// = exp(x - lse) on the visible pairs and 0 elsewhere, in place of s
+template <bool kCap, bool kMask, int NT>
+__device__ __forceinline__ void dq_grads(float (&s)[NT][4], const float (&dp)[NT][4],
+                                         const float (&lr)[2], const float (&dr)[2], int row0,
+                                         int key0, int tq, const Params& p) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float t = 0.f;
+      const float x = tc_logit<kCap>(s[j][e], p, t);
+      const bool vis = !kMask || visible(row0 + 8 * r, key0 + 8 * j + 2 * tq + (e & 1), p);
+      const float pij = vis ? expf(x - lr[r]) : 0.f;
+      float ds = pij * (dp[j][e] - dr[r]);
+      if (kCap) ds *= 1.f - t * t;
+      s[j][e] = ds * p.scale;
     }
 }
 
@@ -1888,6 +1904,203 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// B6 in the bf16 operand mode.  A block is 4 warps of 16 query rows (64
+// rows, one (q tile, head, batch) item; the grid lists the items q tiles in
+// reverse, so the causal rows that see the most keys start first) walking
+// the visible 64-key tiles.  Each warp keeps in registers, for the item,
+// its rows' q and do as A fragments (rounded to bf16 from device memory:
+// no staging), their lse and delta, and its dq accumulator (16 x DP f32).
+// k and v of a tile arrive as two TMA boxes on an mbarrier (or element by
+// element, rows the copy engine cannot move) into one staging tile, which
+// the block rounds once into padded bf16 tiles; the next tile's boxes fly
+// while the warps multiply.  A warp forms s = q k^T and dp = do v^T for
+// kDqKW keys at a time (ldmatrix of k and v, the B operand untransposed),
+// ds in place of s, and adds ds k to dq: ds, rounded pairwise from the
+// accumulator layout, is the A fragment (mma.cuh), and k the B operand by
+// ldmatrix.trans, so ds never touches shared memory.  A warp skips the
+// keys none of its rows sees (exact zeros).
+// Registers a thread: s and dp 2 x kDqKW / 2, the q and do fragments 2 x
+// DP / 4, dq DP / 2, lse and delta 4: 100 at DP = 64, 164 at DP = 128
+// (ptxas allots 160 and 228 with the addresses and the unrolled loops; no
+// spills on an H100 build), so kDqKW = 32: a 64-key s and dp would need 32
+// more, past the 168 that three blocks an SM allow at DP = 64.  Three
+// blocks an SM at DP = 64 (12 warps; 51 KB of shared memory each in f32),
+// two at DP = 128 (100 KB): while one block rounds a tile or waits at a
+// barrier, the others multiply, where B5's one persistent block an SM
+// idles the tensor cores.
+constexpr int kDqKW = 32;
+constexpr int kDqTcBQ = kTcThreads / 2;   // 4 warps of 16 rows
+template <typename T, int DP> constexpr size_t dq_tc_smem_bytes() {
+  return 128 + smem_piece(sizeof(T) * 2 * kBK * DP) + 2 * smem_piece(2 * kBK * tc_ld<DP>())
+       + smem_piece(8);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : 2)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, Params p,
+                       const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv) {
+  constexpr int LD = tc_ld<DP>(), NT = kDqKW / 8, DT = DP / 8, KS = DP / 16, QS = kDqKW / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int nq = (p.S + kDqTcBQ - 1) / kDqTcBQ, hb = p.H * p.B;
+  const int q0 = (nq - 1 - (int)blockIdx.x / hb) * kDqTcBQ;
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H, kh = h / (p.H / p.K);
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  Carve cv{align128(smem_tc)};
+  T* F = cv.take<T>(2 * kBK * DP);      // staging: k, then v (128-byte aligned)
+  bf16* Kb = cv.take<bf16>(kBK * LD);
+  bf16* Vb = cv.take<bf16>(kBK * LD);
+  uint64_t* bar = cv.take<uint64_t>(1);
+
+  const size_t kstride = (size_t)p.K * p.d, koff = ((size_t)b * p.T * p.K + kh) * p.d;
+  const int ldf = p.tma ? p.d : DP;     // the staging's row pitch
+  const int2 kr = visible_range((p.T + kBK - 1) / kBK, [&](int t) {
+    return tile_visible(q0, kDqTcBQ, t * kBK, kBK, p);
+  });
+  // k and v of key tile kt: one box each (64 rows of one head, the
+  // barrier's next phase) for the copy engine, or element by element
+  auto stage = [&](int kt) {
+    const int k0 = kt * kBK;
+    if (p.tma) {
+      if (threadIdx.x == 0) {
+        repro::mbar_arrive_expect(bar, 2 * kBK * p.d * sizeof(T));
+        repro::tma_load_3d(F, &tmk, 0, kh, b * p.T + k0, bar);
+        repro::tma_load_3d(F + kBK * DP, &tmv, 0, kh, b * p.T + k0, bar);
+      }
+    } else {
+      const int kvalid = min(kBK, p.T - k0);
+      load_rows_plain<T, DP, kTcThreads>(F, k + koff, kstride, k0, kvalid, p.d, threadIdx.x);
+      load_rows_plain<T, DP, kTcThreads>(F + kBK * DP, v + koff, kstride, k0, kvalid, p.d,
+                                         threadIdx.x);
+    }
+  };
+  if (threadIdx.x == 0) repro::mbar_init(bar, 1);
+  __syncthreads();
+  if (kr.x < kr.y) stage(kr.x);
+
+  // this warp's 16 rows of q and do as A fragments for the item, rounded to
+  // bf16 (zeros beyond S and d), while the first tile flies; this thread's
+  // rows are q0 + 16 warp + g + 8 r (r = 0, 1), its columns of each 8-wide
+  // n-tile j 8 j + 2 tq + e (e = 0, 1)
+  uint32_t qa[KS][4], da[KS][4];
+  const size_t qstride = (size_t)p.H * p.d;
+  const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
+  const T* db = dout + ((size_t)b * p.S * p.H + h) * p.d;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + g + 8 * (e & 1), c = 16 * ks + 8 * (e >> 1) + 2 * tq;
+      const bool in = q0 + r < p.S;
+      const size_t at = (size_t)(q0 + r) * qstride + c;
+      qa[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(qb[at]) : 0.f,
+                                   in && c + 1 < p.d ? to_f32(qb[at + 1]) : 0.f);
+      da[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(db[at]) : 0.f,
+                                   in && c + 1 < p.d ? to_f32(db[at + 1]) : 0.f);
+    }
+  const float* lse_b = lse + ((size_t)b * p.H + h) * p.S;
+  const float* delta_b = delta + ((size_t)b * p.H + h) * p.S;
+  float lr[2], dr[2], acc[DT][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    lr[r] = row < p.S ? lse_b[row] : 0.f;
+    dr[r] = row < p.S ? delta_b[row] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int r0 = q0 + 16 * warp;   // this warp's first row
+  uint32_t phase = 0;
+  for (int kt = kr.x; kt < kr.y; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();   // the element-wise rows in; every warp done with Kb and Vb
+    if (p.tma) {
+      repro::mbar_wait(bar, phase);
+      phase ^= 1;
+    }
+    const int kvalid = min(kBK, p.T - k0);
+    to_bf16_tile<T, DP, kBK, kTcThreads>(Kb, F, ldf, kvalid, p.d, threadIdx.x);
+    to_bf16_tile<T, DP, kBK, kTcThreads>(Vb, F + kBK * DP, ldf, kvalid, p.d, threadIdx.x);
+    __syncthreads();   // Kb and Vb ready, the staging free
+    if (kt + 1 < kr.y) stage(kt + 1);
+
+#pragma unroll 1
+    for (int kb = 0; kb < kBK; kb += kDqKW) {
+      const int key0 = k0 + kb;
+      if (key0 >= p.T || !tile_visible(r0, 16, key0, kDqKW, p)) continue;   // warp-uniform
+      // s = q k^T and dp = do v^T: this warp's 16 rows by kDqKW keys
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kf[4], vf[4];
+          repro::ldmatrix_x4(kf, b_pair<LD>(Kb, kb + 8 * j, 16 * ks, lane));
+          repro::ldmatrix_x4(vf, b_pair<LD>(Vb, kb + 8 * j, 16 * ks, lane));
+          repro::mma_bf16(s[j], qa[ks], kf[0], kf[1]);
+          repro::mma_bf16(s[j + 1], qa[ks], kf[2], kf[3]);
+          repro::mma_bf16(dp[j], da[ks], vf[0], vf[1]);
+          repro::mma_bf16(dp[j + 1], da[ks], vf[2], vf[3]);
+        }
+      // ds in place of s (dq_grads); keys that every row of the warp sees
+      // unmasked
+      const bool whole = key0 + kDqKW <= p.T && (!p.causal || key0 + kDqKW - 1 <= r0) &&
+                         (!p.window || r0 + 15 - key0 < p.window);
+      if (p.softcap > 0.f) {
+        if (whole) dq_grads<true, false>(s, dp, lr, dr, r0 + g, key0, tq, p);
+        else dq_grads<true, true>(s, dp, lr, dr, r0 + g, key0, tq, p);
+      } else {
+        if (whole) dq_grads<false, false>(s, dp, lr, dr, r0 + g, key0, tq, p);
+        else dq_grads<false, true>(s, dp, lr, dr, r0 + g, key0, tq, p);
+      }
+      // dq += ds k, ds rounded to bf16 into the A fragments of keys kb + 16
+      // kk.., k (keys by d) the B operand through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < QS; ++kk) {
+        const uint32_t a[4] = {repro::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               repro::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               repro::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               repro::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t kf[4];
+          repro::ldmatrix_x4_trans(kf, bt_pair<LD>(Kb, kb + 16 * kk, 8 * j, lane));
+          repro::mma_bf16(acc[j], a, kf[0], kf[1]);
+          repro::mma_bf16(acc[j + 1], a, kf[2], kf[3]);
+        }
+      }
+    }
+  }
+
+  // this thread's rows of dq that lie below S
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= p.S) continue;
+    float* drow = dq + (((size_t)b * p.S + row) * p.H + h) * p.d;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
+      const int c = 8 * j + 2 * tq;
+      if (c + 1 < p.d && p.d % 2 == 0) {
+        store_pair(drow + c, acc[j][2 * r], acc[j][2 * r + 1]);
+      } else {
+        if (c < p.d) drow[c] = acc[j][2 * r];
+        if (c + 1 < p.d) drow[c + 1] = acc[j][2 * r + 1];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -2021,6 +2234,22 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
   if (which == Which::kDq) {
     if (i8) return start(flash_bwd_dq_i8_kernel<T, DP>, rows, dq_i8_smem_bytes<DP>(), s,
                          qq, kk, vv, dd, ls, dl, f0, p);
+    if (bf) {
+      Params pt = p;
+      pt.tma = tma_rows<T>(p.d, k, v, k, v);   // only k and v are staged
+      CUtensorMap mk{}, mv{};
+      if (pt.tma) {
+        cudaError_t err = rows_map<T>(&mk, k, p.B, p.T, p.K, p.d, kBK);
+        if (err == cudaSuccess) err = rows_map<T>(&mv, v, p.B, p.T, p.K, p.d, kBK);
+        if (err != cudaSuccess) return err;
+      }
+      // one block an item (q tile, head, batch), q tiles in reverse
+      const long long items = (long long)((p.S + kDqTcBQ - 1) / kDqTcBQ) * p.H * p.B;
+      if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+      return start<kTcThreads>(flash_bwd_dq_tc_kernel<T, DP>, dim3((unsigned)items),
+                               dq_tc_smem_bytes<T, DP>(), s, qq, kk, vv, dd, ls, dl, f0, pt,
+                               mk, mv);
+    }
     return start(flash_bwd_dq_kernel<T, DP>, rows, dq_smem_words<DP>() * 4, s,
                  qq, kk, vv, dd, ls, dl, f0, p);
   }

@@ -131,7 +131,7 @@ def flash_decode(
         _ptr(k_scale), _ptr(v_scale),
         out.data_ptr(), B, H, K, d, N, P, C, float(scale), int(window),
         float(softcap), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        build.stream(q),
     )
     build.check(err, "flash_decode kernel")
     if k_scale is None:
@@ -185,7 +185,7 @@ def flash_decode_multi(
         _ptr(k_scale), _ptr(v_scale),
         out.data_ptr(), B, T, H, K, d, N, P, C, float(scale), int(window),
         float(softcap), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        build.stream(q),
     )
     build.check(err, "flash_decode_multi kernel")
     if k_scale is None:

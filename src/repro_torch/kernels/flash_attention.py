@@ -7,10 +7,10 @@ CUDA kernels.
 ``_flash_bwd_dkv_kernel``, in the f32, bf16 and int8 operand modes of the
 mixed-precision policy; the source and its design note are
 ``csrc/flash_attention.cu``.  Which kernel serves which mode: in the bf16
-mode (``train --amp bf16``) B5 and B7 run on the tensor cores
-(``flash_fwd_tc_kernel``, ``flash_bwd_dkv_tc_kernel``: mma.sync, ldmatrix,
-cp.async) and B6 on FFMA over bf16-rounded values
-(``flash_bwd_dq_kernel``); in the f32 mode all three on FFMA
+mode (``train --amp bf16``) all three run on the tensor cores
+(``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel``,
+``flash_bwd_dkv_tc_kernel``: mma.sync, ldmatrix, TMA boxes on an
+mbarrier); in the f32 mode on FFMA
 (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``);
 in the int8 mode on ``__dp4a`` (the ``*_i8_kernel``).  Each wrapper
 launches its kernel on CUDA tensors or raises: nothing falls back to
@@ -90,10 +90,9 @@ def _check_bwd(what, q, k, v, do, lse, delta):
     return B, S, T, H, K, d
 
 
-def _tail(scale, causal, window, softcap, policy, dtype, device):
+def _tail(scale, causal, window, softcap, policy, q):
     return (float(scale), int(bool(causal)), int(window), float(softcap),
-            _mode_code(policy), _DTYPE_CODES[dtype],
-            torch.cuda.current_stream(device).cuda_stream)
+            _mode_code(policy), _DTYPE_CODES[q.dtype], build.stream(q))
 
 
 def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
@@ -108,7 +107,7 @@ def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
     """
     global fwd_launches, fwd_int8_launches
     B, S, T, H, K, d = _check("flash_fwd", q, k, v)
-    tail = _tail(scale, causal, window, softcap, policy, q.dtype, q.device)
+    tail = _tail(scale, causal, window, softcap, policy, q)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     err = build.library().repro_flash_fwd(
@@ -132,7 +131,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float = 1.0,
     """
     global dq_launches, dq_int8_launches
     B, S, T, H, K, d = _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
-    tail = _tail(scale, causal, window, softcap, policy, q.dtype, q.device)
+    tail = _tail(scale, causal, window, softcap, policy, q)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = build.library().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -154,7 +153,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0,
     """
     global dkv_launches, dkv_int8_launches
     B, S, T, H, K, d = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
-    tail = _tail(scale, causal, window, softcap, policy, q.dtype, q.device)
+    tail = _tail(scale, causal, window, softcap, policy, q)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     err = build.library().repro_flash_bwd_dkv(

@@ -173,11 +173,17 @@ class _RMSNorm(torch.autograd.Function):
 
 def fused_rmsnorm(x, gain, *, eps: float = 1e-6, impl: str = "auto"):
     """RMSNorm with the ``(1 + gain)`` convention, differentiable in x and
-    gain."""
+    gain.  Where no gradient is wanted (grad mode off, or neither x nor gain
+    requires one) the forward runs alone, without the autograd Function's
+    cost: the serve path's 61 calls a forward."""
     kernel = resolve_impl(impl, x) == "kernel"
     if kernel:
         x = x.contiguous()
-    return _RMSNorm.apply(x, gain, eps, kernel)
+    if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad):
+        return _RMSNorm.apply(x, gain, eps, kernel)
+    if kernel:
+        return rn.rmsnorm(x, gain.float().contiguous(), eps)
+    return ref.rmsnorm_ref(x, gain, eps)
 
 
 class _SoftmaxXent(torch.autograd.Function):

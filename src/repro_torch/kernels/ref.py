@@ -7,7 +7,10 @@ held against.  One exception keeps tiles: :func:`flash_fwd_ref` and
 their own contract, walk the kernels' tiles (``FLASH_TILES``) where the
 tiling decides the numbers: the forward rounds (bf16) or quantizes (int8)
 the unnormalized p of each key tile relative to the running row max, and
-in the int8 mode every tile matmul takes its scales over the tile.
+in the int8 mode every tile matmul takes its scales over the tile.  In the
+bf16 mode their products over d (q·kᵀ, do·vᵀ) are summed in the
+tensor-core kernels' order (:func:`_mma_dot`), where the rounding of p and
+ds to bf16 makes the order visible.
 """
 from __future__ import annotations
 
@@ -125,10 +128,42 @@ def _heads(q, k, v):
             v.repeat_interleave(G, 2).transpose(1, 2).float())
 
 
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` to float32, rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_dot(a, b):
+    """``a @ b`` over d as the tensor-core kernels sum it (bf16 operands,
+    Hopper's mma.sync m16n8k16 with f32 accumulators): d in steps of 16,
+    each step's 16 products (exact) and the running f32 sum added exactly
+    and rounded toward zero.  On an H100 this model brings B5-B7's bf16
+    outputs within f32 summation error of the plain versions on almost
+    every entry, where a plain f32 matmul (another order, rounded to
+    nearest) leaves operands a few ulps apart that round to other bf16
+    values (scripts/torch_mma_sum_probe.py)."""
+    a = a.to(torch.bfloat16).double()
+    b = b.to(torch.bfloat16).double()
+    acc = None
+    for c0 in range(0, a.shape[-1], 16):
+        x = a[..., c0:c0 + 16] @ b[..., c0:c0 + 16, :]
+        acc = _round_toward_zero(x if acc is None else x + acc.double())
+    return acc
+
+
+def _d_dot(a, b, policy):
+    """A tile matmul over d (q·kᵀ, do·vᵀ): under the bf16 policy in the
+    tensor-core kernels' order (:func:`_mma_dot`), else ``kernel_dot``."""
+    if getattr(policy, "matmul", "none") == "bf16":
+        return _mma_dot(a, b)
+    return kernel_dot(a, b, policy)
+
+
 def _capped_logits(q, k, scale, softcap, policy):
     """(s, t): the logits before the mask, and the softcap's tanh (None
     without one)."""
-    s = kernel_dot(q, k.transpose(-1, -2), policy) * scale
+    s = _d_dot(q, k.transpose(-1, -2), policy) * scale
     if not softcap:
         return s, None
     t = torch.tanh(s / torch.full_like(s, softcap))   # a true division, as the kernels'
@@ -178,7 +213,8 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
     tile) is visible, the online softmax (m, l, acc) with its alpha
     rescale and its row sums in the kernel's order (the tensor-core
     fragments' in the bf16 mode, the 16 lanes' otherwise), and each tile matmul
-    under the policy: q·kᵀ (scales over d in the int8 mode), then the
+    under the policy: q·kᵀ (scales over d in the int8 mode, the MMA's
+    order in the bf16 mode), then the
     unnormalized p = exp(s - m) of the tile times v (p rounded or quantized
     per row, v per column, over the tile's keys).  Every query row is
     carried at once."""
@@ -226,7 +262,7 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
     ``p = exp(s - lse)`` on the visible pairs and 0 elsewhere, ``ds = p (do
     vᵀ - delta)``, times the softcap's ``1 - t²`` (t the pre-mask tanh) and
     the scale.  q·kᵀ and do·vᵀ take their int8 scales over d, so they run
-    untiled.  The products whose scales run over a tile axis are summed
+    untiled (summed in the MMA's order in the bf16 mode).  The products whose scales run over a tile axis are summed
     tile by tile in the kernels' order, each quantized (int8) or rounded
     (bf16) on its own: ``dq`` over B6's key tiles, ``dk = dsᵀ q`` and
     ``dv = pᵀ do`` over the G query heads of each kv head and, inside,
@@ -240,7 +276,7 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
     s, t = _capped_logits(qh, kh, scale, softcap, policy)
     mask = _visible(S, T, causal, window, q.device)
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
-    ds = p * (kernel_dot(doh, vh.transpose(-1, -2), policy) - delta[..., None])
+    ds = p * (_d_dot(doh, vh.transpose(-1, -2), policy) - delta[..., None])
     if softcap:
         ds = ds * (1 - t * t)
     ds = ds * scale

@@ -7,6 +7,11 @@
 raises; the plain versions are ``kernels/ref.py::rmsnorm_ref`` and
 ``rmsnorm_bwd_ref``, chosen by ``kernels/ops.py`` for CPU tensors, where
 ``fused_rmsnorm`` wires the pair into autograd.
+
+B1 runs 61 times a serve forward on a few rows, where its call costs more
+host time than the card spends on it; so its path is short: the library
+without a lock once built, the stream's raw handle, and only the checks
+the kernel needs, cheapest first.
 """
 from __future__ import annotations
 
@@ -27,15 +32,12 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     float32.  Returns a new tensor shaped and typed like x.
     """
     global launches
-    rows, D = _check(x, gain, "rmsnorm")
+    rows, D, code = _check(x, gain, "rmsnorm")
     y = torch.empty_like(x)
     if rows == 0 or D == 0:
         return y
-    lib = build.library()
-    err = lib.repro_rmsnorm(
-        x.data_ptr(), gain.data_ptr(), y.data_ptr(), rows, D, float(eps),
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    err = build.library().repro_rmsnorm(x.data_ptr(), gain.data_ptr(), y.data_ptr(), rows,
+                                        D, eps, code, build.stream(x))
     build.check(err, "rmsnorm kernel")
     launches += 1
     return y
@@ -50,7 +52,7 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
     (D,) float32, summed over every row in a fixed order (deterministic).
     """
     global bwd_launches
-    rows, D = _check(x, gain, "rmsnorm_bwd")
+    rows, D, code = _check(x, gain, "rmsnorm_bwd")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
             or not dy.is_contiguous():
         raise ValueError(
@@ -67,7 +69,7 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
     err = lib.repro_rmsnorm_bwd(
         x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dgain.data_ptr(), partial.data_ptr(), n_blocks, rows, D, float(eps),
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        code, build.stream(x),
     )
     build.check(err, "rmsnorm_bwd kernel")
     bwd_launches += 1
@@ -75,22 +77,25 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
 
 
 def _check(x: torch.Tensor, gain: torch.Tensor, what: str):
-    """(rows, D) of x after the checks both kernels share."""
+    """(rows, D, dtype code) of x after the checks both kernels share:
+    a CUDA x of a dtype they take, a float32 (D,) gain on x's card, both
+    contiguous, and int32 sizes."""
     if not x.is_cuda:
         raise ValueError(f"{what} kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPE_CODES:
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise ValueError(f"{what} kernel takes float32/bfloat16, got {x.dtype}")
     D = x.shape[-1]
-    if gain.dtype != torch.float32 or tuple(gain.shape) != (D,):
+    if gain.dtype != torch.float32 or gain.shape != (D,):
         raise ValueError(
             f"{what} kernel wants a float32 ({D},) gain, got "
             f"{gain.dtype} {tuple(gain.shape)}"
         )
-    if gain.device != x.device:
+    if gain.get_device() != x.get_device():
         raise ValueError(f"gain on {gain.device}, x on {x.device}")
     if not (x.is_contiguous() and gain.is_contiguous()):
         raise ValueError(f"{what} kernel needs contiguous x and gain")
     rows = x.numel() // max(D, 1)
     if rows >= 2**31 or D >= 2**31:
         raise ValueError(f"{what} kernel: {rows} rows x {D} exceeds int32")
-    return rows, D
+    return rows, D, code

@@ -1,4 +1,4 @@
-"""The freedoms that the tensor-core B5 and B7 (the bf16 operand mode of
+"""The freedoms that the tensor-core B5, B6 and B7 (the bf16 operand mode of
 ``csrc/flash_attention.cu``) rely on, held on their plain versions
 (``kernels/ref.py``) on the CPU.
 
@@ -19,6 +19,20 @@
 - The f32 and int8 forwards still walk ``ref._lane_row_sum`` (the int8
   kernel is held bit-equal to its plain version on the card), and the bf16
   forward walks ``ref._mma_row_sum``.
+- B6's tiles in the bf16 mode do not change the function either: dq summed
+  over key tiles of 16 (one MMA's keys), 32 (a warp's step in the
+  tensor-core kernel) or 128 agrees with dq over the kernel's 64-key tiles
+  (``FLASH_TILES["dq"]["bf16"]``) to f32 summation error, and the query
+  tile changes no bit (dq's rows are independent).
+- ds rounds to bf16 at one place whatever the tiles: once, element by
+  element, before ds·k.  dq under every tiling agrees to f32 summation
+  error with ds rounded to bf16 times k rounded to bf16 summed in float64,
+  and not with the same product of the unrounded ds (the control).
+- The bf16 mode's products over d (q·kᵀ, do·vᵀ) are summed in the
+  tensor-core kernels' order (``ref._mma_dot``): it is that order written
+  out element by element with exact sums (each 16 products and the running
+  f32 value, rounded toward zero), bit for bit, and a plain f32 matmul of
+  the bf16 operands to f32 summation error, though not bit for bit.
 - Against the reference: the bf16 plain forward at the kernel's contract
   matches the reference's plain attention under the bf16 policy at the
   tier at which tests/test_torch_amp.py holds the port's bf16 attention to
@@ -76,6 +90,61 @@ def test_dkv_bf16_query_tile_is_free(case, monkeypatch):
     torch.testing.assert_close(out[64][0], out[128][0], rtol=0, atol=0)   # dq: B6's tiles
 
 
+def _dq_inputs(case, seed):
+    """(qs, k, v, do, lse, delta, kw) of a case under the bf16 policy."""
+    B, S, H, K, d, window, softcap, scale = CASES[case]
+    q, k, v, do = _inputs(B, S, H, K, d, seed=seed)
+    qs = q * scale
+    kw = dict(causal=True, window=window, softcap=softcap, policy=BF16)
+    o, lse = ref.flash_fwd_ref(qs, k, v, **kw)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    return qs, k, v, do, lse, delta, kw
+
+
+def _dq_at(tiles, monkeypatch, *args, **kw):
+    monkeypatch.setitem(ref.FLASH_TILES["dq"], "bf16", tiles)
+    return ref.flash_bwd_ref(*args, **kw)[0]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dq_bf16_tiles_are_free(case, monkeypatch):
+    qs, k, v, do, lse, delta, kw = _dq_inputs(case, seed=6)
+    tiles = ref.FLASH_TILES["dq"]["bf16"]
+    assert tiles == (64, 64)   # flash_bwd_dq_tc_kernel: 4 warps of 16 rows, 64-key tiles
+    args = (qs, k, v, do, lse, delta)
+    kernel = _dq_at(tiles, monkeypatch, *args, **kw)
+    for keys in (16, 32, 128):
+        _close(_dq_at((tiles[0], keys), monkeypatch, *args, **kw), kernel, f"dq, {keys}-key tiles")
+    for rows in (16, 128):
+        assert torch.equal(_dq_at((rows, tiles[1]), monkeypatch, *args, **kw), kernel)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dq_bf16_rounds_ds_once_before_ds_k(case, monkeypatch):
+    """ds as flash_bwd_ref forms it (p from lse, masked, (dp - delta), the
+    softcap's 1 - t^2, the scale), rounded to bf16, times k rounded to bf16
+    with float64 sums: every tiling's dq is that to f32 summation error,
+    and the unrounded ds is not."""
+    B, S, H, K, d, window, softcap, scale = CASES[case]
+    qs, k, v, do, lse, delta, kw = _dq_inputs(case, seed=8)
+    qh, kh, vh = ref._heads(qs, k, v)
+    s, t = ref._capped_logits(qh, kh, scale=1.0, softcap=softcap, policy=BF16)
+    mask = ref._visible(S, S, True, window, qs.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = ref._d_dot(do.transpose(1, 2).float(), vh.transpose(-1, -2), BF16)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1 - t * t)
+    kb = kh.bfloat16().double()
+    rounded = (ds.bfloat16().double() @ kb).float().transpose(1, 2)
+    unrounded = (ds.double() @ kb).float().transpose(1, 2)
+    for keys in (16, 64, 128):
+        got = _dq_at((64, keys), monkeypatch, qs, k, v, do, lse, delta, **kw)
+        _close(got, rounded, f"dq, {keys}-key tiles, against ds rounded once")
+        with pytest.raises(AssertionError):
+            _close(got, unrounded, "dq against the unrounded ds")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_fwd_bf16_query_tile_is_free(case, monkeypatch):
     B, S, H, K, d, window, softcap, scale = CASES[case]
@@ -86,6 +155,54 @@ def test_fwd_bf16_query_tile_is_free(case, monkeypatch):
         monkeypatch.setitem(ref.FLASH_TILES["fwd"], "bf16", (tq, 128))
         out[tq] = ref.flash_fwd_ref(q * scale, k, v, **kw)
     assert torch.equal(out[64][0], out[128][0]) and torch.equal(out[64][1], out[128][1])
+
+
+def _mma_dot_written_out(a, b):
+    """ref._mma_dot element by element: exact sums (Fraction) of each 16
+    products of d and the running float32 value, rounded toward zero."""
+    from fractions import Fraction
+
+    a = a.to(torch.bfloat16).double().numpy()
+    b = b.to(torch.bfloat16).double().numpy()
+    out = np.zeros(a.shape[:-1] + b.shape[-1:], dtype=np.float32)
+    for idx in np.ndindex(out.shape):
+        *lead, i, j = idx
+        acc = np.float32(0.0)
+        for c0 in range(0, a.shape[-1], 16):
+            exact = Fraction(float(acc)) + sum(
+                Fraction(float(a[(*lead, i, c)])) * Fraction(float(b[(*lead, c, j)]))
+                for c in range(c0, min(c0 + 16, a.shape[-1])))
+            y = np.float32(float(exact))
+            if abs(Fraction(float(y))) > abs(exact):
+                y = np.nextafter(y, np.float32(0.0))
+            acc = y
+        out[idx] = acc
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("d", [40, 64, 20])
+def test_mma_dot_is_the_tensor_core_order(d):
+    rng = np.random.default_rng(d)
+    # values over several binades, so that orders and roundings give other bits
+    a = torch.from_numpy((rng.standard_normal((2, 6, d)) * 2.0 ** rng.integers(-6, 4, (2, 6, d)))
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((2, d, 5)) * 2.0 ** rng.integers(-6, 4, (2, d, 5)))
+                         .astype(np.float32))
+    got = ref._mma_dot(a, b)
+    assert got.dtype == torch.float32 and torch.equal(got, _mma_dot_written_out(a, b))
+    plain = ref.kernel_dot(a, b, BF16)
+    _close(got, plain, "the MMA order against an f32 matmul")
+    assert torch.equal(ref._d_dot(a, b, BF16), got)
+    assert torch.equal(ref._d_dot(a, b, None), ref.kernel_dot(a, b, None))
+
+
+def test_mma_dot_and_f32_matmul_differ():
+    """The two orders are not the same function (so the bf16 plain versions
+    have to pick one)."""
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    assert not torch.equal(ref._mma_dot(a, b), ref.kernel_dot(a, b, BF16))
 
 
 def _mma_order(p, width):
