@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-``nvcc`` per source, all at once) and checks what the compiler made of the
+``nvcc`` per source, all at once) and checks what the compiler made of
+B8's twelve instances (six (q, pool) type pairs, with and without 16-byte
+loads: registers printed, no spills in ``ptxas -v``) and of the
 tensor-core flash kernels (B5, B6 and B7 in the bf16 operand mode): no spills
 in ``ptxas -v`` at DP 64 and 128, and, where ``cuobjdump`` is on the
 machine, tensor-core instructions (HMMA/HGMMA) in their SASS, whose counts
@@ -46,17 +48,30 @@ which raises on a failed check:
   each mode timed at the train shape, the bf16 and int8 kernels with their
   device time per launch, B5, B6, B7 and B6 + B7 in the bf16 mode against
   SDPA's bf16 forward and backward alone (printed ratios; the targets are
-  <= 3x, <= 0.75x, <= 1x and <= 1.3x, not held); B8 paged flash decode
-  (8 cases: engine shape, MHA/MQA, window, softcap, bf16); B9 paged
+  <= 3x, <= 0.75x, <= 1x and <= 1.3x, not held); B8 paged flash decode,
+  split over a cluster of decode_splits() blocks (DECODE_CASES, 17 cases:
+  engine shape, MHA/MQA, window, softcap, all four f32/bf16 (q, pool)
+  pairs, d_head 128, d_head 256 with gemma2-2b's 8/4 heads in f32 and
+  bf16, one slot of 2048 tokens, 32 slots, C = 1, slots of one token, a
+  slot whose pages hold nothing, and d_head 20 in bf16, whose 40-byte rows
+  are read byte by byte; f32 atol 2e-5, bf16 2e-2, inactive and
+  fully masked slots exactly zero), timed at the decode shape a call and
+  on the card, with its split count, its share of the bytes bound and
+  SDPA's call and card time, and on the card at one slot of 2048 tokens and
+  at 32 slots; B9 paged
   multi-query flash decode (12 cases: the engine's chunk of 64 with the
   history partly resident, its last chunk with rows past the prompt at -1,
   T not a multiple of the row tile, the speculative-verify shape B = 4,
   T = 5, MHA/MQA, window, softcap, bf16 and f32-over-bf16 pools, two slots
   whose tables map the same pages; f32 atol 2e-5, bf16 2e-2, rows at -1
   exactly zero) and at T = 1 against B8 on the same inputs; the int8-pool
-  modes of B8 (8 cases at the engine's decode shape q (4, 9, 64) over
-  (83, 16, 3, 64) int8 pools with (83, 3) scales: an inactive slot,
-  MHA/MQA, window, softcap, bf16 q) and of B9 (8 cases: the engine's chunk
+  modes of B8 (INT8_DECODE_CASES, 16 cases, most at the engine's decode
+  shape q (4, 9, 64) over (83, 16, 3, 64) int8 pools with (83, 3) scales:
+  an inactive slot, MHA, MQA (G = 9, also with bf16 q, window and
+  softcap), window, softcap, bf16 q, d_head 128 and 256, one slot of 2048
+  tokens, 32 slots, C = 1, slots of one token and a fully masked slot,
+  d_head 40 (40-byte rows, read byte by byte); timed as over f32 pools) and
+  of B9 (8 cases: the engine's chunk
   of 64 with history resident, its last chunk with rows at -1, the verify
   shape B = 4, T = 5, MHA/MQA, window + softcap, bf16 q, two slots sharing
   pages; and T = 1 against B8's int8 mode), each against its plain version
@@ -249,23 +264,26 @@ def cuda_ms_turns(fns, rounds=5, n=N_TIMED):
     return {name: sorted(v)[len(v) // 2] for name, v in per.items()}, per
 
 
-def device_us(fn, name, n=20):
+def device_us(fn, name, n=20, tries=3):
     """Microseconds on the card per launch of the port kernel ``name`` (see
-    PORT_KERNELS), from torch.profiler over ``n`` calls of ``fn``."""
+    PORT_KERNELS), from torch.profiler over ``n`` calls of ``fn``; a profile
+    that caught none of its launches (the tracer drops one now and then)
+    is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and any(is_kernel(name, k, e.key) for k in PORT_KERNELS[name])]
-    if not hits:
-        raise AssertionError(f"the profiler saw no kernel of {name!r}")
-    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(is_kernel(name, k, e.key) for k in PORT_KERNELS[name])]
+        if hits:
+            return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
+    raise AssertionError(f"the profiler saw no kernel of {name!r} in {tries} tries")
 
 
 def library_device_us(fn, n=20):
@@ -456,48 +474,126 @@ def paged_case(B, K, G, d, P, C, lens, q_dtype, kv_dtype, seed):
     return q, kp, vp, pos, tab, q_pos
 
 
-def decode_phase(ops, da, F):
-    S = 4        # the serve phase's slots
-    cases = [
-        # (label, B, K, G, d, P, C, lens, q_dtype, kv_dtype, window, softcap)
-        ("engine shape", 8, 3, 3, 64, 16, 20, [320, 201, 64, 17, 256, 8, 140, 99],
-         torch.float32, torch.float32, 0, 0.0),
-        ("engine shape bf16", 8, 3, 3, 64, 16, 20, [320, 201, 64, 17, 256, 8, 140, 99],
-         torch.bfloat16, torch.bfloat16, 0, 0.0),
-        ("MHA, half page, inactive", 4, 9, 1, 64, 16, 20, [9, 0, 160, 300],
-         torch.float32, torch.float32, 0, 0.0),
-        ("MQA, half page, inactive", 4, 1, 9, 64, 16, 20, [0, 41, 320, 72],
-         torch.float32, torch.float32, 0, 0.0),
-        ("window", 4, 3, 3, 64, 16, 20, [300, 45, 0, 128],
-         torch.float32, torch.float32, 100, 0.0),
-        ("softcap", 4, 3, 3, 64, 16, 20, [300, 45, 0, 128],
-         torch.float32, torch.float32, 0, 30.0),
-        ("window + softcap bf16", 4, 3, 3, 64, 16, 20, [300, 45, 0, 128],
-         torch.bfloat16, torch.bfloat16, 64, 20.0),
-        ("f32 q over bf16 pools", 4, 3, 3, 64, 16, 20, [57, 320, 1, 0],
-         torch.float32, torch.bfloat16, 0, 0.0),
-    ]
-    for i, (label, B, K, G, d, P, C, lens, qdt, kvdt, window, cap) in enumerate(cases):
-        q, kp, vp, pos, tab, q_pos = paged_case(B, K, G, d, P, C, lens, qdt, kvdt, i)
-        kw = dict(scale=0.125, window=window, softcap=cap)
-        got = ops.decode_attention(q, kp, vp, pos, tab, q_pos, impl="kernel", **kw)
-        want = ops.decode_attention(q, kp, vp, pos, tab, q_pos, impl="ref", **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = ATOL[torch.bfloat16 if torch.bfloat16 in (qdt, kvdt) else torch.float32]
-        inactive = q_pos < 0
-        if not err <= tol or torch.count_nonzero(got[inactive]) != 0:
-            raise AssertionError(f"flash_decode case {label!r}: max err {err}")
-        log(f"[kernels] flash_decode {label}: max err {err:.3g} (atol {tol})")
+f32, bf16 = torch.float32, torch.bfloat16
+# B8 over f32/bf16 pools: (label, B, K, G, d, P, C, lens, q_dtype, kv_dtype,
+# window, softcap, masked); lens 0 -> an inactive slot (q_pos -1); the slots
+# in ``masked`` get q_pos 40 over pages that hold nothing (every entry
+# masked).  Each case's seed is its index.
+DECODE_CASES = [
+    ("engine shape", 8, 3, 3, 64, 16, 20, [320, 201, 64, 17, 256, 8, 140, 99],
+     f32, f32, 0, 0.0, ()),
+    ("engine shape bf16", 8, 3, 3, 64, 16, 20, [320, 201, 64, 17, 256, 8, 140, 99],
+     bf16, bf16, 0, 0.0, ()),
+    ("MHA, half page, inactive", 4, 9, 1, 64, 16, 20, [9, 0, 160, 300],
+     f32, f32, 0, 0.0, ()),
+    ("MQA, half page, inactive", 4, 1, 9, 64, 16, 20, [0, 41, 320, 72],
+     f32, f32, 0, 0.0, ()),
+    ("window", 4, 3, 3, 64, 16, 20, [300, 45, 0, 128], f32, f32, 100, 0.0, ()),
+    ("softcap", 4, 3, 3, 64, 16, 20, [300, 45, 0, 128], f32, f32, 0, 30.0, ()),
+    ("window + softcap bf16", 4, 3, 3, 64, 16, 20, [300, 45, 0, 128],
+     bf16, bf16, 64, 20.0, ()),
+    ("f32 q over bf16 pools", 4, 3, 3, 64, 16, 20, [57, 320, 1, 0], f32, bf16, 0, 0.0, ()),
+    ("bf16 q over f32 pools", 4, 3, 3, 64, 16, 20, [57, 320, 1, 0], bf16, f32, 0, 0.0, ()),
+    ("d_head 128", 4, 3, 3, 128, 16, 20, [300, 45, 0, 128], f32, f32, 0, 0.0, ()),
+    ("d_head 256, gemma2-2b's 8/4 heads", 4, 4, 2, 256, 16, 20, [300, 45, 0, 128],
+     f32, f32, 0, 0.0, ()),
+    ("d_head 256, 8/4 heads, bf16", 4, 4, 2, 256, 16, 20, [300, 45, 0, 128],
+     bf16, bf16, 0, 0.0, ()),
+    ("one slot of 2048 tokens (128 pages)", 1, 3, 3, 64, 16, 128, [2048],
+     f32, f32, 0, 0.0, ()),
+    ("32 slots", 32, 3, 3, 64, 16, 20,
+     [0 if i % 11 == 7 else (37 * i + 5) % 321 for i in range(32)], f32, f32, 0, 0.0, ()),
+    ("C = 1 (one split)", 4, 3, 3, 64, 16, 1, [16, 5, 0, 1], f32, f32, 0, 0.0, ()),
+    ("slots of one token, a fully masked slot", 4, 3, 3, 64, 16, 20, [1, 0, 300, 1],
+     f32, f32, 0, 0.0, (1,)),
+    ("d_head 20 bf16: 40-byte rows, read byte by byte", 3, 2, 2, 20, 8, 9, [50, 3, 72],
+     bf16, bf16, 0, 0.0, ()),
+]
+# B8 over int8 pools (seed 200 + index): (label, B, K, G, d, C, lens,
+# q_dtype, window, softcap, masked), page 16
+INT8_DECODE_CASES = [
+    ("engine shape", 4, 3, 3, 64, 20, [120, 200, 260, 310], f32, 0, 0.0, ()),
+    ("engine shape, an inactive slot", 4, 3, 3, 64, 20, [57, 0, 320, 16], f32, 0, 0.0, ()),
+    ("bf16 q", 4, 3, 3, 64, 20, [300, 45, 0, 128], bf16, 0, 0.0, ()),
+    ("MHA, half page", 4, 9, 1, 64, 20, [9, 0, 160, 300], f32, 0, 0.0, ()),
+    ("MQA (G = 9), half page", 4, 1, 9, 64, 20, [0, 41, 320, 72], f32, 0, 0.0, ()),
+    ("window", 4, 3, 3, 64, 20, [300, 45, 0, 128], f32, 100, 0.0, ()),
+    ("softcap", 4, 3, 3, 64, 20, [300, 45, 0, 128], f32, 0, 30.0, ()),
+    ("window + softcap, bf16 q", 4, 3, 3, 64, 20, [300, 45, 0, 128], bf16, 64, 20.0, ()),
+    ("d_head 128", 4, 3, 3, 128, 20, [300, 45, 0, 128], f32, 0, 0.0, ()),
+    ("d_head 256, gemma2-2b's 8/4 heads", 4, 4, 2, 256, 20, [300, 45, 0, 128],
+     f32, 0, 0.0, ()),
+    ("one slot of 2048 tokens (128 pages)", 1, 3, 3, 64, 128, [2048], f32, 0, 0.0, ()),
+    ("32 slots", 32, 3, 3, 64, 20,
+     [0 if i % 11 == 7 else (37 * i + 5) % 321 for i in range(32)], f32, 0, 0.0, ()),
+    ("C = 1 (one split)", 4, 3, 3, 64, 1, [16, 5, 0, 1], f32, 0, 0.0, ()),
+    ("slots of one token, a fully masked slot", 4, 3, 3, 64, 20, [1, 0, 300, 1],
+     bf16, 0, 0.0, (1,)),
+    ("MQA (G = 9), bf16 q, window + softcap", 4, 1, 9, 64, 20, [0, 41, 320, 72],
+     bf16, 64, 20.0, ()),
+    ("d_head 40: 40-byte rows, read byte by byte", 3, 2, 2, 40, 9, [50, 3, 72], f32, 0,
+     0.0, ()),
+]
 
+
+def mask_slots(q_pos, masked):
+    """q_pos 40 for the slots in ``masked``, whose pages hold nothing: every
+    entry they see is masked.  Returns the rows that must be exact zeros
+    (these and the inactive slots)."""
+    for b in masked:
+        q_pos[b] = 40
+    zero = q_pos < 0
+    zero[list(masked)] = True
+    return zero
+
+
+def check_decode(ops, label, args, kw, tol, zero):
+    """B8 against its plain version on the same inputs: max abs err within
+    ``tol`` and the rows ``zero`` exactly zero.  Returns the error."""
+    from repro_torch.kernels.decode_attention import decode_splits
+
+    got = ops.decode_attention(*args, impl="kernel", **kw)
+    want = ops.decode_attention(*args, impl="ref", **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    nonzero = int(torch.count_nonzero(got[zero]))
+    if not err <= tol or nonzero:
+        raise AssertionError(f"flash_decode case {label!r}: max err {err}, "
+                             f"{nonzero} nonzero entries in rows that see nothing")
+    B, C, K = args[4].shape[0], args[4].shape[1], args[1].shape[2]
+    log(f"[kernels] flash_decode {label}: max err {err:.3g} (atol {tol}), "
+        f"{decode_splits(B, K, C)} splits, {int(zero.sum())} rows exactly zero")
+    return err
+
+
+def check_decode_cases(ops):
+    """B8 over f32/bf16 pools on DECODE_CASES (atol 2e-5, 2e-2 where bf16
+    enters).  Returns the worst error per tier."""
+    worst = {f32: 0.0, bf16: 0.0}
+    for i, case in enumerate(DECODE_CASES):
+        label, B, K, G, d, P, C, lens, qdt, kvdt, window, cap, masked = case
+        q, kp, vp, pos, tab, q_pos = paged_case(B, K, G, d, P, C, lens, qdt, kvdt, i)
+        zero = mask_slots(q_pos, masked)
+        tier = bf16 if bf16 in (qdt, kvdt) else f32
+        err = check_decode(ops, label, (q, kp, vp, pos, tab, q_pos),
+                           dict(scale=0.125, window=window, softcap=cap), ATOL[tier], zero)
+        worst[tier] = max(worst[tier], err)
+    return worst
+
+
+def decode_phase(ops, da, F):
+    worst = check_decode_cases(ops)
     # timing at the main path's decode shape: 4 slots, smollm-135m heads,
     # 20 pages of 16 per slot, slots part-way through their requests
-    q, kp, vp, pos, tab, q_pos = paged_case(S, 3, 3, 64, 16, 20, DECODE_LENS,
+    q, kp, vp, pos, tab, q_pos = paged_case(4, 3, 3, 64, 16, 20, DECODE_LENS,
                                             torch.float32, torch.float32, 99)
-    return dict(name="flash_decode",
-                shape="q (4, 9, 64) f32, pools (83, 16, 3, 64) f32, live lens "
-                      + ",".join(map(str, DECODE_LENS)),
-                **decode_row(ops, F, "flash_decode", (q, kp, vp, pos, tab, q_pos)))
+    row = dict(name="flash_decode",
+               shape="q (4, 9, 64) f32, pools (83, 16, 3, 64) f32, live lens "
+                     + ",".join(map(str, DECODE_LENS)),
+               worst_err_f32=worst[f32], worst_err_bf16=worst[bf16],
+               **decode_row(ops, F, "flash_decode", (q, kp, vp, pos, tab, q_pos)))
+    row["scaling"] = decode_scaling(ops, "flash_decode")
+    return row
 
 
 DECODE_LENS = [120, 200, 260, 310]   # the timed B8 shape's live lengths
@@ -524,11 +620,30 @@ def pool_bytes_read(tokens, pages, K, d, itemsize, scales):
             + tokens * 4 + pages * 4)
 
 
+def decode_bytes_flops(q, kp, tab, lens, scales):
+    """(bytes, flops) a B8 call must move and do for slots of live lengths
+    ``lens``: live pages of K and V (scales, positions and table entries
+    with them), q, out and q_pos read or written once; 4 H d flops a live
+    token, plus the dequantization of int8 pools."""
+    S, H = q.shape[:2]
+    P, K, d = kp.shape[1:]
+    pages = sum(min(tab.shape[1], (L - 1) // P + 1) for L in lens if L > 0)
+    tokens = pages * P
+    nbytes = (pool_bytes_read(tokens, pages, K, d, kp.element_size(), scales)
+              + 2 * q.numel() * q.element_size() + S * 4)
+    flops = 4 * H * d * tokens + (2 * K * d * tokens if scales else 0)
+    return nbytes, flops
+
+
 def decode_row(ops, F, name, args, scales=None):
     """B8's time (over f32 pools, or int8 pools with ``scales``) at the
-    decode shape DECODE_LENS, beside its plain version, SDPA over the
-    pre-gathered (dequantized) K/V of the same live lengths (attention only)
-    and its bound."""
+    decode shape DECODE_LENS: a call (CUDA events, 200 calls) and on the
+    card (torch.profiler), beside its plain version, SDPA over the
+    pre-gathered (dequantized) K/V of the same live lengths (attention
+    only; its call and its kernels' time on the card), the split count and
+    the bound."""
+    from repro_torch.kernels.decode_attention import decode_splits
+
     q, kp, vp, pos, tab, q_pos = args
     S, K, d, P = q.shape[0], kp.shape[2], kp.shape[3], kp.shape[1]
     kw = dict(scale=0.125, **(scales or {}))
@@ -546,26 +661,57 @@ def decode_row(ops, F, name, args, scales=None):
         kk[b, :, :L], vv[b, :, :L] = kb[0], vb[0]
         mask[b, ..., :L] = True
     qq = q[:, :, None, :]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask, scale=0.125, enable_gqa=True))
-    H = q.shape[1]
-    pages = sum(min(tab.shape[1], (L - 1) // P + 1) for L in DECODE_LENS)
-    tokens = pages * P
-    nbytes = (pool_bytes_read(tokens, pages, K, d, kp.element_size(), scales)
-              + 2 * q.numel() * q.element_size() + S * 4)      # q, out, q_pos
-    flops = 4 * H * d * tokens + (2 * K * d * tokens if scales else 0)  # + dequantization
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=0.125,
+                                              enable_gqa=True)
+    library_ms = cuda_ms(sdpa)
+    lib_us, lib_n = library_device_us(sdpa)
+    nbytes, flops = decode_bytes_flops(q, kp, tab, DECODE_LENS, scales)
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"[kernels] {name} at the decode shape: {ms:.5f} ms ({dev_us:.2f} us on the "
-        f"card), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {flops} flops)")
+    splits = decode_splits(S, K, tab.shape[1])
+    share = bound_ms * 1e3 / dev_us
+    log(f"[kernels] {name} at the decode shape: {ms:.5f} ms a call, {dev_us:.2f} us a "
+        f"launch on the card ({share:.1%} of the {bound_by} bound), {splits} splits; "
+        f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms a call and {lib_us:.2f} us on "
+        f"the card ({lib_n:g} kernels); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
+        f"bytes, {flops} flops)")
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:44",
         max_abs_err=err, ms=ms, device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        bound_by=bound_by, bound_share=share, splits=splits, library_ms=library_ms,
+        library_device_us=lib_us,
         library="torch.nn.functional.scaled_dot_product_attention over pre-gathered "
                 + ("dequantized " if scales else "") + "K/V (attention only)",
     )
+
+
+# B8's time on the card beyond the decode shape: (label, B, C, lens)
+DECODE_SCALING = [
+    ("one slot of 2048 tokens (128 pages)", 1, 128, [2048]),
+    ("32 slots, 8-20 live pages each", 32, 20, [120 + (190 * i) // 31 for i in range(32)]),
+]
+
+
+def decode_scaling(ops, name):
+    """{label: (device us a launch, share of the bound)} of B8 (int8 pools
+    for a name ending in _int8) at the DECODE_SCALING shapes, smollm-135m's
+    heads."""
+    out = {}
+    for label, B, C, lens in DECODE_SCALING:
+        q, kp, vp, pos, tab, q_pos = paged_case(B, 3, 3, 64, 16, C, lens, f32, f32, 98)
+        scales = None
+        if name.endswith("_int8"):
+            kp, vp, scales = int8_pools(kp, vp, 98)
+        args = (q, kp, vp, pos, tab, q_pos)
+        kw = dict(scale=0.125, **(scales or {}))
+        us = device_us(lambda: ops.decode_attention(*args, impl="kernel", **kw), name)
+        bound_ms, bound_by = bound(*decode_bytes_flops(q, kp, tab, lens, scales))
+        out[label] = (us, bound_ms * 1e3 / us)
+        log(f"[kernels] {name} {label}: {us:.2f} us a launch on the card "
+            f"({bound_ms * 1e3 / us:.1%} of the {bound_by} bound)")
+    return out
 
 
 def multi_case(B, T, K, G, d, P, C, hist, q_dtype, kv_dtype, seed, dead=(),
@@ -732,37 +878,21 @@ def int8_pools(kp, vp, seed):
 
 
 def check_int8_decode_cases(ops):
-    """B8's int8 mode against its plain version on the card (f32 q at atol
-    2e-5, bf16 q at 2e-2), inactive slots exactly zero.  Returns the worst
-    error per q dtype."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [
-        # (label, B, K, G, lens, q_dtype, window, softcap)
-        ("engine shape", 4, 3, 3, [120, 200, 260, 310], f32, 0, 0.0),
-        ("engine shape, an inactive slot", 4, 3, 3, [57, 0, 320, 16], f32, 0, 0.0),
-        ("bf16 q", 4, 3, 3, [300, 45, 0, 128], bf16, 0, 0.0),
-        ("MHA, half page", 4, 9, 1, [9, 0, 160, 300], f32, 0, 0.0),
-        ("MQA, half page", 4, 1, 9, [0, 41, 320, 72], f32, 0, 0.0),
-        ("window", 4, 3, 3, [300, 45, 0, 128], f32, 100, 0.0),
-        ("softcap", 4, 3, 3, [300, 45, 0, 128], f32, 0, 30.0),
-        ("window + softcap, bf16 q", 4, 3, 3, [300, 45, 0, 128], bf16, 64, 20.0),
-    ]
+    """B8's int8 mode against its plain version on the card on
+    INT8_DECODE_CASES (f32 q at atol 2e-5, bf16 q at 2e-2), inactive and
+    fully masked slots exactly zero.  Returns the worst error per q
+    dtype."""
     worst = {f32: 0.0, bf16: 0.0}
-    for i, (label, B, K, G, lens, qdt, window, cap) in enumerate(cases):
-        q, kp, vp, pos, tab, q_pos = paged_case(B, K, G, 64, 16, 20, lens, qdt,
+    for i, (label, B, K, G, d, C, lens, qdt, window, cap, masked) in enumerate(
+            INT8_DECODE_CASES):
+        q, kp, vp, pos, tab, q_pos = paged_case(B, K, G, d, 16, C, lens, qdt,
                                                 torch.float32, 200 + i)
         kq, vq, scales = int8_pools(kp, vp, 200 + i)
-        kw = dict(scale=0.125, window=window, softcap=cap, **scales)
-        got = ops.decode_attention(q, kq, vq, pos, tab, q_pos, impl="kernel", **kw)
-        want = ops.decode_attention(q, kq, vq, pos, tab, q_pos, impl="ref", **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        zero = mask_slots(q_pos, masked)
+        err = check_decode(ops, f"int8 {label}", (q, kq, vq, pos, tab, q_pos),
+                           dict(scale=0.125, window=window, softcap=cap, **scales),
+                           ATOL[qdt], zero)
         worst[qdt] = max(worst[qdt], err)
-        n_dead = int((q_pos < 0).sum())
-        if not err <= ATOL[qdt] or torch.count_nonzero(got[q_pos < 0]) != 0:
-            raise AssertionError(f"flash_decode int8 case {label!r}: max err {err}")
-        log(f"[kernels] flash_decode int8 {label}: max err {err:.3g} (atol "
-            f"{ATOL[qdt]}), {n_dead} inactive slots exactly zero")
     return worst
 
 
@@ -829,12 +959,14 @@ def int8_decode_phase(ops, F):
     q, kp, vp, pos, tab, q_pos = paged_case(4, 3, 3, 64, 16, 20, DECODE_LENS,
                                             torch.float32, torch.float32, 99)
     kq, vq, scales = int8_pools(kp, vp, 99)
-    return dict(name="flash_decode_int8",
-                shape="q (4, 9, 64) f32, pools (83, 16, 3, 64) int8 + (83, 3) f32 "
-                      "scales, live lens " + ",".join(map(str, DECODE_LENS)),
-                worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
-                **decode_row(ops, F, "flash_decode_int8", (q, kq, vq, pos, tab, q_pos),
-                             scales))
+    row = dict(name="flash_decode_int8",
+               shape="q (4, 9, 64) f32, pools (83, 16, 3, 64) int8 + (83, 3) f32 "
+                     "scales, live lens " + ",".join(map(str, DECODE_LENS)),
+               worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
+               **decode_row(ops, F, "flash_decode_int8", (q, kq, vq, pos, tab, q_pos),
+                            scales))
+    row["scaling"] = decode_scaling(ops, "flash_decode_int8")
+    return row
 
 
 def int8_multi_phase(ops, F):
@@ -1881,9 +2013,10 @@ PORT_KERNELS = {
 
 
 # the int8-pool instantiations of B8 and B9 (TKV = int8_t) carry this in
-# their demangled names; the B8/B9 rows named *_int8 are those, the others
-# not (B5-B7's int8 mode has kernels of its own names)
-INT8_KV = "signed char>"
+# their demangled names (B8's as <TQ, signed char, WIDE>, B9's as <TQ,
+# signed char>); the B8/B9 rows named *_int8 are those, the others not
+# (B5-B7's int8 mode has kernels of its own names)
+INT8_KV = "signed char"
 
 
 def is_kernel(name, key, event_key):
@@ -2300,9 +2433,8 @@ def flash_instance(mangled):
     return f"{kern}<{'float' if f'{kern}If' in mangled else 'bf16'}, {dp.group(1)}>"
 
 
-def tc_resources(build_log):
-    """{instance: (registers, spill bytes)} of the tensor-core flash kernels
-    from ``ptxas -v``; raise if one spills."""
+def ptxas_entries(build_log):
+    """{mangled entry: (registers, spill bytes)} from ``ptxas -v``."""
     regs, spills, entry, props = {}, {}, None, None
     for line in build_log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
@@ -2313,11 +2445,17 @@ def tc_resources(build_log):
             spills[props] = int(m.group(1)) + int(m.group(2))
         elif m := re.search(r"Used (\d+) registers", line):
             regs[entry] = int(m.group(1))
+    return {name: (n, spills.get(name, 0)) for name, n in regs.items()}
+
+
+def tc_resources(build_log):
+    """{instance: (registers, spill bytes)} of the tensor-core flash kernels
+    from ``ptxas -v``; raise if one spills."""
     out = {}
-    for name, n in regs.items():
+    for name, rs in ptxas_entries(build_log).items():
         inst = flash_instance(name)
         if inst and inst.split("<")[0] in TC_KERNELS:
-            out[inst] = (n, spills.get(name, 0))
+            out[inst] = rs
     log("[build] tensor-core flash kernels (registers, spill bytes): "
         + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
     if len(out) != 2 * 2 * len(TC_KERNELS):
@@ -2325,6 +2463,41 @@ def tc_resources(build_log):
     spilled = {k: v for k, v in out.items() if v[1]}
     if spilled:
         raise AssertionError(f"tensor-core flash kernels spill: {spilled}")
+    return out
+
+
+B8_TYPES = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
+
+
+def decode_instance(mangled):
+    """'flash_decode_kernel<TQ, TKV, WIDE>' for a mangled B8 instance, else
+    None (a repeated bf16 argument is the substitution S<n>_, the bool is
+    Lb<0|1>E)."""
+    m = re.search(r"19flash_decode_kernelI(.+?)EEv", mangled)
+    if m is None:
+        return None
+    names = []
+    for tok in re.findall(r"13__nv_bfloat16|S\d*_|[fa]", m.group(1).split("Lb")[0]):
+        names.append(names[-1] if tok.startswith("S") else B8_TYPES[tok])
+    wide = re.search(r"Lb([01])E", m.group(1))
+    return f"flash_decode_kernel<{', '.join(names)}, {'true' if wide[1] == '1' else 'false'}>"
+
+
+def decode_resources(build_log):
+    """{instance: (registers, spill bytes)} of B8's six (q, pool) type pairs,
+    each with 16-byte loads (WIDE) and without, from ``ptxas -v``; raise if
+    one is missing or spills."""
+    out = {}
+    for name, rs in ptxas_entries(build_log).items():
+        if inst := decode_instance(name):
+            out[inst] = rs
+    log("[build] B8 flash_decode_kernel (registers, spill bytes): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    if len(out) != 12:
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, not B8's twelve instances")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"B8 spills: {spilled}")
     return out
 
 
@@ -2406,6 +2579,7 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     tc_regs = tc_resources(build.build_log)
+    b8_regs = decode_resources(build.build_log)
     sass = sass_check(build.library_path())
 
     def done(phase):
@@ -2471,6 +2645,8 @@ def main():
             row["registers_spills"] = {k: v for k, v in tc_regs.items() if k.startswith(tc)}
             row["sass"] = (None if sass is None else
                            {k: v for k, v in sass.items() if k.startswith(tc)})
+        if row["name"] in ("flash_decode", "flash_decode_int8"):
+            row["registers_spills"] = b8_regs
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         log(json.dumps(row))

@@ -41,12 +41,11 @@ _SIGNATURES = {
     "repro_ce_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     # B8: q, k, v, pos, table, q_pos, k_scale, v_scale (null but for int8
     # pools), out; then B, H, K, d, N, P, C, scale, window, softcap,
-    # q dtype, kv dtype, stream
+    # splits, q dtype, kv dtype, stream
     "repro_flash_decode": (
-        (_P,) * 9 + (_I,) * 7 + (_F, _I, _F, _I, _I, _P),
+        (_P,) * 9 + (_I,) * 7 + (_F, _I, _F, _I, _I, _I, _P),
         _I,
     ),
-    "repro_flash_decode_smem_bytes": ((_I, _I, _I), _LL),
     # B9: the same pointers, then B, T, H, K, d, N, P, C, scale, window,
     # softcap, q dtype, kv dtype, stream
     "repro_flash_decode_multi": (

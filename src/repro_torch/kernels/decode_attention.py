@@ -6,13 +6,15 @@
 suffixes, speculative verify) replaces ``_decode_multi_kernel``.  Both take
 float32, bfloat16 and int8 pools; int8 pools come with ``(N, K)`` float32
 per-page-per-head scales (``k_scale``, ``v_scale``) and are dequantized in
-the kernel as each page is staged, as the TPU kernels do under
-``kv_quant``.  The source and its design note are
-``csrc/decode_attention.cu``.  Each wrapper launches its kernel on CUDA
-tensors or raises, and counts its own launches, the int8-pool launches
-apart (``int8_launches``, ``multi_int8_launches``); the plain versions are
-``kernels/ref.py::decode_attention_ref`` and ``decode_attention_multi_ref``,
-chosen by ``kernels/ops.py`` for CPU tensors.
+the kernel as each page is read, as the TPU kernels do under ``kv_quant``.
+B8 splits each slot's pages over a cluster of ``decode_splits(B, K, C)``
+blocks of ``DECODE_WARPS`` warps and merges them in one launch.  The source
+and its design note are ``csrc/decode_attention.cu``.  Each wrapper
+launches its kernel on CUDA tensors or raises, and counts its own launches,
+the int8-pool launches apart (``int8_launches``, ``multi_int8_launches``);
+the plain versions are ``kernels/ref.py::decode_attention_ref`` and
+``decode_attention_multi_ref``, chosen by ``kernels/ops.py`` for CPU
+tensors; ``decode_attention_split_ref`` walks B8's split and merge.
 """
 from __future__ import annotations
 
@@ -22,6 +24,10 @@ from repro_torch.kernels import build
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+DECODE_WARPS = 4          # warps a B8 block (csrc/decode_attention.cu kWarps)
+MAX_SPLITS = 8            # blocks a B8 cluster: the portable cluster size
+MAX_GRID_Y = 65535        # the grid's second dimension, B8's kv heads
 
 launches = 0              # B8 launches over f32/bf16 pools in this process
 multi_launches = 0        # B9 launches over f32/bf16 pools
@@ -88,6 +94,14 @@ def _check(what, q, k_pages, v_pages, pos_pages, page_table, q_pos, q_rank,
     return B, H, d
 
 
+def decode_splits(B: int, K: int, C: int) -> int:
+    """B8's blocks per (slot, kv head): a cluster of min(8, C), whose
+    S x DECODE_WARPS warps share the slot's live pages (page j to warp
+    j mod S x DECODE_WARPS).  B and K do not change it: only the table's
+    width C does."""
+    return max(1, min(MAX_SPLITS, C))
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -110,18 +124,18 @@ def flash_decode(
 
     Query head h reads kv head h // G (kv-major GQA layout, G = H // K).
     Page ids are clamped to [0, N - 1]; rows with q_pos < 0 are zeros.
-    Int8 pools are read as ``int8 * scale[page, kv head]`` in f32.
+    Int8 pools are read as ``int8 * scale[page, kv head]`` in f32.  Any
+    G, d and P; at most 65535 kv heads (the grid's second dimension).
     """
     global launches, int8_launches
     B, H, d = _check("flash_decode", q, k_pages, v_pages, pos_pages,
                      page_table, q_pos, 3, k_scale, v_scale)
     N, P, K, _ = k_pages.shape
     C = page_table.shape[-1]
+    if K > MAX_GRID_Y:
+        raise ValueError(f"flash_decode kernel: K={K} kv heads, at most "
+                         f"{MAX_GRID_Y} (the grid's second dimension)")
     lib = build.library()
-    smem = lib.repro_flash_decode_smem_bytes(H // K, d, P)
-    if smem > 48 * 1024:
-        raise ValueError(f"flash_decode kernel: G={H // K}, d={d}, P={P} needs "
-                         f"{smem} bytes of shared memory (at most 49152)")
     out = torch.empty_like(q)
     if B == 0 or C == 0:
         return out.zero_()
@@ -130,8 +144,8 @@ def flash_decode(
         pos_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
         _ptr(k_scale), _ptr(v_scale),
         out.data_ptr(), B, H, K, d, N, P, C, float(scale), int(window),
-        float(softcap), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
-        build.stream(q),
+        float(softcap), decode_splits(B, K, C), _Q_CODES[q.dtype],
+        _KV_CODES[k_pages.dtype], build.stream(q),
     )
     build.check(err, "flash_decode kernel")
     if k_scale is None:

@@ -361,6 +361,86 @@ def decode_attention_ref(
     return out.reshape(B, H, d).to(q.dtype)
 
 
+def _merge_states(states):
+    """Merge (m, l, acc) online-softmax states in the order given, as B8
+    merges its warps and blocks: the largest m first, then each state's l
+    and acc weighed by exp(m_i - m) in turn; a state that saw no visible
+    entry (l = 0) weighs 0, never exp(0) = 1."""
+    m = states[0][0]
+    for mi, _, _ in states[1:]:
+        m = torch.maximum(m, mi)
+    l = torch.zeros_like(states[0][1])
+    acc = torch.zeros_like(states[0][2])
+    for mi, li, ai in states:
+        w = torch.where(li > 0, torch.exp(mi - m), torch.zeros_like(li))
+        l = l + w * li
+        acc = acc + w[..., None] * ai
+    return m, l, acc
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,            # (B, H, d) — one query per decode slot
+    k_pages: torch.Tensor,      # (N, P, K, d) — paged KV pool
+    v_pages: torch.Tensor,      # (N, P, K, d)
+    pos_pages: torch.Tensor,    # (N, P) int32 token positions; -1 = empty
+    page_table: torch.Tensor,   # (B, C) int32 page ids per slot
+    q_pos: torch.Tensor,        # (B,) int32 query positions; -1 = inactive slot
+    *,
+    scale,
+    splits: int,
+    warps: int,
+    window: int = 0,
+    softcap: float = 0.0,
+    k_scale=None,               # (N, K) f32 per-page-per-head scales (int8 pools)
+    v_scale=None,
+) -> torch.Tensor:
+    """:func:`decode_attention_ref` computed the way B8 splits it (a test
+    oracle, not on any path): a slot's live pages, n_live = min(C, q_pos //
+    P + 1), are dealt to ``splits`` x ``warps`` warps, page j to cluster warp
+    j mod (splits x warps), where warp w of block r is cluster warp
+    w x splits + r.  Each warp keeps its own (m, l, acc) over its pages, one
+    page at a time (the kernel goes by row steps of a page: the same
+    function up to rounding); each block merges its warps in order, then
+    the blocks merge in rank order (:func:`_merge_states`), and the guarded
+    divide gives exact zeros where nothing was visible."""
+    B, H, d = q.shape
+    N, P, K, _ = k_pages.shape
+    C = page_table.shape[1]
+    G = H // K
+    NW = splits * warps
+    tab = page_table.long().clamp(0, N - 1)
+    k, v = _gather_kv(k_pages, v_pages, tab, k_scale, v_scale)   # (B, C, P, K, d)
+    pos = pos_pages[tab]                                          # (B, C, P)
+    qg = q.reshape(B, K, G, d).float()
+    out = torch.zeros(B, K, G, d)
+    for b in range(B):
+        qp = int(q_pos[b])
+        if qp < 0:
+            continue
+        empty = (torch.full((K, G), NEG_INF), torch.zeros(K, G), torch.zeros(K, G, d))
+        state = [empty] * NW
+        for j in range(min(C, qp // P + 1)):
+            m, l, acc = state[j % NW]
+            s = torch.einsum("kgd,pkd->kgp", qg[b], k[b, j]) * scale
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            t = pos[b, j]
+            vis = (t >= 0) & (t <= qp)
+            if window:
+                vis &= (qp - t) < window
+            s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(vis, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+            alpha = torch.exp(m - m_new)
+            state[j % NW] = (m_new, alpha * l + p.sum(-1),
+                             acc * alpha[..., None] + torch.einsum("kgp,pkd->kgd", p, v[b, j]))
+        blocks = [_merge_states([state[w * splits + r] for w in range(warps)])
+                  for r in range(splits)]
+        _, l, acc = _merge_states(blocks)
+        out[b] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, d).to(q.dtype)
+
+
 def decode_attention_multi_ref(
     q: torch.Tensor,            # (B, T, H, d) — T queries per decode slot
     k_pages: torch.Tensor,      # (N, P, K, d) — paged KV pool
