@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once) and checks what the compiler made of
 B8's twelve instances (six (q, pool) type pairs, with and without 16-byte
-loads: registers printed, no spills in ``ptxas -v``) and of the
+loads: registers printed, no spills in ``ptxas -v``), of B9's twelve (six
+type pairs, 64- and 256-column slices: the same) and of the
 tensor-core flash kernels (B5, B6 and B7 in the bf16 operand mode): no spills
 in ``ptxas -v`` at DP 64 and 128, and, where ``cuobjdump`` is on the
 machine, tensor-core instructions (HMMA/HGMMA) in their SASS, whose counts
@@ -59,24 +60,36 @@ which raises on a failed check:
   on the card, with its split count, its share of the bytes bound and
   SDPA's call and card time, and on the card at one slot of 2048 tokens and
   at 32 slots; B9 paged
-  multi-query flash decode (12 cases: the engine's chunk of 64 with the
-  history partly resident, its last chunk with rows past the prompt at -1,
-  T not a multiple of the row tile, the speculative-verify shape B = 4,
-  T = 5, MHA/MQA, window, softcap, bf16 and f32-over-bf16 pools, two slots
-  whose tables map the same pages; f32 atol 2e-5, bf16 2e-2, rows at -1
-  exactly zero) and at T = 1 against B8 on the same inputs; the int8-pool
+  multi-query flash decode, many query rows a block and split over a
+  cluster by its plan (MULTI_CASES, 19 cases: the engine's chunk of 64
+  with the history partly resident, its last chunk with rows past the
+  prompt at -1, T not a multiple of the row tile, the speculative-verify
+  shape B = 4, T = 5, MHA/MQA, window, softcap, bf16 and f32-over-bf16
+  pools, two slots whose tables map the same pages, d_head 128, d_head 256
+  at gemma2-2b's 8/4 heads in f32 and bf16, a chunk of 256 over 2048
+  tokens (a ring of two slots), 32 slots at T = 5, a tile whose splits
+  hold no page, d_head 20 in bf16 (40-byte rows read byte by byte); f32
+  atol 2e-5, bf16 2e-2 of the f32 plain version, or of its float64 value
+  where the f32 plain version is the farther from it (multi_held), rows at
+  -1 exactly zero, one launch a call, the kernel's plan equal to its
+  mirror) and at T = 1 against B8 on the
+  same inputs, timed (a call and on the card, its plan, its share of the
+  operations bound, SDPA over the gathered K/V) at the chunk shape, a
+  chunk of 256 over a 2048-token history and 32 slots at T = 5; the int8-pool
   modes of B8 (INT8_DECODE_CASES, 16 cases, most at the engine's decode
   shape q (4, 9, 64) over (83, 16, 3, 64) int8 pools with (83, 3) scales:
   an inactive slot, MHA, MQA (G = 9, also with bf16 q, window and
   softcap), window, softcap, bf16 q, d_head 128 and 256, one slot of 2048
   tokens, 32 slots, C = 1, slots of one token and a fully masked slot,
   d_head 40 (40-byte rows, read byte by byte); timed as over f32 pools) and
-  of B9 (8 cases: the engine's chunk
-  of 64 with history resident, its last chunk with rows at -1, the verify
-  shape B = 4, T = 5, MHA/MQA, window + softcap, bf16 q, two slots sharing
-  pages; and T = 1 against B8's int8 mode), each against its plain version
-  at atol 2e-5 (bf16 q 2e-2), rows at -1 exactly zero, timed beside SDPA
-  over the gathered dequantized K/V.
+  of B9 (INT8_MULTI_CASES, 14 cases: the engine's chunk of 64 with
+  history resident, its last chunk with rows at -1, the verify shape
+  B = 4, T = 5, MHA/MQA, window + softcap, bf16 q, two slots sharing
+  pages, d_head 128, d_head 256 at 8/4 heads, a chunk of 256 over 2048
+  tokens, 32 slots at T = 5, a tile whose splits hold no page, d_head 40
+  read byte by byte; and T = 1 against B8's int8 mode), each against its
+  plain version at atol 2e-5 (bf16 q 2e-2), rows at -1 exactly zero,
+  timed as over f32 pools beside SDPA over the gathered dequantized K/V.
 - serve: smollm-135m at its published full width through the static engine
   (random weights from a seed, ``zero_init_query=False``), once through the
   kernels and once through the plain versions: the same greedy tokens and
@@ -744,54 +757,151 @@ def multi_case(B, T, K, G, d, P, C, hist, q_dtype, kv_dtype, seed, dead=(),
     return q, kp, vp, pos, tab, q_pos
 
 
-def check_multi_cases(ops, da):
-    """B9 against its plain version on the card (f32 atol 2e-5, bf16 2e-2),
-    rows at q_pos -1 exactly zero; T = 1 against B8 on the same inputs.
-    Returns the worst error per tier."""
-    from repro_torch.kernels import build
+# B9 over f32/bf16 pools: (label, B, T, K, G, d, P, C, hist, q_dtype, kv_dtype,
+# window, softcap, dead, share); case i's seed is 100 + i
+MULTI_CASES = [
+    ("engine chunk", 1, 64, 3, 3, 64, 16, 20, [100], f32, f32, 0, 0.0, (), False),
+    ("engine chunk bf16", 1, 64, 3, 3, 64, 16, 20, [192], bf16, bf16, 0, 0.0, (), False),
+    ("last chunk of a 200-token prompt (rows past it at -1)", 1, 64, 3, 3, 64, 16, 20,
+     [192], f32, f32, 0, 0.0, tuple((0, t) for t in range(8, 64)), False),
+    ("T not a multiple of the row tile", 8, 37, 3, 3, 64, 16, 20,
+     [0, 5, 16, 100, 200, 31, 64, 2], f32, f32, 0, 0.0, ((0, 36), (3, 0)), False),
+    ("speculative-verify shape", 4, 5, 3, 3, 64, 16, 20, [70, 0, 250, 33], f32, f32, 0, 0.0,
+     tuple((1, t) for t in range(5)), False),
+    ("MHA", 2, 9, 9, 1, 64, 16, 20, [40, 3], f32, f32, 0, 0.0, ((1, 8),), False),
+    ("MQA", 2, 9, 1, 9, 64, 16, 20, [40, 3], f32, f32, 0, 0.0, ((0, 0),), False),
+    ("window", 2, 24, 3, 3, 64, 16, 20, [100, 3], f32, f32, 48, 0.0, (), False),
+    ("softcap", 2, 24, 3, 3, 64, 16, 20, [100, 3], f32, f32, 0, 20.0, (), False),
+    ("window + softcap bf16", 2, 24, 3, 3, 64, 16, 20, [100, 3], bf16, bf16, 48, 20.0, (),
+     False),
+    ("f32 q over bf16 pools", 2, 24, 3, 3, 64, 16, 20, [100, 3], f32, bf16, 0, 0.0, (), False),
+    ("two slots share pages", 2, 12, 3, 3, 64, 16, 20, [80, 80], f32, f32, 0, 0.0, (), True),
+    ("d_head 128", 2, 24, 3, 3, 128, 16, 20, [100, 3], f32, f32, 0, 0.0, ((1, 2),), False),
+    ("d_head 256, gemma2-2b's 8/4 heads", 2, 24, 4, 2, 256, 16, 20, [100, 3], f32, f32, 0,
+     0.0, (), False),
+    ("d_head 256, 8/4 heads, bf16", 2, 24, 4, 2, 256, 16, 20, [100, 3], bf16, bf16, 0, 0.0,
+     (), False),
+    ("a chunk of 256 over 2048 tokens (128 pages)", 1, 256, 3, 3, 64, 16, 128, [1792], f32,
+     f32, 0, 0.0, (), False),
+    ("32 slots at T = 5", 32, 5, 3, 3, 64, 16, 20,
+     [(37 * i + 5) % 300 for i in range(32)], f32, f32, 0, 0.0,
+     tuple((i, t) for i in range(32) if i % 11 == 7 for t in range(5)), False),
+    ("a tile whose splits hold no page (1 live page, 8 splits)", 2, 8, 3, 3, 64, 16, 20,
+     [3, 9], f32, f32, 0, 0.0, ((0, 7),), False),
+    ("d_head 20 bf16: 40-byte rows, read byte by byte", 3, 7, 2, 2, 20, 8, 9, [50, 3, 40],
+     bf16, bf16, 0, 0.0, ((2, 6),), False),
+]
+# B9 over int8 pools: the same fields (the pools are int8_pools of f32
+# ones); case i's seed is 300 + i
+INT8_MULTI_CASES = [
+    ("engine chunk, history resident", 1, 64, 3, 3, 64, 16, 20, [128], f32, f32, 0, 0.0, (),
+     False),
+    ("engine chunk, bf16 q", 1, 64, 3, 3, 64, 16, 20, [192], bf16, f32, 0, 0.0, (), False),
+    ("last chunk of a 200-token prompt (rows past it at -1)", 1, 64, 3, 3, 64, 16, 20,
+     [192], f32, f32, 0, 0.0, tuple((0, t) for t in range(8, 64)), False),
+    ("speculative-verify shape", 4, 5, 3, 3, 64, 16, 20, [70, 0, 250, 33], f32, f32, 0, 0.0,
+     tuple((1, t) for t in range(5)), False),
+    ("MHA", 2, 9, 9, 1, 64, 16, 20, [40, 3], f32, f32, 0, 0.0, ((1, 8),), False),
+    ("MQA", 2, 9, 1, 9, 64, 16, 20, [40, 3], f32, f32, 0, 0.0, ((0, 0),), False),
+    ("window + softcap", 2, 24, 3, 3, 64, 16, 20, [100, 3], f32, f32, 48, 20.0, (), False),
+    ("two slots share pages", 2, 12, 3, 3, 64, 16, 20, [80, 80], f32, f32, 0, 0.0, (), True),
+    ("d_head 128", 2, 24, 3, 3, 128, 16, 20, [100, 3], f32, f32, 0, 0.0, ((1, 2),), False),
+    ("d_head 256, gemma2-2b's 8/4 heads", 2, 24, 4, 2, 256, 16, 20, [100, 3], f32, f32, 0,
+     0.0, (), False),
+    ("a chunk of 256 over 2048 tokens (128 pages)", 1, 256, 3, 3, 64, 16, 128, [1792], f32,
+     f32, 0, 0.0, (), False),
+    ("32 slots at T = 5", 32, 5, 3, 3, 64, 16, 20,
+     [(37 * i + 5) % 300 for i in range(32)], f32, f32, 0, 0.0,
+     tuple((i, t) for i in range(32) if i % 11 == 7 for t in range(5)), False),
+    ("a tile whose splits hold no page (1 live page, 8 splits)", 2, 8, 3, 3, 64, 16, 20,
+     [3, 9], bf16, f32, 0, 0.0, ((0, 7),), False),
+    ("d_head 40: 40-byte rows, read byte by byte", 3, 7, 2, 2, 40, 8, 9, [50, 3, 40], f32,
+     f32, 0, 0.0, ((2, 6),), False),
+]
 
-    lib = build.library()
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [
-        # (label, B, T, K, G, hist, q_dtype, kv_dtype, window, softcap, dead, share)
-        ("engine chunk", 1, 64, 3, 3, [100], f32, f32, 0, 0.0, (), False),
-        ("engine chunk bf16", 1, 64, 3, 3, [192], bf16, bf16, 0, 0.0, (), False),
-        ("last chunk of a 200-token prompt (rows past it at -1)", 1, 64, 3, 3,
-         [192], f32, f32, 0, 0.0, tuple((0, t) for t in range(8, 64)), False),
-        ("T not a multiple of the row tile", 8, 37, 3, 3,
-         [0, 5, 16, 100, 200, 31, 64, 2], f32, f32, 0, 0.0, ((0, 36), (3, 0)), False),
-        ("speculative-verify shape", 4, 5, 3, 3, [70, 0, 250, 33], f32, f32, 0, 0.0,
-         tuple((1, t) for t in range(5)), False),
-        ("MHA", 2, 9, 9, 1, [40, 3], f32, f32, 0, 0.0, ((1, 8),), False),
-        ("MQA", 2, 9, 1, 9, [40, 3], f32, f32, 0, 0.0, ((0, 0),), False),
-        ("window", 2, 24, 3, 3, [100, 3], f32, f32, 48, 0.0, (), False),
-        ("softcap", 2, 24, 3, 3, [100, 3], f32, f32, 0, 20.0, (), False),
-        ("window + softcap bf16", 2, 24, 3, 3, [100, 3], bf16, bf16, 48, 20.0, (), False),
-        ("f32 q over bf16 pools", 2, 24, 3, 3, [100, 3], f32, bf16, 0, 0.0, (), False),
-        ("two slots share pages", 2, 12, 3, 3, [80, 80], f32, f32, 0, 0.0, (), True),
-    ]
+
+def multi_plan_of(da, args):
+    """B9's plan for these inputs, the kernel's own (the C entry point, on
+    this card), held equal to the mirror the CPU tests hold
+    (decode_multi_plan at this card's SM count)."""
+    q, kp, tab = args[0], args[1], args[4]
+    B, T, H, d = q.shape
+    N, P, K, _ = kp.shape
+    C = tab.shape[1]
+    plan = da.kernel_multi_plan(B, K, T, H // K, d, P, C, kp.element_size())
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    mirror = da.decode_multi_plan(B, K, T, H // K, d, P, C, kp.element_size(), sms)
+    if plan != mirror:
+        raise AssertionError(f"B9's plan: the kernel's {plan}; decode_multi_plan's {mirror}")
+    return plan
+
+
+def multi_held(name, label, got, args, kw, tol):
+    """B9's output ``got`` held against its plain version on the same inputs.
+    It must come within ``tol`` of the f32 plain version (the one ops runs on
+    CPU tensors).  Where it does not, the f32 plain version must be shown to
+    be the one at fault: ``got`` within ``tol`` of the plain version with
+    float64 products and sums (pages dequantized in f32 first, as the
+    kernel does), and the f32 plain version at least as far from that value
+    as ``got``.  Returns (the error held, what it was held against, and a
+    note of the distances to the f32 plain version and to float64)."""
+    from repro_torch.kernels import ref
+
+    plain = ref.decode_attention_multi_ref(*args, **kw).float()
+    exact = ref.decode_attention_multi_ref(*args, acc_dtype=torch.float64, **kw).float()
+    got = got.float()
+    err = (got - plain).abs().max().item()
+    e64 = (got - exact).abs().max().item()
+    p64 = (plain - exact).abs().max().item()
+    note = (f"{err:.3g} from the f32 plain version; from float64: the kernel {e64:.3g}, "
+            f"the f32 plain version {p64:.3g}")
+    if err <= tol:
+        return err, "the f32 plain version", note
+    if e64 <= tol and e64 <= p64:
+        return e64, "float64 (the f32 plain version is the farther)", note
+    raise AssertionError(f"{name} {label}: max err {err} from the f32 plain version (atol "
+                         f"{tol}); from float64 {e64}, the f32 plain version's {p64}")
+
+
+def check_multi(ops, da, label, args, kw, tol, dead):
+    """B9 against its plain version on the same inputs (multi_held), the
+    rows ``dead`` (q_pos -1) exactly zero, one launch.  Returns (error,
+    plan)."""
+    name = "flash_decode_multi_int8" if "k_scale" in kw else "flash_decode_multi"
+    n0 = ops.launch_counts()[name]
+    got = ops.decode_attention_multi(*args, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()[name] - n0
+    err, against, note = multi_held(name, label, got, args, kw, tol)
+    dead_nonzero = sum(int(torch.count_nonzero(got[b, t])) for b, t in dead)
+    if dead_nonzero or launched != 1:
+        raise AssertionError(f"{name} case {label!r}: {dead_nonzero} nonzero entries in rows "
+                             f"at -1, {launched} launches")
+    plan = multi_plan_of(da, args)
+    log(f"[kernels] {name} {label}: max err {err:.3g} from {against} (atol {tol}; {note}), "
+        f"plan tq {plan.tq} "
+        f"({plan.tq * (args[0].shape[2] // args[1].shape[2])} rows), {plan.tiles} tiles, "
+        f"{plan.splits} splits, {plan.slots} slot(s) of {plan.stage_pages} pages, "
+        f"{plan.smem} bytes; {len(dead)} rows at -1 exactly zero")
+    return err, plan
+
+
+def check_multi_cases(ops, da):
+    """B9 against its plain version on the card on MULTI_CASES (f32 atol
+    2e-5, 2e-2 where bf16 enters), rows at q_pos -1 exactly zero; T = 1
+    against B8 on the same inputs.  Returns the worst error per tier."""
     worst = {f32: 0.0, bf16: 0.0}
-    d = 64
-    for i, case in enumerate(cases):
-        label, B, T, K, G, hist, qdt, kvdt, window, cap, dead, share = case
-        args = multi_case(B, T, K, G, d, 16, 20, hist, qdt, kvdt, 100 + i, dead, share)
-        kw = dict(scale=0.125, window=window, softcap=cap)
-        got = ops.decode_attention_multi(*args, impl="kernel", **kw)
-        want = ops.decode_attention_multi(*args, impl="ref", **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+    for i, case in enumerate(MULTI_CASES):
+        label, B, T, K, G, d, P, C, hist, qdt, kvdt, window, cap, dead, share = case
+        args = multi_case(B, T, K, G, d, P, C, hist, qdt, kvdt, 100 + i, dead, share)
         tier = bf16 if bf16 in (qdt, kvdt) else f32
+        err, plan = check_multi(ops, da, label, args, dict(scale=0.125, window=window,
+                                                            softcap=cap), ATOL[tier], dead)
         worst[tier] = max(worst[tier], err)
-        dead_nonzero = sum(int(torch.count_nonzero(got[b, t])) for b, t in dead)
-        if not err <= ATOL[tier] or dead_nonzero:
-            raise AssertionError(f"flash_decode_multi case {label!r}: max err {err}, "
-                                 f"{dead_nonzero} nonzero entries in rows at -1")
-        tq = lib.repro_flash_decode_multi_rows(B, K, T, G, d, 16)
-        if label.startswith("T not a multiple") and T % tq == 0:
-            raise AssertionError(f"{label}: the row tile {tq} divides T={T}")
-        log(f"[kernels] flash_decode_multi {label}: max err {err:.3g} (atol "
-            f"{ATOL[tier]}), {T // tq + (T % tq > 0)} tiles of {tq} queries, "
-            f"{len(dead)} rows at -1 exactly zero")
+        if label.startswith("T not a multiple") and T % plan.tq == 0:
+            raise AssertionError(f"{label}: the row tile {plan.tq} divides T={T}")
+        if label.startswith("a tile whose splits") and plan.splits <= (max(hist) + T) // P:
+            raise AssertionError(f"{label}: {plan.splits} splits, every one with a page")
 
     # T = 1 against B8 on the same inputs
     q, kp, vp, pos, tab, q_pos = multi_case(4, 1, 3, 3, 64, 16, 20, [57, 0, 300, 16],
@@ -808,56 +918,107 @@ def check_multi_cases(ops, da):
     return worst
 
 
+# B9's chunk shape (the dynamic serve's last chunk of a 256-token prompt) and
+# the two scaling shapes: (label, B, T, C, hist)
+MULTI_SHAPES = [
+    ("chunk shape", 1, 64, 20, [192]),
+    ("a chunk of 256 over a 2048-token history", 1, 256, 128, [1792]),
+    ("32 slots at the verify T = 5", 32, 5, 20, [120 + (190 * i) // 31 for i in range(32)]),
+]
+
+
 def multi_phase(ops, da, F):
     """B9's checks, then its time at the dynamic serve's chunk shape: one
     slot, a 64-token chunk at positions 192..255 (the last chunk of a
-    256-token prompt), smollm-135m's 9/3 heads of 64, 16 live pages of 16."""
+    256-token prompt), smollm-135m's 9/3 heads of 64, 16 live pages of 16;
+    then at the scaling shapes."""
     worst = check_multi_cases(ops, da)
-    args = multi_case(1, 64, 3, 3, 64, 16, 20, [192], torch.float32, torch.float32, 99)
+    rows = multi_rows(ops, da, F, "flash_decode_multi")
     return dict(name="flash_decode_multi",
                 shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, "
                       "64) f32, 16 live pages",
-                worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
-                **multi_row(ops, F, "flash_decode_multi", args))
+                worst_err_f32=worst[f32], worst_err_bf16=worst[bf16], **rows)
 
 
-def multi_row(ops, F, name, args, scales=None):
-    """B9's time (over f32 pools, or int8 pools with ``scales``) at the
-    dynamic serve's chunk shape, beside its plain version, SDPA over the
-    slot's pre-gathered (dequantized) live K/V with the boolean position
-    mask (attention only) and its bound (the (row, token) pairs visible)."""
+def multi_rows(ops, da, F, name):
+    """multi_row at each MULTI_SHAPES shape (f32 pools, or int8 pools for a
+    name ending in _int8): the chunk shape's numbers, the scaling shapes'
+    under ``scaling``."""
+    out = {}
+    for label, B, T, C, hist in MULTI_SHAPES:
+        args = multi_case(B, T, 3, 3, 64, 16, C, hist, f32, f32, 99)
+        scales = None
+        if name.endswith("_int8"):
+            kq, vq, scales = int8_pools(args[1], args[2], 98)
+            args = (args[0], kq, vq, *args[3:])
+        row = multi_row(ops, da, F, name, label, args, scales)
+        if not out:
+            out = row
+            out["scaling"] = {}
+        else:
+            out["scaling"][label] = {k: row[k] for k in (
+                "ms", "device_us", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                "plan", "library_ms", "library_device_us")}
+    return out
+
+
+def multi_row(ops, da, F, name, label, args, scales=None):
+    """B9's time (over f32 pools, or int8 pools with ``scales``): a call
+    (CUDA events, 200 calls) and on the card (torch.profiler), beside its
+    plain version, SDPA over each slot's pre-gathered (dequantized) live K/V
+    with the boolean position mask (attention only; its call and its
+    kernels' time on the card), the plan and the bound (the (row, token)
+    pairs visible)."""
     q, kp, vp, pos, tab, q_pos = args
-    T, H, d = q.shape[1:]
+    B, T, H, d = q.shape
     K, P = kp.shape[2], kp.shape[1]
     kw = dict(scale=0.125, **(scales or {}))
-    err = (ops.decode_attention_multi(*args, impl="kernel", **kw)
-           - ops.decode_attention_multi(*args, impl="ref", **kw)).abs().max().item()
+    err, _, _ = multi_held(name, f"at the {label}",
+                              ops.decode_attention_multi(*args, impl="kernel", **kw), args,
+                              kw, ATOL[f32])
     ms = cuda_ms(lambda: ops.decode_attention_multi(*args, impl="kernel", **kw))
-    plain_ms = cuda_ms(lambda: ops.decode_attention_multi(*args, impl="ref", **kw))
+    plain_ms = cuda_ms(lambda: ops.decode_attention_multi(*args, impl="ref", **kw), n=20)
     dev_us = device_us(lambda: ops.decode_attention_multi(*args, impl="kernel", **kw),
                        name)
-    L = int(q_pos.max()) + 1
-    kk, vv, page = gathered_kv(kp, vp, scales, tab, 0, L, P)
-    kv_pos = pos[page, torch.arange(L, device="cuda") % P]
-    mask = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= q_pos[0][:, None])   # (T, L)
-    qq = q.permute(0, 2, 1, 3).contiguous()                                # (1, H, T, d)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask[None, None], scale=0.125, enable_gqa=True))
-    pages = (L - 1) // P + 1
+    lens = [int(q_pos[b].max()) + 1 for b in range(B)]
+    Lmax = max(lens)
+    kk = torch.zeros(B, K, Lmax, d, device="cuda")
+    vv = torch.zeros(B, K, Lmax, d, device="cuda")
+    mask = torch.zeros(B, 1, T, Lmax, dtype=torch.bool, device="cuda")
+    pages = 0
+    for b, L in enumerate(lens):
+        kb, vb, page = gathered_kv(kp, vp, scales, tab, b, L, P)
+        kk[b, :, :L], vv[b, :, :L] = kb[0], vb[0]
+        kv_pos = pos[page, torch.arange(L, device="cuda") % P]
+        mask[b, 0, :, :L] = (kv_pos[None, :] >= 0) & (kv_pos[None, :] <= q_pos[b][:, None])
+        pages += (L - 1) // P + 1
+    qq = q.permute(0, 2, 1, 3).contiguous()                          # (B, H, T, d)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, scale=0.125,
+                                              enable_gqa=True)
+    library_ms = cuda_ms(sdpa)
+    lib_us, lib_n = library_device_us(sdpa)
     tokens = pages * P
-    visible = int(mask.sum())                   # (row, token) pairs this chunk needs
+    visible = int(mask.sum())                   # (query, token) pairs these inputs need
     nbytes = (pool_bytes_read(tokens, pages, K, d, kp.element_size(), scales)
-              + 2 * q.numel() * q.element_size() + T * 4)     # q, out, q_pos
+              + 2 * q.numel() * q.element_size() + q_pos.numel() * 4)   # q, out, q_pos
     flops = 4 * H * d * visible + (2 * K * d * tokens if scales else 0)
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"[kernels] {name} at the chunk shape: {ms:.5f} ms ({dev_us:.2f} us on the "
-        f"card), plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms, bound {bound_ms:.6f} "
-        f"ms ({bound_by}: {nbytes} bytes, {flops} flops over {visible} visible pairs)")
+    share = bound_ms * 1e3 / dev_us
+    plan = multi_plan_of(da, args)
+    log(f"[kernels] {name} at the {label}: {ms:.5f} ms a call, {dev_us:.2f} us a launch on "
+        f"the card ({share:.1%} of the {bound_by} bound); plan tq {plan.tq}, {plan.tiles} "
+        f"tiles, {plan.splits} splits, {plan.slots} slot(s) of {plan.stage_pages} pages; "
+        f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms a call and {lib_us:.2f} us on "
+        f"the card ({lib_n:g} kernels); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
+        f"bytes, {flops} flops over {visible} visible pairs)")
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:113",
         max_abs_err=err, ms=ms, device_us=dev_us, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        bound_by=bound_by, bound_share=share, plan=plan._asdict(), library_ms=library_ms,
+        library_device_us=lib_us,
         library="torch.nn.functional.scaled_dot_product_attention over pre-gathered "
                 + ("dequantized " if scales else "")
                 + "K/V with the boolean position mask (attention only)",
@@ -896,43 +1057,23 @@ def check_int8_decode_cases(ops):
     return worst
 
 
-def check_int8_multi_cases(ops):
-    """B9's int8 mode against its plain version on the card (f32 q at atol
-    2e-5, bf16 q at 2e-2), rows at q_pos -1 exactly zero; at T = 1 against
-    B8's int8 mode on the same inputs.  Returns the worst error per q
-    dtype."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [
-        # (label, B, T, K, G, hist, q_dtype, window, softcap, dead, share)
-        ("engine chunk, history resident", 1, 64, 3, 3, [128], f32, 0, 0.0, (), False),
-        ("engine chunk, bf16 q", 1, 64, 3, 3, [192], bf16, 0, 0.0, (), False),
-        ("last chunk of a 200-token prompt (rows past it at -1)", 1, 64, 3, 3,
-         [192], f32, 0, 0.0, tuple((0, t) for t in range(8, 64)), False),
-        ("speculative-verify shape", 4, 5, 3, 3, [70, 0, 250, 33], f32, 0, 0.0,
-         tuple((1, t) for t in range(5)), False),
-        ("MHA", 2, 9, 9, 1, [40, 3], f32, 0, 0.0, ((1, 8),), False),
-        ("MQA", 2, 9, 1, 9, [40, 3], f32, 0, 0.0, ((0, 0),), False),
-        ("window + softcap", 2, 24, 3, 3, [100, 3], f32, 48, 20.0, (), False),
-        ("two slots share pages", 2, 12, 3, 3, [80, 80], f32, 0, 0.0, (), True),
-    ]
+def check_int8_multi_cases(ops, da):
+    """B9's int8 mode against its plain version on the card on
+    INT8_MULTI_CASES (f32 q at atol 2e-5, bf16 q at 2e-2), rows at q_pos -1
+    exactly zero; at T = 1 against B8's int8 mode on the same inputs.
+    Returns the worst error per q dtype."""
     worst = {f32: 0.0, bf16: 0.0}
-    for i, case in enumerate(cases):
-        label, B, T, K, G, hist, qdt, window, cap, dead, share = case
-        q, kp, vp, pos, tab, q_pos = multi_case(B, T, K, G, 64, 16, 20, hist, qdt,
-                                                torch.float32, 300 + i, dead, share)
+    for i, case in enumerate(INT8_MULTI_CASES):
+        label, B, T, K, G, d, P, C, hist, qdt, _, window, cap, dead, share = case
+        q, kp, vp, pos, tab, q_pos = multi_case(B, T, K, G, d, P, C, hist, qdt, f32,
+                                                300 + i, dead, share)
         kq, vq, scales = int8_pools(kp, vp, 300 + i)
-        kw = dict(scale=0.125, window=window, softcap=cap, **scales)
-        got = ops.decode_attention_multi(q, kq, vq, pos, tab, q_pos, impl="kernel", **kw)
-        want = ops.decode_attention_multi(q, kq, vq, pos, tab, q_pos, impl="ref", **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        err, plan = check_multi(ops, da, f"int8 {label}", (q, kq, vq, pos, tab, q_pos),
+                                dict(scale=0.125, window=window, softcap=cap, **scales),
+                                ATOL[qdt], dead)
         worst[qdt] = max(worst[qdt], err)
-        dead_nonzero = sum(int(torch.count_nonzero(got[b, t])) for b, t in dead)
-        if not err <= ATOL[qdt] or dead_nonzero:
-            raise AssertionError(f"flash_decode_multi int8 case {label!r}: max err "
-                                 f"{err}, {dead_nonzero} nonzero entries in rows at -1")
-        log(f"[kernels] flash_decode_multi int8 {label}: max err {err:.3g} (atol "
-            f"{ATOL[qdt]}), {len(dead)} rows at -1 exactly zero")
+        if label.startswith("a tile whose splits") and plan.splits <= (max(hist) + T) // P:
+            raise AssertionError(f"{label}: {plan.splits} splits, every one with a page")
 
     # T = 1 against B8's int8 mode on the same inputs
     q, kp, vp, pos, tab, q_pos = multi_case(4, 1, 3, 3, 64, 16, 20, [57, 0, 300, 16],
@@ -969,19 +1110,16 @@ def int8_decode_phase(ops, F):
     return row
 
 
-def int8_multi_phase(ops, F):
-    """B9's int8 checks, then its time at the chunk shape (multi_row)."""
-    worst = check_int8_multi_cases(ops)
-    q, kp, vp, pos, tab, q_pos = multi_case(1, 64, 3, 3, 64, 16, 20, [192],
-                                            torch.float32, torch.float32, 99)
-    kq, vq, scales = int8_pools(kp, vp, 98)
+def int8_multi_phase(ops, da, F):
+    """B9's int8 checks, then its time at the chunk shape and the scaling
+    shapes (multi_rows)."""
+    worst = check_int8_multi_cases(ops, da)
+    rows = multi_rows(ops, da, F, "flash_decode_multi_int8")
     return dict(name="flash_decode_multi_int8",
                 shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, "
                       "64) int8 + (23, 3) f32 scales, 16 live pages",
-                worst_err_f32=worst[torch.float32], worst_err_bf16=worst[torch.bfloat16],
-                t1_vs_b8_err=worst["t1_vs_b8"],
-                **multi_row(ops, F, "flash_decode_multi_int8",
-                            (q, kq, vq, pos, tab, q_pos), scales))
+                worst_err_f32=worst[f32], worst_err_bf16=worst[bf16],
+                t1_vs_b8_err=worst["t1_vs_b8"], **rows)
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -2014,7 +2152,7 @@ PORT_KERNELS = {
 
 # the int8-pool instantiations of B8 and B9 (TKV = int8_t) carry this in
 # their demangled names (B8's as <TQ, signed char, WIDE>, B9's as <TQ,
-# signed char>); the B8/B9 rows named *_int8 are those, the others not
+# signed char, CV>); the B8/B9 rows named *_int8 are those, the others not
 # (B5-B7's int8 mode has kernels of its own names)
 INT8_KV = "signed char"
 
@@ -2501,6 +2639,36 @@ def decode_resources(build_log):
     return out
 
 
+def decode_multi_instance(mangled):
+    """'flash_decode_multi_kernel<TQ, TKV, CV>' for a mangled B9 instance,
+    else None."""
+    m = re.search(r"25flash_decode_multi_kernelI(.+?)Li(\d+)EEEv", mangled)
+    if m is None:
+        return None
+    names = []
+    for tok in re.findall(r"13__nv_bfloat16|S\d*_|[fa]", m.group(1)):
+        names.append(names[-1] if tok.startswith("S") else B8_TYPES[tok])
+    return f"flash_decode_multi_kernel<{', '.join(names)}, {m.group(2)}>"
+
+
+def multi_resources(build_log):
+    """{instance: (registers, spill bytes)} of B9's six (q, pool) type pairs,
+    each with 64-column (CV 1) and 256-column (CV 4) slices, from ``ptxas
+    -v``; raise if one is missing or spills."""
+    out = {}
+    for name, rs in ptxas_entries(build_log).items():
+        if inst := decode_multi_instance(name):
+            out[inst] = rs
+    log("[build] B9 flash_decode_multi_kernel (registers, spill bytes): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    if len(out) != 12:
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, not B9's twelve instances")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"B9 spills: {spilled}")
+    return out
+
+
 def find_cuobjdump():
     """cuobjdump's path (the CUDA toolkit's, or the copy in Triton's
     package), or None."""
@@ -2580,6 +2748,7 @@ def main():
             log(f"[build] {line.strip()}")
     tc_regs = tc_resources(build.build_log)
     b8_regs = decode_resources(build.build_log)
+    b9_regs = multi_resources(build.build_log)
     sass = sass_check(build.library_path())
 
     def done(phase):
@@ -2594,7 +2763,7 @@ def main():
     rows.append(decode_phase(ops, da, F))
     rows.append(multi_phase(ops, da, F))
     rows.append(int8_decode_phase(ops, F))
-    rows.append(int8_multi_phase(ops, F))
+    rows.append(int8_multi_phase(ops, da, F))
     done("B8-B9 kernel phases (f32/bf16 and int8 pools)")
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
     serve_launches, serve = serve_phase(cfg, Model, Engine, EngineConfig, ops)
@@ -2647,6 +2816,8 @@ def main():
                            {k: v for k, v in sass.items() if k.startswith(tc)})
         if row["name"] in ("flash_decode", "flash_decode_int8"):
             row["registers_spills"] = b8_regs
+        if row["name"] in ("flash_decode_multi", "flash_decode_multi_int8"):
+            row["registers_spills"] = b9_regs
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         log(json.dumps(row))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where B8 (paged flash decode, ``flash_decode_kernel``) spends the card's
-time at the serve's decode shape.
+"""Where B8 (paged flash decode, ``flash_decode_kernel``) and B9 (the
+multi-query paged decode of chunk forwards, ``flash_decode_multi_kernel``)
+spend the card's time.
 
     python3 scripts/torch_decode_probe.py [--out DIR]
 
@@ -22,7 +23,21 @@ On the GPU, prints the card's name and power limit, then:
   merge into rank 0's shared memory (distributed shared memory), the
   cluster barrier, rank 0's merge; the span from the first block's start
   to the last block's end beside the launch's device time.  The timer
-  ticks in steps of tens of nanoseconds.
+  ticks in steps of tens of nanoseconds;
+- multi: B9's device microseconds a launch through its C entry point over
+  query tiles (4, 8, 12, 16, 21 and the plan's) by split count (1, 2, 4,
+  8 and the plan's), at the chunk shape (q (1, 64, 9, 64) at positions
+  192..255, 16 live pages), the speculative-verify shape (4 slots at T =
+  5), a chunk of 256 over a 2048-token history and 32 slots at the verify
+  T = 5, over f32 and int8 pools, the plan's own choice starred;
+  every result held against the plain version (atol 2e-5);
+- mphases: one launch of a copy of B9 with %globaltimer stamps put in
+  (thread 0 of every block, the first slice, the first stage's first
+  step) at the same shapes: the ids, q and q_pos trip, the pages' copy
+  (issue to wait), the bf16/int8 conversion, q k^T, the softmax, the
+  barrier and p v, the other steps and stages, the stores into the
+  owners' stage, the cluster barrier and the local merge, each phase's
+  median and largest over the blocks, beside the launch's device time.
 """
 from __future__ import annotations
 
@@ -163,6 +178,88 @@ def splits_sweep():
                 f"by splits: " + ", ".join(row))
 
 
+# B9 (flash_decode_multi_kernel): the chunk shape, the speculative-verify
+# shape and the two scaling shapes, smollm-135m's 9/3 heads of 64, page 16:
+# (label, B, T, C, hist)
+MULTI_SHAPES = [("chunk shape", 1, 64, 20, [192]),
+                ("verify shape B = 4, T = 5", 4, 5, 20, [70, 0, 250, 33]),
+                ("a chunk of 256 over 2048 tokens", 1, 256, 128, [1792]),
+                ("32 slots at T = 5", 32, 5, 20, [120 + (190 * i) // 31 for i in range(32)])]
+MULTI_TQ = (4, 8, 12, 16, 21)
+
+
+def multi_case(B, T, C, hist, int8, seed):
+    """chip_smoke.py's multi_case at smollm-135m's 9/3 heads of 64, page 16:
+    slot b's history of hist[b] tokens and its T-token chunk written
+    through a permuted table (int8 pools with their scales when ``int8``)."""
+    from repro_torch import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    K, G, d, P = 3, 3, 64, 16
+    N = B * C + 3
+    q = torch.randn(B, T, K * G, d, device="cuda", generator=gen)
+    kp = torch.randn(N, P, K, d, device="cuda", generator=gen)
+    vp = torch.randn(N, P, K, d, device="cuda", generator=gen)
+    tab = torch.randperm(N, device="cuda", generator=gen)[:B * C].reshape(B, C).to(torch.int32)
+    q_pos = torch.stack([torch.arange(h, h + T, device="cuda") for h in hist]).to(torch.int32)
+    pos = torch.full((N, P), -1, dtype=torch.int32, device="cuda")
+    for b, h in enumerate(hist):
+        t = torch.arange(h + T, device="cuda")
+        pos[tab[b, t // P].long(), t % P] = t.to(torch.int32)
+    scales = {}
+    if int8:
+        kp, vp, ks, vs = quant.pack_kv(kp, vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    return (q, kp, vp, pos, tab, q_pos), scales
+
+
+def call_multi(lib, args, scales, tq, splits, out):
+    from repro_torch.kernels import build
+
+    q, kp, vp, pos, tab, q_pos = args
+    B, T, H, d = q.shape
+    N, P, K, _ = kp.shape
+    ks, vs = scales.get("k_scale"), scales.get("v_scale")
+    err = lib.repro_flash_decode_multi(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pos.data_ptr(), tab.data_ptr(),
+        q_pos.data_ptr(), None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), out.data_ptr(), B, T, H, K, d, N, P,
+        tab.shape[1], 0.125, 0, 0.0, tq, splits, 0, 2 if scales else 0, build.stream(q))
+    if err:
+        raise SystemExit(f"torch_decode_probe: B9 CUDA error {err} at tq {tq}, {splits} splits")
+    return out
+
+
+def multi_sweep():
+    """B9's device us a launch over tq x splits at MULTI_SHAPES, f32 and int8
+    pools, every result held against the plain version (atol 2e-5); the
+    plan's own choice marked with *."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import decode_attention as da
+
+    lib = build.library()
+    for int8 in (False, True):
+        for label, B, T, C, hist in MULTI_SHAPES:
+            args, scales = multi_case(B, T, C, hist, int8, 7)
+            want = ref.decode_attention_multi_ref(*args, scale=0.125, **scales)
+            out = torch.empty_like(args[0])
+            plan = da.kernel_multi_plan(B, 3, T, 3, 64, 16, C, args[1].element_size())
+            for tq in sorted(set(MULTI_TQ) | {plan.tq}):
+                row = []
+                for s in sorted({1, 2, 4, 8, plan.splits}):
+                    got = call_multi(lib, args, scales, tq, s, out)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    if not err <= 2e-5:
+                        raise SystemExit(f"torch_decode_probe: B9 {label} tq {tq}, {s} "
+                                         f"splits: err {err}")
+                    us = dev_us(lambda: call_multi(lib, args, scales, tq, s, out))
+                    mark = "*" if (tq, s) == (plan.tq, plan.splits) else ""
+                    row.append(f"{s}: {us:.2f}{mark}")
+                log(f"[multi] {'int8' if int8 else 'f32'} pools, {label}, tq {tq} "
+                    f"({-(-T // tq)} tiles): device us a launch by splits: " + ", ".join(row))
+
+
 def phases():
     from repro_torch.kernels import build, ref
 
@@ -183,7 +280,8 @@ def phases():
     out_dir = ROOT / "build" / "decode_probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "decode_attention.cu").write_text(src)
-    shutil.copy(CSRC / "dtype.cuh", out_dir / "dtype.cuh")
+    for h in ("dtype.cuh", "mma.cuh"):
+        shutil.copy(CSRC / h, out_dir / h)
     lib_path = out_dir / "libdecode_probe.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
                     str(out_dir / "decode_attention.cu"), "-o", str(lib_path)],
@@ -227,6 +325,127 @@ def phases():
                 f"ns from each block's start: " + "; ".join(parts)
                 + f"; blocks start over {starts.max()} ns; span {span} ns; device us a "
                 f"launch {t_probe:.2f} instrumented, {t_real:.2f} not")
+
+
+N_MSTAMPS = 11
+MSTAMP = "  {{ unsigned long long t_; asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); " \
+         "g_mstamps[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * {n} + ({i})] = t_; }}\n"
+# (anchor in flash_decode_multi_kernel, stamp, who, where); thread 0 of each
+# block, the first slice, the first stage's first step
+MPROBES = [
+    ("  // first round trip: this block's page ids (warp 0), q, q_pos (each warp\n", 0,
+     "tid == 0", "before"),
+    ("  const int n_live = qmax < 0 ? 0 : min(C, qmax / P + 1);\n", 1, "tid == 0", "after"),
+    ("        __syncthreads();\n        if constexpr (!kF32) {\n", 2, "tid == 0 && sl == 0 && g == 0",
+     "between"),
+    ("      const int ntok = min(H_, n_mine - g * H_) * P;\n", 3,
+     "tid == 0 && sl == 0 && g == 0", "before"),
+    ("          int pt[TN];\n", 4, "tid == 0 && sl == 0 && g == 0 && u0 == 0", "before"),
+    ("        __syncthreads();  // the step's p\n", 5,
+     "tid == 0 && sl == 0 && g == 0 && u0 == 0", "before"),
+    ("        if (u0 + kStepTok < ntok) __syncthreads();  // the next step rewrites p\n", 6,
+     "tid == 0 && sl == 0 && g == 0 && u0 == 0", "before"),
+    ("    if (sl == 0) cluster_wait();  // every block of the cluster runs\n", 7,
+     "tid == 0 && sl == 0", "before"),
+    ("    cluster.sync();\n    // this block's rows, the blocks merged in rank order", 8,
+     "tid == 0 && sl == 0", "before"),
+    ("    // this block's rows, the blocks merged in rank order: a state that saw\n", 9,
+     "tid == 0 && sl == 0", "before"),
+    ("    // another slice rewrites every block's stage\n", 10, "tid == 0 && sl == 0", "before"),
+]
+MPHASES = [  # (name, from stamp, to stamp); a stamp a block never reached is 0
+    ("ids, q and q_pos", 0, 1),
+    ("the pages' copy (issue to wait)", 1, 2),
+    ("bf16/int8 conversion", 2, 3),
+    ("q k^T (first step)", 3, 4),
+    ("softmax (first step)", 4, 5),
+    ("barrier and p v (first step)", 5, 6),
+    ("the other steps and stages", 6, 7),
+    ("stores into the owners' stage", 7, 8),
+    ("the cluster barrier", 8, 9),
+    ("the local merge and write", 9, 10),
+]
+
+
+def multi_phases():
+    """One launch of an instrumented copy of B9 at each MULTI_SHAPES shape, f32
+    and int8 pools: each phase's ns (median and largest over the blocks that
+    ran it) from thread 0's %globaltimer stamps, the span from the first
+    block's start to the last block's end, beside the launch's device time."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import decode_attention as da
+
+    src = (CSRC / "decode_attention.cu").read_text()
+    for anchor, idx, who, where in MPROBES:
+        if src.count(anchor) != 1:
+            raise SystemExit(f"torch_decode_probe: the source changed; anchor not found: "
+                             f"{anchor[:60]!r}")
+        text = f"  if ({who})\n" + MSTAMP.format(n=N_MSTAMPS, i=idx)
+        if where == "after":
+            src = src.replace(anchor, anchor + text, 1)
+        elif where == "between":
+            head, tail = anchor.split("\n", 1)
+            src = src.replace(anchor, head + "\n" + text + tail, 1)
+        else:
+            src = src.replace(anchor, text + anchor, 1)
+    src = src.replace("namespace {\n", "__device__ unsigned long long g_mstamps[1 << 16];\n"
+                      "namespace {\n", 1)
+    src += ('\nextern "C" int repro_multi_stamps(void* host) {\n'
+            '  return (int)cudaMemcpyFromSymbol(host, g_mstamps, sizeof(g_mstamps));\n}\n'
+            'extern "C" int repro_multi_stamps_clear() {\n'
+            '  static unsigned long long zero[1 << 16];\n'
+            '  return (int)cudaMemcpyToSymbol(g_mstamps, zero, sizeof(zero));\n}\n')
+    out_dir = ROOT / "build" / "decode_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "decode_attention_multi.cu").write_text(src)
+    for h in ("dtype.cuh", "mma.cuh"):
+        shutil.copy(CSRC / h, out_dir / h)
+    lib_path = out_dir / "libdecode_multi_probe.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
+                    str(out_dir / "decode_attention_multi.cu"), "-o", str(lib_path)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    P_, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.repro_flash_decode_multi.argtypes = [P_] * 9 + [I] * 8 + [Fl, I, Fl, I, I, I, I, P_]
+    lib.repro_flash_decode_multi.restype = I
+    real = build.library()
+    for int8 in (False, True):
+        for label, B, T, C, hist in MULTI_SHAPES:
+            args, scales = multi_case(B, T, C, hist, int8, 7)
+            plan = da.kernel_multi_plan(B, 3, T, 3, 64, 16, C, args[1].element_size())
+            out = torch.empty_like(args[0])
+            for _ in range(3):
+                call_multi(lib, args, scales, 0, 0, out)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_multi_ref(*args, scale=0.125, **scales)
+            if not (out - want).abs().max().item() <= 2e-5:
+                raise SystemExit("torch_decode_probe: the instrumented B9 copy is wrong")
+            if lib.repro_multi_stamps_clear():
+                raise SystemExit("torch_decode_probe: clearing the stamps failed")
+            call_multi(lib, args, scales, 0, 0, out)
+            torch.cuda.synchronize()
+            buf = np.zeros(1 << 16, dtype=np.uint64)
+            if lib.repro_multi_stamps(buf.ctypes.data_as(ctypes.c_void_p)):
+                raise SystemExit("torch_decode_probe: reading the stamps failed")
+            n_blocks = plan.splits * plan.tiles * B * 3
+            x = buf[:n_blocks * N_MSTAMPS].reshape(n_blocks, N_MSTAMPS).astype(np.int64)
+            t_first = x[:, 0].min()
+            parts = []
+            for name, a, b in MPHASES:
+                ran = (x[:, a] > 0) & (x[:, b] > 0)
+                if not ran.any():
+                    parts.append(f"{name} -")
+                    continue
+                dt = x[ran, b] - x[ran, a]
+                parts.append(f"{name} {np.median(dt):.0f} (max {dt.max()})")
+            span = x[:, 10].max() - t_first
+            t_probe = dev_us(lambda: call_multi(lib, args, scales, 0, 0, out))
+            t_real = dev_us(lambda: call_multi(real, args, scales, 0, 0, out))
+            log(f"[mphases] {'int8' if int8 else 'f32'} pools, {label}, plan tq {plan.tq}, "
+                f"{plan.splits} splits, {n_blocks} blocks: ns from thread 0's stamps: "
+                + "; ".join(parts) + f"; blocks start over {x[:, 0].max() - t_first} ns; "
+                f"span {span} ns; device us a launch {t_probe:.2f} instrumented, "
+                f"{t_real:.2f} not")
 
 
 def sass(out):
@@ -289,6 +508,8 @@ def main():
     sass(args.out)
     splits_sweep()
     phases()
+    multi_sweep()
+    multi_phases()
 
 
 if __name__ == "__main__":

@@ -47,13 +47,13 @@ _SIGNATURES = {
         _I,
     ),
     # B9: the same pointers, then B, T, H, K, d, N, P, C, scale, window,
-    # softcap, q dtype, kv dtype, stream
+    # softcap, tq and splits (0: the plan's), q dtype, kv dtype, stream
     "repro_flash_decode_multi": (
-        (_P,) * 9 + (_I,) * 8 + (_F, _I, _F, _I, _I, _P),
+        (_P,) * 9 + (_I,) * 8 + (_F, _I, _F, _I, _I, _I, _I, _P),
         _I,
     ),
-    "repro_flash_decode_multi_rows": ((_I,) * 6, _I),
-    "repro_flash_decode_multi_smem_bytes": ((_I,) * 4, _LL),
+    # B9's plan on the current device: B, K, T, G, d, P, C, kv dtype, int[6] out
+    "repro_flash_decode_multi_plan": ((_I,) * 8 + (_P,), _LL),
     # flash attention: pointers, then B, S, T, H, K, d, scale, causal,
     # window, softcap, mode, dtype, stream
     "repro_flash_fwd": ((_P,) * 5 + _FLASH_ARGS, _I),

@@ -89,48 +89,82 @@
 // inside the chunk.  Chunked prefill, prefix-cache suffixes and
 // speculative verify run it.
 //
-// What bounds it on the H100: at chunk sizes, the float32 operations.  A
-// live token's K and V rows (8 d bytes in f32) feed 4 d flops for each of
-// the T x G rows: T * G / 2 flop per byte, 96 at T = 64, G = 3, above the
-// f32 ridge of ~20 flop/byte (67 TFLOP/s over 3.35 TB/s); at T = 1 it is
-// B8's bandwidth bound.
+// What bounds it on the H100: at the engine's chunk (T = 64, G = 3, 16 live
+// pages of 16) the function is 33 MFLOP over 0.7 MB: 0.5 us of f32 FFMA
+// at 67 TFLOP/s.  What sets a launch is latency and the shared-memory
+// pipe: the launch, two dependent trips to memory (table, then pages), the
+// merge, and products whose operands come from shared memory.  Above ~1
+// GFLOP (a chunk of 256 over a 2048-token history) the products take
+// over.  They stay f32 FFMA: TF32 or bf16 operands would leave the f32
+// tier (atol 2e-5) on which the serve's greedy tokens rest.
 //
-// What the design does about it:
-//  - The TPU program holds all T x G rows of one (slot, kv head) in VMEM;
-//    at a 256-token chunk with G = 3, d = 64 the accumulators alone are
-//    196 KB, which no block holds.  So one block owns (slot, kv head, tile
-//    of tq queries): tq x G rows whose (m, l, acc) and q live in shared
-//    memory, and each live page is staged in shared memory once per block
-//    (coalesced, converted to f32 -- int8 bytes times their page's scale --,
-//    K rows padded by one float against bank conflicts).
-//  - tq is chosen on the host (multi_rows): the most rows that fit the
-//    48 KB of shared memory, at most kMultiRows, then halved while the grid
-//    is smaller than the card's 132 SMs: at the engine's chunk (one slot,
-//    3 kv heads) the per-page latency, not the arithmetic, sets the time,
-//    so more blocks each walking the pages beat fewer sharing them.
-//  - Live pages: min(C, max_q_pos // P + 1) over the tile's rows, none when
-//    every row is at -1.  The reference bounds by the chunk's largest
-//    q_pos; a page past a row's own position is fully masked for that row
-//    and leaves its (m, l, acc) unchanged, so the numbers are the same.
-//  - Rows at q_pos -1 (and the rows past T in the last tile, which are
-//    never stored) see no entry: p is written as 0 on masked entries and
-//    the final divide is guarded, so they give exact zeros, as the
-//    reference's _finalize does.
-//  - Page ids are clamped to [0, N-1], as the reference wrapper does.
-//    Pages shared between slots by the prefix cache are only read here.
-// Later work, not done here: the (tq G x d) . (d x P) products on the
-// tensor cores (tq G rows fill an MMA, unlike B8's G), int8 MMA with the
-// scales on the logits over int8 pools, B8's 16-byte loads into registers,
-// split-KV, cp.async/TMA double buffering.
+// What the design does about it (scripts/torch_decode_probe.py times
+// each phase from %globaltimer stamps in an instrumented copy, and sweeps
+// the plan):
+//  - Many rows a block: a block owns (slot b, kv head, a tile of tq
+//    queries): R = tq G <= 64 rows (kMaxRows), tiles balanced over T, so
+//    each staged page feeds R rows (3 before).  q of the tile lives in
+//    shared memory (f32); m, l and acc in registers: 256 threads, 16 row
+//    groups of 16 consecutive lanes, a thread holding rows ig + 16 a (a <
+//    4), in the products a rows x tokens tile of q . k^T (tokens jl + 16 t
+//    of a step of up to 64) and a rows x columns tile of p . v (columns 4
+//    (jl + 16 cv), cv < CV: 64 CV columns a slice, CV = 1 for d <= 64,
+//    else 4; wider heads go by slices of 256 and recompute the scores).
+//    A step is specialised on its tokens a thread (TN = 1..4), so the
+//    loops are straight-line code: runtime guards inside them cost half as
+//    much again as the work they skipped.  A row's max and sum are reduced
+//    by shuffles over its 16 lanes, the rows' shuffles interleaved.  Each
+//    dot product sums its 4-element chunks pairwise first, a shorter chain
+//    of roundings at wide heads.
+//  - Split-KV over a thread-block cluster, as B8: grid (S tiles B, K),
+//    clusters of (S, 1, 1).  The tile's live pages, n_live = min(C,
+//    max q_pos of the tile // P + 1), go page j to rank j mod S.
+//    multi_plan picks S <= 8 to minimise waves(S) (F + C R / S): a block
+//    costs a fixed F (launch, the trips, the merge: ~6 us at the chunk
+//    shape, as much as ~150 (page, row) pairs of products) plus its pages,
+//    one block an SM (registers), waves counted over the device's SMs
+//    (cudaDevAttrMultiProcessorCount, 132 on an H100 SXM).  At the chunk
+//    shape that is 8 splits (96 blocks of 2 pages), at 32 slots 1, at a
+//    chunk of 256 over 2048 tokens 3.  F was fitted at the chunk shape; the
+//    probe's sweep holds the choice at the verify and scaling shapes.
+//  - Loads in two dependent runs: the block's page ids (clamped to [0,
+//    N-1]), q (16-byte loads, up to 8 a thread in flight) and q_pos in
+//    one; then every page of a slot (K and V rows of the kv head,
+//    positions, and the two scales over int8 pools) with 16-byte cp.async,
+//    one wait.  f32 pools land in their f32 layout (K rows at a stride of
+//    d + 4 floats: the 8 lanes of a 16-byte phase on 8 bank quads); bf16
+//    and int8 pools land as bytes and one pass converts them (int8 bytes
+//    times the page's scale, the reference's order).  Pages that do not
+//    fit 227 KB go through a ring of two slots, the next slot's copy in
+//    flight during this slot's products.  Rows that are not 16-byte chunks
+//    (d_head 20 in bf16) are read byte by byte instead.
+//  - Merge without a second launch, spread over the cluster: row r goes to
+//    rank r mod S; every block stores its (m, l, acc) of each row into that
+//    block's stage (distributed shared memory: a store does not wait for
+//    its round trip, where remote loads run in series, as B8's probe
+//    showed), one cluster.sync publishes them, and each block merges its
+//    rows in rank order (a warp a row: the max by shuffles, l summed in
+//    rank order) and writes them out.  Spread, no block merges more than
+//    ceil(R / S) rows, where gathering into rank 0 would merge all R.  A
+//    state that saw nothing (l = 0: an empty split, a row at q_pos -1, a
+//    row past T in the last tile) weighs 0, never exp(0) = 1; the guarded
+//    divide gives exact zeros.  No scratch tensor, no atomics, one launch
+//    a call.
+//  - Masks as the reference: entry s of a row is visible iff pos_s >= 0,
+//    pos_s <= q_pos and (window) q_pos - pos_s < window; p = 0 is written
+//    on masked entries.  Pages shared between slots by the prefix cache
+//    are only read here.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
 #include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -157,9 +191,7 @@ __device__ __forceinline__ float2 page_scales(const float* k_scale, const float*
   }
 }
 
-constexpr int kThreads = 128;
 constexpr float kNegInf = -2.3819763e38f;  // the reference's masking constant
-constexpr size_t kMaxSmem = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -583,34 +615,177 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
 // B9
 // ---------------------------------------------------------------------------
 
-constexpr int kMultiRows = 48;  // most query rows (tq queries x G heads) a block holds
-constexpr int kSMs = 132;       // H100 SXM
+constexpr int kMThreads = 256;                    // threads a B9 block
+constexpr int kRowLanes = 16;                     // consecutive lanes that share a row
+constexpr int kRowGroups = kMThreads / kRowLanes; // 16
+constexpr int kRowsThread = 4;                    // rows a thread holds
+constexpr int kMaxRows = kRowGroups * kRowsThread;  // 64 query rows (tq x G) a block
+constexpr int kStepTok = 64;                      // tokens a step of products
+constexpr int kTokThread = kStepTok / kRowLanes;  // a thread's tokens of a step
+constexpr int kPsLd = kStepTok + 16;  // p row stride: the two rows of a warp on other banks
+// a block's fixed time (launch, the two trips, the merge: ~6 us) in (page,
+// row) pairs of products (0.03-0.06 us a pair; scripts/torch_decode_probe.py)
+constexpr long long kSplitFixed = 150;
+constexpr size_t kMaxDynSmem = 232448;  // 227 KB, the most a block may opt in to
 
-// Shared memory layout of a B9 block, in 4-byte words.
-__host__ __device__ inline size_t multi_smem_words(int tq, int G, int d, int P) {
-  const size_t R = (size_t)tq * G;
-  return (size_t)P * (d + 1)  // K page (padded rows)
-         + (size_t)P * d      // V page
-         + 2 * R * d          // q rows, acc
-         + R * P              // scores, then probabilities
-         + 2 * R              // m, l
-         + (size_t)tq * P     // visibility of each token to each query
-         + (size_t)tq         // q_pos of each query
-         + 1;                 // the tile's live page count
+// Shared memory of a B9 block, byte offsets (16-byte aligned pieces).  A
+// slot holds H pages: K rows in f32 at stride ldk (d rounded up to 4, plus
+// 4 floats when that is a multiple of 8, so the 8 lanes of a 16-byte load
+// phase hit 8 different bank quads), V rows in f32, positions, the two
+// scales, and for bf16/int8 pools the raw bytes that cp.async brings (one
+// conversion pass turns them into f32).  Then q (R rows in f32), p of a
+// step, and the merge stage: each cluster block's (m, l, acc) of the rows
+// this block merges (rows rank, rank + S, ...).
+struct MultiLayout {
+  int dpad, ldk, sw, rs, row_bytes;
+  size_t ids, kf, vf, raw, pos, scl, qs, ps, stm, stl, sta, wts, lsum, total;
+  __host__ __device__ MultiLayout(int R, int S, int H, int slots, int d, int P, int C,
+                                  int kv_bytes, int slice_cols) {
+    dpad = (d + 3) / 4 * 4;
+    ldk = dpad % 8 == 0 ? dpad + 4 : dpad;
+    sw = dpad < slice_cols ? dpad : slice_cols;
+    rs = (R + S - 1) / S;
+    row_bytes = (d * kv_bytes + 15) / 16 * 16;
+    const size_t pages = (size_t)slots * H;
+    size_t o = 0;
+    auto take = [&o](size_t bytes) {
+      const size_t at = o;
+      o += (bytes + 15) / 16 * 16;
+      return at;
+    };
+    ids = take((size_t)((C + S - 1) / S) * 4);
+    kf = take(pages * P * ldk * 4);
+    vf = take(pages * P * dpad * 4);
+    raw = take(kv_bytes == 4 ? 0 : pages * 2 * P * row_bytes);
+    pos = take(pages * P * 4);
+    scl = take(pages * 2 * 4);
+    qs = take((size_t)R * dpad * 4);
+    ps = take((size_t)R * kPsLd * 4);
+    stm = take((size_t)S * rs * 4);
+    stl = take((size_t)S * rs * 4);
+    sta = take((size_t)S * rs * sw * 4);
+    wts = take((size_t)rs * S * 4);
+    lsum = take((size_t)rs * 4);
+    total = o;
+  }
+};
+
+constexpr int kMaxDevices = 64;
+
+// The current device's SM count into *sms (multi_plan's waves), read once a
+// device.
+cudaError_t sm_count(int* sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return cudaSuccess;
 }
 
-// Queries per block (see the design note); 0 if one query's rows do not fit.
-inline int multi_rows(int B, int K, int T, int G, int d, int P) {
-  int tq = std::max(1, kMultiRows / G);
-  while (tq > 0 && multi_smem_words(tq, G, d, P) * 4 > kMaxSmem) --tq;
-  if (tq == 0) return 0;
-  tq = std::min(tq, std::max(T, 1));
-  while (tq > 1 && (long long)B * K * ((T + tq - 1) / tq) < kSMs) tq = (tq + 1) / 2;
-  return tq;
+// The plan of a B9 launch (see the design note): tq queries a tile (tq G
+// rows), splits blocks a cluster, the block's pages in slots of
+// stage_pages, the column slices' width class cv (64 cv columns a slice),
+// and the shared memory a block needs.  tq = 0: the shape cannot be placed
+// (G > kMaxRows, or one page a slot does not fit); smem then holds what the
+// smallest layout would need.
+struct MultiPlan {
+  int tq, splits, tiles, stage_pages, slots, cv;
+  size_t smem;
+};
+
+inline MultiPlan multi_plan(int B, int K, int T, int G, int d, int P, int C, int kv_bytes,
+                            int sms, int tq_force = 0, int splits_force = 0) {
+  MultiPlan p{};
+  p.cv = d <= 64 ? 1 : 4;
+  const int cols = kRowLanes * 4 * p.cv;
+  T = std::max(T, 1);
+  C = std::max(C, 1);
+  if (G > kMaxRows) {
+    p.smem = MultiLayout(G, 1, 1, 1, d, P, C, kv_bytes, cols).total;
+    return p;
+  }
+  if (tq_force > 0) {
+    p.tq = std::min(tq_force, T);
+  } else {  // balanced tiles of at most kMaxRows rows
+    const int tiles = (T + kMaxRows / G - 1) / (kMaxRows / G);
+    p.tq = (T + tiles - 1) / tiles;
+  }
+  p.tiles = (T + p.tq - 1) / p.tq;
+  if (splits_force > 0) {
+    p.splits = splits_force;
+  } else {
+    // fill the card through the splits: S minimises waves(S) (F + C R / S),
+    // a block's time being a fixed part F (launch, two trips, the merge)
+    // and its pages' products, waves(S) = ceil(B K tiles S / sms) at one
+    // block an SM; compared as integers, cost(S) = num / S
+    const long long bkt = (long long)B * K * p.tiles;
+    const long long work = (long long)C * p.tq * G;
+    long long best_num = 0;
+    p.splits = 1;
+    for (int S = 1; S <= std::min(kMaxSplits, C); ++S) {
+      const long long num = (bkt * S + sms - 1) / sms * (kSplitFixed * S + work);
+      if (S == 1 || num * p.splits < best_num * S) {
+        best_num = num;
+        p.splits = S;
+      }
+    }
+  }
+  const int S = p.splits;
+  const int R = p.tq * G;
+  const int ppb = (C + S - 1) / S;  // the most pages a block can own
+  p.stage_pages = ppb;
+  p.slots = 1;
+  p.smem = MultiLayout(R, S, ppb, 1, d, P, C, kv_bytes, cols).total;
+  if (p.smem <= kMaxDynSmem) return p;
+  // a ring of two slots: the next slot's copy in flight during this one's products
+  p.slots = 2;
+  for (int h = ppb - 1; h >= 1; --h) {
+    p.stage_pages = h;
+    p.smem = MultiLayout(R, S, h, 2, d, P, C, kv_bytes, cols).total;
+    if (p.smem <= kMaxDynSmem) return p;
+  }
+  p.tq = 0;  // p.smem: one page a slot
+  return p;
 }
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
+// Element i of 16 bytes of pool values as the reference reads it (int8
+// bytes times their page's scale).
+template <typename TKV>
+__device__ __forceinline__ float4 dequant4(const uint4& u, int i, float s) {
+  return make_float4(dequant<TKV>(u, i, s), dequant<TKV>(u, i + 1, s),
+                     dequant<TKV>(u, i + 2, s), dequant<TKV>(u, i + 3, s));
+}
+
+__device__ __forceinline__ void fma4(float (&a)[4], float p, const float4& v) {
+  a[0] = fmaf(p, v.x, a[0]);
+  a[1] = fmaf(p, v.y, a[1]);
+  a[2] = fmaf(p, v.z, a[2]);
+  a[3] = fmaf(p, v.w, a[3]);
+}
+
+// s + a . b, the four products summed pairwise first: a shorter chain of
+// roundings than four fused steps, which wide heads over long histories
+// need to keep well inside the f32 tier
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
+  const float t = fmaf(a.y, b.y, a.x * b.x);
+  const float u = fmaf(a.w, b.w, a.z * b.z);
+  return s + (t + u);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+template <typename TQ, typename TKV, int CV>
+__global__ void __launch_bounds__(kMThreads, 1)
 flash_decode_multi_kernel(const TQ* __restrict__ q,
                           const TKV* __restrict__ k_pages,
                           const TKV* __restrict__ v_pages,
@@ -621,152 +796,498 @@ flash_decode_multi_kernel(const TQ* __restrict__ q,
                           const float* __restrict__ v_scale,
                           TQ* __restrict__ out,
                           int T, int H, int K, int d, int N, int P, int C,
-                          int tq, float scale, int window, float softcap) {
-  const int b = blockIdx.x;
+                          int tq, int tiles, int stage_pages, int slots,
+                          float scale, int window, float softcap, bool wide) {
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  constexpr bool kF32 = std::is_same<TKV, float>::value;
+  constexpr int E = Chunk<TKV>::E;                 // pool elements of 16 bytes
+  constexpr int SWC = kRowLanes * 4 * CV;          // columns of a slice
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int kh = blockIdx.y;
-  const int t0 = blockIdx.z * tq;
+  const int tile = (blockIdx.x / S) % tiles;
+  const int b = blockIdx.x / S / tiles;
   const int G = H / K;
-  const int nt = min(tq, T - t0);  // queries of this tile
-  const int R = nt * G;            // rows: r = i * G + g for query t0 + i
+  const int t0 = tile * tq;
+  const int nt = min(tq, T - t0);   // queries of this tile
+  const int RT = tq * G;            // rows of the layout: r = i G + g for query t0 + i
+  const int R = nt * G;             // rows with a query
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int ldk = d + 1;
+  const int ig = tid / kRowLanes;   // this thread's rows: ig, ig + 16, ...
+  const int jl = tid % kRowLanes;   // its tokens j, j + 16, ... and column chunks
+  const int H_ = stage_pages;
+  const MultiLayout L(RT, S, H_, slots, d, P, C, sizeof(TKV), SWC);
+  const int dpad = L.dpad, ldk = L.ldk;
 
-  extern __shared__ float smem[];
-  float* ks = smem;                            // [P][d + 1]
-  float* vs = ks + (size_t)P * ldk;            // [P][d]
-  float* qs = vs + (size_t)P * d;              // [tq * G][d]
-  float* acc = qs + (size_t)tq * G * d;        // [tq * G][d]
-  float* sc = acc + (size_t)tq * G * d;        // [tq * G][P]
-  float* m_s = sc + (size_t)tq * G * P;        // [tq * G]
-  float* l_s = m_s + (size_t)tq * G;           // [tq * G]
-  int* vis = reinterpret_cast<int*>(l_s + (size_t)tq * G);  // [tq][P]
-  int* qp_s = vis + (size_t)tq * P;            // [tq]
-  int* live_s = qp_s + tq;                     // [1]
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* ids = reinterpret_cast<int*>(smem + L.ids);
+  float* kf = reinterpret_cast<float*>(smem + L.kf);
+  float* vf = reinterpret_cast<float*>(smem + L.vf);
+  unsigned char* raw = smem + L.raw;
+  int* posb = reinterpret_cast<int*>(smem + L.pos);
+  float* scl = reinterpret_cast<float*>(smem + L.scl);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* ps = reinterpret_cast<float*>(smem + L.ps);
+  float* stm = reinterpret_cast<float*>(smem + L.stm);
+  float* stl = reinterpret_cast<float*>(smem + L.stl);
+  float* sta = reinterpret_cast<float*>(smem + L.sta);
+  float* wts = reinterpret_cast<float*>(smem + L.wts);
+  float* lsum = reinterpret_cast<float*>(smem + L.lsum);
+  cluster_arrive();
 
-  // row r of this tile is (query t0 + r / G, head kh * G + r % G)
+  // row r of the tile is (query t0 + r / G, head kh G + r % G)
   auto row_offset = [&](int r) {
     const int i = r / G;
     return (((size_t)b * T + t0 + i) * H + (size_t)kh * G + (r - i * G)) * d;
   };
 
-  for (int i = tid; i < nt; i += blockDim.x) qp_s[i] = q_pos[(size_t)b * T + t0 + i];
-  for (int i = tid; i < R * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i - r * d;
-    qs[i] = to_f32(q[row_offset(r) + c]);
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += blockDim.x) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int qmax = -1;
-    for (int i = 0; i < nt; ++i) qmax = max(qmax, qp_s[i]);
-    live_s[0] = qmax < 0 ? 0 : min(C, qmax / P + 1);
-  }
-  __syncthreads();
-  const int n_live = live_s[0];
-
-  for (int j = 0; j < n_live; ++j) {
-    int page = page_table[(size_t)b * C + j];
-    page = min(max(page, 0), N - 1);
-    const float2 sc2 = page_scales<TKV>(k_scale, v_scale, page, K, kh);
-    __syncthreads();  // the previous page's readers are done
-
-    for (int i = tid; i < P * d; i += blockDim.x) {
-      const int p = i / d;
-      const int c = i - p * d;
-      const size_t src = (((size_t)page * P + p) * K + kh) * d + c;
-      ks[p * ldk + c] = staged(k_pages[src], sc2.x);
-      vs[i] = staged(v_pages[src], sc2.y);
-    }
-    for (int i = tid; i < nt * P; i += blockDim.x) {
-      const int qi = i / P;
-      const int p = i - qi * P;
-      const int t = pos_pages[(size_t)page * P + p];
-      const int qp = qp_s[qi];
-      vis[i] = t >= 0 && t <= qp && (window == 0 || qp - t < window);
-    }
-    __syncthreads();
-
-    // scores: one (row, token) dot product per thread
-    for (int i = tid; i < R * P; i += blockDim.x) {
-      const int r = i / P;
-      const int p = i - r * P;
-      const float* qr = qs + (size_t)r * d;
-      const float* kp = ks + (size_t)p * ldk;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s += qr[c] * kp[c];
-      s *= scale;
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      sc[i] = vis[(r / G) * P + p] ? s : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax + P.V: one warp per row
-    for (int r = warp; r < R; r += n_warps) {
-      float* sr = sc + (size_t)r * P;
-      const int* vr = vis + (size_t)(r / G) * P;
-      float m_cur = kNegInf;
-      for (int p = lane; p < P; p += 32) m_cur = fmaxf(m_cur, sr[p]);
+  // first round trip: this block's page ids (warp 0), q, q_pos (each warp
+  // its tile's largest, each thread its rows')
+  const int* tab = page_table + (size_t)b * C;
+  if (tid < 32)
+    for (int x = lane; rank + S * x < C; x += 32) ids[x] = min(max(tab[rank + S * x], 0), N - 1);
+  constexpr int EQ = 16 / sizeof(TQ);  // q elements of 16 bytes
+  if (d % EQ == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) {
+    // query i's G heads of kv head kh are G d contiguous elements, rows i G
+    // .. i G + G - 1 of qs (dpad = d): up to 8 loads a thread in flight
+    const TQ* qb = q + (((size_t)b * T + t0) * H + (size_t)kh * G) * d;
+    const int gd = G * d;
+    const int nch = R * d / EQ;
+    for (int base = 0; base < nch; base += 8 * kMThreads) {
+      uint4 v[8];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, m_cur);
-      float l_cur = 0.f;
-      for (int p = lane; p < P; p += 32) {
-        // explicit p = 0 on masked entries (a page past this row's
-        // position, or a row at -1): exp(s - m_new) would be 1 there
-        const float pv = vr[p] ? expf(sr[p] - m_new) : 0.f;
-        sr[p] = pv;
-        l_cur += pv;
+      for (int k = 0; k < 8; ++k) {
+        const int j = base + tid + k * kMThreads;
+        if (j < nch) {
+          const int i = j * EQ / gd;
+          v[k] = __ldg(reinterpret_cast<const uint4*>(qb + (size_t)i * H * d + (j * EQ - i * gd)));
+        }
       }
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        l_cur += __shfl_xor_sync(0xffffffffu, l_cur, o);
-      __syncwarp();
-      const float alpha = expf(m_prev - m_new);
-      float* ar = acc + (size_t)r * d;
-      for (int c = lane; c < d; c += 32) {
-        float pv_sum = 0.f;
-        for (int p = 0; p < P; ++p) pv_sum += sr[p] * vs[(size_t)p * d + c];
-        ar[c] = ar[c] * alpha + pv_sum;
-      }
-      if (lane == 0) {
-        l_s[r] = alpha * l_s[r] + l_cur;
-        m_s[r] = m_new;
+      for (int k = 0; k < 8; ++k) {
+        const int j = base + tid + k * kMThreads;
+        if (j < nch) {
+#pragma unroll
+          for (int e = 0; e < EQ; e += 4)
+            *reinterpret_cast<float4*>(qs + (size_t)j * EQ + e) = make_float4(
+                elem<TQ>(v[k], e), elem<TQ>(v[k], e + 1), elem<TQ>(v[k], e + 2),
+                elem<TQ>(v[k], e + 3));
+        }
       }
     }
+    for (int x = R * d + tid; x < RT * d; x += kMThreads) qs[x] = 0.f;
+  } else {
+    for (int x = tid; x < RT * dpad; x += kMThreads) {
+      const int r = x / dpad;
+      const int c = x - r * dpad;
+      qs[x] = (r < R && c < d) ? to_f32(q[row_offset(r) + c]) : 0.f;
+    }
+  }
+  const int* qp_row = q_pos + (size_t)b * T + t0;
+  int qmax = -1;
+  for (int x = lane; x < nt; x += 32) qmax = max(qmax, qp_row[x]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) qmax = max(qmax, __shfl_xor_sync(kFull, qmax, o));
+  int qpr[kRowsThread];
+#pragma unroll
+  for (int a = 0; a < kRowsThread; ++a) {
+    const int r = ig + kRowGroups * a;
+    qpr[a] = r < R ? qp_row[r / G] : -1;
   }
   __syncthreads();
+  // live pages: min(C, the tile's largest q_pos // P + 1), page j to rank j mod S
+  const int n_live = qmax < 0 ? 0 : min(C, qmax / P + 1);
+  const int n_mine = rank < n_live ? (n_live - rank + S - 1) / S : 0;
+  const int n_stages = (n_mine + H_ - 1) / H_;
+  const int n_sl = (dpad + SWC - 1) / SWC;
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  const size_t ld = (size_t)K * d;  // pool row stride
+  const int cr = wide ? d * static_cast<int>(sizeof(TKV)) / 16 : 0;  // 16-byte chunks a row
 
-  for (int i = tid; i < R * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i - r * d;
-    out[row_offset(r) + c] = from_f32<TQ>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  // second round trip: every page of stage g into slot g % slots, issued in
+  // one run (16-byte cp.async; byte by byte, converted, without WIDE rows)
+  auto issue = [&](int g) {
+    const int npg = min(H_, n_mine - g * H_);
+    const int sb = (g % slots) * H_;
+    if (wide) {
+      for (int x = tid; x < npg * P; x += kMThreads) {
+        const int pi = x / P;
+        const int row = x - pi * P;
+        repro::cp_async4(posb + (size_t)(sb + pi) * P + row,
+                         pos_pages + (size_t)ids[g * H_ + pi] * P + row);
+      }
+      if constexpr (kInt8) {
+        for (int x = tid; x < 2 * npg; x += kMThreads) {
+          const size_t at = (size_t)ids[g * H_ + (x >> 1)] * K + kh;
+          repro::cp_async4(scl + 2 * sb + x, (x & 1) ? v_scale + at : k_scale + at);
+        }
+      }
+      for (int x = tid; x < 2 * P * cr; x += kMThreads) {  // (K or V, row, chunk) of a page
+        const int c = x % cr;
+        const int y = x / cr;
+        const int row = y % P;
+        const int which = y / P;
+        for (int pi = 0; pi < npg; ++pi) {
+          const TKV* src = (which ? v_pages : k_pages) +
+                           ((size_t)ids[g * H_ + pi] * P + row) * ld + (size_t)kh * d + c * E;
+          void* dst;
+          if constexpr (kF32) {
+            const size_t tok = (size_t)(sb + pi) * P + row;
+            dst = which ? vf + tok * dpad + c * 4 : kf + tok * ldk + c * 4;
+          } else {
+            dst = raw + ((size_t)((sb + pi) * 2 + which) * P + row) * L.row_bytes + c * 16;
+          }
+          repro::cp_async16(dst, src);
+        }
+      }
+    } else {
+      for (int x = tid; x < npg * P; x += kMThreads) {
+        const int pi = x / P;
+        const int row = x - pi * P;
+        posb[(size_t)(sb + pi) * P + row] = __ldg(pos_pages + (size_t)ids[g * H_ + pi] * P + row);
+      }
+      for (int x = tid; x < npg * 2 * P * dpad; x += kMThreads) {
+        const int c = x % dpad;
+        int y = x / dpad;
+        const int row = y % P;
+        y /= P;
+        const int which = y & 1;
+        const int pi = y >> 1;
+        const int page = ids[g * H_ + pi];
+        const size_t tok = (size_t)(sb + pi) * P + row;
+        float v = 0.f;
+        if (c < d) {
+          const float s = kInt8 ? __ldg((which ? v_scale : k_scale) + (size_t)page * K + kh) : 1.f;
+          v = staged((which ? v_pages : k_pages)[((size_t)page * P + row) * ld + (size_t)kh * d + c], s);
+        }
+        (which ? vf + tok * dpad : kf + tok * ldk)[c] = v;
+      }
+    }
+    repro::cp_async_commit();
+  };
+
+  // bf16 / int8 pools: the raw bytes of slot g % slots into f32 (int8 bytes
+  // times their page's scale, the reference's order)
+  auto convert = [&](int g) {
+    const int npg = min(H_, n_mine - g * H_);
+    const int sb = (g % slots) * H_;
+    for (int x = tid; x < 2 * P * cr; x += kMThreads) {
+      const int c = x % cr;
+      const int y = x / cr;
+      const int row = y % P;
+      const int which = y / P;
+      for (int pi = 0; pi < npg; ++pi) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            raw + ((size_t)((sb + pi) * 2 + which) * P + row) * L.row_bytes + c * 16);
+        const float s = kInt8 ? scl[2 * (sb + pi) + which] : 1.f;
+        const size_t tok = (size_t)(sb + pi) * P + row;
+        float* dst = (which ? vf + tok * dpad : kf + tok * ldk) + c * E;
+#pragma unroll
+        for (int k = 0; k < E / 4; ++k)
+          *reinterpret_cast<float4*>(dst + 4 * k) = dequant4<TKV>(u, 4 * k, s);
+      }
+    }
+  };
+
+  for (int sl = 0; sl < n_sl; ++sl) {
+    const int c0 = sl * SWC;  // the slice's first column
+    float m[kRowsThread], l[kRowsThread], acc[kRowsThread][CV][4];
+#pragma unroll
+    for (int a = 0; a < kRowsThread; ++a) {
+      m[a] = kNegInf;
+      l[a] = 0.f;
+#pragma unroll
+      for (int cv = 0; cv < CV; ++cv)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][cv][e] = 0.f;
+    }
+    // the pages stay in shared memory across slices when one slot holds them
+    const bool load = sl == 0 || n_stages > 1;
+    int issued = 0;
+    for (int g = 0; g < n_stages; ++g) {
+      if (load) {
+        // every stage the ring holds: g and g + 1 (slot (g + 1) % 2 was
+        // freed by stage g - 1); one call site, so issue is inlined
+        for (; issued < min(n_stages, g + 2); ++issued) issue(issued);
+        if (issued > g + 1) {
+          repro::cp_async_wait_group<1>();
+        } else {
+          repro::cp_async_wait_group<0>();
+        }
+        __syncthreads();
+        if constexpr (!kF32) {
+          if (wide) {
+            convert(g);
+            __syncthreads();
+          }
+        }
+      }
+      const int ntok = min(H_, n_mine - g * H_) * P;
+      const size_t tb = (size_t)(g % slots) * H_ * P;  // the slot's first token
+      for (int u0 = 0; u0 < ntok; u0 += kStepTok) {
+        const int nstep = min(kStepTok, ntok - u0);
+        // one step, specialised on TN, a thread's tokens (the step's tokens
+        // over 16 lanes), so its loops are straight-line code
+        auto step = [&](auto tn_c) {
+          constexpr int TN = decltype(tn_c)::value;
+          // scores: rows ig + 16 a against tokens u0 + jl + 16 t
+          float s[kRowsThread][TN];
+#pragma unroll
+          for (int a = 0; a < kRowsThread; ++a)
+#pragma unroll
+            for (int t = 0; t < TN; ++t) s[a][t] = 0.f;
+          const float* kb = kf + (tb + u0 + jl) * ldk;
+#pragma unroll 2
+          for (int c = 0; c < dpad; c += 4) {
+            float4 kk[TN];
+#pragma unroll
+            for (int t = 0; t < TN; ++t)
+              kk[t] = jl + kRowLanes * t < nstep
+                          ? *reinterpret_cast<const float4*>(kb + (size_t)kRowLanes * t * ldk + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int a = 0; a < kRowsThread; ++a) {
+              const int r = ig + kRowGroups * a;
+              const float4 qq = r < RT ? *reinterpret_cast<const float4*>(qs + (size_t)r * dpad + c)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+              for (int t = 0; t < TN; ++t) s[a][t] = dot4(qq, kk[t], s[a][t]);
+            }
+          }
+          int pt[TN];
+#pragma unroll
+          for (int t = 0; t < TN; ++t)
+            pt[t] = jl + kRowLanes * t < nstep ? posb[tb + u0 + jl + kRowLanes * t] : -1;
+          // online softmax a row, its max and sum over the 16 lanes that
+          // share it; the rows' shuffles interleaved, level by level
+          bool vis[kRowsThread][TN];
+          float m_cur[kRowsThread], l_cur[kRowsThread];
+#pragma unroll
+          for (int a = 0; a < kRowsThread; ++a) {
+            m_cur[a] = kNegInf;
+#pragma unroll
+            for (int t = 0; t < TN; ++t) {
+              vis[a][t] = pt[t] >= 0 && pt[t] <= qpr[a] && (window == 0 || qpr[a] - pt[t] < window);
+              float x = s[a][t] * scale;
+              if (softcap > 0.f) x = softcap * tanhf(x * inv_cap);
+              s[a][t] = vis[a][t] ? x : kNegInf;
+              m_cur[a] = fmaxf(m_cur[a], s[a][t]);
+            }
+          }
+#pragma unroll
+          for (int o = kRowLanes / 2; o > 0; o >>= 1)
+#pragma unroll
+            for (int a = 0; a < kRowsThread; ++a)
+              m_cur[a] = fmaxf(m_cur[a], __shfl_xor_sync(kFull, m_cur[a], o));
+#pragma unroll
+          for (int a = 0; a < kRowsThread; ++a) {
+            m_cur[a] = fmaxf(m[a], m_cur[a]);  // the row's new max
+            l_cur[a] = 0.f;
+#pragma unroll
+            for (int t = 0; t < TN; ++t) {
+              // explicit p = 0 on masked entries: with every entry masked
+              // the max stays kNegInf and exp(s - max) would be exp(0) = 1
+              s[a][t] = vis[a][t] ? expf(s[a][t] - m_cur[a]) : 0.f;
+              l_cur[a] += s[a][t];
+            }
+          }
+#pragma unroll
+          for (int o = kRowLanes / 2; o > 0; o >>= 1)
+#pragma unroll
+            for (int a = 0; a < kRowsThread; ++a)
+              l_cur[a] += __shfl_xor_sync(kFull, l_cur[a], o);
+#pragma unroll
+          for (int a = 0; a < kRowsThread; ++a) {
+            const int r = ig + kRowGroups * a;
+            const float alpha = expf(m[a] - m_cur[a]);
+            l[a] = alpha * l[a] + l_cur[a];
+            m[a] = m_cur[a];
+#pragma unroll
+            for (int cv = 0; cv < CV; ++cv)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[a][cv][e] *= alpha;
+            if (r < RT) {
+#pragma unroll
+              for (int t = 0; t < TN; ++t)
+                if (jl + kRowLanes * t < nstep) ps[(size_t)r * kPsLd + jl + kRowLanes * t] = s[a][t];
+            }
+          }
+        };
+        switch ((nstep + kRowLanes - 1) / kRowLanes) {
+          case 1: step(std::integral_constant<int, 1>{}); break;
+          case 2: step(std::integral_constant<int, 2>{}); break;
+          case 3: step(std::integral_constant<int, 3>{}); break;
+          default: step(std::integral_constant<int, kTokThread>{}); break;
+        }
+        __syncthreads();  // the step's p
+        // p . v: rows ig + 16 a, columns 4 (jl + 16 cv) of the slice
+        const float* vb = vf + (tb + u0) * dpad + c0;
+        int u = 0;
+#pragma unroll 1
+        for (; u + 4 <= nstep; u += 4) {
+          float4 pp[kRowsThread];
+#pragma unroll
+          for (int a = 0; a < kRowsThread; ++a) {
+            const int r = ig + kRowGroups * a;
+            pp[a] = r < RT ? *reinterpret_cast<const float4*>(ps + (size_t)r * kPsLd + u)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int cv = 0; cv < CV; ++cv) {
+              const int c = 4 * (jl + kRowLanes * cv);
+              if (c0 + c < dpad) {
+                const float4 vv = *reinterpret_cast<const float4*>(vb + (size_t)(u + k) * dpad + c);
+#pragma unroll
+                for (int a = 0; a < kRowsThread; ++a) fma4(acc[a][cv], comp(pp[a], k), vv);
+              }
+            }
+        }
+        for (; u < nstep; ++u) {
+#pragma unroll
+          for (int cv = 0; cv < CV; ++cv) {
+            const int c = 4 * (jl + kRowLanes * cv);
+            if (c0 + c < dpad) {
+              const float4 vv = *reinterpret_cast<const float4*>(vb + (size_t)u * dpad + c);
+#pragma unroll
+              for (int a = 0; a < kRowsThread; ++a) {
+                const int r = ig + kRowGroups * a;
+                if (r < RT) fma4(acc[a][cv], ps[(size_t)r * kPsLd + u], vv);
+              }
+            }
+          }
+        }
+        if (u0 + kStepTok < ntok) __syncthreads();  // the next step rewrites p
+      }
+      if (g + 2 < n_stages) __syncthreads();  // slot g % 2 is free for stage g + 2
+    }
+
+    // merge: row r goes to block rank r % S, which merges rows rank, rank +
+    // S, ...; each block stores its (m, l, acc) of r into that block's
+    // stage (distributed shared memory: stores do not wait for their round
+    // trip), one cluster.sync publishes them
+    if (sl == 0) cluster_wait();  // every block of the cluster runs
+#pragma unroll
+    for (int a = 0; a < kRowsThread; ++a) {
+      const int r = ig + kRowGroups * a;
+      if (r < RT) {
+        const int owner = r % S;
+        const size_t at = (size_t)rank * L.rs + r / S;
+        float* dst = cluster.map_shared_rank(sta, owner) + at * L.sw;
+#pragma unroll
+        for (int cv = 0; cv < CV; ++cv) {
+          const int c = 4 * (jl + kRowLanes * cv);
+          if (c0 + c < dpad)
+            *reinterpret_cast<float4*>(dst + c) =
+                make_float4(acc[a][cv][0], acc[a][cv][1], acc[a][cv][2], acc[a][cv][3]);
+        }
+        if (jl == 0) {
+          cluster.map_shared_rank(stm, owner)[at] = m[a];
+          cluster.map_shared_rank(stl, owner)[at] = l[a];
+        }
+      }
+    }
+    cluster.sync();
+    // this block's rows, the blocks merged in rank order: a state that saw
+    // nothing (l = 0) weighs 0, never exp(0) = 1; the guarded divide gives
+    // exact zeros where no block saw anything
+    for (int sr = tid >> 5; sr < L.rs; sr += kMThreads / 32) {  // a warp a row
+      if (rank + S * sr >= R) continue;
+      // lane k < S holds block k's state: the largest m by shuffles, l
+      // summed in rank order
+      const bool live = lane < S;
+      const float mk = live ? stm[lane * L.rs + sr] : kNegInf;
+      const float lk = live ? stl[lane * L.rs + sr] : 0.f;
+      float mt = mk;
+#pragma unroll
+      for (int o = kMaxSplits / 2; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, o));
+      const float w = lk > 0.f ? expf(mk - mt) : 0.f;
+      float lt = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxSplits; ++k) lt += __shfl_sync(kFull, w * lk, k);
+      if (live) wts[sr * S + lane] = w;
+      if (lane == 0) lsum[sr] = lt;
+    }
+    __syncthreads();
+    const int width = min(SWC, d - c0);
+    for (int x = tid; x < L.rs * width; x += kMThreads) {
+      const int sr = x / width;
+      const int c = x - sr * width;
+      const int r = rank + S * sr;
+      if (r >= R) continue;
+      float o = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxSplits; ++k)
+        if (k < S) o += wts[sr * S + k] * sta[((size_t)k * L.rs + sr) * L.sw + c];
+      out[row_offset(r) + c0 + c] = from_f32<TQ>(o / fmaxf(lsum[sr], 1e-30f));
+    }
+    // another slice rewrites every block's stage
+    if (sl + 1 < n_sl) cluster.sync();
   }
 }
 
-template <typename TQ, typename TKV>
-void launch_multi(const void* q, const void* k, const void* v, const void* pos,
-                  const void* table, const void* q_pos, const void* k_scale,
-                  const void* v_scale, void* out, int B, int T, int H, int K,
-                  int d, int N, int P, int C, int tq, float scale, int window,
-                  float softcap, size_t smem, cudaStream_t s) {
-  const dim3 grid(B, K, (T + tq - 1) / tq);
-  flash_decode_multi_kernel<TQ, TKV><<<grid, kThreads, smem, s>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+// Launches B9 with plan p; returns the launch's error (a refused cluster
+// launch included).
+template <typename TQ, typename TKV, int CV>
+cudaError_t launch_multi_cv(const void* q, const void* k, const void* v, const void* pos,
+                            const void* table, const void* q_pos, const void* k_scale,
+                            const void* v_scale, void* out, int B, int T, int H, int K, int d,
+                            int N, int P, int C, const MultiPlan& p, float scale, int window,
+                            float softcap, cudaStream_t s) {
+  auto kernel = flash_decode_multi_kernel<TQ, TKV, CV>;
+  // dynamic shared memory above 48 KB: opted in once an instance and device
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev].load(std::memory_order_relaxed)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxDynSmem));
+    if (e != cudaSuccess) return e;
+    opted_in[dev].store(true, std::memory_order_relaxed);
+  }
+  const bool wide = (d * sizeof(TKV)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits * p.tiles * B, K, 1);
+  cfg.blockDim = dim3(kMThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(pos),
       static_cast<const int*>(table), static_cast<const int*>(q_pos),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<TQ*>(out), T, H, K, d, N, P, C, tq, scale, window, softcap);
+      static_cast<TQ*>(out), T, H, K, d, N, P, C, p.tq, p.tiles, p.stage_pages, p.slots,
+      scale, window, softcap, wide);
 }
+
+template <typename TQ, typename TKV>
+cudaError_t launch_multi(const void* q, const void* k, const void* v, const void* pos,
+                         const void* table, const void* q_pos, const void* k_scale,
+                         const void* v_scale, void* out, int B, int T, int H, int K, int d,
+                         int N, int P, int C, const MultiPlan& p, float scale, int window,
+                         float softcap, cudaStream_t s) {
+  return p.cv == 1
+             ? launch_multi_cv<TQ, TKV, 1>(q, k, v, pos, table, q_pos, k_scale, v_scale, out, B,
+                                           T, H, K, d, N, P, C, p, scale, window, softcap, s)
+             : launch_multi_cv<TQ, TKV, 4>(q, k, v, pos, table, q_pos, k_scale, v_scale, out, B,
+                                           T, H, K, d, N, P, C, p, scale, window, softcap, s);
+}
+
+inline int kv_bytes_of(int kv_dtype) { return kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1; }
 
 }  // namespace
 
@@ -814,21 +1335,27 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9's queries per block for these shapes (0: one query's rows do not fit
-// the 48 KB of shared memory), and the shared memory one block then needs.
-extern "C" int repro_flash_decode_multi_rows(int B, int K, int T, int G, int d,
-                                             int P) {
-  return multi_rows(B, K, T, G, d, P);
-}
-
-extern "C" long long repro_flash_decode_multi_smem_bytes(int tq, int G, int d,
-                                                         int P) {
-  return static_cast<long long>(multi_smem_words(tq, G, d, P) * 4);
+// B9's plan for these shapes on the current device (multi_plan; kv_dtype
+// as repro_flash_decode): plan[0..5] = tq, splits, tiles, stage_pages,
+// slots, cv; returns the shared memory a block needs, or, where tq = 0 (the
+// shape cannot be placed), what the smallest layout would need; minus the
+// CUDA error where the device's SM count cannot be read.
+extern "C" long long repro_flash_decode_multi_plan(int B, int K, int T, int G, int d, int P,
+                                                   int C, int kv_dtype, int* plan) {
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  const MultiPlan p = multi_plan(B, K, T, G, d, P, C, kv_bytes_of(kv_dtype), sms);
+  const int v[6] = {p.tq, p.splits, p.tiles, p.stage_pages, p.slots, p.cv};
+  for (int i = 0; i < 6; ++i) plan[i] = v[i];
+  return static_cast<long long>(p.smem);
 }
 
 // q (B, T, H, d), q_pos (B, T), out like q; dtypes and scales as
-// repro_flash_decode.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// repro_flash_decode.  tq and splits 0 take the plan's (else they force
+// it: scripts/torch_decode_probe.py's sweep).  Returns the launch's error or
+// cudaGetLastError() after it (0 on success); cudaErrorInvalidConfiguration,
+// launching nothing, where the plan cannot place the shape.
 extern "C" int repro_flash_decode_multi(const void* q, const void* k,
                                         const void* v, const void* pos,
                                         const void* table, const void* q_pos,
@@ -837,18 +1364,23 @@ extern "C" int repro_flash_decode_multi(const void* q, const void* k,
                                         void* out, int B, int T, int H, int K,
                                         int d, int N, int P, int C,
                                         float scale, int window, float softcap,
-                                        int q_dtype, int kv_dtype,
+                                        int tq, int splits, int q_dtype, int kv_dtype,
                                         void* stream) {
-  const int tq = multi_rows(B, K, T, H / K, d, P);
-  if (tq == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = multi_smem_words(tq, H / K, d, P) * 4;
+  if (tq < 0 || splits < 0 || splits > kMaxSplits || K > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const MultiPlan p =
+      multi_plan(B, K, T, H / K, d, P, C, kv_bytes_of(kv_dtype), sms, tq, splits);
+  if (p.tq == 0 || p.tq * (H / K) > kMaxRows) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(TQ, TKV)                                                \
-  launch_multi<TQ, TKV>(q, k, v, pos, table, q_pos, k_scale, v_scale, out, \
-                        B, T, H, K, d, N, P, C, tq, scale, window, softcap, \
-                        smem, s)
+  cudaError_t err;
+#define REPRO_LAUNCH(TQ, TKV)                                                           \
+  err = launch_multi<TQ, TKV>(q, k, v, pos, table, q_pos, k_scale, v_scale, out, B, T, H, \
+                              K, d, N, P, C, p, scale, window, softcap, s)
   if (q_dtype == 0 && kv_dtype == 0) {
     REPRO_LAUNCH(float, float);
   } else if (q_dtype == 1 && kv_dtype == 1) {
@@ -865,5 +1397,9 @@ extern "C" int repro_flash_decode_multi(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_LAUNCH
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises with this code
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,6 +63,24 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
+// 16 bytes from device memory to shared memory, past L1 (both 16-byte aligned)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// close the group of cp.async this thread started since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+// (groups land in the order they were committed)
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // An mbarrier in shared memory: a phase completes when `count` arrivals
 // have been made and every byte announced by expect_tx has landed (the
 // copies that complete on it).  An arrival releases the arriving thread's

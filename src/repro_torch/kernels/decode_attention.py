@@ -8,15 +8,24 @@ float32, bfloat16 and int8 pools; int8 pools come with ``(N, K)`` float32
 per-page-per-head scales (``k_scale``, ``v_scale``) and are dequantized in
 the kernel as each page is read, as the TPU kernels do under ``kv_quant``.
 B8 splits each slot's pages over a cluster of ``decode_splits(B, K, C)``
-blocks of ``DECODE_WARPS`` warps and merges them in one launch.  The source
-and its design note are ``csrc/decode_attention.cu``.  Each wrapper
-launches its kernel on CUDA tensors or raises, and counts its own launches,
-the int8-pool launches apart (``int8_launches``, ``multi_int8_launches``);
-the plain versions are ``kernels/ref.py::decode_attention_ref`` and
-``decode_attention_multi_ref``, chosen by ``kernels/ops.py`` for CPU
-tensors; ``decode_attention_split_ref`` walks B8's split and merge.
+blocks of ``DECODE_WARPS`` warps and merges them in one launch; B9 gives a
+block a tile of ``tq`` queries (``tq`` x G rows) and splits the tile's
+pages over a cluster of ``splits`` blocks, both chosen by
+the kernel's own ``multi_plan`` (its C entry point
+``repro_flash_decode_multi_plan`` gives the wrapper's refusal;
+``decode_multi_plan`` mirrors it for the CPU tests, and chip_smoke.py
+holds the two equal on the card).  The source and its design note are
+``csrc/decode_attention.cu``.  Each wrapper launches its kernel on CUDA
+tensors or raises, and counts its own launches, the int8-pool launches
+apart (``int8_launches``, ``multi_int8_launches``); the plain versions are
+``kernels/ref.py::decode_attention_ref`` and ``decode_attention_multi_ref``,
+chosen by ``kernels/ops.py`` for CPU tensors;
+``decode_attention_split_ref`` and ``decode_attention_multi_split_ref``
+walk B8's and B9's splits and merges.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +36,16 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 DECODE_WARPS = 4          # warps a B8 block (csrc/decode_attention.cu kWarps)
 MAX_SPLITS = 8            # blocks a B8 cluster: the portable cluster size
-MAX_GRID_Y = 65535        # the grid's second dimension, B8's kv heads
+MAX_GRID_Y = 65535        # the grid's second dimension: kv heads (B8 and B9)
+# B9's plan, mirrored from csrc/decode_attention.cu (kMaxRows, kRowLanes,
+# kPsLd, kSplitFixed, kMaxDynSmem), which owns them
+MULTI_MAX_ROWS = 64       # query rows (tq x G) a block holds
+MULTI_ROW_LANES = 16      # lanes that share a row; a slice is 64 x cv columns
+MULTI_PS_LD = 80          # floats a row of the step's p
+SMS = 132                 # SMs of an H100 SXM (the kernel reads its device's count)
+SPLIT_FIXED = 150         # a B9 block's fixed time in (page, row) pairs of products
+MAX_DYN_SMEM = 232448     # 227 KB: the most shared memory a block may opt in to
+_INVALID_CONFIGURATION = 9   # cudaErrorInvalidConfiguration: the plan cannot place it
 
 launches = 0              # B8 launches over f32/bf16 pools in this process
 multi_launches = 0        # B9 launches over f32/bf16 pools
@@ -100,6 +118,109 @@ def decode_splits(B: int, K: int, C: int) -> int:
     j mod S x DECODE_WARPS).  B and K do not change it: only the table's
     width C does."""
     return max(1, min(MAX_SPLITS, C))
+
+
+class MultiPlan(NamedTuple):
+    """B9's launch plan: ``tq`` queries a tile, ``splits`` blocks a cluster,
+    ``tiles`` tiles over T, the block's pages in ``slots`` slots of
+    ``stage_pages`` pages (two slots: a ring), column slices of 64 x ``cv``
+    and the shared memory a block needs (bytes)."""
+    tq: int
+    splits: int
+    tiles: int
+    stage_pages: int
+    slots: int
+    cv: int
+    smem: int
+
+
+def _up16(n):
+    return (n + 15) // 16 * 16
+
+
+def multi_smem_bytes(R, S, H, slots, d, P, C, kv_bytes, slice_cols):
+    """Shared memory of a B9 block (csrc/decode_attention.cu MultiLayout):
+    page ids, the slots' K (row stride d + 4 floats where d is a multiple
+    of 8) and V in f32, the raw bytes of bf16/int8 pools, positions,
+    scales, q, the step's p and the merge stage, each 16-byte aligned."""
+    dpad = (d + 3) // 4 * 4
+    ldk = dpad + 4 if dpad % 8 == 0 else dpad
+    sw = min(dpad, slice_cols)
+    rs = -(-R // S)
+    row_bytes = _up16(d * kv_bytes)
+    pages = slots * H
+    parts = [-(-C // S) * 4, pages * P * ldk * 4, pages * P * dpad * 4,
+             0 if kv_bytes == 4 else pages * 2 * P * row_bytes, pages * P * 4,
+             pages * 2 * 4, R * dpad * 4, R * MULTI_PS_LD * 4, S * rs * 4, S * rs * 4,
+             S * rs * sw * 4, rs * S * 4, rs * 4]
+    return sum(_up16(n) for n in parts)
+
+
+def _multi_refusal(G, d, P, need):
+    """The ValueError of a shape B9's plan cannot place, with the bytes of
+    shared memory the smallest layout would need."""
+    if G > MULTI_MAX_ROWS:
+        return ValueError(f"flash_decode_multi kernel: G={G} query heads a kv head need "
+                          f"{G} rows and {need} bytes of shared memory for one query; a "
+                          f"block holds {MULTI_MAX_ROWS} rows")
+    return ValueError(f"flash_decode_multi kernel: G={G}, d={d}, P={P} needs {need} bytes "
+                      f"of shared memory for a ring of two one-page slots (at most "
+                      f"{MAX_DYN_SMEM})")
+
+
+def decode_multi_plan(B: int, K: int, T: int, G: int, d: int, P: int, C: int,
+                      kv_bytes: int = 4, sms: int = SMS) -> MultiPlan:
+    """B9's plan on a card of ``sms`` SMs, as the kernel's ``multi_plan``
+    makes it (a mirror for the CPU tests; the wrapper asks the kernel):
+    tiles of at most MULTI_MAX_ROWS rows, balanced over T; the splits S <=
+    min(8, C) that minimise waves(S) x (SPLIT_FIXED S + C tq G), waves(S)
+    = ceil(B K tiles S / sms), so the grid fills the card through the
+    splits while a block's fixed cost still pays for itself; every page a
+    block may own (ceil(C / S)) in one slot where that fits MAX_DYN_SMEM,
+    else a ring of two slots of as many pages as fit.  Raises ValueError,
+    with the bytes the smallest layout would need, where the shape cannot
+    be placed (G > MULTI_MAX_ROWS, or one page a slot does not fit)."""
+    cv = 1 if d <= 64 else 4
+    cols = MULTI_ROW_LANES * 4 * cv
+    T, C = max(T, 1), max(C, 1)
+    if G > MULTI_MAX_ROWS:
+        raise _multi_refusal(G, d, P, multi_smem_bytes(G, 1, 1, 1, d, P, C, kv_bytes, cols))
+    n = -(-T // (MULTI_MAX_ROWS // G))
+    tq = -(-T // n)
+    tiles = -(-T // tq)
+    bkt, work = B * K * tiles, C * tq * G
+    splits, best = 1, None
+    for S in range(1, min(MAX_SPLITS, C) + 1):   # compared as integers, cost = num / S
+        num = -(-(bkt * S) // sms) * (SPLIT_FIXED * S + work)
+        if best is None or num * splits < best * S:
+            splits, best = S, num
+    ppb = -(-C // splits)
+    smem = multi_smem_bytes(tq * G, splits, ppb, 1, d, P, C, kv_bytes, cols)
+    if smem <= MAX_DYN_SMEM:
+        return MultiPlan(tq, splits, tiles, ppb, 1, cv, smem)
+    for h in range(ppb - 1, 0, -1):
+        smem = multi_smem_bytes(tq * G, splits, h, 2, d, P, C, kv_bytes, cols)
+        if smem <= MAX_DYN_SMEM:
+            return MultiPlan(tq, splits, tiles, h, 2, cv, smem)
+    raise _multi_refusal(G, d, P, multi_smem_bytes(tq * G, splits, 1, 2, d, P, C, kv_bytes,
+                                                   cols))
+
+
+def kernel_multi_plan(B: int, K: int, T: int, G: int, d: int, P: int, C: int,
+                      kv_bytes: int = 4) -> MultiPlan:
+    """B9's plan as the kernel makes it on the current CUDA device (the C
+    entry point ``repro_flash_decode_multi_plan``); raises ValueError where
+    it cannot place the shape, as :func:`decode_multi_plan` does."""
+    import ctypes
+
+    got = (ctypes.c_int * 6)()
+    smem = build.library().repro_flash_decode_multi_plan(
+        B, K, T, G, d, P, C, {4: 0, 2: 1, 1: 2}[kv_bytes], got)
+    if smem < 0:
+        build.check(-smem, "flash_decode_multi plan")
+    if got[0] == 0:
+        raise _multi_refusal(G, d, P, smem)
+    return MultiPlan(*got, smem)
 
 
 def _ptr(t):
@@ -175,7 +296,8 @@ def flash_decode_multi(
     q_pos[b, t] (and inside the window); the chunk must already be written
     into the pages.  Query head h reads kv head h // G.  Page ids are
     clamped to [0, N - 1]; rows with q_pos < 0 are zeros.  Int8 pools as in
-    :func:`flash_decode`.
+    :func:`flash_decode`.  Any T, G <= 64, d and P that the kernel's plan
+    can place (:func:`kernel_multi_plan`); at most 65535 kv heads.
     """
     global multi_launches, multi_int8_launches
     B, H, d = _check("flash_decode_multi", q, k_pages, v_pages, pos_pages,
@@ -183,13 +305,10 @@ def flash_decode_multi(
     T = q.shape[1]
     N, P, K, _ = k_pages.shape
     C = page_table.shape[-1]
+    if K > MAX_GRID_Y:
+        raise ValueError(f"flash_decode_multi kernel: K={K} kv heads, at most "
+                         f"{MAX_GRID_Y} (the grid's second dimension)")
     lib = build.library()
-    if lib.repro_flash_decode_multi_rows(max(B, 1), K, max(T, 1), H // K, d,
-                                         P) == 0:
-        smem = lib.repro_flash_decode_multi_smem_bytes(1, H // K, d, P)
-        raise ValueError(f"flash_decode_multi kernel: G={H // K}, d={d}, "
-                         f"P={P} needs {smem} bytes of shared memory for one "
-                         f"query (at most 49152)")
     out = torch.empty_like(q)
     if B == 0 or T == 0 or C == 0:
         return out.zero_()
@@ -198,9 +317,11 @@ def flash_decode_multi(
         pos_pages.data_ptr(), page_table.data_ptr(), q_pos.data_ptr(),
         _ptr(k_scale), _ptr(v_scale),
         out.data_ptr(), B, T, H, K, d, N, P, C, float(scale), int(window),
-        float(softcap), _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
+        float(softcap), 0, 0, _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype],
         build.stream(q),
     )
+    if err == _INVALID_CONFIGURATION:   # the plan's own refusal, with the bytes it needs
+        kernel_multi_plan(B, K, T, H // K, d, P, C, k_pages.element_size())
     build.check(err, "flash_decode_multi kernel")
     if k_scale is None:
         multi_launches += 1

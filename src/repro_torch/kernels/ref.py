@@ -363,7 +363,8 @@ def decode_attention_ref(
 
 def _merge_states(states):
     """Merge (m, l, acc) online-softmax states in the order given, as B8
-    merges its warps and blocks: the largest m first, then each state's l
+    merges its warps and blocks and B9 its blocks (any leading shape of m
+    and l, acc with one more axis): the largest m first, then each state's l
     and acc weighed by exp(m_i - m) in turn; a state that saw no visible
     entry (l = 0) weighs 0, never exp(0) = 1."""
     m = states[0][0]
@@ -454,6 +455,7 @@ def decode_attention_multi_ref(
     softcap: float = 0.0,
     k_scale=None,               # (N, K) f32 per-page-per-head scales (int8 pools)
     v_scale=None,
+    acc_dtype=torch.float32,    # the float type the products and sums run in
 ) -> torch.Tensor:
     """Multi-query attention over a paged KV cache (the chunked-prefill and
     speculative-verify oracle); int8 pools as in :func:`decode_attention_ref`.
@@ -462,7 +464,13 @@ def decode_attention_multi_ref(
     entry is visible to row t iff pos >= 0, pos <= q_pos[:, t] and
     (windowed) q_pos[:, t] - pos < window.  Rows with q_pos = -1 give exact
     zeros.  The engine writes the chunk into the pages before attending, so
-    the same rule gives causality within the chunk.
+    the same rule gives causality within the chunk.  ``acc_dtype`` float64
+    runs the same function past f32's rounding (the pages dequantized in
+    f32 first, as the kernel does): the card's checks measure both B9 and
+    the f32 plain version against it, and hold B9 to it only where the f32
+    plain version misses the tier and is the farther of the two (d_head 256
+    over int8 pools, outputs up to ~10, brings the f32 logits' own rounding
+    near the tier).
     """
     B, T, H, d = q.shape
     N, P, K, _ = k_pages.shape
@@ -470,14 +478,14 @@ def decode_attention_multi_ref(
     G = H // K
     tab = page_table.long().clamp(0, N - 1)
     k, v = _gather_kv(k_pages, v_pages, tab, k_scale, v_scale)
-    k = k.reshape(B, C * P, K, d)
-    v = v.reshape(B, C * P, K, d)
+    k = k.reshape(B, C * P, K, d).to(acc_dtype)
+    v = v.reshape(B, C * P, K, d).to(acc_dtype)
     pos = pos_pages[tab].reshape(B, C * P)[:, None, :]      # (B, 1, CP)
     qp = q_pos[:, :, None]                                  # (B, T, 1)
     mask = (pos >= 0) & (pos <= qp)
     if window:
         mask &= (qp - pos) < window
-    qg = q.reshape(B, T, K, G, d).float()
+    qg = q.reshape(B, T, K, G, d).float().to(acc_dtype)
     logits = torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
@@ -487,6 +495,70 @@ def decode_attention_multi_ref(
     p = torch.where(m, p, torch.zeros_like(p))
     out = torch.einsum("bkgts,bskd->btkgd", p, v)
     return out.reshape(B, T, H, d).to(q.dtype)
+
+
+def decode_attention_multi_split_ref(
+    q: torch.Tensor,            # (B, T, H, d) — T queries per decode slot
+    k_pages: torch.Tensor,      # (N, P, K, d) — paged KV pool
+    v_pages: torch.Tensor,      # (N, P, K, d)
+    pos_pages: torch.Tensor,    # (N, P) int32 token positions; -1 = empty
+    page_table: torch.Tensor,   # (B, C) int32 page ids per slot
+    q_pos: torch.Tensor,        # (B, T) int32 per-query positions; -1 = masked
+    *,
+    scale,
+    tq: int,
+    splits: int,
+    window: int = 0,
+    softcap: float = 0.0,
+    k_scale=None,               # (N, K) f32 per-page-per-head scales (int8 pools)
+    v_scale=None,
+) -> torch.Tensor:
+    """:func:`decode_attention_multi_ref` computed the way B9 splits it (a
+    test oracle, not on any path): the T queries in tiles of ``tq``; a
+    tile's live pages, n_live = min(C, max q_pos of the tile // P + 1),
+    dealt to ``splits`` blocks, page j to block j mod splits.  Each block
+    keeps one online-softmax state (m, l, acc) per (kv head, query, head of
+    the group) over its pages, one page at a time (the kernel goes by steps
+    of 64 tokens: the same function up to rounding); the blocks merge in
+    rank order (:func:`_merge_states`, over (K, tq, G) rows), and the
+    guarded divide gives exact zeros where nothing was visible."""
+    B, T, H, d = q.shape
+    N, P, K, _ = k_pages.shape
+    C = page_table.shape[1]
+    G = H // K
+    tab = page_table.long().clamp(0, N - 1)
+    k, v = _gather_kv(k_pages, v_pages, tab, k_scale, v_scale)   # (B, C, P, K, d)
+    pos = pos_pages[tab]                                          # (B, C, P)
+    qg = q.reshape(B, T, K, G, d).float().permute(0, 2, 1, 3, 4)  # (B, K, T, G, d)
+    out = torch.zeros(B, K, T, G, d)
+    for b in range(B):
+        for t0 in range(0, T, tq):
+            qp = q_pos[b, t0:t0 + tq].long()                      # (nt,)
+            nt = qp.shape[0]
+            qmax = int(qp.max())
+            n_live = min(C, qmax // P + 1) if qmax >= 0 else 0
+            empty = (torch.full((K, nt, G), NEG_INF), torch.zeros(K, nt, G),
+                     torch.zeros(K, nt, G, d))
+            state = [empty] * splits
+            for j in range(n_live):
+                m, l, acc = state[j % splits]
+                s = torch.einsum("kigd,pkd->kigp", qg[b, :, t0:t0 + nt], k[b, j]) * scale
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                t = pos[b, j][None, :]                            # (1, P)
+                vis = (t >= 0) & (t <= qp[:, None])               # (nt, P)
+                if window:
+                    vis &= (qp[:, None] - t) < window
+                vis = vis[None, :, None, :]
+                s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.where(vis, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+                alpha = torch.exp(m - m_new)
+                state[j % splits] = (m_new, alpha * l + p.sum(-1), acc * alpha[..., None]
+                                     + torch.einsum("kigp,pkd->kigd", p, v[b, j]))
+            _, l, acc = _merge_states(state)
+            out[b, :, t0:t0 + nt] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, d).to(q.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -695,4 +695,4 @@ def test_int8_kernel_cases_of_the_chip_smoke():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.check_int8_decode_cases(ops)
-    smoke.check_int8_multi_cases(ops)
+    smoke.check_int8_multi_cases(ops, da)
