@@ -7,13 +7,16 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once) and checks what the compiler made of
 B8's twelve instances (six (q, pool) type pairs, with and without 16-byte
 loads: registers printed, no spills in ``ptxas -v``), of B9's twelve (six
-type pairs, 64- and 256-column slices: the same) and of the
+type pairs, 64- and 256-column slices: the same), of the
 tensor-core flash kernels (B5, B6 and B7 in the bf16 operand mode): no spills
-in ``ptxas -v`` at DP 64 and 128, and, where ``cuobjdump`` is on the
-machine, tensor-core instructions (HMMA/HGMMA) in their SASS, whose counts
-of HMMA, HGMMA, LDSM, LDGSTS and UTMALDG it prints for every flash kernel
-("not available" without the tool).  Then it runs these phases, each of
-which raises on a failed check:
+in ``ptxas -v`` at DP 64 and 128, and of the int8 backward (its pre-pass
+and B6, B7 on the s8 tensor cores: registers printed, no spills in B6 or
+B7), and, where ``cuobjdump`` is on the machine, tensor-core instructions
+in their SASS (HMMA/HGMMA in the bf16 kernels; IMMA and no IDP.4A in B6
+and B7 int8), whose counts of HMMA, HGMMA, IMMA, IDP, LDSM, LDGSTS and
+UTMALDG it prints for every flash kernel ("not available" without the
+tool).  Then it runs these phases, each of which raises on a failed
+check:
 
 - kernels: each kernel against its plain PyTorch version on the card, with
   its time, the plain version's, a PyTorch library call's and the bound.
@@ -44,12 +47,22 @@ which raises on a failed check:
   f32-mode outputs must fail against the bf16 plain versions and the int8
   outputs against the int8 plain versions tiled 64 wide (where S > 64:
   shorter sequences have no other tiles); dk/dv
-  bit-identical when repeated; then ops.attention's autograd Function in
+  bit-identical when repeated; in the int8 mode the backward's pre-pass
+  (flash_attention.quantize_bwd: q, k, v and do quantized once a call,
+  per row over d and per column over each 128-row tile) byte for byte
+  against its plain version (ref.flash_quant_bwd_ref), and whether each
+  int8 output equals its plain version bit for bit printed; then
+  ops.attention's autograd Function in
   the f32 mode against the plain attention under autograd (the f32 tiers);
   each mode timed at the train shape, the bf16 and int8 kernels with their
   device time per launch, B5, B6, B7 and B6 + B7 in the bf16 mode against
   SDPA's bf16 forward and backward alone (printed ratios; the targets are
-  <= 3x, <= 0.75x, <= 1x and <= 1.3x, not held); B8 paged flash decode,
+  <= 3x, <= 0.75x, <= 1x and <= 1.3x, not held); the int8 backward's
+  pre-pass, B6 and B7 (each device time apart: B6's and B7's do not count
+  the pre-pass their calls run) and the whole backward as ops.attention
+  runs it (one pre-pass, B6, B7), each beside its bound and its share of
+  it, and SDPA's bf16 backward on the card for scale (targets <= 40, 100,
+  120 and 260 us, printed, not held); B8 paged flash decode,
   split over a cluster of decode_splits() blocks (DECODE_CASES, 17 cases:
   engine shape, MHA/MQA, window, softcap, all four f32/bf16 (q, pool)
   pairs, d_head 128, d_head 256 with gemma2-2b's 8/4 heads in f32 and
@@ -147,8 +160,9 @@ which raises on a failed check:
   step with the kernels equals it (INT8_* below), where two controls, the
   bf16-mode kernels and the int8 plain versions tiled 64 wide, must fail
   the loss limit; step 0 of the loop within a limit the f32 run fails;
-  exact launch counts per step (8 each of B5, B6 and B7 in the int8 mode,
-  none in the others, 17 B1, 17 B2, 1 B3, 1 B4); the mean of the last 3
+  exact launch counts per step (8 each of B5, B6 and B7 in the int8 mode
+  and 8 of the backward's pre-pass, none in the others, 17 B1, 17 B2, 1
+  B3, 1 B4); the mean of the last 3
   losses against the f32 run's is printed (the reference's bar is 1%; not
   held on the card).
 - profile: torch.profiler over a short serve through each engine, a short
@@ -1396,6 +1410,16 @@ def flash_case(ops, fa, ref, quant, case, seed):
                 e[name] = check_close(f"{what} {name}", g, w, *GRAD_TOL[torch.float32])
             else:
                 e[name], e[name + "_mean"] = check_rounded(what, name, g, w, limits)
+        if mode == "int8":   # the backward's pre-pass, byte for byte
+            got_ops = fa.quantize_bwd(qs, k, v, do)
+            want_ops = ref.flash_quant_bwd_ref(qs, k, v, do)
+            differ = [n for n in fa.I8_FIELDS if not torch.equal(got_ops[n], want_ops[n])]
+            if differ:
+                raise AssertionError(f"{what}: the pre-pass differs from its plain version "
+                                     f"in {differ}")
+            e["bit_equal"] = {n: torch.equal(g, w) for n, g, w in
+                              zip(FLASH_OUTS, got[mode], want)}
+            del got_ops, want_ops
         again = fa.flash_bwd_dkv(qs, k, v, do, got[mode][1], delta, policy=policy, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got[mode][3:], again)):
             raise AssertionError(f"{what}: dk/dv differ between two calls")
@@ -1459,6 +1483,10 @@ def flash_case(ops, fa, ref, quant, case, seed):
                  + f"; {mode} through ops.attention against the policy's plain attention, "
                  "max " + ", ".join(f"{n} {c:.3g}" for n, c in
                                     zip(("o", "dq", "dk", "dv"), e1["vs_policy_plain"])))
+        if "bit_equal" in e1:
+            text += ("; int8 pre-pass bytes and scales equal to its plain version; outputs "
+                     "bit-equal to the plain versions: "
+                     + ", ".join(f"{n} {'yes' if b else 'no'}" for n, b in e1["bit_equal"].items()))
     log(text)
     return out
 
@@ -1542,6 +1570,8 @@ def flash_phase(ops, fa, ref, quant, F):
         torch.cuda.empty_cache()
     log(f"[kernels] SDPA bf16 causal (8, 16, 512, 64): forward {lib_fwd:.4f} ms, "
         f"backward {lib_bwd:.4f} ms, forward + backward {lib_fwd_bwd:.4f} ms")
+    prepass = int8_backward_timing(fa, ref, quant, qs, k, v, do, errs, timed["int8"],
+                                   (qb, kb, vb, dob, ob))
     bt = timed["bf16"]["ms"]
     ratios = {"flash_fwd": bt["flash_fwd"] / lib_fwd, "flash_bwd_dq": bt["flash_bwd_dq"] / lib_bwd,
               "flash_bwd_dkv": bt["flash_bwd_dkv"] / lib_bwd}
@@ -1592,9 +1622,76 @@ def flash_phase(ops, fa, ref, quant, F):
             bound_ms=i8["bound"][n][0], bound_by=i8["bound"][n][1], library_ms=None,
             library="none: no PyTorch call computes int8-operand attention",
             sdpa_bf16_ms_for_scale=lib_ms,
+            share_of_bound=(i8["bound"][n][0] * 1e3 / i8["device_us"][n]),
             **dict(common, shape="q, k, v, do (8, 512, 16, 64) f32, causal; int8 operands "
                                  "(the --amp int8 path)")))
+    out.append(prepass)
     return out
+
+
+def int8_backward_timing(fa, ref, quant, qs, k, v, do, errs, i8, sdpa):
+    """The int8 backward at the train shape: the pre-pass (its call, its
+    device time, its plain version's, its bytes bound), B6 and B7 on its
+    bytes (device us from i8, which counts neither's pre-pass), and the
+    whole as ops.attention runs it (one pre-pass, B6, B7), beside SDPA's
+    bf16 backward on the card for scale.  Returns the pre-pass's kernel
+    row."""
+    pol = quant.QuantPolicy("int8")
+    kw = dict(causal=True, policy=pol)
+    o, lse = fa.flash_fwd(qs, k, v, **kw)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    got, want = fa.quantize_bwd(qs, k, v, do), ref.flash_quant_bwd_ref(qs, k, v, do)
+    err = max(float((got[n].float() - want[n].float()).abs().max()) for n in fa.I8_FIELDS)
+    out_bytes = sum(t.numel() * t.element_size() for t in got.values())
+    in_bytes = 4 * qs.numel() * qs.element_size()
+    # f32 work: ~4 operations (abs-max, divide, round, clamp) a value and
+    # quantization, per row for q, do, k, v and per column for q, do, k
+    pre_bound = bound(in_bytes + out_bytes, 4 * (4 * qs.numel() + 3 * qs.numel()))
+    pre_ms = cuda_ms(lambda: fa.quantize_bwd(qs, k, v, do))
+    pre_dev = device_us(lambda: fa.quantize_bwd(qs, k, v, do), "flash_bwd_quant_int8")
+    pre_plain = cuda_ms(lambda: ref.flash_quant_bwd_ref(qs, k, v, do), n=20)
+    del got, want
+    bwd = lambda: fa.flash_bwd(qs, k, v, do, lse, delta, **kw)   # noqa: E731
+    bwd_ms = cuda_ms(bwd)
+    bwd_dev, bwd_launches = library_device_us(bwd)
+    B, S, H, d = qs.shape
+    pairs = B * H * S * (S + 1) // 2
+    io, rows = qs.numel() * 4, B * H * S * 4
+    bwd_bound = bound(4 * io + 2 * rows + 3 * io, 14 * d * pairs, INT8_TC_OP_PER_S)
+    qb, kb, vb, dob, ob = sdpa
+    sdpa_dev, _ = library_device_us(
+        lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True))
+    dev = i8["device_us"]
+    log(f"[kernels] int8 backward at (8, 512, 16, 64) causal f32: pre-pass {pre_ms:.4f} ms a "
+        f"call, {pre_dev:.2f} us on the card (bound {pre_bound[0] * 1e3:.2f} us by "
+        f"{pre_bound[1]}, {pre_bound[0] * 1e3 / pre_dev:.1%} of it; plain {pre_plain:.4f} ms; "
+        f"{(in_bytes + out_bytes) / 1e6:.1f} MB moved; target <= 40 us); B6-int8 "
+        f"{dev['flash_bwd_dq']:.2f} us on the card (bound "
+        f"{i8['bound']['flash_bwd_dq'][0] * 1e3:.2f}, "
+        f"{i8['bound']['flash_bwd_dq'][0] * 1e3 / dev['flash_bwd_dq']:.1%}; target <= 100); "
+        f"B7-int8 {dev['flash_bwd_dkv']:.2f} us (bound "
+        f"{i8['bound']['flash_bwd_dkv'][0] * 1e3:.2f}, "
+        f"{i8['bound']['flash_bwd_dkv'][0] * 1e3 / dev['flash_bwd_dkv']:.1%}; target <= 120); "
+        f"the whole (flash_bwd: pre-pass + B6 + B7) {bwd_ms:.4f} ms a call, {bwd_dev:.2f} us on "
+        f"the card in {bwd_launches:.0f} launches (bound {bwd_bound[0] * 1e3:.2f} us by "
+        f"{bwd_bound[1]}, {bwd_bound[0] * 1e3 / bwd_dev:.1%}; target <= 260); SDPA's bf16 "
+        f"backward {sdpa_dev:.2f} us on the card, for scale (not int8); targets printed, "
+        f"not held")
+    return dict(
+        name="flash_bwd_quant_int8", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/quant/core.py:31 quantize_int8 inside kernel_dot (:63-67), "
+                 "hoisted out of B6/B7's tile loops (src/repro/kernels/flash_attention.py"
+                 ":158, :194); no TPU kernel of its own",
+        max_abs_err=err, ms=pre_ms, device_us=pre_dev, plain_ms=pre_plain,
+        bound_ms=pre_bound[0], bound_by=pre_bound[1], library_ms=None,
+        library="none: no PyTorch call quantizes along both axes",
+        share_of_bound=pre_bound[0] * 1e3 / pre_dev,
+        shape="q, k, v, do (8, 512, 16, 64) f32 -> 7 int8 tensors and their scales",
+        int8_backward=dict(ms=bwd_ms, device_us=bwd_dev, launches=bwd_launches,
+                           bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                           sdpa_bf16_backward_device_us=sdpa_dev),
+        bit_equal_at_train_shape=errs["train shape"]["int8"]["bit_equal"])
 
 
 # ---------------------------------------------------------------------------
@@ -1723,7 +1820,8 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
             "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (steps + R), "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0}
+            "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
+                "flash_bwd_quant_int8": 0}
     log(f"[serve] kernels: {steps} steps, launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -1857,7 +1955,8 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
             "rmsnorm": (2 * L + 1) * (n_chunk + n_dec), "rmsnorm_bwd": 0,
             "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0,
-            "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0}
+            "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
+                "flash_bwd_quant_int8": 0}
     log(f"[serve_dynamic] kernels: {out_k['steps']} steps, {n_chunk} chunk forwards, "
         f"{n_dec} decode steps; launches {launches}, expected {want}")
     if launches != want:
@@ -1987,7 +2086,8 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
                 "ce_bwd": 0, "flash_decode": 0, "flash_decode_multi": 0,
                 "flash_decode_int8": L * n_dec, "flash_decode_multi_int8": L * n_chunk,
                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0}
+                "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
+                "flash_bwd_quant_int8": 0}
 
     # warm-up outside the counted runs
     DynamicEngine(kern, EngineConfig(prefill_chunk=CH, prefix_cache=True, n_slots=2,
@@ -2147,6 +2247,7 @@ PORT_KERNELS = {
     "flash_fwd_int8": ("flash_fwd_i8_kernel<",),
     "flash_bwd_dq_int8": ("flash_bwd_dq_i8_kernel<",),
     "flash_bwd_dkv_int8": ("flash_bwd_dkv_i8_kernel<",),
+    "flash_bwd_quant_int8": ("flash_quant_i8_kernel<",),
 }
 
 
@@ -2440,7 +2541,7 @@ def train_phase(ops, quant, amp="", control_losses=None):
                 "flash_decode_multi_int8": 0, "flash_fwd": n_attn,
                 "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
                 "flash_fwd_int8": n_int8, "flash_bwd_dq_int8": n_int8,
-                "flash_bwd_dkv_int8": n_int8}
+                "flash_bwd_dkv_int8": n_int8, "flash_bwd_quant_int8": n_int8}
     want = {k: v * STEPS for k, v in per_step.items()}
     log(f"{tag} kernels: launches {launches}, expected {want}")
     if launches != want:
@@ -2557,17 +2658,23 @@ def train_profile_phase(amp=""):
 FLASH_KERNEL_IDS = ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_fwd_i8_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dq_i8_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
-                    "flash_bwd_dkv_i8_kernel")
-SASS_OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG")
+                    "flash_bwd_dkv_i8_kernel", "flash_quant_i8_kernel")
+# B6 and B7 in the int8 mode (on the s8 tensor cores; templated on DP
+# alone: they read the pre-pass's bytes) and the pre-pass
+I8_KERNELS = ("flash_bwd_dq_i8_kernel", "flash_bwd_dkv_i8_kernel", "flash_quant_i8_kernel")
+SASS_OPS = ("HMMA", "HGMMA", "IMMA", "IDP", "LDSM", "LDGSTS", "UTMALDG")
 
 
 def flash_instance(mangled):
-    """'kernel<storage, DP>' for a mangled flash kernel name, else None (the
-    identifier is length-prefixed in the mangled name)."""
+    """'kernel<storage, DP>' (or 'kernel<DP>') for a mangled flash kernel
+    name, else None (the identifier is length-prefixed in the mangled
+    name)."""
     kern = next((k for k in FLASH_KERNEL_IDS if f"{len(k)}{k}I" in mangled), None)
     dp = re.search(r"Li(\d+)E", mangled)
     if kern is None or dp is None:
         return None
+    if f"{len(kern)}{kern}ILi" in mangled:
+        return f"{kern}<{dp.group(1)}>"
     return f"{kern}<{'float' if f'{kern}If' in mangled else 'bf16'}, {dp.group(1)}>"
 
 
@@ -2601,6 +2708,25 @@ def tc_resources(build_log):
     spilled = {k: v for k, v in out.items() if v[1]}
     if spilled:
         raise AssertionError(f"tensor-core flash kernels spill: {spilled}")
+    return out
+
+
+def i8_resources(build_log):
+    """{instance: (registers, spill bytes)} of the int8 backward's kernels
+    (B6 and B7 at DP 64 and 128, the pre-pass in f32 and bf16 at each) from
+    ``ptxas -v``; raise if one is missing or B6 or B7 spills."""
+    out = {}
+    for name, rs in ptxas_entries(build_log).items():
+        inst = flash_instance(name)
+        if inst and inst.split("<")[0] in I8_KERNELS:
+            out[inst] = rs
+    log("[build] int8 backward kernels (registers, spill bytes): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    if len(out) != 2 * 2 + 2 * 2:
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, not every int8 backward kernel")
+    spilled = {k: v for k, v in out.items() if v[1] and not k.startswith("flash_quant")}
+    if spilled:
+        raise AssertionError(f"B6/B7 int8 kernels spill: {spilled}")
     return out
 
 
@@ -2707,6 +2833,13 @@ def sass_check(lib_path):
     none = [k for k, c in tc.items() if c["HMMA"] + c["HGMMA"] == 0]
     if none:
         raise AssertionError(f"no tensor-core instruction in {none}")
+    i8 = {k: c for k, c in counts.items() if k.split("<")[0] in I8_KERNELS[:2]}
+    if len(i8) != 2 * 2:
+        raise AssertionError(f"cuobjdump ({tool}) shows {sorted(i8)}, not every int8 B6/B7")
+    wrong = [k for k, c in i8.items() if c["IMMA"] == 0 or c["IDP"]]
+    if wrong:
+        raise AssertionError(f"int8 B6/B7 not on the s8 tensor cores (IMMA, no IDP.4A): "
+                             f"{ {k: i8[k] for k in wrong} }")
     return counts
 
 
@@ -2747,6 +2880,7 @@ def main():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
     tc_regs = tc_resources(build.build_log)
+    i8_regs = i8_resources(build.build_log)
     b8_regs = decode_resources(build.build_log)
     b9_regs = multi_resources(build.build_log)
     sass = sass_check(build.library_path())
@@ -2806,7 +2940,8 @@ def main():
                 "flash_decode_multi_int8": ("serve_int8",),
                 "flash_fwd_int8": ("train_amp_int8",),
                 "flash_bwd_dq_int8": ("train_amp_int8",),
-                "flash_bwd_dkv_int8": ("train_amp_int8",)}.get(row["name"])
+                "flash_bwd_dkv_int8": ("train_amp_int8",),
+                "flash_bwd_quant_int8": ("train_amp_int8",)}.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
         if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2814,6 +2949,13 @@ def main():
             row["registers_spills"] = {k: v for k, v in tc_regs.items() if k.startswith(tc)}
             row["sass"] = (None if sass is None else
                            {k: v for k, v in sass.items() if k.startswith(tc)})
+        if row["name"] in ("flash_bwd_dq_int8", "flash_bwd_dkv_int8", "flash_bwd_quant_int8"):
+            kern = {"flash_bwd_dq_int8": "flash_bwd_dq_i8_kernel",
+                    "flash_bwd_dkv_int8": "flash_bwd_dkv_i8_kernel",
+                    "flash_bwd_quant_int8": "flash_quant_i8_kernel"}[row["name"]]
+            row["registers_spills"] = {k: v for k, v in i8_regs.items() if k.startswith(kern)}
+            row["sass"] = (None if sass is None else
+                           {k: v for k, v in sass.items() if k.startswith(kern)})
         if row["name"] in ("flash_decode", "flash_decode_int8"):
             row["registers_spills"] = b8_regs
         if row["name"] in ("flash_decode_multi", "flash_decode_multi_int8"):

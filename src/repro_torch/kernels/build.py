@@ -59,6 +59,13 @@ _SIGNATURES = {
     "repro_flash_fwd": ((_P,) * 5 + _FLASH_ARGS, _I),
     "repro_flash_bwd_dq": ((_P,) * 7 + _FLASH_ARGS, _I),
     "repro_flash_bwd_dkv": ((_P,) * 8 + _FLASH_ARGS, _I),
+    # the int8 backward: its pre-pass (q, k, v, do, the array of the 14
+    # quantized buffers; B, S, T, H, K, d, dtype, stream), then B6 and B7 on
+    # those buffers (the array, lse, delta, outputs; B, S, T, H, K, d,
+    # scale, causal, window, softcap, stream)
+    "repro_flash_quant_i8": ((_P,) * 5 + (_I,) * 7 + (_P,), _I),
+    "repro_flash_bwd_dq_i8": ((_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _F, _P), _I),
+    "repro_flash_bwd_dkv_i8": ((_P,) * 5 + (_I,) * 6 + (_F, _I, _I, _F, _P), _I),
     "repro_error_string": ((_I,), ctypes.c_char_p),
 }
 

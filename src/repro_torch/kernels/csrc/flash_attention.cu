@@ -30,11 +30,15 @@
 //   2 = int8: a is quantized per row and b per column over the contraction
 //       axis (scale = absmax / 127 by IEEE division, q = rint(x / max(scale,
 //       1e-12)) half to even, clipped to +-127), the int8 products summed
-//       exactly in int32 (__dp4a on four packed bytes), then (float)acc *
-//       sa * sb in that order (quant/core.py:31-41, :63-67).  q k^T and do
-//       v^T take their scales over d; p v and ds k over the tile's keys;
-//       p^T do and ds^T q over the tile's queries.  So k, q, do and v are
-//       each quantized along two axes inside one kernel.  The *_i8_kernel.
+//       exactly in int32, then (float)acc * sa * sb in that order
+//       (quant/core.py:31-41, :63-67).  q k^T and do v^T take their scales
+//       over d; p v and ds k over the tile's keys; p^T do and ds^T q over
+//       the tile's queries.  B5: flash_fwd_i8_kernel (__dp4a on four
+//       packed bytes, q, k and v quantized inside the block).  B6 and B7:
+//       flash_quant_i8_kernel quantizes q, k, v and do once a call along
+//       every axis the two need, then flash_bwd_dq_i8_kernel and
+//       flash_bwd_dkv_i8_kernel multiply on the s8 tensor cores (mma.sync
+//       m16n8k32; their note is above the pre-pass).
 // Storage: q, k, v, do in f32 or bf16 (all one type); o in q's type; lse,
 // dq, dk, dv in f32.
 //
@@ -56,7 +60,7 @@
 // its time in moving and rounding tiles and in the softmax's exp, not in
 // its products.
 //
-// Design of the FFMA and int8 kernels (modes 0 and 2):
+// Design of the FFMA kernels and B5's int8 kernel (modes 0 and 2):
 //  - 256 threads as a 16 x 16 grid.  In a score tile of 64 rows by 64 or
 //    128 columns (queries by keys; B7 keys by queries) each thread owns rows
 //    ty + 16 i and columns tx + 16 j, and a 4 x d/16 block of the output
@@ -72,12 +76,12 @@
 //    warp fall in different banks): B5 q, k and v with the p tile over k's
 //    space once s is formed, 83 KB at DP = 64 and 165 KB at DP = 128; B6 q,
 //    do, k, v and the ds tile, 83 KB; B7 k, v, q, do, p^T and ds^T, 100 KB.
-//    int8 mode: the quantized operands as int8 rows with a one-word pad (a
-//    128 x 128 int8 tile is 16.5 KB) and their scales; no f32 copy is kept
-//    (rows are quantized by one warp each straight from device memory,
-//    columns in two passes over it): B5 32 / 53 KB, B6 46 / 79 KB, B7 64 /
-//    106 KB at DP = 64 / 128.  Most are above 48 KB, so each launch opts in
-//    to dynamic shared memory.
+//    B5's int8 mode: the quantized operands as int8 rows with a one-word
+//    pad (a 128 x 128 int8 tile is 16.5 KB) and their scales; no f32 copy
+//    is kept (rows are quantized by one warp each straight from device
+//    memory, columns in two passes over it): 32 / 53 KB at DP = 64 / 128.
+//    Most are above 48 KB, so each launch opts in to dynamic shared
+//    memory.
 //  - Reductions: the row max and row sum of a score tile, and an int8 row's
 //    absmax, by warp shuffles; every dot product in a fixed order.  In the
 //    int8 mode the f32 steps before a quantization round as the reference
@@ -157,8 +161,10 @@
 // warpgroups (one's softmax under the other's products); warp
 // specialisation with setmaxnreg (a producer warpgroup that stages and
 // rounds); bf16 storage copied straight into swizzled bf16 tiles; TMA
-// multicast of a k/v tile to the q tiles of a cluster; s8 mma (m16n8k32)
-// for the int8 mode.
+// multicast of a k/v tile to the q tiles of a cluster; B5's int8 mode on
+// s8 mma over the pre-pass's row-quantized q and k (the forward quantizes
+// them on the same axes; v per column over each key tile would be the one
+// new output).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -770,18 +776,6 @@ template <int DP> constexpr size_t fwd_i8_smem_bytes() {
        + smem_piece(4 * kBQ) + smem_piece(4 * kI8) + smem_piece(4 * DP)
        + smem_piece(4 * kThreads);
 }
-template <int DP> constexpr size_t dq_i8_smem_bytes() {
-  return 2 * smem_piece(4 * kBQ * ldw<DP>()) + 2 * smem_piece(4 * kI8 * ldw<DP>())
-       + smem_piece(4 * DP * kLTW) + smem_piece(4 * kBQ * kLTW)
-       + 2 * smem_piece(4 * kBQ) + 2 * smem_piece(4 * kI8) + smem_piece(4 * DP)
-       + smem_piece(4 * kThreads);
-}
-template <int DP> constexpr size_t dkv_i8_smem_bytes() {
-  return 2 * smem_piece(4 * kBK * ldw<DP>()) + 2 * smem_piece(4 * kI8 * ldw<DP>())
-       + 2 * smem_piece(4 * DP * kLTW) + 2 * smem_piece(4 * kBK * kLTW)
-       + 2 * smem_piece(4 * kBK) + 4 * smem_piece(4 * kI8) + 2 * smem_piece(4 * DP)
-       + smem_piece(4 * kThreads);
-}
 
 // ---------------------------------------------------------------------------
 // B5, int8 operands
@@ -910,320 +904,6 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   store_out(o, lse, acc, m, l, q0, h, b, tx, ty, p);
-}
-
-// ---------------------------------------------------------------------------
-// B6, int8 operands
-// ---------------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dq, Params p) {
-  constexpr int LDW = ldw<DP>(), NJ = DP / 16, KJ = kI8 / 16;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  extern __shared__ __align__(16) unsigned char smem_i8[];
-  Carve cv{smem_i8};
-  int* q8 = cv.take<int>(kBQ * LDW);      // q rows, per row over d
-  int* do8 = cv.take<int>(kBQ * LDW);     // do rows, per row over d
-  int* k8 = cv.take<int>(kI8 * LDW);      // k rows, per key over d (s)
-  int* v8 = cv.take<int>(kI8 * LDW);      // v rows, per key over d (dp)
-  int* kT8 = cv.take<int>(DP * kLTW);     // k columns, over the tile's keys (ds k)
-  int* ds8 = cv.take<int>(kBQ * kLTW);    // ds rows, over the tile's keys
-  float* sq = cv.take<float>(kBQ);
-  float* sdo = cv.take<float>(kBQ);
-  float* sk = cv.take<float>(kI8);
-  float* sv = cv.take<float>(kI8);
-  float* skc = cv.take<float>(DP);
-  float* red = cv.take<float>(kThreads);
-  int8_t* ds8b = reinterpret_cast<int8_t*>(ds8);
-
-  const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
-  const size_t qoff = ((size_t)b * p.S * p.H + h) * p.d;
-  const T* kb = k + ((size_t)b * p.T * p.K + kh) * p.d;
-  const T* vb = v + ((size_t)b * p.T * p.K + kh) * p.d;
-  const int qvalid = min(kBQ, p.S - q0);
-  quant_rows<T, DP>(reinterpret_cast<int8_t*>(q8), 4 * LDW, sq, q + qoff, qstride, q0,
-                    kBQ, qvalid, p.d);
-  quant_rows<T, DP>(reinterpret_cast<int8_t*>(do8), 4 * LDW, sdo, dout + qoff, qstride,
-                    q0, kBQ, qvalid, p.d);
-  const float* lse_b = lse + ((size_t)b * p.H + h) * p.S;
-  const float* delta_b = delta + ((size_t)b * p.H + h) * p.S;
-  float lse_r[4], delta_r[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < p.S ? lse_b[row] : 0.f;
-    delta_r[i] = row < p.S ? delta_b[row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = (p.T + kI8 - 1) / kI8;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kI8;
-    if (!tile_visible(q0, kBQ, k0, kI8, p)) continue;
-    __syncthreads();
-    const int kvalid = min(kI8, p.T - k0);
-    quant_rows<T, DP>(reinterpret_cast<int8_t*>(k8), 4 * LDW, sk, kb, kstride, k0, kI8,
-                      kvalid, p.d);
-    quant_rows<T, DP>(reinterpret_cast<int8_t*>(v8), 4 * LDW, sv, vb, kstride, k0, kI8,
-                      kvalid, p.d);
-    quant_cols<T, DP>(reinterpret_cast<int8_t*>(kT8), 4 * kLTW, skc, red, kb, kstride, k0,
-                      kvalid, p.d);
-    __syncthreads();
-
-    int si[4][KJ], dpi[4][KJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) si[i][j] = dpi[i][j] = 0;
-#pragma unroll 2
-    for (int w = 0; w < DP / 4; ++w) {
-      int a[4], da[4], kk[KJ], vv[KJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = q8[(ty + 16 * i) * LDW + w];
-        da[i] = do8[(ty + 16 * i) * LDW + w];
-      }
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        kk[j] = k8[(tx + 16 * j) * LDW + w];
-        vv[j] = v8[(tx + 16 * j) * LDW + w];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          si[i][j] = __dp4a(a[i], kk[j], si[i][j]);
-          dpi[i][j] = __dp4a(da[i], vv[j], dpi[i][j]);
-        }
-    }
-
-    float sds[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-      float ds[KJ], amax = 0.f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const int key = tx + 16 * j;
-        float t;
-        const float x = logit(rescale(si[i][j], sq[r], sk[key]), p, t);
-        const float pij = visible(row, k0 + key, p) ? expf(x - lse_r[i]) : 0.f;
-        const float dp = rescale(dpi[i][j], sdo[r], sv[key]);
-        float g = __fmul_rn(pij, __fsub_rn(dp, delta_r[i]));
-        if (p.softcap > 0.f) g = __fmul_rn(g, __fsub_rn(1.f, __fmul_rn(t, t)));
-        ds[j] = __fmul_rn(g, p.scale);
-        amax = fmaxf(amax, fabsf(ds[j]));
-      }
-      sds[i] = row_max(amax) / 127.f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) ds8b[r * 4 * kLTW + tx + 16 * j] = quant(ds[j], sds[i]);
-    }
-    __syncthreads();
-
-    int ai[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) ai[i][j] = 0;
-#pragma unroll 4
-    for (int w = 0; w < kI8 / 4; ++w) {
-      int dv[4], kc[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = ds8[(ty + 16 * i) * kLTW + w];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kc[j] = kT8[(tx + 16 * j) * kLTW + w];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) ai[i][j] = __dp4a(dv[i], kc[j], ai[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        acc[i][j] = __fadd_rn(acc[i][j], rescale(ai[i][j], sds[i], skc[tx + 16 * j]));
-  }
-
-  store_dq(dq, acc, q0, h, b, tx, ty, p);
-}
-
-// ---------------------------------------------------------------------------
-// B7, int8 operands
-// ---------------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv, Params p) {
-  constexpr int LDW = ldw<DP>(), NJ = DP / 16, QJ = kI8 / 16;
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
-  const int G = p.H / p.K;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  extern __shared__ __align__(16) unsigned char smem_i8[];
-  Carve cv{smem_i8};
-  int* k8 = cv.take<int>(kBK * LDW);      // k rows, per key over d
-  int* v8 = cv.take<int>(kBK * LDW);      // v rows, per key over d
-  int* q8 = cv.take<int>(kI8 * LDW);      // q rows, per query over d
-  int* do8 = cv.take<int>(kI8 * LDW);     // do rows, per query over d
-  int* qT8 = cv.take<int>(DP * kLTW);     // q columns, over the tile's queries
-  int* doT8 = cv.take<int>(DP * kLTW);    // do columns, over the tile's queries
-  int* pT8 = cv.take<int>(kBK * kLTW);    // p^T rows (keys), over the tile's queries
-  int* dsT8 = cv.take<int>(kBK * kLTW);   // ds^T rows (keys), over the tile's queries
-  float* sk = cv.take<float>(kBK);
-  float* sv = cv.take<float>(kBK);
-  float* sq = cv.take<float>(kI8);
-  float* sdo = cv.take<float>(kI8);
-  float* sqc = cv.take<float>(DP);
-  float* sdoc = cv.take<float>(DP);
-  float* lse_s = cv.take<float>(kI8);
-  float* delta_s = cv.take<float>(kI8);
-  float* red = cv.take<float>(kThreads);
-  int8_t* pT8b = reinterpret_cast<int8_t*>(pT8);
-  int8_t* dsT8b = reinterpret_cast<int8_t*>(dsT8);
-
-  const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
-  const size_t koff = ((size_t)b * p.T * p.K + kh) * p.d;
-  const int kvalid = min(kBK, p.T - k0);
-  quant_rows<T, DP>(reinterpret_cast<int8_t*>(k8), 4 * LDW, sk, k + koff, kstride, k0,
-                    kBK, kvalid, p.d);
-  quant_rows<T, DP>(reinterpret_cast<int8_t*>(v8), 4 * LDW, sv, v + koff, kstride, k0,
-                    kBK, kvalid, p.d);
-
-  // this thread's keys are ty + 16 i (rows of p^T), its d columns tx + 16 j
-  float dk_acc[4][NJ], dv_acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int nq = (p.S + kI8 - 1) / kI8;
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    const size_t qoff = ((size_t)b * p.S * p.H + h) * p.d;
-    const float* lse_b = lse + ((size_t)b * p.H + h) * p.S;
-    const float* delta_b = delta + ((size_t)b * p.H + h) * p.S;
-    for (int qt = 0; qt < nq; ++qt) {
-      const int q0 = qt * kI8;
-      if (!tile_visible(q0, kI8, k0, kBK, p)) continue;
-      __syncthreads();   // the previous tile's readers are done
-      const int qvalid = min(kI8, p.S - q0);
-      quant_rows<T, DP>(reinterpret_cast<int8_t*>(q8), 4 * LDW, sq, q + qoff, qstride,
-                        q0, kI8, qvalid, p.d);
-      quant_rows<T, DP>(reinterpret_cast<int8_t*>(do8), 4 * LDW, sdo, dout + qoff,
-                        qstride, q0, kI8, qvalid, p.d);
-      quant_cols<T, DP>(reinterpret_cast<int8_t*>(qT8), 4 * kLTW, sqc, red, q + qoff,
-                        qstride, q0, qvalid, p.d);
-      quant_cols<T, DP>(reinterpret_cast<int8_t*>(doT8), 4 * kLTW, sdoc, red, dout + qoff,
-                        qstride, q0, qvalid, p.d);
-      for (int r = threadIdx.x; r < kI8; r += kThreads) {
-        lse_s[r] = r < qvalid ? lse_b[q0 + r] : 0.f;
-        delta_s[r] = r < qvalid ? delta_b[q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      // scores for keys ty + 16 i and query rows tx + 16 j
-      int si[4][QJ], dpi[4][QJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) si[i][j] = dpi[i][j] = 0;
-#pragma unroll 2
-      for (int w = 0; w < DP / 4; ++w) {
-        int kk[4], vv[4], a[QJ], da[QJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = k8[(ty + 16 * i) * LDW + w];
-          vv[i] = v8[(ty + 16 * i) * LDW + w];
-        }
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          a[j] = q8[(tx + 16 * j) * LDW + w];
-          da[j] = do8[(tx + 16 * j) * LDW + w];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < QJ; ++j) {
-            si[i][j] = __dp4a(a[j], kk[i], si[i][j]);
-            dpi[i][j] = __dp4a(da[j], vv[i], dpi[i][j]);
-          }
-      }
-
-      float spT[4], sdsT[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = ty + 16 * i;
-        float pv[QJ], ds[QJ], pmax = 0.f, dmax = 0.f;
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          const int r = tx + 16 * j;
-          const int row = q0 + r;
-          float t;
-          const float x = logit(rescale(si[i][j], sq[r], sk[kr]), p, t);
-          const bool vis = row < p.S && visible(row, k0 + kr, p);
-          pv[j] = vis ? expf(x - lse_s[r]) : 0.f;
-          const float dp = rescale(dpi[i][j], sdo[r], sv[kr]);
-          float g2 = __fmul_rn(pv[j], __fsub_rn(dp, delta_s[r]));
-          if (p.softcap > 0.f) g2 = __fmul_rn(g2, __fsub_rn(1.f, __fmul_rn(t, t)));
-          ds[j] = __fmul_rn(g2, p.scale);
-          pmax = fmaxf(pmax, pv[j]);
-          dmax = fmaxf(dmax, fabsf(ds[j]));
-        }
-        spT[i] = row_max(pmax) / 127.f;
-        sdsT[i] = row_max(dmax) / 127.f;
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          pT8b[kr * 4 * kLTW + tx + 16 * j] = quant(pv[j], spT[i]);
-          dsT8b[kr * 4 * kLTW + tx + 16 * j] = quant(ds[j], sdsT[i]);
-        }
-      }
-      __syncthreads();
-
-      int av[4][NJ], ak[4][NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) av[i][j] = ak[i][j] = 0;
-#pragma unroll 2
-      for (int w = 0; w < kI8 / 4; ++w) {
-        int pw[4], dw[4], dov[NJ], qv[NJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pw[i] = pT8[(ty + 16 * i) * kLTW + w];
-          dw[i] = dsT8[(ty + 16 * i) * kLTW + w];
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dov[j] = doT8[(tx + 16 * j) * kLTW + w];
-          qv[j] = qT8[(tx + 16 * j) * kLTW + w];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            av[i][j] = __dp4a(pw[i], dov[j], av[i][j]);
-            ak[i][j] = __dp4a(dw[i], qv[j], ak[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int c = tx + 16 * j;
-          dv_acc[i][j] = __fadd_rn(dv_acc[i][j], rescale(av[i][j], spT[i], sdoc[c]));
-          dk_acc[i][j] = __fadd_rn(dk_acc[i][j], rescale(ak[i][j], sdsT[i], sqc[c]));
-        }
-    }
-  }
-
-  store_dkv(dk, dv, dk_acc, dv_acc, k0, kvalid, kh, b, tx, ty, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -2102,6 +1782,907 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The int8 backward (B6 and B7 in the int8 operand mode): a quantization
+// pre-pass, then both kernels on the s8 tensor cores (mma.sync m16n8k32).
+// Why the bits are the __dp4a kernels': each int8 product is exact and no
+// int32 sum comes near overflow (128 x 127^2 per tile), so neither the MMA's order
+// of the sums nor a permutation of the axis A and B share changes one; a
+// scale over a tile is a function of that tile alone, so quantizing once
+// a call gives the bytes each block made; and what decides the numbers is
+// kept: the scales' axes, quant() (IEEE quotient, half to even, +-127),
+// and the f32 epilogue in its order (rescale, then __fadd_rn tile by
+// tile).  The outputs equal ref.flash_bwd_ref bit for bit on the card.
+// ---------------------------------------------------------------------------
+
+// The operands of the int8 backward, quantized once a call by
+// flash_quant_i8_kernel (nS = ceil(S / 128), nT = ceil(T / 128); d zero-padded
+// to DP, rows past S or T zeros in the tiles).  Per row over d, natural
+// order: q8 and do8 (B, S, H, DP) with sq, sdo (B, H, S); k8 and v8 (B, T,
+// K, DP) with sk, sv (B, K, T).  Per column over each 128-row tile, stored
+// K-major with each 16-group of the tile's rows in frag_perm order: kT8
+// (B, K, nT, DP, 128) with skc (B, K, nT, DP); qT8 and doT8 (B, H, nS, DP,
+// 128) with sqc, sdoc (B, H, nS, DP).  The host passes the 14 pointers in
+// this order; the pre-pass writes them, B6 and B7 read them.
+struct I8Ops {
+  int8_t *q8, *do8, *k8, *v8, *kT8, *qT8, *doT8;
+  float *sq, *sdo, *sk, *sv, *skc, *sqc, *sdoc;
+};
+
+// The contraction axis of ds k (B6), p^T do and ds^T q (B7) in the order of
+// the m16n8k32 fragments.  A score tile's s32 accumulators give a thread
+// columns 2t, 2t+1, 8+2t and 9+2t of each 16-column group (g = lane / 4, t
+// = lane % 4), where the A fragment of the next product wants 4t..4t+3; so
+// a thread packs those four values as its A bytes, and B's rows of the same
+// group are stored in the same order: position p = 4t + e of a group holds
+// row frag_perm(p) = 8 (e / 2) + 2t + e % 2.  A permutation of the axis
+// that A and B share leaves the int32 sum, exact, as it was.
+__host__ __device__ constexpr int frag_perm(int pos) {
+  return 8 * ((pos & 3) >> 1) + 2 * (pos >> 2) + (pos & 1);
+}
+
+// quant(x, scale) from the reciprocal rcp = 1 / max(scale, 1e-12) (sc),
+// formed once a row.  Where the quotient's magnitude is at most ~128 (x is
+// bounded by the row's absmax, 127 scales), x * rcp lies within 2^-15 of
+// the IEEE quotient x / sc, so both round to the same integer unless x *
+// rcp lies within 2^-12 of a half step; there (a few values in ten
+// thousand) the quotient is formed as quant() forms it.  The same byte for
+// every x, inf and NaN included, for a fraction of the divide's work.
+__device__ __forceinline__ int8_t quant_rcp(float x, float sc, float rcp) {
+  const float y = __fmul_rn(x, rcp);
+  float r = rintf(y);
+  if (fabsf(fabsf(y - r) - 0.5f) < 0x1p-12f) r = rintf(x / sc);
+  return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+// (max(scale, 1e-12), its reciprocal) for quant_rcp
+__device__ __forceinline__ float2 quant_scale(float scale) {
+  const float sc = fmaxf(scale, 1e-12f);
+  return make_float2(sc, 1.f / sc);
+}
+
+// four int8 values into one register, the first in the low byte
+__device__ __forceinline__ uint32_t pack_s8(int8_t a, int8_t b, int8_t c, int8_t d) {
+  return (uint32_t)(uint8_t)a | (uint32_t)(uint8_t)b << 8 | (uint32_t)(uint8_t)c << 16 |
+         (uint32_t)(uint8_t)d << 24;
+}
+
+// quantized bytes of a 16-row by 32-column f32 tile in the accumulator
+// layout (x[j][e]: n-tile j of 8 columns; rows g, g + 8 at s[0], s[1], each
+// quant_scale's pair) as the A fragment of an m16n8k32 product over those
+// columns in frag_perm order
+__device__ __forceinline__ void quant_frag(uint32_t (&a)[4], const float (&x0)[4],
+                                           const float (&x1)[4], const float (&x2)[4],
+                                           const float (&x3)[4], const float2 (&s)[2]) {
+  auto q = [&](float x, int r) { return quant_rcp(x, s[r].x, s[r].y); };
+  a[0] = pack_s8(q(x0[0], 0), q(x0[1], 0), q(x1[0], 0), q(x1[1], 0));
+  a[1] = pack_s8(q(x0[2], 1), q(x0[3], 1), q(x1[2], 1), q(x1[3], 1));
+  a[2] = pack_s8(q(x2[0], 0), q(x2[1], 0), q(x3[0], 0), q(x3[1], 0));
+  a[3] = pack_s8(q(x2[2], 1), q(x2[3], 1), q(x3[2], 1), q(x3[3], 1));
+}
+
+// the largest of a row's values over the four lanes that hold it
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// ldmatrix addresses into an int8 tile X with row stride LD bytes, for lane
+// `lane`: a8_frag the A fragment of rows [r0, r0 + 16), bytes [c0, c0 +
+// 32); b8_pair the B fragments of n-tiles [n0, n0 + 8) and [n0 + 8, n0 +
+// 16) at k bytes [k0, k0 + 32), X holding n as rows (k contiguous)
+__device__ __forceinline__ const int8_t* a8_frag(const int8_t* X, int LD, int r0, int c0,
+                                                 int lane) {
+  return X + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 16;
+}
+__device__ __forceinline__ const int8_t* b8_pair(const int8_t* X, int LD, int n0, int k0,
+                                                 int lane) {
+  return X + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 + ((lane >> 3) & 1) * 16;
+}
+
+// Row strides of the int8 tiles in shared memory: DP bytes (or a tile's
+// 128) plus 16, so the 8 rows of an ldmatrix fall in 8 different 16-byte
+// bank groups.
+template <int DP> __host__ __device__ constexpr int i8_ld() { return DP + 16; }
+constexpr int kI8TLd = kI8 + 16;
+
+// Copies by 16-byte (int8 rows) or 4-byte (scales) cp.async into shared
+// memory, NTHR threads (this one `tid`), zeros at rows >= valid; the
+// caller commits the group.
+//  rows8: rows [0, n) of one head, `stride` bytes apart, DP bytes each
+//  tile8: a transposed tile, DP rows of 128 bytes, contiguous
+//  f32s:  n floats
+template <int DP, int NTHR>
+__device__ __forceinline__ void copy_rows8(int8_t* X, const int8_t* src, size_t stride, int n,
+                                           int valid, int tid) {
+  constexpr int CPR = DP / 16, LD = i8_ld<DP>();
+  for (int i = tid; i < n * CPR; i += NTHR) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    if (r < valid) repro::cp_async16(X + r * LD + c, src + r * stride + c);
+    else *reinterpret_cast<uint4*>(X + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+template <int DP, int NTHR>
+__device__ __forceinline__ void copy_tile8(int8_t* X, const int8_t* src, int tid) {
+  for (int i = tid; i < DP * (kI8 / 16); i += NTHR) {
+    const int r = i / (kI8 / 16), c = (i % (kI8 / 16)) * 16;
+    repro::cp_async16(X + r * kI8TLd + c, src + r * kI8 + c);
+  }
+}
+template <int NTHR>
+__device__ __forceinline__ void copy_f32s(float* X, const float* src, int n, int valid,
+                                          int tid) {
+  for (int i = tid; i < n; i += NTHR) {
+    if (i < valid) repro::cp_async4(X + i, src + i);
+    else X[i] = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The pre-pass.  Replaces no TPU kernel: it is the quantization inside the
+// reference's kernel_dot (src/repro/quant/core.py:31-41, :63-67) hoisted
+// out of B6's and B7's tile loops, where the __dp4a kernels quantized each
+// k (B6) and q and do (B7) tile again in every block that visits it (5 blocks
+// on average at mup-gpt's causal 512 tokens).  A scale over a 128-row tile
+// is a function of that tile alone, so once a call gives the very bytes.
+// Bound by bytes: q, k, v and do read once, 7 int8 tensors and their
+// scales written (at the train shape ~67 MB + 29 MB, ~29 us at 3.35 TB/s).
+// One block a 128-row tile of one head of one of q, do, k, v: staged once
+// in shared memory as f32 by 16-byte loads, quantized per row over d by a
+// warp a row (four rows at a time) and, for q, do and k, per column over
+// the tile's rows: a warp a 16-row group reads each column's values in
+// frag_perm order and writes them as one 16-byte store (37 KB of shared
+// memory at DP = 64, so six blocks share an SM).
+// ---------------------------------------------------------------------------
+template <int DP> constexpr size_t quant_i8_smem_bytes() {
+  return smem_piece(4 * kI8 * (DP + 4)) + smem_piece(4 * 8 * DP);
+}
+
+// 16 bytes of T at src as f32 into dst (16-byte aligned)
+__device__ __forceinline__ void load16_f32(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void load16_f32(float* dst, const bf16* src) {
+  float x[8];
+  load8(src, x);
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout, I8Ops o, Params p) {
+  static_assert(kThreads == 8 * 32 && kI8 == 8 * 16, "a warp a 16-row group");
+  constexpr int LD = DP + 4, E = DP / 32, V = 16 / sizeof(T);
+  const int nS = (p.S + kI8 - 1) / kI8, nT = (p.T + kI8 - 1) / kI8;
+  const long long qi = (long long)p.B * p.H * nS, ki = (long long)p.B * p.K * nT;
+  long long item = blockIdx.x;
+  int which;   // 0 q, 1 do, 2 k, 3 v
+  if (item < 2 * qi) {
+    which = (int)(item / qi);
+    item %= qi;
+  } else {
+    item -= 2 * qi;
+    which = 2 + (int)(item / ki);
+    item %= ki;
+  }
+  const bool kv = which >= 2;
+  const int heads = kv ? p.K : p.H, rows = kv ? p.T : p.S, n = kv ? nT : nS;
+  const int tile = (int)(item % n), h = (int)(item / n % heads), b = (int)(item / n / heads);
+  const T* src = which == 0 ? q : which == 1 ? dout : which == 2 ? k : v;
+  int8_t* rows8 = which == 0 ? o.q8 : which == 1 ? o.do8 : which == 2 ? o.k8 : o.v8;
+  float* rscale = which == 0 ? o.sq : which == 1 ? o.sdo : which == 2 ? o.sk : o.sv;
+  int8_t* cols8 = which == 0 ? o.qT8 : which == 1 ? o.doT8 : which == 2 ? o.kT8 : nullptr;
+  float* cscale = which == 0 ? o.sqc : which == 1 ? o.sdoc : o.skc;
+
+  extern __shared__ __align__(16) unsigned char smem_q8[];
+  Carve cv{smem_q8};
+  float* xs = cv.take<float>(kI8 * LD);           // the tile, f32, zeros past rows and d
+  float* red = cv.take<float>(8 * DP);            // each warp's column maxima
+
+  const int r0 = tile * kI8, valid = min(kI8, rows - r0);
+  const size_t stride = (size_t)heads * p.d;
+  const T* base = src + (((size_t)b * rows + r0) * heads + h) * p.d;
+  if (p.tma) {   // rows of whole 16-byte pieces (d a multiple of V, 16-byte aligned)
+#pragma unroll
+    for (int i = threadIdx.x; i < kI8 * (DP / V); i += kThreads) {
+      const int r = i / (DP / V), c = (i % (DP / V)) * V;
+      float* x = xs + r * LD + c;
+      if (r < valid && c < p.d) {
+        load16_f32(x, base + r * stride + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; e += 4)
+          *reinterpret_cast<float4*>(x + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < kI8 * DP; i += kThreads) {
+      const int r = i / DP, c = i - r * DP;
+      xs[r * LD + c] = (r < valid && c < p.d) ? to_f32(base[r * stride + c]) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // per row over d: a warp a row, four rows at a time (rows warp + 8 i)
+#pragma unroll
+  for (int i0 = 0; i0 < kI8 / 8; i0 += 4) {
+    float x[4][E], sc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float amax = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        x[i][e] = xs[(warp + 8 * (i0 + i)) * LD + lane + 32 * e];
+        amax = fmaxf(amax, fabsf(x[i][e]));
+      }
+      sc[i] = amax;
+    }
+#pragma unroll
+    for (int o2 = 16; o2 > 0; o2 >>= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[i] = fmaxf(sc[i], __shfl_xor_sync(0xffffffffu, sc[i], o2));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp + 8 * (i0 + i);
+      if (r >= valid) continue;
+      const float s = sc[i] / 127.f;
+      const float2 qs = quant_scale(s);
+      int8_t* dst = rows8 + (((size_t)b * rows + r0 + r) * heads + h) * DP;
+#pragma unroll
+      for (int e = 0; e < E; ++e) dst[lane + 32 * e] = quant_rcp(x[i][e], qs.x, qs.y);
+      if (lane == 0) rscale[((size_t)b * heads + h) * rows + r0 + r] = s;
+    }
+  }
+  if (cols8 == nullptr) return;   // v: rows only (uniform over the block)
+
+  // per column over the tile's rows: warp w holds rows 16 w..16 w + 15 of
+  // columns lane + 32 cc
+  float am[E];
+#pragma unroll
+  for (int cc = 0; cc < E; ++cc) {
+    const int c = lane + 32 * cc;
+    am[cc] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) am[cc] = fmaxf(am[cc], fabsf(xs[(16 * warp + r) * LD + c]));
+    red[warp * DP + c] = am[cc];
+  }
+  __syncthreads();
+  int8_t* dst = cols8 + (((size_t)b * heads + h) * n + tile) * DP * kI8;
+#pragma unroll
+  for (int cc = 0; cc < E; ++cc) {
+    const int c = lane + 32 * cc;
+    float a = red[c];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) a = fmaxf(a, red[w * DP + c]);
+    const float s = a / 127.f;
+    const float2 qs = quant_scale(s);
+    uint32_t wd[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* xr = xs + (16 * warp) * LD + c;
+      auto qv = [&](int pos) { return quant_rcp(xr[frag_perm(pos) * LD], qs.x, qs.y); };
+      wd[e] = pack_s8(qv(4 * e), qv(4 * e + 1), qv(4 * e + 2), qv(4 * e + 3));
+    }
+    *reinterpret_cast<uint4*>(dst + c * kI8 + 16 * warp) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    if (warp == 0) cscale[(((size_t)b * heads + h) * n + tile) * DP + c] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B6, int8 operands, on the s8 tensor cores.
+// A block is 4 warps of 16 query rows (a 64-row q tile, one (q tile, head,
+// batch) item, q tiles in reverse so the causal rows that see the most keys
+// start first) walking the visible 128-key tiles (128 wide: ds k takes its
+// scales over the tile's keys).  The tile's k8, v8 and kT8 and their
+// scales come from the pre-pass by 16-byte cp.async, double-buffered: the
+// next tile's copies fly while the warps multiply.  A warp owns its 16 rows
+// across the whole tile: s = q8 k8^T and dp = do8 v8^T by 32-key chunks
+// (ldmatrix of the row-quantized bytes, K-contiguous on both sides), ds in
+// f32 registers in the accumulator layout (a row's absmax is a quad
+// shuffle: no shared memory, no block barrier), quantized straight into
+// the A fragments of dq += ds8 kT8 (frag_perm).  Chunks none of the warp's
+// rows sees are skipped (their ds is an exact 0).  The f32 steps are
+// the __dp4a kernel's, in its order: rescale = (float)acc * sa * sb rounded at each
+// step, the logit's __fmul_rn, expf, the softcap's tanhf and divide, then
+// __fadd_rn into dq tile by tile in increasing key order.
+// Registers a thread: ds 64, dq DP / 2, a chunk's s and dp 32; at DP = 64
+// ptxas fits them in 168 (no spills on an H100 build), so three blocks, 12
+// warps, share an SM: the p/ds step and the quantization are a chain of
+// dependent f32 steps per value, and more warps hide it (two blocks an SM,
+// 204 registers, ran 136 us at the train shape against 98).
+// ---------------------------------------------------------------------------
+constexpr int kI8Threads = 128;   // B6: 4 warps of 16 rows; B7: 2 pairs of warps
+
+// B6's shared memory, byte offsets from its base: q8 and do8 of the item,
+// then two stages of a key tile (k8, v8, kT8, sk, sv, skc)
+template <int DP> struct DqI8Smem {
+  static constexpr size_t Q8 = 0, D8 = smem_piece(kBQ * i8_ld<DP>()), STAGES = 2 * D8;
+  static constexpr size_t K8 = 0, V8 = smem_piece(kI8 * i8_ld<DP>()), KT = 2 * V8,
+                          SK = KT + smem_piece(DP * kI8TLd), SV = SK + smem_piece(4 * kI8),
+                          SKC = SV + smem_piece(4 * kI8), STAGE = SKC + smem_piece(4 * DP),
+                          BYTES = STAGES + 2 * STAGE;
+};
+
+// B6's p/ds step on one 32-key chunk (keys key0 + 8 j + 2 tq + e, local
+// kl0 + ..; rows row0, row0 + 8 at scales sqr, sdr, lse lr, delta dr): ds
+// into x, the rows' absmax into amax
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void dq_i8_grads(float (&x)[4][4], const int (&si)[4][4],
+                                            const int (&di)[4][4], const float* sk,
+                                            const float* sv, int kl0, int key0, int row0, int tq,
+                                            const float (&sqr)[2], const float (&sdr)[2],
+                                            const float (&lr)[2], const float (&dr)[2],
+                                            float (&amax)[2], const Params& p) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, kc = 8 * j + 2 * tq + (e & 1);
+      float t = 0.f;
+      const float lg = tc_logit<kCap>(rescale(si[j][e], sqr[r], sk[kl0 + kc]), p, t);
+      const bool vis = !kMask || visible(row0 + 8 * r, key0 + kc, p);
+      const float pij = vis ? expf(lg - lr[r]) : 0.f;
+      const float dpv = rescale(di[j][e], sdr[r], sv[kl0 + kc]);
+      float g = __fmul_rn(pij, __fsub_rn(dpv, dr[r]));
+      if (kCap) g = __fmul_rn(g, __fsub_rn(1.f, __fmul_rn(t, t)));
+      x[j][e] = __fmul_rn(g, p.scale);
+      amax[r] = fmaxf(amax[r], fabsf(x[j][e]));
+    }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : 1)
+flash_bwd_dq_i8_kernel(const I8Ops o, const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dq, Params p) {
+  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DT = DP / 8, NT = kI8 / 8, TS = kI8 / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int nq = (p.S + kBQ - 1) / kBQ, hb = p.H * p.B, nT = (p.T + kI8 - 1) / kI8;
+  const int q0 = (nq - 1 - (int)blockIdx.x / hb) * kBQ;
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H, kh = h / (p.H / p.K);
+  using L = DqI8Smem<DP>;
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+  int8_t* Q8 = reinterpret_cast<int8_t*>(smem_i8 + L::Q8);
+  int8_t* D8 = reinterpret_cast<int8_t*>(smem_i8 + L::D8);
+
+  // q8 and do8 of the item, then each visible key tile into buffer (it & 1)
+  const int qvalid = min(kBQ, p.S - q0);
+  const size_t qrow = (((size_t)b * p.S + q0) * p.H + h) * DP;
+  copy_rows8<DP, kI8Threads>(Q8, o.q8 + qrow, (size_t)p.H * DP, kBQ, qvalid, threadIdx.x);
+  copy_rows8<DP, kI8Threads>(D8, o.do8 + qrow, (size_t)p.H * DP, kBQ, qvalid, threadIdx.x);
+  repro::cp_async_commit();
+  const int2 kr = visible_range(nT, [&](int t) { return tile_visible(q0, kBQ, t * kI8, kI8, p); });
+  auto stage = [&](int kt, int s) {
+    unsigned char* st = smem_i8 + L::STAGES + s * L::STAGE;
+    const int k0 = kt * kI8, kvalid = min(kI8, p.T - k0);
+    const size_t krow = (((size_t)b * p.T + k0) * p.K + kh) * DP;
+    const size_t kcol = ((size_t)b * p.K + kh) * nT + kt;
+    copy_rows8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::K8), o.k8 + krow,
+                               (size_t)p.K * DP, kI8, kvalid, threadIdx.x);
+    copy_rows8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::V8), o.v8 + krow,
+                               (size_t)p.K * DP, kI8, kvalid, threadIdx.x);
+    copy_tile8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::KT), o.kT8 + kcol * DP * kI8,
+                               threadIdx.x);
+    const size_t ks = ((size_t)b * p.K + kh) * p.T + k0;
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SK), o.sk + ks, kI8, kvalid,
+                          threadIdx.x);
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SV), o.sv + ks, kI8, kvalid,
+                          threadIdx.x);
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SKC), o.skc + kcol * DP, DP, DP,
+                          threadIdx.x);
+    repro::cp_async_commit();
+  };
+  if (kr.x < kr.y) stage(kr.x, 0);
+
+  // this thread's rows are r0 + g + 8 r (r = 0, 1); its columns of each
+  // 8-wide n-tile j 8 j + 2 tq + e (e = 0, 1)
+  const int r0 = q0 + 16 * warp;
+  float sqr[2], sdr[2], lr[2], dr[2], acc[DT][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    const size_t at = ((size_t)b * p.H + h) * p.S + row;
+    const bool in = row < p.S;
+    sqr[r] = in ? o.sq[at] : 0.f;
+    sdr[r] = in ? o.sdo[at] : 0.f;
+    lr[r] = in ? lse[at] : 0.f;
+    dr[r] = in ? delta[at] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // [probe] B6 start
+  for (int kt = kr.x; kt < kr.y; ++kt) {
+    const int s = (kt - kr.x) & 1, k0 = kt * kI8;
+    // [probe] B6 tile start
+    if (kt + 1 < kr.y) {
+      stage(kt + 1, s ^ 1);
+      repro::cp_async_wait_group<1>();
+    } else {
+      repro::cp_async_wait_group<0>();
+    }
+    __syncthreads();   // the tile's copies (and q8, do8) in
+    // [probe] B6 tile staged
+    const unsigned char* st = smem_i8 + L::STAGES + s * L::STAGE;
+    const int8_t* K8 = reinterpret_cast<const int8_t*>(st + L::K8);
+    const int8_t* V8 = reinterpret_cast<const int8_t*>(st + L::V8);
+    const int8_t* KT = reinterpret_cast<const int8_t*>(st + L::KT);
+    const float* sk = reinterpret_cast<const float*>(st + L::SK);
+    const float* sv = reinterpret_cast<const float*>(st + L::SV);
+    const float* skc = reinterpret_cast<const float*>(st + L::SKC);
+
+    // ds of this warp's rows over the tile, by 32-key chunks
+    float x[NT][4], amax[2] = {0.f, 0.f};
+    bool on[TS];
+#pragma unroll
+    for (int c = 0; c < TS; ++c) {
+      const int key0 = k0 + 32 * c;
+      on[c] = key0 < p.T && tile_visible(r0, 16, key0, 32, p);   // warp-uniform
+      float xc[4][4];
+      if (on[c]) {
+        int si[4][4], di[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) si[j][e] = di[j][e] = 0;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4], da[4];
+          repro::ldmatrix_x4(qa, a8_frag(Q8, LD, 16 * warp, 32 * ks, lane));
+          repro::ldmatrix_x4(da, a8_frag(D8, LD, 16 * warp, 32 * ks, lane));
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t kf[4], vf[4];
+            repro::ldmatrix_x4(kf, b8_pair(K8, LD, 32 * c + 16 * jp, 32 * ks, lane));
+            repro::ldmatrix_x4(vf, b8_pair(V8, LD, 32 * c + 16 * jp, 32 * ks, lane));
+            repro::mma_s8(si[2 * jp], qa, kf[0], kf[1]);
+            repro::mma_s8(si[2 * jp + 1], qa, kf[2], kf[3]);
+            repro::mma_s8(di[2 * jp], da, vf[0], vf[1]);
+            repro::mma_s8(di[2 * jp + 1], da, vf[2], vf[3]);
+          }
+        }
+        const bool whole = key0 + 32 <= p.T && (!p.causal || key0 + 31 <= r0) &&
+                           (!p.window || r0 + 15 - key0 < p.window);
+        if (p.softcap > 0.f) {
+          if (whole) dq_i8_grads<true, false>(xc, si, di, sk, sv, 32 * c, key0, r0 + g, tq,
+                                              sqr, sdr, lr, dr, amax, p);
+          else dq_i8_grads<true, true>(xc, si, di, sk, sv, 32 * c, key0, r0 + g, tq, sqr,
+                                       sdr, lr, dr, amax, p);
+        } else {
+          if (whole) dq_i8_grads<false, false>(xc, si, di, sk, sv, 32 * c, key0, r0 + g,
+                                               tq, sqr, sdr, lr, dr, amax, p);
+          else dq_i8_grads<false, true>(xc, si, di, sk, sv, 32 * c, key0, r0 + g, tq, sqr,
+                                        sdr, lr, dr, amax, p);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xc[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[4 * c + j][e] = xc[j][e];
+    }
+    // [probe] B6 ds formed
+    // ds quantized per row over the tile's keys into the A fragments
+    float sds[2];
+    float2 qs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sds[r] = quad_max(amax[r]) / 127.f;
+      qs[r] = quant_scale(sds[r]);
+    }
+    uint32_t dsa[TS][4];
+#pragma unroll
+    for (int c = 0; c < TS; ++c)
+      quant_frag(dsa[c], x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3], qs);
+    // [probe] B6 ds quantized
+    // dq += rescale(ds8 kT8) (kT8 the B operand, K-major, frag_perm order)
+#pragma unroll
+    for (int jp = 0; jp < DT / 2; ++jp) {
+      int ai[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+      for (int c = 0; c < TS; ++c) {
+        if (!on[c]) continue;
+        uint32_t kf[4];
+        repro::ldmatrix_x4(kf, b8_pair(KT, kI8TLd, 16 * jp, 32 * c, lane));
+        repro::mma_s8(ai[0], dsa[c], kf[0], kf[1]);
+        repro::mma_s8(ai[1], dsa[c], kf[2], kf[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 2 * jp + i;
+          acc[j][e] = __fadd_rn(acc[j][e],
+                                rescale(ai[i][e], sds[e >> 1], skc[8 * j + 2 * tq + (e & 1)]));
+        }
+    }
+    // [probe] B6 products added
+    __syncthreads();   // every warp is done with buffer s
+    // [probe] B6 tile end
+  }
+  // [probe] B6 end
+
+  // this thread's rows of dq that lie below S
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= p.S) continue;
+    float* drow = dq + (((size_t)b * p.S + row) * p.H + h) * p.d;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int c = 8 * j + 2 * tq;
+      if (c + 1 < p.d && p.d % 2 == 0) {
+        store_pair(drow + c, acc[j][2 * r], acc[j][2 * r + 1]);
+      } else {
+        if (c < p.d) drow[c] = acc[j][2 * r];
+        if (c + 1 < p.d) drow[c + 1] = acc[j][2 * r + 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B7, int8 operands, on the s8 tensor cores.
+// A block owns 32 keys of one kv head and walks the group's G query heads
+// and, inside, the visible 128-query tiles in order (128 wide: p^T do and
+// ds^T q take their scales over the tile's queries), each tile's q8, do8,
+// qT8, doT8, their scales, lse and delta copied from the pre-pass by
+// cp.async into one buffer in two groups: the next tile's rows fly during
+// this tile's products, its columns during the next p/ds step.  Its 4
+// warps pair up: warp w holds keys 16 (w % 2).. and the
+// tile's queries 64 (w / 2).., its mate w ^ 2 the same keys and the other
+// 64 queries.  A warp forms s^T = k8 q8^T and dp^T = v8 do8^T over its 64
+// queries by 32-query chunks (ldmatrix of the row-quantized bytes), and
+// p^T and ds^T in f32 registers in the accumulator layout; the mates swap
+// each key's maxima through shared memory (a 64-thread named barrier), so
+// each quantizes its half at the scales of the whole 128 queries, straight
+// into A fragments, and they swap those fragments too.  Then each adds to
+// dk and dv over all 128 queries for half of the d columns: rescale(p^T8
+// doT8) and rescale(ds^T8 qT8), an n-tile pair at a time.  Halving the
+// queries and the columns a warp holds keeps a thread at ~130 registers at
+// DP = 64 (p^T, ds^T and the chunk's products 96, dk and dv 32), so three
+// blocks, 12 warps, share an SM (55 KB of shared memory each); the blocks
+// of the first keys, which the causal mask leaves the most query tiles,
+// start first.  As in B6 the per-value chain of the p/ds step and the
+// quantization bounds it, not the products.  The f32 steps and their
+// order are the __dp4a kernel's; dk and dv add over the group's heads
+// and the q tiles in increasing order in one block: no atomics, the same
+// bits when repeated.
+// ---------------------------------------------------------------------------
+constexpr int kDkvI8Keys = 32;   // keys a block: 2 groups of 16, each held by a pair of warps
+
+// B7's shared memory, byte offsets from its base: k8 and v8 of the block's
+// keys; one query tile (q8, do8, qT8, doT8, sq, sdo, lse, delta, sqc,
+// sdoc); what the mates swap (each warp's two maxima of its 16 keys, and
+// its p^T and ds^T fragments of two chunks, a lane's word at a time)
+template <int DP> struct DkvI8Smem {
+  static constexpr size_t K8 = 0, V8 = smem_piece(kDkvI8Keys * i8_ld<DP>()), Q8 = 2 * V8,
+                          D8 = Q8 + smem_piece(kI8 * i8_ld<DP>()),
+                          QT = D8 + smem_piece(kI8 * i8_ld<DP>()),
+                          DT = QT + smem_piece(DP * kI8TLd), SQ = DT + smem_piece(DP * kI8TLd),
+                          SDO = SQ + smem_piece(4 * kI8), LS = SDO + smem_piece(4 * kI8),
+                          DL = LS + smem_piece(4 * kI8), SQC = DL + smem_piece(4 * kI8),
+                          SDOC = SQC + smem_piece(4 * DP), RED = SDOC + smem_piece(4 * DP),
+                          FRAG = RED + smem_piece(4 * 4 * 2 * 16),
+                          BYTES = FRAG + smem_piece(4 * 4 * 2 * 2 * 4 * 32);
+};
+
+// B7's p^T and ds^T of one 32-query chunk (queries q0 + ql, ql = ql0 + 8 j
+// + 2 tq + e; keys key + 8 r at scales skr, svr) from its s^T (si) and
+// dp^T (di): p^T into xp, ds^T into xd, the keys' maxima into pmax, dmax
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void dkv_i8_grads(float (&xp)[4][4], float (&xd)[4][4],
+                                             const int (&si)[4][4], const int (&di)[4][4],
+                                             const float* sq, const float* sdo, const float* ls,
+                                             const float* dl, int ql0, int q0, int key, int tq,
+                                             const float (&skr)[2], const float (&svr)[2],
+                                             float (&pmax)[2], float (&dmax)[2],
+                                             const Params& p) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, ql = ql0 + 8 * j + 2 * tq + (e & 1);
+      float t = 0.f;
+      const float lg = tc_logit<kCap>(rescale(si[j][e], sq[ql], skr[r]), p, t);
+      const bool vis = !kMask || (q0 + ql < p.S && visible(q0 + ql, key + 8 * r, p));
+      const float pij = vis ? expf(lg - ls[ql]) : 0.f;
+      const float dpv = rescale(di[j][e], sdo[ql], svr[r]);
+      float gr = __fmul_rn(pij, __fsub_rn(dpv, dl[ql]));
+      if (kCap) gr = __fmul_rn(gr, __fsub_rn(1.f, __fmul_rn(t, t)));
+      xp[j][e] = pij;
+      xd[j][e] = __fmul_rn(gr, p.scale);
+      pmax[r] = fmaxf(pmax[r], pij);
+      dmax[r] = fmaxf(dmax[r], fabsf(xd[j][e]));
+    }
+}
+
+// the 64 threads of a pair of warps meet (named barrier `id`, not 0)
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" :: "r"(id) : "memory");
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : 2)
+flash_bwd_dkv_i8_kernel(const I8Ops o, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dk,
+                        float* __restrict__ dv, Params p) {
+  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DW = DP / 2, DTW = DW / 8;
+  using L = DkvI8Smem<DP>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int kg = warp & 1, qh = warp >> 1, mate = warp ^ 2, col0 = qh * DW;
+  // one block a (32-key tile, kv head, batch) item, key tiles slowest: the
+  // first key tiles, which the causal mask leaves the most query tiles,
+  // start first
+  const int kb = p.K * p.B, k0 = (int)(blockIdx.x / kb) * kDkvI8Keys;
+  const int kh = blockIdx.x % kb % p.K, b = blockIdx.x % kb / p.K;
+  const int G = p.H / p.K, nS = (p.S + kI8 - 1) / kI8, kvalid = min(kDkvI8Keys, p.T - k0);
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+  auto i8p = [&](size_t at) { return reinterpret_cast<int8_t*>(smem_i8 + at); };
+  auto f32p = [&](size_t at) { return reinterpret_cast<float*>(smem_i8 + at); };
+  const int8_t *K8 = i8p(L::K8), *V8 = i8p(L::V8), *Q8 = i8p(L::Q8), *D8 = i8p(L::D8);
+  const int8_t *QT = i8p(L::QT), *DTt = i8p(L::DT);
+  const float *sq = f32p(L::SQ), *sdo = f32p(L::SDO), *ls = f32p(L::LS), *dl = f32p(L::DL);
+  const float *sqc = f32p(L::SQC), *sdoc = f32p(L::SDOC);
+  float* red = f32p(L::RED);                                     // [warp][2][16]
+  uint32_t* frag = reinterpret_cast<uint32_t*>(smem_i8 + L::FRAG);   // [warp][2][2][4][32]
+
+  const size_t krow = (((size_t)b * p.T + k0) * p.K + kh) * DP;
+  copy_rows8<DP, kI8Threads>(i8p(L::K8), o.k8 + krow, (size_t)p.K * DP, kDkvI8Keys, kvalid,
+                             threadIdx.x);
+  copy_rows8<DP, kI8Threads>(i8p(L::V8), o.v8 + krow, (size_t)p.K * DP, kDkvI8Keys, kvalid,
+                             threadIdx.x);
+  const int2 qr = visible_range(nS, [&](int t) {
+    return tile_visible(t * kI8, kI8, k0, kDkvI8Keys, p);
+  });
+  const int nqt = qr.y - qr.x, n = G * nqt;
+
+  // this thread's keys are key0 + g + 8 r (r = 0, 1), key0 = k0 + 16 kg;
+  // its queries of each 8-wide n-tile j of chunk c q0 + 32 c + 8 j + 2 tq +
+  // e; its columns of dk and dv col0 + 8 j + 2 tq + e
+  const int key0 = k0 + 16 * kg;
+  float skr[2], svr[2], dka[DTW][4], dva[DTW][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    const size_t at = ((size_t)b * p.K + kh) * p.T + key;
+    skr[r] = key < p.T ? o.sk[at] : 0.f;
+    svr[r] = key < p.T ? o.sv[at] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  // tile it's copies in two groups: A, the rows (q8, do8 and their
+  // scales, lse, delta) that s^T, dp^T and the p/ds step read; B, the
+  // columns (qT8, doT8 and their scales) that the products over the tile
+  // read.  A of the next tile flies during this tile's products, B of the
+  // next during its p/ds step.  (k8 and v8 ride with A of the first.)
+  auto copy_rows = [&](int it) {
+    const int h = kh * G + it / nqt, q0 = (qr.x + it % nqt) * kI8;
+    const int qvalid = min(kI8, p.S - q0), tid = threadIdx.x;
+    const size_t qrow = (((size_t)b * p.S + q0) * p.H + h) * DP;
+    const size_t qs = ((size_t)b * p.H + h) * p.S + q0;
+    copy_rows8<DP, kI8Threads>(i8p(L::Q8), o.q8 + qrow, (size_t)p.H * DP, kI8, qvalid, tid);
+    copy_rows8<DP, kI8Threads>(i8p(L::D8), o.do8 + qrow, (size_t)p.H * DP, kI8, qvalid, tid);
+    copy_f32s<kI8Threads>(f32p(L::SQ), o.sq + qs, kI8, qvalid, tid);
+    copy_f32s<kI8Threads>(f32p(L::SDO), o.sdo + qs, kI8, qvalid, tid);
+    copy_f32s<kI8Threads>(f32p(L::LS), lse + qs, kI8, qvalid, tid);
+    copy_f32s<kI8Threads>(f32p(L::DL), delta + qs, kI8, qvalid, tid);
+    repro::cp_async_commit();
+  };
+  auto copy_cols = [&](int it) {
+    const int h = kh * G + it / nqt, qt = qr.x + it % nqt, tid = threadIdx.x;
+    const size_t qcol = ((size_t)b * p.H + h) * nS + qt;
+    copy_tile8<DP, kI8Threads>(i8p(L::QT), o.qT8 + qcol * DP * kI8, tid);
+    copy_tile8<DP, kI8Threads>(i8p(L::DT), o.doT8 + qcol * DP * kI8, tid);
+    copy_f32s<kI8Threads>(f32p(L::SQC), o.sqc + qcol * DP, DP, DP, tid);
+    copy_f32s<kI8Threads>(f32p(L::SDOC), o.sdoc + qcol * DP, DP, DP, tid);
+    repro::cp_async_commit();
+  };
+  if (n > 0) {
+    copy_rows(0);
+    copy_cols(0);
+  }
+
+  // [probe] B7 start
+  for (int it = 0; it < n; ++it) {
+    const int q0 = (qr.x + it % nqt) * kI8;
+    // [probe] B7 tile start
+    repro::cp_async_wait_group<1>();   // the rows in (the columns may fly)
+    __syncthreads();
+    // [probe] B7 tile staged
+
+    // a chunk's s^T or dp^T: A (keys by d) times B (queries by d)
+    auto scores = [&](int c, const int8_t* A, const int8_t* Bq, int (&acc)[4][4]) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t af[4];
+        repro::ldmatrix_x4(af, a8_frag(A, LD, 16 * kg, 32 * ks, lane));
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t bf[4];
+          repro::ldmatrix_x4(bf, b8_pair(Bq, LD, 32 * c + 16 * jp, 32 * ks, lane));
+          repro::mma_s8(acc[2 * jp], af, bf[0], bf[1]);
+          repro::mma_s8(acc[2 * jp + 1], af, bf[2], bf[3]);
+        }
+      }
+    };
+    // chunk c of the tile holds a pair these keys see
+    auto seen = [&](int c) {
+      return q0 + 32 * c < p.S && tile_visible(q0 + 32 * c, 32, key0, 16, p);
+    };
+    // every pair of chunk c visible to these keys
+    auto whole = [&](int c) {
+      const int qc = q0 + 32 * c;
+      return qc + 32 <= p.S && key0 + 16 <= p.T && (!p.causal || key0 + 15 <= qc) &&
+             (!p.window || qc + 31 - key0 < p.window);
+    };
+
+    // p^T and ds^T over this warp's 64 queries (chunks 2 qh, 2 qh + 1)
+    float xp[8][4], xd[8][4], pmax[2] = {0.f, 0.f}, dmax[2] = {0.f, 0.f};
+    bool on_own[2], on_mate[2];
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 2 * qh + cc;
+      on_own[cc] = seen(c);   // warp-uniform
+      on_mate[cc] = seen(2 * (qh ^ 1) + cc);
+      float cp[4][4], cd[4][4];
+      if (on_own[cc]) {
+        int si[4][4], di[4][4];
+        scores(c, K8, Q8, si);
+        scores(c, V8, D8, di);
+        const bool cap = p.softcap > 0.f, wh = whole(c);
+        if (cap) {
+          if (wh) dkv_i8_grads<true, false>(cp, cd, si, di, sq, sdo, ls, dl, 32 * c, q0,
+                                            key0 + g, tq, skr, svr, pmax, dmax, p);
+          else dkv_i8_grads<true, true>(cp, cd, si, di, sq, sdo, ls, dl, 32 * c, q0, key0 + g,
+                                        tq, skr, svr, pmax, dmax, p);
+        } else {
+          if (wh) dkv_i8_grads<false, false>(cp, cd, si, di, sq, sdo, ls, dl, 32 * c, q0,
+                                             key0 + g, tq, skr, svr, pmax, dmax, p);
+          else dkv_i8_grads<false, true>(cp, cd, si, di, sq, sdo, ls, dl, 32 * c, q0, key0 + g,
+                                         tq, skr, svr, pmax, dmax, p);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) cp[j][e] = cd[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xp[4 * cc + j][e] = cp[j][e];
+          xd[4 * cc + j][e] = cd[j][e];
+        }
+    }
+    // [probe] B7 ds formed
+    // the keys' maxima over all 128 queries: this warp's and its mate's
+    float* rw = red + warp * 32;
+    const float* rm = red + mate * 32;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      pmax[r] = quad_max(pmax[r]);
+      dmax[r] = quad_max(dmax[r]);
+      if (tq == 0) {
+        rw[g + 8 * r] = pmax[r];
+        rw[16 + g + 8 * r] = dmax[r];
+      }
+    }
+    pair_sync(1 + kg);
+    float spT[2], sdsT[2];
+    float2 qp[2], qd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      spT[r] = fmaxf(pmax[r], rm[g + 8 * r]) / 127.f;
+      sdsT[r] = fmaxf(dmax[r], rm[16 + g + 8 * r]) / 127.f;
+      qp[r] = quant_scale(spT[r]);
+      qd[r] = quant_scale(sdsT[r]);
+    }
+    // this warp's half quantized into A fragments (chunks 2 qh + cc),
+    // shared with the mate through shared memory
+    uint32_t pa[2][4], da[2][4], pm[2][4], dm[2][4];
+    uint32_t* fw = frag + warp * (2 * 2 * 4 * 32);
+    const uint32_t* fm = frag + mate * (2 * 2 * 4 * 32);
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      quant_frag(pa[cc], xp[4 * cc], xp[4 * cc + 1], xp[4 * cc + 2], xp[4 * cc + 3], qp);
+      quant_frag(da[cc], xd[4 * cc], xd[4 * cc + 1], xd[4 * cc + 2], xd[4 * cc + 3], qd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        fw[((0 * 2 + cc) * 4 + i) * 32 + lane] = pa[cc][i];
+        fw[((1 * 2 + cc) * 4 + i) * 32 + lane] = da[cc][i];
+      }
+    }
+    repro::cp_async_wait_group<0>();   // the columns in
+    __syncthreads();   // the fragments written, the rows read by every warp
+    if (it + 1 < n) copy_rows(it + 1);
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pm[cc][i] = fm[((0 * 2 + cc) * 4 + i) * 32 + lane];
+        dm[cc][i] = fm[((1 * 2 + cc) * 4 + i) * 32 + lane];
+      }
+    // [probe] B7 ds quantized
+    // dv += rescale(p^T8 doT8), dk += rescale(ds^T8 qT8) over this warp's
+    // columns and the tile's 128 queries (this warp's chunks, then the
+    // mate's: the int32 sums are exact in any order), an n-tile pair at a
+    // time
+#pragma unroll
+    for (int jp = 0; jp < DTW / 2; ++jp) {
+      int av[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}}, ak[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+      auto add = [&](int c, const uint32_t (&fp)[4], const uint32_t (&fd)[4]) {
+        uint32_t f[4];
+        repro::ldmatrix_x4(f, b8_pair(DTt, kI8TLd, col0 + 16 * jp, 32 * c, lane));
+        repro::mma_s8(av[0], fp, f[0], f[1]);
+        repro::mma_s8(av[1], fp, f[2], f[3]);
+        repro::ldmatrix_x4(f, b8_pair(QT, kI8TLd, col0 + 16 * jp, 32 * c, lane));
+        repro::mma_s8(ak[0], fd, f[0], f[1]);
+        repro::mma_s8(ak[1], fd, f[2], f[3]);
+      };
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {   // a chunk no key sees holds zeros
+        if (on_own[cc]) add(2 * qh + cc, pa[cc], da[cc]);
+        if (on_mate[cc]) add(2 * (qh ^ 1) + cc, pm[cc], dm[cc]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 2 * jp + i, col = col0 + 8 * j + 2 * tq + (e & 1);
+          dva[j][e] = __fadd_rn(dva[j][e], rescale(av[i][e], spT[e >> 1], sdoc[col]));
+          dka[j][e] = __fadd_rn(dka[j][e], rescale(ak[i][e], sdsT[e >> 1], sqc[col]));
+        }
+    }
+    // [probe] B7 products added
+    __syncthreads();   // every warp is done with the columns and the swap space
+    if (it + 1 < n) copy_cols(it + 1);
+    // [probe] B7 tile end
+  }
+  // [probe] B7 end
+  repro::cp_async_wait_all();   // (k8, v8 of a block with no visible tile)
+
+  // this thread's rows of dk and dv among the block's kvalid keys
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = 16 * kg + g + 8 * r;
+    if (kr >= kvalid) continue;
+    const size_t off = (((size_t)b * p.T + k0 + kr) * p.K + kh) * p.d;
+#pragma unroll
+    for (int j = 0; j < DTW; ++j) {
+      const int c = col0 + 8 * j + 2 * tq;
+      if (c + 1 < p.d && p.d % 2 == 0) {
+        store_pair(dk + off + c, dka[j][2 * r], dka[j][2 * r + 1]);
+        store_pair(dv + off + c, dva[j][2 * r], dva[j][2 * r + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < p.d) {
+            dk[off + c + e] = dka[j][2 * r + e];
+            dv[off + c + e] = dva[j][2 * r + e];
+          }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -2231,9 +2812,8 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
     return start(flash_fwd_kernel<T, DP>, rows, fwd_smem_words<DP>() * 4, s,
                  qq, kk, vv, o, f1, p);
   }
+  if (i8) return cudaErrorInvalidValue;   // B6, B7 int8: repro_flash_bwd_*_i8
   if (which == Which::kDq) {
-    if (i8) return start(flash_bwd_dq_i8_kernel<T, DP>, rows, dq_i8_smem_bytes<DP>(), s,
-                         qq, kk, vv, dd, ls, dl, f0, p);
     if (bf) {
       Params pt = p;
       pt.tma = tma_rows<T>(p.d, k, v, k, v);   // only k and v are staged
@@ -2253,8 +2833,6 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
     return start(flash_bwd_dq_kernel<T, DP>, rows, dq_smem_words<DP>() * 4, s,
                  qq, kk, vv, dd, ls, dl, f0, p);
   }
-  if (i8) return start(flash_bwd_dkv_i8_kernel<T, DP>, keys, dkv_i8_smem_bytes<DP>(), s,
-                       qq, kk, vv, dd, ls, dl, f0, f1, p);
   if (bf) {
     Params pt = p;
     pt.tma = tma_rows<T>(p.d, q, k, v, dout);
@@ -2302,6 +2880,69 @@ int dispatch(Which which, const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
+// The int8 backward: the pre-pass over q, k, v, do into `ops` (the 14
+// pointers in I8Ops order), then B6 and B7 on them.
+int i8_params(Params* p, int B, int S, int T, int H, int K, int d, float scale, int causal,
+              int window, float softcap) {
+  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || d <= 0 || d > 128 || B > 65535 ||
+      H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *p = Params{B, S, T, H, K, d, scale, causal, window, softcap, 2};
+  return 0;
+}
+I8Ops i8_ops(void* const* a) {
+  return I8Ops{static_cast<int8_t*>(a[0]), static_cast<int8_t*>(a[1]),
+               static_cast<int8_t*>(a[2]), static_cast<int8_t*>(a[3]),
+               static_cast<int8_t*>(a[4]), static_cast<int8_t*>(a[5]),
+               static_cast<int8_t*>(a[6]), static_cast<float*>(a[7]),
+               static_cast<float*>(a[8]), static_cast<float*>(a[9]),
+               static_cast<float*>(a[10]), static_cast<float*>(a[11]),
+               static_cast<float*>(a[12]), static_cast<float*>(a[13])};
+}
+
+template <typename T, int DP>
+cudaError_t quant_i8(const void* q, const void* k, const void* v, const void* dout,
+                     void* const* a, const Params& p, cudaStream_t s) {
+  const long long items = 2ll * p.B * p.H * ((p.S + kI8 - 1) / kI8) +
+                          2ll * p.B * p.K * ((p.T + kI8 - 1) / kI8);
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  Params pt = p;
+  pt.tma = tma_rows<T>(p.d, q, k, v, dout);   // here: rows of whole 16-byte pieces
+  return start(flash_quant_i8_kernel<T, DP>, dim3((unsigned)items), quant_i8_smem_bytes<DP>(), s,
+               static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+               static_cast<const T*>(dout), i8_ops(a), pt);
+}
+
+template <int DP>
+cudaError_t bwd_i8(Which which, void* const* a, const float* lse, const float* delta,
+                   float* out0, float* out1, const Params& p, cudaStream_t s) {
+  if (which == Which::kDq) {
+    // one block an item (64-row q tile, head, batch), q tiles in reverse
+    const long long items = (long long)((p.S + kBQ - 1) / kBQ) * p.H * p.B;
+    if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+    return start<kI8Threads>(flash_bwd_dq_i8_kernel<DP>, dim3((unsigned)items),
+                             DqI8Smem<DP>::BYTES, s, i8_ops(a), lse, delta, out0, p);
+  }
+  const long long items = (long long)((p.T + kDkvI8Keys - 1) / kDkvI8Keys) * p.K * p.B;
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  return start<kI8Threads>(flash_bwd_dkv_i8_kernel<DP>, dim3((unsigned)items),
+                           DkvI8Smem<DP>::BYTES, s, i8_ops(a), lse, delta, out0, out1, p);
+}
+
+int bwd_i8_dispatch(Which which, void* const* ops, const void* lse, const void* delta,
+                    void* out0, void* out1, int B, int S, int T, int H, int K, int d,
+                    float scale, int causal, int window, float softcap, void* stream) {
+  Params p;
+  if (const int err = i8_params(&p, B, S, T, H, K, d, scale, causal, window, softcap)) return err;
+  const float* ls = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* f0 = static_cast<float*>(out0);
+  float* f1 = static_cast<float*>(out1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(d <= 64 ? bwd_i8<64>(which, ops, ls, dl, f0, f1, p, s)
+                                  : bwd_i8<128>(which, ops, ls, dl, f0, f1, p, s));
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and o); mode: 0 = f32
@@ -2327,6 +2968,49 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   int mode, int dtype, void* stream) {
   return dispatch(Which::kDq, q, k, v, dout, lse, delta, dq, nullptr, B, S, T, H,
                   K, d, scale, causal, window, softcap, mode, dtype, stream);
+}
+
+// B6 and B7 take the int8 operand mode (mode 2) only through the entry
+// points below, on the pre-pass's operands.
+
+// The int8 backward's pre-pass: q, do (B, S, H, d) and k, v (B, T, K, d) of
+// `dtype` into the 14 buffers of `ops` (I8Ops order, DP = 64 for d <= 64,
+// else 128)
+extern "C" int repro_flash_quant_i8(const void* q, const void* k, const void* v,
+                                    const void* dout, void* const* ops, int B, int S, int T,
+                                    int H, int K, int d, int dtype, void* stream) {
+  Params p;
+  if (const int err = i8_params(&p, B, S, T, H, K, d, 1.f, 0, 0, 0.f)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = d <= 64 ? quant_i8<float, 64>(q, k, v, dout, ops, p, s)
+                  : quant_i8<float, 128>(q, k, v, dout, ops, p, s);
+  } else if (dtype == 1) {
+    err = d <= 64 ? quant_i8<__nv_bfloat16, 64>(q, k, v, dout, ops, p, s)
+                  : quant_i8<__nv_bfloat16, 128>(q, k, v, dout, ops, p, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// B6 in the int8 mode: dq (B, S, H, d) f32 from the pre-pass's `ops`
+extern "C" int repro_flash_bwd_dq_i8(void* const* ops, const void* lse, const void* delta,
+                                     void* dq, int B, int S, int T, int H, int K, int d,
+                                     float scale, int causal, int window, float softcap,
+                                     void* stream) {
+  return bwd_i8_dispatch(Which::kDq, ops, lse, delta, dq, nullptr, B, S, T, H, K, d, scale,
+                         causal, window, softcap, stream);
+}
+
+// B7 in the int8 mode: dk, dv (B, T, K, d) f32 from the pre-pass's `ops`
+extern "C" int repro_flash_bwd_dkv_i8(void* const* ops, const void* lse, const void* delta,
+                                      void* dk, void* dv, int B, int S, int T, int H, int K,
+                                      int d, float scale, int causal, int window,
+                                      float softcap, void* stream) {
+  return bwd_i8_dispatch(Which::kDkv, ops, lse, delta, dk, dv, B, S, T, H, K, d, scale, causal,
+                         window, softcap, stream);
 }
 
 // B7: dk, dv (B, T, K, d) f32

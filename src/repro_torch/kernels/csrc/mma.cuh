@@ -1,9 +1,10 @@
 // Hopper tensor-core and asynchronous-copy primitives for the flash
 // attention kernels (csrc/flash_attention.cu), as inline PTX for sm_90a:
-// bf16 mma.sync m16n8k16 with f32 accumulators, ldmatrix (plain and
-// transposed) from shared memory, cp.async copies into shared memory,
-// tensor copies by the copy engine (TMA) that complete on an mbarrier, and
-// the round-to-nearest-even packing of two f32 values into a bf16x2 word.
+// bf16 mma.sync m16n8k16 with f32 accumulators, s8 mma.sync m16n8k32 with
+// s32 accumulators, ldmatrix (plain and transposed) from shared memory,
+// cp.async copies into shared memory, tensor copies by the copy engine
+// (TMA) that complete on an mbarrier, and the round-to-nearest-even packing
+// of two f32 values into a bf16x2 word.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4; each 32-bit
 // register holds two bf16 values, the lower column in the low half):
@@ -13,6 +14,19 @@
 //   C (16 x 8, f32):        c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
 // so a C tile of 16 rows by 16 columns, rounded and packed pairwise, is the
 // A fragment of the next product (flash attention's p).
+//
+// Fragment layouts of m16n8k32 s8 (each register four bytes, the lowest k
+// in the low byte):
+//   A (16 x 32, row-major): a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g, 16+4t..),
+//                           a3 (g+8, 16+4t..)
+//   B (32 x 8, k by n):     b0 (k 4t..4t+3, n g), b1 (k 16+4t.., n g)
+//   C (16 x 8, s32):        c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// Both operands are K-contiguous (8-bit operands have no transposed
+// ldmatrix), so ldmatrix (b16) of byte rows gives them: 8 rows of 16 bytes
+// a matrix, register i of lane (g, t) bytes 4t..4t+3 of row g.  A C tile of
+// 16 columns does not hold A's bytes: a thread has columns 2t, 2t+1, 8+2t,
+// 9+2t where A wants 4t..4t+3, so the int8 kernels permute the contraction
+// axis in each 16-group (flash_attention.cu, frag_perm).
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -32,6 +46,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: one m16n8k32 product, s8 operands, s32 accumulators (exact:
+// no sum of the flash kernels' int8 products comes near 2^31)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -12,18 +12,34 @@ mode (``train --amp bf16``) all three run on the tensor cores
 ``flash_bwd_dkv_tc_kernel``: mma.sync, ldmatrix, TMA boxes on an
 mbarrier); in the f32 mode on FFMA
 (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``);
-in the int8 mode on ``__dp4a`` (the ``*_i8_kernel``).  Each wrapper
-launches its kernel on CUDA tensors or raises: nothing falls back to
-another kernel.  Their plain versions at this contract, rounding where
-the kernels round, are ``kernels/ref.py::flash_fwd_ref`` and
-``flash_bwd_ref``, which walk the same tiles (``ref.FLASH_TILES``: B5's
-128-key tiles and, in the int8 mode, where the tiles carry the scales, B6's
-128-key and B7's 128-query tiles); ``kernels/ops.py::attention`` wires the
-kernels into a ``torch.autograd.Function`` and, for CPU tensors, runs the
-plain attention (``attention_ref`` / ``attention_policy_ref``) under
-autograd instead.  Any S and T: the kernels mask their ragged last tile.
+in the int8 mode B5 on ``__dp4a`` (``flash_fwd_i8_kernel``) and the
+backward in two steps: a pre-pass (:func:`quantize_bwd`,
+``flash_quant_i8_kernel``) quantizes q, k, v and do once a call, per row
+over d and per column over each 128-row tile (the tiles stored K-major in
+the MMA fragments' order, ``ref.FRAG_PERM``), and B6 and B7
+(``flash_bwd_dq_i8_kernel``, ``flash_bwd_dkv_i8_kernel``) multiply those
+bytes on the s8 tensor cores (mma.sync m16n8k32), quantizing p and ds in
+registers.  Each int8 product is exact and its int32 sum cannot overflow,
+so the MMA's order and the permutation change no bit: the kernels keep the
+scales' axes and the f32 steps of the __dp4a kernels they replace, in
+order, and with them their numbers.
+:func:`flash_bwd` runs the backward as ``ops.attention`` wants it (one
+pre-pass for B6 and B7 in the int8 mode); ``flash_bwd_dq`` and
+``flash_bwd_dkv`` each run the pre-pass themselves.  Each wrapper launches
+its kernels on CUDA tensors or raises: nothing falls back to another
+kernel.  Their plain versions at this contract, rounding where the kernels
+round, are ``kernels/ref.py::flash_fwd_ref`` and ``flash_bwd_ref`` (the
+pre-pass's: ``flash_quant_bwd_ref``), which walk the same tiles
+(``ref.FLASH_TILES``: B5's 128-key tiles and, in the int8 mode, where the
+tiles carry the scales, B6's 128-key and B7's 128-query tiles);
+``kernels/ops.py::attention`` wires the kernels into a
+``torch.autograd.Function`` and, for CPU tensors, runs the plain attention
+(``attention_ref`` / ``attention_policy_ref``) under autograd instead.  Any
+S and T: the kernels mask their ragged last tile.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,6 +55,12 @@ dkv_launches = 0   # B7
 fwd_int8_launches = 0   # the same three in the int8 operand mode, apart
 dq_int8_launches = 0
 dkv_int8_launches = 0
+quant_int8_launches = 0   # the int8 backward's pre-pass
+
+# the pre-pass's outputs, in the order of the C side's I8Ops
+I8_FIELDS = ("q8", "do8", "k8", "v8", "kT8", "qT8", "doT8",
+             "sq", "sdo", "sk", "sv", "skc", "sqc", "sdoc")
+I8_TILE = 128   # the rows of a tile whose columns share a scale
 
 
 def _mode_code(policy) -> int:
@@ -121,26 +143,114 @@ def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
     return o, lse
 
 
+def padded_d(d: int) -> int:
+    """d_head as the kernels pad it: 64 up to 64, else 128."""
+    return 64 if d <= 64 else 128
+
+
+def i8_shapes(B, S, T, H, K, d) -> dict:
+    """{name: (shape, dtype)} of the pre-pass's outputs (``I8_FIELDS``):
+    q and do per row over d, (B, S, H, DP) int8 with (B, H, S) scales; k
+    and v per key over d, (B, T, K, DP) with (B, K, T); k per column over
+    each 128-key tile, K-major, (B, K, nT, DP, 128) with (B, K, nT, DP); q
+    and do likewise over each 128-query tile, (B, H, nS, DP, 128) with (B,
+    H, nS, DP)."""
+    DP, nS, nT = padded_d(d), -(-S // I8_TILE), -(-T // I8_TILE)
+    i8, f32 = torch.int8, torch.float32
+    return {"q8": ((B, S, H, DP), i8), "do8": ((B, S, H, DP), i8),
+            "k8": ((B, T, K, DP), i8), "v8": ((B, T, K, DP), i8),
+            "kT8": ((B, K, nT, DP, I8_TILE), i8), "qT8": ((B, H, nS, DP, I8_TILE), i8),
+            "doT8": ((B, H, nS, DP, I8_TILE), i8),
+            "sq": ((B, H, S), f32), "sdo": ((B, H, S), f32),
+            "sk": ((B, K, T), f32), "sv": ((B, K, T), f32),
+            "skc": ((B, K, nT, DP), f32), "sqc": ((B, H, nS, DP), f32),
+            "sdoc": ((B, H, nS, DP), f32)}
+
+
+def _i8_array(ops):
+    return (ctypes.c_void_p * len(I8_FIELDS))(*(ops[n].data_ptr() for n in I8_FIELDS))
+
+
+def quantize_bwd(q, k, v, do) -> dict:
+    """The int8 backward's pre-pass (``flash_quant_i8_kernel``): q, k, v and
+    do quantized once, into fresh tensors named by ``I8_FIELDS``, shaped by
+    :func:`i8_shapes` (absmax / 127 scales, bytes rounded half to even and
+    clipped to +-127, as ``quant.quantize_int8``).  Its plain version is
+    ``ref.flash_quant_bwd_ref``."""
+    global quant_int8_launches
+    B, S, T, H, K, d = _check("flash_quant_i8", q, k, v, (("do", do),))
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must be like q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    ops = {n: torch.empty(shape, dtype=dt, device=q.device)
+           for n, (shape, dt) in i8_shapes(B, S, T, H, K, d).items()}
+    err = build.library().repro_flash_quant_i8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _i8_array(ops),
+        B, S, T, H, K, d, _DTYPE_CODES[q.dtype], build.stream(q))
+    build.check(err, "flash_quant_i8 kernel")
+    quant_int8_launches += 1
+    return ops
+
+
+def _dq_i8(ops, q, lse, delta, dims, tail):
+    global dq_int8_launches
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = build.library().repro_flash_bwd_dq_i8(
+        _i8_array(ops), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        *tail[:4], tail[6])
+    build.check(err, "flash_bwd_dq_i8 kernel")
+    dq_int8_launches += 1
+    return dq
+
+
+def _dkv_i8(ops, k, lse, delta, dims, tail):
+    global dkv_int8_launches
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    err = build.library().repro_flash_bwd_dkv_i8(
+        _i8_array(ops), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, *tail[:4], tail[6])
+    build.check(err, "flash_bwd_dkv_i8 kernel")
+    dkv_int8_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, scale: float = 1.0, causal: bool = True,
+              window: int = 0, softcap: float = 0.0, policy=None):
+    """``(dq, dk, dv)``: B6 and B7 as ``ops.attention``'s backward runs them.
+    In the int8 mode one pre-pass (:func:`quantize_bwd`) feeds both; in the
+    others each kernel reads q, k, v and do itself.  Inputs and outputs as
+    :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`."""
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap, policy=policy)
+    if _mode_code(policy) != _MODES["int8"]:
+        return (flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    dims = _check_bwd("flash_bwd", q, k, v, do, lse, delta)
+    tail = _tail(scale, causal, window, softcap, policy, q)
+    ops = quantize_bwd(q, k, v, do)
+    return (_dq_i8(ops, q, lse, delta, dims, tail), *_dkv_i8(ops, k, lse, delta, dims, tail))
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float = 1.0,
                  causal: bool = True, window: int = 0, softcap: float = 0.0,
                  policy=None):
     """dq (B6), float32 (B, S, H, d), recomputing p = exp(s - lse) per tile.
 
     ``do`` is shaped and typed like q; ``lse`` and ``delta`` = rowsum(do * o)
-    are float32 (B, H, S).
+    are float32 (B, H, S).  In the int8 mode the call runs the pre-pass
+    (:func:`quantize_bwd`) first.
     """
-    global dq_launches, dq_int8_launches
-    B, S, T, H, K, d = _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
+    global dq_launches
+    dims = _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
     tail = _tail(scale, causal, window, softcap, policy, q)
+    if tail[4] == _MODES["int8"]:
+        return _dq_i8(quantize_bwd(q, k, v, do), q, lse, delta, dims, tail)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     err = build.library().repro_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, S, T, H, K, d, *tail)
+        delta.data_ptr(), dq.data_ptr(), *dims, *tail)
     build.check(err, "flash_bwd_dq kernel")
-    if tail[4] == _MODES["int8"]:
-        dq_int8_launches += 1
-    else:
-        dq_launches += 1
+    dq_launches += 1
     return dq
 
 
@@ -151,17 +261,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0,
     heads of its group inside one block in a fixed order (no atomics: a
     repeated call gives the same bits).  Inputs as :func:`flash_bwd_dq`.
     """
-    global dkv_launches, dkv_int8_launches
-    B, S, T, H, K, d = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
+    global dkv_launches
+    dims = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
     tail = _tail(scale, causal, window, softcap, policy, q)
+    if tail[4] == _MODES["int8"]:
+        return _dkv_i8(quantize_bwd(q, k, v, do), k, lse, delta, dims, tail)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     err = build.library().repro_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, T, H, K, d, *tail)
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims, *tail)
     build.check(err, "flash_bwd_dkv kernel")
-    if tail[4] == _MODES["int8"]:
-        dkv_int8_launches += 1
-    else:
-        dkv_launches += 1
+    dkv_launches += 1
     return dk, dv

@@ -122,7 +122,8 @@ def decode_attention_multi(
 def launch_counts() -> dict:
     """Kernel launches counted by the wrappers in this process (B2 counts
     one per backward call; B8 and B9 count their int8-pool launches, B5-B7
-    their int8-operand launches, apart from their f32/bf16 ones)."""
+    their int8-operand launches, apart from their f32/bf16 ones;
+    ``flash_bwd_quant_int8`` is the int8 backward's pre-pass)."""
     return {
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
@@ -134,6 +135,7 @@ def launch_counts() -> dict:
         "flash_fwd_int8": fa.fwd_int8_launches,
         "flash_bwd_dq_int8": fa.dq_int8_launches,
         "flash_bwd_dkv_int8": fa.dkv_int8_launches,
+        "flash_bwd_quant_int8": fa.quant_int8_launches,
     }
 
 
@@ -144,6 +146,7 @@ def reset_launch_counts() -> None:
     da.int8_launches = da.multi_int8_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
     fa.fwd_int8_launches = fa.dq_int8_launches = fa.dkv_int8_launches = 0
+    fa.quant_int8_launches = 0
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -257,9 +260,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _kernel_bwd(q, k, v, do, lse, delta, **kw):
-    """(dq, dk, dv) from B6 and B7."""
-    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    return (dq, *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    """(dq, dk, dv) from B6 and B7 (in the int8 mode after one pre-pass)."""
+    return fa.flash_bwd(q, k, v, do, lse, delta, **kw)
 
 
 def attention(q, k, v, *, scale, causal: bool = True, window: int = 0,

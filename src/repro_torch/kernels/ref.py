@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant.core import kernel_dot, quant_matmul
+from repro_torch.quant.core import kernel_dot, quant_matmul, quantize_int8
 
 NEG_INF = -2.3819763e38
 
@@ -298,6 +298,122 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
             dk = dk + kernel_dot(dsg[:, :, g, qs].transpose(-1, -2), qg[:, :, g, qs], policy)
             dv = dv + kernel_dot(pg[:, :, g, qs].transpose(-1, -2), dog[:, :, g, qs], policy)
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+# The int8 backward's contraction over a 128-row tile (ds k, pᵀ do, dsᵀ q)
+# in the order of the s8 MMA fragments (csrc/flash_attention.cu
+# frag_perm): position p of each 16-group holds row FRAG_PERM[p] of the
+# group.  A thread's s32 accumulators hold columns 2t, 2t+1, 8+2t, 9+2t of
+# a 16-group, which it packs as A's bytes 4t..4t+3; B's rows follow.
+FRAG_PERM = tuple(8 * ((i & 3) >> 1) + 2 * (i >> 2) + (i & 1) for i in range(16))
+TILE_PERM = tuple(16 * (i // 16) + FRAG_PERM[i % 16] for i in range(128))
+I8_TILE = 128
+
+
+def flash_quant_bwd_ref(q, k, v, do) -> dict:
+    """The plain version of the int8 backward's pre-pass
+    (``flash_attention.quantize_bwd``), the same names, shapes and bytes:
+    q, do, k and v quantized per row over d (zero-padded to DP = 64 or
+    128) with their (B, heads, rows) scales, and q, do and k per column
+    over each 128-row tile (rows past S or T zeros), stored (B, heads,
+    tiles, DP, 128) with each 16-group of a tile's rows in FRAG_PERM order,
+    their scales (B, heads, tiles, DP).  Each quantization is
+    ``quant.quantize_int8``'s."""
+    B, S, H, d = q.shape
+    T = k.shape[1]
+    DP = 64 if d <= 64 else 128
+    F = torch.nn.functional
+
+    def rows(x):
+        x8, sc = quantize_int8(F.pad(x.float(), (0, DP - d)), axis=-1)
+        return x8, sc[..., 0].transpose(1, 2).contiguous()
+
+    def cols(x):
+        R, heads = x.shape[1], x.shape[2]
+        n = -(-R // I8_TILE)
+        xp = F.pad(x.float(), (0, DP - d, 0, 0, 0, n * I8_TILE - R))
+        x8, sc = quantize_int8(xp.reshape(B, n, I8_TILE, heads, DP), axis=2)
+        x8 = x8.permute(0, 3, 1, 4, 2)[..., list(TILE_PERM)]
+        return x8.contiguous(), sc[:, :, 0].permute(0, 2, 1, 3).contiguous()
+
+    out = {}
+    for name, x in (("q", q), ("do", do), ("k", k), ("v", v)):
+        out[name + "8"], out["s" + name] = rows(x)
+    for name, x in (("q", q), ("do", do), ("k", k)):
+        out[name + "T8"], out["s" + name + "c"] = cols(x)
+    return out
+
+
+def _i8_dot(a8, sa, b8, sb):
+    """``a8 @ b8`` of int8 bytes quantized beforehand, summed exactly (a
+    float64 matmul of the int8 values) and rescaled ``acc * sa * sb`` in
+    f32: ``kernel_dot``'s int8 arithmetic after its quantization."""
+    return (a8.double() @ b8.double()).float() * sa * sb
+
+
+def flash_bwd_i8_ref(ops, lse, delta, *, d: int, scale: float = 1.0, causal: bool = True,
+                     window: int = 0, softcap: float = 0.0):
+    """:func:`flash_bwd_ref` in the int8 mode restated on the pre-pass's
+    operands (``ops``, as :func:`flash_quant_bwd_ref` makes them; ``d`` the
+    head dim before padding): the plain version of B6 and B7 as the
+    tensor-core kernels compute, ``(dq, dk, dv)`` float32.  s and dp from
+    the row-quantized bytes; ds k over each 128-key tile and pᵀ do, dsᵀ q
+    over each 128-query tile (of each head of a group, in order) from the
+    column-quantized tiles, p and ds quantized per row over the tile's
+    columns and permuted like them (FRAG_PERM), so every int32 sum is the
+    one :func:`flash_bwd_ref` forms, over the axis in another order."""
+    q8, k8 = ops["q8"], ops["k8"]
+    B, S, H, _ = q8.shape
+    T, K = k8.shape[1], k8.shape[2]
+    G = H // K
+    F = torch.nn.functional
+    perm = list(TILE_PERM)
+
+    def rep(x):                                        # (B, K, ...) -> (B, H, ...)
+        return x.repeat_interleave(G, 1)
+
+    kh, vh = rep(k8.transpose(1, 2)), rep(ops["v8"].transpose(1, 2))
+    sk, sv = rep(ops["sk"])[..., None, :], rep(ops["sv"])[..., None, :]
+    s = _i8_dot(q8.transpose(1, 2), ops["sq"][..., None], kh.transpose(-1, -2), sk) * scale
+    t = None
+    if softcap:
+        t = torch.tanh(s / torch.full_like(s, softcap))
+        s = softcap * t
+    mask = _visible(S, T, causal, window, q8.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = _i8_dot(ops["do8"].transpose(1, 2), ops["sdo"][..., None], vh.transpose(-1, -2), sv)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1 - t * t)
+    ds = ds * scale
+
+    nT, nS = -(-T // I8_TILE), -(-S // I8_TILE)
+    dsk = F.pad(ds, (0, nT * I8_TILE - T))
+    dq = 0.0
+    for kt in range(nT):
+        x8, sx = quantize_int8(dsk[..., kt * I8_TILE:(kt + 1) * I8_TILE], axis=-1)
+        kT = rep(ops["kT8"][:, :, kt])                 # (B, H, DP, 128)
+        dq = dq + _i8_dot(x8[..., perm], sx, kT.transpose(-1, -2),
+                          rep(ops["skc"][:, :, kt])[..., None, :])
+
+    def tiles(x):                                      # (B, H, S, T) -> (B, K, G, T, nS * 128)
+        x = F.pad(x, (0, 0, 0, nS * I8_TILE - S)).transpose(-1, -2)
+        return x.reshape(B, K, G, T, nS * I8_TILE)
+
+    pq, dsq = tiles(p), tiles(ds)
+    dk = dv = 0.0
+    for g in range(G):
+        heads = torch.arange(K, device=q8.device) * G + g
+        for qt in range(nS):
+            qs = slice(qt * I8_TILE, (qt + 1) * I8_TILE)
+            p8, sp = quantize_int8(pq[:, :, g, :, qs], axis=-1)
+            d8, sd = quantize_int8(dsq[:, :, g, :, qs], axis=-1)
+            dv = dv + _i8_dot(p8[..., perm], sp, ops["doT8"][:, heads, qt].transpose(-1, -2),
+                              ops["sdoc"][:, heads, qt][..., None, :])
+            dk = dk + _i8_dot(d8[..., perm], sd, ops["qT8"][:, heads, qt].transpose(-1, -2),
+                              ops["sqc"][:, heads, qt][..., None, :])
+    return (dq[..., :d].transpose(1, 2), dk[..., :d].transpose(1, 2),
+            dv[..., :d].transpose(1, 2))
 
 
 def _gather_kv(k_pages, v_pages, tab, k_scale, v_scale):
