@@ -9,13 +9,14 @@ B8's twelve instances (six (q, pool) type pairs, with and without 16-byte
 loads: registers printed, no spills in ``ptxas -v``), of B9's twelve (six
 type pairs, 64- and 256-column slices: the same), of the
 tensor-core flash kernels (B5, B6 and B7 in the bf16 operand mode): no spills
-in ``ptxas -v`` at DP 64 and 128, and of the int8 backward (its pre-pass
-and B6, B7 on the s8 tensor cores: registers printed, no spills in B6 or
-B7), and, where ``cuobjdump`` is on the machine, tensor-core instructions
-in their SASS (HMMA/HGMMA in the bf16 kernels; IMMA and no IDP.4A in B6
-and B7 int8), whose counts of HMMA, HGMMA, IMMA, IDP, LDSM, LDGSTS and
-UTMALDG it prints for every flash kernel ("not available" without the
-tool).  Then it runs these phases, each of which raises on a failed
+in ``ptxas -v`` at DP 64 and 128, and of the int8 mode (the forward's and
+the backward's pre-passes and B5, B6, B7 on the s8 tensor cores:
+registers printed, no spills in B5, B6 or B7), of B2's instances
+(registers printed, no spill in the train shape's), and, where
+``cuobjdump`` is on the machine, tensor-core instructions in their SASS
+(HMMA/HGMMA in the bf16 kernels; IMMA and no IDP.4A in B5, B6 and B7
+int8), whose counts of HMMA, HGMMA, IMMA, IDP, LDSM, LDGSTS and UTMALDG it
+prints for every flash kernel ("not available" without the tool).  Then it runs these phases, each of which raises on a failed
 check:
 
 - kernels: each kernel against its plain PyTorch version on the card, with
@@ -25,10 +26,12 @@ check:
   in turns, medians of 5 rounds) and the card's time a launch
   beside F.rms_norm's, from the profiler, and at the decode shape the
   call's host time split into dispatch, the wrapper's checks and allocation
-  and the C entry point); B2 RMSNorm backward at
-  the train shape x (8, 512, 1024) and ragged rows/widths, f32 and bf16
-  (dx at atol 2e-4 / rtol 1e-3, bf16 2e-2; dgain at the f32 gradient tier
-  and bit-identical when repeated); B3/B4 chunked cross entropy at logits
+  and the C entry point); B2 RMSNorm backward (one cooperative launch) at
+  the train shape x (8, 512, 1024) and ragged rows/widths (D 48, 1024 and
+  1030, the last on the scalar path), f32 and bf16 (dx at atol 2e-4 / rtol
+  1e-3, bf16 2e-2; dgain at the f32 gradient tier and bit-identical when
+  repeated), one launch a call in the profiler, its card time beside the
+  autograd backward of F.rms_norm's; B3/B4 chunked cross entropy at logits
   (4096, 2048) (the train shape), (4096, 49152) (smollm's vocab) and
   ragged V, with masked rows and a cotangent of order 1 on the others (loss
   and lse at atol 2e-5, dlogits at atol 2e-4 / rtol 1e-3, bf16 2e-2,
@@ -47,11 +50,13 @@ check:
   f32-mode outputs must fail against the bf16 plain versions and the int8
   outputs against the int8 plain versions tiled 64 wide (where S > 64:
   shorter sequences have no other tiles); dk/dv
-  bit-identical when repeated; in the int8 mode the backward's pre-pass
-  (flash_attention.quantize_bwd: q, k, v and do quantized once a call,
-  per row over d and per column over each 128-row tile) byte for byte
-  against its plain version (ref.flash_quant_bwd_ref), and whether each
-  int8 output equals its plain version bit for bit printed; then
+  bit-identical when repeated; in the int8 mode the forward's pre-pass
+  (flash_attention.quantize_fwd: k per row over d, v per column over each
+  128-key tile) and the backward's (quantize_bwd: q, k, v and do once a
+  call, per row over d and per column over each 128-row tile) byte for
+  byte against their plain versions (ref.flash_quant_fwd_ref,
+  flash_quant_bwd_ref), and whether each int8 output equals its plain
+  version bit for bit printed; then
   ops.attention's autograd Function in
   the f32 mode against the plain attention under autograd (the f32 tiers);
   each mode timed at the train shape, the bf16 and int8 kernels with their
@@ -62,7 +67,11 @@ check:
   the pre-pass their calls run) and the whole backward as ops.attention
   runs it (one pre-pass, B6, B7), each beside its bound and its share of
   it, and SDPA's bf16 backward on the card for scale (targets <= 40, 100,
-  120 and 260 us, printed, not held); B8 paged flash decode,
+  120 and 260 us, printed, not held); the int8 forward's pre-pass, B5 on
+  its bytes and the whole int8 forward (flash_fwd: pre-pass + B5), each
+  with its device time, its bound and its share of it, beside SDPA's bf16
+  forward and the bf16 B5 on the card for scale (targets <= 20, 70 and 90
+  us, printed, not held); B8 paged flash decode,
   split over a cluster of decode_splits() blocks (DECODE_CASES, 17 cases:
   engine shape, MHA/MQA, window, softcap, all four f32/bf16 (q, pool)
   pairs, d_head 128, d_head 256 with gemma2-2b's 8/4 heads in f32 and
@@ -141,7 +150,7 @@ check:
   not uniform); then 10 steps of ``train_loop`` through the kernels and 10 from
   the same init and batches through the plain versions: finite losses that
   fall, step-0 losses within 1e-5 relative, and exact launch counts per step
-  (17 B1, 17 B2, 1 B3, 1 B4, no B5-B8).  Its ms per step runs from the
+  (17 B1, 17 B2 of one launch each, 1 B3, 1 B4, no B5-B8).  Its ms per step runs from the
   start of the batch's generation to the loss read back, as the
   reference's train loop times it; the batch's own share and the peak
   memory of both runs are printed beside it.
@@ -161,14 +170,16 @@ check:
   bf16-mode kernels and the int8 plain versions tiled 64 wide, must fail
   the loss limit; step 0 of the loop within a limit the f32 run fails;
   exact launch counts per step (8 each of B5, B6 and B7 in the int8 mode
-  and 8 of the backward's pre-pass, none in the others, 17 B1, 17 B2, 1
-  B3, 1 B4); the mean of the last 3
+  and 8 each of the forward's and the backward's pre-passes, none in the
+  others, 17 B1, 17 B2, 1 B3, 1 B4); the mean of the last 3
   losses against the f32 run's is printed (the reference's bar is 1%; not
   held on the card).
 - profile: torch.profiler over a short serve through each engine, a short
   int8 dynamic serve (with the card's time in the quantized writes of
   serving/kv_cache.py) and one train step, f32, --amp bf16 and --amp int8:
-  the device's busy share and the kernels that take it.
+  the device's busy share and the kernels that take it; a train step's
+  profile must show no more launches of B2 (and, under --amp int8, of B5
+  and each pre-pass) than calls.
 
 Launch counts are set to 0 just before each main path (serve,
 serve_dynamic, serve_int8 dynamic and static, train, train --amp bf16,
@@ -1169,9 +1180,13 @@ def rounded_err(got, want):
 
 
 def rmsnorm_bwd_phase(rn, ref, F):
-    """B2 against its plain version; timed at the train shape."""
+    """B2 against its plain version; timed at the train shape, a call and
+    on the card a launch (one launch a call), beside the autograd backward
+    of F.rms_norm."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    shapes = [(8, 512, 1024)] + [(r, D) for r in (1, 7, 4097) for D in (48, 1024)]
+    # 16-byte pieces held in registers (D 48, 1024), and the scalar path (D
+    # 1030, not a multiple of 4 or 8)
+    shapes = [(8, 512, 1024)] + [(r, D) for r in (1, 7, 4097) for D in (48, 1024, 1030)]
     for shape in shapes:
         for dt in (torch.float32, torch.bfloat16):
             x = (3 * torch.randn(*shape, device="cuda")).to(dt)
@@ -1200,18 +1215,32 @@ def rmsnorm_bwd_phase(rn, ref, F):
     xl = x.clone().requires_grad_(True)
     wl = (1 + g).requires_grad_(True)
     yl = F.rms_norm(xl, (1024,), weight=wl, eps=1e-6)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
-                                                     retain_graph=True))
+    library = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)  # noqa: E731
+    library_ms = cuda_ms(library)
+    dev = device_us(lambda: rn.rmsnorm_bwd(x, g, dy), "rmsnorm_bwd")
+    lib_dev, lib_launches = library_device_us(library)
+    for _ in range(3):   # a profile may drop an event: fewer is retaken, more fails
+        _, launches = library_device_us(lambda: rn.rmsnorm_bwd(x, g, dy))
+        if launches >= 1:
+            break
+    if launches != 1:
+        raise AssertionError(f"rmsnorm_bwd: {launches} launches a call, not one")
     nbytes = 3 * x.numel() * 4 + 2 * 1024 * 4
     bound_ms, bound_by = bound(nbytes, 12 * x.numel())
+    log(f"[kernels] rmsnorm_bwd at x (8, 512, 1024) f32: {ms:.4f} ms a call, {dev:.2f} us on "
+        f"the card in one launch (bound {bound_ms * 1e3:.2f} us by {bound_by}, "
+        f"{bound_ms * 1e3 / dev:.1%} of it; target <= 20 us, not held); the autograd backward "
+        f"of F.rms_norm {library_ms:.4f} ms a call, {lib_dev:.2f} us on the card in "
+        f"{lib_launches:.0f} launches")
     return dict(
         name="rmsnorm_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:36",
         shape="x, dy (8, 512, 1024) float32 (train step)",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        max_abs_err=err, ms=ms, device_us=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, library_device_us=lib_dev,
         library="autograd backward of torch.nn.functional.rms_norm",
+        share_of_bound=bound_ms * 1e3 / dev,
     )
 
 
@@ -1410,16 +1439,19 @@ def flash_case(ops, fa, ref, quant, case, seed):
                 e[name] = check_close(f"{what} {name}", g, w, *GRAD_TOL[torch.float32])
             else:
                 e[name], e[name + "_mean"] = check_rounded(what, name, g, w, limits)
-        if mode == "int8":   # the backward's pre-pass, byte for byte
-            got_ops = fa.quantize_bwd(qs, k, v, do)
-            want_ops = ref.flash_quant_bwd_ref(qs, k, v, do)
-            differ = [n for n in fa.I8_FIELDS if not torch.equal(got_ops[n], want_ops[n])]
-            if differ:
-                raise AssertionError(f"{what}: the pre-pass differs from its plain version "
-                                     f"in {differ}")
+        if mode == "int8":   # the forward's and the backward's pre-passes, byte for byte
+            for name, got_ops, want_ops, fields in (
+                    ("forward", fa.quantize_fwd(k, v), ref.flash_quant_fwd_ref(k, v),
+                     fa.FWD_I8_FIELDS),
+                    ("backward", fa.quantize_bwd(qs, k, v, do),
+                     ref.flash_quant_bwd_ref(qs, k, v, do), fa.I8_FIELDS)):
+                differ = [n for n in fields if not torch.equal(got_ops[n], want_ops[n])]
+                if differ:
+                    raise AssertionError(f"{what}: the {name} pre-pass differs from its plain "
+                                         f"version in {differ}")
+                del got_ops, want_ops
             e["bit_equal"] = {n: torch.equal(g, w) for n, g, w in
                               zip(FLASH_OUTS, got[mode], want)}
-            del got_ops, want_ops
         again = fa.flash_bwd_dkv(qs, k, v, do, got[mode][1], delta, policy=policy, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got[mode][3:], again)):
             raise AssertionError(f"{what}: dk/dv differ between two calls")
@@ -1484,8 +1516,8 @@ def flash_case(ops, fa, ref, quant, case, seed):
                  "max " + ", ".join(f"{n} {c:.3g}" for n, c in
                                     zip(("o", "dq", "dk", "dv"), e1["vs_policy_plain"])))
         if "bit_equal" in e1:
-            text += ("; int8 pre-pass bytes and scales equal to its plain version; outputs "
-                     "bit-equal to the plain versions: "
+            text += ("; int8 pre-passes' bytes and scales (forward and backward) equal to "
+                     "their plain versions; outputs bit-equal to the plain versions: "
                      + ", ".join(f"{n} {'yes' if b else 'no'}" for n, b in e1["bit_equal"].items()))
     log(text)
     return out
@@ -1572,6 +1604,7 @@ def flash_phase(ops, fa, ref, quant, F):
         f"backward {lib_bwd:.4f} ms, forward + backward {lib_fwd_bwd:.4f} ms")
     prepass = int8_backward_timing(fa, ref, quant, qs, k, v, do, errs, timed["int8"],
                                    (qb, kb, vb, dob, ob))
+    fwd_prepass = int8_forward_timing(fa, ref, quant, qs, k, v, timed["int8"], lib_fwd)
     bt = timed["bf16"]["ms"]
     ratios = {"flash_fwd": bt["flash_fwd"] / lib_fwd, "flash_bwd_dq": bt["flash_bwd_dq"] / lib_bwd,
               "flash_bwd_dkv": bt["flash_bwd_dkv"] / lib_bwd}
@@ -1625,8 +1658,68 @@ def flash_phase(ops, fa, ref, quant, F):
             share_of_bound=(i8["bound"][n][0] * 1e3 / i8["device_us"][n]),
             **dict(common, shape="q, k, v, do (8, 512, 16, 64) f32, causal; int8 operands "
                                  "(the --amp int8 path)")))
-    out.append(prepass)
+    out += [prepass, fwd_prepass]
     return out
+
+
+def int8_forward_timing(fa, ref, quant, qs, k, v, i8, sdpa_fwd_ms):
+    """The int8 forward at the train shape: the forward pre-pass (its call,
+    its device time, its plain version's, its bytes bound), B5 on its bytes
+    (device us from i8, which counts no pre-pass) and the whole as
+    flash_fwd runs it (pre-pass + B5), each beside its bound and its share
+    of it, with SDPA's bf16 forward and the bf16 B5 on the card for scale.
+    Returns the forward pre-pass's kernel row."""
+    got, want = fa.quantize_fwd(k, v), ref.flash_quant_fwd_ref(k, v)
+    err = max(float((got[n].float() - want[n].float()).abs().max()) for n in fa.FWD_I8_FIELDS)
+    out_bytes = sum(t.numel() * t.element_size() for t in got.values())
+    in_bytes = 2 * k.numel() * k.element_size()
+    # ~4 operations (abs-max, divide, round, clamp) a value of k and of v
+    pre_bound = bound(in_bytes + out_bytes, 4 * 2 * k.numel())
+    pre_ms = cuda_ms(lambda: fa.quantize_fwd(k, v))
+    pre_dev = device_us(lambda: fa.quantize_fwd(k, v), "flash_fwd_quant_int8")
+    pre_plain = cuda_ms(lambda: ref.flash_quant_fwd_ref(k, v), n=20)
+    kw = dict(causal=True, policy=quant.QuantPolicy("int8"))
+    fwd = lambda: fa.flash_fwd(qs, k, v, **kw)   # noqa: E731
+    fwd_dev, fwd_launches = library_device_us(fwd)
+    bf16_dev = device_us(lambda: fa.flash_fwd(qs, k, v, causal=True,
+                                              policy=quant.QuantPolicy("bf16")), "flash_fwd")
+    qb, kb, vb = (t.transpose(1, 2).bfloat16().contiguous() for t in (qs, k, v))
+    sdpa_dev, _ = library_device_us(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=True))
+    B, S, H, d = qs.shape
+    # B5 alone: q read, the pre-pass's bytes read, o and lse written
+    b5_bound = bound(2 * qs.numel() * qs.element_size() + out_bytes + B * H * S * 4,
+                     4 * d * (B * H * S * (S + 1) // 2), INT8_TC_OP_PER_S)
+    fn_bound = i8["bound"]["flash_fwd"]
+    b5 = i8["device_us"]["flash_fwd"]
+    del got, want
+    log(f"[kernels] int8 forward at (8, 512, 16, 64) causal f32: forward pre-pass "
+        f"{pre_ms:.4f} ms a call, {pre_dev:.2f} us on the card (bound {pre_bound[0] * 1e3:.2f} "
+        f"us by {pre_bound[1]}, {pre_bound[0] * 1e3 / pre_dev:.1%} of it; plain "
+        f"{pre_plain:.4f} ms; {(in_bytes + out_bytes) / 1e6:.1f} MB moved; target <= 20 us); "
+        f"B5-int8 {b5:.2f} us on the card (bound on its own bytes {b5_bound[0] * 1e3:.2f} us, "
+        f"{b5_bound[0] * 1e3 / b5:.1%}; the function's {fn_bound[0] * 1e3:.2f}, "
+        f"{fn_bound[0] * 1e3 / b5:.1%}; target <= 70); the whole (flash_fwd: pre-pass + B5) "
+        f"{i8['ms']['flash_fwd']:.4f} ms a call, {fwd_dev:.2f} us on the card in "
+        f"{fwd_launches:.0f} launches (the function's bound {fn_bound[0] * 1e3:.2f} us by "
+        f"{fn_bound[1]}, {fn_bound[0] * 1e3 / fwd_dev:.1%}; target <= 90); for scale (not "
+        f"int8): SDPA's bf16 forward {sdpa_dev:.2f} us, {sdpa_fwd_ms:.4f} ms a call; the bf16 B5 "
+        f"{bf16_dev:.2f} us on the card; targets printed, not held")
+    i8["fwd_whole"] = dict(device_us=fwd_dev, launches=fwd_launches, bound_ms=fn_bound[0],
+                           bound_by=fn_bound[1], b5_own_bound_ms=b5_bound[0],
+                           sdpa_bf16_forward_device_us=sdpa_dev, bf16_b5_device_us=bf16_dev)
+    return dict(
+        name="flash_fwd_quant_int8", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/quant/core.py:31 quantize_int8 inside kernel_dot (:63-67), "
+                 "hoisted out of B5's tile loop (src/repro/kernels/flash_attention.py:77); "
+                 "no TPU kernel of its own",
+        max_abs_err=err, ms=pre_ms, device_us=pre_dev, plain_ms=pre_plain,
+        bound_ms=pre_bound[0], bound_by=pre_bound[1], library_ms=None,
+        library="none: no PyTorch call quantizes per column over a tile",
+        share_of_bound=pre_bound[0] * 1e3 / pre_dev,
+        shape="k, v (8, 512, 16, 64) f32 -> k8, vT8 and their scales",
+        int8_forward=i8["fwd_whole"])
 
 
 def int8_backward_timing(fa, ref, quant, qs, k, v, do, errs, i8, sdpa):
@@ -1821,7 +1914,7 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
             "rmsnorm": (2 * L + 1) * (steps + R), "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
-                "flash_bwd_quant_int8": 0}
+                "flash_bwd_quant_int8": 0, "flash_fwd_quant_int8": 0}
     log(f"[serve] kernels: {steps} steps, launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -1956,7 +2049,7 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
             "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0,
             "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
-                "flash_bwd_quant_int8": 0}
+                "flash_bwd_quant_int8": 0, "flash_fwd_quant_int8": 0}
     log(f"[serve_dynamic] kernels: {out_k['steps']} steps, {n_chunk} chunk forwards, "
         f"{n_dec} decode steps; launches {launches}, expected {want}")
     if launches != want:
@@ -2087,7 +2180,7 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
                 "flash_decode_int8": L * n_dec, "flash_decode_multi_int8": L * n_chunk,
                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                 "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
-                "flash_bwd_quant_int8": 0}
+                "flash_bwd_quant_int8": 0, "flash_fwd_quant_int8": 0}
 
     # warm-up outside the counted runs
     DynamicEngine(kern, EngineConfig(prefill_chunk=CH, prefix_cache=True, n_slots=2,
@@ -2234,7 +2327,7 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
 # the port's kernels, by the name of their __global__ function(s)
 PORT_KERNELS = {
     "rmsnorm": ("rmsnorm_kernel<",),
-    "rmsnorm_bwd": ("rmsnorm_bwd_kernel<", "column_sum_kernel("),
+    "rmsnorm_bwd": ("rmsnorm_bwd_kernel<",),
     "ce_fwd": ("ce_fwd_kernel<",),
     "ce_bwd": ("ce_bwd_kernel<",),
     "flash_decode": ("flash_decode_kernel<",),
@@ -2248,6 +2341,7 @@ PORT_KERNELS = {
     "flash_bwd_dq_int8": ("flash_bwd_dq_i8_kernel<",),
     "flash_bwd_dkv_int8": ("flash_bwd_dkv_i8_kernel<",),
     "flash_bwd_quant_int8": ("flash_quant_i8_kernel<",),
+    "flash_fwd_quant_int8": ("flash_quant_fwd_i8_kernel<",),
 }
 
 
@@ -2541,7 +2635,8 @@ def train_phase(ops, quant, amp="", control_losses=None):
                 "flash_decode_multi_int8": 0, "flash_fwd": n_attn,
                 "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
                 "flash_fwd_int8": n_int8, "flash_bwd_dq_int8": n_int8,
-                "flash_bwd_dkv_int8": n_int8, "flash_bwd_quant_int8": n_int8}
+                "flash_bwd_dkv_int8": n_int8, "flash_bwd_quant_int8": n_int8,
+                "flash_fwd_quant_int8": n_int8}
     want = {k: v * STEPS for k, v in per_step.items()}
     log(f"{tag} kernels: launches {launches}, expected {want}")
     if launches != want:
@@ -2646,9 +2741,19 @@ def train_profile_phase(amp=""):
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.key[:90]}")
+    port = port_kernel_times(kernels)
+    L = cfg.n_layers
+    want = {"rmsnorm_bwd": 2 * L + 1, **({"flash_fwd_quant_int8": L, "flash_fwd_int8": L,
+                                          "flash_bwd_quant_int8": L} if amp == "int8" else {})}
+    seen = {k: port.get(k, (0.0, 0))[1] for k in want}
+    # one launch a call: the profile shows no more launches than calls (a
+    # profile may drop an event, so fewer is printed, not held)
+    if any(seen[k] > want[k] for k in want):
+        raise AssertionError(f"profiled train step: launches {seen}, expected {want}")
+    log(f"[profile]   launches of one step {seen} (calls {want})")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
                 launches=sum(e.count for e in kernels),
-                port_kernels=port_kernel_times(kernels),
+                port_kernels=port,
                 top=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top])
 
 # ---------------------------------------------------------------------------
@@ -2658,10 +2763,19 @@ def train_profile_phase(amp=""):
 FLASH_KERNEL_IDS = ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_fwd_i8_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dq_i8_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel",
-                    "flash_bwd_dkv_i8_kernel", "flash_quant_i8_kernel")
-# B6 and B7 in the int8 mode (on the s8 tensor cores; templated on DP
-# alone: they read the pre-pass's bytes) and the pre-pass
-I8_KERNELS = ("flash_bwd_dq_i8_kernel", "flash_bwd_dkv_i8_kernel", "flash_quant_i8_kernel")
+                    "flash_bwd_dkv_i8_kernel", "flash_quant_i8_kernel",
+                    "flash_quant_fwd_i8_kernel")
+# the int8 mode's kernels: B5 (templated on storage and DP), B6 and B7 (on
+# DP alone: they read the pre-pass's bytes), on the s8 tensor cores, and
+# the backward's and the forward's pre-passes
+I8_KERNELS = ("flash_fwd_i8_kernel", "flash_bwd_dq_i8_kernel", "flash_bwd_dkv_i8_kernel",
+              "flash_quant_i8_kernel", "flash_quant_fwd_i8_kernel")
+I8_MMA = I8_KERNELS[:3]   # must show IMMA and no IDP.4A, and must not spill
+# the kernel rows of the int8 mode, by the kernel they launch
+I8_ROWS = {"flash_fwd_int8": "flash_fwd_i8_kernel", "flash_bwd_dq_int8": "flash_bwd_dq_i8_kernel",
+           "flash_bwd_dkv_int8": "flash_bwd_dkv_i8_kernel",
+           "flash_bwd_quant_int8": "flash_quant_i8_kernel",
+           "flash_fwd_quant_int8": "flash_quant_fwd_i8_kernel"}
 SASS_OPS = ("HMMA", "HGMMA", "IMMA", "IDP", "LDSM", "LDGSTS", "UTMALDG")
 
 
@@ -2712,21 +2826,38 @@ def tc_resources(build_log):
 
 
 def i8_resources(build_log):
-    """{instance: (registers, spill bytes)} of the int8 backward's kernels
-    (B6 and B7 at DP 64 and 128, the pre-pass in f32 and bf16 at each) from
-    ``ptxas -v``; raise if one is missing or B6 or B7 spills."""
+    """{instance: (registers, spill bytes)} of the int8 mode's kernels (B5
+    in f32 and bf16 storage at DP 64 and 128, B6 and B7 at DP 64 and 128,
+    each pre-pass in f32 and bf16 at each) from ``ptxas -v``; raise if one
+    is missing or B5, B6 or B7 spills."""
     out = {}
     for name, rs in ptxas_entries(build_log).items():
         inst = flash_instance(name)
         if inst and inst.split("<")[0] in I8_KERNELS:
             out[inst] = rs
-    log("[build] int8 backward kernels (registers, spill bytes): "
+    log("[build] int8 kernels (registers, spill bytes): "
         + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
-    if len(out) != 2 * 2 + 2 * 2:
-        raise AssertionError(f"ptxas -v reported {sorted(out)}, not every int8 backward kernel")
-    spilled = {k: v for k, v in out.items() if v[1] and not k.startswith("flash_quant")}
+    if len(out) != 4 + 2 * 2 + 2 * 4:
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, not every int8 kernel")
+    spilled = {k: v for k, v in out.items() if v[1] and k.split("<")[0] in I8_MMA}
     if spilled:
-        raise AssertionError(f"B6/B7 int8 kernels spill: {spilled}")
+        raise AssertionError(f"B5/B6/B7 int8 kernels spill: {spilled}")
+    return out
+
+
+def b2_resources(build_log):
+    """{instance: (registers, spill bytes)} of B2's instances (f32 and bf16
+    storage; NV 16-byte pieces a lane in registers, 0 the scalar path) from
+    ``ptxas -v``, printed; raise if the f32 instance of the train shape (NV
+    8) is missing or spills."""
+    out = {}
+    for name, rs in ptxas_entries(build_log).items():
+        if m := re.search(r"18rmsnorm_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", name):
+            out[f"rmsnorm_bwd_kernel<{'float' if m[1] == 'f' else 'bf16'}, {m[2]}>"] = rs
+    log("[build] B2 rmsnorm_bwd_kernel (registers, spill bytes): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    if out.get("rmsnorm_bwd_kernel<float, 8>", (0, 1))[1]:
+        raise AssertionError(f"B2's train-shape instance is missing or spills: {out}")
     return out
 
 
@@ -2833,12 +2964,12 @@ def sass_check(lib_path):
     none = [k for k, c in tc.items() if c["HMMA"] + c["HGMMA"] == 0]
     if none:
         raise AssertionError(f"no tensor-core instruction in {none}")
-    i8 = {k: c for k, c in counts.items() if k.split("<")[0] in I8_KERNELS[:2]}
-    if len(i8) != 2 * 2:
-        raise AssertionError(f"cuobjdump ({tool}) shows {sorted(i8)}, not every int8 B6/B7")
+    i8 = {k: c for k, c in counts.items() if k.split("<")[0] in I8_MMA}
+    if len(i8) != 4 + 2 * 2:
+        raise AssertionError(f"cuobjdump ({tool}) shows {sorted(i8)}, not every int8 B5/B6/B7")
     wrong = [k for k, c in i8.items() if c["IMMA"] == 0 or c["IDP"]]
     if wrong:
-        raise AssertionError(f"int8 B6/B7 not on the s8 tensor cores (IMMA, no IDP.4A): "
+        raise AssertionError(f"int8 B5/B6/B7 not on the s8 tensor cores (IMMA, no IDP.4A): "
                              f"{ {k: i8[k] for k in wrong} }")
     return counts
 
@@ -2883,6 +3014,7 @@ def main():
     i8_regs = i8_resources(build.build_log)
     b8_regs = decode_resources(build.build_log)
     b9_regs = multi_resources(build.build_log)
+    b2_regs = b2_resources(build.build_log)
     sass = sass_check(build.library_path())
 
     def done(phase):
@@ -2941,7 +3073,8 @@ def main():
                 "flash_fwd_int8": ("train_amp_int8",),
                 "flash_bwd_dq_int8": ("train_amp_int8",),
                 "flash_bwd_dkv_int8": ("train_amp_int8",),
-                "flash_bwd_quant_int8": ("train_amp_int8",)}.get(row["name"])
+                "flash_bwd_quant_int8": ("train_amp_int8",),
+                "flash_fwd_quant_int8": ("train_amp_int8",)}.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
         if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2949,13 +3082,13 @@ def main():
             row["registers_spills"] = {k: v for k, v in tc_regs.items() if k.startswith(tc)}
             row["sass"] = (None if sass is None else
                            {k: v for k, v in sass.items() if k.startswith(tc)})
-        if row["name"] in ("flash_bwd_dq_int8", "flash_bwd_dkv_int8", "flash_bwd_quant_int8"):
-            kern = {"flash_bwd_dq_int8": "flash_bwd_dq_i8_kernel",
-                    "flash_bwd_dkv_int8": "flash_bwd_dkv_i8_kernel",
-                    "flash_bwd_quant_int8": "flash_quant_i8_kernel"}[row["name"]]
+        if row["name"] in I8_ROWS:
+            kern = I8_ROWS[row["name"]]
             row["registers_spills"] = {k: v for k, v in i8_regs.items() if k.startswith(kern)}
             row["sass"] = (None if sass is None else
                            {k: v for k, v in sass.items() if k.startswith(kern)})
+        if row["name"] == "rmsnorm_bwd":
+            row["registers_spills"] = b2_regs
         if row["name"] in ("flash_decode", "flash_decode_int8"):
             row["registers_spills"] = b8_regs
         if row["name"] in ("flash_decode_multi", "flash_decode_multi_int8"):

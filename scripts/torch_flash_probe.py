@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the flash kernels spend the card's time: B5, B6 and B7 in the bf16
-operand mode (the tensor-core kernels) and B6 and B7 in the int8 mode.
+operand mode (the tensor-core kernels) and in the int8 mode, and B2
+(RMSNorm's backward) beside them.
 
     python3 scripts/torch_flash_probe.py [--src DIR] [--only sweep|phases]
 
@@ -8,11 +9,17 @@ Imports the port from ``DIR`` (default: this checkout's ``src``), so that
 an older tree unpacked beside it can be probed by the same script in the
 same call.  On the GPU, prints the card's name and power limit, then:
 
-- sweep: device microseconds a launch (torch.profiler over 20 calls) of
+- sweep: first B2 at mup-gpt's train shape x (8, 512, 1024), f32 and
+  bf16: each of its kernels' device microseconds and launches a call (one
+  row kernel and a column sum in an older tree, one launch in this one),
+  beside the autograd backward of ``F.rms_norm``; then device
+  microseconds a launch (torch.profiler over 20 calls) of
   ``flash_fwd`` (B5), ``flash_bwd_dq`` (B6) and ``flash_bwd_dkv`` (B7) in
-  the bf16 operand mode, of B6 and B7 in the int8 mode and of the int8
+  the bf16 operand mode, of B5, B6 and B7 in the int8 mode, of the int8
   backward's quantization pre-pass where the tree has one
-  (``flash_quant_i8_kernel``), and of SDPA's bf16 forward and backward
+  (``flash_quant_i8_kernel``) and the forward's
+  (``flash_quant_fwd_i8_kernel``), the whole int8 forward a call, and of
+  SDPA's bf16 forward and backward
   (every kernel of the call) as yardsticks, at mup-gpt's train shape (8,
   512, 16 heads of 64, causal, f32) and beside it: bf16 storage, no causal
   mask (all tiles full), B = 1 (one wave of blocks: the longest block's
@@ -30,7 +37,12 @@ same call.  On the GPU, prints the card's name and power limit, then:
   the barriers; in the tensor-core kernels the wait for the tile's copies
   with its barrier, the products over d with the p/ds step (in B7 with
   p's quantization), the quantization of ds into fragments, the products
-  over the tile and the barrier that frees the buffer.  Each kernel's anchors must
+  over the tile and the barrier that frees the buffer.  B5 in the int8
+  mode: in the ``__dp4a`` kernel k and v quantized into shared memory,
+  q·kᵀ, the softmax with p's quantization, p·v and the barriers; in the
+  tensor-core kernel the wait for the tile's copies with its barrier, q·kᵀ
+  (with the logits), the softmax with p's quantization into fragments, p·v
+  with its rescale and the barrier.  Each kernel's anchors must
   match its source (the script stops if no anchor set does), at the train
   shape in f32 and bf16 storage and at B = 1.
 """
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -175,6 +188,51 @@ DKV_TC = [(a.replace("B6", "B7"), t.replace("PROBE_SAVE(1,", "PROBE_SAVE(2,"), w
 TC_PHASES = ("copies' wait and barrier", "products over d and the p/ds step",
              "quantization into fragments", "products over the tile", "barrier")
 
+# B5 in the int8 mode as first written (__dp4a, k and v quantized inside
+# the block for every tile): ph[0] k and v quantized into shared memory, [1]
+# q k^T, [2] the softmax and p's quantization, [3] p v, [4] barriers, [6]
+# tiles
+FWD_DP4A = [
+    ("  const int nk = (p.T + kI8 - 1) / kI8;\n  for (int kt = 0; kt < nk; ++kt) {\n"
+     "    const int k0 = kt * kI8;\n"
+     "    if (!tile_visible(q0, kBQ, k0, kI8, p)) continue;   // uniform over the block\n"
+     "    __syncthreads();   // the previous tile's readers of k8, vT8, p8 are done\n",
+     "  long long ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  const long long tk0 = clock64();\n"
+     "  const int nk = (p.T + kI8 - 1) / kI8;\n  for (int kt = 0; kt < nk; ++kt) {\n"
+     "    const int k0 = kt * kI8;\n"
+     "    if (!tile_visible(q0, kBQ, k0, kI8, p)) continue;\n"
+     "    const long long t0 = clock64();\n    __syncthreads();\n"
+     "    const long long tA = clock64();\n", "replace"),
+    ("    quant_cols<T, DP>(reinterpret_cast<int8_t*>(vT8), 4 * kLTW, sv, red, vb, kstride, k0,\n"
+     "                      kvalid, p.d);\n    __syncthreads();\n",
+     "    quant_cols<T, DP>(reinterpret_cast<int8_t*>(vT8), 4 * kLTW, sv, red, vb, kstride, k0,\n"
+     "                      kvalid, p.d);\n    const long long tB = clock64();\n"
+     "    __syncthreads();\n    const long long tC = clock64();\n", "replace"),
+    ("    float alpha[4], sp[4];\n", "    const long long tD = clock64();\n", "before"),
+    ("      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), row_sum(rs));\n      m[i] = m_new;\n"
+     "    }\n    __syncthreads();\n",
+     "      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), row_sum(rs));\n      m[i] = m_new;\n"
+     "    }\n    const long long tE = clock64();\n    __syncthreads();\n"
+     "    const long long tF = clock64();\n", "replace"),
+    ("rescale(ai[i][j], sp[i], sv[tx + 16 * j]));\n  }\n",
+     "rescale(ai[i][j], sp[i], sv[tx + 16 * j]));\n    const long long tG = clock64();\n"
+     "    ph[0] += tB - tA; ph[1] += tD - tC; ph[2] += tE - tD; ph[3] += tG - tF;\n"
+     "    ph[4] += (tA - t0) + (tC - tB) + (tF - tE); ph[6] += 1;\n"
+     "  }\n  PROBE_SAVE(3, PROBE_BLOCK);\n", "replace"),
+]
+FWD_DP4A_PHASES = ("k and v quantized into shared memory", "q k^T", "softmax and p's quantization",
+                   "p v", "barriers")
+# B5 int8 on the s8 tensor cores, fed by the forward pre-pass: ph[0] the
+# wait for the tile's copies and its barrier, [1] q k^T, [2] the softmax and
+# p's quantization into A fragments, [3] p v with its rescale, [4] the
+# barrier that frees the tile's buffer, [6] tiles
+FWD_TC = [(a.replace("B6", "B5"), t.replace("PROBE_SAVE(1,", "PROBE_SAVE(3,"), w)
+          for a, t, w in DQ_TC]
+FWD_TC[3] = ("    // [probe] B5 s formed\n", "    const long long t2 = clock64();\n", "replace")
+FWD_TC[4] = ("    // [probe] B5 p quantized\n", "    const long long t3 = clock64();\n", "replace")
+FWD_TC_PHASES = ("copies' wait and barrier", "q k^T", "softmax and p's quantization",
+                 "p v", "barrier")
+
 # kernel -> [(form, anchors, phase names)]: the first form whose anchors
 # all appear once in the source is the one probed
 FORMS = {
@@ -183,8 +241,11 @@ FORMS = {
                                ("s8 tensor cores", DQ_TC, TC_PHASES)],
     "flash_bwd_dkv_i8_kernel": [("__dp4a", DKV_DP4A, DP4A_PHASES),
                                 ("s8 tensor cores", DKV_TC, TC_PHASES)],
+    "flash_fwd_i8_kernel": [("__dp4a", FWD_DP4A, FWD_DP4A_PHASES),
+                            ("s8 tensor cores", FWD_TC, FWD_TC_PHASES)],
 }
-SLOTS = {"flash_fwd_tc_kernel": 0, "flash_bwd_dq_i8_kernel": 1, "flash_bwd_dkv_i8_kernel": 2}
+SLOTS = {"flash_fwd_tc_kernel": 0, "flash_bwd_dq_i8_kernel": 1, "flash_bwd_dkv_i8_kernel": 2,
+         "flash_fwd_i8_kernel": 3}
 
 
 def log(*a):
@@ -223,6 +284,8 @@ def sweep(csrc):
     F = torch.nn.functional
     bf16, int8 = QuantPolicy("bf16"), QuantPolicy("int8")
     prepass = has_prepass(csrc)
+    fwd_prepass = "flash_quant_fwd_i8_kernel" in (csrc / "flash_attention.cu").read_text()
+    rmsnorm_bwd()
     for B, S, d, dt, causal in [(8, 512, 64, torch.float32, True),
                                 (8, 512, 64, torch.bfloat16, True),
                                 (8, 512, 64, torch.float32, False),
@@ -253,6 +316,10 @@ def sweep(csrc):
                     "flash_bwd_dkv_i8_kernel")
         pre = (dev_us(lambda: fa.flash_bwd(q, k, v, do, lse8, delta8, **k8),
                       "flash_quant_i8_kernel") if prepass else None)
+        i5 = dev_us(lambda: fa.flash_fwd(q, k, v, **k8), "flash_fwd_i8_kernel")
+        fpre = (dev_us(lambda: fa.flash_fwd(q, k, v, **k8), "flash_quant_fwd_i8_kernel")
+                if fwd_prepass else None)
+        fwd8 = dev_us(lambda: fa.flash_fwd(q, k, v, **k8), "", per_call=True)
         qb, kb, vb = (t.transpose(1, 2).bfloat16().contiguous().requires_grad_(True)
                       for t in (q, k, v))
         dob = do.transpose(1, 2).bfloat16().contiguous()
@@ -268,9 +335,56 @@ def sweep(csrc):
             f"({8 * d * pairs / b7 / 1e6:.1f} TFLOP/s), SDPA bf16 forward {sdpa:.1f} us, "
             f"backward {sdpa_bwd:.1f} us a call; int8 operands: B6 {i6:.1f} us, B7 {i7:.1f} us"
             + (f", pre-pass {pre:.1f} us, backward {pre + i6 + i7:.1f} us" if prepass
-               else " (no pre-pass in this tree)"))
+               else " (no pre-pass in this tree)")
+            + f"; int8 forward: B5 {i5:.1f} us"
+            + (f", forward pre-pass {fpre:.1f} us" if fwd_prepass
+               else " (no forward pre-pass in this tree)")
+            + f", the whole forward {fwd8:.1f} us a call")
         del q, k, v, do, o, lse, delta, o8, lse8, delta8, qb, kb, vb, dob, ob
         torch.cuda.empty_cache()
+
+
+def kernel_us(fn, n=20):
+    """{kernel name: (device us a call, launches a call)} of every kernel
+    that ``fn`` launches, from torch.profiler over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def rmsnorm_bwd():
+    """B2 at the train shape x, dy (8, 512, 1024), f32 and bf16 storage:
+    each of its kernels' device us and launches a call, beside the autograd
+    backward of F.rms_norm (every kernel of the call)."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    F = torch.nn.functional
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x, dy = (torch.randn(8, 512, 1024, device="cuda", generator=gen).to(dt)
+                 for _ in range(2))
+        g = 0.5 * torch.randn(1024, device="cuda", generator=gen)
+        ours = kernel_us(lambda: rn.rmsnorm_bwd(x, g, dy))
+        xl = x.clone().requires_grad_(True)
+        wl = (1 + g).requires_grad_(True)
+        yl = F.rms_norm(xl, (1024,), weight=wl, eps=1e-6)
+        lib = kernel_us(lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True))
+        short = lambda k: re.search(r"(\w+)[<(]", k.split("::")[-1]).group(1)   # noqa: E731
+        log(f"[sweep] B2 rmsnorm_bwd x (8, 512, 1024) {str(dt)[6:]}: "
+            + ", ".join(f"{short(k)} {us:.2f} us in {c:.0f} launch(es)"
+                        for k, (us, c) in ours.items())
+            + f"; the call {sum(us for us, _ in ours.values()):.2f} us on the card in "
+            f"{sum(c for _, c in ours.values()):.0f} launch(es); F.rms_norm's autograd "
+            f"backward {sum(us for us, _ in lib.values()):.2f} us in "
+            f"{sum(c for _, c in lib.values()):.0f} launches")
+        del x, dy, xl, wl, yl
 
 
 def instrument(src):
@@ -291,7 +405,7 @@ def instrument(src):
         else:
             raise SystemExit(f"torch_flash_probe: the source changed; no anchor set of "
                              f"{kernel} matches it")
-    head = (f"__device__ long long g_phases[3][{NSLOT}][8];\n"
+    head = (f"__device__ long long g_phases[{len(SLOTS)}][{NSLOT}][8];\n"
             "#define PROBE_BLOCK (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * "
             "blockIdx.z))\n"
             "#define PROBE_SAVE(slot, blk) if (threadIdx.x == 0 && (blk) < "
@@ -348,6 +462,7 @@ def phases(csrc):
             o, lse = fa.flash_fwd(q, k, v, **kw)
             delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
             call = {"flash_fwd_tc_kernel": lambda: fa.flash_fwd(q, k, v, **kw),
+                    "flash_fwd_i8_kernel": lambda: fa.flash_fwd(q, k, v, **kw),
                     "flash_bwd_dq_i8_kernel":
                         lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
                     "flash_bwd_dkv_i8_kernel":
@@ -373,7 +488,9 @@ def phases(csrc):
             else:
                 tiles = x[:, 6].sum()
                 per = [x[:, i].sum() / tiles for i in range(len(names))]
-                log(f"[phases] {'B6' if 'dq' in kernel else 'B7'}-int8 ({form}) {where}: "
+                name = {"flash_bwd_dq_i8_kernel": "B6", "flash_bwd_dkv_i8_kernel": "B7",
+                        "flash_fwd_i8_kernel": "B5"}[kernel]
+                log(f"[phases] {name}-int8 ({form}) {where}: "
                     f"{len(x)} blocks, {tiles} tiles; cycles a tile: "
                     + ", ".join(f"{n} {c:.0f}" for n, c in zip(names, per))
                     + f" (sum {sum(per):.0f}); a block {x[:, 7].mean():.0f} on average, "
@@ -384,7 +501,7 @@ def phases(csrc):
 
 
 def _read(lib):
-    buf = np.zeros((3, NSLOT, 8), dtype=np.int64)
+    buf = np.zeros((len(SLOTS), NSLOT, 8), dtype=np.int64)
     if lib.repro_flash_phases(buf.ctypes.data_as(ctypes.c_void_p)):
         raise SystemExit("torch_flash_probe: reading the phases failed")
     return buf

@@ -35,7 +35,8 @@ _FLASH_ARGS = (_I,) * 6 + (_F, _I, _I, _F, _I, _I, _P)
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
     "repro_rmsnorm": ((_P, _P, _P, _I, _I, _F, _I, _P), _I),
-    "repro_rmsnorm_bwd_blocks": ((_I, _I), _I),
+    # B2's grid for (x, g, dy, dx, rows, D, dtype): the scratch's rows
+    "repro_rmsnorm_bwd_blocks": ((_P, _P, _P, _P, _I, _I, _I), _I),
     "repro_rmsnorm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
     "repro_ce_fwd": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     "repro_ce_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
@@ -59,6 +60,11 @@ _SIGNATURES = {
     "repro_flash_fwd": ((_P,) * 5 + _FLASH_ARGS, _I),
     "repro_flash_bwd_dq": ((_P,) * 7 + _FLASH_ARGS, _I),
     "repro_flash_bwd_dkv": ((_P,) * 8 + _FLASH_ARGS, _I),
+    # the int8 forward: its pre-pass (k, v, the array of the 4 quantized
+    # buffers; B, T, K, d, dtype, stream), then B5 (q, the array, o, lse; B,
+    # S, T, H, K, d, scale, causal, window, softcap, dtype, stream)
+    "repro_flash_quant_fwd_i8": ((_P,) * 3 + (_I,) * 5 + (_P,), _I),
+    "repro_flash_fwd_i8": ((_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _F, _I, _P), _I),
     # the int8 backward: its pre-pass (q, k, v, do, the array of the 14
     # quantized buffers; B, S, T, H, K, d, dtype, stream), then B6 and B7 on
     # those buffers (the array, lse, delta, outputs; B, S, T, H, K, d,

@@ -33,12 +33,15 @@
 //       exactly in int32, then (float)acc * sa * sb in that order
 //       (quant/core.py:31-41, :63-67).  q k^T and do v^T take their scales
 //       over d; p v and ds k over the tile's keys; p^T do and ds^T q over
-//       the tile's queries.  B5: flash_fwd_i8_kernel (__dp4a on four
-//       packed bytes, q, k and v quantized inside the block).  B6 and B7:
+//       the tile's queries.  B5: flash_quant_fwd_i8_kernel quantizes k
+//       (per row over d) and v (per column over each 128-key tile) once a
+//       call, then flash_fwd_i8_kernel quantizes q per row at each item's
+//       set-up and multiplies on the s8 tensor cores.  B6 and B7:
 //       flash_quant_i8_kernel quantizes q, k, v and do once a call along
 //       every axis the two need, then flash_bwd_dq_i8_kernel and
-//       flash_bwd_dkv_i8_kernel multiply on the s8 tensor cores (mma.sync
-//       m16n8k32; their note is above the pre-pass).
+//       flash_bwd_dkv_i8_kernel multiply on the s8 tensor cores.  All three
+//       run mma.sync m16n8k32 (s8 -> s32); their notes are with the
+//       pre-passes and the kernels.
 // Storage: q, k, v, do in f32 or bf16 (all one type); o in q's type; lse,
 // dq, dk, dv in f32.
 //
@@ -60,7 +63,7 @@
 // its time in moving and rounding tiles and in the softmax's exp, not in
 // its products.
 //
-// Design of the FFMA kernels and B5's int8 kernel (modes 0 and 2):
+// Design of the FFMA kernels (mode 0):
 //  - 256 threads as a 16 x 16 grid.  In a score tile of 64 rows by 64 or
 //    128 columns (queries by keys; B7 keys by queries) each thread owns rows
 //    ty + 16 i and columns tx + 16 j, and a 4 x d/16 block of the output
@@ -76,16 +79,12 @@
 //    warp fall in different banks): B5 q, k and v with the p tile over k's
 //    space once s is formed, 83 KB at DP = 64 and 165 KB at DP = 128; B6 q,
 //    do, k, v and the ds tile, 83 KB; B7 k, v, q, do, p^T and ds^T, 100 KB.
-//    B5's int8 mode: the quantized operands as int8 rows with a one-word
-//    pad (a 128 x 128 int8 tile is 16.5 KB) and their scales; no f32 copy
-//    is kept (rows are quantized by one warp each straight from device
-//    memory, columns in two passes over it): 32 / 53 KB at DP = 64 / 128.
-//    Most are above 48 KB, so each launch opts in to dynamic shared
-//    memory.
-//  - Reductions: the row max and row sum of a score tile, and an int8 row's
-//    absmax, by warp shuffles; every dot product in a fixed order.  In the
-//    int8 mode the f32 steps before a quantization round as the reference
-//    rounds them (__fmul_rn/__fadd_rn: no fused multiply-add).
+//    Each is above 48 KB, so each launch opts in to dynamic shared memory.
+//  - Reductions: the row max and row sum of a score tile by warp shuffles;
+//    every dot product in a fixed order.
+// In the int8 mode (its kernels' notes are with them below) the f32 steps
+// before a quantization round as the reference rounds them
+// (__fmul_rn/__fadd_rn: no fused multiply-add).
 //
 // Design of the tensor-core kernels (mode 1; mma.cuh holds the PTX; B6's
 // own note is above flash_bwd_dq_tc_kernel):
@@ -161,10 +160,10 @@
 // warpgroups (one's softmax under the other's products); warp
 // specialisation with setmaxnreg (a producer warpgroup that stages and
 // rounds); bf16 storage copied straight into swizzled bf16 tiles; TMA
-// multicast of a k/v tile to the q tiles of a cluster; B5's int8 mode on
-// s8 mma over the pre-pass's row-quantized q and k (the forward quantizes
-// them on the same axes; v per column over each key tile would be the one
-// new output).
+// multicast of a k/v tile to the q tiles of a cluster; in the int8 mode,
+// the backward reusing the forward pre-pass's k8 (it would keep 4 MB a
+// layer alive through the step) and B5-int8's softmax and p quantization
+// (two thirds of its tile, PERF.md section 6) split between warps.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -185,7 +184,6 @@ constexpr int kBK = 64;          // keys per tile (B7; B6 f32/bf16)
 constexpr int kFwdBK = 128;      // B5's keys per tile, every mode
 constexpr int kI8 = 128;         // the int8 tile axis that carries scales:
                                  // B6's keys, B7's queries
-constexpr int kLTW = kI8 / 4 + 1;   // words in a padded int8 row of kI8 bytes
 constexpr int kThreads = 256;    // a 16 x 16 thread grid
 constexpr float kNegInf = -2.3819763e38f;   // the reference's NEG_INF
 
@@ -195,7 +193,9 @@ struct Params {
   int causal, window;
   float softcap;
   int mode;   // operand mode: 0 = f32, 1 = bf16, 2 = int8
-  int tma = 0;  // the tensor-core kernels: rows staged by the copy engine
+  int tma = 0;  // the tensor-core kernels: rows staged by the copy engine; the
+                // int8 pre-passes: rows of whole 16-byte pieces; B5-int8: q rows
+                // of whole 4-value pieces
 };
 
 // _block_visible: could any (query, key) pair of the tile pair (nq query
@@ -675,84 +675,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// int8 operand mode: quantization at staging, __dp4a products
+// int8 operand mode
 // ---------------------------------------------------------------------------
-
-// quantize_int8 of one value at its scale (quant/core.py:31-41): the IEEE
-// quotient by max(scale, 1e-12), rounded half to even, clipped to +-127
-__device__ __forceinline__ int8_t quant(float x, float scale) {
-  const float r = rintf(x / fmaxf(scale, 1e-12f));
-  return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
-}
 
 // (float)acc * sa * sb, each step rounded on its own (kernel_dot's rescale)
 __device__ __forceinline__ float rescale(int acc, float sa, float sb) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), sa), sb);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// rows [row0, row0 + n) of one head (rows `stride` elements apart), each
-// quantized over its d values into an int8 row of DP bytes at dst + r *
-// ldb, its scale into scale[r]; one warp a row, straight from device
-// memory.  Rows at or beyond `valid` and columns at or beyond d are zeros.
-template <typename T, int DP>
-__device__ void quant_rows(int8_t* dst, int ldb, float* scale,
-                           const T* __restrict__ src, size_t stride, int row0,
-                           int n, int valid, int d) {
-  constexpr int E = DP / 32;
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < n; r += kThreads / 32) {
-    float x[E];
-    float amax = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int c = lane + 32 * e;
-      x[e] = (r < valid && c < d) ? to_f32(src[(size_t)(row0 + r) * stride + c]) : 0.f;
-      amax = fmaxf(amax, fabsf(x[e]));
-    }
-    const float s = warp_max(amax) / 127.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) dst[r * ldb + lane + 32 * e] = quant(x[e], s);
-    if (lane == 0) scale[r] = s;
-  }
-}
-
-// the DP columns of the kI8 rows [row0, row0 + kI8) of one head, each
-// quantized over those rows and stored transposed: column c is the int8 row
-// dst + c * ldb (kI8 bytes), its scale scale[c].  Thread t takes column t %
-// DP over a 1 / (kThreads / DP) share of the rows, in two passes over device
-// memory (absmax, then quantize); `red` holds kThreads partial maxima.
-// Rows at or beyond `valid` and columns at or beyond d are zeros.  Holds
-// two barriers, so every thread of the block must call it.
-template <typename T, int DP>
-__device__ void quant_cols(int8_t* dst, int ldb, float* scale, float* red,
-                           const T* __restrict__ src, size_t stride, int row0,
-                           int valid, int d) {
-  constexpr int P = kThreads / DP, RP = kI8 / P;
-  const int c = threadIdx.x % DP, part = threadIdx.x / DP;
-  const int r0 = part * RP, r1 = min(r0 + RP, valid);
-  const bool col = c < d;
-  float amax = 0.f;
-  if (col)
-    for (int r = r0; r < r1; ++r)
-      amax = fmaxf(amax, fabsf(to_f32(src[(size_t)(row0 + r) * stride + c])));
-  red[threadIdx.x] = amax;
-  __syncthreads();
-  amax = red[c];
-#pragma unroll
-  for (int pp = 1; pp < P; ++pp) amax = fmaxf(amax, red[pp * DP + c]);
-  __syncthreads();   // red is free for the next call
-  const float s = amax / 127.f;
-  for (int r = r0; r < r0 + RP; ++r) {
-    const float x = (col && r < valid) ? to_f32(src[(size_t)(row0 + r) * stride + c]) : 0.f;
-    dst[c * ldb + r] = quant(x, s);
-  }
-  if (part == 0) scale[c] = s;
 }
 
 // a bump allocator over dynamic shared memory, 16-byte aligned pieces; the
@@ -766,145 +694,6 @@ struct Carve {
     return r;
   }
 };
-
-// words in a padded int8 row of DP bytes
-template <int DP> __host__ __device__ constexpr int ldw() { return DP / 4 + 1; }
-
-template <int DP> constexpr size_t fwd_i8_smem_bytes() {
-  return smem_piece(4 * kBQ * ldw<DP>()) + smem_piece(4 * kI8 * ldw<DP>())
-       + smem_piece(4 * DP * kLTW) + smem_piece(4 * kBQ * kLTW)
-       + smem_piece(4 * kBQ) + smem_piece(4 * kI8) + smem_piece(4 * DP)
-       + smem_piece(4 * kThreads);
-}
-
-// ---------------------------------------------------------------------------
-// B5, int8 operands
-// ---------------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
-                    float* __restrict__ lse, Params p) {
-  constexpr int LDW = ldw<DP>(), NJ = DP / 16, KJ = kI8 / 16;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  extern __shared__ __align__(16) unsigned char smem_i8[];
-  Carve cv{smem_i8};
-  int* q8 = cv.take<int>(kBQ * LDW);      // [BQ] rows of DP bytes, per row over d
-  int* k8 = cv.take<int>(kI8 * LDW);      // [I8] keys, per key over d
-  int* vT8 = cv.take<int>(DP * kLTW);     // [DP] columns of v, over the tile's keys
-  int* p8 = cv.take<int>(kBQ * kLTW);     // [BQ] rows of p, over the tile's keys
-  float* sq = cv.take<float>(kBQ);
-  float* sk = cv.take<float>(kI8);
-  float* sv = cv.take<float>(DP);
-  float* red = cv.take<float>(kThreads);
-  int8_t* p8b = reinterpret_cast<int8_t*>(p8);
-
-  const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
-  const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
-  const T* kb = k + ((size_t)b * p.T * p.K + kh) * p.d;
-  const T* vb = v + ((size_t)b * p.T * p.K + kh) * p.d;
-  quant_rows<T, DP>(reinterpret_cast<int8_t*>(q8), 4 * LDW, sq, qb, qstride, q0, kBQ,
-                    min(kBQ, p.S - q0), p.d);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = (p.T + kI8 - 1) / kI8;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kI8;
-    if (!tile_visible(q0, kBQ, k0, kI8, p)) continue;   // uniform over the block
-    __syncthreads();   // the previous tile's readers of k8, vT8, p8 are done
-    const int kvalid = min(kI8, p.T - k0);
-    quant_rows<T, DP>(reinterpret_cast<int8_t*>(k8), 4 * LDW, sk, kb, kstride, k0, kI8,
-                      kvalid, p.d);
-    quant_cols<T, DP>(reinterpret_cast<int8_t*>(vT8), 4 * kLTW, sv, red, vb, kstride, k0,
-                      kvalid, p.d);
-    __syncthreads();
-
-    int si[4][KJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) si[i][j] = 0;
-#pragma unroll 4
-    for (int w = 0; w < DP / 4; ++w) {
-      int a[4], kk[KJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q8[(ty + 16 * i) * LDW + w];
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) kk[j] = k8[(tx + 16 * j) * LDW + w];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) si[i][j] = __dp4a(a[i], kk[j], si[i][j]);
-    }
-
-    float alpha[4], sp[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
-      float s[KJ], mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const int key = tx + 16 * j;
-        float t;
-        const float x = logit(rescale(si[i][j], sq[r], sk[key]), p, t);
-        s[j] = visible(row, k0 + key, p) ? x : kNegInf;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float rs = 0.f, pmax = 0.f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        s[j] = expf(s[j] - m_new);     // the unnormalized p
-        rs += s[j];
-        pmax = fmaxf(pmax, s[j]);
-      }
-      sp[i] = row_max(pmax) / 127.f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) p8b[r * 4 * kLTW + tx + 16 * j] = quant(s[j], sp[i]);
-      alpha[i] = expf(m[i] - m_new);
-      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), row_sum(rs));
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-    int ai[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) ai[i][j] = 0;
-#pragma unroll 4
-    for (int w = 0; w < kI8 / 4; ++w) {
-      int pr[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = p8[(ty + 16 * i) * kLTW + w];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = vT8[(tx + 16 * j) * kLTW + w];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) ai[i][j] = __dp4a(pr[i], vv[j], ai[i][j]);
-    }
-    // acc * alpha + kernel_dot(p, v), as the reference orders it
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], alpha[i]),
-                              rescale(ai[i][j], sp[i], sv[tx + 16 * j]));
-  }
-
-  store_out(o, lse, acc, m, l, q0, h, b, tx, ty, p);
-}
 
 // ---------------------------------------------------------------------------
 // B5-B7 in the bf16 operand mode: mma.sync on the tensor cores
@@ -1782,16 +1571,21 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The int8 backward (B6 and B7 in the int8 operand mode): a quantization
-// pre-pass, then both kernels on the s8 tensor cores (mma.sync m16n8k32).
-// Why the bits are the __dp4a kernels': each int8 product is exact and no
-// int32 sum comes near overflow (128 x 127^2 per tile), so neither the MMA's order
-// of the sums nor a permutation of the axis A and B share changes one; a
-// scale over a tile is a function of that tile alone, so quantizing once
-// a call gives the bytes each block made; and what decides the numbers is
-// kept: the scales' axes, quant() (IEEE quotient, half to even, +-127),
-// and the f32 epilogue in its order (rescale, then __fadd_rn tile by
-// tile).  The outputs equal ref.flash_bwd_ref bit for bit on the card.
+// The int8 mode (B5, B6 and B7): a quantization pre-pass for the forward
+// and one for the backward, then the kernels on the s8 tensor cores
+// (mma.sync m16n8k32).  Why the bits are those of the dp4a kernels they
+// replace (the first int8 kernels, which quantized every operand tile
+// inside each block and multiplied four packed bytes at a time): each
+// int8 product is exact and no int32 sum comes near overflow (128 x 127^2
+// per tile), so neither the MMA's order of the sums nor a permutation of
+// the axis A and B share changes one; a scale over a tile is a function of
+// that tile alone, so quantizing once a call gives the bytes each block
+// made; and what decides the numbers is kept: the scales' axes,
+// quantize_int8's byte (the IEEE quotient by max(scale, 1e-12), half to
+// even, +-127; quant_rcp), and the f32 epilogue in its order (rescale,
+// then __fadd_rn tile by tile).  B5 sums l in the fragments' order, which
+// its plain version follows (ref._mma_row_sum).  The outputs equal
+// ref.flash_fwd_ref and ref.flash_bwd_ref bit for bit on an H100.
 // ---------------------------------------------------------------------------
 
 // The operands of the int8 backward, quantized once a call by
@@ -1820,13 +1614,14 @@ __host__ __device__ constexpr int frag_perm(int pos) {
   return 8 * ((pos & 3) >> 1) + 2 * (pos >> 2) + (pos & 1);
 }
 
-// quant(x, scale) from the reciprocal rcp = 1 / max(scale, 1e-12) (sc),
-// formed once a row.  Where the quotient's magnitude is at most ~128 (x is
-// bounded by the row's absmax, 127 scales), x * rcp lies within 2^-15 of
-// the IEEE quotient x / sc, so both round to the same integer unless x *
-// rcp lies within 2^-12 of a half step; there (a few values in ten
-// thousand) the quotient is formed as quant() forms it.  The same byte for
-// every x, inf and NaN included, for a fraction of the divide's work.
+// quantize_int8's byte of x at `scale`, rint(x / max(scale, 1e-12)) (sc)
+// clipped to +-127, from the reciprocal rcp = 1 / sc formed once a row.
+// Where the quotient's magnitude is at most ~128 (x is bounded by the
+// row's absmax, 127 scales), x * rcp lies within 2^-15 of the IEEE
+// quotient x / sc, so both round to the same integer unless x * rcp lies
+// within 2^-12 of a half step; there (a few values in ten thousand) the
+// IEEE quotient is formed.  The same byte for every x, inf and NaN
+// included, for a fraction of the divide's work.
 __device__ __forceinline__ int8_t quant_rcp(float x, float sc, float rcp) {
   const float y = __fmul_rn(x, rcp);
   float r = rintf(y);
@@ -1918,20 +1713,25 @@ __device__ __forceinline__ void copy_f32s(float* X, const float* src, int n, int
 }
 
 // ---------------------------------------------------------------------------
-// The pre-pass.  Replaces no TPU kernel: it is the quantization inside the
-// reference's kernel_dot (src/repro/quant/core.py:31-41, :63-67) hoisted
-// out of B6's and B7's tile loops, where the __dp4a kernels quantized each
-// k (B6) and q and do (B7) tile again in every block that visits it (5 blocks
-// on average at mup-gpt's causal 512 tokens).  A scale over a 128-row tile
-// is a function of that tile alone, so once a call gives the very bytes.
-// Bound by bytes: q, k, v and do read once, 7 int8 tensors and their
-// scales written (at the train shape ~67 MB + 29 MB, ~29 us at 3.35 TB/s).
-// One block a 128-row tile of one head of one of q, do, k, v: staged once
+// The pre-passes.  Replace no TPU kernel: they are the quantization inside
+// the reference's kernel_dot (src/repro/quant/core.py:31-41, :63-67) hoisted
+// out of B5's, B6's and B7's tile loops, where the dp4a kernels quantized
+// each k and v (B5), k (B6) and q and do (B7) tile again in every block that
+// visits it (5 blocks on average at mup-gpt's causal 512 tokens).  A scale
+// over a 128-row tile is a function of that tile alone, so once a call
+// gives the very bytes.  Bound by bytes: the backward's reads q, k, v and
+// do once and writes 7 int8 tensors and their scales (at the train shape
+// ~67 MB + 29 MB, ~29 us at 3.35 TB/s); the forward's reads k and v and
+// writes k8 and vT8 with their scales (33.6 MB + 8.4 MB, ~12.5 us).
+// One block a 128-row tile of one head of one tensor (flash_quant_i8_kernel:
+// q, do, k or v; flash_quant_fwd_i8_kernel: k or v), quant_tile: staged once
 // in shared memory as f32 by 16-byte loads, quantized per row over d by a
-// warp a row (four rows at a time) and, for q, do and k, per column over
-// the tile's rows: a warp a 16-row group reads each column's values in
-// frag_perm order and writes them as one 16-byte store (37 KB of shared
-// memory at DP = 64, so six blocks share an SM).
+// warp a row (four rows at a time) where the tensor has a row form and per
+// column over the tile's rows where it has a column form: a warp a 16-row
+// group reads each column's values in frag_perm order and writes them as
+// one 16-byte store (37 KB of shared memory at DP = 64, so six blocks share
+// an SM).  Rows: q, do, k, v (backward), k (forward).  Columns: q, do, k
+// (backward), v (forward).
 // ---------------------------------------------------------------------------
 template <int DP> constexpr size_t quant_i8_smem_bytes() {
   return smem_piece(4 * kI8 * (DP + 4)) + smem_piece(4 * 8 * DP);
@@ -1948,33 +1748,17 @@ __device__ __forceinline__ void load16_f32(float* dst, const bf16* src) {
   *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
 }
 
+// Tile `tile` (of n) of head h of batch b of `src` (B, rows, heads, d):
+// per row over d into rows8 (B, rows, heads, DP) with rscale (B, heads,
+// rows) where rows8 is given, per column over the tile into cols8 (B,
+// heads, n, DP, 128) with cscale (B, heads, n, DP) where cols8 is given.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout, I8Ops o, Params p) {
+__device__ __forceinline__ void quant_tile(const T* __restrict__ src, int heads, int rows,
+                                           int n, int tile, int h, int b, int8_t* rows8,
+                                           float* rscale, int8_t* cols8, float* cscale,
+                                           const Params& p) {
   static_assert(kThreads == 8 * 32 && kI8 == 8 * 16, "a warp a 16-row group");
   constexpr int LD = DP + 4, E = DP / 32, V = 16 / sizeof(T);
-  const int nS = (p.S + kI8 - 1) / kI8, nT = (p.T + kI8 - 1) / kI8;
-  const long long qi = (long long)p.B * p.H * nS, ki = (long long)p.B * p.K * nT;
-  long long item = blockIdx.x;
-  int which;   // 0 q, 1 do, 2 k, 3 v
-  if (item < 2 * qi) {
-    which = (int)(item / qi);
-    item %= qi;
-  } else {
-    item -= 2 * qi;
-    which = 2 + (int)(item / ki);
-    item %= ki;
-  }
-  const bool kv = which >= 2;
-  const int heads = kv ? p.K : p.H, rows = kv ? p.T : p.S, n = kv ? nT : nS;
-  const int tile = (int)(item % n), h = (int)(item / n % heads), b = (int)(item / n / heads);
-  const T* src = which == 0 ? q : which == 1 ? dout : which == 2 ? k : v;
-  int8_t* rows8 = which == 0 ? o.q8 : which == 1 ? o.do8 : which == 2 ? o.k8 : o.v8;
-  float* rscale = which == 0 ? o.sq : which == 1 ? o.sdo : which == 2 ? o.sk : o.sv;
-  int8_t* cols8 = which == 0 ? o.qT8 : which == 1 ? o.doT8 : which == 2 ? o.kT8 : nullptr;
-  float* cscale = which == 0 ? o.sqc : which == 1 ? o.sdoc : o.skc;
-
   extern __shared__ __align__(16) unsigned char smem_q8[];
   Carve cv{smem_q8};
   float* xs = cv.take<float>(kI8 * LD);           // the tile, f32, zeros past rows and d
@@ -2007,36 +1791,38 @@ flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // per row over d: a warp a row, four rows at a time (rows warp + 8 i)
+  if (rows8 != nullptr) {   // uniform over the block
 #pragma unroll
-  for (int i0 = 0; i0 < kI8 / 8; i0 += 4) {
-    float x[4][E], sc[4];
+    for (int i0 = 0; i0 < kI8 / 8; i0 += 4) {
+      float x[4][E], sc[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float amax = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        float amax = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        x[i][e] = xs[(warp + 8 * (i0 + i)) * LD + lane + 32 * e];
-        amax = fmaxf(amax, fabsf(x[i][e]));
+        for (int e = 0; e < E; ++e) {
+          x[i][e] = xs[(warp + 8 * (i0 + i)) * LD + lane + 32 * e];
+          amax = fmaxf(amax, fabsf(x[i][e]));
+        }
+        sc[i] = amax;
       }
-      sc[i] = amax;
-    }
 #pragma unroll
-    for (int o2 = 16; o2 > 0; o2 >>= 1)
+      for (int o2 = 16; o2 > 0; o2 >>= 1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sc[i] = fmaxf(sc[i], __shfl_xor_sync(0xffffffffu, sc[i], o2));
+        for (int i = 0; i < 4; ++i) sc[i] = fmaxf(sc[i], __shfl_xor_sync(0xffffffffu, sc[i], o2));
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = warp + 8 * (i0 + i);
-      if (r >= valid) continue;
-      const float s = sc[i] / 127.f;
-      const float2 qs = quant_scale(s);
-      int8_t* dst = rows8 + (((size_t)b * rows + r0 + r) * heads + h) * DP;
+      for (int i = 0; i < 4; ++i) {
+        const int r = warp + 8 * (i0 + i);
+        if (r >= valid) continue;
+        const float s = sc[i] / 127.f;
+        const float2 qs = quant_scale(s);
+        int8_t* dst = rows8 + (((size_t)b * rows + r0 + r) * heads + h) * DP;
 #pragma unroll
-      for (int e = 0; e < E; ++e) dst[lane + 32 * e] = quant_rcp(x[i][e], qs.x, qs.y);
-      if (lane == 0) rscale[((size_t)b * heads + h) * rows + r0 + r] = s;
+        for (int e = 0; e < E; ++e) dst[lane + 32 * e] = quant_rcp(x[i][e], qs.x, qs.y);
+        if (lane == 0) rscale[((size_t)b * heads + h) * rows + r0 + r] = s;
+      }
     }
   }
-  if (cols8 == nullptr) return;   // v: rows only (uniform over the block)
+  if (cols8 == nullptr) return;   // uniform over the block
 
   // per column over the tile's rows: warp w holds rows 16 w..16 w + 15 of
   // columns lane + 32 cc
@@ -2071,6 +1857,371 @@ flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The backward's pre-pass: blocks for the tiles of q, then do (B, H, nS
+// each), then k, then v (B, K, nT each)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout, I8Ops o, Params p) {
+  const int nS = (p.S + kI8 - 1) / kI8, nT = (p.T + kI8 - 1) / kI8;
+  const long long qi = (long long)p.B * p.H * nS, ki = (long long)p.B * p.K * nT;
+  long long item = blockIdx.x;
+  int which;   // 0 q, 1 do, 2 k, 3 v
+  if (item < 2 * qi) {
+    which = (int)(item / qi);
+    item %= qi;
+  } else {
+    item -= 2 * qi;
+    which = 2 + (int)(item / ki);
+    item %= ki;
+  }
+  const bool kv = which >= 2;
+  const int heads = kv ? p.K : p.H, rows = kv ? p.T : p.S, n = kv ? nT : nS;
+  const int tile = (int)(item % n), h = (int)(item / n % heads), b = (int)(item / n / heads);
+  const T* src = which == 0 ? q : which == 1 ? dout : which == 2 ? k : v;
+  int8_t* rows8 = which == 0 ? o.q8 : which == 1 ? o.do8 : which == 2 ? o.k8 : o.v8;
+  float* rscale = which == 0 ? o.sq : which == 1 ? o.sdo : which == 2 ? o.sk : o.sv;
+  int8_t* cols8 = which == 0 ? o.qT8 : which == 1 ? o.doT8 : which == 2 ? o.kT8 : nullptr;
+  float* cscale = which == 0 ? o.sqc : which == 1 ? o.sdoc : o.skc;
+  quant_tile<T, DP>(src, heads, rows, n, tile, h, b, rows8, rscale, cols8, cscale, p);
+}
+
+// The operands of B5 in the int8 mode, quantized once a call by
+// flash_quant_fwd_i8_kernel (nT = ceil(T / 128), d zero-padded to DP, rows
+// past T zeros in the tiles): k per row over d, k8 (B, T, K, DP) with sk (B,
+// K, T), the backward's bytes; v per column over each 128-key tile, vT8 (B,
+// K, nT, DP, 128) with svc (B, K, nT, DP), K-major with each 16-group of the
+// tile's keys in frag_perm order (the backward's kT8 layout).  The host
+// passes the 4 pointers in this order.
+struct FwdI8Ops {
+  int8_t *k8, *vT8;
+  float *sk, *svc;
+};
+
+// The forward's pre-pass: blocks for the tiles of k, then of v (B, K, nT each)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_quant_fwd_i8_kernel(const T* __restrict__ k, const T* __restrict__ v, FwdI8Ops o,
+                          Params p) {
+  const int nT = (p.T + kI8 - 1) / kI8;
+  const long long ki = (long long)p.B * p.K * nT;
+  long long item = blockIdx.x;
+  const bool isv = item >= ki;
+  if (isv) item -= ki;
+  const int tile = (int)(item % nT), h = (int)(item / nT % p.K), b = (int)(item / nT / p.K);
+  if (isv)
+    quant_tile<T, DP>(v, p.K, p.T, nT, tile, h, b, nullptr, nullptr, o.vT8, o.svc, p);
+  else
+    quant_tile<T, DP>(k, p.K, p.T, nT, tile, h, b, o.k8, o.sk, nullptr, nullptr, p);
+}
+
+// ---------------------------------------------------------------------------
+// B5, int8 operands, on the s8 tensor cores.
+// A block is 4 warps of 16 query rows (a 64-row q tile, one (q tile, head,
+// batch) item, q tiles in reverse so the causal rows that see the most keys
+// start first) walking the visible 128-key tiles (128 wide: p v takes its
+// scales over the tile's keys).  Each warp quantizes its 16 q rows per row
+// over d once, at the item's set-up, straight from device memory into the A
+// fragments of q k^T (no q row is quantized twice in a call, so a pre-pass
+// over q would only add its writes and reads).  The tile's k8, vT8 and their
+// scales come from the forward pre-pass by 16-byte cp.async, double-buffered:
+// the next tile's copies fly while the warps multiply.  A warp owns its 16
+// rows across the whole tile: s = q8 k8^T by 32-key chunks (ldmatrix of the
+// row-quantized bytes, K-contiguous on both sides; a chunk none of the
+// warp's rows sees is masked whole without its products), the online
+// softmax in f32 registers in the accumulator layout (a row's max, sum and
+// absmax over its four lanes by quad shuffles: no shared memory, no block
+// barrier), p quantized per row over the tile's keys straight into the A
+// fragments of acc += p8 vT8 (frag_perm; a chunk whose p bytes are all zero
+// adds nothing and is skipped).  The f32 steps are the dp4a kernel's, in
+// its order: rescale = (float)acc * sa * sb rounded at each step, the
+// logit's __fmul_rn, the softcap's tanhf and divide, the mask, m_new =
+// max(m, rowmax), p = expf(s - m_new), sp = pmax / 127, alpha = expf(m -
+// m_new), l = alpha l + rowsum (the fragments' order: n-tiles, then the
+// pair, then lanes xor 1, 2; ref._mma_row_sum), acc = acc alpha +
+// rescale(p8 vT8) tile by tile in increasing key order, then store_out's
+// o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)).
+// Registers a thread: s 64, acc DP / 2, q8 DP / 8, p8 16; DP = 64 fits
+// three blocks (12 warps) an SM, DP = 128 two.
+// ---------------------------------------------------------------------------
+constexpr int kI8Threads = 128;   // B5, B6: 4 warps of 16 rows; B7: 2 pairs of warps
+
+// B5's shared memory, byte offsets from its base: two stages of a key tile
+// (k8, vT8, sk, svc)
+template <int DP> struct FwdI8Smem {
+  static constexpr size_t K8 = 0, VT = smem_piece(kI8 * i8_ld<DP>()),
+                          SK = VT + smem_piece(DP * kI8TLd), SV = SK + smem_piece(4 * kI8),
+                          STAGE = SV + smem_piece(4 * DP), BYTES = 2 * STAGE;
+};
+
+// 4 values of T at src (4-element aligned) as f32
+__device__ __forceinline__ void load4(const float* src, float (&x)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+}
+__device__ __forceinline__ void load4(const bf16* src, float (&x)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(src);
+  x[0] = __uint_as_float(a.x << 16);
+  x[1] = __uint_as_float(a.x & 0xffff0000u);
+  x[2] = __uint_as_float(a.y << 16);
+  x[3] = __uint_as_float(a.y & 0xffff0000u);
+}
+
+// B5's masked logits of one 32-key chunk (keys key0 + 8 j + 2 tq + e, local
+// kl0 + ..; rows row0, row0 + 8 at q scales sqr) into x
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void fwd_i8_logits(float (&x)[4][4], const int (&si)[4][4],
+                                              const float* sk, int kl0, int key0, int row0,
+                                              int tq, const float (&sqr)[2], const Params& p) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, kc = 8 * j + 2 * tq + (e & 1);
+      float t;
+      const float lg = tc_logit<kCap>(rescale(si[j][e], sqr[r], sk[kl0 + kc]), p, t);
+      x[j][e] = !kMask || visible(row0 + 8 * r, key0 + kc, p) ? lg : kNegInf;
+    }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : 2)
+flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ out,
+                    float* __restrict__ lse, Params p) {
+  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DT = DP / 8, NT = kI8 / 8, TS = kI8 / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int nq = (p.S + kBQ - 1) / kBQ, hb = p.H * p.B, nT = (p.T + kI8 - 1) / kI8;
+  const int q0 = (nq - 1 - (int)blockIdx.x / hb) * kBQ;
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H, kh = h / (p.H / p.K);
+  using L = FwdI8Smem<DP>;
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+
+  // each visible key tile into buffer (it & 1)
+  const int2 kr = visible_range(nT, [&](int t) { return tile_visible(q0, kBQ, t * kI8, kI8, p); });
+  auto stage = [&](int kt, int s) {
+    unsigned char* st = smem_i8 + s * L::STAGE;
+    const int k0 = kt * kI8, kvalid = min(kI8, p.T - k0);
+    const size_t krow = (((size_t)b * p.T + k0) * p.K + kh) * DP;
+    const size_t kcol = ((size_t)b * p.K + kh) * nT + kt;
+    copy_rows8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::K8), o.k8 + krow,
+                               (size_t)p.K * DP, kI8, kvalid, threadIdx.x);
+    copy_tile8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::VT), o.vT8 + kcol * DP * kI8,
+                               threadIdx.x);
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SK),
+                          o.sk + ((size_t)b * p.K + kh) * p.T + k0, kI8, kvalid, threadIdx.x);
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SV), o.svc + kcol * DP, DP, DP,
+                          threadIdx.x);
+    repro::cp_async_commit();
+  };
+  if (kr.x < kr.y) stage(kr.x, 0);
+
+  // this thread's rows are r0 + g + 8 r (r = 0, 1); its columns of each
+  // 8-wide n-tile j 8 j + 2 tq + e (e = 0, 1).  Its q bytes, as the A
+  // fragments of each 32-byte k-step ks: a0 (g, 4 tq..), a1 (g + 8, 4 tq..),
+  // a2 (g, 16 + 4 tq..), a3 (g + 8, 16 + 4 tq..), quantized per row over d
+  // (a row's absmax over its four lanes), zeros beyond S and d; the row
+  // scales sqr.  p.tma: d a multiple of 4 and q 16-byte aligned, so four
+  // values load at once.
+  const int r0 = q0 + 16 * warp;
+  uint32_t qa[KS][4];
+  float sqr[2];
+  {
+    const size_t qstride = (size_t)p.H * p.d;
+    const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
+    float x[2][KS][2][4], amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      const T* qr = qb + (size_t)row * qstride;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int c = 32 * ks + 16 * hh + 4 * tq;
+          float* xv = x[r][ks][hh];
+          if (row < p.S && p.tma && c < p.d) {
+            load4(qr + c, x[r][ks][hh]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) xv[e] = row < p.S && c + e < p.d ? to_f32(qr[c + e]) : 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) amax[r] = fmaxf(amax[r], fabsf(xv[e]));
+        }
+    }
+    float2 qs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sqr[r] = quad_max(amax[r]) / 127.f;
+      qs[r] = quant_scale(sqr[r]);
+    }
+    auto q4 = [&](const float (&v)[4], int r) {
+      return pack_s8(quant_rcp(v[0], qs[r].x, qs[r].y), quant_rcp(v[1], qs[r].x, qs[r].y),
+                     quant_rcp(v[2], qs[r].x, qs[r].y), quant_rcp(v[3], qs[r].x, qs[r].y));
+    };
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      qa[ks][0] = q4(x[0][ks][0], 0);
+      qa[ks][1] = q4(x[1][ks][0], 1);
+      qa[ks][2] = q4(x[0][ks][1], 0);
+      qa[ks][3] = q4(x[1][ks][1], 1);
+    }
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // [probe] B5 start
+  for (int kt = kr.x; kt < kr.y; ++kt) {
+    const int s = (kt - kr.x) & 1, k0 = kt * kI8;
+    // [probe] B5 tile start
+    if (kt + 1 < kr.y) {
+      stage(kt + 1, s ^ 1);
+      repro::cp_async_wait_group<1>();
+    } else {
+      repro::cp_async_wait_group<0>();
+    }
+    __syncthreads();   // the tile's copies in
+    // [probe] B5 tile staged
+    const unsigned char* st = smem_i8 + s * L::STAGE;
+    const int8_t* K8 = reinterpret_cast<const int8_t*>(st + L::K8);
+    const int8_t* VT = reinterpret_cast<const int8_t*>(st + L::VT);
+    const float* sk = reinterpret_cast<const float*>(st + L::SK);
+    const float* sv = reinterpret_cast<const float*>(st + L::SV);
+
+    // the masked logits of this warp's rows over the tile, by 32-key chunks
+    float x[NT][4];
+#pragma unroll
+    for (int c = 0; c < TS; ++c) {
+      const int key0 = k0 + 32 * c;
+      float xc[4][4];
+      if (key0 < p.T && tile_visible(r0, 16, key0, 32, p)) {   // warp-uniform
+        int si[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) si[j][e] = 0;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t kf[4];
+            repro::ldmatrix_x4(kf, b8_pair(K8, LD, 32 * c + 16 * jp, 32 * ks, lane));
+            repro::mma_s8(si[2 * jp], qa[ks], kf[0], kf[1]);
+            repro::mma_s8(si[2 * jp + 1], qa[ks], kf[2], kf[3]);
+          }
+        const bool whole = key0 + 32 <= p.T && (!p.causal || key0 + 31 <= r0) &&
+                           (!p.window || r0 + 15 - key0 < p.window);
+        if (p.softcap > 0.f) {
+          if (whole) fwd_i8_logits<true, false>(xc, si, sk, 32 * c, key0, r0 + g, tq, sqr, p);
+          else fwd_i8_logits<true, true>(xc, si, sk, 32 * c, key0, r0 + g, tq, sqr, p);
+        } else {
+          if (whole) fwd_i8_logits<false, false>(xc, si, sk, 32 * c, key0, r0 + g, tq, sqr, p);
+          else fwd_i8_logits<false, true>(xc, si, sk, 32 * c, key0, r0 + g, tq, sqr, p);
+        }
+      } else {   // no pair of the chunk is visible to these rows: all masked
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xc[j][e] = kNegInf;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[4 * c + j][e] = xc[j][e];
+    }
+    // [probe] B5 s formed
+    // the online softmax of each row over its four lanes; p = exp(s - m_new)
+    // unrounded into l, quantized per row over the tile's keys into the A
+    // fragments of p v
+    float alpha[2], sp[2];
+    float2 qs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) mx = fmaxf(mx, x[j][2 * r + e]);
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      float rs = 0.f, pmax = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = expf(x[j][2 * r + e] - m_new);
+          x[j][2 * r + e] = pv;
+          rs += pv;
+          pmax = fmaxf(pmax, pv);
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      sp[r] = quad_max(pmax) / 127.f;
+      qs[r] = quant_scale(sp[r]);
+      alpha[r] = expf(m[r] - m_new);
+      l[r] = __fadd_rn(__fmul_rn(alpha[r], l[r]), rs);
+      m[r] = m_new;
+    }
+    uint32_t pa[TS][4];
+    bool nz[TS];
+#pragma unroll
+    for (int c = 0; c < TS; ++c) {
+      quant_frag(pa[c], x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3], qs);
+      nz[c] = __any_sync(0xffffffffu, (pa[c][0] | pa[c][1] | pa[c][2] | pa[c][3]) != 0u);
+    }
+    // [probe] B5 p quantized
+    // acc = acc alpha + rescale(p8 vT8) (vT8 the B operand, K-major, frag_perm order)
+#pragma unroll
+    for (int jp = 0; jp < DT / 2; ++jp) {
+      int ai[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+      for (int c = 0; c < TS; ++c) {
+        if (!nz[c]) continue;
+        uint32_t vf[4];
+        repro::ldmatrix_x4(vf, b8_pair(VT, kI8TLd, 16 * jp, 32 * c, lane));
+        repro::mma_s8(ai[0], pa[c], vf[0], vf[1]);
+        repro::mma_s8(ai[1], pa[c], vf[2], vf[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 2 * jp + i, r = e >> 1;
+          acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], alpha[r]),
+                                rescale(ai[i][e], sp[r], sv[8 * j + 2 * tq + (e & 1)]));
+        }
+    }
+    // [probe] B5 products added
+    __syncthreads();   // every warp is done with buffer s
+    // [probe] B5 tile end
+  }
+  // [probe] B5 end
+
+  // o = acc / max(l, 1e-30) in o's type, lse = m + log(max(l, 1e-30)), for
+  // this thread's rows that lie below S
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= p.S) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    T* orow = out + (((size_t)b * p.S + row) * p.H + h) * p.d;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
+      const int c = 8 * j + 2 * tq;
+      const float x0 = acc[j][2 * r] / lc, x1 = acc[j][2 * r + 1] / lc;
+      if (c + 1 < p.d && p.d % 2 == 0) {
+        store_pair(orow + c, x0, x1);
+      } else {
+        if (c < p.d) orow[c] = from_f32<T>(x0);
+        if (c + 1 < p.d) orow[c + 1] = from_f32<T>(x1);
+      }
+    }
+    if (tq == 0) lse[((size_t)b * p.H + h) * p.S + row] = m[r] + logf(lc);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B6, int8 operands, on the s8 tensor cores.
 // A block is 4 warps of 16 query rows (a 64-row q tile, one (q tile, head,
@@ -2085,7 +2236,7 @@ flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // shuffle: no shared memory, no block barrier), quantized straight into
 // the A fragments of dq += ds8 kT8 (frag_perm).  Chunks none of the warp's
 // rows sees are skipped (their ds is an exact 0).  The f32 steps are
-// the __dp4a kernel's, in its order: rescale = (float)acc * sa * sb rounded at each
+// the dp4a kernel's, in its order: rescale = (float)acc * sa * sb rounded at each
 // step, the logit's __fmul_rn, expf, the softcap's tanhf and divide, then
 // __fadd_rn into dq tile by tile in increasing key order.
 // Registers a thread: ds 64, dq DP / 2, a chunk's s and dp 32; at DP = 64
@@ -2094,8 +2245,6 @@ flash_quant_i8_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dependent f32 steps per value, and more warps hide it (two blocks an SM,
 // 204 registers, ran 136 us at the train shape against 98).
 // ---------------------------------------------------------------------------
-constexpr int kI8Threads = 128;   // B6: 4 warps of 16 rows; B7: 2 pairs of warps
-
 // B6's shared memory, byte offsets from its base: q8 and do8 of the item,
 // then two stages of a key tile (k8, v8, kT8, sk, sv, skc)
 template <int DP> struct DqI8Smem {
@@ -2353,7 +2502,7 @@ flash_bwd_dq_i8_kernel(const I8Ops o, const float* __restrict__ lse,
 // of the first keys, which the causal mask leaves the most query tiles,
 // start first.  As in B6 the per-value chain of the p/ds step and the
 // quantization bounds it, not the products.  The f32 steps and their
-// order are the __dp4a kernel's; dk and dv add over the group's heads
+// order are the dp4a kernel's; dk and dv add over the group's heads
 // and the q tiles in increasing order in one block: no atomics, the same
 // bits when repeated.
 // ---------------------------------------------------------------------------
@@ -2783,10 +2932,9 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   float* f0 = static_cast<float*>(out0);
   float* f1 = static_cast<float*>(out1);
+  if (i8) return cudaErrorInvalidValue;   // B5-B7 int8: repro_flash_*_i8
   if (which == Which::kFwd) {
     T* o = static_cast<T*>(out0);
-    if (i8) return start(flash_fwd_i8_kernel<T, DP>, rows, fwd_i8_smem_bytes<DP>(), s,
-                         qq, kk, vv, o, f1, p);
     if (bf) {
       Params pt = p;
       pt.tma = tma_rows<T>(p.d, q, k, v, q);
@@ -2812,7 +2960,6 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
     return start(flash_fwd_kernel<T, DP>, rows, fwd_smem_words<DP>() * 4, s,
                  qq, kk, vv, o, f1, p);
   }
-  if (i8) return cudaErrorInvalidValue;   // B6, B7 int8: repro_flash_bwd_*_i8
   if (which == Which::kDq) {
     if (bf) {
       Params pt = p;
@@ -2913,6 +3060,38 @@ cudaError_t quant_i8(const void* q, const void* k, const void* v, const void* do
                static_cast<const T*>(dout), i8_ops(a), pt);
 }
 
+// The int8 forward: the pre-pass over k and v into `ops` (the 4 pointers
+// in FwdI8Ops order), then B5 on them.
+FwdI8Ops fwd_i8_ops(void* const* a) {
+  return FwdI8Ops{static_cast<int8_t*>(a[0]), static_cast<int8_t*>(a[1]),
+                  static_cast<float*>(a[2]), static_cast<float*>(a[3])};
+}
+
+template <typename T, int DP>
+cudaError_t quant_fwd_i8(const void* k, const void* v, void* const* a, const Params& p,
+                         cudaStream_t s) {
+  const long long items = 2ll * p.B * p.K * ((p.T + kI8 - 1) / kI8);
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  Params pt = p;
+  pt.tma = tma_rows<T>(p.d, k, v, k, v);   // here: rows of whole 16-byte pieces
+  return start(flash_quant_fwd_i8_kernel<T, DP>, dim3((unsigned)items),
+               quant_i8_smem_bytes<DP>(), s, static_cast<const T*>(k),
+               static_cast<const T*>(v), fwd_i8_ops(a), pt);
+}
+
+template <typename T, int DP>
+cudaError_t fwd_i8(const void* q, void* const* a, void* o, void* lse, const Params& p,
+                   cudaStream_t s) {
+  // one block an item (64-row q tile, head, batch), q tiles in reverse
+  const long long items = (long long)((p.S + kBQ - 1) / kBQ) * p.H * p.B;
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  Params pt = p;
+  pt.tma = p.d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;   // q by 4 values
+  return start<kI8Threads>(flash_fwd_i8_kernel<T, DP>, dim3((unsigned)items),
+                           FwdI8Smem<DP>::BYTES, s, static_cast<const T*>(q), fwd_i8_ops(a),
+                           static_cast<T*>(o), static_cast<float*>(lse), pt);
+}
+
 template <int DP>
 cudaError_t bwd_i8(Which which, void* const* a, const float* lse, const float* delta,
                    float* out0, float* out1, const Params& p, cudaStream_t s) {
@@ -2970,8 +3149,50 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                   K, d, scale, causal, window, softcap, mode, dtype, stream);
 }
 
-// B6 and B7 take the int8 operand mode (mode 2) only through the entry
-// points below, on the pre-pass's operands.
+// B5, B6 and B7 take the int8 operand mode (mode 2) only through the entry
+// points below, on the pre-passes' operands.
+
+// The int8 forward's pre-pass: k, v (B, T, K, d) of `dtype` into the 4
+// buffers of `ops` (FwdI8Ops order, DP = 64 for d <= 64, else 128)
+extern "C" int repro_flash_quant_fwd_i8(const void* k, const void* v, void* const* ops, int B,
+                                        int T, int K, int d, int dtype, void* stream) {
+  Params p;
+  if (const int err = i8_params(&p, B, 1, T, K, K, d, 1.f, 0, 0, 0.f)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = d <= 64 ? quant_fwd_i8<float, 64>(k, v, ops, p, s)
+                  : quant_fwd_i8<float, 128>(k, v, ops, p, s);
+  } else if (dtype == 1) {
+    err = d <= 64 ? quant_fwd_i8<__nv_bfloat16, 64>(k, v, ops, p, s)
+                  : quant_fwd_i8<__nv_bfloat16, 128>(k, v, ops, p, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// B5 in the int8 mode: o (B, S, H, d) in q's dtype, lse (B, H, S) f32, from
+// q and the forward pre-pass's `ops`
+extern "C" int repro_flash_fwd_i8(const void* q, void* const* ops, void* o, void* lse, int B,
+                                  int S, int T, int H, int K, int d, float scale, int causal,
+                                  int window, float softcap, int dtype, void* stream) {
+  Params p;
+  if (const int err = i8_params(&p, B, S, T, H, K, d, scale, causal, window, softcap))
+    return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = d <= 64 ? fwd_i8<float, 64>(q, ops, o, lse, p, s)
+                  : fwd_i8<float, 128>(q, ops, o, lse, p, s);
+  } else if (dtype == 1) {
+    err = d <= 64 ? fwd_i8<__nv_bfloat16, 64>(q, ops, o, lse, p, s)
+                  : fwd_i8<__nv_bfloat16, 128>(q, ops, o, lse, p, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
 
 // The int8 backward's pre-pass: q, do (B, S, H, d) and k, v (B, T, K, d) of
 // `dtype` into the 14 buffers of `ops` (I8Ops order, DP = 64 for d <= 64,

@@ -12,24 +12,29 @@ mode (``train --amp bf16``) all three run on the tensor cores
 ``flash_bwd_dkv_tc_kernel``: mma.sync, ldmatrix, TMA boxes on an
 mbarrier); in the f32 mode on FFMA
 (``flash_fwd_kernel``, ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``);
-in the int8 mode B5 on ``__dp4a`` (``flash_fwd_i8_kernel``) and the
-backward in two steps: a pre-pass (:func:`quantize_bwd`,
+in the int8 mode each direction in two steps.  The forward: a pre-pass
+(:func:`quantize_fwd`, ``flash_quant_fwd_i8_kernel``) quantizes k per row
+over d and v per column over each 128-key tile once a call, and B5
+(``flash_fwd_i8_kernel``) quantizes q per row at each item's set-up and p
+in registers.  The backward: a pre-pass (:func:`quantize_bwd`,
 ``flash_quant_i8_kernel``) quantizes q, k, v and do once a call, per row
-over d and per column over each 128-row tile (the tiles stored K-major in
-the MMA fragments' order, ``ref.FRAG_PERM``), and B6 and B7
-(``flash_bwd_dq_i8_kernel``, ``flash_bwd_dkv_i8_kernel``) multiply those
-bytes on the s8 tensor cores (mma.sync m16n8k32), quantizing p and ds in
-registers.  Each int8 product is exact and its int32 sum cannot overflow,
-so the MMA's order and the permutation change no bit: the kernels keep the
-scales' axes and the f32 steps of the __dp4a kernels they replace, in
-order, and with them their numbers.
+over d and per column over each 128-row tile, and B6 and B7
+(``flash_bwd_dq_i8_kernel``, ``flash_bwd_dkv_i8_kernel``) quantize p and
+ds in registers.  The column tiles are stored K-major in the MMA
+fragments' order (``ref.FRAG_PERM``), and all three multiply the bytes on
+the s8 tensor cores (mma.sync m16n8k32).  Each int8 product is exact and
+its int32 sum cannot overflow, so the MMA's order and the permutation
+change no bit: the kernels keep the scales' axes and the f32 steps of the
+dp4a kernels they replace, in order; B5 sums l in the fragments' order,
+as its plain version does.
+:func:`flash_fwd` runs the forward pre-pass and B5 in the int8 mode;
 :func:`flash_bwd` runs the backward as ``ops.attention`` wants it (one
 pre-pass for B6 and B7 in the int8 mode); ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` each run the pre-pass themselves.  Each wrapper launches
 its kernels on CUDA tensors or raises: nothing falls back to another
 kernel.  Their plain versions at this contract, rounding where the kernels
 round, are ``kernels/ref.py::flash_fwd_ref`` and ``flash_bwd_ref`` (the
-pre-pass's: ``flash_quant_bwd_ref``), which walk the same tiles
+pre-passes': ``flash_quant_fwd_ref``, ``flash_quant_bwd_ref``), which walk the same tiles
 (``ref.FLASH_TILES``: B5's 128-key tiles and, in the int8 mode, where the
 tiles carry the scales, B6's 128-key and B7's 128-query tiles);
 ``kernels/ops.py::attention`` wires the kernels into a
@@ -56,10 +61,13 @@ fwd_int8_launches = 0   # the same three in the int8 operand mode, apart
 dq_int8_launches = 0
 dkv_int8_launches = 0
 quant_int8_launches = 0   # the int8 backward's pre-pass
+fwd_quant_int8_launches = 0   # the int8 forward's pre-pass
 
 # the pre-pass's outputs, in the order of the C side's I8Ops
 I8_FIELDS = ("q8", "do8", "k8", "v8", "kT8", "qT8", "doT8",
              "sq", "sdo", "sk", "sv", "skc", "sqc", "sdoc")
+# the forward pre-pass's outputs, in the order of the C side's FwdI8Ops
+FWD_I8_FIELDS = ("k8", "vT8", "sk", "svc")
 I8_TILE = 128   # the rows of a tile whose columns share a scale
 
 
@@ -125,21 +133,27 @@ def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
     contiguous, on the card; query head h reads kv head h // (H // K).
     o is (B, S, H, d) in q's dtype, lse (B, H, S) float32.  ``policy`` (a
     quant.QuantPolicy or None) selects f32, bf16 or int8 tile-matmul
-    operands.
+    operands; in the int8 mode the call runs the forward pre-pass
+    (:func:`quantize_fwd`) first.
     """
     global fwd_launches, fwd_int8_launches
     B, S, T, H, K, d = _check("flash_fwd", q, k, v)
     tail = _tail(scale, causal, window, softcap, policy, q)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    if tail[4] == _MODES["int8"]:
+        ops = quantize_fwd(k, v)
+        err = build.library().repro_flash_fwd_i8(
+            q.data_ptr(), _i8_array(ops, FWD_I8_FIELDS), o.data_ptr(), lse.data_ptr(),
+            B, S, T, H, K, d, *tail[:4], *tail[5:])
+        build.check(err, "flash_fwd_i8 kernel")
+        fwd_int8_launches += 1
+        return o, lse
     err = build.library().repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, S, T, H, K, d, *tail)
     build.check(err, "flash_fwd kernel")
-    if tail[4] == _MODES["int8"]:
-        fwd_int8_launches += 1
-    else:
-        fwd_launches += 1
+    fwd_launches += 1
     return o, lse
 
 
@@ -167,8 +181,38 @@ def i8_shapes(B, S, T, H, K, d) -> dict:
             "sdoc": ((B, H, nS, DP), f32)}
 
 
-def _i8_array(ops):
-    return (ctypes.c_void_p * len(I8_FIELDS))(*(ops[n].data_ptr() for n in I8_FIELDS))
+def fwd_i8_shapes(B, T, K, d) -> dict:
+    """{name: (shape, dtype)} of the forward pre-pass's outputs
+    (``FWD_I8_FIELDS``): k per key over d, (B, T, K, DP) int8 with (B, K,
+    T) scales (the backward's k8 and sk); v per column over each 128-key
+    tile, K-major, (B, K, nT, DP, 128) with (B, K, nT, DP) (the layout of
+    the backward's kT8)."""
+    DP, nT = padded_d(d), -(-T // I8_TILE)
+    i8, f32 = torch.int8, torch.float32
+    return {"k8": ((B, T, K, DP), i8), "vT8": ((B, K, nT, DP, I8_TILE), i8),
+            "sk": ((B, K, T), f32), "svc": ((B, K, nT, DP), f32)}
+
+
+def _i8_array(ops, fields=I8_FIELDS):
+    return (ctypes.c_void_p * len(fields))(*(ops[n].data_ptr() for n in fields))
+
+
+def quantize_fwd(k, v) -> dict:
+    """The int8 forward's pre-pass (``flash_quant_fwd_i8_kernel``): k per
+    key over d and v per column over each 128-key tile, quantized once, into
+    fresh tensors named by ``FWD_I8_FIELDS``, shaped by
+    :func:`fwd_i8_shapes` (``quant.quantize_int8``'s scales and bytes).
+    Its plain version is ``ref.flash_quant_fwd_ref``."""
+    global fwd_quant_int8_launches
+    B, _, T, _, K, d = _check("flash_quant_fwd_i8", k, k, v)   # k stands in for q
+    ops = {n: torch.empty(shape, dtype=dt, device=k.device)
+           for n, (shape, dt) in fwd_i8_shapes(B, T, K, d).items()}
+    err = build.library().repro_flash_quant_fwd_i8(
+        k.data_ptr(), v.data_ptr(), _i8_array(ops, FWD_I8_FIELDS), B, T, K, d,
+        _DTYPE_CODES[k.dtype], build.stream(k))
+    build.check(err, "flash_quant_fwd_i8 kernel")
+    fwd_quant_int8_launches += 1
+    return ops
 
 
 def quantize_bwd(q, k, v, do) -> dict:

@@ -123,7 +123,8 @@ def launch_counts() -> dict:
     """Kernel launches counted by the wrappers in this process (B2 counts
     one per backward call; B8 and B9 count their int8-pool launches, B5-B7
     their int8-operand launches, apart from their f32/bf16 ones;
-    ``flash_bwd_quant_int8`` is the int8 backward's pre-pass)."""
+    ``flash_bwd_quant_int8`` and ``flash_fwd_quant_int8`` are the int8
+    backward's and forward's pre-passes)."""
     return {
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
@@ -136,6 +137,7 @@ def launch_counts() -> dict:
         "flash_bwd_dq_int8": fa.dq_int8_launches,
         "flash_bwd_dkv_int8": fa.dkv_int8_launches,
         "flash_bwd_quant_int8": fa.quant_int8_launches,
+        "flash_fwd_quant_int8": fa.fwd_quant_int8_launches,
     }
 
 
@@ -146,7 +148,7 @@ def reset_launch_counts() -> None:
     da.int8_launches = da.multi_int8_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
     fa.fwd_int8_launches = fa.dq_int8_launches = fa.dkv_int8_launches = 0
-    fa.quant_int8_launches = 0
+    fa.quant_int8_launches = fa.fwd_quant_int8_launches = 0
 
 
 class _RMSNorm(torch.autograd.Function):

@@ -171,8 +171,8 @@ def _capped_logits(q, k, scale, softcap, policy):
 
 
 def _lane_row_sum(p, width: int):
-    """Row sums of a (..., n <= width) tile in the order of B5's f32 and int8
-    modes: each of 16 lanes adds the keys lane, lane + 16, ... in turn
+    """Row sums of a (..., n <= width) tile in the order of B5's f32 mode:
+    each of 16 lanes adds the keys lane, lane + 16, ... in turn
     (zeros beyond n), then a butterfly over the lanes (xor 8, 4, 2, 1), so
     that the kernel and this plain version form the same l bit for bit."""
     x = torch.nn.functional.pad(p, (0, width - p.shape[-1])).unflatten(-1, (width // 16, 16))
@@ -186,8 +186,9 @@ def _lane_row_sum(p, width: int):
 
 
 def _mma_row_sum(p, width: int):
-    """Row sums of a (..., n <= width) tile in the order of B5's bf16 mode,
-    whose tensor-core fragments give each of 4 lanes t the keys 8 j + 2 t
+    """Row sums of a (..., n <= width) tile in the order of B5's bf16 and
+    int8 modes, whose tensor-core fragments (m16n8k16 f32 and m16n8k32 s32
+    accumulators share their layout) give each of 4 lanes t the keys 8 j + 2 t
     and 8 j + 2 t + 1 of every 8-key group j: each lane adds its keys in
     that order, group by group (zeros beyond n), then a butterfly over the
     lanes (xor 1, 2), so that the kernel and this plain version form the
@@ -212,7 +213,8 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
     128-key tiles, skipped where no pair of the (64-row query tile, key
     tile) is visible, the online softmax (m, l, acc) with its alpha
     rescale and its row sums in the kernel's order (the tensor-core
-    fragments' in the bf16 mode, the 16 lanes' otherwise), and each tile matmul
+    fragments' in the bf16 and int8 modes, the 16 lanes' in the f32
+    mode), and each tile matmul
     under the policy: q·kᵀ (scales over d in the int8 mode, the MMA's
     order in the bf16 mode), then the
     unnormalized p = exp(s - m) of the tile times v (p rounded or quantized
@@ -221,7 +223,8 @@ def flash_fwd_ref(q, k, v, *, scale: float = 1.0, causal: bool = True,
     B, S, H, d = q.shape
     T = k.shape[1]
     tq, tk = flash_tile("fwd", policy)
-    row_sum = _mma_row_sum if getattr(policy, "matmul", "none") == "bf16" else _lane_row_sum
+    row_sum = (_mma_row_sum if getattr(policy, "matmul", "none") in ("bf16", "int8")
+               else _lane_row_sum)
     qh, kh, vh = _heads(q, k, v)
     rows = torch.arange(S, device=q.device)
     q0 = rows // tq * tq                              # each row's tile start
@@ -342,6 +345,84 @@ def flash_quant_bwd_ref(q, k, v, do) -> dict:
     for name, x in (("q", q), ("do", do), ("k", k)):
         out[name + "T8"], out["s" + name + "c"] = cols(x)
     return out
+
+
+def flash_quant_fwd_ref(k, v) -> dict:
+    """The plain version of the int8 forward's pre-pass
+    (``flash_attention.quantize_fwd``), the same names, shapes and bytes: k
+    per key over d (zero-padded to DP = 64 or 128), ``k8`` (B, T, K, DP)
+    with ``sk`` (B, K, T), :func:`flash_quant_bwd_ref`'s k8 and sk; v per
+    column over each 128-key tile (keys past T zeros), ``vT8`` (B, K, nT,
+    DP, 128) with each 16-group of a tile's keys in FRAG_PERM order, its
+    scales ``svc`` (B, K, nT, DP).  Each quantization is
+    ``quant.quantize_int8``'s."""
+    B, T, K, d = k.shape
+    DP = 64 if d <= 64 else 128
+    F = torch.nn.functional
+    k8, sk = quantize_int8(F.pad(k.float(), (0, DP - d)), axis=-1)
+    n = -(-T // I8_TILE)
+    vp = F.pad(v.float(), (0, DP - d, 0, 0, 0, n * I8_TILE - T))
+    v8, sv = quantize_int8(vp.reshape(B, n, I8_TILE, K, DP), axis=2)
+    return {"k8": k8, "sk": sk[..., 0].transpose(1, 2).contiguous(),
+            "vT8": v8.permute(0, 3, 1, 4, 2)[..., list(TILE_PERM)].contiguous(),
+            "svc": sv[:, :, 0].permute(0, 2, 1, 3).contiguous()}
+
+
+def flash_fwd_i8_ref(ops, q, *, scale: float = 1.0, causal: bool = True, window: int = 0,
+                     softcap: float = 0.0):
+    """:func:`flash_fwd_ref` in the int8 mode restated on the forward
+    pre-pass's operands (``ops``, as :func:`flash_quant_fwd_ref` makes them)
+    and q: the plain version of B5 as the tensor-core kernel computes,
+    ``(o, lse)``.  q quantized per row over d (as the kernel does at an
+    item's set-up), s from the row-quantized bytes; on each visible 128-key
+    tile p quantized per row over the tile's keys and permuted like vT8's
+    rows (FRAG_PERM), so every int32 sum is the one :func:`flash_fwd_ref`
+    forms, over the axis in another order."""
+    B, S, H, d = q.shape
+    k8 = ops["k8"]
+    T, K, DP = k8.shape[1], k8.shape[2], k8.shape[3]
+    G = H // K
+    F = torch.nn.functional
+    perm = list(TILE_PERM)
+    tq, tk = FLASH_TILES["fwd"]["int8"]
+
+    def rep(x):                                        # (B, K, ...) -> (B, H, ...)
+        return x.repeat_interleave(G, 1)
+
+    q8, sq = quantize_int8(F.pad(q.float(), (0, DP - d)), axis=-1)
+    s = _i8_dot(q8.transpose(1, 2), sq.transpose(1, 2), rep(k8.transpose(1, 2)).transpose(-1, -2),
+                rep(ops["sk"])[..., None, :]) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / torch.full_like(s, softcap))
+    s = torch.where(_visible(S, T, causal, window, q.device), s, torch.full_like(s, NEG_INF))
+    rows = torch.arange(S, device=q.device)
+    q0 = rows // tq * tq
+    m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, H, S, DP, device=q.device)
+    for kt in range(-(-T // tk)):
+        k0 = kt * tk
+        on = torch.ones_like(rows, dtype=torch.bool)   # _block_visible per row
+        if causal:
+            on &= k0 <= q0 + tq - 1
+        if window:
+            on &= k0 + tk - 1 >= q0 - window + 1
+        if not bool(on.any()):
+            continue
+        sc = s[..., k0:k0 + tk]
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        on = on[:, None]
+        l = torch.where(on, alpha * l + _mma_row_sum(p, tk), l)
+        p8, sp = quantize_int8(F.pad(p, (0, tk - p.shape[-1])), axis=-1)
+        pv = _i8_dot(p8[..., perm], sp, rep(ops["vT8"][:, :, kt]).transpose(-1, -2),
+                     rep(ops["svc"][:, :, kt])[..., None, :])
+        acc = torch.where(on, acc * alpha + pv, acc)
+        m = torch.where(on, m_new, m)
+    lc = torch.clamp(l, min=1e-30)
+    o = (acc[..., :d] / lc).transpose(1, 2).to(q.dtype)
+    return o, (m + torch.log(lc))[..., 0]
 
 
 def _i8_dot(a8, sa, b8, sb):

@@ -11,7 +11,9 @@ raises; the plain versions are ``kernels/ref.py::rmsnorm_ref`` and
 B1 runs 61 times a serve forward on a few rows, where its call costs more
 host time than the card spends on it; so its path is short: the library
 without a lock once built, the stream's raw handle, and only the checks
-the kernel needs, cheapest first.
+the kernel needs, cheapest first.  B2 runs 17 times a train step, one
+cooperative launch each: the rows, then, after a grid-wide barrier, dgain
+summed over the blocks' partial sums in a fixed order.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.kernels import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0       # B1 launches in this process (reset by callers that count)
-bwd_launches = 0   # B2 calls (two launches each: rows, then the dgain sum)
+bwd_launches = 0   # B2 launches (one a call)
 
 
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -50,6 +52,9 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
     x, dy: (..., D) of one dtype (float32 or bfloat16), contiguous, on the
     card; gain: (D,) float32.  dx is shaped and typed like x; dgain is
     (D,) float32, summed over every row in a fixed order (deterministic).
+    One launch: the rows and dgain's sum over the blocks' partial sums
+    (a scratch of one row a block, allocated here on x's stream) in one
+    cooperative grid.
     """
     global bwd_launches
     rows, D, code = _check(x, gain, "rmsnorm_bwd")
@@ -63,7 +68,10 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
     if rows == 0 or D == 0:
         return dx, torch.zeros_like(gain)
     lib = build.library()
-    n_blocks = lib.repro_rmsnorm_bwd_blocks(rows, D)
+    n_blocks = lib.repro_rmsnorm_bwd_blocks(x.data_ptr(), gain.data_ptr(), dy.data_ptr(),
+                                            dx.data_ptr(), rows, D, code)
+    if n_blocks < 1:
+        build.check(-n_blocks, "rmsnorm_bwd kernel's grid")
     partial = torch.empty(n_blocks, D, dtype=torch.float32, device=x.device)
     dgain = torch.empty(D, dtype=torch.float32, device=x.device)
     err = lib.repro_rmsnorm_bwd(

@@ -23,7 +23,8 @@ the reference on the same numpy inputs, and on the card against them.
   permutes A's columns and B's rows.
 - The kernels' quantization from a row's reciprocal (``quant_rcp``, with
   the IEEE quotient near half steps), mirrored in float32 numpy, gives
-  ``quant()``'s bytes, near half steps and for tiny values included.
+  the IEEE quotient's bytes (``quantize_int8``'s), near half steps and
+  for tiny values included.
 - On the card (``gpu`` marker): the pre-pass byte for byte, and B6 and B7
   against their plain versions by chip_smoke.py's int8 checks.
 """
@@ -247,8 +248,9 @@ def test_frag_perm_leaves_the_int8_product_unchanged():
 
 
 def _quant(x, scale):
-    """quant() of csrc/flash_attention.cu in float32: rint(x / max(scale,
-    1e-12)) by IEEE division, half to even, clipped to +-127."""
+    """quantize_int8's byte in float32, as the dp4a kernels formed it:
+    rint(x / max(scale, 1e-12)) by IEEE division, half to even, clipped to
+    +-127."""
     sc = np.maximum(scale, np.float32(1e-12))
     return np.clip(np.rint(x / sc), -127, 127).astype(np.int8)
 
@@ -268,7 +270,7 @@ def _quant_rcp(x, scale):
 def test_reciprocal_quantization_gives_quant_bytes():
     """The kernels quantize p, ds and the pre-pass's values as x * (1 /
     scale) with the IEEE quotient near half steps: the same bytes as
-    quant() over rows of normal values, of tiny and denormal values, and of
+    _quant over rows of normal values, of tiny and denormal values, and of
     values a few ulps from every half step (where the fallback is taken)."""
     rng = np.random.default_rng(11)
     with np.errstate(over="ignore", under="ignore"):

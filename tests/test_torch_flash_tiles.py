@@ -16,9 +16,10 @@
   bit for bit, and a plain ``sum`` to f32 rounding (rtol 1e-6).  The
   forward under it agrees with the forward under the 16-lane order of the
   other modes to f32 rounding (o and lse atol 1e-6).
-- The f32 and int8 forwards still walk ``ref._lane_row_sum`` (the int8
-  kernel is held bit-equal to its plain version on the card), and the bf16
-  forward walks ``ref._mma_row_sum``.
+- The f32 forward still walks ``ref._lane_row_sum``, and the bf16 and int8
+  forwards walk ``ref._mma_row_sum`` (the int8 kernel, on the s8 tensor
+  cores, sums l in the same fragments' order: its m16n8k32 accumulators
+  share the m16n8k16 layout).
 - B6's tiles in the bf16 mode do not change the function either: dq summed
   over key tiles of 16 (one MMA's keys), 32 (a warp's step in the
   tensor-core kernel) or 128 agrees with dq over the kernel's 64-key tiles
@@ -240,7 +241,7 @@ def test_mma_and_lane_orders_differ():
     assert not torch.equal(ref._mma_row_sum(p, 128), ref._lane_row_sum(p, 128))
 
 
-@pytest.mark.parametrize("mode,walks", [("none", "_lane_row_sum"), ("int8", "_lane_row_sum"),
+@pytest.mark.parametrize("mode,walks", [("none", "_lane_row_sum"), ("int8", "_mma_row_sum"),
                                         ("bf16", "_mma_row_sum")])
 def test_forward_row_sum_by_mode(mode, walks, monkeypatch):
     calls = {"_lane_row_sum": 0, "_mma_row_sum": 0}

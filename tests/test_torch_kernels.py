@@ -372,8 +372,15 @@ def test_decode_kernel_matches_plain_on_card(K, G, window, softcap, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,D", [(1, 48), (37, 576), (4097, 1024)])
+@pytest.mark.parametrize("rows,D", [(1, 48), (37, 576), (4097, 1024),
+                                    # a D not a multiple of 4 (the scalar path), and
+                                    # rows far fewer than the card's resident blocks
+                                    (300, 1030), (7, 1024)])
 def test_rmsnorm_bwd_kernel_matches_plain_on_card(rows, D, dtype):
+    """B2 against its plain version, one launch a call (its counter and the
+    profiler's kernels both say so), dgain the same bits when repeated."""
+    from torch.profiler import ProfilerActivity, profile
+
     _need_card()
     x = (3 * torch.randn(rows, D, device="cuda")).to(TORCH_DT[dtype])
     g = 0.5 * torch.randn(D, device="cuda")
@@ -386,6 +393,15 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(rows, D, dtype):
     torch.testing.assert_close(dg, want_dg, **GRAD_TOL["float32"])
     again = rn.rmsnorm_bwd(x, g, dy)[1]
     assert torch.equal(again, dg)            # fixed summation order
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rn.rmsnorm_bwd(x, g, dy)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [("rmsnorm_bwd_kernel" in e.key, e.count) for e in kernels] == [(True, 3)], \
+        [(e.key, e.count) for e in kernels]
 
 
 @pytest.mark.gpu
