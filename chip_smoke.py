@@ -72,44 +72,51 @@ check:
   with its device time, its bound and its share of it, beside SDPA's bf16
   forward and the bf16 B5 on the card for scale (targets <= 20, 70 and 90
   us, printed, not held); B8 paged flash decode,
-  split over a cluster of decode_splits() blocks (DECODE_CASES, 17 cases:
+  split over a cluster of decode_splits() blocks (DECODE_CASES, 19 cases:
   engine shape, MHA/MQA, window, softcap, all four f32/bf16 (q, pool)
   pairs, d_head 128, d_head 256 with gemma2-2b's 8/4 heads in f32 and
   bf16, one slot of 2048 tokens, 32 slots, C = 1, slots of one token, a
-  slot whose pages hold nothing, and d_head 20 in bf16, whose 40-byte rows
-  are read byte by byte; f32 atol 2e-5, bf16 2e-2, inactive and
+  slot whose pages hold nothing, d_head 20 in bf16, whose 40-byte rows
+  are read byte by byte, and the speculative drafters' 9/3 heads of 16 and
+  of 8 (``cfg.scaled(0.25)``, ``make_proxy(0.125)``); f32 atol 2e-5, bf16
+  2e-2, inactive and
   fully masked slots exactly zero), timed at the decode shape a call and
   on the card, with its split count, its share of the bytes bound and
   SDPA's call and card time, and on the card at one slot of 2048 tokens and
-  at 32 slots; B9 paged
+  at 32 slots, and at the drafters' heads (the same four slots); B9 paged
   multi-query flash decode, many query rows a block and split over a
-  cluster by its plan (MULTI_CASES, 19 cases: the engine's chunk of 64
+  cluster by its plan (MULTI_CASES, 21 cases: the engine's chunk of 64
   with the history partly resident, its last chunk with rows past the
   prompt at -1, T not a multiple of the row tile, the speculative-verify
   shape B = 4, T = 5, MHA/MQA, window, softcap, bf16 and f32-over-bf16
   pools, two slots whose tables map the same pages, d_head 128, d_head 256
   at gemma2-2b's 8/4 heads in f32 and bf16, a chunk of 256 over 2048
   tokens (a ring of two slots), 32 slots at T = 5, a tile whose splits
-  hold no page, d_head 20 in bf16 (40-byte rows read byte by byte); f32
+  hold no page, d_head 20 in bf16 (40-byte rows read byte by byte), the
+  drafters' catch-up chunk T = 5 at d_head 16 and 8 (an inactive slot, a
+  slot with its first rows below position 0); f32
   atol 2e-5, bf16 2e-2 of the f32 plain version, or of its float64 value
   where the f32 plain version is the farther from it (multi_held), rows at
   -1 exactly zero, one launch a call, the kernel's plan equal to its
   mirror) and at T = 1 against B8 on the
   same inputs, timed (a call and on the card, its plan, its share of the
   operations bound, SDPA over the gathered K/V) at the chunk shape, a
-  chunk of 256 over a 2048-token history and 32 slots at T = 5; the int8-pool
-  modes of B8 (INT8_DECODE_CASES, 16 cases, most at the engine's decode
+  chunk of 256 over a 2048-token history, 32 slots at T = 5 and the
+  drafters' catch-up; the int8-pool
+  modes of B8 (INT8_DECODE_CASES, 18 cases, most at the engine's decode
   shape q (4, 9, 64) over (83, 16, 3, 64) int8 pools with (83, 3) scales:
   an inactive slot, MHA, MQA (G = 9, also with bf16 q, window and
   softcap), window, softcap, bf16 q, d_head 128 and 256, one slot of 2048
   tokens, 32 slots, C = 1, slots of one token and a fully masked slot,
-  d_head 40 (40-byte rows, read byte by byte); timed as over f32 pools) and
-  of B9 (INT8_MULTI_CASES, 14 cases: the engine's chunk of 64 with
+  d_head 40 (40-byte rows, read byte by byte), the drafters' heads of 16
+  (16-byte rows) and of 8 (8-byte rows, byte by byte); timed as over f32
+  pools) and of B9 (INT8_MULTI_CASES, 16 cases: the engine's chunk of 64 with
   history resident, its last chunk with rows at -1, the verify shape
   B = 4, T = 5, MHA/MQA, window + softcap, bf16 q, two slots sharing
   pages, d_head 128, d_head 256 at 8/4 heads, a chunk of 256 over 2048
   tokens, 32 slots at T = 5, a tile whose splits hold no page, d_head 40
-  read byte by byte; and T = 1 against B8's int8 mode), each against its
+  read byte by byte, the drafters' catch-up; and T = 1 against B8's int8
+  mode), each against its
   plain version at atol 2e-5 (bf16 q 2e-2), rows at -1 exactly zero,
   timed as over f32 pools beside SDPA over the gathered dequantized K/V.
 - serve: smollm-135m at its published full width through the static engine
@@ -143,6 +150,36 @@ check:
   greedy top-1 agreement with the f32 dynamic engine (not held).  Nothing
   is cut: the int8 static serve runs 8 requests where the dynamic one runs
   16, to keep the run short.
+- serve_spec: speculative decoding, draft_k 4, on the same model (f32,
+  seed 0).  Paths: serve_spec, the static engine with the serve CLI's
+  drafter ``cfg.scaled(0.25, min_d_head=8)`` (30 layers, d_model 144, 9/3
+  heads of 16, random weights from seed 7: near-chance acceptance, the
+  rejection path) on 4 requests of 64-128 prompt tokens and 32 generated;
+  serve_spec_dynamic and serve_spec_int8, DynamicEngine with the adaptive
+  draft length over f32 and int8 pools on 8 requests of serve_dynamic's
+  workload (16 tokens each, chunks of 64, prefix cache on).  Each path
+  serves once through the kernels and once through the plain versions:
+  (a) the same greedy token at every row either could sample from unless
+  the plain top-2 gap there is below TIE_GAP (after such a tie the serves
+  may part), and with no tie the same tokens, lengths, steps and accepted /
+  proposed drafts; the first 4 verify chunks' logits within atol = rtol =
+  1e-4 over f32 pools (measured over int8); (b) exact launch counts from
+  the recorded forwards: B8 = drafter steps x drafter layers (draft_k steps
+  an iteration), B9 = (verifies + chunks) x target layers + catch-ups x
+  drafter layers, B1 = (2 L + 1) per forward of each model, nothing
+  else; under speculation the target never decodes one token at a time;
+  (c) greedy tokens equal to the non-speculative engine's on the same
+  requests (the near-tie rule; over int8 pools printed, not held: a
+  rejected draft's k/v grows its page's scale, so the pools' bytes
+  differ).  Then (d) the copy task (data/copy_task.py, the reference's
+  benchmarks/perf_serve.py recipe): the target trained 100 steps and
+  ``make_proxy(cfg, 0.125, depth=1, min_d_head=8)`` (1 layer, d_model 72,
+  9/3 heads of 8) 150 steps, batch 16 x seq 32, Adam at lr 1e-4 (COPY_LR; path
+  spec_copy_train: exact B1/B2/B3/B4 launches), then 8 requests of 8
+  prompt tokens and 48 generated on 4 slots with and without speculation
+  at draft_k 6 (path serve_spec_copy, exact launches): greedy tokens equal
+  (near-tie rule); acceptance, tok/s of each (best of 3), the speedup and
+  each one's card busy share under the profiler printed, not held.
 - train: mup-gpt at full width (8 layers, d_model 1024, vocab 2048), f32,
   batch 8 x seq 512.  The first step's loss (1e-5 relative) and every
   gradient (atol 2e-4 / rtol 1e-3) with the kernels against the plain
@@ -182,7 +219,8 @@ check:
   and each pre-pass) than calls.
 
 Launch counts are set to 0 just before each main path (serve,
-serve_dynamic, serve_int8 dynamic and static, train, train --amp bf16,
+serve_dynamic, serve_int8 dynamic and static, serve_spec, serve_spec_dynamic,
+serve_spec_int8, spec_copy_train, serve_spec_copy, train, train --amp bf16,
 train --amp int8) and
 read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
@@ -546,6 +584,10 @@ DECODE_CASES = [
      f32, f32, 0, 0.0, (1,)),
     ("d_head 20 bf16: 40-byte rows, read byte by byte", 3, 2, 2, 20, 8, 9, [50, 3, 72],
      bf16, bf16, 0, 0.0, ()),
+    ("drafter scaled(0.25): 9/3 heads of 16", 4, 3, 3, 16, 16, 20, [120, 0, 75, 260],
+     f32, f32, 0, 0.0, ()),
+    ("drafter make_proxy(0.125): 9/3 heads of 8, 32-byte rows", 4, 3, 3, 8, 16, 20,
+     [120, 33, 0, 260], f32, f32, 0, 0.0, ()),
 ]
 # B8 over int8 pools (seed 200 + index): (label, B, K, G, d, C, lens,
 # q_dtype, window, softcap, masked), page 16
@@ -571,6 +613,10 @@ INT8_DECODE_CASES = [
      bf16, 64, 20.0, ()),
     ("d_head 40: 40-byte rows, read byte by byte", 3, 2, 2, 40, 9, [50, 3, 72], f32, 0,
      0.0, ()),
+    ("drafter scaled(0.25): 9/3 heads of 16, 16-byte rows", 4, 3, 3, 16, 20,
+     [120, 0, 75, 260], f32, 0, 0.0, ()),
+    ("drafter make_proxy(0.125): 9/3 heads of 8, 8-byte rows read byte by byte", 4, 3, 3,
+     8, 20, [120, 33, 0, 260], f32, 0, 0.0, ()),
 ]
 
 
@@ -631,6 +677,7 @@ def decode_phase(ops, da, F):
                worst_err_f32=worst[f32], worst_err_bf16=worst[bf16],
                **decode_row(ops, F, "flash_decode", (q, kp, vp, pos, tab, q_pos)))
     row["scaling"] = decode_scaling(ops, "flash_decode")
+    row["drafter_shapes"] = drafter_rows(ops, da, F, "flash_decode")
     return row
 
 
@@ -673,9 +720,9 @@ def decode_bytes_flops(q, kp, tab, lens, scales):
     return nbytes, flops
 
 
-def decode_row(ops, F, name, args, scales=None):
-    """B8's time (over f32 pools, or int8 pools with ``scales``) at the
-    decode shape DECODE_LENS: a call (CUDA events, 200 calls) and on the
+def decode_row(ops, F, name, args, scales=None, label="the decode shape"):
+    """B8's time (over f32 pools, or int8 pools with ``scales``) at a
+    decode shape of live lengths DECODE_LENS: a call (CUDA events, 200 calls) and on the
     card (torch.profiler), beside its plain version, SDPA over the
     pre-gathered (dequantized) K/V of the same live lengths (attention
     only; its call and its kernels' time on the card), the split count and
@@ -709,7 +756,7 @@ def decode_row(ops, F, name, args, scales=None):
     bound_ms, bound_by = bound(nbytes, flops)
     splits = decode_splits(S, K, tab.shape[1])
     share = bound_ms * 1e3 / dev_us
-    log(f"[kernels] {name} at the decode shape: {ms:.5f} ms a call, {dev_us:.2f} us a "
+    log(f"[kernels] {name} at {label}: {ms:.5f} ms a call, {dev_us:.2f} us a "
         f"launch on the card ({share:.1%} of the {bound_by} bound), {splits} splits; "
         f"plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms a call and {lib_us:.2f} us on "
         f"the card ({lib_n:g} kernels); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
@@ -782,6 +829,14 @@ def multi_case(B, T, K, G, d, P, C, hist, q_dtype, kv_dtype, seed, dead=(),
     return q, kp, vp, pos, tab, q_pos
 
 
+# the speculative drafter's catch-up chunk (T = draft_k + 1 = 5) at its
+# d_head: slot 1 inactive, slot 3 at the start of its request (positions
+# pos - 4 .. pos with the first two below 0, at -1)
+DRAFTER_MULTI_CASES = [
+    (f"drafter catch-up T = 5, {label}", 4, 5, 3, 3, d, 16, 20, [70, 0, 250, 0], f32, f32,
+     0, 0.0, (*((1, t) for t in range(5)), (3, 0), (3, 1)), False)
+    for label, d in (("9/3 heads of 16", 16), ("9/3 heads of 8", 8))
+]
 # B9 over f32/bf16 pools: (label, B, T, K, G, d, P, C, hist, q_dtype, kv_dtype,
 # window, softcap, dead, share); case i's seed is 100 + i
 MULTI_CASES = [
@@ -815,6 +870,7 @@ MULTI_CASES = [
      [3, 9], f32, f32, 0, 0.0, ((0, 7),), False),
     ("d_head 20 bf16: 40-byte rows, read byte by byte", 3, 7, 2, 2, 20, 8, 9, [50, 3, 40],
      bf16, bf16, 0, 0.0, ((2, 6),), False),
+    *DRAFTER_MULTI_CASES,
 ]
 # B9 over int8 pools: the same fields (the pools are int8_pools of f32
 # ones); case i's seed is 300 + i
@@ -842,6 +898,7 @@ INT8_MULTI_CASES = [
      [3, 9], bf16, f32, 0, 0.0, ((0, 7),), False),
     ("d_head 40: 40-byte rows, read byte by byte", 3, 7, 2, 2, 40, 8, 9, [50, 3, 40], f32,
      f32, 0, 0.0, ((2, 6),), False),
+    *DRAFTER_MULTI_CASES,
 ]
 
 
@@ -962,7 +1019,8 @@ def multi_phase(ops, da, F):
     return dict(name="flash_decode_multi",
                 shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, "
                       "64) f32, 16 live pages",
-                worst_err_f32=worst[f32], worst_err_bf16=worst[bf16], **rows)
+                worst_err_f32=worst[f32], worst_err_bf16=worst[bf16], **rows,
+                drafter_shapes=drafter_rows(ops, da, F, "flash_decode_multi"))
 
 
 def multi_rows(ops, da, F, name):
@@ -1050,6 +1108,38 @@ def multi_row(ops, da, F, name, label, args, scales=None):
     )
 
 
+# the speculative drafters' heads: (label, d_head); 9 query and 3 kv heads
+DRAFTER_HEADS = [("scaled(0.25), 9/3 heads of 16", 16),
+                 ("make_proxy(0.125), 9/3 heads of 8", 8)]
+
+
+def drafter_rows(ops, da, F, name):
+    """{label: timing} of B8 (decode_row, single drafter steps of 4 slots at
+    DECODE_LENS) or B9 (multi_row, the catch-up chunk T = 5 of 4 slots
+    ending at DECODE_LENS) at each drafter's d_head, over f32 pools, or
+    int8 pools for a name ending in _int8."""
+    out = {}
+    for label, d in DRAFTER_HEADS:
+        if name.startswith("flash_decode_multi"):
+            args = multi_case(4, 5, 3, 3, d, 16, 20, [n - 5 for n in DECODE_LENS], f32, f32,
+                              97)
+        else:
+            args = paged_case(4, 3, 3, d, 16, 20, DECODE_LENS, f32, f32, 97)
+        scales = None
+        if name.endswith("_int8"):
+            kq, vq, scales = int8_pools(args[1], args[2], 97)
+            args = (args[0], kq, vq, *args[3:])
+        if name.startswith("flash_decode_multi"):
+            row = multi_row(ops, da, F, name, f"drafter {label}, catch-up T = 5", args,
+                            scales)
+        else:
+            row = decode_row(ops, F, name, args, scales, label=f"the drafter {label}")
+        out[label] = {k: row[k] for k in ("max_abs_err", "ms", "device_us", "plain_ms",
+                                          "bound_ms", "bound_by", "bound_share",
+                                          "library_ms", "library_device_us")}
+    return out
+
+
 def int8_pools(kp, vp, seed):
     """int8 pools and their (N, K) scales from f32 pools, each page and kv
     head first scaled by its own factor in [0.1, 3.1) so that the scales
@@ -1119,8 +1209,9 @@ def check_int8_multi_cases(ops, da):
     return worst
 
 
-def int8_decode_phase(ops, F):
-    """B8's int8 checks, then its time at the decode shape (decode_row)."""
+def int8_decode_phase(ops, da, F):
+    """B8's int8 checks, then its time at the decode shape (decode_row) and
+    at the drafters' shapes."""
     worst = check_int8_decode_cases(ops)
     q, kp, vp, pos, tab, q_pos = paged_case(4, 3, 3, 64, 16, 20, DECODE_LENS,
                                             torch.float32, torch.float32, 99)
@@ -1132,6 +1223,7 @@ def int8_decode_phase(ops, F):
                **decode_row(ops, F, "flash_decode_int8", (q, kq, vq, pos, tab, q_pos),
                             scales))
     row["scaling"] = decode_scaling(ops, "flash_decode_int8")
+    row["drafter_shapes"] = drafter_rows(ops, da, F, "flash_decode_int8")
     return row
 
 
@@ -1144,7 +1236,8 @@ def int8_multi_phase(ops, da, F):
                 shape="q (1, 64, 9, 64) f32 at positions 192..255, pools (23, 16, 3, "
                       "64) int8 + (23, 3) f32 scales, 16 live pages",
                 worst_err_f32=worst[f32], worst_err_bf16=worst[bf16],
-                t1_vs_b8_err=worst["t1_vs_b8"], **rows)
+                t1_vs_b8_err=worst["t1_vs_b8"], **rows,
+                drafter_shapes=drafter_rows(ops, da, F, "flash_decode_multi_int8"))
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -2324,6 +2417,379 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
     )
 
 
+SPEC_K = 4                 # the serve CLI's --draft-k default
+# Adam's lr on the copy task: the reference's 1e-2 diverges at smollm-135m's
+# full width and vocabulary; 1e-4 trains both models best of 1e-2 .. 3e-5
+# (scripts/torch_copy_lr_probe.py)
+COPY_LR = 1e-4
+SPEC_VERIFY_ROWS = 4       # verify forwards whose full logits are held
+
+
+def make_spec_recorder(Model):
+    class SpecRecording(Model):
+        """Keeps, for every forward an engine runs, its mode and width and
+        the top-2 logits of every row it may sample from (a prefill's last
+        prompt row; every row of a decode forward at a position >= 0), and
+        the full logits of those rows in the first SPEC_VERIFY_ROWS forwards
+        of width SPEC_K + 1 (the target's verify chunks).  Forwards without
+        positions (the tie oracle's) are not recorded."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.calls = []
+            self.n_wide = 0
+
+        def forward(self, params, tokens, positions=None, mode="train", **kw):
+            logits, cache = super().forward(params, tokens, positions=positions,
+                                            mode=mode, **kw)
+            if positions is None:
+                return logits, cache
+            T = tokens.shape[1]
+            if mode == "prefill":
+                rows = logits[:, int((positions[0] < positions.shape[1]).sum()) - 1]
+            else:
+                rows = logits[positions >= 0]
+            top2 = rows.float().topk(2, dim=-1)
+            keep = mode == "decode" and T == SPEC_K + 1 and self.n_wide < SPEC_VERIFY_ROWS
+            self.n_wide += keep
+            self.calls.append(dict(mode=mode, T=T, top2=top2.values, arg=top2.indices[:, 0],
+                                   rows=rows.clone() if keep else None))
+            return logits, cache
+
+        def clear(self):
+            self.calls.clear()
+            self.n_wide = 0
+
+    return SpecRecording
+
+
+def spec_forwards(target, drafter, CH=0):
+    """Forward counts of one speculative serve from the recorders:
+    (target prefills, target chunks of CH, verifies, drafter prefills,
+    catch-ups, drafter steps).  Raises unless every iteration ran one
+    catch-up and SPEC_K steps per verify and the target never decoded one
+    token at a time."""
+    count = lambda m, mode, T=None: sum(c["mode"] == mode and (T is None or c["T"] == T)
+                                        for c in m.calls)
+    n = (count(target, "prefill"), count(target, "decode", CH) if CH else 0,
+         count(target, "decode", SPEC_K + 1), count(drafter, "prefill"),
+         count(drafter, "decode", SPEC_K + 1), count(drafter, "decode", 1))
+    other = count(target, "decode") - n[1] - n[2] + count(drafter, "decode") - n[4] - n[5]
+    if other or n[4] != n[2] or n[5] != SPEC_K * n[2]:
+        raise AssertionError(f"speculative forwards {n}, {other} of another width: not "
+                             f"one catch-up and {SPEC_K} drafter steps per verify")
+    return n
+
+
+def spec_expect(Lt, Ld, n, int8=False):
+    """Exact launch counts of a speculative serve of forward counts ``n``
+    (spec_forwards): B8 for each drafter step's layers, B9 for each verify's
+    and chunk's target layers and each catch-up's drafter layers, B1 twice a
+    layer and once more per forward of each model, nothing else."""
+    n_pre, n_chunk, n_ver, n_dpre, n_catch, n_step = n
+    sfx = "_int8" if int8 else ""
+    want = {k: 0 for k in PORT_KERNELS}
+    want["flash_decode" + sfx] = Ld * n_step
+    want["flash_decode_multi" + sfx] = Lt * (n_ver + n_chunk) + Ld * n_catch
+    want["rmsnorm"] = (2 * Lt + 1) * (n_pre + n_chunk + n_ver) + \
+        (2 * Ld + 1) * (n_dpre + n_catch + n_step)
+    return want
+
+
+def compare_spec(what, kern, plain, out_k, out_r, logit_tol=SERVE_LOGIT_TOL):
+    """Two speculative serves of one schedule, with the kernels and through
+    the plain versions (each a (target, drafter) pair of recorders).  Every
+    recorded row must give the same greedy token, unless the plain top-2 gap
+    there is below TIE_GAP: a tie, after which the serves may part (a target
+    tie moves tokens, a drafter tie acceptance and so steps).  With no tie,
+    tokens, lengths, steps, accepted and proposed must be equal.  The first
+    verify chunks' logits within atol = rtol = ``logit_tol`` (None:
+    measured, not held).  Returns (tie, worst logit diff, |logit| scale)."""
+    tie = None
+    for who, mk, mr in (("target", kern[0], plain[0]), ("drafter", kern[1], plain[1])):
+        for i, (ck, cr) in enumerate(zip(mk.calls, mr.calls)):
+            if (ck["mode"], ck["T"]) != (cr["mode"], cr["T"]) or \
+                    ck["arg"].shape != cr["arg"].shape:
+                raise AssertionError(f"{what}: {who} forward {i} differs in shape before "
+                                     f"any tie")
+            differ = (ck["arg"] != cr["arg"]).nonzero()
+            if len(differ):
+                j = int(differ[0, 0])
+                gap = float(cr["top2"][j, 0] - cr["top2"][j, 1])
+                if gap >= TIE_GAP:
+                    raise AssertionError(f"{what}: {who} forward {i} ({cr['mode']}, "
+                                         f"T={cr['T']}) row {j}: greedy token differs, "
+                                         f"plain top-2 gap {gap}")
+                log(f"[{what}] tie: {who} forward {i} ({cr['mode']}, T={cr['T']}) row {j}, "
+                    f"plain top-2 gap {gap:.3g} < {TIE_GAP}; later tokens and steps may "
+                    f"differ")
+                tie = (who, i)
+                break
+        if tie:
+            break
+    if tie is None:
+        for key in ("tokens", "lengths"):
+            if not torch.equal(out_k[key], out_r[key]):
+                raise AssertionError(f"{what}: {key} differ with and without the kernels")
+        same = [(out_k[k], out_r[k]) for k in ("steps", "accepted", "proposed")]
+        if any(a != b for a, b in same) or len(kern[0].calls) != len(plain[0].calls) \
+                or len(kern[1].calls) != len(plain[1].calls):
+            raise AssertionError(f"{what}: steps / accepted / proposed / forwards differ: "
+                                 f"{same}")
+    worst = excess = scale = 0.0
+    for ck, cr in zip(kern[0].calls, plain[0].calls):
+        if tie is not None or ck["rows"] is None:
+            continue
+        diff = (ck["rows"] - cr["rows"]).abs()
+        worst = max(worst, diff.max().item())
+        scale = max(scale, cr["rows"].abs().max().item())
+        if logit_tol is not None:
+            excess = max(excess, (diff - logit_tol * (1 + cr["rows"].abs())).max().item())
+    if not excess <= 0:
+        raise AssertionError(f"{what}: verify logits differ by {worst} (|logit| <= {scale})")
+    return tie, worst, scale
+
+
+def spec_pair(Rec, cfg, dcfg, impl):
+    """(target, drafter) recorders of ``cfg`` and its drafter ``dcfg``."""
+    return (Rec(cfg, device="cuda", impl=impl), Rec(dcfg, device="cuda", impl=impl))
+
+
+def timed_serve(engine, *args, **kw):
+    """(out, wall seconds) of one serve, the card synchronised after it."""
+    t0 = time.perf_counter()
+    out = engine.serve(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec_serve_run(what, Rec, cfg, dcfg, params, dparams, prompts, lens, make, ops, CH=0,
+                   int8=False):
+    """One speculative serve through the kernels and one through the plain
+    versions (``make(target, drafter)`` builds the engine): exact launch
+    counts from the recorded forwards, then compare_spec (verify logits held
+    at SERVE_LOGIT_TOL over f32 pools, measured over int8 ones).  No
+    warm-up: the serve phases before this one ran the same kernels and
+    cuBLAS calls.  Returns (launches, kernel serve, plain serve, walls,
+    forward counts)."""
+    kern, plain = spec_pair(Rec, cfg, dcfg, "auto"), spec_pair(Rec, cfg, dcfg, "ref")
+    ops.reset_launch_counts()
+    out_k, wall_k = timed_serve(make(*kern), params, prompts, lens, draft_params=dparams)
+    launches = ops.launch_counts()
+    n = spec_forwards(*kern, CH)
+    want = spec_expect(cfg.n_layers, dcfg.n_layers, n, int8)
+    log(f"[{what}] kernels: {out_k['steps']} steps, forwards (target prefill, chunk, "
+        f"verify; drafter prefill, catch-up, step) {n}; launches {launches}, expected "
+        f"{want}")
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches} != {want}")
+    ops.reset_launch_counts()
+    out_r, wall_r = timed_serve(make(*plain), params, prompts, lens, draft_params=dparams)
+    if set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"{what}: the plain serve launched kernels")
+    tie, worst, scale = compare_spec(what, kern, plain, out_k, out_r,
+                                     None if int8 else SERVE_LOGIT_TOL)
+    n_tok = int(out_k["lengths"].sum())
+    log(f"[{what}] (a) kernels: {n_tok} tokens in {wall_k:.3f} s ({n_tok / wall_k:.1f} "
+        f"tok/s), {out_k['accepted']}/{out_k['proposed']} drafts accepted; plain "
+        f"{wall_r:.3f} s ({int(out_r['lengths'].sum()) / wall_r:.1f} tok/s); tie: {tie}; "
+        f"first {SPEC_VERIFY_ROWS} verify chunks' logits max abs diff {worst:.3g} at "
+        f"|logit| <= {scale:.3g} ({'measured' if int8 else 'atol = rtol = 1e-4'})")
+    return launches, out_k, out_r, (wall_k, wall_r), n
+
+
+def busy_profile(fn):
+    """(wall ms, card busy ms, kernel launches, top 5 kernels) of ``fn``
+    under torch.profiler, the card's events only (host events would
+    multiply its post-processing, ~58 s against ~10 s for one copy-task
+    serve)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return wall, busy, sum(e.count for e in kernels), [
+        (e.key[:60], e.self_device_time_total / 1e3, e.count) for e in top]
+
+
+def serve_spec_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
+    """Speculative decoding on smollm-135m at full width (f32 weights from
+    seed 0, ``zero_init_query=False``), checks (a)-(e) of the module
+    docstring.  Returns ({path: launches}, summary)."""
+    from repro_torch.core.transfer import make_proxy
+    from repro_torch.data.copy_task import copy_batch, train_copy
+
+    Rec = make_spec_recorder(Model)
+    Lt = cfg.n_layers
+    params = Model(cfg, device="cuda").init(seed=0)
+    oracle = Model(cfg, device="cuda", impl="ref")
+    paths, summary = {}, {}
+
+    # (1) the static engine, the serve CLI's --draft-width 0.25 drafter
+    dcfg = cfg.scaled(0.25, min_d_head=8)
+    dparams = Model(dcfg, device="cuda").init(seed=7)
+    R, S, Pmax, Gmax, P = 4, 4, 128, 32, 16
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, Pmax + 1, R)
+    prompts = rng.integers(0, cfg.vocab_size, (R, Pmax))
+    kw = dict(n_slots=S, page_size=P, max_prompt_len=Pmax, max_gen_len=Gmax)
+    log(f"[serve_spec] drafter {dcfg.name}: {dcfg.n_layers} layers, d_model {dcfg.d_model}, "
+        f"{dcfg.n_heads}/{dcfg.n_kv_heads} heads of {dcfg.d_head}, random weights (seed 7); "
+        f"static engine, {R} requests, prompt lens {lens.tolist()}, {Gmax} tokens each, "
+        f"{S} slots, draft_k {SPEC_K}")
+    make = lambda t, d: Engine(t, EngineConfig(**kw, draft_k=SPEC_K), draft_model=d)
+    launches, out_k, out_r, walls, n = spec_serve_run(
+        "serve_spec", Rec, cfg, dcfg, params, dparams, prompts, lens, make, ops)
+    if n[2] != out_k["steps"] or n[0] != R or n[3] != R:
+        raise AssertionError(f"serve_spec: forwards {n} against {out_k['steps']} steps")
+    paths["serve_spec"] = launches
+    base_model = Model(cfg, device="cuda")
+    base, wall_b = timed_serve(Engine(base_model, EngineConfig(**kw)), params, prompts, lens)
+    ties = greedy_agree("serve_spec (c)", oracle, params, prompts, lens, out_k, base)
+    n_tok = int(out_k["lengths"].sum())
+    log(f"[serve_spec] (c) greedy tokens equal to the non-speculative static engine's "
+        f"({ties} requests past a tie); it served {int(base['lengths'].sum())} tokens in "
+        f"{wall_b:.3f} s ({int(base['lengths'].sum()) / wall_b:.1f} tok/s), {base['steps']} "
+        f"steps; speculative {n_tok / walls[0]:.1f} tok/s, {out_k['steps']} steps")
+    summary["static"] = dict(requests=R, steps=out_k["steps"], tokens=n_tok,
+                             accepted=out_k["accepted"], proposed=out_k["proposed"],
+                             wall_s=walls[0], plain_wall_s=walls[1], base_wall_s=wall_b,
+                             base_steps=base["steps"], forwards=n, ties=ties)
+
+    # (2) DynamicEngine with the adaptive draft length on serve_dynamic's
+    # workload, over f32 and int8 pools
+    R, Pmax, Gmax, CH = 8, 256, 16, 64
+    prompts, lens = shared_prefix_workload(cfg.vocab_size, R, Pmax, seed=2)
+    kw = dict(n_slots=S, page_size=P, max_prompt_len=Pmax, max_gen_len=Gmax)
+    for name, kv in (("serve_spec_dynamic", ""), ("serve_spec_int8", "int8")):
+        c, dc = cfg.replace(kv_dtype=kv), dcfg.replace(kv_dtype=kv)
+        log(f"[{name}] DynamicEngine, {kv or 'f32'} pools, adaptive draft length from "
+            f"{SPEC_K}: {R} requests of serve_dynamic's workload, prompt lens "
+            f"{lens.tolist()}, {Gmax} tokens each, chunks of {CH}, prefix cache on")
+        ecfg = EngineConfig(**kw, draft_k=SPEC_K, prefill_chunk=CH, prefix_cache=True,
+                            adaptive_draft=True)
+        make = lambda t, d: DynamicEngine(t, ecfg, draft_model=d)
+        launches, out_k, out_r, walls, n = spec_serve_run(
+            name, Rec, c, dc, params, dparams, prompts, lens, make, ops, CH=CH,
+            int8=bool(kv))
+        cached = out_k["prefill_cached"]
+        want_chunks = int(sum(-(-int(x) // CH) for x in lens)) - cached // CH
+        if n[0] or n[1] != want_chunks or n[3] != R or not cached:
+            raise AssertionError(f"{name}: forwards {n}, chunk schedule {want_chunks} from "
+                                 f"prefill_cached {cached}")
+        paths[name] = launches
+        base, wall_b = timed_serve(DynamicEngine(Model(c, device="cuda"), EngineConfig(
+            **kw, prefill_chunk=CH, prefix_cache=True)), params, prompts, lens)
+        if kv:
+            # printed, not held: a rejected draft's k/v grows its page's
+            # int8 scale, so the pools' bytes differ from the plain engine's
+            ties = int(sum(not torch.equal(out_k["tokens"][r], base["tokens"][r])
+                           for r in range(R)))
+            agree = f"{R - ties} of {R} requests' greedy tokens equal (printed, not held)"
+        else:
+            ties = greedy_agree(f"{name} (c)", oracle, params, prompts, lens, out_k, base)
+            agree = f"greedy tokens equal ({ties} requests past a tie)"
+        n_tok = int(out_k["lengths"].sum())
+        log(f"[{name}] (c) against the non-speculative dynamic engine: {agree}; "
+            f"{n_tok / walls[0]:.1f} tok/s, {out_k['steps']} "
+            f"steps against {int(base['lengths'].sum()) / wall_b:.1f} tok/s, "
+            f"{base['steps']} steps; {out_k['accepted']}/{out_k['proposed']} drafts "
+            f"accepted; {cached}/{out_k['prefill_total']} prompt tokens from shared pages")
+        summary[name] = dict(requests=R, steps=out_k["steps"], tokens=n_tok,
+                             accepted=out_k["accepted"], proposed=out_k["proposed"],
+                             wall_s=walls[0], plain_wall_s=walls[1], base_wall_s=wall_b,
+                             base_steps=base["steps"], forwards=n,
+                             **{"requests_differ" if kv else "ties": ties},
+                             prefill_cached=cached)
+
+    # (3) acceptance on the copy task: the target and its depth-1 µP proxy
+    # trained as the reference's benchmarks/perf_serve.py trains them
+    pcfg = make_proxy(cfg, 0.125, depth=1, min_d_head=8)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, tparams, losses = train_copy(cfg, steps=100, batch=16, seq=32, seed=0,
+                                        lr=COPY_LR)
+    dmodel, pparams, dlosses = train_copy(pcfg, steps=150, batch=16, seq=32, seed=1,
+                                          lr=COPY_LR)
+    loss, dloss = losses[-1], dlosses[-1]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {k: 0 for k in PORT_KERNELS}
+    want["rmsnorm"] = want["rmsnorm_bwd"] = (2 * Lt + 1) * 100 + (2 * pcfg.n_layers + 1) * 150
+    want["ce_fwd"] = want["ce_bwd"] = 250
+    log(f"[serve_spec_copy] trained the target 100 steps (loss {loss:.3g}) and "
+        f"{pcfg.name} ({pcfg.n_layers} layer, d_model {pcfg.d_model}, {pcfg.n_heads}/"
+        f"{pcfg.n_kv_heads} heads of {pcfg.d_head}) 150 steps (loss {dloss:.3g}) at batch "
+        f"16 x seq 32 in {train_s:.1f} s; launches {launches}, expected {want}")
+    if launches != want or not np.isfinite([loss, dloss]).all():
+        raise AssertionError(f"copy-task training: launches {launches} != {want} or "
+                             f"losses {loss}, {dloss}")
+    paths["spec_copy_train"] = launches
+    R, Pmax, Gmax, K6 = 8, 8, 48, 6
+    prompts = copy_batch(np.random.RandomState(2), cfg.vocab_size, R, Pmax)
+    lens = np.full(R, Pmax)
+    kw = dict(n_slots=S, page_size=P, max_prompt_len=Pmax, max_gen_len=Gmax)
+    base_eng = Engine(model, EngineConfig(**kw))
+    spec_eng = Engine(model, EngineConfig(**kw, draft_k=K6), draft_model=dmodel)
+    base_eng.serve(tparams, prompts, lens)                       # warm-up
+    spec_eng.serve(tparams, prompts, lens, draft_params=pparams)
+    ops.reset_launch_counts()
+    out_s, _ = timed_serve(spec_eng, tparams, prompts, lens, draft_params=pparams)
+    launches = ops.launch_counts()
+    st = out_s["steps"]
+    Lp = pcfg.n_layers
+    want = {k: 0 for k in PORT_KERNELS}
+    want["flash_decode"] = Lp * K6 * st
+    want["flash_decode_multi"] = (Lt + Lp) * st
+    want["rmsnorm"] = (2 * Lt + 1) * (R + st) + (2 * Lp + 1) * (R + st * (1 + K6))
+    log(f"[serve_spec_copy] kernels: {st} steps; launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"serve_spec_copy: launch counts {launches} != {want}")
+    paths["serve_spec_copy"] = launches
+    walls = {"base": [], "spec": []}
+    for _ in range(3):
+        out_b, w = timed_serve(base_eng, tparams, prompts, lens)
+        walls["base"].append(w)
+        out_s, w = timed_serve(spec_eng, tparams, prompts, lens, draft_params=pparams)
+        walls["spec"].append(w)
+    copy_oracle = Model(cfg, device="cuda", impl="ref")
+    ties = greedy_agree("serve_spec_copy", copy_oracle, tparams, prompts, lens, out_s, out_b)
+    n_tok = int(out_s["lengths"].sum())
+    tb, ts = min(walls["base"]), min(walls["spec"])
+    acc = out_s["accepted"] / max(out_s["proposed"], 1)
+    # one wave of S requests under the profiler (its post-processing grows
+    # with the launches)
+    prof_b = busy_profile(lambda: base_eng.serve(tparams, prompts[:S], lens[:S]))
+    prof_s = busy_profile(lambda: spec_eng.serve(tparams, prompts[:S], lens[:S],
+                                                 draft_params=pparams))
+    log(f"[serve_spec_copy] {R} requests, prompt {Pmax}, {Gmax} tokens each, {S} slots, "
+        f"draft_k {K6}: acceptance {out_s['accepted']}/{out_s['proposed']} ({acc:.1%}); "
+        f"speculative {n_tok / ts:.1f} tok/s ({out_s['steps']} steps) against "
+        f"{n_tok / tb:.1f} tok/s ({out_b['steps']} steps): {tb / ts:.2f}x (best of 3 each); "
+        f"greedy tokens equal ({ties} requests past a tie)")
+    for label, (wall, busy, n_launch, top) in (("non-speculative", prof_b),
+                                               ("speculative", prof_s)):
+        log(f"[serve_spec_copy] {label}, {S} requests under the profiler: {wall:.1f} ms, "
+            f"card busy "
+            f"{busy:.2f} ms ({busy / wall:.1%}), {n_launch} kernel launches; top: "
+            + "; ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in top))
+    summary["copy"] = dict(
+        target_loss=loss, drafter_loss=dloss, drafter=pcfg.name, train_s=train_s,
+        accepted=out_s["accepted"], proposed=out_s["proposed"], acceptance=acc,
+        steps=out_s["steps"], base_steps=out_b["steps"], tokens=n_tok,
+        tok_per_s=n_tok / ts, base_tok_per_s=n_tok / tb, speedup=tb / ts, walls_s=walls,
+        ties=ties, profile=dict(base=prof_b[:3], spec=prof_s[:3]))
+    return paths, summary
+
+
 # the port's kernels, by the name of their __global__ function(s)
 PORT_KERNELS = {
     "rmsnorm": ("rmsnorm_kernel<",),
@@ -3028,7 +3494,7 @@ def main():
     done("B5-B7 kernel phase")
     rows.append(decode_phase(ops, da, F))
     rows.append(multi_phase(ops, da, F))
-    rows.append(int8_decode_phase(ops, F))
+    rows.append(int8_decode_phase(ops, da, F))
     rows.append(int8_multi_phase(ops, da, F))
     done("B8-B9 kernel phases (f32/bf16 and int8 pools)")
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
@@ -3041,6 +3507,9 @@ def main():
         cfg, Model, Engine, DynamicEngine, EngineConfig, ops,
         (dyn_tokens, dyn["tok_per_s"]))
     done("serve_int8")
+    spec_launches, spec = serve_spec_phase(cfg, Model, Engine, DynamicEngine, EngineConfig,
+                                           ops)
+    done("serve_spec")
     train_launches, train = train_phase(ops, quant)
     done("train")
     amp_launches, amp = train_phase(ops, quant, amp="bf16", control_losses=train["losses"])
@@ -3062,14 +3531,20 @@ def main():
                    "serve_dynamic": dyn_launches[row["name"]],
                    "serve_int8": int8_launches[row["name"]],
                    "serve_int8_static": int8_static_launches[row["name"]],
+                   **{path: launches[row["name"]] for path, launches in spec_launches.items()},
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]],
                    "train_amp_int8": amp8_launches[row["name"]]}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
-        only = {"flash_decode_multi": ("serve_dynamic",),
-                "flash_decode_int8": ("serve_int8", "serve_int8_static"),
-                "flash_decode_multi_int8": ("serve_int8",),
+        only = {"flash_decode_multi": ("serve_dynamic", "serve_spec", "serve_spec_dynamic",
+                                       "serve_spec_copy"),
+                "flash_decode_int8": ("serve_int8", "serve_int8_static", "serve_spec_int8"),
+                "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8"),
+                "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8",
+                                "spec_copy_train"),
+                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train"),
+                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train"),
                 "flash_fwd_int8": ("train_amp_int8",),
                 "flash_bwd_dq_int8": ("train_amp_int8",),
                 "flash_bwd_dkv_int8": ("train_amp_int8",),
@@ -3099,6 +3574,7 @@ def main():
     log(json.dumps({"serve": serve}))
     log(json.dumps({"serve_dynamic": dyn}))
     log(json.dumps({"serve_int8": srv8}))
+    log(json.dumps({"serve_spec": spec}))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
     log(json.dumps({"train_amp_int8": amp8}))

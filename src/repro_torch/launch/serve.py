@@ -6,8 +6,11 @@ allocator, radix-tree prefix caching with ``--prefix-cache``, chunked
 prefill with ``--prefill-chunk``, pool size with ``--pool-pages``);
 ``--static`` selects the static engine (fixed page tables).  ``--kv-dtype
 int8`` stores the paged KV pools as int8 with per-page-per-head scales, on
-either engine.  Flags of parts not ported yet (speculation, the mesh,
-observability, the dense-loop driver) exit with an error saying so.
+either engine.  ``--draft-width W`` serves speculatively with the target's
+µP proxy of width W as the drafter (``--draft-k`` drafts an iteration;
+``--adaptive-draft`` on the dynamic engine adapts that length per slot).
+Flags of parts not ported yet (the mesh, observability, the dense-loop
+driver) exit with an error saying so.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
@@ -16,6 +19,8 @@ Usage:
         --prefix-cache --prefill-chunk 16
     python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --kv-dtype int8
+    python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --draft-width 0.25 --draft-k 4 --adaptive-draft
 """
 from __future__ import annotations
 
@@ -45,9 +50,12 @@ def main(argv=None):
     ap.add_argument("--eos", type=int, default=None,
                     help="stop token id (default: config's eos_token_id)")
     ap.add_argument("--draft-width", type=float, default=0.0,
-                    help="speculative decoding (not ported yet)")
+                    help="speculative decoding: drafter width as a fraction "
+                         "of the target (builds the µP proxy via "
+                         "cfg.scaled; 0 disables speculation)")
     ap.add_argument("--draft-k", type=int, default=4,
-                    help="speculative draft length (with --draft-width)")
+                    help="speculative draft length per verify (with "
+                         "--draft-width)")
     ap.add_argument("--draft-min-d-head", type=int, default=8,
                     help="d_head floor for the drafter proxy")
     ap.add_argument("--seed", type=int, default=0)
@@ -67,7 +75,8 @@ def main(argv=None):
                          "scaled pages, dequantized in the decode kernels "
                          "(~2x the pages per byte of bfloat16)")
     ap.add_argument("--adaptive-draft", action="store_true",
-                    help="adaptive draft length (not ported yet)")
+                    help="adapt per-slot draft length from measured "
+                         "acceptance (dynamic engine + --draft-width)")
     ap.add_argument("--dense", action="store_true",
                     help="the dense per-token-loop driver (not ported yet)")
     ap.add_argument("--mixed-lens", action="store_true",
@@ -81,8 +90,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     not_ported = {
-        "--draft-width": args.draft_width > 0,
-        "--adaptive-draft": args.adaptive_draft,
         "--dense": args.dense,
         "--mesh": args.mesh is not None,
         "--obs": args.obs,
@@ -91,15 +98,28 @@ def main(argv=None):
         if used:
             ap.error(f"{flag} is not ported yet in the PyTorch port")
     if args.static and (args.prefix_cache or args.prefill_chunk
+                        or args.adaptive_draft
                         or args.pool_pages is not None):
-        ap.error("--prefix-cache/--prefill-chunk/--pool-pages need the "
-                 "dynamic engine (drop --static)")
+        ap.error("--prefix-cache/--prefill-chunk/--pool-pages/"
+                 "--adaptive-draft need the dynamic engine (drop --static)")
+    speculate = args.draft_width > 0
+    if args.adaptive_draft and not speculate:
+        ap.error("--adaptive-draft needs a drafter (set --draft-width)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype="float32", kv_dtype=args.kv_dtype)
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     dev = model.device
+    draft_model = draft_params = None
+    if speculate:
+        # the narrow proxy shares the target's µP base shape (and its
+        # kv_dtype): a distribution-matched drafter by construction
+        dcfg = cfg.scaled(args.draft_width, min_d_head=args.draft_min_d_head)
+        draft_model = build_model(dcfg, device=args.device)
+        draft_params = draft_model.init(args.seed + 7)
+        print(f"[serve] drafter {dcfg.name}: d_model {dcfg.d_model}, "
+              f"{dcfg.n_heads} heads, draft_k={args.draft_k}")
 
     R, P = args.requests, args.prompt_len
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -115,11 +135,12 @@ def main(argv=None):
     ecfg = EngineConfig(
         n_slots=args.slots, page_size=args.page_size,
         max_prompt_len=P, max_gen_len=args.gen_len, eos_token_id=args.eos,
+        draft_k=args.draft_k if speculate else 0,
         prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
-        n_pages=args.pool_pages,
+        n_pages=args.pool_pages, adaptive_draft=args.adaptive_draft,
     )
     cls = Engine if args.static else DynamicEngine
-    engine = cls(model, ecfg)
+    engine = cls(model, ecfg, draft_model=draft_model)
     n_global = getattr(engine, "n_pages", None)
     print(f"[serve] paged KV pools ({kv_dtype_of(cfg)}): "
           f"{pool_bytes(cfg, engine.spec)/2**20:.1f} MiB "
@@ -133,8 +154,14 @@ def main(argv=None):
         top_k=torch.full((R,), args.top_k, dtype=torch.int32),
         top_p=torch.full((R,), args.top_p),
         seed=args.seed,
+        draft_params=draft_params,
     )
     toks, n_tok = out["tokens"], int(out["lengths"].sum())
+    if speculate:
+        prop = max(1, out["proposed"])
+        print(f"[serve] speculation: {out['accepted']}/{prop} drafts accepted "
+              f"({out['accepted'] / prop:.1%}) over {out['steps']} engine "
+              f"iterations")
     if "prefill_cached" in out and out["prefill_total"]:
         print(f"[serve] prefix cache: {out['prefill_cached']}/"
               f"{out['prefill_total']} prompt tokens served from shared pages "

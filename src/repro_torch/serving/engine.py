@@ -32,9 +32,37 @@ eviction, and the decode kernels read them.
 
 Per iteration the host reads back only the sampled tokens (one small copy):
 it owns the slot bookkeeping, so it needs them for EOS and for the output.
-Sampling keys are a pure function of (seed, request, position) (see
-serving/sampling.py), so admission timing, chunking and cache hits never
-move a draw.  Speculative decoding comes later.
+Sampling keys are a pure function of (seed, request, position, event tag)
+(see serving/sampling.py), so admission timing, chunking, cache hits and
+accepted draft lengths never move a draw.
+
+Speculative decoding (``EngineConfig.draft_k`` and a ``draft_model`` of the
+target's vocabulary; here the natural drafter is the target's narrow µP
+proxy, ``cfg.scaled`` or ``core.transfer.make_proxy``), in both engines.
+The drafter has its own pools with static interleaved tables.  At admission
+it prefills the prompt into them, and the slot's catch-up context becomes
+the last ``draft_k`` prompt tokens and the first sampled one.  Then each
+iteration, in place of the decode step (``_decode_spec``):
+
+  - catch-up: a (S, dk+1) drafter forward of that context at positions
+    pos - dk .. pos (B9), which repairs the holes a rejection left in the
+    drafter's pages and gives the first draft's logits;
+  - draft: dk single-token drafter forwards at pos + 1 + j (B8), each draw
+    tagged DRAFT at pos + j;
+  - verify: one (S, dk+1) target forward of [last, d_0 .. d_{dk-1}] at pos
+    .. pos + dk (B9).  Its write is the rollback: it lands on whatever a
+    rejection left ahead of the committed position before any committed
+    query can see it;
+  - accept: serving/sampling.spec_accept (ACCEPT-tagged uniforms at pos ..
+    pos + dk - 1, SAMPLE-tagged residual or bonus draws), then the commit,
+    cut at the first committed EOS and at the length budget.
+
+The drafts stay on the card; the host reads back one (S, dk+2) block per
+iteration (the drafts, the extra token and the accepted count).  Greedy
+output is the target's, token for token; sampled output follows the
+target's distribution.  ``DynamicEngine`` with ``adaptive_draft`` picks each
+slot's draft length from an EMA of its acceptance (host control; the chain
+is cut by the accept mask, zeroed drafter rows and positions at -1).
 """
 from __future__ import annotations
 
@@ -48,7 +76,11 @@ import torch
 from repro_torch.serving import kv_cache, sampling
 from repro_torch.serving.allocator import BlockManager
 
-_TAG_SAMPLE = 0   # committed-token sampling event tag (as in the reference)
+# sampling event tags, as in the reference: one stream per (request,
+# position, event kind)
+_TAG_SAMPLE = 0   # committed-token sampling (direct, residual, bonus)
+_TAG_ACCEPT = 1   # speculative accept/reject uniform
+_TAG_DRAFT = 2    # drafter proposal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +90,15 @@ class EngineConfig:
     max_prompt_len: int = 64     # prompt buffer length (prompts right-padded)
     max_gen_len: int = 16        # per-request generation budget
     eos_token_id: Optional[int] = None   # None -> model config's knob
-    draft_k: int = 0             # speculative draft length; 0 = off (not
-    #                              ported yet)
+    draft_k: int = 0             # speculative draft length; 0 = off
     # --- DynamicEngine-only knobs (static Engine rejects them) ---
     prefix_cache: bool = False   # radix-tree prompt-prefix page sharing
     prefill_chunk: int = 0       # admit prompts in chunks of this many
     #                              tokens (page_size multiple); 0 = one-shot
     n_pages: Optional[int] = None        # global pool size override
     n_window_pages: Optional[int] = None  # window pool size override
-    adaptive_draft: bool = False  # per-slot draft length (not ported yet)
+    adaptive_draft: bool = False  # per-slot draft length from measured
+    #                               acceptance (host control; needs draft_k)
 
 
 class _Queue:
@@ -94,8 +126,14 @@ class _Queue:
         self.topp = p0 if top_p is None else torch.as_tensor(
             top_p, dtype=torch.float32, device=dev)
         # a batch of greedy requests needs no filtering and no random bits:
-        # sample() returns the argmax for them
+        # sample() returns the argmax for them, and speculation's one-hot
+        # distributions reduce to argmax comparisons
         self.all_greedy = bool((self.temp <= 0).all())
+
+    def params(self, req):
+        """(temperature, top_k, top_p) of requests ``req`` (-1: request 0's)."""
+        r = req.clamp(min=0)
+        return self.temp[r], self.topk[r], self.topp[r]
 
     def draw(self, rows, req, pos):
         """Tokens (n,) for logits rows (n, V) of requests ``req`` at input
@@ -103,15 +141,51 @@ class _Queue:
         if self.all_greedy:
             return rows.float().argmax(dim=-1)
         keys = sampling.event_key(self.seed, pos, req, _TAG_SAMPLE, self.dev)
-        r = req.clamp(min=0)
-        return sampling.sample(rows, self.temp[r], self.topk[r], self.topp[r],
-                               keys)
+        return sampling.sample(rows, *self.params(req), keys)
+
+    def propose(self, rows, req, pos):
+        """A draft token (n,) for drafter logits rows (n, V), drawn at input
+        positions ``pos`` under the DRAFT tag, and its filtered distribution
+        (None for an all-greedy queue, whose drafts are argmaxes)."""
+        if self.all_greedy:
+            return rows.float().argmax(dim=-1), None
+        dist = sampling.filtered_dist(rows, *self.params(req))
+        keys = sampling.event_key(self.seed, pos, req, _TAG_DRAFT, self.dev)
+        return sampling.categorical_from(keys, dist), dist
+
+    def accept(self, vlogits, drafts, q_dist, req, pos, jmask):
+        """(n_acc, extra) of spec_accept for verify logits (S, k+1, V) at
+        input positions pos .. pos + k and drafts (S, k) with their
+        distributions ``q_dist``; ``jmask`` (S, k) cuts each chain (None:
+        the whole chain).  Greedy queues compare argmaxes, which is what
+        spec_accept does with one-hot p and q."""
+        S, T, V = vlogits.shape
+        k = T - 1
+        if self.all_greedy:
+            target = vlogits.float().argmax(dim=-1)
+            hit = drafts == target[:, :k]
+            if jmask is not None:
+                hit &= jmask
+            n_acc = hit.long().cumprod(dim=1).sum(dim=1)
+            return n_acc, torch.gather(target, 1, n_acc[:, None])[:, 0]
+        t, tk, tp = (x.repeat_interleave(T) for x in self.params(req))
+        p_dist = sampling.filtered_dist(vlogits.reshape(S * T, V), t, tk, tp)
+        if jmask is not None:
+            # a forced stop's residual must be p itself (see spec_accept)
+            q_dist = torch.where(jmask[..., None], q_dist, 0.0)
+        grid = pos[:, None] + torch.arange(T, device=self.dev)
+        akeys = sampling.event_key(self.seed, grid[:, :k], req[:, None],
+                                   _TAG_ACCEPT, self.dev)
+        skeys = sampling.event_key(self.seed, grid, req[:, None], _TAG_SAMPLE,
+                                   self.dev)
+        return sampling.spec_accept(p_dist.reshape(S, T, V), q_dist, drafts,
+                                    akeys, skeys, accept_mask=jmask)
 
 
 class _Slots:
     """Host-side slot state and the output buffers of one serve()."""
 
-    def __init__(self, S, R, Gmax):
+    def __init__(self, S, R, Gmax, dk=0):
         self.active = np.zeros(S, bool)
         self.req = np.full(S, -1, np.int64)
         self.pos = np.zeros(S, np.int64)     # next write position
@@ -119,13 +193,32 @@ class _Slots:
         self.ntok = np.zeros(S, np.int64)    # tokens emitted
         self.out_toks = np.zeros((R, Gmax), np.int32)
         self.out_len = np.zeros(R, np.int32)
+        # speculation: the last dk + 1 committed tokens per slot, ending at
+        # pos (the drafter's catch-up chunk: one iteration commits at most
+        # dk + 1, so it covers every hole a rejection can leave), the
+        # drafts accepted and proposed, and the last iteration's per slot
+        self.ctx = np.zeros((S, dk + 1), np.int64)
+        self.accepted = self.proposed = 0
+        self.last_acc = np.zeros(S, np.int64)
+        self.last_prop = np.zeros(S, np.int64)
+
+
+@dataclasses.dataclass
+class _Draft:
+    """The drafter's weights and paged pools in one serve()."""
+
+    params: Dict[str, torch.Tensor]
+    pools: Dict[str, Any]
 
 
 class Engine:
     """Slot scheduler + host generation loop over a paged KV cache on the
-    model's device, with static interleaved page tables."""
+    model's device, with static interleaved page tables.  Pass
+    ``draft_model`` (the target's vocabulary, on its device; typically its
+    µP proxy) with ``ecfg.draft_k >= 1`` for speculative decoding."""
 
-    def __init__(self, model, ecfg: EngineConfig = EngineConfig()):
+    def __init__(self, model, ecfg: EngineConfig = EngineConfig(),
+                 draft_model=None):
         if ecfg.prefix_cache or ecfg.prefill_chunk or ecfg.adaptive_draft or (
             ecfg.n_pages is not None or ecfg.n_window_pages is not None
         ):
@@ -133,28 +226,58 @@ class Engine:
                 "prefix_cache / prefill_chunk / n_pages / n_window_pages / "
                 "adaptive_draft need the dynamic engine — use DynamicEngine"
             )
-        self._init_common(model, ecfg, lookahead=ecfg.draft_k)
+        # speculative chunks write up to draft_k positions ahead of their
+        # earliest query (kv_cache.build_spec)
+        self._init_common(model, ecfg, draft_model, lookahead=ecfg.draft_k)
         self.gtable = kv_cache.make_tables(self.spec, model.device)
 
-    def _init_common(self, model, ecfg: EngineConfig, lookahead: int):
+    def _init_common(self, model, ecfg: EngineConfig, draft_model,
+                     lookahead: int):
         """Validation + geometry shared by the static and dynamic engines."""
         kv_cache.check_servable(model.cfg)
         if min(ecfg.n_slots, ecfg.page_size, ecfg.max_prompt_len,
                ecfg.max_gen_len) < 1:
             raise ValueError(f"engine dimensions must be >= 1, got {ecfg}")
-        if ecfg.draft_k > 0 or ecfg.adaptive_draft:
+        if (ecfg.draft_k > 0) != (draft_model is not None):
             raise ValueError(
-                "speculative decoding (draft_k, adaptive_draft) is not "
-                "ported yet"
+                "speculative decoding needs both draft_k >= 1 and a "
+                f"draft_model (got draft_k={ecfg.draft_k}, "
+                f"draft_model={'set' if draft_model is not None else 'None'})"
             )
         self.model = model
+        self.draft_model = draft_model
         self.ecfg = ecfg
         eos = model.cfg.eos_token_id if ecfg.eos_token_id is None else ecfg.eos_token_id
         self.eos = int(eos)
+        max_total = ecfg.max_prompt_len + ecfg.max_gen_len
         self.spec = kv_cache.build_spec(
-            model.cfg, ecfg.n_slots, ecfg.max_prompt_len + ecfg.max_gen_len,
-            ecfg.page_size, lookahead=lookahead,
+            model.cfg, ecfg.n_slots, max_total, ecfg.page_size,
+            lookahead=lookahead,
         )
+        if draft_model is None:
+            return
+        kv_cache.check_servable(draft_model.cfg)
+        if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+            raise ValueError(
+                "drafter vocab must match the target "
+                f"({draft_model.cfg.vocab_size} != {model.cfg.vocab_size})"
+            )
+        if draft_model.device != model.device:
+            raise ValueError(f"drafter on {draft_model.device}, target on "
+                             f"{model.device}")
+        self.dspec = kv_cache.build_spec(
+            draft_model.cfg, ecfg.n_slots, max_total, ecfg.page_size,
+            lookahead=lookahead,
+        )
+        self.dgtable = kv_cache.make_tables(self.dspec, model.device)
+
+    def _draft(self, draft_params, pools) -> Optional[_Draft]:
+        """The serve()'s drafter state (None for a plain engine)."""
+        if self.draft_model is None:
+            return None
+        if draft_params is None:
+            raise ValueError("speculative engine: serve() needs draft_params")
+        return _Draft(draft_params, pools)
 
     def _is_eos(self, tok: np.ndarray) -> np.ndarray:
         if self.eos < 0:
@@ -174,23 +297,44 @@ class Engine:
         st.last[slot], st.ntok[slot] = tok, 1
         st.out_toks[req, 0], st.out_len[req] = tok, 1
 
+    def _prefill(self, model, params, q: _Queue, req: int):
+        """A full-prompt prefill forward of ``req`` (padding at position
+        Pmax: invisible to real queries, dropped from the emitted cache)."""
+        Pmax = self.ecfg.max_prompt_len
+        idx = torch.arange(Pmax, dtype=torch.int32, device=model.device)
+        positions = torch.where(idx < int(q.lens[req]), idx, Pmax)[None]
+        return model.forward(params, q.prompts_d[req:req + 1],
+                             positions=positions, mode="prefill",
+                             cache_len=Pmax)
+
     def _admit_full(self, params, q: _Queue, st: _Slots, pools, slot: int,
-                    req: int, gtab_row: torch.Tensor):
+                    req: int, gtab_row: torch.Tensor, draft=None):
         """One-shot admission: a full-prompt prefill forward, paged into the
-        slot's pages, then the first token sampled."""
-        dev, Pmax = self.model.device, self.ecfg.max_prompt_len
+        slot's pages, then the first token sampled (and the drafter's
+        admission)."""
         plen = int(q.lens[req])
-        idx = torch.arange(Pmax, dtype=torch.int32, device=dev)
-        positions = torch.where(idx < plen, idx, Pmax)[None]
-        logits, pcache = self.model.forward(
-            params, q.prompts_d[req:req + 1], positions=positions,
-            mode="prefill", cache_len=Pmax,
-        )
+        logits, pcache = self._prefill(self.model, params, q, req)
         kv_cache.admit_slot(pools, pcache, self.model.cfg, self.spec,
                             gtab_row, plen)
-        tok = q.draw(logits[:, plen - 1], torch.tensor([req], device=dev),
-                     plen - 1)
+        tok = q.draw(logits[:, plen - 1],
+                     torch.tensor([req], device=self.model.device), plen - 1)
         self._start(q, st, slot, req, int(tok[0]))
+        if draft is not None:
+            self._drafter_admit(draft, q, st, slot, req, int(tok[0]))
+
+    def _drafter_admit(self, draft: _Draft, q: _Queue, st: _Slots, slot: int,
+                       req: int, tok: int):
+        """The drafter's admission: the same prompt prefilled into its own
+        pools, and the catch-up context seeded with the last dk prompt
+        tokens and the first sampled one (for plen <= dk the leading
+        entries sit at positions < 0 in the catch-up chunk: masked and
+        dropped)."""
+        plen, dk = int(q.lens[req]), self.ecfg.draft_k
+        _, dpcache = self._prefill(self.draft_model, draft.params, q, req)
+        kv_cache.admit_slot(draft.pools, dpcache, self.draft_model.cfg,
+                            self.dspec, self.dgtable[slot], plen)
+        gidx = np.clip(plen - dk + np.arange(dk), 0, self.ecfg.max_prompt_len - 1)
+        st.ctx[slot] = np.append(q.prompts[req, gidx], tok)
 
     def _decode(self, params, q: _Queue, st: _Slots, pools,
                 gtable: torch.Tensor):
@@ -223,6 +367,105 @@ class Engine:
         st.last = np.where(was_active, tok, st.last)
         st.ntok = np.where(was_active, ntok, st.ntok)
 
+    def _decode_spec(self, params, q: _Queue, st: _Slots, pools,
+                     gtable: torch.Tensor, draft: _Draft, k_eff=None):
+        """One speculative iteration over all slots (draft -> verify ->
+        accept -> commit), in place of :meth:`_decode`.  ``k_eff`` ((S,)
+        in [1, draft_k], host data) cuts each slot's chain: draft j >=
+        k_eff is force-rejected, its q row zeroed (the residual is then the
+        plain target draw), its drafter and target writes dropped
+        (positions -1), and ``proposed`` counts min(dk, k_eff).  The drafter
+        still runs dk steps, as in the reference."""
+        dev, dk = self.model.device, self.ecfg.draft_k
+        S = self.spec.n_slots
+        active, pos = st.active.copy(), st.pos
+        joff = np.arange(dk + 1)
+        k_used = np.full(S, dk) if k_eff is None else np.clip(k_eff, 1, dk)
+        on_card = lambda a: torch.as_tensor(a, device=dev)
+        at = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        act_d, req_d, pos_d = on_card(active), on_card(st.req), on_card(pos)
+
+        # draft: the catch-up chunk at pos - dk .. pos, then dk single steps
+        dpaged = kv_cache.PagedState(global_table=self.dgtable, active=act_d,
+                                     page_size=self.dspec.page_size)
+        cpos = pos[:, None] - dk + joff
+        cpos = np.where(active[:, None] & (cpos >= 0), cpos, -1)
+        logits, _ = self.draft_model.forward(
+            draft.params, on_card(st.ctx), positions=at(cpos), mode="decode",
+            cache=draft.pools, paged=dpaged,
+        )
+        logits = logits[:, -1]
+        drafts, dists = [], []
+        for j in range(dk):
+            dj, qj = q.propose(logits, req_d, pos_d + j)
+            # feed the draft back (drafter entry at pos + 1 + j): the last
+            # feed's logits go unused, its entry saves the next catch-up a
+            # hole when every draft is accepted
+            dpos = np.where(active & (j < k_used), pos + 1 + j, -1)[:, None]
+            logits, _ = self.draft_model.forward(
+                draft.params, dj[:, None], positions=at(dpos), mode="decode",
+                cache=draft.pools, paged=dpaged,
+            )
+            logits = logits[:, 0]
+            drafts.append(dj)
+            dists.append(qj)
+        drafts = torch.stack(drafts, dim=1)
+        q_dist = None if q.all_greedy else torch.stack(dists, dim=1)
+        jmask = None if k_eff is None else on_card(joff[:dk] < k_used[:, None])
+
+        # verify: [last, d_0 .. d_{dk-1}] at pos .. pos + dk in one target
+        # forward; row i is the target's logits for the token at pos + 1 + i
+        vpos = np.where(active[:, None] & (joff <= k_used[:, None]),
+                        pos[:, None] + joff, -1)
+        paged = kv_cache.PagedState(global_table=gtable, active=act_d,
+                                    page_size=self.spec.page_size)
+        vlogits, _ = self.model.forward(
+            params, torch.cat([on_card(st.last[:, None]), drafts], dim=1),
+            positions=at(vpos), mode="decode", cache=pools, paged=paged,
+        )
+        n_acc, extra = q.accept(vlogits, drafts, q_dist, req_d, pos_d, jmask)
+        # the iteration's one read-back: the drafts, the extra token, n_acc
+        block = torch.cat([drafts, extra[:, None], n_acc[:, None]], dim=1)
+        block = block.cpu().numpy().astype(np.int64)
+        self._commit(st, active, block[:, :dk], block[:, dk], block[:, dk + 1],
+                     k_used)
+
+    def _commit(self, st: _Slots, active, drafts, extra, n_acc, k_used):
+        """Commit the accepted drafts and the extra token of each active
+        slot, cut at the first committed EOS and at the length budget;
+        slide the catch-up context by the commit length."""
+        S, dk = drafts.shape
+        Gmax = self.ecfg.max_gen_len
+        joff = np.arange(dk + 1)
+        rows = np.arange(S)
+        n_acc = np.where(active, n_acc, 0)
+        cand = np.concatenate([drafts, np.zeros((S, 1), np.int64)], axis=1)
+        cand[rows, n_acc] = extra
+        in_commit = self._is_eos(cand) & (joff < n_acc[:, None] + 1)
+        any_eos = in_commit.any(axis=1)
+        first_eos = in_commit.argmax(axis=1)
+        m = np.where(any_eos, first_eos + 1, n_acc + 1)
+        m = np.where(active, np.minimum(m, Gmax - st.ntok), 0)
+        for s in np.nonzero(active)[0]:
+            n0 = st.ntok[s]
+            st.out_toks[st.req[s], n0:n0 + m[s]] = cand[s, :m[s]]
+        ntok = st.ntok + m
+        st.out_len[st.req[active]] = ntok[active]
+        finished = (any_eos & (first_eos < m)) | (ntok >= Gmax)
+        upd = active & (m > 0)
+        last_tok = cand[rows, np.maximum(m - 1, 0)]
+        new_ctx = np.take_along_axis(np.concatenate([st.ctx, cand], axis=1),
+                                     m[:, None] + joff, axis=1)
+        st.active = active & ~finished
+        st.pos = st.pos + m
+        st.last = np.where(upd, last_tok, st.last)
+        st.ntok = ntok
+        st.ctx = np.where(upd[:, None], new_ctx, st.ctx)
+        st.accepted += int(n_acc[active].sum())
+        st.proposed += int(k_used[active].sum())
+        st.last_acc = np.where(active, n_acc, 0)
+        st.last_prop = np.where(active, k_used, 0)
+
     # ------------------------------------------------------------------
     def serve(
         self,
@@ -234,16 +477,22 @@ class Engine:
         top_k=None,               # (R,) int;  <= 0 -> off
         top_p=None,               # (R,) float; >= 1 -> off
         seed: int = 0,
+        draft_params=None,        # drafter params (speculative engines only)
     ) -> Dict[str, object]:
         """Serve R requests; returns {"tokens": (R, max_gen_len) int32,
-        "lengths": (R,) int32} as CPU tensors and "steps": the loop-iteration
-        count (generated tokens include the EOS, if hit)."""
+        "lengths": (R,) int32} as CPU tensors, "steps": the loop-iteration
+        count, and "accepted" / "proposed": the speculative drafts (0 for a
+        plain engine).  Generated tokens include the EOS, if hit."""
         S, Gmax = self.spec.n_slots, self.ecfg.max_gen_len
+        draft = self._draft(draft_params, None)
         q = _Queue(prompts, prompt_lens, self.ecfg.max_prompt_len,
                    self.model.device, temperature, top_k, top_p, seed)
         R = q.R
         pools = kv_cache.init_pools(self.model.cfg, self.spec, self.model.device)
-        st = _Slots(S, R, Gmax)
+        if draft is not None:
+            draft.pools = kv_cache.init_pools(self.draft_model.cfg, self.dspec,
+                                              self.model.device)
+        st = _Slots(S, R, Gmax, self.ecfg.draft_k)
         # <= R admissions + <= R*Gmax token steps; the counter is a backstop
         # against a scheduling bug, as in the reference
         max_steps = R * (Gmax + 1) + S + 2
@@ -252,14 +501,19 @@ class Engine:
             if next_req < R and not st.active.all():
                 slot = int(np.argmin(st.active))     # the first free slot
                 self._admit_full(params, q, st, pools, slot, next_req,
-                                 self.gtable[slot])
+                                 self.gtable[slot], draft)
                 next_req += 1
-            self._decode(params, q, st, pools, self.gtable)
+            if draft is None:
+                self._decode(params, q, st, pools, self.gtable)
+            else:
+                self._decode_spec(params, q, st, pools, self.gtable, draft)
             step += 1
         return {
             "tokens": torch.from_numpy(st.out_toks),
             "lengths": torch.from_numpy(st.out_len),
             "steps": step,
+            "accepted": st.accepted,
+            "proposed": st.proposed,
         }
 
 
@@ -284,19 +538,27 @@ class DynamicEngine(Engine):
     global-attention pages (the only kind the port serves).
 
     KV pools and the prefix cache persist across ``serve()`` calls, so a
-    later serve hits prefixes cached by an earlier one.
+    later serve hits prefixes cached by an earlier one; so do the drafter's
+    pools, whose tables are static (the drafter shares no prefix pages).
     """
 
-    def __init__(self, model, ecfg: EngineConfig = EngineConfig()):
+    def __init__(self, model, ecfg: EngineConfig = EngineConfig(),
+                 draft_model=None):
         C = ecfg.prefill_chunk
         if C < 0 or (C and C % ecfg.page_size):
             raise ValueError(
                 f"prefill_chunk must be a multiple of page_size "
                 f"({ecfg.page_size}), got {C}"
             )
+        if ecfg.adaptive_draft and ecfg.draft_k < 1:
+            raise ValueError(
+                "adaptive_draft adapts the speculative draft length — it "
+                f"needs draft_k >= 1 (got draft_k={ecfg.draft_k})"
+            )
         # chunk forwards write up to chunk_len - 1 positions ahead of their
-        # earliest query (kv_cache.build_spec)
-        self._init_common(model, ecfg,
+        # earliest query, speculative chunks up to draft_k
+        # (kv_cache.build_spec)
+        self._init_common(model, ecfg, draft_model,
                           lookahead=max(ecfg.draft_k, C - 1 if C else 0))
         spec = self.spec
         self.n_pages = ecfg.n_pages or spec.n_global_pages
@@ -313,17 +575,21 @@ class DynamicEngine(Engine):
         # pools persist across serve() calls: prefix-cached pages stay warm
         self._pools = kv_cache.init_pools(model.cfg, spec, model.device,
                                           n_global=self.n_pages)
+        self._dpools = (None if draft_model is None else
+                        kv_cache.init_pools(draft_model.cfg, self.dspec,
+                                            model.device))
 
     # ------------------------------------------------------------------
     def _admit_chunk(self, params, q: _Queue, st: _Slots, cur, s0: int,
-                     l0: int, last: bool):
+                     l0: int, last: bool, draft=None):
         """One prefill chunk of the current admission: a decode-mode forward
         of ``l0`` prompt tokens at positions s0.. (the rest of the fixed
         ``_cmax``-wide chunk at -1: masked everywhere, writes dropped; the
         fixed width, as in the reference, keeps a 1-token chunk on the
         multi-query path); on
         the last chunk, the first token sampled from the last chunk row,
-        keyed exactly like the one-shot path — (plen - 1, req, SAMPLE)."""
+        keyed exactly like the one-shot path — (plen - 1, req, SAMPLE) —
+        and the drafter's admission."""
         dev, Pmax = self.model.device, self.ecfg.max_prompt_len
         slot, req = cur["slot"], cur["req"]
         j = np.arange(self._cmax)
@@ -346,6 +612,8 @@ class DynamicEngine(Engine):
             tok = q.draw(logits[:, max(l0 - 1, 0)],
                          torch.tensor([req], device=dev), plen - 1)
             self._start(q, st, slot, req, int(tok[0]))
+            if draft is not None:
+                self._drafter_admit(draft, q, st, slot, req, int(tok[0]))
 
     # ------------------------------------------------------------------
     def serve(
@@ -358,6 +626,7 @@ class DynamicEngine(Engine):
         top_k=None,
         top_p=None,
         seed: int = 0,
+        draft_params=None,        # drafter params (speculative engines only)
         arrivals=None,            # (R,) seconds from serve start, ascending
         record_times: bool = False,
     ) -> Dict[str, Any]:
@@ -371,13 +640,19 @@ class DynamicEngine(Engine):
         """
         spec, blocks = self.spec, self.blocks
         S, Gmax, C = spec.n_slots, self.ecfg.max_gen_len, self.ecfg.prefill_chunk
-        Pmax = self.ecfg.max_prompt_len
+        Pmax, dk0 = self.ecfg.max_prompt_len, self.ecfg.draft_k
+        draft = self._draft(draft_params, self._dpools)
         q = _Queue(prompts, prompt_lens, Pmax, self.model.device,
                    temperature, top_k, top_p, seed)
         R = q.R
         arr = (np.zeros((R,), np.float64) if arrivals is None
                else np.asarray(arrivals, np.float64))
-        st = _Slots(S, R, Gmax)
+        st = _Slots(S, R, Gmax, dk0)
+        # adaptive draft length: a per-slot EMA of the acceptance rate steers
+        # the next iteration's chain length (pure host control)
+        adaptive = self.ecfg.adaptive_draft
+        k_cur = np.full(S, dk0, np.int64)
+        acc_ema = np.full(S, 0.5, np.float64)
         pending = list(range(R))
         free = list(range(S))
         occupied: Dict[int, int] = {}     # slot -> req (decoding, holds pages)
@@ -435,7 +710,8 @@ class DynamicEngine(Engine):
             if cur is not None:
                 if cur["chunks"] is None:
                     self._admit_full(params, q, st, self._pools, cur["slot"],
-                                     cur["req"], self._gtab_d[cur["slot"]])
+                                     cur["req"], self._gtab_d[cur["slot"]],
+                                     draft)
                     finishing, cur = cur, None
                 else:
                     s0, l0 = cur["chunks"][cur["i"]]
@@ -445,14 +721,17 @@ class DynamicEngine(Engine):
                         kv_cache.invalidate_pages(
                             self._pools, self.model.cfg, cur["adm"].fresh_pages)
                     last = cur["i"] == len(cur["chunks"]) - 1
-                    self._admit_chunk(params, q, st, cur, s0, l0, last)
+                    self._admit_chunk(params, q, st, cur, s0, l0, last, draft)
                     if last:
                         finishing, cur = cur, None
                     else:
                         cur["i"] += 1
             # ---- one decode step over all slots, if any is active ----
-            if st.active.any():
+            if st.active.any() and draft is None:
                 self._decode(params, q, st, self._pools, self._gtab_d)
+            elif st.active.any():
+                self._decode_spec(params, q, st, self._pools, self._gtab_d,
+                                  draft, k_eff=k_cur if adaptive else None)
             steps += 1
             tnow = time.monotonic() - t0
             # ---- host bookkeeping ----
@@ -465,11 +744,25 @@ class DynamicEngine(Engine):
             for r in np.nonzero(new_len > prev_len)[0]:
                 token_times[r].extend([tnow] * int(new_len[r] - prev_len[r]))
             prev_len = new_len
+            if adaptive:
+                # confident drafters earn longer chains, struggling ones
+                # shorter.  As in the reference, a step that ran no decode
+                # reads the last speculative iteration's counts again.
+                stepped = st.last_prop > 0
+                rate = st.last_acc[stepped] / st.last_prop[stepped]
+                acc_ema[stepped] = 0.8 * acc_ema[stepped] + 0.2 * rate
+                grow = stepped & (acc_ema > 0.8)
+                shrink = stepped & (acc_ema < 0.4)
+                k_cur[grow] = np.minimum(k_cur[grow] + 1, dk0)
+                k_cur[shrink] = np.maximum(k_cur[shrink] - 1, 1)
             for slot in sorted(occupied):
                 if not st.active[slot]:
                     blocks.retire(slot)
                     del occupied[slot]
                     free.append(slot)
+                    if adaptive:     # the next occupant starts afresh
+                        k_cur[slot] = dk0
+                        acc_ema[slot] = 0.5
             if steps > max_steps:
                 raise RuntimeError(
                     f"dynamic engine exceeded {max_steps} steps — "
@@ -480,6 +773,8 @@ class DynamicEngine(Engine):
             "tokens": torch.from_numpy(st.out_toks),
             "lengths": torch.from_numpy(st.out_len),
             "steps": steps,
+            "accepted": st.accepted,
+            "proposed": st.proposed,
             "prefill_cached": prefill_cached,
             "prefill_total": prefill_total,
         }

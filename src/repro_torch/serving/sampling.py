@@ -19,6 +19,13 @@ request, position, event tag), computed by a counter-based integer hash
 (Wellons' lowbias32) in int64 tensor ops that give the same bits on the CPU
 and the card.  A draw is a Gumbel-max over the filtered logits, with one
 hashed uniform per (event, vocab entry).
+
+Speculative decoding (``filtered_dist``, ``spec_accept``) keeps the same
+keys: an accept test is one hashed uniform per key, and a categorical draw
+from explicit probabilities is a Gumbel-max over their log with the noise
+``sample()`` adds.  So where a residual equals the target's filtered
+distribution, its draw is the token ``sample()`` gives on the same key, up
+to rounding.
 """
 from __future__ import annotations
 
@@ -111,6 +118,72 @@ def keep_mask(logits, temperature, top_k, top_p):
     keep = scaled > torch.maximum(tau_k, tau_p)[:, None]
     keep |= scaled == scaled.max(dim=-1, keepdim=True).values
     return keep, scaled
+
+
+def filtered_dist(logits, temperature, top_k, top_p) -> torch.Tensor:
+    """(S, V) float32 probabilities of exactly the distribution ``sample()``
+    draws from: the softmax over the kept temperature-scaled logits, a
+    one-hot at the argmax for greedy rows.  Speculation needs it for the
+    drafter (proposal and acceptance ratio) and the target (verify and
+    residual); any drift from ``sample()`` would bias the output."""
+    greedy = torch.nn.functional.one_hot(logits.float().argmax(dim=-1),
+                                         logits.shape[-1]).float()
+    keep, scaled = keep_mask(logits, temperature, top_k, top_p)
+    masked = torch.where(keep, scaled, torch.full_like(scaled, NEG_INF))
+    return torch.where(temperature[:, None] <= 0.0, greedy,
+                       torch.softmax(masked, dim=-1))
+
+
+def uniform_from(keys: torch.Tensor) -> torch.Tensor:
+    """One U[0, 1) draw per key, any shape."""
+    return (_hash32(keys) >> 8).float() * (1.0 / 2**24)
+
+
+def categorical_from(keys: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """One draw per key from the rows of ``probs`` (..., V) (zeros allowed):
+    Gumbel-max over log p with ``sample()``'s noise; int64 (...)."""
+    return (torch.log(probs) + gumbel(keys, probs.shape[-1])).argmax(dim=-1)
+
+
+def spec_accept(
+    p_dist: torch.Tensor,        # (S, k+1, V) target filtered dists
+    q_dist: torch.Tensor,        # (S, k, V) drafter filtered dists
+    drafts: torch.Tensor,        # (S, k) drafted tokens
+    accept_keys: torch.Tensor,   # (S, k) keys, one per draft position
+    sample_keys: torch.Tensor,   # (S, k+1) keys, one per candidate slot
+    accept_mask=None,            # (S, k) bool; False forces rejection there
+):
+    """Standard speculative rejection sampling (leading accept + residual),
+    as the reference's ``spec_accept``.
+
+    Draft i is accepted iff u_i q_i(d_i) < p_i(d_i), u_i uniform (so with
+    probability min(1, p/q)); the chain stops at the first rejection.  With
+    n drafts accepted, the extra token comes from norm(max(p_n - q_n, 0)),
+    or from p_k itself when all k are (the bonus: q padded with a zero
+    row).  Greedy (one-hot p and q): a draft is accepted iff it is the
+    target's argmax, and the extra token is the target's argmax.
+    ``accept_mask`` truncates the chain (adaptive draft length); the caller
+    zeroes ``q_dist`` there too, so a forced stop's residual is p.
+
+    Returns (n_acc (S,) int64, extra (S,) int64).
+    """
+    S, k, V = q_dist.shape
+    d = drafts.long()[..., None]
+    p_at_d = torch.gather(p_dist[:, :k], 2, d)[..., 0]
+    q_at_d = torch.gather(q_dist, 2, d)[..., 0]
+    accept = uniform_from(accept_keys) * q_at_d.clamp(min=1e-30) < p_at_d
+    if accept_mask is not None:
+        accept = accept & accept_mask
+    n_acc = accept.long().cumprod(dim=1).sum(dim=1)
+    q_pad = torch.cat([q_dist, q_dist.new_zeros(S, 1, V)], dim=1)
+    sel = n_acc[:, None, None].expand(S, 1, V)
+    p_sel = torch.gather(p_dist, 1, sel)[:, 0]
+    resid = (p_sel - torch.gather(q_pad, 1, sel)[:, 0]).clamp(min=0.0)
+    z = resid.sum(dim=-1, keepdim=True)
+    # z = 0 only where q covers p exactly: fall back to p, still unbiased
+    resid = torch.where(z > 0, resid / z.clamp(min=1e-30), p_sel)
+    key_sel = torch.gather(sample_keys, 1, n_acc[:, None])[:, 0]
+    return n_acc, categorical_from(key_sel, resid)
 
 
 def sample(

@@ -291,14 +291,18 @@ def test_admission_stall_raises(models):
 def test_engine_knob_validation(models):
     _, _, tm, _ = models
     for knob in (dict(prefix_cache=True), dict(prefill_chunk=4),
-                 dict(n_pages=32), dict(n_window_pages=8)):
+                 dict(n_pages=32), dict(n_window_pages=8),
+                 dict(draft_k=3, adaptive_draft=True)):
         with pytest.raises(ValueError, match="DynamicEngine"):
             Engine(tm, EngineConfig(**_DYN, **knob))
     with pytest.raises(ValueError, match="multiple of page_size"):
         DynamicEngine(tm, EngineConfig(prefill_chunk=6, **_DYN))
+    # speculation needs a drafter, and the adaptive length needs speculation
     for knob in (dict(draft_k=3), dict(draft_k=3, adaptive_draft=True)):
-        with pytest.raises(ValueError, match="not ported yet"):
+        with pytest.raises(ValueError, match="draft_k >= 1 and a draft_model"):
             DynamicEngine(tm, EngineConfig(**_DYN, **knob))
+    with pytest.raises(ValueError, match="needs draft_k >= 1"):
+        DynamicEngine(tm, EngineConfig(**_DYN, adaptive_draft=True))
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,8 @@ def test_port_imports_without_jax_or_reference():
            "repro_torch.quant.kv", "repro_torch.kernels.flash_attention"}
     assert amp <= mods, amp - mods
     serving = {"repro_torch.serving.allocator", "repro_torch.serving.engine",
-               "repro_torch.serving.kv_cache", "repro_torch.kernels.decode_attention"}
+               "repro_torch.serving.kv_cache", "repro_torch.kernels.decode_attention",
+               "repro_torch.serving.sampling", "repro_torch.data.copy_task"}
     assert serving <= mods, serving - mods
 
 

@@ -247,7 +247,10 @@ def test_engine_greedy_matches_reference_engine(served, with_eos):
 def test_serve_cli_on_cpu_and_unported_flags(capsys):
     """The dynamic engine by default (with its prefix cache and chunked
     prefill), the static one with --static: the same greedy tokens; int8
-    pools on both; flags of parts not ported yet are refused."""
+    pools on both; speculation with the µP proxy drafter (--draft-width,
+    with --adaptive-draft on the dynamic engine) gives the same greedy
+    tokens and prints its acceptance; --adaptive-draft without a drafter or
+    with --static, and flags of parts not ported yet, are refused."""
     base = ["--smoke", "--device", "cpu", "--requests", "3", "--prompt-len",
             "8", "--gen-len", "4", "--slots", "2", "--page-size", "4",
             "--mixed-lens"]
@@ -264,7 +267,16 @@ def test_serve_cli_on_cpu_and_unported_flags(capsys):
         int8 = tserve.main([*base, "--kv-dtype", "int8", *extra])
         assert "paged KV pools (int8)" in capsys.readouterr().out
         assert tuple(int8.shape) == (3, 4)
-    for flag in (["--dense"], ["--draft-width", "0.25"],
+    spec = ["--draft-width", "0.25", "--draft-k", "4"]
+    for extra in ([], ["--static"], ["--adaptive-draft", "--prefix-cache",
+                                     "--prefill-chunk", "8"]):
+        out = tserve.main([*base, *spec, *extra])
+        printed = capsys.readouterr().out
+        assert "[serve] drafter" in printed
+        assert "[serve] speculation: " in printed and "drafts accepted" in printed
+        assert torch.equal(out, toks)
+    for flag in (["--dense"], ["--adaptive-draft"], ["--static", "--adaptive-draft"],
+                 ["--static", "--adaptive-draft", *spec],
                  ["--mesh", "1,2"], ["--obs"], ["--static", "--prefix-cache"]):
         with pytest.raises(SystemExit):
             tserve.main(["--smoke", "--device", "cpu", *flag])
