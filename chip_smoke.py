@@ -211,6 +211,34 @@ check:
   others, 17 B1, 17 B2, 1 B3, 1 B4); the mean of the last 3
   losses against the f32 run's is printed (the reference's bar is 1%; not
   held on the card).
+- sweep: the batched HP sweep and Algorithm 1 (core/tuning.py, api.py) on
+  one card.  B1 and B2 with a gain per group ((G, D) over G equal groups of
+  rows, the candidates of a batched step) at G 1, 4 and 16, x (16, 8, 64,
+  256), (4, 8, 512, 1024) and ragged D 48 and 1030, and at each (x shape,
+  G) the phase's paths give them (the 4-candidate sweep, the coord check's
+  3 lrs at 8 x 32 and Fig. 1's 8 lrs at 8 x 64, d_model 256/512/1024), f32
+  and bf16, against their plain versions (B1 atol 2e-5 / bf16 2e-2 and
+  bit-equal to G separate launches; B2's dx at the gradient tiers, dgain
+  at the f32 gradient tier and bit-identical when repeated), one launch a
+  call in the profiler, timed at x (16, 8, 64, 256), G 16, with the
+  operands rotated through 3-4x the L2 (so that the time is the HBM's, as
+  the bound is), beside the bound and G separate launches.  On the
+  full-size proxy (mup-gpt 0.25x with d_head
+  kept at 64: 8 layers, d_model 256, 4 heads of 64, its µP base shape) the
+  reference's three test candidates and lr 1e25, 6 steps at 8 x 64,
+  batched and serial: curves within rtol 2e-3, the lr-1e25 candidate pruned
+  and frozen bit for bit, the others within 2e-3 of the run without it,
+  exact launches (a batched step: 17 B1 and 17 B2 with a gain per group, 1
+  B3, 1 B4, whatever N is).  16 candidates of ``sample_n(16, 0)`` x 30
+  steps batched and serial: candidate-steps per second, the speedup, the
+  card's busy share under the profiler, peak memory and whether the two
+  rank the candidates alike (best, finite set, pairs swapped) printed.  Algorithm
+  1 through ``Experiment``: ``coord_check(lrs=(1e-3, 1e-2, 1e-1))`` at
+  d_model 256/512/1024 (lr 1e-2's ``logits.delta`` slope held below 0.1),
+  ``tune(n_samples=16, steps=30)``, ``transfer`` and ``train(steps=10)`` of
+  the d_model-1024 target (finite, falling losses), each with exact
+  launches; Fig. 1, 8 lrs (5e-3 * 2^k) x 20 steps at d_model 256, 512 and
+  1024, its best lr by width printed, not held.
 - profile: torch.profiler over a short serve through each engine, a short
   int8 dynamic serve (with the card's time in the quantized writes of
   serving/kv_cache.py) and one train step, f32, --amp bf16 and --amp int8:
@@ -221,7 +249,8 @@ check:
 Launch counts are set to 0 just before each main path (serve,
 serve_dynamic, serve_int8 dynamic and static, serve_spec, serve_spec_dynamic,
 serve_spec_int8, spec_copy_train, serve_spec_copy, train, train --amp bf16,
-train --amp int8) and
+train --amp int8, and the sweep phase's sweep, sweep_serial, sweep_16,
+algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1) and
 read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
 catches no failure (the exit code is non-zero on any) and prints, last, one
@@ -236,7 +265,9 @@ TOP/s of dense int8 for their int8 mode.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -362,24 +393,27 @@ def device_us(fn, name, n=20, tries=3):
     raise AssertionError(f"the profiler saw no kernel of {name!r} in {tries} tries")
 
 
-def library_device_us(fn, n=20):
+def library_device_us(fn, n=20, tries=3):
     """(microseconds on the card, kernel launches) per call of ``fn``, over
     every kernel it launches (a library call's own kernels), from
-    torch.profiler over ``n`` calls."""
+    torch.profiler over ``n`` calls; a profile that caught no kernel (the
+    tracer drops events now and then) is taken again, up to ``tries``
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not hits:
-        raise AssertionError("the profiler saw no kernel of the library call")
-    return (sum(e.self_device_time_total for e in hits) / n,
-            sum(e.count for e in hits) / n)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if hits:
+            return (sum(e.self_device_time_total for e in hits) / n,
+                    sum(e.count for e in hits) / n)
+    raise AssertionError(f"the profiler saw no kernel of the call in {tries} tries")
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -2005,6 +2039,7 @@ def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
     want = {"flash_decode": L * steps, "flash_decode_multi": 0,
             "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (steps + R), "rmsnorm_bwd": 0, "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0,
+            "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
                 "flash_bwd_quant_int8": 0, "flash_fwd_quant_int8": 0}
@@ -2139,6 +2174,7 @@ def dynamic_serve_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
     want = {"flash_decode": L * n_dec, "flash_decode_multi": L * n_chunk,
             "flash_decode_int8": 0, "flash_decode_multi_int8": 0,
             "rmsnorm": (2 * L + 1) * (n_chunk + n_dec), "rmsnorm_bwd": 0,
+            "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
             "ce_fwd": 0, "ce_bwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0,
             "flash_fwd_int8": 0, "flash_bwd_dq_int8": 0, "flash_bwd_dkv_int8": 0,
@@ -2269,6 +2305,7 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
 
     def expect(n_dec, n_chunk, n_fwd):
         return {"rmsnorm": (2 * L + 1) * n_fwd, "rmsnorm_bwd": 0, "ce_fwd": 0,
+                "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
                 "ce_bwd": 0, "flash_decode": 0, "flash_decode_multi": 0,
                 "flash_decode_int8": L * n_dec, "flash_decode_multi_int8": L * n_chunk,
                 "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
@@ -2488,7 +2525,7 @@ def spec_expect(Lt, Ld, n, int8=False):
     layer and once more per forward of each model, nothing else."""
     n_pre, n_chunk, n_ver, n_dpre, n_catch, n_step = n
     sfx = "_int8" if int8 else ""
-    want = {k: 0 for k in PORT_KERNELS}
+    want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
     want["flash_decode" + sfx] = Ld * n_step
     want["flash_decode_multi" + sfx] = Lt * (n_ver + n_chunk) + Ld * n_catch
     want["rmsnorm"] = (2 * Lt + 1) * (n_pre + n_chunk + n_ver) + \
@@ -2722,7 +2759,7 @@ def serve_spec_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    want = {k: 0 for k in PORT_KERNELS}
+    want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
     want["rmsnorm"] = want["rmsnorm_bwd"] = (2 * Lt + 1) * 100 + (2 * pcfg.n_layers + 1) * 150
     want["ce_fwd"] = want["ce_bwd"] = 250
     log(f"[serve_spec_copy] trained the target 100 steps (loss {loss:.3g}) and "
@@ -2746,7 +2783,7 @@ def serve_spec_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops):
     launches = ops.launch_counts()
     st = out_s["steps"]
     Lp = pcfg.n_layers
-    want = {k: 0 for k in PORT_KERNELS}
+    want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
     want["flash_decode"] = Lp * K6 * st
     want["flash_decode_multi"] = (Lt + Lp) * st
     want["rmsnorm"] = (2 * Lt + 1) * (R + st) + (2 * Lp + 1) * (R + st * (1 + K6))
@@ -3096,6 +3133,7 @@ def train_phase(ops, quant, amp="", control_losses=None):
     n_attn = cfg.n_layers if amp == "bf16" else 0   # B5-B7 only under --amp,
     n_int8 = cfg.n_layers if amp == "int8" else 0   # in its operand mode
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
+                "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
                 "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0,
                 "flash_decode_multi": 0, "flash_decode_int8": 0,
                 "flash_decode_multi_int8": 0, "flash_fwd": n_attn,
@@ -3221,6 +3259,396 @@ def train_profile_phase(amp=""):
                 launches=sum(e.count for e in kernels),
                 port_kernels=port,
                 top=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top])
+
+# ---------------------------------------------------------------------------
+# sweep phase: the batched HP sweep and Algorithm 1 through Experiment
+# ---------------------------------------------------------------------------
+
+GROUPED = ("rmsnorm_grouped", "rmsnorm_bwd_grouped")   # B1/B2 with a gain per group
+# (x shape, groups): the batched proxy step (16 candidates x 8 x 64 tokens
+# x d 256), 4 candidates at the train shape, and ragged D on both B2 paths
+# (48: 16-byte pieces in registers; 1030: the scalar path)
+GROUPED_SHAPES = [(16, 8, 64, 256), (4, 8, 512, 1024), (16, 8, 8, 48), (4, 8, 16, 1030)]
+GROUPS = (1, 4, 16)
+# (x shape, groups) as the sweep phase's main paths hand them to B1/B2:
+# (candidates, batch, seq, d_model) -- the 4-candidate sweep, the coord
+# check's 3 lrs at 8 x 32 and Fig. 1's 8 lrs at 8 x 64, each at d_model
+# 256, 512 and 1024 (16 candidates at d 256, tune's, is above)
+PATH_GROUPED = ([((4, 8, 64, 256), 4)]
+                + [((3, 8, 32, d), 3) for d in (256, 512, 1024)]
+                + [((8, 8, 64, d), 8) for d in (256, 512, 1024)])
+GROUPED_CASES = [(s, G) for s in GROUPED_SHAPES for G in GROUPS] + PATH_GROUPED
+L2_BYTES = 50 * 2**20       # the H100's L2; timed operands rotate over 3-4x it
+# the reference's test_transformer_equivalence_and_hp_threading candidates,
+# and one that diverges
+SWEEP_CANDIDATES = [dict(lr=5e-3), dict(lr=1e-2, sigma=0.5, alpha_output=2.0),
+                    dict(lr=2e-2, sigma=2.0, alpha_attn=2.0, alpha_embed=0.5),
+                    dict(lr=1e25)]
+SWEEP_RTOL = 2e-3           # batched against serial (the reference's tolerance)
+# the sweep phase's main paths, and those that run the batched step
+SWEEP_PATHS = ("sweep", "sweep_serial", "sweep_16", "algorithm1_coord_check",
+               "algorithm1_tune", "algorithm1_train", "fig1")
+GROUPED_PATHS = ("sweep", "sweep_16", "algorithm1_coord_check", "algorithm1_tune", "fig1")
+SWEEP_STEPS, SWEEP_BATCH, SWEEP_SEQ = 6, 8, 64
+COORD_SLOPE_MAX = 0.1       # tests/test_torch_coord_check.py's bound on logits.delta
+# A bf16 output whose f32 value lies an ulp from a rounding boundary rounds
+# to the other neighbour when the row's rsqrt is summed in another order:
+# one bf16 ulp, 0.03125 at |y| in [4, 8) (x (4, 8, 512, 1024), an H100 at
+# 700 W).  The grouped B1's bf16 check adds that relative half-ulp to the
+# bf16 tier; its bits are held against G separate launches anyway.
+BF16_OUT_RTOL = 2.0 ** -8
+
+
+def rotating(fn, sets):
+    """A call of ``fn`` on the next of ``sets`` (argument tuples) in turn,
+    each result kept until its set comes round again, so that the inputs
+    read and the outputs written move through memory and not through L2."""
+    outs = [None] * len(sets)
+    turn = [0]
+
+    def call():
+        i = turn[0] % len(sets)
+        turn[0] += 1
+        outs[i] = fn(*sets[i])
+        return outs[i]
+    return call
+
+
+def grouped_kernel_phase(rn, ref):
+    """B1 and B2 with a (G, D) gain against their plain versions (B1
+    bit-equal to G separate launches, B2's dgain bit-identical when
+    repeated) at the checked shapes and at each (shape, G) the sweep's
+    paths give them, then timed at the batched proxy step's shape beside
+    G separate launches, the operands rotated through 3-4x the L2 so that
+    the time is the HBM's, as the bound is."""
+    worst = {"y": 0.0, "dx": 0.0, "dgain": 0.0}
+    n = 0
+    for (shape, G), dt in itertools.product(GROUPED_CASES, (torch.float32, torch.bfloat16)):
+        D = shape[-1]
+        x = (3 * torch.randn(*shape, device="cuda")).to(dt)
+        g = 0.5 * torch.randn(G, D, device="cuda")
+        dy = torch.randn(*shape, device="cuda").to(dt)
+        what = f"grouped rmsnorm {shape} G={G} {dt}"
+        y = rn.rmsnorm(x, g)
+        worst["y"] = max(worst["y"], check_close(
+            what, y, ref.rmsnorm_ref(x, g), ATOL[dt],
+            BF16_OUT_RTOL if dt == torch.bfloat16 else 0.0))
+        xs = x.reshape(G, -1, D)
+        apart = torch.stack([rn.rmsnorm(xs[i], g[i]) for i in range(G)])
+        if not torch.equal(y, apart.reshape(shape)):
+            raise AssertionError(f"{what}: differs from {G} separate launches")
+        dx, dg = rn.rmsnorm_bwd(x, g, dy)
+        want_dx, want_dg = ref.rmsnorm_bwd_ref(x, g, dy)
+        worst["dx"] = max(worst["dx"], check_close(what + " dx", dx, want_dx, *GRAD_TOL[dt]))
+        worst["dgain"] = max(worst["dgain"], check_close(
+            what + " dgain", dg, want_dg, *GRAD_TOL[torch.float32]))
+        if not torch.equal(rn.rmsnorm_bwd(x, g, dy)[1], dg):
+            raise AssertionError(f"{what}: dgain differs between two calls")
+        n += 1
+    log(f"[sweep] grouped B1/B2: {n} cases ({len(PATH_GROUPED)} (shape, G) pairs of the "
+        f"sweep's paths among them) agree with the plain versions, B1 bit-equal to G "
+        f"separate launches, dgain deterministic; max err y {worst['y']:.3g}, dx "
+        f"{worst['dx']:.3g}, dgain {worst['dgain']:.3g}")
+
+    G, shape = 16, GROUPED_SHAPES[0]
+    D = shape[-1]
+    x_bytes = math.prod(shape) * 4
+    # B2 moves the most a set (x, dy, dx): enough sets that 4x the L2
+    # passes between two uses of one
+    n_sets = math.ceil(4 * L2_BYTES / (3 * x_bytes))
+    sets = [(torch.randn(*shape, device="cuda"), 0.5 * torch.randn(G, D, device="cuda"),
+             torch.randn(*shape, device="cuda")) for _ in range(n_sets)]
+    x, g, dy = sets[0]
+    fwd = rotating(rn.rmsnorm, [s[:2] for s in sets])
+    bwd = rotating(rn.rmsnorm_bwd, sets)
+    fwd_apart = rotating(lambda a, b: [rn.rmsnorm(a.reshape(G, -1, D)[i], b[i])
+                                       for i in range(G)], [s[:2] for s in sets])
+    bwd_apart = rotating(lambda a, b, c: [rn.rmsnorm_bwd(a.reshape(G, -1, D)[i], b[i],
+                                                         c.reshape(G, -1, D)[i])
+                                          for i in range(G)], sets)
+    rows = []
+    for name, call, apart, plain, check, nbytes, flops, replaces in (
+            ("rmsnorm_grouped", fwd, fwd_apart, rotating(ref.rmsnorm_ref, [s[:2] for s in sets]),
+             lambda: (rn.rmsnorm(x, g), ref.rmsnorm_ref(x, g)),
+             2 * x.numel() * 4 + g.numel() * 4, 4 * x.numel(), ":28"),
+            ("rmsnorm_bwd_grouped", bwd, bwd_apart, rotating(ref.rmsnorm_bwd_ref, sets),
+             lambda: (rn.rmsnorm_bwd(x, g, dy), ref.rmsnorm_bwd_ref(x, g, dy)),
+             3 * x.numel() * 4 + 2 * g.numel() * 4, 12 * x.numel(), ":36")):
+        kernel = name.replace("_grouped", "")
+        for _ in range(3):   # a profile may drop an event: fewer is retaken, more fails
+            _, launches = library_device_us(call)
+            if launches >= 1:
+                break
+        if launches != 1:
+            raise AssertionError(f"{name}: {launches} launches a call, not one")
+        got, want = check()
+        err = (max((a - b).abs().max().item() for a, b in zip(got, want))
+               if isinstance(got, tuple) else (got - want).abs().max().item())
+        ms, plain_ms = cuda_ms(call), cuda_ms(plain)
+        dev = device_us(call, kernel)
+        # the profiler drops an event now and then: the G launches at the
+        # mean time of those it saw
+        seen_us, seen_launches = library_device_us(apart)
+        apart_us = seen_us / seen_launches * G
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"[sweep] {name} at x {shape} f32, G = {G}, operands rotated over {n_sets} sets "
+            f"({n_sets * nbytes / 2**20:.0f} MiB between two uses of one; L2 "
+            f"{L2_BYTES / 2**20:.0f} MiB): {ms:.4f} ms a call, "
+            f"{dev:.2f} us on the card in one launch (bound {bound_ms * 1e3:.2f} us by "
+            f"{bound_by} at the HBM rate, {bound_ms * 1e3 / dev:.1%} of it); {G} separate "
+            f"launches {apart_us:.2f} us on the card ({seen_launches:.1f} launches a call "
+            f"seen by the profiler); plain {plain_ms:.4f} ms; no PyTorch call applies a gain "
+            f"per group")
+        rows.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces=f"src/repro/kernels/rmsnorm.py{replaces}",
+            shape=f"x {shape} float32, gain ({G}, {D}) (a batched proxy step), operands "
+                  f"rotated over {n_sets} sets ({n_sets * nbytes / 2**20:.0f} MiB)",
+            max_abs_err=err, ms=ms, device_us=dev, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None,
+            library="none: no single PyTorch call applies a gain per group of rows",
+            apart_device_us=apart_us,
+            share_of_bound=bound_ms * 1e3 / dev))
+    return rows
+
+
+def sweep_counts(ops, what, fn, want):
+    """Run ``fn`` with the launch counts set to 0 just before it and read
+    just after; raise unless they equal ``want`` (zeros elsewhere; a
+    callable is given ``fn``'s result)."""
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    full = dict.fromkeys(launches, 0)
+    full.update(want(out) if callable(want) else want)
+    log(f"[sweep] {what}: launches {({k: v for k, v in launches.items() if v})}")
+    if launches != full:
+        raise AssertionError(f"{what}: launch counts {launches} != {full}")
+    return out, launches
+
+
+def step_launches(cfg, steps, grouped):
+    """Launches of ``steps`` train steps of ``cfg``: B1 and B2 per norm (two
+    a layer and the final one), B3 and B4 once; grouped in a batched step."""
+    norms = (2 * cfg.n_layers + 1) * steps
+    b1, b2 = GROUPED if grouped else ("rmsnorm", "rmsnorm_bwd")
+    return {b1: norms, b2: norms, "ce_fwd": steps, "ce_bwd": steps}
+
+
+def same_bits(a, b):
+    """Bit for bit (NaN equal to the same NaN) for float32 tensors."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def frozen_check(cfg, cands):
+    """A few batched steps by hand: once the diverging candidate is pruned,
+    its params and Adam moments keep their bits from step to step."""
+    from repro_torch.core import tuning
+    from repro_torch.core.hp import stack_hparams
+    from repro_torch.core.init import init_candidates
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.optim.schedules import constant
+
+    model = Model(cfg.replace(dtype="float32"), device="cuda")
+    hp = stack_hparams(cands, device="cuda")
+    opt = Optimizer.create("adamw", 0.0, model.p13n, model.meta, schedule=constant())
+    params = init_candidates(tuning.candidate_generators(0, len(cands)), model.meta,
+                             model.p13n, [c.sigma for c in cands])
+    state = opt.init(params)
+    active = torch.ones(len(cands), dtype=torch.bool, device="cuda")
+    step = tuning.make_batched_step(lambda p, b, h: model.loss_fn(p, b, hp=h), opt)
+    batches = tuning._proxy_batches(cfg, 4, SWEEP_BATCH, SWEEP_SEQ, 0, "cuda")
+    frozen_steps = 0
+    for batch in batches:
+        before = {k: v[-1].clone() for k, v in params.items()}
+        moments = {k: (state["mu"][k][-1].clone(), state["nu"][k][-1].clone()) for k in params}
+        was_active = bool(active[-1])
+        params, state, loss, active = step(params, state, active, hp, batch)
+        if not was_active:
+            frozen_steps += 1
+            for k in params:
+                if not (same_bits(params[k][-1], before[k])
+                        and same_bits(state["mu"][k][-1], moments[k][0])
+                        and same_bits(state["nu"][k][-1], moments[k][1])):
+                    raise AssertionError(f"the pruned candidate's {k} moved")
+            if not math.isinf(float(loss[-1])):
+                raise AssertionError("the pruned candidate's loss is not +inf")
+    if not frozen_steps:
+        raise AssertionError("the lr 1e25 candidate was never pruned")
+    return frozen_steps
+
+
+def sweep_phase(ops, rn, ref):
+    """The batched HP sweep and Algorithm 1 on the card (see the module
+    note).  Returns (kernel rows, {path: launches}, summary)."""
+    from repro_torch.api import Experiment
+    from repro_torch.configs import get_config
+    from repro_torch.core import tuning
+    from repro_torch.core.hpspace import mup_space
+    from repro_torch.core.transfer import HParams
+
+    rows = grouped_kernel_phase(rn, ref)
+    paths, info = {}, {}
+    # the proxy: mup-gpt at 0.25x with its d_head kept at 64 -- 8 layers,
+    # d_model 256, 4 heads of 64, d_ff 1024, vocab 2048: its µP base shape
+    cfg = get_config("mup-gpt").proxy(0.25, min_d_head=64)
+    if (cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff) != (
+            cfg.base_d_model, cfg.base_n_heads, cfg.base_d_head, cfg.base_d_ff):
+        raise AssertionError(f"the proxy {cfg} is not mup-gpt's base shape")
+    cands = [HParams(**c) for c in SWEEP_CANDIDATES]
+    kw = dict(steps=SWEEP_STEPS, batch_size=SWEEP_BATCH, seq_len=SWEEP_SEQ, device="cuda")
+
+    # (2) batched against serial, with a diverging candidate
+    tuning.train_proxy_batched(cfg, cands[:1], steps=1, batch_size=2, seq_len=8)  # warm-up
+    bat, paths["sweep"] = sweep_counts(
+        ops, f"batched sweep, {len(cands)} candidates x {SWEEP_STEPS} steps",
+        lambda: tuning.train_proxy_batched(cfg, cands, **kw),
+        step_launches(cfg, SWEEP_STEPS, grouped=True))
+    # the serial loop stops a candidate at its first non-finite loss
+    ser, paths["sweep_serial"] = sweep_counts(
+        ops, "the serial loop", lambda: tuning.train_proxy_serial(cfg, cands, **kw),
+        lambda res: step_launches(cfg, int(np.isfinite(res.curves).sum() + (~res.active).sum()),
+                                  grouped=False))
+    alone = tuning.train_proxy_batched(cfg, cands[:3], **kw)
+    fin = np.isfinite(ser.losses)
+    if not (np.array_equal(np.isfinite(bat.losses), fin) and fin[:3].all() and not fin[3]):
+        raise AssertionError(f"finite scores batched {bat.losses}, serial {ser.losses}")
+    rel = np.abs(bat.curves[:, fin] / ser.curves[:, fin] - 1).max()
+    moved = np.abs(bat.curves[:, :3] / alone.curves - 1).max()
+    if not (rel <= SWEEP_RTOL and moved <= SWEEP_RTOL):
+        raise AssertionError(f"batched curves {rel:.3g} from serial, {moved:.3g} from the run "
+                             f"without the diverging candidate (rtol {SWEEP_RTOL})")
+    diverged = int(np.argmax(np.isinf(bat.curves[:, 3])))
+    if bat.active[3] or not np.isinf(bat.curves[diverged:, 3]).all():
+        raise AssertionError("the lr 1e25 candidate was not pruned for good")
+    frozen = frozen_check(cfg, cands)
+    log(f"[sweep] full-size proxy (8 layers, d_model 256, 4 heads of 64): batched curves "
+        f"within {rel:.3g} of the serial loop's (rtol {SWEEP_RTOL}); lr 1e25 pruned at step "
+        f"{diverged}, frozen bit for bit over {frozen} steps; the others {moved:.3g} from "
+        f"the run without it; scores {np.round(bat.losses, 4).tolist()}")
+    info.update(batched_vs_serial_rel=float(rel), moved_by_diverged=float(moved),
+                frozen_steps=frozen)
+
+    # (3) 16 candidates x 30 steps, batched and serial
+    c16 = mup_space().sample_n(16, seed=0)
+    kw16 = dict(kw, steps=30)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b16, paths["sweep_16"] = sweep_counts(
+        ops, "batched sweep, 16 candidates x 30 steps",
+        lambda: tuning.train_proxy_batched(cfg, c16, **kw16),
+        step_launches(cfg, 30, grouped=True))
+    t_bat = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    s16 = tuning.train_proxy_serial(cfg, c16, **kw16)
+    torch.cuda.synchronize()
+    t_ser = time.perf_counter() - t0
+    both = np.isfinite(b16.curves) & np.isfinite(s16.curves)
+    rate_b, rate_s = 16 * b16.steps_run / t_bat, 16 * 30 / t_ser
+    wall, busy, n_launch, top = busy_profile(
+        lambda: tuning.train_proxy_batched(cfg, c16, **dict(kw16, steps=5)))
+    swall, sbusy, _, _ = busy_profile(
+        lambda: tuning.train_proxy_serial(cfg, c16[:4], **dict(kw16, steps=5)))
+    log(f"[sweep] 16 candidates x 30 steps (sample_n(16, 0)): batched {t_bat:.2f} s "
+        f"({rate_b:.1f} candidate-steps/s), serial {t_ser:.2f} s ({rate_s:.1f}); speedup "
+        f"{rate_b / rate_s:.2f}x (the reference's bar speedup>=4x, printed, not held); "
+        f"{int(both.sum())} step losses finite in both, max rel diff "
+        f"{np.abs(b16.curves[both] / s16.curves[both] - 1).max():.3g}; peak memory "
+        f"{peak:.2f} GiB; card busy {busy / wall:.1%} of 5 batched steps under the "
+        f"profiler ({busy:.1f} of {wall:.1f} ms, {n_launch} launches), {sbusy / swall:.1%} "
+        f"of the serial loop's")
+    for k, ms, cnt in top:
+        log(f"[sweep]   {ms:9.3f} ms  x{cnt:<5d} {k}")
+    per = [float(np.abs(b16.curves[both[:, i], i] / s16.curves[both[:, i], i] - 1).max())
+           if both[:, i].any() else float("nan") for i in range(16)]
+    log(f"[sweep]   by candidate, max rel diff batched/serial {np.round(per, 6).tolist()}; "
+        f"last losses {np.round(b16.curves[-1], 3).tolist()}")
+    # does the gap move the ranking that tune() reads? (printed, not held)
+    fin16 = np.isfinite(b16.losses) & np.isfinite(s16.losses)
+    idx = np.flatnonzero(fin16)
+    order_b = idx[np.argsort(b16.losses[fin16], kind="stable")].tolist()
+    order_s = idx[np.argsort(s16.losses[fin16], kind="stable")].tolist()
+    rank_b = {c: r for r, c in enumerate(order_b)}
+    rank_s = {c: r for r, c in enumerate(order_s)}
+    pairs = list(itertools.combinations(order_b, 2))
+    discordant = sum((rank_b[a] - rank_b[c]) * (rank_s[a] - rank_s[c]) < 0 for a, c in pairs)
+    ranking = dict(best_batched=b16.best_index, best_serial=s16.best_index,
+                   same_finite=bool(np.array_equal(np.isfinite(b16.losses),
+                                                   np.isfinite(s16.losses))),
+                   order_batched=order_b, order_serial=order_s,
+                   discordant_pairs=int(discordant), pairs=len(pairs))
+    log(f"[sweep]   ranking of sample_n(16, 0) by score: best batched {b16.best_index}, "
+        f"serial {s16.best_index} ({'same' if b16.best_index == s16.best_index else 'DIFFER'}); "
+        f"finite scores {'the same set' if ranking['same_finite'] else 'DIFFER'} "
+        f"({len(idx)} in both); order batched {order_b}, serial {order_s}: "
+        f"{discordant} of {len(pairs)} pairs swapped (printed, not held)")
+    info.update(candidate_steps_per_s=rate_b, serial_candidate_steps_per_s=rate_s,
+                rel_by_candidate=per, ranking=ranking,
+                speedup=rate_b / rate_s, peak_gib=peak, busy_share=busy / wall,
+                serial_busy_share=sbusy / swall, batched_s=t_bat, serial_s=t_ser)
+
+    # (4) Algorithm 1 through Experiment, target at full width
+    exp = Experiment.from_config("mup-gpt", smoke=False)
+    proxy = exp.proxy(0.25, min_d_head=64)
+    lrs = (1e-3, 1e-2, 1e-1)
+    cc, paths["algorithm1_coord_check"] = sweep_counts(
+        ops, "coord_check over 3 lrs at widths 256/512/1024",
+        lambda: proxy.coord_check(lrs=lrs, widths=(1.0, 2.0, 4.0)),
+        # per width and step: the batched step's launches, and B1 and B3 once
+        # more for the initial params' activations (ungrouped, no backward)
+        {GROUPED[0]: 9 * 17, GROUPED[1]: 9 * 17, "rmsnorm": 9 * 17, "ce_fwd": 18,
+         "ce_bwd": 9})
+    slopes = {lr: cc.growth("logits.delta", candidate=i) for i, lr in enumerate(lrs)}
+    log(f"[sweep] coord check at d_model {sorted(cc.records)}: logits.delta slope by lr "
+        f"{ {lr: round(s, 4) for lr, s in slopes.items()} } (lr 1e-2 held < "
+        f"{COORD_SLOPE_MAX})")
+    if not slopes[1e-2] < COORD_SLOPE_MAX:
+        raise AssertionError(f"coord check: logits.delta slope {slopes[1e-2]} at lr 1e-2")
+    t0 = time.perf_counter()
+    tuned, paths["algorithm1_tune"] = sweep_counts(
+        ops, "tune(n_samples=16, steps=30)", lambda: proxy.tune(n_samples=16, steps=30),
+        step_launches(cfg, 30, grouped=True))
+    t_tune = time.perf_counter() - t0
+    target = proxy.transfer(exp)
+    out, paths["algorithm1_train"] = sweep_counts(
+        ops, "the target trained 10 steps", lambda: target.train(steps=10, log_every=0),
+        step_launches(exp.cfg, 10, grouped=False))
+    losses = out["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the target's losses {losses} are not finite and falling")
+    h = tuned.best
+    log(f"[sweep] tune: {tuned.steps_run} steps in {t_tune:.2f} s, best lr={h.lr:.3e} "
+        f"sigma={h.sigma:g} alpha_output={h.alpha_output:g} alpha_attn={h.alpha_attn:g} "
+        f"alpha_embed={h.alpha_embed:g} (score {tuned.best_loss:.4f}); transferred to d_model "
+        f"{exp.cfg.d_model}: losses {np.round(losses, 4).tolist()}")
+    info.update(coord_slopes={str(k): v for k, v in slopes.items()},
+                tuned={k: float(getattr(h, k)) for k in ("lr", "sigma", "alpha_output",
+                                                         "alpha_attn", "alpha_embed")},
+                target_losses=losses, tune_s=t_tune)
+
+    # (5) Fig. 1: the best lr by width under µP (printed, not held)
+    grid = [5e-3 * 2 ** k for k in range(8)]
+    fig1 = {}
+    paths["fig1"] = dict.fromkeys(ops.launch_counts(), 0)
+    for f in (0.25, 0.5, 1.0):
+        wcfg = get_config("mup-gpt").scaled(f, min_d_head=64)
+        res, counts = sweep_counts(
+            ops, f"Fig. 1 sweep at d_model {wcfg.d_model}",
+            lambda: tuning.train_proxy_batched(wcfg, tuning.grid_candidates(lr=grid),
+                                               **dict(kw, steps=20)),
+            step_launches(wcfg, 20, grouped=True))
+        for k, v in counts.items():
+            paths["fig1"][k] += v
+        fig1[wcfg.d_model] = res.losses.tolist()
+        log(f"[sweep] Fig. 1, d_model {wcfg.d_model}: scores by lr "
+            f"{ {f'{lr:.3g}': round(s, 4) for lr, s in zip(grid, res.losses)} }; best lr "
+            f"{grid[res.best_index]:.3g}")
+    info["fig1"] = {str(w): v for w, v in fig1.items()}
+    return rows, paths, info
 
 # ---------------------------------------------------------------------------
 # what the compiler made of the flash kernels
@@ -3516,6 +3944,9 @@ def main():
     done("train --amp bf16")
     amp8_launches, amp8 = train_phase(ops, quant, amp="int8", control_losses=train["losses"])
     done("train --amp int8")
+    sweep_rows, sweep_launches, sweep = sweep_phase(ops, rn, ref)
+    rows += sweep_rows
+    done("sweep")
     serve["profile"] = profile_phase(cfg, Model, Engine, EngineConfig)
     dyn["profile"] = profile_phase(cfg, Model, Engine, EngineConfig,
                                    dynamic=(DynamicEngine, 64))
@@ -3534,7 +3965,8 @@ def main():
                    **{path: launches[row["name"]] for path, launches in spec_launches.items()},
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]],
-                   "train_amp_int8": amp8_launches[row["name"]]}
+                   "train_amp_int8": amp8_launches[row["name"]],
+                   **{path: launches[row["name"]] for path, launches in sweep_launches.items()}}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
         only = {"flash_decode_multi": ("serve_dynamic", "serve_spec", "serve_spec_dynamic",
@@ -3542,9 +3974,13 @@ def main():
                 "flash_decode_int8": ("serve_int8", "serve_int8_static", "serve_spec_int8"),
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8",
-                                "spec_copy_train"),
-                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train"),
-                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train"),
+                                "spec_copy_train", "sweep_serial", "algorithm1_train"),
+                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train",
+                           *SWEEP_PATHS),
+                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train",
+                           *SWEEP_PATHS),
+                "rmsnorm_grouped": GROUPED_PATHS,
+                "rmsnorm_bwd_grouped": GROUPED_PATHS,
                 "flash_fwd_int8": ("train_amp_int8",),
                 "flash_bwd_dq_int8": ("train_amp_int8",),
                 "flash_bwd_dkv_int8": ("train_amp_int8",),
@@ -3578,6 +4014,7 @@ def main():
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
     log(json.dumps({"train_amp_int8": amp8}))
+    log(json.dumps({"sweep": sweep}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

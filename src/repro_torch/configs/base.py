@@ -121,6 +121,17 @@ class ModelConfig:
             name=f"{self.name}@{width_factor}x",
         )
 
+    def proxy(self, width_factor: float = 0.25, min_d_head: int = 32) -> "ModelConfig":
+        """The muTransfer proxy model (Algorithm 1, step 2)."""
+        return self.scaled(width_factor, min_d_head=min_d_head)
+
+    def hp_space(self):
+        """The muTransferable HP space of this config's parametrization
+        (per-rule: u-µP drops the sigma axis).  Resolved via the registry."""
+        from repro_torch.core.parametrization import resolve  # lazy: avoid cycle
+
+        return resolve(self.parametrization).hp_space()
+
     def as_base(self) -> "ModelConfig":
         """Re-anchor the muP base shape at this config's own widths."""
         return self.replace(

@@ -1,5 +1,5 @@
-"""Coordinate checking (App. D.1, Fig. 5): the port's single-candidate form
-of ``repro.core.coord_check``.
+"""Coordinate checking (App. D.1, Fig. 5), batched over learning rates: the
+port's counterpart of ``repro.core.coord_check``.
 
 Train a family of models differing only in width for a few steps and
 record the average coordinate size (mean |x|) of every logged activation,
@@ -10,9 +10,15 @@ blow up.
 The harness is model-agnostic: ``make_model(width)`` returns ``(params,
 meta, loss_fn)`` with ``params`` a flat ``{name: tensor}`` dict, ``meta``
 the model's meta, and ``loss_fn(params, batch)`` returning ``(loss, acts)``,
-``acts`` a dict of named activation tensors.  Widths cannot share a step:
-each trains on its own.  The reference's batched form (every learning-rate
-candidate of a sweep at once) comes with the HP sweep.
+``acts`` a dict of named activation tensors.  Widths cannot share a step
+(shapes differ), but learning-rate candidates at one width can:
+:func:`coord_check_batched` trains N of them at once from one init on one
+stream of batches, their params and moments stacked on a leading axis, the
+forward under ``torch.func.vmap`` and one backward for all (as
+core/tuning.py's engine does).  :func:`coord_check` is its one-lr view; a
+batch of one candidate calls ``loss_fn`` directly, which is what a vmap over
+one computes, so a single-lr check runs on any path the model does
+(flash attention under ``cfg.amp`` has no candidate axis yet).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.optim.optimizer import Optimizer, apply_updates
@@ -45,6 +52,37 @@ class CoordCheckResult:
         return _loglog_slope(widths, ys)
 
 
+@dataclasses.dataclass
+class BatchedCoordCheckResult:
+    """Coord-check records for N learning rates trained at once.
+
+    records[width][t][act_name] is an ``(N,)`` array — one value per
+    candidate.  ``lrs`` names the candidate axis.
+    """
+
+    lrs: Sequence[float]
+    records: Dict[int, List[Dict[str, np.ndarray]]]
+
+    def growth(self, act_name: str, candidate: int = 0, t: int = -1) -> float:
+        widths = sorted(self.records)
+        ys = []
+        for w in widths:
+            recs = self.records[w]
+            step = recs[t if t >= 0 else len(recs) + t]
+            ys.append(max(float(step[act_name][candidate]), 1e-30))
+        return _loglog_slope(widths, ys)
+
+    def candidate_view(self, candidate: int) -> CoordCheckResult:
+        """Single-candidate slice with the classic CoordCheckResult schema."""
+        return CoordCheckResult(records={
+            w: [
+                {k: float(v[candidate]) for k, v in step.items()}
+                for step in recs
+            ]
+            for w, recs in self.records.items()
+        })
+
+
 def _loglog_slope(widths: Sequence[int], ys: Sequence[float]) -> float:
     """Least-squares slope of log2(ys) against log2(widths), in float64."""
     xs = [math.log2(w) for w in widths]
@@ -54,8 +92,81 @@ def _loglog_slope(widths: Sequence[int], ys: Sequence[float]) -> float:
     return sum((x - xbar) * (y - ybar) for x, y in zip(xs, ly)) / denom
 
 
-def _coord_size(x: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(x.float()))
+def _coord_sizes(x: torch.Tensor) -> torch.Tensor:
+    """(N,) mean |x| of each candidate of a stacked (N, ...) tensor."""
+    return torch.mean(torch.abs(x.float()).reshape(x.shape[0], -1), dim=1)
+
+
+def _over_candidates(loss_fn, n: int):
+    """``loss_fn(params, batch)`` over params stacked on a leading axis of
+    n: ``torch.func.vmap``, or for one candidate the call itself with the
+    axis put back."""
+    if n > 1:
+        return torch.func.vmap(loss_fn, in_dims=(0, None))
+
+    def one(params, batch):
+        loss, acts = loss_fn({k: p[0] for k, p in params.items()}, batch)
+        return loss[None], {k: v[None] for k, v in acts.items()}
+
+    return one
+
+
+def coord_check_batched(
+    make_model: Callable[[int], Tuple[Dict[str, torch.Tensor], Any, Callable]],
+    widths: Sequence[int],
+    batches: Sequence[Any],
+    parametrization,
+    optimizer: str = "adam",
+    lrs: Sequence[float] = (1e-2,),
+    seed: int = 0,
+) -> BatchedCoordCheckResult:
+    """Run the coordinate check over ``widths`` x ``lrs``, training on
+    ``batches``.
+
+    make_model(width) -> (params, meta, loss_fn) where
+    loss_fn(params, batch) -> (loss, acts_dict).  All LR candidates start
+    from the same init and see the same batches; each evolves its own
+    stacked (params, opt state) copy.  The stats of a step are those of the
+    params *before* its update (Fig. 5 logs x_t pre-update): per activation
+    its mean |x| and, as ``"<name>.delta"``, the mean |x_t - x_0| on the
+    same batch (which removes the µP init-GP artifact: the readout logits
+    are Theta(1/sqrt(n)) at init by design, but their *updates* must be
+    Theta(1)), and ``"__param_l1_drift__"``, the summed |params - params_0|.
+    ``seed`` is accepted for the reference's signature; nothing here draws.
+    """
+    del seed
+    n = len(lrs)
+    records: Dict[int, List[Dict[str, np.ndarray]]] = {}
+    for width in widths:
+        p0, meta, loss_fn = make_model(width)
+        opt = Optimizer.create(optimizer, lr=0.0, parametrization=parametrization,
+                               meta=meta)
+        dev = next(iter(p0.values())).device
+        lr_vec = torch.tensor(list(lrs), dtype=torch.float32, device=dev)
+        params = {k: p.detach()[None].expand(n, *p.shape).clone() for k, p in p0.items()}
+        state = opt.init(params)
+        batched = _over_candidates(loss_fn, n)
+        per_step: List[Dict[str, np.ndarray]] = []
+        for batch in batches:
+            leaves = {k: p.requires_grad_(True) for k, p in params.items()}
+            loss, acts = batched(leaves, batch)
+            grads = dict(zip(leaves, torch.autograd.grad(loss.sum(),
+                                                         list(leaves.values()))))
+            params = {k: p.detach() for k, p in leaves.items()}
+            with torch.no_grad():
+                _, acts0 = loss_fn(p0, batch)   # the initial params: shared
+                rec = {k: _coord_sizes(v) for k, v in acts.items()}
+                for k, v in acts.items():
+                    rec[f"{k}.delta"] = _coord_sizes(v - acts0[k][None])
+                rec["__param_l1_drift__"] = sum(
+                    torch.sum(torch.abs(params[k] - p0[k][None]).reshape(n, -1), dim=1)
+                    for k in params)
+                updates, state = opt.update(grads, state, params, lr=lr_vec)
+                params = apply_updates(params, updates)
+            per_step.append({k: v.detach().cpu().numpy().astype(np.float32)
+                             for k, v in rec.items()})
+        records[width] = per_step
+    return BatchedCoordCheckResult(lrs=list(lrs), records=records)
 
 
 def coord_check(
@@ -67,40 +178,10 @@ def coord_check(
     lr: float = 1e-2,
     seed: int = 0,
 ) -> CoordCheckResult:
-    """Run the coordinate check over ``widths``, training on ``batches``.
-
-    Each width starts from ``make_model(width)``'s params and takes one
-    optimizer step per batch.  The stats of a step are those of the params
-    *before* its update (Fig. 5 logs x_t pre-update): per activation its
-    mean |x| and, as ``"<name>.delta"``, the mean |x_t - x_0| on the same
-    batch (which removes the µP init-GP artifact: the readout logits are
-    Theta(1/sqrt(n)) at init by design, but their *updates* must be
-    Theta(1)), and ``"__param_l1_drift__"``, the summed |params - params_0|.
-    ``seed`` is accepted for the reference's signature; nothing here draws.
-    """
-    del seed
-    records: Dict[int, List[Dict[str, float]]] = {}
-    for width in widths:
-        p0, meta, loss_fn = make_model(width)
-        opt = Optimizer.create(optimizer, lr=lr, parametrization=parametrization,
-                               meta=meta)
-        params = {n: p.detach().clone() for n, p in p0.items()}
-        state = opt.init(params)
-        per_step: List[Dict[str, float]] = []
-        for batch in batches:
-            leaves = {n: p.requires_grad_(True) for n, p in params.items()}
-            loss, acts = loss_fn(leaves, batch)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-            params = {n: p.detach() for n, p in leaves.items()}
-            with torch.no_grad():
-                _, acts0 = loss_fn(p0, batch)
-                rec = {k: _coord_size(v) for k, v in acts.items()}
-                for k, v in acts.items():
-                    rec[f"{k}.delta"] = _coord_size(v - acts0[k])
-                rec["__param_l1_drift__"] = sum(
-                    torch.sum(torch.abs(params[n] - p0[n])) for n in params)
-                updates, state = opt.update(grads, state, params)
-                params = apply_updates(params, updates)
-            per_step.append({k: float(v) for k, v in rec.items()})
-        records[width] = per_step
-    return CoordCheckResult(records=records)
+    """Single-LR coordinate check (classic API) — a one-candidate batch of
+    :func:`coord_check_batched`, whose docstring says what is recorded."""
+    res = coord_check_batched(
+        make_model, widths, batches, parametrization,
+        optimizer=optimizer, lrs=(lr,), seed=seed,
+    )
+    return res.candidate_view(0)

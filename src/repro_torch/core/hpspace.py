@@ -8,8 +8,10 @@ per-candidate ``"runtime"`` scalar, a ``"shared"`` structural value, or
 ``"external"``), where :func:`repro_torch.core.transfer.transfer` copies it
 (``dest``) and its default proxy-sweep candidates (``search``).  From the
 axis list the rest is generated: the frozen :class:`HParams` candidate, the
-``MU_TRANSFERABLE`` / ``NOT_TRANSFERABLE`` sets and the transfer plan.  The
-reference's sampling and grid methods arrive with the port's sweep.
+``MU_TRANSFERABLE`` / ``NOT_TRANSFERABLE`` sets, the transfer plan, the
+sweep's sampling and grids (``sample_n`` draws from
+``np.random.RandomState`` exactly as the reference does, so one seed gives
+the same candidates in both) and ``core.hp.RuntimeHP``'s leaves.
 
 Parametrizations own their HP space: ``AbcParametrization.hp_space()``.
 µP/SP/NTK share :func:`mup_space`; u-µP uses :func:`umup_space`, which fixes
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -142,14 +144,17 @@ HParams = _make_hparams_cls(HP_AXES)
 
 
 class HPSpace:
-    """An ordered set of :class:`HPAxis` with validation and the transfer
-    plan."""
+    """An ordered set of :class:`HPAxis` with sampling, validation and the
+    transfer plan."""
 
     def __init__(self, name: str, axes: Sequence[HPAxis] = HP_AXES):
         self.name = name
         self.axes: Dict[str, HPAxis] = {a.name: a for a in axes}
 
     # -- introspection -----------------------------------------------------
+    def names(self) -> Tuple[str, ...]:
+        return tuple(self.axes)
+
     def axis(self, name: str) -> HPAxis:
         try:
             return self.axes[name]
@@ -158,6 +163,20 @@ class HPSpace:
                 f"unknown HP axis {name!r}; {self.name} space has "
                 f"{sorted(self.axes)}"
             ) from None
+
+    def defaults(self) -> Dict[str, Any]:
+        return {a.name: a.default for a in self.axes.values()}
+
+    def runtime_names(self) -> Tuple[str, ...]:
+        return tuple(a.name for a in self.axes.values() if a.engine == "runtime")
+
+    def shared_names(self) -> Tuple[str, ...]:
+        return tuple(a.name for a in self.axes.values() if a.engine == "shared")
+
+    def external_names(self) -> Tuple[str, ...]:
+        return tuple(
+            a.name for a in self.axes.values() if a.engine == "external"
+        )
 
     def transferable_names(self) -> Tuple[str, ...]:
         return tuple(a.name for a in self.axes.values() if a.transferable)
@@ -174,11 +193,70 @@ class HPSpace:
             merged[a.name] = a
         return HPSpace(self.name, tuple(merged.values()))
 
+    def swept_axes(self) -> Tuple[HPAxis, ...]:
+        return tuple(
+            a for a in self.axes.values()
+            if a.search is not None and not a.fixed
+        )
+
+    def with_search(self, **search: Sequence[Any]) -> "HPSpace":
+        """A copy with some axes' sweep candidates replaced."""
+        out = []
+        for name, cands in search.items():
+            out.append(self._sweepable(name).replace(search=tuple(cands)))
+        return self.replace_axes(*out)
+
     def fix(self, name: str, **extra) -> "HPSpace":
         """A copy with ``name`` pinned at its default (removed from sweeps)."""
         return self.replace_axes(
             self.axis(name).replace(search=None, fixed=True, **extra)
         )
+
+    def _sweepable(self, name: str) -> HPAxis:
+        ax = self.axis(name)
+        if ax.fixed:
+            raise ValueError(
+                f"HP axis {name!r} is fixed at {ax.default!r} in the "
+                f"{self.name} space and cannot be swept"
+            )
+        return ax
+
+    # -- candidate construction -------------------------------------------
+    def hparams(self, **kw) -> "HParams":
+        """An HParams with this space's defaults; unknown names are errors."""
+        for name in kw:
+            self.axis(name)
+        vals = self.defaults()
+        vals.update(kw)
+        return HParams(**vals)
+
+    def sample(self, rng: np.random.RandomState) -> "HParams":
+        """One random candidate from the per-axis search grids (one
+        ``rng.randint`` per swept axis, in axis order)."""
+        vals = self.defaults()
+        for a in self.swept_axes():
+            vals[a.name] = a.search[rng.randint(len(a.search))]
+        return HParams(**vals)
+
+    def sample_n(self, n: int, seed: int = 0) -> List["HParams"]:
+        rng = np.random.RandomState(seed)
+        return [self.sample(rng) for _ in range(n)]
+
+    def grid(
+        self, base: Optional["HParams"] = None, **fields: Sequence[Any]
+    ) -> List["HParams"]:
+        """Cartesian-product grid over the named axes (Fig. 3/4 sweep shape).
+
+        Unswept axes keep ``base``'s values (space defaults when no base).
+        Sweeping an axis the space has fixed (e.g. ``sigma`` under u-µP)
+        raises.
+        """
+        for name in fields:
+            self._sweepable(name)
+        out: List[HParams] = [base or self.hparams()]
+        for name, vals in fields.items():
+            out = [h.replace(**{name: v}) for h in out for v in vals]
+        return out
 
     # -- validation --------------------------------------------------------
     def validate(

@@ -9,10 +9,15 @@ regardless of parametrization.
 Draws come from one ``torch.Generator`` on the target device, in the
 dotted-name order of :func:`flatten_meta`; torch cannot replay JAX's PRNG,
 so the port's init is held to the reference by its statistics, not its bits.
+
+``init_candidates`` inits a sweep's N candidates stacked on a leading axis:
+candidate i from its own generator (``core.tuning.candidate_generators``,
+the counterpart of the reference's per-candidate ``fold_in`` keys) with its
+own sigma.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import torch
 
@@ -50,3 +55,19 @@ def init_params(
         name: init_one(generator, m, parametrization, sigma, dtype)
         for name, m in flatten_meta(meta).items()
     }
+
+
+def init_candidates(
+    generators: Sequence[torch.Generator],
+    meta: Any,
+    parametrization: AbcParametrization,
+    sigmas: Sequence[float],
+    dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """N candidates' flat params stacked on a leading axis: candidate i is
+    ``init_params(generators[i], ..., sigma=sigmas[i])``."""
+    if len(generators) != len(sigmas):
+        raise ValueError(f"{len(generators)} generators for {len(sigmas)} sigmas")
+    per = [init_params(g, meta, parametrization, float(s), dtype)
+           for g, s in zip(generators, sigmas)]
+    return {name: torch.stack([p[name] for p in per]) for name in per[0]}

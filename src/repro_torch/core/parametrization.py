@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 from repro_torch.core import hpspace as hpspace_lib
 from repro_torch.core.infshape import InfShape
@@ -362,3 +362,33 @@ MUP_TABLE3 = register(MuPTable3("mup_table3"))
 MUP_TABLE9 = register(MuPTable9("mup_table9"))
 NTK = register(NTKParametrization("ntk"))
 UMUP = register(UnitMuP("umup"))
+
+
+# ---------------------------------------------------------------------------
+# deprecated enum-shaped shim
+# ---------------------------------------------------------------------------
+
+
+class _ParametrizationMeta(type):
+    def __iter__(cls) -> Iterator[AbcParametrization]:
+        return iter(available_parametrizations())
+
+
+class Parametrization(metaclass=_ParametrizationMeta):
+    """Deprecated shim for the old closed enum.
+
+    ``Parametrization("mup")`` resolves through the registry;
+    ``Parametrization.MUP`` etc. are the registered singletons;
+    ``list(Parametrization)`` iterates every registered rule.  New code
+    should use :func:`resolve` / :func:`register` directly.
+    """
+
+    SP = SP
+    MUP = MUP
+    MUP_TABLE3 = MUP_TABLE3
+    MUP_TABLE9 = MUP_TABLE9
+    NTK = NTK
+    UMUP = UMUP
+
+    def __new__(cls, name) -> AbcParametrization:
+        return resolve(name)

@@ -25,7 +25,8 @@ from repro_torch.core.parametrization import resolve
 MU_TRANSFERABLE = set(mup_space().transferable_names())
 NOT_TRANSFERABLE = set(mup_space().not_transferable_names())
 
-__all__ = ["HParams", "MU_TRANSFERABLE", "NOT_TRANSFERABLE", "make_proxy", "transfer"]
+__all__ = ["HParams", "MU_TRANSFERABLE", "NOT_TRANSFERABLE", "make_proxy",
+           "reverse_transfer", "transfer"]
 
 
 def make_proxy(
@@ -70,3 +71,15 @@ def transfer(
             stacklevel=2,
         )
     return space.transfer_plan(hps)
+
+
+def reverse_transfer(hps: HParams, wide_cfg: ModelConfig, narrow_width: int):
+    """Reverse-muTransfer (App. I): replicate a large model's (in)stability
+    on a small model by simulating the wide width via the base shape.
+
+    Returns a narrow config whose *base* shape is the wide model — training
+    it reproduces the wide model's effective HPs ("simulated width")."""
+    factor = narrow_width / wide_cfg.d_model
+    narrow = wide_cfg.scaled(factor)
+    # keep base anchored at the wide model => same effective parametrization
+    return narrow.replace(name=f"{wide_cfg.name}@simwidth{wide_cfg.d_model}")

@@ -35,9 +35,12 @@ _FLASH_ARGS = (_I,) * 6 + (_F, _I, _I, _F, _I, _I, _P)
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 _SIGNATURES = {
     "repro_rmsnorm": ((_P, _P, _P, _I, _I, _F, _I, _P), _I),
-    # B2's grid for (x, g, dy, dx, rows, D, dtype): the scratch's rows
-    "repro_rmsnorm_bwd_blocks": ((_P, _P, _P, _P, _I, _I, _I), _I),
-    "repro_rmsnorm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    # B1 with a (groups, D) gain: x, g, y, rows, D, groups, eps, dtype, stream
+    "repro_rmsnorm_grouped": ((_P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    # B2's scratch rows for (x, g, dy, dx, rows, D, groups, dtype)
+    "repro_rmsnorm_bwd_blocks": ((_P, _P, _P, _P, _I, _I, _I, _I), _I),
+    # x, g, dy, dx, dgain, scratch; its rows, rows, D, groups, eps, dtype, stream
+    "repro_rmsnorm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "repro_ce_fwd": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     "repro_ce_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), _I),
     # B8: q, k, v, pos, table, q_pos, k_scale, v_scale (null but for int8

@@ -18,11 +18,19 @@
 // the TPU kernel zero-pads rows to its block, a warp past the last row here
 // simply exits.
 //
+// A gain per group (an HP sweep's candidates, each with its own norm gains,
+// batched on a leading axis): the gain is (G, D) and the rows are G equal
+// contiguous groups, row r taking gain row r / (rows / G).  Where jax.vmap
+// turns the TPU kernel's pallas_call into a grid axis over the candidates,
+// here it is one more index in the same single launch.  G = 1 is the (D,)
+// gain.
+//
 // B2 replaces src/repro/kernels/rmsnorm.py::_rmsnorm_bwd_kernel (pallas_call
 // at rmsnorm.py:92, the custom_vjp backward at :117).  With
 // r = rsqrt(mean(x^2) + eps):
 //     dx    = r (1 + g) dy - x r^3 / D * sum_j dy_j (1 + g_j) x_j
-//     dgain = sum_rows dy * x * r
+//     dgain = sum_rows dy * x * r   (with G groups: (G, D), row g summed
+//                                   over group g's rows only)
 // Like the TPU kernel it recomputes r from x instead of reading a residual.
 //
 // What bounds it: bandwidth again — x and dy are read once, dx written
@@ -50,7 +58,18 @@
 // barrier (a cooperative launch) the warps of every block sum the
 // scratch's columns, a warp a column, its lanes over the blocks, then a
 // butterfly.  The result is
-// deterministic: the same inputs give the same bits.  The scratch costs
+// deterministic: the same inputs give the same bits.
+//
+// With G groups no partial sum may mix two groups' rows.  So the work is
+// cut into G x bpg *virtual blocks*, each confined to one group (its rows
+// j*warps + warp, (j + bpg)*warps + warp, ... of that group) and owning one
+// row of the scratch; the resident blocks walk the virtual blocks in turn
+// (v = blockIdx.x, + gridDim.x, ...), flushing each one's sums before the
+// next.  bpg is the resident blocks over G (at least 1, no more than a
+// group's rows need), so at G = 1 a block is one virtual block, as before,
+// and for G above the resident blocks a block runs several.  After the
+// barrier a warp sums one (group, column) over that group's bpg scratch
+// rows in a fixed order.  The scratch costs
 // 2 * n_blocks * D * 4 bytes of traffic (~1 MB at the training shape, 4096
 // x 1024 f32, against 50 MB), in L2.
 #include <cooperative_groups.h>
@@ -71,10 +90,11 @@ constexpr int kWarpsPerBlock = 4;
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ g,
-               T* __restrict__ y, int rows, int D, float eps) {
+               T* __restrict__ y, int rows, int D, int rpg, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp leaves together
+  g += (size_t)(row / rpg) * D;  // the row's group's gain (rpg = rows at G = 1)
   const T* xr = x + row * D;
   T* yr = y + row * D;
 
@@ -94,25 +114,35 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ g,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y); the gain is always float32.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int repro_rmsnorm(const void* x, const void* g, void* y, int rows,
-                             int D, float eps, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (x and y); the gain is always float32,
+// (groups, D), and groups divides rows.  Returns cudaGetLastError() after
+// the launch (0 on success).
+extern "C" int repro_rmsnorm_grouped(const void* x, const void* g, void* y, int rows,
+                                     int D, int groups, float eps, int dtype,
+                                     void* stream) {
+  if (groups < 1 || rows % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rpg = rows / groups;
   const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(kWarpsPerBlock * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     rmsnorm_kernel<float><<<grid, block, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<float*>(y), rows, D, eps);
+        static_cast<float*>(y), rows, D, rpg, eps);
   } else if (dtype == 1) {
     rmsnorm_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(g),
-        static_cast<__nv_bfloat16*>(y), rows, D, eps);
+        static_cast<__nv_bfloat16*>(y), rows, D, rpg, eps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The (D,) gain: one group (B1's serve path).
+extern "C" int repro_rmsnorm(const void* x, const void* g, void* y, int rows,
+                             int D, float eps, int dtype, void* stream) {
+  return repro_rmsnorm_grouped(x, g, y, rows, D, 1, eps, dtype, stream);
 }
 
 namespace {
@@ -172,138 +202,151 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // NV > 0: the row in registers, NV 16-byte pieces a lane at most; NV = 0:
-// the scalar path.  Launched cooperatively with at most the resident blocks.
+// the scalar path.  Launched cooperatively with at most the resident blocks,
+// which walk the groups x bpg virtual blocks (the scratch's rows) in turn.
 template <typename T, int NV>
 __global__ void __launch_bounds__(kBwdMaxWarps * 32)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g,
+rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ g0,
                    const T* __restrict__ dy, T* __restrict__ dx,
                    float* __restrict__ partial, float* __restrict__ dgain, int rows,
-                   int D, float eps) {
+                   int D, int groups, int bpg, float eps) {
   extern __shared__ float acc[];  // (warps, D): each warp's dgain sums
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* mine = acc + (size_t)warp * D;
-  const long long stride = (long long)gridDim.x * warps;
-  const long long row0 = (long long)blockIdx.x * warps + warp;
+  const long long rpg = rows / groups;
+  const long long stride = (long long)bpg * warps;
+  const int n_virtual = groups * bpg;
 
-  if constexpr (NV > 0) {
-    constexpr int V = 16 / sizeof(T);
-    const int pieces = D / V;
-    // this lane's share of a row, pieces lane, lane + 32, ... (zeros past
-    // D or past the last row)
-    auto load_row = [&](long long row, float (&xv)[NV][V], float (&yv)[NV][V]) {
+  for (int vb = blockIdx.x; vb < n_virtual; vb += gridDim.x) {
+    const int grp = vb / bpg;
+    const float* __restrict__ g = g0 + (size_t)grp * D;  // this group's gain
+    const long long end = (grp + 1) * rpg;                // past its last row
+    const long long row0 = grp * rpg + (long long)(vb % bpg) * warps + warp;
+
+    if constexpr (NV > 0) {
+      constexpr int V = 16 / sizeof(T);
+      const int pieces = D / V;
+      // this lane's share of a row, pieces lane, lane + 32, ... (zeros past
+      // D or past the last row)
+      auto load_row = [&](long long row, float (&xv)[NV][V], float (&yv)[NV][V]) {
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int c = (lane + 32 * i) * V;
-        if (row < rows && lane + 32 * i < pieces) {
-          load16(x + row * D + c, xv[i]);
-          load16(dy + row * D + c, yv[i]);
-        } else {
+        for (int i = 0; i < NV; ++i) {
+          const int c = (lane + 32 * i) * V;
+          if (row < end && lane + 32 * i < pieces) {
+            load16(x + row * D + c, xv[i]);
+            load16(dy + row * D + c, yv[i]);
+          } else {
 #pragma unroll
-          for (int e = 0; e < V; ++e) xv[i][e] = yv[i][e] = 0.f;
+            for (int e = 0; e < V; ++e) xv[i][e] = yv[i][e] = 0.f;
+          }
         }
-      }
-    };
-    float dg[NV][V], xv[NV][V], yv[NV][V];
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-#pragma unroll
-      for (int e = 0; e < V; ++e) dg[i][e] = 0.f;
-    load_row(row0, xv, yv);
-    for (long long row = row0; row < rows; row += stride) {
-      float xn[NV][V], yn[NV][V];
-      load_row(row + stride, xn, yn);   // the next row's loads fly during this row
-      float ss = 0.f, dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        if (lane + 32 * i >= pieces) continue;
-        float w[V];
-        load_gain<V>(g + (lane + 32 * i) * V, w);
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          ss += xv[i][e] * xv[i][e];
-          dot += yv[i][e] * (1.f + w[e]) * xv[i][e];
-        }
-      }
-      ss = warp_sum(ss);
-      dot = warp_sum(dot);
-      const float r = rsqrtf(ss / (float)D + eps);
-      const float k = r * r * r / (float)D * dot;
-      T* dxr = dx + row * D;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        if (lane + 32 * i >= pieces) continue;
-        float w[V], out[V];
-        load_gain<V>(g + (lane + 32 * i) * V, w);
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          out[e] = r * ((1.f + w[e]) * yv[i][e]) - xv[i][e] * k;
-          dg[i][e] += yv[i][e] * xv[i][e] * r;
-        }
-        store16(dxr + (lane + 32 * i) * V, out);
-      }
+      };
+      float dg[NV][V], xv[NV][V], yv[NV][V];
 #pragma unroll
       for (int i = 0; i < NV; ++i)
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
-          xv[i][e] = xn[i][e];
-          yv[i][e] = yn[i][e];
+        for (int e = 0; e < V; ++e) dg[i][e] = 0.f;
+      load_row(row0, xv, yv);
+      for (long long row = row0; row < end; row += stride) {
+        float xn[NV][V], yn[NV][V];
+        load_row(row + stride, xn, yn);   // the next row's loads fly during this row
+        float ss = 0.f, dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          if (lane + 32 * i >= pieces) continue;
+          float w[V];
+          load_gain<V>(g + (lane + 32 * i) * V, w);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            ss += xv[i][e] * xv[i][e];
+            dot += yv[i][e] * (1.f + w[e]) * xv[i][e];
+          }
         }
-    }
+        ss = warp_sum(ss);
+        dot = warp_sum(dot);
+        const float r = rsqrtf(ss / (float)D + eps);
+        const float k = r * r * r / (float)D * dot;
+        T* dxr = dx + row * D;
 #pragma unroll
-    for (int i = 0; i < NV; ++i)
-      if (lane + 32 * i < pieces)
+        for (int i = 0; i < NV; ++i) {
+          if (lane + 32 * i >= pieces) continue;
+          float w[V], out[V];
+          load_gain<V>(g + (lane + 32 * i) * V, w);
 #pragma unroll
-        for (int e = 0; e < V; e += 4)
-          *reinterpret_cast<float4*>(mine + (lane + 32 * i) * V + e) =
-              make_float4(dg[i][e], dg[i][e + 1], dg[i][e + 2], dg[i][e + 3]);
-  } else {
-    // a warp's row of acc is touched only by its own lanes (lane c owns
-    // columns c, c + 32, ...) until the __syncthreads below
-    for (int c = lane; c < D; c += 32) mine[c] = 0.f;
-    for (long long row = row0; row < rows; row += stride) {
-      const T* xr = x + row * D;
-      const T* dyr = dy + row * D;
-      T* dxr = dx + row * D;
-      float ss = 0.f, dot = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float xv = to_f32(xr[c]);
-        ss += xv * xv;
-        dot += to_f32(dyr[c]) * (1.f + g[c]) * xv;
+          for (int e = 0; e < V; ++e) {
+            out[e] = r * ((1.f + w[e]) * yv[i][e]) - xv[i][e] * k;
+            dg[i][e] += yv[i][e] * xv[i][e] * r;
+          }
+          store16(dxr + (lane + 32 * i) * V, out);
+        }
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            xv[i][e] = xn[i][e];
+            yv[i][e] = yn[i][e];
+          }
       }
-      ss = warp_sum(ss);
-      dot = warp_sum(dot);
-      const float r = rsqrtf(ss / (float)D + eps);
-      const float k = r * r * r / (float)D * dot;
-      for (int c = lane; c < D; c += 32) {
-        const float xv = to_f32(xr[c]);
-        const float dyv = to_f32(dyr[c]);
-        dxr[c] = from_f32<T>(r * ((1.f + g[c]) * dyv) - xv * k);
-        mine[c] += dyv * xv * r;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (lane + 32 * i < pieces)
+#pragma unroll
+          for (int e = 0; e < V; e += 4)
+            *reinterpret_cast<float4*>(mine + (lane + 32 * i) * V + e) =
+                make_float4(dg[i][e], dg[i][e + 1], dg[i][e + 2], dg[i][e + 3]);
+    } else {
+      // a warp's row of acc is touched only by its own lanes (lane c owns
+      // columns c, c + 32, ...) until the __syncthreads below
+      for (int c = lane; c < D; c += 32) mine[c] = 0.f;
+      for (long long row = row0; row < end; row += stride) {
+        const T* xr = x + row * D;
+        const T* dyr = dy + row * D;
+        T* dxr = dx + row * D;
+        float ss = 0.f, dot = 0.f;
+        for (int c = lane; c < D; c += 32) {
+          const float xv = to_f32(xr[c]);
+          ss += xv * xv;
+          dot += to_f32(dyr[c]) * (1.f + g[c]) * xv;
+        }
+        ss = warp_sum(ss);
+        dot = warp_sum(dot);
+        const float r = rsqrtf(ss / (float)D + eps);
+        const float k = r * r * r / (float)D * dot;
+        for (int c = lane; c < D; c += 32) {
+          const float xv = to_f32(xr[c]);
+          const float dyv = to_f32(dyr[c]);
+          dxr[c] = from_f32<T>(r * ((1.f + g[c]) * dyv) - xv * k);
+          mine[c] += dyv * xv * r;
+        }
       }
     }
-  }
-  __syncthreads();
-  // the block's warps in order into its row of the scratch
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < warps; ++w) s += acc[(size_t)w * D + c];
-    partial[(size_t)blockIdx.x * D + c] = s;
+    __syncthreads();
+    // the block's warps in order into the virtual block's row of the scratch
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float s = 0.f;
+      for (int w = 0; w < warps; ++w) s += acc[(size_t)w * D + c];
+      partial[(size_t)vb * D + c] = s;
+    }
+    __syncthreads();  // acc is the next virtual block's
   }
   __threadfence();
   cg::this_grid().sync();
 
-  // dgain[c] = the scratch's column c summed in a fixed order: a warp a
-  // column, lane l adding the blocks l, l + 32, ... in turn, then a
-  // butterfly over the lanes (read through L2: other blocks wrote the
-  // scratch)
-  for (long long c = row0; c < D; c += stride) {
+  // dgain[grp][c] = the scratch's column c over the group's bpg rows, summed
+  // in a fixed order: a warp a (group, column), lane l adding the rows l,
+  // l + 32, ... in turn, then a butterfly over the lanes (read through L2:
+  // other blocks wrote the scratch)
+  const long long tasks = (long long)groups * D;
+  for (long long t = (long long)blockIdx.x * warps + warp; t < tasks;
+       t += (long long)gridDim.x * warps) {
+    const float* col = partial + (size_t)(t / D) * bpg * D + t % D;
     float s = 0.f;
 #pragma unroll 4
-    for (int b = lane; b < (int)gridDim.x; b += 32) s += __ldcg(partial + (size_t)b * D + c);
+    for (int b = lane; b < bpg; b += 32) s += __ldcg(col + (size_t)b * D);
     s = warp_sum(s);
-    if (lane == 0) dgain[c] = s;
+    if (lane == 0) dgain[t] = s;
   }
 }
 
@@ -325,7 +368,8 @@ cudaError_t sm_count(int* n) {
 // its grid (the resident blocks, no more than the rows need).
 struct BwdPlan {
   const void* fn;
-  int warps, blocks;
+  int warps, blocks;   // the grid: at most the resident blocks
+  int bpg;             // virtual blocks a group (the scratch has groups x bpg rows)
   size_t smem;
 };
 
@@ -366,8 +410,9 @@ cudaError_t resident(const void* fn, int threads, size_t smem, int* per_sm) {
 }
 
 cudaError_t bwd_plan(BwdPlan* pl, const void* x, const void* g, const void* dy, const void* dx,
-                     int rows, int D, int dtype) {
-  if (rows < 1 || D < 1 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+                     int rows, int D, int groups, int dtype) {
+  if (rows < 1 || D < 1 || (dtype != 0 && dtype != 1) || groups < 1 || rows % groups != 0)
+    return cudaErrorInvalidValue;
   const uintptr_t any = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
                         reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx);
   const bool aligned = (any & 15) == 0;
@@ -380,37 +425,45 @@ cudaError_t bwd_plan(BwdPlan* pl, const void* x, const void* g, const void* dy, 
   if (e == cudaSuccess) e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long need = ((long long)rows + pl->warps - 1) / pl->warps;
+  // a group's rows over the resident blocks' share of it
+  const long long need = ((long long)(rows / groups) + pl->warps - 1) / pl->warps;
   const long long cap = (long long)per_sm * sms;
-  pl->blocks = (int)(need < cap ? need : cap);
+  const long long share = cap / groups > 0 ? cap / groups : 1;
+  pl->bpg = (int)(need < share ? need : share);
+  const long long virt = (long long)groups * pl->bpg;
+  if (virt >= (1LL << 31) || virt * D >= (1LL << 40)) return cudaErrorInvalidValue;
+  pl->blocks = (int)(virt < cap ? virt : cap);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // Rows of the f32 dgain scratch that repro_rmsnorm_bwd needs for these
-// tensors (its grid: the blocks resident at once, no more than the rows
-// need); a negative CUDA error code if it cannot launch.
+// tensors (its virtual blocks: groups x bpg); a negative CUDA error code if
+// it cannot launch.
 extern "C" int repro_rmsnorm_bwd_blocks(const void* x, const void* g, const void* dy,
-                                        const void* dx, int rows, int D, int dtype) {
+                                        const void* dx, int rows, int D, int groups,
+                                        int dtype) {
   BwdPlan pl;
-  const cudaError_t e = bwd_plan(&pl, x, g, dy, dx, rows, D, dtype);
-  return e == cudaSuccess ? pl.blocks : -static_cast<int>(e);
+  const cudaError_t e = bwd_plan(&pl, x, g, dy, dx, rows, D, groups, dtype);
+  return e == cudaSuccess ? groups * pl.bpg : -static_cast<int>(e);
 }
 
-// dtype as repro_rmsnorm (x, dy and dx share it); g and dgain float32;
-// partial is float32 (n_blocks, D) scratch, n_blocks from
+// dtype as repro_rmsnorm (x, dy and dx share it); g and dgain float32,
+// (groups, D); partial is float32 (n_blocks, D) scratch, n_blocks from
 // repro_rmsnorm_bwd_blocks for the same tensors.  One (cooperative)
 // launch; returns cudaGetLastError() after it.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* g, const void* dy,
                                  void* dx, void* dgain, void* partial,
-                                 int n_blocks, int rows, int D, float eps,
+                                 int n_blocks, int rows, int D, int groups, float eps,
                                  int dtype, void* stream) {
   BwdPlan pl;
-  cudaError_t e = bwd_plan(&pl, x, g, dy, dx, rows, D, dtype);
+  cudaError_t e = bwd_plan(&pl, x, g, dy, dx, rows, D, groups, dtype);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_blocks != pl.blocks) return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {(void*)&x, (void*)&g, (void*)&dy, &dx, &partial, &dgain, &rows, &D, &eps};
+  if (n_blocks != groups * pl.bpg) return static_cast<int>(cudaErrorInvalidValue);
+  int bpg = pl.bpg;
+  void* args[] = {(void*)&x, (void*)&g, (void*)&dy, &dx, &partial, &dgain, &rows, &D,
+                  &groups, &bpg, &eps};
   e = cudaLaunchCooperativeKernel(pl.fn, dim3(pl.blocks), dim3(pl.warps * 32), args, pl.smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -15,6 +15,15 @@ error, by environment or by shape.
 The differentiable ops (``fused_rmsnorm``, ``softmax_cross_entropy``,
 ``attention``) are ``torch.autograd.Function``s whose forward and backward
 follow the same choice: on the card the backward is a kernel too.
+
+Under ``torch.func.vmap`` (an HP sweep's candidates, stacked on a leading
+axis: core/tuning.py), B1-B4's Functions run through their ``vmap`` rules,
+the counterpart of ``jax.vmap`` turning a ``pallas_call`` into a grid axis:
+each unwraps the batch to its physical tensors and makes *one* call for all
+N candidates, which autograd then records as an ordinary node, so one
+``.backward()`` outside the vmap runs B2 and B4 once for all N as well.
+RMSNorm gets a gain per candidate (a (N, D) gain over N groups of rows);
+the cross entropy folds the candidate axis into its rows.
 ``attention_plain_flash`` is attention's kernel path over the plain
 versions of its kernels, for holding a model that runs them against one
 that rounds where they round.
@@ -30,6 +39,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
 
 IMPLS = ("auto", "kernel", "ref")
+_transforms_active = torch._C._are_functorch_transforms_active   # vmap and kin
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
@@ -121,12 +131,16 @@ def decode_attention_multi(
 
 def launch_counts() -> dict:
     """Kernel launches counted by the wrappers in this process (B2 counts
-    one per backward call; B8 and B9 count their int8-pool launches, B5-B7
-    their int8-operand launches, apart from their f32/bf16 ones;
+    one per backward call; B1 and B2 count their launches with a gain per
+    group (a sweep's candidates) apart; B8 and B9 count their int8-pool
+    launches, B5-B7 their int8-operand launches, apart from their f32/bf16
+    ones;
     ``flash_bwd_quant_int8`` and ``flash_fwd_quant_int8`` are the int8
     backward's and forward's pre-passes)."""
     return {
         "rmsnorm": rn.launches, "rmsnorm_bwd": rn.bwd_launches,
+        "rmsnorm_grouped": rn.grouped_launches,
+        "rmsnorm_bwd_grouped": rn.bwd_grouped_launches,
         "ce_fwd": ce.fwd_launches, "ce_bwd": ce.bwd_launches,
         "flash_decode": da.launches, "flash_decode_multi": da.multi_launches,
         "flash_decode_int8": da.int8_launches,
@@ -143,6 +157,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     rn.launches = rn.bwd_launches = 0
+    rn.grouped_launches = rn.bwd_grouped_launches = 0
     ce.fwd_launches = ce.bwd_launches = 0
     da.launches = da.multi_launches = 0
     da.int8_launches = da.multi_int8_launches = 0
@@ -154,15 +169,13 @@ def reset_launch_counts() -> None:
 class _RMSNorm(torch.autograd.Function):
     """B1 forward, B2 backward (or their plain versions).  Saves only
     ``(x, gain)``: the backward recomputes the row's rsqrt, as the TPU
-    kernel's custom_vjp does."""
+    kernel's custom_vjp does.  ``gain`` is (D,), or (G, D) over x's rows in
+    G equal groups (what the vmap rule hands it)."""
 
     @staticmethod
     def forward(ctx, x, gain, eps, kernel):
-        ctx.save_for_backward(x, gain)
-        ctx.eps, ctx.kernel = eps, kernel
-        if kernel:
-            return rn.rmsnorm(x, gain.float().contiguous(), eps)
-        return ref.rmsnorm_ref(x, gain, eps)
+        _RMSNormVmap.setup_context(ctx, (x, gain, eps, kernel), None)
+        return _RMSNormVmap.forward(x, gain, eps, kernel)
 
     @staticmethod
     def backward(ctx, dy):
@@ -176,6 +189,42 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dgain.to(gain.dtype), None, None
 
 
+class _RMSNormVmap(_RMSNorm):
+    """:class:`_RMSNorm` under ``torch.func`` transforms, which need the
+    ``setup_context`` form; its binding cost ~25 µs of host time a call
+    (``scripts/torch_rmsnorm_host_probe.py`` beside an NVIDIA H100 80GB
+    HBM3 at 700 W), so calls outside a transform keep the ``ctx`` form."""
+
+    @staticmethod
+    def forward(x, gain, eps, kernel):
+        if kernel:
+            return rn.rmsnorm(x, gain.float().contiguous(), eps)
+        return ref.rmsnorm_ref(x, gain, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gain, eps, kernel = inputs
+        ctx.save_for_backward(x, gain)
+        ctx.eps, ctx.kernel = eps, kernel
+
+    @staticmethod
+    def vmap(info, in_dims, x, gain, eps, kernel):
+        """N candidates in one call: x (N, ..., D) and a gain per candidate
+        (N, D), one group of rows each; a shared gain stays (D,), and an
+        unbatched x is broadcast to the N candidates."""
+        xd, gd = in_dims[:2]
+        x = x.movedim(xd, 0) if xd is not None else x.expand(info.batch_size, *x.shape)
+        if gd is not None:
+            gain = gain.movedim(gd, 0)
+        if kernel:
+            x = x.contiguous()
+        return _rmsnorm_apply(x, gain, eps, kernel), 0
+
+
+def _rmsnorm_apply(x, gain, eps, kernel):
+    return (_RMSNormVmap if _transforms_active() else _RMSNorm).apply(x, gain, eps, kernel)
+
+
 def fused_rmsnorm(x, gain, *, eps: float = 1e-6, impl: str = "auto"):
     """RMSNorm with the ``(1 + gain)`` convention, differentiable in x and
     gain.  Where no gradient is wanted (grad mode off, or neither x nor gain
@@ -186,6 +235,10 @@ def fused_rmsnorm(x, gain, *, eps: float = 1e-6, impl: str = "auto"):
         x = x.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad):
         return _RMSNorm.apply(x, gain, eps, kernel)
+    if _transforms_active():
+        # under vmap a batched tensor reports no gradient whatever its
+        # physical tensor wants: the Function's vmap rule makes the call
+        return _RMSNormVmap.apply(x, gain, eps, kernel)
     if kernel:
         return rn.rmsnorm(x, gain.float().contiguous(), eps)
     return ref.rmsnorm_ref(x, gain, eps)
@@ -193,21 +246,18 @@ def fused_rmsnorm(x, gain, *, eps: float = 1e-6, impl: str = "auto"):
 
 class _SoftmaxXent(torch.autograd.Function):
     """B3 forward, B4 backward (or their plain versions) over (N, V) logits
-    and (N,) clamped int32 labels.  The residuals are the logits, the labels
-    and the (N,) lse; labels get no gradient."""
+    and (N,) clamped int32 labels: ``(loss, lse)``, lse not differentiable.
+    The residuals are the logits, the labels and the (N,) lse; labels get
+    no gradient."""
 
     @staticmethod
     def forward(ctx, logits, labels, kernel):
-        if kernel:
-            loss, lse = ce.ce_fwd(logits, labels)
-        else:
-            loss, lse = ref.softmax_cross_entropy_ref(logits, labels)
-        ctx.save_for_backward(logits, labels, lse)
-        ctx.kernel = kernel
-        return loss
+        out = _SoftmaxXentVmap.forward(logits, labels, kernel)
+        _SoftmaxXentVmap.setup_context(ctx, (logits, labels, kernel), out)
+        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _):
         logits, labels, lse = ctx.saved_tensors
         g = g.float().contiguous()
         if ctx.kernel:
@@ -215,6 +265,45 @@ class _SoftmaxXent(torch.autograd.Function):
         else:
             dlogits = ref.softmax_cross_entropy_bwd_ref(logits, labels, lse, g)
         return dlogits, None, None
+
+
+class _SoftmaxXentVmap(_SoftmaxXent):
+    """:class:`_SoftmaxXent` in the ``setup_context`` form, for
+    ``torch.func`` transforms (as :class:`_RMSNormVmap`)."""
+
+    @staticmethod
+    def forward(logits, labels, kernel):
+        if kernel:
+            return ce.ce_fwd(logits, labels)
+        return ref.softmax_cross_entropy_ref(logits, labels)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels, kernel = inputs
+        lse = output[1]
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.kernel = kernel
+
+    @staticmethod
+    def vmap(info, in_dims, logits, labels, kernel):
+        """N candidates in one call: the candidate axis folds into the rows,
+        (N, rows, V) -> (N * rows, V), and shared labels repeat N times."""
+        ld, bd = in_dims[:2]
+        n = info.batch_size
+        logits = logits.movedim(ld, 0) if ld is not None else logits.expand(n, *logits.shape)
+        rows, V = logits.shape[1:]
+        labels = labels.movedim(bd, 0).reshape(-1) if bd is not None else labels.repeat(n)
+        x2 = logits.reshape(n * rows, V)
+        if kernel:
+            x2 = x2.contiguous()
+        loss, lse = _xent_apply(x2, labels.contiguous(), kernel)
+        return (loss.reshape(n, rows), lse.reshape(n, rows)), (0, 0)
+
+
+def _xent_apply(logits, labels, kernel):
+    return (_SoftmaxXentVmap if _transforms_active() else _SoftmaxXent).apply(
+        logits, labels, kernel)
 
 
 def softmax_cross_entropy(logits, labels, *, impl: str = "auto"):
@@ -231,7 +320,7 @@ def softmax_cross_entropy(logits, labels, *, impl: str = "auto"):
     lab2 = labels.reshape(-1).clamp(0, V - 1).to(torch.int32)
     if kernel:
         x2 = x2.contiguous()
-    return _SoftmaxXent.apply(x2, lab2, kernel).reshape(logits.shape[:-1])
+    return _xent_apply(x2, lab2, kernel)[0].reshape(logits.shape[:-1])
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -280,6 +369,12 @@ def attention(q, k, v, *, scale, causal: bool = True, window: int = 0,
     """
     if policy is not None and not policy.active:
         policy = None
+    if _transforms_active() and (policy is not None or q.is_cuda):
+        raise NotImplementedError(
+            "flash attention (B5-B7) and the amp policy have no candidate axis "
+            "yet: sweeps and batched coord checks under cfg.amp are not ported "
+            "(ROADMAP.md § A)"
+        )
     if resolve_impl(impl, q) == "ref":
         if policy is not None:
             return ref.attention_policy_ref(

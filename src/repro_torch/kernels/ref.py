@@ -758,27 +758,42 @@ def decode_attention_multi_split_ref(
     return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, d).to(q.dtype)
 
 
+def _gain_rows(gain: torch.Tensor, D: int) -> torch.Tensor:
+    """``1 + gain`` against rows laid out (G, rows / G, D): (D,) for a (D,)
+    gain, (G, 1, D) for a gain per group."""
+    w = 1.0 + gain.float()
+    return w if gain.ndim == 1 else w.reshape(-1, 1, D)
+
+
 def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """B1's plain version; ``gain`` (D,), or (G, D) over x's rows in G equal
+    contiguous groups (group i's rows take gain row i)."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps) * (1.0 + gain.float())
-    return y.to(x.dtype)
+    y = x32 * torch.rsqrt(var + eps)
+    if gain.ndim == 2:
+        D = x.shape[-1]
+        return (y.reshape(gain.shape[0], -1, D) * _gain_rows(gain, D)).reshape(
+            x.shape).to(x.dtype)
+    return (y * (1.0 + gain.float())).to(x.dtype)
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
                     eps: float = 1e-6):
     """The gradients of :func:`rmsnorm_ref`: ``(dx, dgain)``, recomputing r
     from x.  ``dx = r (1 + g) dy - x r^3 / D * sum_j dy_j (1 + g_j) x_j``,
-    ``dgain = sum_rows dy * x * r``; dx in x's dtype, dgain float32."""
+    ``dgain = sum_rows dy * x * r``; dx in x's dtype, dgain float32 shaped
+    like gain (a (G, D) gain: row i summed over group i's rows)."""
     D = x.shape[-1]
-    x32 = x.float().reshape(-1, D)
-    dy32 = dy.float().reshape(-1, D)
-    w = 1.0 + gain.float()
+    lead = (-1, D) if gain.ndim == 1 else (gain.shape[0], -1, D)
+    x32 = x.float().reshape(lead)
+    dy32 = dy.float().reshape(lead)
+    w = _gain_rows(gain, D)
     r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
     dyw = dy32 * w
     rowdot = torch.sum(dyw * x32, dim=-1, keepdim=True)
     dx = r * dyw - x32 * (r * r * r / D) * rowdot
-    dgain = torch.sum(dy32 * x32 * r, dim=0)
+    dgain = torch.sum(dy32 * x32 * r, dim=-2)
     return dx.reshape(x.shape).to(x.dtype), dgain
 
 

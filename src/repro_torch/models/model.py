@@ -108,18 +108,24 @@ class Model:
         return init_params(gen, self.meta, self.p13n, self.cfg.sigma, dtype)
 
     # ------------------------------------------------------------------
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, hp=None):
         cfg = self.cfg
         dt = self.act_dtype
         x = params["embed"][tokens.long()]
-        # the multiplier in the activation dtype, as the reference rounds it
-        m = torch.tensor(cfg.alpha_embed * mult_of(self.meta["embed"], self.p13n),
-                         dtype=dt).item()
+        mult = mult_of(self.meta["embed"], self.p13n)
+        # the multiplier in the activation dtype, as the reference rounds it:
+        # a Python float from the config, a tensor op from a sweep's RuntimeHP
+        # (a per-candidate tensor under vmap)
+        if hp is None:
+            m = torch.tensor(cfg.alpha_embed * mult, dtype=dt).item()
+        else:
+            m = torch.as_tensor(hp.alpha_embed * mult, dtype=torch.float32).to(dt)
         return x.to(dt) * m
 
-    def _readout(self, params, x):
+    def _readout(self, params, x, hp=None):
         cfg = self.cfg
-        m = cfg.alpha_output * mult_of(self.readout_meta, self.p13n)
+        alpha = cfg.alpha_output if hp is None else hp.alpha_output
+        m = alpha * mult_of(self.readout_meta, self.p13n)
         if cfg.amp:
             # the logit matmul under the mixed-precision policy, straight
             # through; master weights stay f32
@@ -140,8 +146,14 @@ class Model:
         cache: Optional[Dict] = None,
         cache_len: int = 0,
         paged=None,
+        hp=None,
     ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Logits (B, S, V) f32 and the new cache.
+
+        ``hp`` (a core.hp.RuntimeHP or None) supplies per-call forward
+        multipliers (alpha_embed / alpha_attn / alpha_output) in place of
+        the config's floats: under ``torch.func.vmap`` over a stacked one,
+        each candidate's own (core/tuning.py).
 
         ``mode="prefill"`` emits a ``cache_len``-long, identity-ordered cache
         for every layer (what the engine pages into a slot).  ``mode="decode"``
@@ -157,27 +169,28 @@ class Model:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
             positions = positions[None].expand(B, S)
         tree = unflatten(params)
-        x = self._embed(tree, tokens)
+        x = self._embed(tree, tokens, hp=hp)
         ctx = tfm.Ctx(
             positions=positions, mode=mode, cache_len=cache_len,
-            paged=paged, impl=self.impl, aligned_positions=aligned,
+            paged=paged, impl=self.impl, aligned_positions=aligned, hp=hp,
         )
         x, new_cache = tfm.run_stack(
             cfg, tree["groups"], self.layer_meta, x, ctx, cache,
         )
         x = rmsnorm(x, tree["final_norm"], cfg.norm_eps, impl=self.impl)
-        return self._readout(tree, x), new_cache
+        return self._readout(tree, x, hp=hp), new_cache
 
-    def loss_fn(self, params, batch, collect_acts: bool = False):
+    def loss_fn(self, params, batch, collect_acts: bool = False, hp=None):
         """Next-token CE.  batch: tokens (B, S), labels (B, S) (-100 = masked).
 
         The per-token CE goes through ops.softmax_cross_entropy: the chunked
         CUDA kernels on the card (never a (B, S, V) log-prob tensor or its
         autograd residual), the plain version on the CPU.  Masked rows get
         zero weight here and so a zero cotangent: their dlogits vanish.
-        ``collect_acts`` returns ``(loss, {"logits": logits})``.
+        ``collect_acts`` returns ``(loss, {"logits": logits})``; ``hp`` is
+        :meth:`forward`'s.
         """
-        logits, _ = self.forward(params, batch["tokens"], mode="train")
+        logits, _ = self.forward(params, batch["tokens"], mode="train", hp=hp)
         labels = batch["labels"]
         mask = (labels >= 0).float()
         losses = ops.softmax_cross_entropy(logits, labels, impl=self.impl)

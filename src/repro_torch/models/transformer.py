@@ -60,6 +60,15 @@ class Ctx:
                                          # layer (kv_cache.write_slots)
     aligned_positions: bool = False      # positions are 0..S-1 in every row
                                          # (the flash kernels mask by index)
+    hp: Optional[Any] = None             # core.hp.RuntimeHP: per-candidate
+                                         # HPs of a sweep (None -> the cfg's
+                                         # baked floats)
+
+
+def _alpha_attn(cfg, ctx: Ctx):
+    """alpha_attn as a float or a (per-candidate) tensor: the runtime-HP
+    override when a sweep threads one through, else the config's float."""
+    return cfg.alpha_attn if ctx.hp is None else ctx.hp.alpha_attn
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +190,8 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
     if cfg.rope_theta > 0:
         q = rotate(q, *ctx.rope)
         k = rotate(k, *ctx.rope)
-    scale = resolve(p13n).attention_scale(cfg.d_head, cfg.base_d_head, cfg.alpha_attn)
+    scale = resolve(p13n).attention_scale(cfg.d_head, cfg.base_d_head,
+                                          _alpha_attn(cfg, ctx))
 
     new_cache = None
     if ctx.mode in ("train", "prefill"):

@@ -16,6 +16,12 @@ Adam with L2 is refused.  ``mup_scale_eps`` scales eps like 1/fan_in for
 pure function it updates the moment tensors of ``state`` in place (one f32
 copy of the params each, instead of two); the caller passes the state it
 got back and must not reuse the old one.
+
+A batched HP sweep (core/tuning.py) stacks N candidates on a leading axis
+of every tensor and passes ``lr`` (and ``lr_embed``) as (N,) tensors, each
+candidate's own, broadcast over the rest of its tensors; ``active`` then
+freezes the moments of the candidates it marks False, bit for bit (the
+reference's ``jnp.where(ok, new, old)`` over the state).
 """
 from __future__ import annotations
 
@@ -119,17 +125,44 @@ class Optimizer:
         grads: Dict[str, torch.Tensor],
         state: Dict[str, Any],
         params: Dict[str, torch.Tensor],
+        lr: Optional[Any] = None,
+        lr_embed: Optional[Any] = None,
+        active: Optional[torch.Tensor] = None,
     ):
         """Returns ``(updates, new_state)``; apply with params + updates.
 
         The moments in ``state`` are updated in place (see the module note).
+        ``lr`` overrides the master LR for this call: a float, or an (N,)
+        float32 tensor over a leading candidate axis of every tensor (a
+        batched sweep: each candidate its own LR).  ``lr_embed`` likewise
+        overrides the per-layer embedding LR (the ``lr_axis == "lr_embed"``
+        tensors, App. D.7); None falls back to ``self.lr_embed``, then to
+        ``lr``.  ``active`` ((N,) bool, with a candidate axis): the moments
+        of the candidates marked False keep their bits; their updates are
+        still returned, for the caller to drop.
         """
-        lr, lr_embed = self.lr, self.lr_embed
+        lr = self.lr if lr is None else lr
+        lr_embed = self.lr_embed if lr_embed is None else lr_embed
+        per_candidate = isinstance(lr, torch.Tensor) and lr.ndim == 1
 
         def lr_of(name):
             if lr_embed is None:
-                return lr
-            return lr + (lr_embed - lr) * self.embed_lr_mask.get(name, 0.0)
+                out = lr
+            else:
+                out = lr + (lr_embed - lr) * self.embed_lr_mask.get(name, 0.0)
+            if per_candidate:
+                # (N,) -> (N, 1, ...) against the candidate-stacked tensor
+                return out.view(-1, *(1,) * (grads[name].ndim - 1))
+            return out
+
+        def ema(buf, new):
+            """buf <- new(buf), in place; only the active candidates' rows
+            when ``active`` is given."""
+            if active is None:
+                new(buf)
+            else:
+                ok = active.view(-1, *(1,) * (buf.ndim - 1))
+                torch.where(ok, new(buf.clone()), buf, out=buf)
 
         t = state["count"]
         sched = float(self.schedule(t)) if self.schedule is not None else 1.0
@@ -140,7 +173,7 @@ class Optimizer:
             if self.momentum:
                 mu = state["mu"]
                 for n, g in grads.items():
-                    mu[n].mul_(self.momentum).add_(g.float())
+                    ema(mu[n], lambda b: b.mul_(self.momentum).add_(g.float()))
                 new_state["mu"] = mu
                 eff = mu
             else:
@@ -157,7 +190,7 @@ class Optimizer:
             nu = state["nu"]
             for n, g in grads.items():
                 g = g.float()
-                nu[n].addcmul_(g, g)
+                ema(nu[n], lambda b: b.addcmul_(g, g))
                 lr_t = lr_of(n)
                 step = g * (-lr_t * sched * self.lr_mults[n]) / (
                     torch.sqrt(nu[n]) + self.eps * self.eps_mults[n])
@@ -175,8 +208,8 @@ class Optimizer:
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** c)
         for n, g in grads.items():
             g = g.float()
-            mu[n].mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu[n].mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+            ema(mu[n], lambda b: b.mul_(self.b1).add_(g, alpha=1 - self.b1))
+            ema(nu[n], lambda b: b.mul_(self.b2).addcmul_(g, g, value=1 - self.b2))
             lr_t = lr_of(n)
             step = (mu[n] / bc1) * (-lr_t * sched * self.lr_mults[n]) / (
                 torch.sqrt(nu[n] / bc2) + self.eps * self.eps_mults[n])
