@@ -119,6 +119,17 @@ check:
   mode), each against its
   plain version at atol 2e-5 (bf16 q 2e-2), rows at -1 exactly zero,
   timed as over f32 pools beside SDPA over the gathered dequantized K/V.
+  Then B8 and B9 over gemma2-2b's rings (G2_RING_CASES: 8/4 heads of 256,
+  window 4096, softcap 50, f32 and int8 pools): the decode steps of 4
+  slots at positions 6,400-6,463 over ring tables of 257 and 273 pages
+  (the static and the dynamic engine's) and over the 404-page global
+  table, a chunk of 256 at 6,144-6,399 over the 273-page ring and the
+  global table, and a window of 48 over rings of 4 and 5 pages that have
+  wrapped many times; each table as an engine leaves it (a wrapped ring
+  holds positions out of logical order: checked), held by multi_held at
+  2e-5; each timed at its serve shape (a call, on the card, the plain
+  version, SDPA over the slot's gathered pages with the visibility mask,
+  the bound), kept under ``gemma2_shapes`` in the kernels' rows.
 - serve: smollm-135m at its published full width through the static engine
   (random weights from a seed, ``zero_init_query=False``), once through the
   kernels and once through the plain versions: the same greedy tokens and
@@ -150,9 +161,11 @@ check:
   greedy top-1 agreement with the f32 dynamic engine (not held).  Nothing
   is cut: the int8 static serve runs 8 requests where the dynamic one runs
   16, to keep the run short.
-- serve_spec: speculative decoding, draft_k 4, on the same model (f32,
+- serve_spec: speculative decoding, draft_k 4, on the same model cut to
+  15 of its 30 layers (SPEC_DEPTH; full width; the cut holds the run's
+  time since the gemma2 phases came) (f32,
   seed 0).  Paths: serve_spec, the static engine with the serve CLI's
-  drafter ``cfg.scaled(0.25, min_d_head=8)`` (30 layers, d_model 144, 9/3
+  drafter ``cfg.scaled(0.25, min_d_head=8)`` (15 layers, d_model 144, 9/3
   heads of 16, random weights from seed 7: near-chance acceptance, the
   rejection path) on 4 requests of 64-128 prompt tokens and 32 generated;
   serve_spec_dynamic and serve_spec_int8, DynamicEngine with the adaptive
@@ -180,6 +193,27 @@ check:
   at draft_k 6 (path serve_spec_copy, exact launches): greedy tokens equal
   (near-tie rule); acceptance, tok/s of each (best of 3), the speedup and
   each one's card busy share under the profiler printed, not held.
+- serve_gemma2, serve_gemma2_dynamic, serve_gemma2_int8: gemma2-2b
+  (configs/gemma2_2b.py: 26 layers alternating "local" (window 4096) and
+  "attn", d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000,
+  softcaps 50/30, post-norms) at full width, f32 weights from seed 0
+  with a random query projection, 4 slots, page 16, 8 requests of seed
+  0: 2 prompts of 6,400 tokens and 6 of 64-512, 64 tokens each, greedy;
+  the static engine (one-shot prefills of the 6,400-token buffer in
+  query chunks of 2,048, the local layers' band cut), DynamicEngine with
+  chunks of 256 and the prefix cache requested (sharing off on rings:
+  nothing shared; (b) the static engine's tokens, near-tie rule), and
+  int8 pools through DynamicEngine and through the static engine on 3
+  requests (one of 6,400 tokens).  Each: the kernels' serve under the profiler (tok/s, the
+  card's busy share, peak memory) and the plain versions' serve, with the
+  same tokens and steps (near-tie rule), exact launches (B1 105 a
+  forward, B8 26 a decode step, B9 26 a chunk forward, their int8 modes
+  over int8 pools, nothing else), the highest position served minus the
+  window and the ring's reach (the ring must wrap), the pools' MiB and
+  the phase's seconds; the f32 serves' decode logits held at 1e-3, the
+  static one's against a float64 forward too, the int8 ones measured,
+  with control serves through the plain versions but B1 (gemma2_phases
+  says why).
 - train: mup-gpt at full width (8 layers, d_model 1024, vocab 2048), f32,
   batch 8 x seq 512.  The first step's loss (1e-5 relative) and every
   gradient (atol 2e-4 / rtol 1e-3) with the kernels against the plain
@@ -248,7 +282,8 @@ check:
 
 Launch counts are set to 0 just before each main path (serve,
 serve_dynamic, serve_int8 dynamic and static, serve_spec, serve_spec_dynamic,
-serve_spec_int8, spec_copy_train, serve_spec_copy, train, train --amp bf16,
+serve_spec_int8, spec_copy_train, serve_spec_copy, serve_gemma2,
+serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, train, train --amp bf16,
 train --amp int8, and the sweep phase's sweep, sweep_serial, sweep_16,
 algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1) and
 read just after; launches made to compare or time a kernel do not count.
@@ -428,6 +463,12 @@ def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
 # kernel phase
 # ---------------------------------------------------------------------------
 
+def bf16_step(v):
+    """The spacing of bfloat16 values at |v| (float64 v): 2**(e - 7) for
+    2**e <= |v| < 2**(e + 1)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - 7)
+
+
 def rmsnorm_phase(ops, rn, F):
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for rows in (1, 8, 256, 8192):
@@ -443,8 +484,39 @@ def rmsnorm_phase(ops, rn, F):
                 if not err <= ATOL[dt]:
                     raise AssertionError(
                         f"rmsnorm rows={rows} D={D} {dt}: max err {err}")
-    log(f"[kernels] rmsnorm: 24 cases agree; max err f32 {worst[torch.float32]:.3g}"
-        f", bf16 {worst[torch.bfloat16]:.3g}")
+    # gemma2-2b's width: a decode step's rows and a 6,400-token prefill's,
+    # each path also measured against B1 in float64 on the same inputs
+    g2 = {}
+    for rows in (4, G2_LONG):
+        for dt in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn(rows, 2304, device="cuda")).to(dt)
+            g = 0.5 * torch.randn(2304, device="cuda")
+            got = ops.fused_rmsnorm(x, g, impl="kernel").double()
+            want = ops.fused_rmsnorm(x, g, impl="ref").double()
+            exact = ops.fused_rmsnorm(x.double(), g.double(), impl="ref")
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = diff.max().item()
+            worst[dt] = max(worst[dt], err)
+            # bf16 outputs: at |y| >= 4 one bf16 step (2**-5) exceeds the
+            # tier, and two f32 values ulps apart may round to neighbouring
+            # steps; each value is held within the tier or one step of the
+            # plain one, whichever is larger
+            lim = torch.full_like(want, ATOL[dt])
+            if dt == torch.bfloat16:
+                lim = torch.maximum(lim, bf16_step(want))
+            g2[f"{rows}x2304 {str(dt)[6:]}"] = dict(
+                err=err, kernel_from_f64=(got - exact).abs().max().item(),
+                plain_from_f64=(want - exact).abs().max().item(),
+                past_tier=int((diff > ATOL[dt]).sum()))
+            if not bool((diff <= lim).all()):
+                raise AssertionError(f"rmsnorm rows={rows} D=2304 {dt}: max err {err}, "
+                                     f"{int((diff > lim).sum())} values past their limit")
+    log(f"[kernels] rmsnorm: 28 cases agree; max err f32 {worst[torch.float32]:.3g}"
+        f", bf16 {worst[torch.bfloat16]:.3g}; at gemma2-2b's D 2304, the kernel / the plain "
+        f"version from float64 (values past the tier, within one bf16 step): " + "; ".join(
+            f"{k} {e['kernel_from_f64']:.3g} / {e['plain_from_f64']:.3g} ({e['past_tier']})"
+            for k, e in g2.items()))
 
     # timing at the main path's decode shape: 4 slots x 1 token x d_model 576
     x = torch.randn(4, 1, 576, device="cuda")
@@ -513,7 +585,7 @@ def rmsnorm_phase(ops, rn, F):
         library="torch.nn.functional.rms_norm(weight=1+g)",
         ratio_to_library=ms / library_ms, host_us=host,
         device_us=dev_us, library_device_us=lib_dev_us, library_launches=lib_launches,
-        at_train_shape=train,
+        at_train_shape=train, gemma2_width=g2,
     )
 
 
@@ -1274,6 +1346,211 @@ def int8_multi_phase(ops, da, F):
                 drafter_shapes=drafter_rows(ops, da, F, "flash_decode_multi_int8"))
 
 
+# ---------------------------------------------------------------------------
+# B8 and B9 over gemma2-2b's rings (its sliding-window layers' tables)
+# ---------------------------------------------------------------------------
+
+G2_HEADS = (4, 2, 256)           # gemma2-2b: 4 kv heads, 2 queries each, d_head 256
+G2_WINDOW, G2_SOFTCAP = 4096, 50.0
+
+
+def ring_case(B, T, K, G, d, P, C, ends, seed, ring=True, q_dtype=f32):
+    """Slot b's pages as an engine leaves them once it has written
+    positions up to ends[b] (f32 pools, stale random bytes elsewhere).  With
+    ``ring`` (a windowed layer's table of C columns) the last C * P
+    positions, position t at column (t // P) % C: once a slot has wrapped
+    its pages hold positions out of logical order, and the page being
+    written holds the newest positions beside ones C * P older.  Without it
+    (a global table) positions 0 .. ends[b] in order.  T None: one query a
+    slot at ends[b] (B8's q (B, H, d), q_pos (B,)); else T queries at
+    ends[b] - T + 1 .. ends[b], already written (B9's chunk)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N, TT = B * C + 3, T or 1
+    q = torch.randn(B, TT, K * G, d, device="cuda", generator=gen).to(q_dtype)
+    kp = torch.randn(N, P, K, d, device="cuda", generator=gen)
+    vp = torch.randn(N, P, K, d, device="cuda", generator=gen)
+    perm = torch.randperm(N, device="cuda", generator=gen)
+    tab = perm[:B * C].reshape(B, C).to(torch.int32)
+    pos = torch.full((N, P), -1, dtype=torch.int32, device="cuda")
+    for b, e in enumerate(ends):
+        if not ring and e >= C * P:
+            raise ValueError(f"a global table of {C} pages cannot hold position {e}")
+        t = torch.arange(max(0, e - C * P + 1) if ring else 0, e + 1, device="cuda")
+        col = (t // P) % C if ring else t // P
+        pos[tab[b, col].long(), t % P] = t.to(torch.int32)
+    q_pos = torch.stack([torch.arange(e - TT + 1, e + 1, device="cuda")
+                         for e in ends]).to(torch.int32)
+    if T is None:
+        return q[:, 0].contiguous(), kp, vp, pos, tab, q_pos[:, 0].contiguous()
+    return q, kp, vp, pos, tab, q_pos
+
+
+def ring_wrapped(pos, tab, P):
+    """Whether some column j of the tables holds an entry of another logical
+    page than j: positions out of logical order (a wrapped ring)."""
+    rows = pos[tab.long()]                                          # (B, C, P)
+    col = torch.arange(tab.shape[1], device=rows.device)[None, :, None]
+    return bool(((rows // P != col) & (rows >= 0)).any())
+
+
+# (label, B, T, C, ends, window, ring): gemma2-2b's heads, page 16, softcap 50.
+# T None is B8 (a decode step), else B9.  The decode steps of the serve
+# phases' two long requests (positions 6,400-6,463) over the static engine's
+# ring (257 pages: window 4096 + 1), the dynamic engine's (273: chunks of 256
+# write 255 ahead) and the global table (404 pages: 6,464 positions); a
+# chunk of 256 at positions 6,144-6,399 over the dynamic engine's ring and
+# the global table; a small window (48) whose ring of 4 (B8) or 5 (B9, 7
+# written ahead) pages has wrapped many times
+G2_RING_CASES = [
+    ("decode over the 257-page ring", 4, None, 257, [6400, 6421, 6442, 6463], G2_WINDOW,
+     True),
+    ("decode over the 273-page ring", 4, None, 273, [6400, 6421, 6442, 6463], G2_WINDOW,
+     True),
+    ("decode over the 404-page global table", 4, None, 404, [6400, 6421, 6442, 6463], 0,
+     False),
+    ("decode, window 48 over a 4-page ring", 4, None, 4, [100, 37, 64, 250], 48, True),
+    ("a chunk of 256 over the 273-page ring", 1, 256, 273, [6399], G2_WINDOW, True),
+    ("a chunk of 256 over the 404-page global table", 1, 256, 404, [6399], 0, False),
+    ("a chunk of 8, window 48 over a 5-page ring", 2, 8, 5, [100, 250], 48, True),
+]
+
+
+def g2_args(case, seed, int8):
+    """(args, kw) of a G2_RING_CASES case: f32 pools, or int8 ones with
+    their scales."""
+    label, B, T, C, ends, window, ring = case
+    args = ring_case(B, T, *G2_HEADS, 16, C, ends, seed, ring=ring)
+    kw = dict(scale=G2_HEADS[2] ** -0.5, window=window, softcap=G2_SOFTCAP)
+    if int8:
+        kq, vq, scales = int8_pools(args[1], args[2], seed)
+        args = (args[0], kq, vq, *args[3:])
+        kw.update(scales)
+    return args, kw
+
+
+def as_multi(args):
+    """B8's inputs as B9's at T = 1 (q (B, 1, H, d), q_pos (B, 1))."""
+    q, kp, vp, pos, tab, q_pos = args
+    return (q[:, None], kp, vp, pos, tab, q_pos[:, None])
+
+
+def check_g2_cases(ops, da):
+    """B8 and B9 against their plain versions over gemma2-2b's rings and
+    global tables (G2_RING_CASES), f32 and int8 pools, held by multi_held
+    (B8 as B9 at T = 1) at the f32 tier; the wrapped tables must hold
+    pages out of logical order.  Returns {name: worst error}."""
+    worst = {}
+    for int8 in (False, True):
+        for i, case in enumerate(G2_RING_CASES):
+            label, B, T, C, ends, window, ring = case
+            args, kw = g2_args(case, 400 + i, int8)
+            if ring and not ring_wrapped(args[3], args[4], 16):
+                raise AssertionError(f"{label}: the ring holds its positions in order")
+            if T is None:
+                name = "flash_decode_int8" if int8 else "flash_decode"
+                got = ops.decode_attention(*args, impl="kernel", **kw)
+                err, against, note = multi_held(name, label, got[:, None], as_multi(args),
+                                                kw, ATOL[f32])
+                log(f"[kernels] {name} gemma2 {label}: max err {err:.3g} from {against} "
+                    f"(atol {ATOL[f32]}; {note}), {da.decode_splits(B, 4, C)} splits")
+            else:
+                name = "flash_decode_multi_int8" if int8 else "flash_decode_multi"
+                err, _ = check_multi(ops, da, f"gemma2 {label}", args, kw, ATOL[f32], ())
+            worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+# the timed gemma2 shapes: (label, index into G2_RING_CASES) for B8 / B9
+G2_TIMED = {"flash_decode": [("decode over the 257-page ring", 0),
+                             ("decode over the 404-page global table", 2)],
+            "flash_decode_multi": [("a chunk of 256 over the 273-page ring", 4),
+                                   ("a chunk of 256 over the 404-page global table", 5)]}
+
+
+def g2_row(ops, da, F, name, label, args, kw):
+    """B8's or B9's time at a gemma2 shape: a call (CUDA events) and on the
+    card, beside its plain version, SDPA over each slot's pre-gathered
+    (dequantized) pages with the visibility mask (position, causality,
+    window; attention only) and the bound: the pages holding an entry some
+    row sees, read once, and 4 H d flops a visible (row, entry) pair."""
+    q, kp, vp, pos, tab, q_pos = args
+    multi = q.ndim == 4
+    margs = args if multi else as_multi(args)
+    call = ops.decode_attention_multi if multi else ops.decode_attention
+    kern = lambda: call(*args, impl="kernel", **kw)             # noqa: E731
+    err, _, _ = multi_held(name, f"at {label}", kern() if multi else kern()[:, None],
+                           margs, kw, ATOL[f32])
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(lambda: call(*args, impl="ref", **kw), n=20)
+    dev_us = device_us(kern, name)
+    qq, _, _, _, _, qp = margs
+    B, T, H, d = qq.shape
+    N, P, K, _ = kp.shape
+    C = tab.shape[1]
+    scales = {n: kw[n] for n in ("k_scale", "v_scale") if n in kw} or None
+    page = tab.long()                                               # (B, C)
+    kk, vv = kp[page].float(), vp[page].float()                     # (B, C, P, K, d)
+    if scales:
+        kk = kk * scales["k_scale"][page][:, :, None, :, None]
+        vv = vv * scales["v_scale"][page][:, :, None, :, None]
+    kk = kk.reshape(B, C * P, K, d).permute(0, 2, 1, 3).contiguous()
+    vv = vv.reshape(B, C * P, K, d).permute(0, 2, 1, 3).contiguous()
+    kv_pos = pos[page].reshape(B, 1, C * P)
+    qpos = qp[:, :, None]
+    vis = (kv_pos >= 0) & (kv_pos <= qpos) & (qpos >= 0)
+    if kw["window"]:
+        vis &= (qpos - kv_pos) < kw["window"]
+    mask = vis[:, None]                                             # (B, 1, T, C * P)
+    q4 = qq.permute(0, 2, 1, 3).contiguous()
+
+    def sdpa():
+        # logits softcapped as the kernels do need a custom score: SDPA has
+        # no softcap, so the yardstick is attention without it
+        return F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask, scale=kw["scale"],
+                                              enable_gqa=True)
+    library_ms = cuda_ms(sdpa, n=50)
+    lib_us, lib_n = library_device_us(sdpa)
+    pages = int(vis.any(dim=1).reshape(B, C, P).any(dim=2).sum())
+    visible = int(vis.sum())
+    nbytes = (pool_bytes_read(pages * P, pages, K, d, kp.element_size(), scales)
+              + 2 * q.numel() * q.element_size() + q_pos.numel() * 4)
+    flops = 4 * H * d * visible + (2 * K * d * pages * P if scales else 0)
+    bound_ms, bound_by = bound(nbytes, flops)
+    share = bound_ms * 1e3 / dev_us
+    extra = ""
+    if multi:
+        plan = multi_plan_of(da, args)
+        extra = (f"; plan tq {plan.tq}, {plan.tiles} tiles, {plan.splits} splits, "
+                 f"{plan.slots} slot(s) of {plan.stage_pages} pages")
+    else:
+        extra = f"; {da.decode_splits(B, K, C)} splits"
+    log(f"[kernels] {name} at gemma2-2b's {label}: {ms:.5f} ms a call, {dev_us:.2f} us a "
+        f"launch on the card ({share:.1%} of the {bound_by} bound){extra}; plain "
+        f"{plain_ms:.5f} ms; SDPA {library_ms:.5f} ms a call and {lib_us:.2f} us on the "
+        f"card ({lib_n:g} kernels); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, "
+        f"{flops} flops, {pages} pages, {visible} visible pairs)")
+    return dict(max_abs_err=err, ms=ms, device_us=dev_us, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_share=share,
+                library_ms=library_ms, library_device_us=lib_us,
+                library="torch.nn.functional.scaled_dot_product_attention over each "
+                        "slot's pre-gathered " + ("dequantized " if scales else "")
+                        + "pages with the visibility mask (attention only, no softcap)")
+
+
+def gemma2_kernel_phase(ops, da, F, rows):
+    """B8 and B9 over gemma2-2b's rings (check_g2_cases), then their times
+    at the serve phases' shapes (g2_row), kept under ``gemma2_shapes`` in
+    the rows of ``rows`` (the kernel line's rows by name)."""
+    worst = check_g2_cases(ops, da)
+    for name in ("flash_decode", "flash_decode_multi", "flash_decode_int8",
+                 "flash_decode_multi_int8"):
+        out = {"worst_err": worst[name]}
+        for label, i in G2_TIMED[name.replace("_int8", "")]:
+            args, kw = g2_args(G2_RING_CASES[i], 450 + i, name.endswith("_int8"))
+            out[label] = g2_row(ops, da, F, name, label, args, kw)
+        rows[name]["gemma2_shapes"] = out
+
+
 def check_close(what, got, want, atol, rtol=0.0):
     """Raise unless |got - want| <= atol + rtol |want| everywhere; return the
     max abs error."""
@@ -1921,8 +2198,10 @@ def int8_backward_timing(fa, ref, quant, qs, k, v, do, errs, i8, sdpa):
 def make_recording_model(Model):
     class RecordingModel(Model):
         """Keeps, for every forward the engine runs, its mode and width, the
-        top-2 logits of the rows it samples from (a chunk's last real row),
-        and the full rows of the first 8 single-token decodes.  Forwards
+        top-2 logits of the rows it samples from (a prefill's last prompt
+        row, a chunk's last real row: the one row the engine reads out),
+        and the full rows and the slots' positions of the first 8
+        single-token decodes.  Forwards
         without positions (the tie oracle's) are not recorded."""
 
         def __init__(self, *a, **kw):
@@ -1936,7 +2215,12 @@ def make_recording_model(Model):
             if positions is None:
                 return logits, cache
             T = tokens.shape[1]
-            if mode == "prefill":
+            if kw.get("readout") is not None:
+                # the engine read out only the row it samples from (a
+                # prefill's last prompt row, a chunk's last real row)
+                rows = logits[:, -1]
+                active = torch.ones(1, dtype=torch.bool, device=rows.device)
+            elif mode == "prefill":
                 plen = int((positions[0] < positions.shape[1]).sum())
                 rows = logits[:, plen - 1]
                 active = torch.ones(1, dtype=torch.bool, device=rows.device)
@@ -1953,7 +2237,8 @@ def make_recording_model(Model):
             self.n_decode += single
             self.calls.append(dict(mode=mode, T=T, top2=top2.values,
                                    arg=top2.indices[:, 0], active=active,
-                                   rows=rows.clone() if keep else None))
+                                   rows=rows.clone() if keep else None,
+                                   pos=positions[:, 0].tolist() if keep else None))
             return logits, cache
 
     return RecordingModel
@@ -2112,7 +2397,8 @@ def greedy_agree(what, oracle, params, prompts, lens, got, want):
         j = int(diff[0, 0])
         seq = np.concatenate([prompts[r, :lens[r]], b[:j].numpy()])
         with torch.no_grad():
-            logits, _ = oracle.forward(params, torch.as_tensor(seq[None], device="cuda"))
+            logits, _ = oracle.forward(params, torch.as_tensor(seq[None], device="cuda"),
+                                       readout=torch.tensor([len(seq) - 1], device="cuda"))
         top2 = logits[0, -1].float().topk(2).values
         gap = float(top2[0] - top2[1])
         if gap >= TIE_GAP:
@@ -2454,7 +2740,372 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
     )
 
 
+# ---------------------------------------------------------------------------
+# gemma2-2b served at full width: local/global alternation over rings
+# ---------------------------------------------------------------------------
+
+G2_R, G2_S, G2_GMAX, G2_P, G2_CH, G2_LONG = 8, 4, 64, 16, 256, 6400
+G2_SHORT = (64, 512)  # the other prompts' lengths
+G2_R_STATIC8 = 3      # requests of the static engine's int8 serve (one of 6,400)
+
+
+def gemma2_workload(V):
+    """8 requests from seed 0: 2 prompts of 6,400 tokens (past window 4,096
+    + attn_chunk 2,048: a static prefill cuts the local layers' band, and
+    the ring wraps) and 6 of 64-512 tokens, in a shuffled order."""
+    rng = np.random.default_rng(0)
+    lens = np.concatenate([[G2_LONG, G2_LONG],
+                           rng.integers(G2_SHORT[0], G2_SHORT[1] + 1, G2_R - 2)])
+    lens = lens[rng.permutation(G2_R)]
+    prompts = rng.integers(0, V, (G2_R, G2_LONG))
+    return prompts, lens
+
+
+def g2_expect(L, n_dec, n_chunk, n_fwd, int8=False):
+    """Exact launches of a gemma2 serve: B8 once a layer a decode step, B9
+    once a layer a chunk forward (the ring layers' and the global ones'
+    alike), B1 four times a layer (pre- and post-norms) and once more a
+    forward, nothing else."""
+    sfx = "_int8" if int8 else ""
+    want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
+    want["flash_decode" + sfx] = L * n_dec
+    want["flash_decode_multi" + sfx] = L * n_chunk
+    want["rmsnorm"] = (4 * L + 1) * n_fwd
+    return want
+
+
+def g2_wrap(what, cfg, spec, lens, out):
+    """The highest position served, minus the window: past the ring's reach
+    (wp_cols pages) it shows that the ring wrapped."""
+    top = int(max(int(n) + int(g) - 1 for n, g in zip(lens, out["lengths"])))
+    reach = spec.wp_cols * spec.page_size
+    log(f"[{what}] highest position served {top}; minus the window {cfg.window_size}: "
+        f"{top - cfg.window_size}; the ring holds {reach} positions ({spec.wp_cols} pages "
+        f"of {spec.page_size}), so it wrapped {top // reach} time(s)")
+    if top < reach:
+        raise AssertionError(f"{what}: the ring never wrapped ({top} < {reach})")
+    return dict(top_position=top, top_minus_window=top - cfg.window_size,
+                ring_positions=reach, ring_pages=spec.wp_cols, global_pages=spec.gp_cols)
+
+
+G2_PROFILED = 16      # tokens a request in the profiled serve (the busy share)
+# the f32 serves' first 8 decode steps' logits, kernels against the plain
+# versions and each against a float64 forward: atol = rtol = 1e-3, three
+# times the largest gap read between the f32 paths (3.28e-4 at |logit| <= 30,
+# H100 at 700 W); B1 alone makes 3.10e-4 of it over 26 layers of 4 norms
+G2_LOGIT_TOL = 1e-3
+
+
+def g2_float64(what, cfg, params, prompts, lens, kern, plain, out, tie_at):
+    """The static engine's first 8 decode steps' logits against a float64
+    forward of the same tokens (plain versions, every op in f64): slot j
+    holds request j in those steps (the first four admitted in turn, none
+    retired), its row at position p is the logits after prompt + the first
+    p - len + 1 generated tokens.  Holds both f32 paths within G2_LOGIT_TOL
+    (allclose) of it; returns their largest distances."""
+    need = {}
+    for cr in plain.calls[:tie_at]:
+        for j, p in enumerate(cr["pos"] or ()):
+            if p < 0:
+                continue
+            if not 0 <= p - int(lens[j]) < int(out["lengths"][j]):
+                raise AssertionError(f"{what}: slot {j} at position {p} is not request {j}")
+            need.setdefault(j, set()).add(p)
+    m64 = type(plain)(cfg.replace(dtype="float64"), device="cuda", impl="ref")
+    p64 = {k: v.double() for k, v in params.items()}
+    exact = {}
+    with torch.no_grad():
+        for j, ps in need.items():
+            ps = sorted(ps)
+            seq = np.concatenate([prompts[j, :int(lens[j])],
+                                  out["tokens"][j, :ps[-1] - int(lens[j]) + 1].numpy()])
+            logits, _ = m64.forward(p64, torch.as_tensor(seq[None], device="cuda"),
+                                    readout=torch.tensor(ps, device="cuda"))
+            exact.update({(j, p): row for p, row in zip(ps, logits[0])})
+    del p64, m64
+    torch.cuda.empty_cache()
+    res = dict(kernel_from_f64=0.0, plain_from_f64=0.0, rows=len(exact), excess=0.0)
+    for ck, cr in zip(kern.calls[:tie_at], plain.calls[:tie_at]):
+        for j, p in enumerate(cr["pos"] or ()):
+            if p < 0:
+                continue
+            ex = exact[(j, p)]
+            for key, got in (("kernel_from_f64", ck["rows"][j]), ("plain_from_f64", cr["rows"][j])):
+                d = (got.double() - ex).abs()
+                res[key] = max(res[key], d.max().item())
+                res["excess"] = max(res["excess"],
+                                    (d - G2_LOGIT_TOL * (1 + ex.abs())).max().item())
+    log(f"[{what}] against a float64 forward of the same tokens ({len(need)} requests, "
+        f"{res['rows']} positions): first 8 decode steps' logits max abs diff, the kernels "
+        f"{res['kernel_from_f64']:.3g}, the plain versions {res['plain_from_f64']:.3g} "
+        f"(held at atol = rtol = {G2_LOGIT_TOL})")
+    if not res["excess"] <= 0:
+        raise AssertionError(f"{what}: decode logits off the float64 forward by "
+                             f"{res['kernel_from_f64']} / {res['plain_from_f64']}")
+    return res
+
+
+def g2_serve(what, ops, kern, plain, make, params, prompts, lens, want_fn, int8=False,
+             b1_control=False, profile=True, logit_tol=None, float64=False):
+    """One gemma2 serve through the kernels (launches counted, peak memory,
+    tok/s) and one through the plain versions (no launch), compared by
+    compare_calls: the same steps and the same greedy token at every
+    sampled row (near-tie rule); the first 8 decode steps' logits held at
+    ``logit_tol`` (None: measured, not held; see gemma2_phases), and with
+    ``float64`` both against a float64 forward (g2_float64, the static
+    engine only).  ``b1_control``: a serve
+    through the plain versions but for B1, on the card, gives the logits'
+    difference that B1 alone makes.  Then, with ``profile``, the card's busy share under the
+    profiler over a shorter serve through the kernels, the first long
+    request and the two shortest, G2_PROFILED tokens each (the profiler's
+    post-processing takes ~0.2 ms an event, and a whole serve launches
+    170,000-500,000 kernels).  ``make(model, gen_len)`` builds the engine;
+    ``want_fn(calls)`` gives the exact launches from the recorded
+    forwards.  Returns (launches, kernel serve, summary)."""
+    for m in (kern, plain):
+        m.calls.clear()
+        m.n_decode = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = make(kern, G2_GMAX)
+    ops.reset_launch_counts()
+    out_k, wall_k = timed_serve(engine, params, prompts, lens)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = want_fn(kern.calls)
+    n_chunk = sum(c["mode"] == "decode" and c["T"] > 1 for c in kern.calls)
+    n_dec = sum(c["mode"] == "decode" and c["T"] == 1 for c in kern.calls)
+    n_pre = sum(c["mode"] == "prefill" for c in kern.calls)
+    log(f"[{what}] kernels: {out_k['steps']} steps, {n_pre} prefills, {n_chunk} chunk "
+        f"forwards, {n_dec} decode steps; launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"{what}: launch counts {launches} != {want}")
+    ops.reset_launch_counts()
+    out_r, wall_r = timed_serve(make(plain, G2_GMAX), params, prompts, lens)
+    if set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"{what}: the plain serve launched kernels: "
+                             f"{ops.launch_counts()}")
+    tie_at, worst, scale = compare_calls(what, kern, plain, out_k, out_r, logit_tol=logit_tol)
+    n_tok = int(out_k["lengths"].sum())
+    log(f"[{what}] kernels: {n_tok} tokens in {wall_k:.3f} s ({n_tok / wall_k:.1f} tok/s), "
+        f"peak memory {peak:.2f} GiB; plain: {int(out_r['lengths'].sum())} tokens in "
+        f"{wall_r:.3f} s ({int(out_r['lengths'].sum()) / wall_r:.1f} tok/s); greedy tokens "
+        f"identical: {tie_at is None}; steps identical ({out_k['steps']}); first 8 decode "
+        f"steps' logits max abs diff {worst:.3g} at |logit| <= {scale:.3g} "
+        f"({'measured' if logit_tol is None else f'held at atol = rtol = {logit_tol}'})")
+    summary = dict(requests=len(lens), steps=out_k["steps"], prefills=n_pre,
+                   chunk_forwards=n_chunk, decode_steps=n_dec, tokens=n_tok, wall_s=wall_k,
+                   tok_per_s=n_tok / wall_k, plain_wall_s=wall_r,
+                   plain_tok_per_s=int(out_r["lengths"].sum()) / wall_r,
+                   logit_max_abs_diff=worst, logit_scale=scale, logit_tol=logit_tol,
+                   tie=tie_at, peak_gib=peak)
+    if float64:
+        summary["float64"] = g2_float64(what, kern.cfg, params, prompts, lens, kern, plain,
+                                        out_r, tie_at)
+    if b1_control:
+        ctrl = type(plain)(plain.cfg, device="cuda", impl="ref")
+        plain_rms = ops.fused_rmsnorm
+        ops.fused_rmsnorm = lambda x, gain, *, eps=1e-6, impl="auto": plain_rms(
+            x, gain, eps=eps, impl="kernel")
+        try:
+            out_c, _ = timed_serve(make(ctrl, G2_GMAX), params, prompts, lens)
+        finally:
+            ops.fused_rmsnorm = plain_rms
+        try:
+            _, worst_c, _ = compare_calls(f"{what} B1 alone", ctrl, plain, out_c, out_r,
+                                          logit_tol=None)
+        except AssertionError as e:
+            # a measurement, not a check of the port: the control's tokens
+            # may part from the plain serve's where the kernels' did not
+            summary["b1_alone_parted"] = str(e)
+            log(f"[{what}] control, the plain versions but B1 on the card: {e}")
+        else:
+            summary["logit_max_abs_diff_b1_alone"] = worst_c
+            log(f"[{what}] control, the plain versions but B1 on the card: the same tokens "
+                f"and steps; first 8 decode steps' logits max abs diff {worst_c:.3g} from "
+                f"the plain serve (all kernels: {worst:.3g})")
+    if not profile:
+        return launches, out_k, summary
+    order = np.argsort(lens, kind="stable")
+    pick = [int(np.argmax(lens)), *[int(i) for i in order[:2]]]
+    wall_ms, busy, n_launch, top = busy_profile(
+        lambda: make(kern, G2_PROFILED).serve(params, prompts[pick], lens[pick]))
+    summary.update(profiled_requests=[int(lens[i]) for i in pick], profile_wall_ms=wall_ms,
+                   busy_ms=busy, busy_share=busy / wall_ms, profile_launches=n_launch,
+                   top_kernels=top)
+    log(f"[{what}] under the profiler, prompts {summary['profiled_requests']} x "
+        f"{G2_PROFILED} tokens: {wall_ms:.0f} ms, card busy {busy:.1f} ms "
+        f"({busy / wall_ms:.1%}), {n_launch} launches; top {top}")
+    return launches, out_k, summary
+
+
+def gemma2_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0):
+    """gemma2-2b (configs/gemma2_2b.py) at full width, f32 weights from seed
+    0 with a random query projection, 4 slots, page 16, on the
+    gemma2_workload requests, 64 tokens each, greedy.
+
+    - serve_gemma2: the static engine (one-shot prefills of the 6,400-token
+      buffer in query chunks of 2,048, the local layers' band cut).
+    - serve_gemma2_dynamic: DynamicEngine, chunks of 256, the prefix cache
+      requested (sharing off on a ring config: nothing shared); (b) its
+      greedy tokens equal to the static engine's (near-tie rule).
+    - serve_gemma2_int8: int8 pools through DynamicEngine on the same
+      requests and through the static engine on the first 3; the pools'
+      MiB against f32 and the top-1 agreement with the f32 dynamic serve
+      printed.
+
+    Each: kernels against plain versions (compare_calls: tokens and steps,
+    the near-tie rule), exact B1/B8/B9 launches (g2_expect), the wrap shown
+    (g2_wrap), pool MiB, tok/s, the card's busy share, peak memory and the
+    phase's seconds.  The f32 serves' decode logits are held at
+    G2_LOGIT_TOL, not the smollm phases' 1e-4: over 26 layers of four norms
+    each, f32 sums in another order move logits capped at 30 by ~3e-4 (an
+    H100 at 700 W).  The static serve holds both paths against a float64
+    forward of the same tokens (g2_float64), and its control serve shows
+    how much of the gap B1 alone makes; B1 is held at 2e-5 at D 2304
+    (rmsnorm_phase) and B8/B9 on these shapes (check_g2_cases).  The int8
+    serve's logits are measured: a flipped int8 step moves a k or v by
+    1/127 of its page's absmax, so the control serve (B1 alone) and the
+    pools' flipped bytes show what f32 differences upstream of the
+    quantizer make of it.  Returns ({path: launches}, {path: summary})."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kv_cache import pool_bytes
+
+    cfg = get_config("gemma2-2b").replace(dtype="float32", zero_init_query=False)
+    cfg8 = cfg.replace(kv_dtype="int8")
+    L = cfg.n_layers
+    prompts, lens = gemma2_workload(cfg.vocab_size)
+    kw = dict(n_slots=G2_S, page_size=G2_P, max_prompt_len=G2_LONG, max_gen_len=G2_GMAX)
+    dyn_kw = dict(prefill_chunk=G2_CH, prefix_cache=True, **kw)
+    Rec = make_recording_model(Model)
+    kern, plain = Rec(cfg, device="cuda", impl="auto"), Rec(cfg, device="cuda", impl="ref")
+    params = kern.init(seed=0)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"[serve_gemma2] {cfg.name}: {L} layers {cfg.pattern} x {cfg.n_groups}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.window_size}, softcaps "
+        f"{cfg.attn_softcap}/{cfg.final_softcap}, {n_params / 1e9:.3f}B params "
+        f"({4 * n_params / 2**30:.2f} GiB f32); {G2_R} requests, prompt lens "
+        f"{lens.tolist()}, {G2_GMAX} tokens each, {G2_S} slots, page {G2_P}")
+    # warm-up outside the counted runs: a one-shot prefill of the buffer and
+    # chunk forwards, so cuBLAS has met these shapes
+    short = int(np.argmin(lens))
+    Engine(kern, EngineConfig(**{**kw, "n_slots": 1, "max_gen_len": 2})).serve(
+        params, prompts[short:short + 1], lens[short:short + 1])
+    DynamicEngine(kern, EngineConfig(**{**dyn_kw, "n_slots": 1, "max_gen_len": 2})).serve(
+        params, prompts[short:short + 1], lens[short:short + 1])
+    launches, summary = {}, {}
+
+    def chunks_of(calls):
+        return sum(c["mode"] == "decode" and c["T"] > 1 for c in calls)
+
+    def decodes_of(calls):
+        return sum(c["mode"] == "decode" and c["T"] == 1 for c in calls)
+
+    def make_static(m, gen_len):
+        return Engine(m, EngineConfig(**{**kw, "max_gen_len": gen_len}))
+
+    # ---- the static engine ----
+    t_ph = time.perf_counter()
+    spec = make_static(kern, G2_GMAX).spec
+    launches["serve_gemma2"], out_s, summary["serve_gemma2"] = g2_serve(
+        "serve_gemma2", ops, kern, plain, make_static, params, prompts, lens,
+        lambda calls: g2_expect(L, decodes_of(calls), 0, len(calls)), b1_control=True,
+        logit_tol=G2_LOGIT_TOL, float64=True)
+    summary["serve_gemma2"].update(
+        wrap=g2_wrap("serve_gemma2", cfg, spec, lens, out_s),
+        pool_mib=pool_bytes(cfg, spec) / 2**20, seconds=time.perf_counter() - t_ph)
+    log(f"[serve_gemma2] pools {summary['serve_gemma2']['pool_mib']:.1f} MiB f32 "
+        f"({spec.n_slots} slots x ({spec.gp_cols} global + {spec.wp_cols} ring pages)); "
+        f"phase {summary['serve_gemma2']['seconds']:.1f} s")
+    t_done = time.perf_counter() - t0
+    log(f"[time] serve_gemma2 done at {t_done:.0f} s")
+
+    # ---- the dynamic engine, chunks of 256, the prefix cache requested ----
+    t_ph = time.perf_counter()
+    made = []
+
+    def make_dyn(m, gen_len):
+        e = DynamicEngine(m, EngineConfig(**{**dyn_kw, "max_gen_len": gen_len}))
+        if e.blocks.cache is not None:
+            raise AssertionError("a prefix cache on a ring config")
+        made.append(e)
+        return e
+
+    def want_dyn(calls, int8=False):
+        n_chunk, n_dec = chunks_of(calls), decodes_of(calls)
+        want_chunks = int(sum(-(-int(n) // G2_CH) for n in lens))
+        if n_chunk != want_chunks or any(c["mode"] == "prefill" for c in calls) or any(
+                c["T"] != G2_CH for c in calls if c["mode"] == "decode" and c["T"] > 1):
+            raise AssertionError(f"chunk forwards {n_chunk} against the schedule "
+                                 f"{want_chunks} (none shared)")
+        return g2_expect(L, n_dec, n_chunk, n_chunk + n_dec, int8)
+
+    launches["serve_gemma2_dynamic"], out_d, summary["serve_gemma2_dynamic"] = g2_serve(
+        "serve_gemma2_dynamic", ops, kern, plain, make_dyn, params, prompts, lens, want_dyn,
+        logit_tol=G2_LOGIT_TOL)
+    dspec = made[0].spec
+    if out_d["prefill_cached"] != 0:
+        raise AssertionError(f"{out_d['prefill_cached']} prompt tokens shared on a ring "
+                             f"config")
+    ring_pos = made[0]._pools["groups"]["0_local"]["attn"]["pos"]
+    if int(ring_pos.max()) < dspec.wp_cols * dspec.page_size:
+        raise AssertionError("the dynamic engine's ring pools never wrapped")
+    ties = greedy_agree("serve_gemma2_dynamic (b)", plain, params, prompts, lens, out_d,
+                        out_s)
+    summary["serve_gemma2_dynamic"].update(
+        wrap=g2_wrap("serve_gemma2_dynamic", cfg, dspec, lens, out_d),
+        ring_pool_top_position=int(ring_pos.max()), prefill_cached=out_d["prefill_cached"],
+        prefill_total=out_d["prefill_total"], ties_vs_static=ties,
+        pool_mib=pool_bytes(cfg, dspec) / 2**20, seconds=time.perf_counter() - t_ph)
+    log(f"[serve_gemma2_dynamic] (b) greedy tokens equal to the static engine's, {ties} "
+        f"requests past a tie; prefix cache requested: {out_d['prefill_cached']}/"
+        f"{out_d['prefill_total']} prompt tokens shared (sharing off on rings); ring pools "
+        f"hold positions up to {int(ring_pos.max())}; pools "
+        f"{summary['serve_gemma2_dynamic']['pool_mib']:.1f} MiB ({dspec.wp_cols} ring "
+        f"pages a slot); phase {summary['serve_gemma2_dynamic']['seconds']:.1f} s")
+    log(f"[time] serve_gemma2_dynamic done at {time.perf_counter() - t0:.0f} s")
+
+    # ---- int8 pools: the dynamic engine, then the static one on 3 requests ----
+    t_ph = time.perf_counter()
+    kern8, plain8 = Rec(cfg8, device="cuda", impl="auto"), Rec(cfg8, device="cuda", impl="ref")
+    made.clear()
+    launches["serve_gemma2_int8"], out_8, summary["serve_gemma2_int8"] = g2_serve(
+        "serve_gemma2_int8", ops, kern8, plain8, make_dyn, params, prompts, lens,
+        lambda calls: want_dyn(calls, int8=True), int8=True, b1_control=True)
+    # the pools the kernel serve, the plain one and the B1-alone control left
+    # (made: kernels, plain, control): the int8 steps that f32 differences
+    # upstream of the quantizer flipped
+    flips = dict(kernels=pool_diff(made[0]._pools, made[1]._pools))
+    if "b1_alone_parted" not in summary["serve_gemma2_int8"]:
+        flips["b1_alone"] = pool_diff(made[2]._pools, made[1]._pools)
+    summary["serve_gemma2_int8"]["pools_vs_plain"] = flips
+    log("[serve_gemma2_int8] int8 pools against the plain serve's: " + "; ".join(
+        f"{k}: {d['bytes_differ']} of {d['bytes']} bytes differ "
+        f"({d['bytes_differ'] / d['bytes']:.3%}), by at most {d['max_byte_diff']} step(s), "
+        f"scales' largest relative difference {d['scale_rel']:.3g}" for k, d in flips.items()))
+    valid = torch.arange(G2_GMAX)[None] < out_8["lengths"][:, None]
+    agree = float((out_8["tokens"][valid] == out_d["tokens"][valid]).float().mean())
+    mib8, mib32 = pool_bytes(cfg8, dspec) / 2**20, pool_bytes(cfg, dspec) / 2**20
+    sp, sl = prompts[:G2_R_STATIC8], lens[:G2_R_STATIC8]
+    launches["serve_gemma2_int8_static"], out_8s, static8 = g2_serve(
+        "serve_gemma2_int8 static", ops, kern8, plain8, make_static, params, sp, sl,
+        lambda calls: g2_expect(L, decodes_of(calls), 0, len(calls), int8=True), int8=True,
+        profile=False)
+    summary["serve_gemma2_int8"].update(
+        wrap=g2_wrap("serve_gemma2_int8", cfg, dspec, lens, out_8), pool_mib=mib8,
+        pool_mib_f32=mib32, top1_agreement_with_f32=agree, static=static8,
+        seconds=time.perf_counter() - t_ph)
+    log(f"[serve_gemma2_int8] pools {mib8:.1f} MiB int8 against {mib32:.1f} MiB f32 "
+        f"({mib32 / mib8:.2f}x); greedy top-1 agreement with the f32 dynamic serve "
+        f"{agree:.1%} (printed, not held); phase {time.perf_counter() - t_ph:.1f} s")
+    del kern, plain, kern8, plain8, params, made
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 SPEC_K = 4                 # the serve CLI's --draft-k default
+SPEC_DEPTH = 15            # the speculative paths' layers (of smollm's 30)
 # Adam's lr on the copy task: the reference's 1e-2 diverges at smollm-135m's
 # full width and vocabulary; 1e-4 trains both models best of 1e-2 .. 3e-5
 # (scripts/torch_copy_lr_probe.py)
@@ -2465,8 +3116,9 @@ SPEC_VERIFY_ROWS = 4       # verify forwards whose full logits are held
 def make_spec_recorder(Model):
     class SpecRecording(Model):
         """Keeps, for every forward an engine runs, its mode and width and
-        the top-2 logits of every row it may sample from (a prefill's last
-        prompt row; every row of a decode forward at a position >= 0), and
+        the top-2 logits of every row it may sample from (a prefill's or a
+        chunk's one row read out; every row of another decode forward at a
+        position >= 0), and
         the full logits of those rows in the first SPEC_VERIFY_ROWS forwards
         of width SPEC_K + 1 (the target's verify chunks).  Forwards without
         positions (the tie oracle's) are not recorded."""
@@ -2482,7 +3134,9 @@ def make_spec_recorder(Model):
             if positions is None:
                 return logits, cache
             T = tokens.shape[1]
-            if mode == "prefill":
+            if kw.get("readout") is not None:
+                rows = logits[:, -1]       # the one row the engine read out
+            elif mode == "prefill":
                 rows = logits[:, int((positions[0] < positions.shape[1]).sum()) - 1]
             else:
                 rows = logits[positions >= 0]
@@ -3924,7 +4578,8 @@ def main():
     rows.append(multi_phase(ops, da, F))
     rows.append(int8_decode_phase(ops, da, F))
     rows.append(int8_multi_phase(ops, da, F))
-    done("B8-B9 kernel phases (f32/bf16 and int8 pools)")
+    gemma2_kernel_phase(ops, da, F, {row["name"]: row for row in rows})
+    done("B8-B9 kernel phases (f32/bf16 and int8 pools, gemma2's rings)")
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
     serve_launches, serve = serve_phase(cfg, Model, Engine, EngineConfig, ops)
     done("serve")
@@ -3935,9 +4590,11 @@ def main():
         cfg, Model, Engine, DynamicEngine, EngineConfig, ops,
         (dyn_tokens, dyn["tok_per_s"]))
     done("serve_int8")
-    spec_launches, spec = serve_spec_phase(cfg, Model, Engine, DynamicEngine, EngineConfig,
-                                           ops)
+    spec_launches, spec = serve_spec_phase(cfg.replace(n_layers=SPEC_DEPTH), Model, Engine,
+                                           DynamicEngine, EngineConfig, ops)
     done("serve_spec")
+    g2_launches, g2 = gemma2_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0)
+    done("serve_gemma2, serve_gemma2_dynamic, serve_gemma2_int8")
     train_launches, train = train_phase(ops, quant)
     done("train")
     amp_launches, amp = train_phase(ops, quant, amp="bf16", control_losses=train["losses"])
@@ -3963,6 +4620,7 @@ def main():
                    "serve_int8": int8_launches[row["name"]],
                    "serve_int8_static": int8_static_launches[row["name"]],
                    **{path: launches[row["name"]] for path, launches in spec_launches.items()},
+                   **{path: launches[row["name"]] for path, launches in g2_launches.items()},
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]],
                    "train_amp_int8": amp8_launches[row["name"]],
@@ -3970,9 +4628,11 @@ def main():
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
         only = {"flash_decode_multi": ("serve_dynamic", "serve_spec", "serve_spec_dynamic",
-                                       "serve_spec_copy"),
-                "flash_decode_int8": ("serve_int8", "serve_int8_static", "serve_spec_int8"),
-                "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8"),
+                                       "serve_spec_copy", "serve_gemma2_dynamic"),
+                "flash_decode_int8": ("serve_int8", "serve_int8_static", "serve_spec_int8",
+                                      "serve_gemma2_int8", "serve_gemma2_int8_static"),
+                "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
+                                            "serve_gemma2_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8",
                                 "spec_copy_train", "sweep_serial", "algorithm1_train"),
                 "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train",
@@ -4011,6 +4671,8 @@ def main():
     log(json.dumps({"serve_dynamic": dyn}))
     log(json.dumps({"serve_int8": srv8}))
     log(json.dumps({"serve_spec": spec}))
+    for path, summary in g2.items():
+        log(json.dumps({path: summary}, default=str))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
     log(json.dumps({"train_amp_int8": amp8}))

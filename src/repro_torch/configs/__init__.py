@@ -1,7 +1,8 @@
 """Config registry: ``get_config("<arch-id>")`` for every ported arch.
 
-The port carries the dense all-``attn`` architectures; the others arrive
-with their block kinds.
+The port carries the dense decoder-only architectures: the all-``attn``
+ones and gemma2's local/global alternation (2b and 27b).  The others
+(MoE, SSM, recurrent, encoder-decoder, VLM) arrive with their block kinds.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = (
+    "gemma2_27b",
+    "gemma2_2b",
     "smollm_360m",
     "smollm_135m",
     # paper models
@@ -17,6 +20,8 @@ ARCHS = (
 )
 
 _ALIASES = {
+    "gemma2-27b": "gemma2_27b",
+    "gemma2-2b": "gemma2_2b",
     "smollm-360m": "smollm_360m",
     "smollm-135m": "smollm_135m",
     "mup-gpt": "mup_gpt",

@@ -1,10 +1,19 @@
 """Config system: one frozen dataclass describing a model + its muP base shape.
 
-The port's copy of ``repro.configs.base``, cut to the fields that the dense
-all-``attn`` architectures read.  Width fields have parallel ``base_*``
-fields: the muP base shape (Eq. 4).  By default ``base_* == *`` (pure SP
-compatibility at own width); `scaled(...)` derives wider/narrower family
-members sharing the same base.
+The port's copy of ``repro.configs.base``, cut to the fields that the
+dense decoder-only architectures the port serves and trains read: the
+all-``attn`` ones and gemma2's ``("local", "attn")`` alternation with its
+sliding window, query-chunked attention and post-norms.  Width fields have
+parallel ``base_*`` fields: the muP base shape (Eq. 4).  By default
+``base_* == *`` (pure SP compatibility at own width); `scaled(...)` derives
+wider/narrower family members sharing the same base.
+
+Fields of the reference left out, because nothing the port runs reads
+them: the lowering and memory knobs of its JAX training (``remat``,
+``scan_layers``, ``bf16_param_gather``, ``parallelism``, ``attn_acc``,
+``use_pallas``, ``naive_loss``, ``zero_init_readout``, ``use_qk_norm``)
+and the fields of block kinds not ported yet (MoE, SSM, RG-LRU,
+encoder-decoder, VLM).  A reference config carries over by dropping them.
 """
 from __future__ import annotations
 
@@ -12,9 +21,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 # Layer-block vocabulary used in `pattern` (one *group* that repeats).  The
-# port serves "attn" (global self-attention + MLP); the other kinds of the
-# reference ("local", "cross", "moe", "local_moe", "recurrent", "ssd") arrive
-# with their blocks.
+# port runs:
+#   "attn"        global self-attention + MLP
+#   "local"       sliding-window self-attention + MLP (a ring of pages when
+#                 served: serving/kv_cache.py)
+# The other kinds of the reference ("cross", "moe", "local_moe",
+# "recurrent", "ssd") arrive with their blocks.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +53,8 @@ class ModelConfig:
     base_d_ff: Optional[int] = None
 
     # ---- attention details ----------------------------------------------
+    window_size: int = 4096           # for "local" blocks
+    attn_chunk: int = 2048            # q-chunk size for long-seq attention
     attn_softcap: float = 0.0         # softcap on attention logits
     final_softcap: float = 0.0        # softcap on output logits
     rope_theta: float = 10000.0
@@ -69,6 +83,7 @@ class ModelConfig:
     # ---- misc architecture -------------------------------------------------
     act: str = "gelu_glu"             # "gelu" | "relu" | "gelu_glu" | "silu_glu"
     norm_eps: float = 1e-6
+    post_attn_norm: bool = False      # gemma2 uses post-norms too
     dtype: str = "bfloat16"           # activation dtype
     max_seq_len: int = 8192
 

@@ -712,47 +712,56 @@ inline MultiPlan multi_plan(int B, int K, int T, int G, int d, int P, int C, int
     p.smem = MultiLayout(G, 1, 1, 1, d, P, C, kv_bytes, cols).total;
     return p;
   }
-  if (tq_force > 0) {
-    p.tq = std::min(tq_force, T);
-  } else {  // balanced tiles of at most kMaxRows rows
+  // balanced tiles of at most kMaxRows rows; where not even a ring of two
+  // one-page slots fits beside that many rows (wide heads over int8 or bf16
+  // pools, whose raw bytes sit beside the f32 staging: gemma2-2b's d_head
+  // 256 at 64 rows), balanced tiles of fewer rows, down to one query a tile
+  int tq = tq_force > 0 ? std::min(tq_force, T) : 0;
+  if (tq == 0) {
     const int tiles = (T + kMaxRows / G - 1) / (kMaxRows / G);
-    p.tq = (T + tiles - 1) / tiles;
+    tq = (T + tiles - 1) / tiles;
   }
-  p.tiles = (T + p.tq - 1) / p.tq;
-  if (splits_force > 0) {
-    p.splits = splits_force;
-  } else {
-    // fill the card through the splits: S minimises waves(S) (F + C R / S),
-    // a block's time being a fixed part F (launch, two trips, the merge)
-    // and its pages' products, waves(S) = ceil(B K tiles S / sms) at one
-    // block an SM; compared as integers, cost(S) = num / S
-    const long long bkt = (long long)B * K * p.tiles;
-    const long long work = (long long)C * p.tq * G;
-    long long best_num = 0;
-    p.splits = 1;
-    for (int S = 1; S <= std::min(kMaxSplits, C); ++S) {
-      const long long num = (bkt * S + sms - 1) / sms * (kSplitFixed * S + work);
-      if (S == 1 || num * p.splits < best_num * S) {
-        best_num = num;
-        p.splits = S;
+  for (;;) {
+    p.tq = tq;
+    p.tiles = (T + p.tq - 1) / p.tq;
+    if (splits_force > 0) {
+      p.splits = splits_force;
+    } else {
+      // fill the card through the splits: S minimises waves(S) (F + C R / S),
+      // a block's time being a fixed part F (launch, two trips, the merge)
+      // and its pages' products, waves(S) = ceil(B K tiles S / sms) at one
+      // block an SM; compared as integers, cost(S) = num / S
+      const long long bkt = (long long)B * K * p.tiles;
+      const long long work = (long long)C * p.tq * G;
+      long long best_num = 0;
+      p.splits = 1;
+      for (int S = 1; S <= std::min(kMaxSplits, C); ++S) {
+        const long long num = (bkt * S + sms - 1) / sms * (kSplitFixed * S + work);
+        if (S == 1 || num * p.splits < best_num * S) {
+          best_num = num;
+          p.splits = S;
+        }
       }
     }
-  }
-  const int S = p.splits;
-  const int R = p.tq * G;
-  const int ppb = (C + S - 1) / S;  // the most pages a block can own
-  p.stage_pages = ppb;
-  p.slots = 1;
-  p.smem = MultiLayout(R, S, ppb, 1, d, P, C, kv_bytes, cols).total;
-  if (p.smem <= kMaxDynSmem) return p;
-  // a ring of two slots: the next slot's copy in flight during this one's products
-  p.slots = 2;
-  for (int h = ppb - 1; h >= 1; --h) {
-    p.stage_pages = h;
-    p.smem = MultiLayout(R, S, h, 2, d, P, C, kv_bytes, cols).total;
+    const int S = p.splits;
+    const int R = p.tq * G;
+    const int ppb = (C + S - 1) / S;  // the most pages a block can own
+    p.stage_pages = ppb;
+    p.slots = 1;
+    p.smem = MultiLayout(R, S, ppb, 1, d, P, C, kv_bytes, cols).total;
     if (p.smem <= kMaxDynSmem) return p;
+    // a ring of two slots: the next slot's copy in flight during this one's products
+    p.slots = 2;
+    for (int h = ppb - 1; h >= 1; --h) {
+      p.stage_pages = h;
+      p.smem = MultiLayout(R, S, h, 2, d, P, C, kv_bytes, cols).total;
+      if (p.smem <= kMaxDynSmem) return p;
+    }
+    if (tq_force > 0 || tq == 1) break;
+    const int tiles = (T + tq - 2) / (tq - 1);  // tiles of at most tq - 1 queries
+    tq = (T + tiles - 1) / tiles;
   }
-  p.tq = 0;  // p.smem: one page a slot
+  p.tq = 0;  // p.smem: one page a slot, at the fewest rows tried
   return p;
 }
 

@@ -177,9 +177,12 @@ def decode_multi_plan(B: int, K: int, T: int, G: int, d: int, P: int, C: int,
     = ceil(B K tiles S / sms), so the grid fills the card through the
     splits while a block's fixed cost still pays for itself; every page a
     block may own (ceil(C / S)) in one slot where that fits MAX_DYN_SMEM,
-    else a ring of two slots of as many pages as fit.  Raises ValueError,
-    with the bytes the smallest layout would need, where the shape cannot
-    be placed (G > MULTI_MAX_ROWS, or one page a slot does not fit)."""
+    else a ring of two slots of as many pages as fit; where not even one
+    page a slot fits beside the tile's rows (gemma2-2b's d_head 256 over
+    int8 pools at 64 rows), balanced tiles of fewer queries, down to one.
+    Raises ValueError, with the bytes the smallest layout would need, where
+    the shape cannot be placed (G > MULTI_MAX_ROWS, or one page a slot does
+    not fit at one query a tile)."""
     cv = 1 if d <= 64 else 4
     cols = MULTI_ROW_LANES * 4 * cv
     T, C = max(T, 1), max(C, 1)
@@ -187,23 +190,26 @@ def decode_multi_plan(B: int, K: int, T: int, G: int, d: int, P: int, C: int,
         raise _multi_refusal(G, d, P, multi_smem_bytes(G, 1, 1, 1, d, P, C, kv_bytes, cols))
     n = -(-T // (MULTI_MAX_ROWS // G))
     tq = -(-T // n)
-    tiles = -(-T // tq)
-    bkt, work = B * K * tiles, C * tq * G
-    splits, best = 1, None
-    for S in range(1, min(MAX_SPLITS, C) + 1):   # compared as integers, cost = num / S
-        num = -(-(bkt * S) // sms) * (SPLIT_FIXED * S + work)
-        if best is None or num * splits < best * S:
-            splits, best = S, num
-    ppb = -(-C // splits)
-    smem = multi_smem_bytes(tq * G, splits, ppb, 1, d, P, C, kv_bytes, cols)
-    if smem <= MAX_DYN_SMEM:
-        return MultiPlan(tq, splits, tiles, ppb, 1, cv, smem)
-    for h in range(ppb - 1, 0, -1):
-        smem = multi_smem_bytes(tq * G, splits, h, 2, d, P, C, kv_bytes, cols)
+    while True:
+        tiles = -(-T // tq)
+        bkt, work = B * K * tiles, C * tq * G
+        splits, best = 1, None
+        for S in range(1, min(MAX_SPLITS, C) + 1):   # compared as integers, cost = num / S
+            num = -(-(bkt * S) // sms) * (SPLIT_FIXED * S + work)
+            if best is None or num * splits < best * S:
+                splits, best = S, num
+        ppb = -(-C // splits)
+        smem = multi_smem_bytes(tq * G, splits, ppb, 1, d, P, C, kv_bytes, cols)
         if smem <= MAX_DYN_SMEM:
-            return MultiPlan(tq, splits, tiles, h, 2, cv, smem)
-    raise _multi_refusal(G, d, P, multi_smem_bytes(tq * G, splits, 1, 2, d, P, C, kv_bytes,
-                                                   cols))
+            return MultiPlan(tq, splits, tiles, ppb, 1, cv, smem)
+        for h in range(ppb - 1, 0, -1):
+            smem = multi_smem_bytes(tq * G, splits, h, 2, d, P, C, kv_bytes, cols)
+            if smem <= MAX_DYN_SMEM:
+                return MultiPlan(tq, splits, tiles, h, 2, cv, smem)
+        if tq == 1:
+            raise _multi_refusal(G, d, P, multi_smem_bytes(G, splits, 1, 2, d, P, C,
+                                                           kv_bytes, cols))
+        tq = -(-T // -(-T // (tq - 1)))     # balanced tiles of at most tq - 1 queries
 
 
 def kernel_multi_plan(B: int, K: int, T: int, G: int, d: int, P: int, C: int,

@@ -758,24 +758,30 @@ def decode_attention_multi_split_ref(
     return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, d).to(q.dtype)
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in B1's accumulation type: f32, or f64 for a float64 tensor (a
+    float64 forward, the reference that rounding is measured against)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _gain_rows(gain: torch.Tensor, D: int) -> torch.Tensor:
     """``1 + gain`` against rows laid out (G, rows / G, D): (D,) for a (D,)
     gain, (G, 1, D) for a gain per group."""
-    w = 1.0 + gain.float()
+    w = 1.0 + _acc(gain)
     return w if gain.ndim == 1 else w.reshape(-1, 1, D)
 
 
 def rmsnorm_ref(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """B1's plain version; ``gain`` (D,), or (G, D) over x's rows in G equal
     contiguous groups (group i's rows take gain row i)."""
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
+    xa = _acc(x)
+    var = torch.mean(xa * xa, dim=-1, keepdim=True)
+    y = xa * torch.rsqrt(var + eps)
     if gain.ndim == 2:
         D = x.shape[-1]
         return (y.reshape(gain.shape[0], -1, D) * _gain_rows(gain, D)).reshape(
             x.shape).to(x.dtype)
-    return (y * (1.0 + gain.float())).to(x.dtype)
+    return (y * (1.0 + _acc(gain))).to(x.dtype)
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,

@@ -9,8 +9,13 @@ int8`` stores the paged KV pools as int8 with per-page-per-head scales, on
 either engine.  ``--draft-width W`` serves speculatively with the target's
 µP proxy of width W as the drafter (``--draft-k`` drafts an iteration;
 ``--adaptive-draft`` on the dynamic engine adapts that length per slot).
-Flags of parts not ported yet (the mesh, observability, the dense-loop
-driver) exit with an error saying so.
+gemma2 (``--arch gemma2-2b``, ``gemma2-27b``) serves its sliding-window
+layers from rings of pages on both engines; ``--prefix-cache`` there runs
+with sharing off, as in the reference (ring pages are overwritten in
+place).  Flags of parts not ported yet (the mesh, observability, the
+dense-loop driver) exit with an error saying so, and so does a model whose
+float32 weights do not fit the card (gemma2-27b: bf16 weights or several
+cards are not ported yet).
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
@@ -21,10 +26,14 @@ Usage:
         --kv-dtype int8
     python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --draft-width 0.25 --draft-k 4 --adaptive-draft
+    python -m repro_torch.launch.serve --arch gemma2-2b --prompt-len 6400 \
+        --prefill-chunk 256 --gen-len 64
+    python -m repro_torch.launch.serve --arch gemma2-27b --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -33,6 +42,11 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig
 from repro_torch.serving.kv_cache import kv_dtype_of, pool_bytes
+
+
+def weight_bytes(model) -> int:
+    """Bytes of the model's float32 weights, from its parameter metas."""
+    return 4 * sum(math.prod(m.infshape.shape) for m in model.flat_meta.values())
 
 
 def main(argv=None):
@@ -109,6 +123,13 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype="float32", kv_dtype=args.kv_dtype)
     model = build_model(cfg, device=args.device)
+    if model.device.type == "cuda":
+        need = weight_bytes(model)
+        have = torch.cuda.get_device_properties(model.device).total_memory
+        if need > have:
+            ap.error(f"{cfg.name}'s float32 weights need {need / 1e9:.1f} GB and "
+                     f"the card has {have / 1e9:.1f} GB: serving it needs bf16 "
+                     f"weights or several cards, not ported yet (ROADMAP.md § A)")
     params = model.init(args.seed)
     dev = model.device
     draft_model = draft_params = None
@@ -142,10 +163,13 @@ def main(argv=None):
     cls = Engine if args.static else DynamicEngine
     engine = cls(model, ecfg, draft_model=draft_model)
     n_global = getattr(engine, "n_pages", None)
+    spec = engine.spec
     print(f"[serve] paged KV pools ({kv_dtype_of(cfg)}): "
-          f"{pool_bytes(cfg, engine.spec)/2**20:.1f} MiB "
-          f"({engine.spec.n_slots} slots x {engine.spec.gp_cols} global"
-          f" pages of {engine.spec.page_size} tokens"
+          f"{pool_bytes(cfg, spec)/2**20:.1f} MiB "
+          f"({spec.n_slots} slots x {spec.gp_cols} global"
+          + (f" + {spec.wp_cols} ring (window {cfg.window_size})"
+             if spec.wp_cols else "")
+          + f" pages of {spec.page_size} tokens"
           + (f"; dynamic pool of {n_global}" if n_global else "")
           + ")")
     out = engine.serve(

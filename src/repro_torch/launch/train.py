@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels.flash_attention import MAX_D_HEAD
 from repro_torch.core.parametrization import available_parametrizations
 from repro_torch.core.transfer import HParams, transfer
 from repro_torch.data.pipeline import make_pipeline
@@ -198,6 +199,10 @@ def main(argv=None):
                       amp=args.amp)
     if args.width:
         cfg = cfg.scaled(args.width)
+    if cfg.amp and cfg.d_head > MAX_D_HEAD and args.device != "cpu":
+        ap.error(f"--amp on {cfg.name}: its d_head {cfg.d_head} needs the flash "
+                 f"kernels (B5-B7) above d_head {MAX_D_HEAD}, not ported yet "
+                 f"(ROADMAP.md § A: gemma2 training under --amp)")
     hps = HParams(lr=args.lr, sigma=args.sigma)
 
     kw = dict(

@@ -2,7 +2,8 @@
 loss / prefill).
 
 The port's counterpart of ``repro.models.model`` for the dense decoder-only
-("lm", all-"attn") architectures.  Params are a flat ``{dotted name:
+("lm") architectures: all-"attn" stacks and gemma2's "local"/"attn"
+alternation with post-norms and a final softcap.  Params are a flat ``{dotted name:
 tensor}`` dict with the reference's names and shapes (see core/meta.py), so
 ``convert.params_from_numpy`` carries reference weights over 1:1.
 """
@@ -22,7 +23,10 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import gain_meta, mult_of, rmsnorm, softcap, wmeta
 from repro_torch.quant import policy_of, quant_matmul
 
-ACT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# float64 runs the plain versions only: the reference that a float32
+# forward's rounding is measured against
+ACT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+              "float64": torch.float64}
 
 
 def _embed_meta(cfg) -> ParamMeta:
@@ -133,7 +137,7 @@ class Model:
                                   policy_of(cfg))
         else:
             logits = torch.matmul(x, params["embed"].t().to(x.dtype))
-        logits = logits.float() * m
+        logits = logits.to(torch.promote_types(logits.dtype, torch.float32)) * m
         return softcap(logits, cfg.final_softcap)
 
     # ------------------------------------------------------------------
@@ -147,20 +151,32 @@ class Model:
         cache_len: int = 0,
         paged=None,
         hp=None,
+        full_cache: bool = False,
+        readout: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """Logits (B, S, V) f32 and the new cache.
+        """Logits (B, S, V) f32 (f64 in a float64 forward) and the new cache.
 
         ``hp`` (a core.hp.RuntimeHP or None) supplies per-call forward
         multipliers (alpha_embed / alpha_attn / alpha_output) in place of
         the config's floats: under ``torch.func.vmap`` over a stacked one,
         each candidate's own (core/tuning.py).
 
-        ``mode="prefill"`` emits a ``cache_len``-long, identity-ordered cache
-        for every layer (what the engine pages into a slot).  ``mode="decode"``
+        ``mode="prefill"`` emits a cache per layer: ``cache_len`` entries
+        indexed by position, and for a windowed layer a ring of
+        ``min(window, cache_len)``; with ``full_cache`` every layer's is the
+        ``cache_len``-long, identity-ordered one (what the engine pages into
+        a slot, the ring applied there).  ``mode="decode"``
         with ``paged`` (a serving.kv_cache.PagedState) writes the new tokens
         into the paged pools ``cache`` in place and attends through the
         flash-decode kernel (one token per slot) or the multi-query one (a
         chunk per slot; positions -1 mark rows that neither write nor see).
+
+        ``readout`` (an index along S: an int tensor (n,)) reads out only
+        those rows: logits (B, n, V).  The final norm and the logit matmul
+        act row by row, so the rows are the full readout's up to the
+        matmul's order of summation; an engine that samples from one row of
+        a long prefill or chunk saves the (S, vocab) logits (6.6 GB for
+        gemma2-2b's 6,400 tokens).
         """
         cfg = self.cfg
         B, S = tokens.shape
@@ -173,10 +189,13 @@ class Model:
         ctx = tfm.Ctx(
             positions=positions, mode=mode, cache_len=cache_len,
             paged=paged, impl=self.impl, aligned_positions=aligned, hp=hp,
+            full_prefill_cache=full_cache,
         )
         x, new_cache = tfm.run_stack(
             cfg, tree["groups"], self.layer_meta, x, ctx, cache,
         )
+        if readout is not None:
+            x = x[:, readout]
         x = rmsnorm(x, tree["final_norm"], cfg.norm_eps, impl=self.impl)
         return self._readout(tree, x, hp=hp), new_cache
 

@@ -23,7 +23,8 @@ def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float = 10000.0):
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate x (..., S, H, d_head) by precomputed angles (see rope_cos_sin)."""
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    """Rotate x (..., S, H, d_head) by precomputed angles (see rope_cos_sin),
+    in f32 (f64 for a float64 x)."""
+    x1, x2 = torch.chunk(x.to(torch.promote_types(x.dtype, torch.float32)), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -6,13 +6,17 @@ parameters of each block position in the group are stacked over
 transfer 1:1 by dotted name; where the reference scans over the stack, the
 port runs a Python loop over the layers of every stacked tensor.
 
-The port runs the "attn" block kind (global self-attention + MLP) in two
-modes: full sequence ("train" / "prefill"; prefill also emits a cache) and
-paged decode (one token per slot through the flash-decode kernel, a chunk
-of tokens per slot through the multi-query one).  Full
-sequences go through the flash-attention kernels when ``cfg.amp`` is set
-and the positions are 0..S-1, through plain attention otherwise, as in the
-reference.  The other kinds arrive with their blocks.
+The port runs two block kinds: "attn" (global self-attention + MLP) and
+"local" (the same over a sliding window of ``cfg.window_size`` positions;
+gemma2 alternates the two), each with gemma2's post-norms when
+``cfg.post_attn_norm`` is set.  Two modes: full sequence ("train" /
+"prefill"; prefill also emits a cache) and paged decode (one token per slot
+through the flash-decode kernel, a chunk of tokens per slot through the
+multi-query one; windowed layers read and write a ring of pages through
+the window table).  Full sequences go through the flash-attention kernels
+when ``cfg.amp`` is set and the positions are 0..S-1, through plain
+attention otherwise (in query chunks of ``cfg.attn_chunk`` past that
+length), as in the reference.  The other kinds arrive with their blocks.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch.models.rope import rope_cos_sin, rotate
 from repro_torch.quant import policy_of
 from repro_torch.serving import kv_cache as paged_kv
 
-BLOCK_KINDS = ("attn",)
+BLOCK_KINDS = ("attn", "local")
 
 
 @dataclasses.dataclass
@@ -56,8 +60,16 @@ class Ctx:
                                          # (cos, sin) of the positions, shared
                                          # by every layer (models/rope.py)
     writes: Optional[Any] = None         # decode: where each slot's tokens
-                                         # land in the pools, shared by every
-                                         # layer (kv_cache.write_slots)
+                                         # land in the global pools, shared
+                                         # by every global layer
+                                         # (kv_cache.write_slots)
+    ring_writes: Optional[Any] = None    # the same for the windowed layers'
+                                         # ring pools (the window table)
+    full_prefill_cache: bool = False     # prefill emits the full-length
+                                         # identity-ordered cache for every
+                                         # layer, windowed ones included (the
+                                         # engine pages it in, ring applied
+                                         # at page granularity)
     aligned_positions: bool = False      # positions are 0..S-1 in every row
                                          # (the flash kernels mask by index)
     hp: Optional[Any] = None             # core.hp.RuntimeHP: per-candidate
@@ -120,12 +132,15 @@ def block_meta(cfg, kind: str, name: str) -> Dict[str, Any]:
             f"block kind {kind!r} is not ported yet (ported: {BLOCK_KINDS})"
         )
     d, bd = cfg.d_model, cfg.base_d_model
-    return {
-        "ln1": gain_meta(f"{name}.ln1", d, bd),
-        "attn": _attn_meta(cfg, f"{name}.attn"),
-        "ln2": gain_meta(f"{name}.ln2", d, bd),
-        "mlp": _mlp_meta(cfg, f"{name}.mlp"),
-    }
+    m = {"ln1": gain_meta(f"{name}.ln1", d, bd),
+         "attn": _attn_meta(cfg, f"{name}.attn")}
+    if cfg.post_attn_norm:
+        m["ln1_post"] = gain_meta(f"{name}.ln1_post", d, bd)
+    m["ln2"] = gain_meta(f"{name}.ln2", d, bd)
+    m["mlp"] = _mlp_meta(cfg, f"{name}.mlp")
+    if cfg.post_attn_norm:
+        m["ln2_post"] = gain_meta(f"{name}.ln2_post", d, bd)
+    return m
 
 
 def tree_map(fn, tree):
@@ -181,9 +196,11 @@ def stack_group_meta(cfg) -> Dict[str, Any]:
 # block application
 # ---------------------------------------------------------------------------
 
-def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
+def _self_attention(cfg, params, meta, x, ctx: Ctx, windowed: bool, cache,
+                    p13n):
     """Returns (attn_out, new_cache)."""
     S = x.shape[1]
+    window = cfg.window_size if windowed else 0
     q = apply_w(x, params["wq"], meta["wq"], p13n, "bsd,dhk->bshk")
     k = apply_w(x, params["wk"], meta["wk"], p13n, "bsd,dkh->bskh")
     v = apply_w(x, params["wv"], meta["wv"], p13n, "bsd,dkh->bskh")
@@ -196,31 +213,46 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
     new_cache = None
     if ctx.mode in ("train", "prefill"):
         if ctx.mode == "prefill":
-            # the full-length, identity-ordered cache the engine pages in;
-            # out-of-range positions (prompt padding) are dropped
-            new_cache = attn_lib.cache_from_prefill(
-                k, v, ctx.positions, ctx.cache_len, dtype=k.dtype
-            )
+            if ctx.full_prefill_cache:
+                # the serving admission path: all cache_len entries in
+                # identity order, windowed layers too (the engine applies
+                # the ring when it pages them in); out-of-range positions
+                # (prompt padding) are dropped
+                new_cache = attn_lib.cache_from_prefill(
+                    k, v, ctx.positions, ctx.cache_len, dtype=k.dtype
+                )
+            else:
+                clen = min(window, ctx.cache_len) if window else ctx.cache_len
+                new_cache = attn_lib.cache_from_prefill(
+                    k, v, ctx.positions, clen, dtype=k.dtype,
+                    windowed=bool(window),
+                )
         if cfg.amp and ctx.aligned_positions:
             # flash attention (B5 forward, B6/B7 backward) under the
-            # mixed-precision policy; the plain path below masks by the
+            # mixed-precision policy; the plain paths below mask by the
             # positions themselves, which the kernels' index mask matches
             # only when they are 0..S-1
             out = ops.attention(
-                q, k, v, scale=scale, causal=True, softcap=cfg.attn_softcap,
-                policy=policy_of(cfg), impl=ctx.impl,
+                q, k, v, scale=scale, causal=True, window=window,
+                softcap=cfg.attn_softcap, policy=policy_of(cfg), impl=ctx.impl,
+            )
+        elif S > cfg.attn_chunk:
+            # query chunks: bounded memory for long sequences
+            out = attn_lib.attend_chunked(
+                q, k, v, ctx.positions, ctx.positions, scale, window=window,
+                attn_softcap=cfg.attn_softcap, chunk=cfg.attn_chunk,
             )
         else:
-            mask = attn_lib.make_mask(ctx.positions, ctx.positions)
+            mask = attn_lib.make_mask(ctx.positions, ctx.positions, True, window)
             out = attn_lib.attend(q, k, v, mask, scale, cfg.attn_softcap)
     elif ctx.mode == "decode":
         paged = ctx.paged
         if paged is None:
             raise NotImplementedError("the port decodes over the paged pool only")
-        table = paged.global_table
+        table = paged.window_table if windowed else paged.global_table
         new_cache = paged_kv.paged_cache_write(
             cache, k, v, ctx.positions, table, paged.active, paged.page_size,
-            slots=ctx.writes,
+            slots=ctx.ring_writes if windowed else ctx.writes, ring=windowed,
         )
         # int8 pools carry their per-page-per-head scales (None otherwise)
         kv_scales = dict(k_scale=new_cache.get("k_scale"),
@@ -228,7 +260,7 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
         if S == 1:
             out = ops.decode_attention(
                 q[:, 0], new_cache["k"], new_cache["v"], new_cache["pos"],
-                table, ctx.positions[:, 0], scale=scale,
+                table, ctx.positions[:, 0], scale=scale, window=window,
                 softcap=cfg.attn_softcap, impl=ctx.impl, **kv_scales,
             )[:, None]
         else:
@@ -237,7 +269,7 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, cache, p13n):
             # within the chunk too
             out = ops.decode_attention_multi(
                 q, new_cache["k"], new_cache["v"], new_cache["pos"],
-                table, ctx.positions, scale=scale,
+                table, ctx.positions, scale=scale, window=window,
                 softcap=cfg.attn_softcap, impl=ctx.impl, **kv_scales,
             )
     else:
@@ -265,12 +297,17 @@ def apply_block(
     eps = cfg.norm_eps
     h = rmsnorm(x, params["ln1"], eps, impl=ctx.impl)
     out, attn_cache = _self_attention(
-        cfg, params["attn"], meta["attn"], h, ctx,
+        cfg, params["attn"], meta["attn"], h, ctx, paged_kv.windowed(kind),
         None if cache is None else cache.get("attn"), p13n,
     )
+    if cfg.post_attn_norm:
+        out = rmsnorm(out, params["ln1_post"], eps, impl=ctx.impl)
     x = x + out
     h2 = rmsnorm(x, params["ln2"], eps, impl=ctx.impl)
-    x = x + _mlp(cfg, params["mlp"], meta["mlp"], h2, p13n)
+    mout = _mlp(cfg, params["mlp"], meta["mlp"], h2, p13n)
+    if cfg.post_attn_norm:
+        mout = rmsnorm(mout, params["ln2_post"], eps, impl=ctx.impl)
+    x = x + mout
     return x, (None if attn_cache is None else {"attn": attn_cache})
 
 
@@ -295,10 +332,20 @@ def run_stack(
     if cfg.rope_theta > 0:
         ctx.rope = rope_cos_sin(ctx.positions, cfg.d_head, cfg.rope_theta)
     if ctx.mode == "decode" and ctx.paged is not None:
+        # where the tokens land, once a forward for all layers of a kind:
+        # global layers through the global table, windowed ones through the
+        # ring of the window table
         paged = ctx.paged
-        ctx.writes = paged_kv.write_slots(
-            ctx.positions, paged.global_table, paged.active, paged.page_size
-        )
+        windowed = [paged_kv.windowed(k) for k in cfg.pattern]
+        if not all(windowed):
+            ctx.writes = paged_kv.write_slots(
+                ctx.positions, paged.global_table, paged.active, paged.page_size
+            )
+        if any(windowed):
+            ctx.ring_writes = paged_kv.write_slots(
+                ctx.positions, paged.window_table, paged.active,
+                paged.page_size, ring=True,
+            )
     emitted = {k: [] for k in keys}
     # each stacked tensor split into its layers once per forward: under
     # autograd one UnbindBackward stacks the layers' gradients, where a

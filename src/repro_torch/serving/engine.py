@@ -25,6 +25,13 @@ interleaved with decode steps.  A chunk is a decode-mode forward of the
 chunk's tokens at their absolute positions: written into the pages first,
 then attended through the multi-query paged kernel.
 
+Sliding-window layers (gemma2's "local") keep their pages in rings of the
+window table (``kv_cache.build_spec``: the window plus the lookahead a
+chunk or a verify writes ahead, one page more), built with the global
+table in every ``PagedState`` the engines make, the drafter's included;
+``DynamicEngine`` pops ring pages from a window pool of their own and
+shares none of them.
+
 Both engines pass the pool dicts whole, so int8 pools (``cfg.kv_dtype ==
 "int8"``) need nothing here: ``serving/kv_cache.py`` keeps each page's
 scales with its bytes through admission, invalidation, prefix sharing and
@@ -227,9 +234,10 @@ class Engine:
                 "adaptive_draft need the dynamic engine — use DynamicEngine"
             )
         # speculative chunks write up to draft_k positions ahead of their
-        # earliest query (kv_cache.build_spec)
+        # earliest query: the windowed ring covers window + draft_k before
+        # it wraps (kv_cache.build_spec)
         self._init_common(model, ecfg, draft_model, lookahead=ecfg.draft_k)
-        self.gtable = kv_cache.make_tables(self.spec, model.device)
+        self.gtable, self.wtable = kv_cache.make_tables(self.spec, model.device)
 
     def _init_common(self, model, ecfg: EngineConfig, draft_model,
                      lookahead: int):
@@ -269,7 +277,8 @@ class Engine:
             draft_model.cfg, ecfg.n_slots, max_total, ecfg.page_size,
             lookahead=lookahead,
         )
-        self.dgtable = kv_cache.make_tables(self.dspec, model.device)
+        self.dgtable, self.dwtable = kv_cache.make_tables(self.dspec,
+                                                          model.device)
 
     def _draft(self, draft_params, pools) -> Optional[_Draft]:
         """The serve()'s drafter state (None for a plain engine)."""
@@ -299,24 +308,29 @@ class Engine:
 
     def _prefill(self, model, params, q: _Queue, req: int):
         """A full-prompt prefill forward of ``req`` (padding at position
-        Pmax: invisible to real queries, dropped from the emitted cache)."""
-        Pmax = self.ecfg.max_prompt_len
-        idx = torch.arange(Pmax, dtype=torch.int32, device=model.device)
-        positions = torch.where(idx < int(q.lens[req]), idx, Pmax)[None]
+        Pmax: invisible to real queries, dropped from the emitted cache),
+        emitting the full-length cache of every layer and the logits of
+        the last prompt row alone, (1, 1, V)."""
+        Pmax, dev = self.ecfg.max_prompt_len, model.device
+        plen = int(q.lens[req])
+        idx = torch.arange(Pmax, dtype=torch.int32, device=dev)
+        positions = torch.where(idx < plen, idx, Pmax)[None]
         return model.forward(params, q.prompts_d[req:req + 1],
                              positions=positions, mode="prefill",
-                             cache_len=Pmax)
+                             cache_len=Pmax, full_cache=True,
+                             readout=torch.tensor([plen - 1], device=dev))
 
     def _admit_full(self, params, q: _Queue, st: _Slots, pools, slot: int,
-                    req: int, gtab_row: torch.Tensor, draft=None):
+                    req: int, gtab_row: torch.Tensor, wtab_row=None,
+                    draft=None):
         """One-shot admission: a full-prompt prefill forward, paged into the
-        slot's pages, then the first token sampled (and the drafter's
-        admission)."""
+        slot's pages (the ring of ``wtab_row`` for windowed layers), then
+        the first token sampled (and the drafter's admission)."""
         plen = int(q.lens[req])
         logits, pcache = self._prefill(self.model, params, q, req)
         kv_cache.admit_slot(pools, pcache, self.model.cfg, self.spec,
-                            gtab_row, plen)
-        tok = q.draw(logits[:, plen - 1],
+                            gtab_row, plen, wtab_row=wtab_row)
+        tok = q.draw(logits[:, 0],
                      torch.tensor([req], device=self.model.device), plen - 1)
         self._start(q, st, slot, req, int(tok[0]))
         if draft is not None:
@@ -331,13 +345,15 @@ class Engine:
         dropped)."""
         plen, dk = int(q.lens[req]), self.ecfg.draft_k
         _, dpcache = self._prefill(self.draft_model, draft.params, q, req)
-        kv_cache.admit_slot(draft.pools, dpcache, self.draft_model.cfg,
-                            self.dspec, self.dgtable[slot], plen)
+        kv_cache.admit_slot(
+            draft.pools, dpcache, self.draft_model.cfg, self.dspec,
+            self.dgtable[slot], plen,
+            wtab_row=None if self.dwtable is None else self.dwtable[slot])
         gidx = np.clip(plen - dk + np.arange(dk), 0, self.ecfg.max_prompt_len - 1)
         st.ctx[slot] = np.append(q.prompts[req, gidx], tok)
 
     def _decode(self, params, q: _Queue, st: _Slots, pools,
-                gtable: torch.Tensor):
+                gtable: torch.Tensor, wtable=None):
         """One (n_slots, 1) decode forward over all slots, sampling, and
         retirement on EOS or the length budget."""
         dev = self.model.device
@@ -345,7 +361,7 @@ class Engine:
         positions = np.where(st.active, st.pos, -1)
         paged = kv_cache.PagedState(
             global_table=gtable, active=torch.as_tensor(st.active, device=dev),
-            page_size=self.spec.page_size,
+            page_size=self.spec.page_size, window_table=wtable,
         )
         logits, _ = self.model.forward(
             params, torch.as_tensor(st.last[:, None], device=dev),
@@ -368,7 +384,7 @@ class Engine:
         st.ntok = np.where(was_active, ntok, st.ntok)
 
     def _decode_spec(self, params, q: _Queue, st: _Slots, pools,
-                     gtable: torch.Tensor, draft: _Draft, k_eff=None):
+                     gtable: torch.Tensor, wtable, draft: _Draft, k_eff=None):
         """One speculative iteration over all slots (draft -> verify ->
         accept -> commit), in place of :meth:`_decode`.  ``k_eff`` ((S,)
         in [1, draft_k], host data) cuts each slot's chain: draft j >=
@@ -387,7 +403,8 @@ class Engine:
 
         # draft: the catch-up chunk at pos - dk .. pos, then dk single steps
         dpaged = kv_cache.PagedState(global_table=self.dgtable, active=act_d,
-                                     page_size=self.dspec.page_size)
+                                     page_size=self.dspec.page_size,
+                                     window_table=self.dwtable)
         cpos = pos[:, None] - dk + joff
         cpos = np.where(active[:, None] & (cpos >= 0), cpos, -1)
         logits, _ = self.draft_model.forward(
@@ -418,7 +435,8 @@ class Engine:
         vpos = np.where(active[:, None] & (joff <= k_used[:, None]),
                         pos[:, None] + joff, -1)
         paged = kv_cache.PagedState(global_table=gtable, active=act_d,
-                                    page_size=self.spec.page_size)
+                                    page_size=self.spec.page_size,
+                                    window_table=wtable)
         vlogits, _ = self.model.forward(
             params, torch.cat([on_card(st.last[:, None]), drafts], dim=1),
             positions=at(vpos), mode="decode", cache=pools, paged=paged,
@@ -500,13 +518,15 @@ class Engine:
         while (next_req < R or st.active.any()) and step < max_steps:
             if next_req < R and not st.active.all():
                 slot = int(np.argmin(st.active))     # the first free slot
+                wrow = None if self.wtable is None else self.wtable[slot]
                 self._admit_full(params, q, st, pools, slot, next_req,
-                                 self.gtable[slot], draft)
+                                 self.gtable[slot], wrow, draft)
                 next_req += 1
             if draft is None:
-                self._decode(params, q, st, pools, self.gtable)
+                self._decode(params, q, st, pools, self.gtable, self.wtable)
             else:
-                self._decode_spec(params, q, st, pools, self.gtable, draft)
+                self._decode_spec(params, q, st, pools, self.gtable,
+                                  self.wtable, draft)
             step += 1
         return {
             "tokens": torch.from_numpy(st.out_toks),
@@ -535,7 +555,11 @@ class DynamicEngine(Engine):
     boundaries sit on absolute multiples of ``prefill_chunk`` and shared
     spans are floored to the same boundaries, so with prefix caching on or
     off a greedy serve gives the same tokens.  Prefix sharing applies to
-    global-attention pages (the only kind the port serves).
+    global-attention pages only: windowed configs (gemma2) run with sharing
+    off, as in the reference, because decode overwrites ring pages in place
+    and a shared ring page would be corrupted (serving/allocator.py).  Their
+    ring pages come from a window pool of their own, popped at admission
+    like the global pages.
 
     KV pools and the prefix cache persist across ``serve()`` calls, so a
     later serve hits prefixes cached by an earlier one; so do the drafter's
@@ -556,28 +580,41 @@ class DynamicEngine(Engine):
                 f"needs draft_k >= 1 (got draft_k={ecfg.draft_k})"
             )
         # chunk forwards write up to chunk_len - 1 positions ahead of their
-        # earliest query, speculative chunks up to draft_k
-        # (kv_cache.build_spec)
+        # earliest query, speculative chunks up to draft_k: the windowed
+        # ring needs that margin (kv_cache.build_spec)
         self._init_common(model, ecfg, draft_model,
                           lookahead=max(ecfg.draft_k, C - 1 if C else 0))
         spec = self.spec
         self.n_pages = ecfg.n_pages or spec.n_global_pages
+        self.n_window_pages = ((ecfg.n_window_pages or spec.n_window_pages)
+                               if spec.wp_cols else 0)
         self.blocks = BlockManager(
             n_pages=self.n_pages, page_size=spec.page_size,
-            gp_cols=spec.gp_cols, prefix_cache=ecfg.prefix_cache,
+            gp_cols=spec.gp_cols, wp_cols=spec.wp_cols,
+            n_window_pages=self.n_window_pages,
+            prefix_cache=ecfg.prefix_cache,
         )
         self._align = max(C // spec.page_size, 1)
         self._cmax = C if C else ecfg.max_prompt_len
         # host-side page tables, copied to the card when an admission
         # changes them
         self._gtab = np.zeros((spec.n_slots, spec.gp_cols), np.int32)
-        self._gtab_d = torch.as_tensor(self._gtab, device=model.device)
+        self._wtab = (np.zeros((spec.n_slots, spec.wp_cols), np.int32)
+                      if spec.wp_cols else None)
+        self._tables_to_card()
         # pools persist across serve() calls: prefix-cached pages stay warm
         self._pools = kv_cache.init_pools(model.cfg, spec, model.device,
-                                          n_global=self.n_pages)
+                                          n_global=self.n_pages,
+                                          n_window=self.n_window_pages)
         self._dpools = (None if draft_model is None else
                         kv_cache.init_pools(draft_model.cfg, self.dspec,
                                             model.device))
+
+    def _tables_to_card(self):
+        dev = self.model.device
+        self._gtab_d = torch.as_tensor(self._gtab, device=dev)
+        self._wtab_d = (None if self._wtab is None
+                        else torch.as_tensor(self._wtab, device=dev))
 
     # ------------------------------------------------------------------
     def _admit_chunk(self, params, q: _Queue, st: _Slots, cur, s0: int,
@@ -602,14 +639,17 @@ class DynamicEngine(Engine):
             global_table=self._gtab_d[slot:slot + 1],
             active=torch.ones(1, dtype=torch.bool, device=dev),
             page_size=self.spec.page_size,
+            window_table=(None if self._wtab_d is None
+                          else self._wtab_d[slot:slot + 1]),
         )
+        # only the chunk's last real row is ever sampled from
         logits, _ = self.model.forward(
             params, toks, positions=pos, mode="decode", cache=self._pools,
-            paged=paged,
+            paged=paged, readout=torch.tensor([max(l0 - 1, 0)], device=dev),
         )
         if last:
             plen = cur["plen"]
-            tok = q.draw(logits[:, max(l0 - 1, 0)],
+            tok = q.draw(logits[:, 0],
                          torch.tensor([req], device=dev), plen - 1)
             self._start(q, st, slot, req, int(tok[0]))
             if draft is not None:
@@ -690,8 +730,9 @@ class DynamicEngine(Engine):
                     pending.pop(0)
                     free.remove(slot)
                     self._gtab[slot, :] = adm.table_row
-                    self._gtab_d = torch.as_tensor(self._gtab,
-                                                   device=self.model.device)
+                    if self._wtab is not None:
+                        self._wtab[slot, :] = adm.wtab_row
+                    self._tables_to_card()
                     c = adm.cached_len
                     prefill_cached += c
                     prefill_total += plen
@@ -709,17 +750,22 @@ class DynamicEngine(Engine):
             finishing = None
             if cur is not None:
                 if cur["chunks"] is None:
-                    self._admit_full(params, q, st, self._pools, cur["slot"],
-                                     cur["req"], self._gtab_d[cur["slot"]],
-                                     draft)
+                    slot = cur["slot"]
+                    self._admit_full(
+                        params, q, st, self._pools, slot, cur["req"],
+                        self._gtab_d[slot],
+                        None if self._wtab_d is None else self._wtab_d[slot],
+                        draft)
                     finishing, cur = cur, None
                 else:
                     s0, l0 = cur["chunks"][cur["i"]]
                     if cur["i"] == 0:
                         # freshly popped pages may hold a previous
                         # occupant's entries; shared pages are never reset
+                        adm = cur["adm"]
                         kv_cache.invalidate_pages(
-                            self._pools, self.model.cfg, cur["adm"].fresh_pages)
+                            self._pools, self.model.cfg, adm.fresh_pages,
+                            adm.fresh_wpages if self._wtab is not None else None)
                     last = cur["i"] == len(cur["chunks"]) - 1
                     self._admit_chunk(params, q, st, cur, s0, l0, last, draft)
                     if last:
@@ -728,10 +774,12 @@ class DynamicEngine(Engine):
                         cur["i"] += 1
             # ---- one decode step over all slots, if any is active ----
             if st.active.any() and draft is None:
-                self._decode(params, q, st, self._pools, self._gtab_d)
+                self._decode(params, q, st, self._pools, self._gtab_d,
+                             self._wtab_d)
             elif st.active.any():
                 self._decode_spec(params, q, st, self._pools, self._gtab_d,
-                                  draft, k_eff=k_cur if adaptive else None)
+                                  self._wtab_d, draft,
+                                  k_eff=k_cur if adaptive else None)
             steps += 1
             tnow = time.monotonic() - t0
             # ---- host bookkeeping ----

@@ -1,9 +1,9 @@
 """Slot-mapped paged KV cache: fixed block pool + per-slot page tables.
 
-The port's counterpart of ``repro.serving.kv_cache`` for global-attention
-layers with float32, bfloat16 or int8 pools (the windowed ring comes
-later).  Each attention layer's cache is a *pool* of fixed-size pages
-shared by every decode slot::
+The port's counterpart of ``repro.serving.kv_cache`` for global and
+sliding-window attention layers with float32, bfloat16 or int8 pools.
+Each attention layer's cache is a *pool* of fixed-size pages shared by
+every decode slot::
 
     {"k": (N, P, K, hd), "v": (N, P, K, hd), "pos": (N, P) int32}
 
@@ -23,7 +23,16 @@ as the payload, so prefix sharing, eviction and re-admission move both or
 neither.  The bytes and scales equal the reference's for the same inputs.
 
 Indirection is by *page table*: slot ``s``'s logical page ``j`` lives at
-physical page ``table[s, j]``.  The static engine builds its tables once
+physical page ``table[s, j]``.  Global layers give each slot
+``ceil(max_total / P)`` logical pages.  Sliding-window layers give it
+``wp_cols = ceil((window + lookahead) / P) + 1`` pages (at most the global
+count), used as a ring: logical page ``t // P`` maps to table column
+``(t // P) % wp_cols`` of the *window table*, so a long decode touches
+O(window) cache, not O(T).  The +1 page makes wraparound safe: the page
+being overwritten holds only positions older than the window.  A ring page
+that has wrapped holds positions out of logical order; every reader masks
+by the stored positions, never by the column.  Window pools are sized by
+``n_window_pages`` apart from the global ones.  The static engine builds its tables once
 with pages *interleaved* across slots (slot s's page j = j * n_slots + s),
 so correctness depends on the indirection being followed; the dynamic
 engine takes them from ``serving/allocator.py`` and sizes its pools apart
@@ -45,8 +54,9 @@ import torch
 
 from repro_torch.quant.core import _EPS, INT8_MAX, int8_scale
 
-# block kinds the paged engine serves in the port
-SERVABLE_KINDS = ("attn",)
+# block kinds the paged engine serves in the port (self-attention KV caches;
+# the reference also serves its MoE kinds, which the port has not yet)
+SERVABLE_KINDS = ("attn", "local")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8}
@@ -56,6 +66,17 @@ def kv_dtype_of(cfg) -> str:
     """Resolved pool storage dtype name: ``cfg.kv_dtype`` overrides
     ``cfg.dtype`` when set (the activation dtype stays untouched)."""
     return cfg.kv_dtype or cfg.dtype
+
+
+def windowed(kind: str) -> bool:
+    """Whether layers of ``kind`` attend over a window (and so a ring)."""
+    return kind.startswith("local")
+
+
+def ring_column(pos, page_size: int, cols: int):
+    """The window-table column of position ``pos`` (>= 0): its logical page
+    ``pos // page_size`` in a ring of ``cols`` pages."""
+    return (pos // page_size) % cols
 
 
 def check_servable(cfg) -> None:
@@ -77,11 +98,16 @@ class PagedSpec:
 
     n_slots: int
     page_size: int
-    gp_cols: int           # logical pages per slot
+    gp_cols: int           # logical pages per slot, global layers
+    wp_cols: int = 0       # ring pages per slot, windowed layers (0 = none)
 
     @property
     def n_global_pages(self) -> int:
         return self.n_slots * self.gp_cols
+
+    @property
+    def n_window_pages(self) -> int:
+        return self.n_slots * self.wp_cols
 
 
 def build_spec(cfg, n_slots: int, max_total: int, page_size: int,
@@ -89,23 +115,34 @@ def build_spec(cfg, n_slots: int, max_total: int, page_size: int,
     """max_total = max prompt + max generation length per request.
 
     ``lookahead`` is how far a forward's writes may run ahead of its
-    earliest query (a prefill chunk, a speculative verify chunk); the
-    reference widens its windowed rings by it.  The port serves global
-    layers only, whose pages never wrap, so it changes nothing here.
+    earliest query: a prefill chunk's (chunk - 1), a speculative verify
+    chunk's or a drafter catch-up's (draft_k).  The ring must cover
+    ``window + lookahead`` positions before it wraps, or a write at
+    position p would evict an entry still inside some query's window.
     """
     check_servable(cfg)
-    return PagedSpec(
-        n_slots=n_slots, page_size=page_size,
-        gp_cols=math.ceil(max_total / page_size),
-    )
+    gp = math.ceil(max_total / page_size)
+    wp = 0
+    if any(windowed(k) for k in (*cfg.pattern, *cfg.tail)):
+        # +1 ring page: the page being overwritten holds only positions
+        # older than the window (wp * P > window + P - 1).  When the window
+        # covers the whole budget the ring never wraps: clamp to gp.
+        wp = min(gp, math.ceil((cfg.window_size + lookahead) / page_size) + 1)
+    return PagedSpec(n_slots=n_slots, page_size=page_size, gp_cols=gp,
+                     wp_cols=wp)
 
 
-def make_tables(spec: PagedSpec, device) -> torch.Tensor:
-    """Global page table (S, gp) int32, interleaved: slot s's j-th page is
-    physical page j * S + s."""
+def make_tables(spec: PagedSpec, device):
+    """(global_table (S, gp), window_table (S, wp) or None) int32,
+    interleaved: slot s's j-th page is physical page j * S + s of its
+    kind's pool."""
     s = torch.arange(spec.n_slots, dtype=torch.int32, device=device)[:, None]
     j = torch.arange(spec.gp_cols, dtype=torch.int32, device=device)[None, :]
-    return j * spec.n_slots + s
+    wtab = None
+    if spec.wp_cols:
+        w = torch.arange(spec.wp_cols, dtype=torch.int32, device=device)[None, :]
+        wtab = w * spec.n_slots + s
+    return j * spec.n_slots + s, wtab
 
 
 @dataclasses.dataclass
@@ -115,6 +152,8 @@ class PagedState:
     global_table: torch.Tensor   # (S, gp) int32
     active: torch.Tensor         # (S,) bool — inactive writes are dropped
     page_size: int
+    window_table: Optional[torch.Tensor] = None   # (S, wp) int32, or None
+                                                  # without windowed layers
 
 
 # ---------------------------------------------------------------------------
@@ -122,21 +161,26 @@ class PagedState:
 # ---------------------------------------------------------------------------
 
 def init_pools(cfg, spec: PagedSpec, device,
-               n_global: Optional[int] = None) -> Dict[str, Any]:
+               n_global: Optional[int] = None,
+               n_window: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed pools mirroring run_stack's cache layout:
-    {"groups": {"<i>_<kind>": {"attn": pool}}}, stacked over n_groups.
+    {"groups": {"<i>_<kind>": {"attn": pool}}}, stacked over n_groups;
+    windowed kinds get ring pools of ``spec.n_window_pages`` pages.
 
-    ``n_global`` overrides the pool size (default: the static interleaved
-    geometry ``spec.n_global_pages``): the dynamic allocator sizes its pool
-    apart from ``n_slots * gp_cols`` so prefix-cached pages can outlive
-    their slot."""
+    ``n_global`` / ``n_window`` override the pool sizes (default: the static
+    interleaved geometry ``spec.n_*_pages``): the dynamic allocator sizes
+    its pools apart from ``n_slots * cols`` so prefix-cached pages can
+    outlive their slot."""
     K, hd = cfg.n_kv_heads, cfg.d_head
     kv_name = kv_dtype_of(cfg)
     dtype = _DTYPES[kv_name]
-    N = spec.n_global_pages if n_global is None else n_global
     L, P = cfg.n_groups, spec.page_size
 
-    def pool():
+    def pool(kind):
+        if windowed(kind):
+            N = spec.n_window_pages if n_window is None else n_window
+        else:
+            N = spec.n_global_pages if n_global is None else n_global
         p = {
             "k": torch.zeros((L, N, P, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((L, N, P, K, hd), dtype=dtype, device=device),
@@ -148,7 +192,7 @@ def init_pools(cfg, spec: PagedSpec, device,
         return p
 
     return {
-        "groups": {f"{i}_{kind}": {"attn": pool()}
+        "groups": {f"{i}_{kind}": {"attn": pool(kind)}
                    for i, kind in enumerate(cfg.pattern)},
     }
 
@@ -161,25 +205,34 @@ def pool_bytes(cfg, spec: PagedSpec) -> int:
     per_page = spec.page_size * (cfg.n_kv_heads * cfg.d_head * 2 * itemsize + 4)
     if kv_name == "int8":
         per_page += 2 * cfg.n_kv_heads * 4     # k and v scales
-    return cfg.n_layers * spec.n_global_pages * per_page
+    n_pages = sum(spec.n_window_pages if windowed(k) else spec.n_global_pages
+                  for k in cfg.pattern)
+    return cfg.n_groups * n_pages * per_page
 
 
 # ---------------------------------------------------------------------------
 # decode write (called from the transformer's decode branch, per layer)
 # ---------------------------------------------------------------------------
 
-def write_slots(positions, table, active, page_size: int):
+def write_slots(positions, table, active, page_size: int, ring: bool = False):
     """Where a T-token chunk per slot lands: (b, t, page, offset) index
-    tensors of the writes that are kept.  Writes of inactive slots, of
-    positions < 0 and of positions past the page budget are dropped.  The
-    selection waits for the card once (a boolean mask becomes indices), so a
-    forward computes it once for all its layers."""
+    tensors of the writes that are kept.  Writes of inactive slots and of
+    positions < 0 are dropped, and so, without ``ring``, are those past the
+    page budget; with ``ring`` (a windowed layer's table) logical page
+    ``pos // P`` lands in column ``(pos // P) % C``.  The selection waits for
+    the card once (a boolean mask becomes indices), so a forward computes it
+    once for all its layers of a kind."""
     C = table.shape[1]
     pos = positions.long()
     safe = pos.clamp(min=0)
-    logical = safe // page_size
-    ok = (pos >= 0) & (logical < C) & active[:, None]
-    page = torch.gather(table.long(), 1, logical.clamp(max=C - 1))
+    if ring:
+        col = ring_column(safe, page_size, C)
+        ok = (pos >= 0) & active[:, None]
+    else:
+        logical = safe // page_size
+        col = logical.clamp(max=C - 1)
+        ok = (pos >= 0) & (logical < C) & active[:, None]
+    page = torch.gather(table.long(), 1, col)
     b_idx, t_idx = ok.nonzero(as_tuple=True)
     return b_idx, t_idx, page[b_idx, t_idx], safe[b_idx, t_idx] % page_size
 
@@ -193,12 +246,15 @@ def paged_cache_write(
     active: torch.Tensor,             # (B,) bool
     page_size: int,
     slots=None,                       # write_slots(...) of these arguments
+    ring: bool = False,               # a windowed layer's ring table
 ) -> Dict[str, torch.Tensor]:
     """Write a T-token chunk per slot into its pages, in place; returns the
-    pools.  Dropped writes as in :func:`write_slots`; int8 pools through
-    :func:`_quantized_write`."""
+    pools.  Dropped writes and the ring as in :func:`write_slots` (chunk
+    positions are consecutive and at most a ring's reach long, so no two
+    land on one cell); int8 pools through :func:`_quantized_write`, ring
+    pages included: a wrapped page keeps its scale, which only grows."""
     if slots is None:
-        slots = write_slots(positions, table, active, page_size)
+        slots = write_slots(positions, table, active, page_size, ring=ring)
     b_idx, t_idx, pg, off = slots
     cache["pos"][pg, off] = positions[b_idx, t_idx].to(torch.int32)
     if "k_scale" in cache:
@@ -248,39 +304,53 @@ def admit_slot(
     pcache: Dict[str, Any],
     cfg,
     spec: PagedSpec,
-    gtab_row: torch.Tensor,          # (gp,) int32 — the slot's pages
+    gtab_row: torch.Tensor,          # (gp,) int32 — the slot's global pages
     plen: int,                       # true prompt length
+    wtab_row: Optional[torch.Tensor] = None,   # (wp,) int32 ring pages
 ) -> Dict[str, Any]:
     """Page a (B=1) *full-length* prefill cache (``Model.forward(...,
-    mode="prefill")``: every layer emits ``Pmax`` entries in identity order,
-    padding dropped) into the slot's pages, in place.
+    mode="prefill", full_cache=True)``: every layer emits ``Pmax`` entries
+    in identity order, padding dropped) into the slot's pages, in place.
 
+    Global layers keep every prompt token that fits the slot's page budget;
+    windowed layers keep only the ring's reach, the last ``wp * P`` tokens
+    (t >= plen - wp * P), each at column ``(t // P) % wp`` of ``wtab_row``.
     The slot's pages are first invalidated (pos = -1) so a previous
     occupant's entries can never alias the new request's positions; stale
     k/v bytes may remain but are masked by pos.  Int8 pools through
     :func:`_admit_quantized`.
     """
     device = gtab_row.device
-    rows = gtab_row.long()
+    plen, P = int(plen), spec.page_size
+
+    def plan(rows, lo, hi, ring):
+        t = torch.arange(lo, hi, device=device)
+        col = ring_column(t, P, ring) if ring else t // P
+        return rows, lo, hi, t, rows[col], t % P
+
     # prompt tokens that fit the slot's page budget; the rest (and the
     # padding past plen) is dropped
-    n = min(int(plen), spec.gp_cols * spec.page_size)
-    t = torch.arange(n, device=device)
-    page = rows[t // spec.page_size]
-    off = t % spec.page_size
+    plans = {False: plan(gtab_row.long(), 0, min(plen, spec.gp_cols * P), 0)}
+    if spec.wp_cols:
+        if wtab_row is None:
+            raise ValueError(f"{cfg.name}: windowed layers need the slot's "
+                             f"window-table row")
+        lo = max(0, plen - spec.wp_cols * P)    # only the ring's reach survives
+        plans[True] = plan(wtab_row.long(), lo, plen, spec.wp_cols)
     for i, kind in enumerate(cfg.pattern):
         key = f"{i}_{kind}"
         pool = pools["groups"][key]["attn"]
         src = pcache["groups"][key]["attn"]
+        rows, lo, hi, t, page, off = plans[windowed(kind)]
         pool["pos"][:, rows] = -1
         pool["pos"][:, page, off] = t.to(torch.int32)
         if "k_scale" in pool:
             for name in ("k", "v"):
                 _admit_quantized(pool[name], pool[name + "_scale"],
-                                 src[name][:, 0, :n], rows, page, off)
+                                 src[name][:, 0, lo:hi], rows, page, off)
             continue
-        pool["k"][:, page, off] = src["k"][:, 0, :n].to(pool["k"].dtype)
-        pool["v"][:, page, off] = src["v"][:, 0, :n].to(pool["v"].dtype)
+        pool["k"][:, page, off] = src["k"][:, 0, lo:hi].to(pool["k"].dtype)
+        pool["v"][:, page, off] = src["v"][:, 0, lo:hi].to(pool["v"].dtype)
     return pools
 
 
@@ -302,18 +372,24 @@ def _admit_quantized(store, scale, src, rows, page, off):
 # previous occupant's entries)
 # ---------------------------------------------------------------------------
 
-def invalidate_pages(pools: Dict[str, Any], cfg, g_pages) -> Dict[str, Any]:
-    """Set pos = -1 on the given physical pages of every layer, in place,
-    and zero their int8 scales; returns the pools.  Ids at or past the pool
+def invalidate_pages(pools: Dict[str, Any], cfg, g_pages,
+                     w_pages=None) -> Dict[str, Any]:
+    """Set pos = -1 on the given physical pages of every layer (global
+    pools get ``g_pages``, windowed ring pools ``w_pages``; None leaves a
+    kind's pools alone), in place, and zero their int8 scales; returns the
+    pools.  Ids at or past the pool
     size are skipped (the reference pads its fixed-shape id arrays with the
     pool size and lets JAX drop the out-of-bounds scatter; PyTorch would
     raise, so they are masked out here).  Stale k/v bytes remain, masked by
     pos everywhere; an int8 page's stale bytes are wiped by its next
     write's requantization (old scale 0, ratio 0)."""
     for i, kind in enumerate(cfg.pattern):
+        pages = w_pages if windowed(kind) else g_pages
+        if pages is None:
+            continue
         pool = pools["groups"][f"{i}_{kind}"]["attn"]
         pos = pool["pos"]
-        ids = torch.as_tensor(g_pages, dtype=torch.long).reshape(-1)
+        ids = torch.as_tensor(pages, dtype=torch.long).reshape(-1)
         ids = ids[(ids >= 0) & (ids < pos.shape[1])].to(pos.device)
         pos[:, ids] = -1
         if "k_scale" in pool:

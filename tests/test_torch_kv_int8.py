@@ -209,7 +209,7 @@ def test_pools_byte_exact_against_reference(jx):
     L, K, hd = tcfg.n_groups, tcfg.n_kv_heads, tcfg.d_head
     key = "0_attn"
     rng = np.random.default_rng(5)
-    gtab = np.asarray(tkv.make_tables(tspec, "cpu"))           # (2, 4) interleaved
+    gtab = np.asarray(tkv.make_tables(tspec, "cpu")[0])        # (2, 4) interleaved
 
     # admission of slot 0: a 7-token prompt out of a 12-token buffer
     Pmax, plen = 12, 7

@@ -99,7 +99,7 @@ def _admitted(jm, jp, tm, tp, plens, Pmax, spec_args):
     jspec = jkv.build_spec(jm.cfg, S, *spec_args)
     tspec = tkv.build_spec(tm.cfg, S, *spec_args)
     jgt, _ = jkv.make_tables(jspec)
-    tgt = tkv.make_tables(tspec, "cpu")
+    tgt, _ = tkv.make_tables(tspec, "cpu")
     jpools = jkv.init_pools(jm.cfg, jspec)
     tpools = tkv.init_pools(tm.cfg, tspec, "cpu")
     prompts = _tokens(jm.cfg, (S, Pmax), seed=2)

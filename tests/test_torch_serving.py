@@ -75,7 +75,7 @@ def test_paged_cache_write_matches_reference():
     S, P = 4, 4
     jspec, tspec, jpools, tpools = _pools_pair(jcfg, tcfg, S, 12, P, seed=0)
     jtab, _ = jkv.make_tables(jspec)
-    ttab = tkv.make_tables(tspec, "cpu")
+    ttab, _ = tkv.make_tables(tspec, "cpu")
     jpool = jax.tree_util.tree_map(lambda a: a[0], jpools["groups"]["0_attn"]["attn"])
     tpool = {k: v[0] for k, v in tpools["groups"]["0_attn"]["attn"].items()}
     rng = np.random.default_rng(1)
@@ -105,7 +105,7 @@ def test_admit_slot_matches_reference_and_resets_the_slot():
     S, P, Pmax = 2, 4, 12
     jspec, tspec, jpools, tpools = _pools_pair(jcfg, tcfg, S, Pmax + 4, P, seed=2)
     jtab, _ = jkv.make_tables(jspec)
-    ttab = tkv.make_tables(tspec, "cpu")
+    ttab, _ = tkv.make_tables(tspec, "cpu")
     L, K, hd = jcfg.n_groups, jcfg.n_kv_heads, jcfg.d_head
     rng = np.random.default_rng(3)
     for slot, plen in ((1, 11), (0, 7), (1, 5)):
@@ -132,7 +132,7 @@ def test_admit_slot_matches_reference_and_resets_the_slot():
 def test_non_attn_blocks_are_refused():
     _, tcfg = _cfgs()
     with pytest.raises(ValueError, match="not ported"):
-        tkv.check_servable(tcfg.replace(pattern=("local",)))
+        tkv.check_servable(tcfg.replace(pattern=("ssd",)))
 
 
 # ---------------------------------------------------------------------------
