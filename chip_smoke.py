@@ -9,9 +9,10 @@ B8's twelve instances (six (q, pool) type pairs, with and without 16-byte
 loads: registers printed, no spills in ``ptxas -v``), of B9's twelve (six
 type pairs, 64- and 256-column slices: the same), of the
 tensor-core flash kernels (B5, B6 and B7 in the bf16 operand mode): no spills
-in ``ptxas -v`` at DP 64 and 128, and of the int8 mode (the forward's and
+in ``ptxas -v`` at DP 64, 128 and 256, of the int8 mode (the forward's and
 the backward's pre-passes and B5, B6, B7 on the s8 tensor cores:
-registers printed, no spills in B5, B6 or B7), of B2's instances
+registers printed at each DP, no spills in B5, B6 or B7), of the f32
+mode's FFMA kernels (registers printed, no spills at DP 256), of B2's instances
 (registers printed, no spill in the train shape's), and, where
 ``cuobjdump`` is on the machine, tensor-core instructions in their SASS
 (HMMA/HGMMA in the bf16 kernels; IMMA and no IDP.4A in B5, B6 and B7
@@ -31,8 +32,11 @@ check:
   1030, the last on the scalar path), f32 and bf16 (dx at atol 2e-4 / rtol
   1e-3, bf16 2e-2; dgain at the f32 gradient tier and bit-identical when
   repeated), one launch a call in the profiler, its card time beside the
-  autograd backward of F.rms_norm's; B3/B4 chunked cross entropy at logits
-  (4096, 2048) (the train shape), (4096, 49152) (smollm's vocab) and
+  autograd backward of F.rms_norm's, and at gemma2-2b's train shapes x
+  (2048, 2304) and (4096, 2304), f32 and bf16 (the scalar path), each
+  held, timed and bounded; B3/B4 chunked cross entropy at logits
+  (4096, 2048) (the train shape), (4096, 49152) (smollm's vocab), (2048,
+  256000) (gemma2-2b's train step, held and timed) and
   ragged V, with masked rows and a cotangent of order 1 on the others (loss
   and lse at atol 2e-5, dlogits at atol 2e-4 / rtol 1e-3, bf16 2e-2,
   masked rows exactly zero); B5/B6/B7 flash attention forward, dq and dk/dv
@@ -40,7 +44,11 @@ check:
   heads of 64, causal), smollm's 9/3 heads (GQA), a window of 48, softcap
   20 (logits up to ~20), ragged S (200, 190), bf16 storage, d_head 128,
   and the tensor-core kernels' edges (d_head 96 and 40, S = T = 1, S = 129,
-  d_head 20 in bf16, whose rows the copy engine cannot move), with a
+  d_head 20 in bf16, whose rows the copy engine cannot move), and at DP
+  256 (each kernel's grid in two column halves): gemma2-2b's 8/4 heads of
+  256, a window of 48 with softcap 50, ragged S 200, bf16 storage, d_head
+  196 in f32 and bf16, and gemma2's local layer (B 1, S 8,192, window
+  4,096, softcap 50), with a
   cotangent of order 1: each kernel against its plain version at
   its own contract (kernels/ref.py flash_fwd_ref, flash_bwd_ref, which
   round or quantize where the kernels do, over the same tiles) on the same
@@ -71,7 +79,12 @@ check:
   its bytes and the whole int8 forward (flash_fwd: pre-pass + B5), each
   with its device time, its bound and its share of it, beside SDPA's bf16
   forward and the bf16 B5 on the card for scale (targets <= 20, 70 and 90
-  us, printed, not held); B8 paged flash decode,
+  us, printed, not held); B5, B6 and B7 at DP 256 in each mode
+  (G2_FLASH_TIMED: gemma2-2b's train step, 4 x 512 tokens, and its local
+  layer at S 8,192 under window 4,096, softcap 50) a call and on the card,
+  beside the bound from the visible pairs, the plain attention's forward
+  and backward and SDPA's bf16 forward and backward (causal, no window,
+  no softcap) for scale; B8 paged flash decode,
   split over a cluster of decode_splits() blocks (DECODE_CASES, 19 cases:
   engine shape, MHA/MQA, window, softcap, all four f32/bf16 (q, pool)
   pairs, d_head 128, d_head 256 with gemma2-2b's 8/4 heads in f32 and
@@ -245,6 +258,17 @@ check:
   others, 17 B1, 17 B2, 1 B3, 1 B4); the mean of the last 3
   losses against the f32 run's is printed (the reference's bar is 1%; not
   held on the card).
+- train_gemma2, train_gemma2 --amp bf16, train_gemma2 --amp int8: the
+  three train phases above on gemma2-2b at full width (26 layers
+  alternating window 4,096 and global attention, d_model 2304, 8/4 heads
+  of 256, vocab 256,000, softcaps, post-norms; f32 weights, AdamW), batch
+  4 x 512 and loops of 5 steps (TRAIN_ARCHS: the weights, gradients and
+  moments take 42 GB; nothing else is cut): the same first-step holds and
+  controls (the f32 gemma2 run the amp loops' control), exact launches per
+  step (105 B1 and 105 B2 -- four norms a layer and the final one -- 1
+  B3, 1 B4, under amp 26 each of B5, B6 and B7 in its operand mode and
+  under int8 26 of each pre-pass), ms per step, the host batch's share
+  and peak memory.
 - sweep: the batched HP sweep and Algorithm 1 (core/tuning.py, api.py) on
   one card.  B1 and B2 with a gain per group ((G, D) over G equal groups of
   rows, the candidates of a batched step) at G 1, 4 and 16, x (16, 8, 64,
@@ -284,7 +308,8 @@ Launch counts are set to 0 just before each main path (serve,
 serve_dynamic, serve_int8 dynamic and static, serve_spec, serve_spec_dynamic,
 serve_spec_int8, spec_copy_train, serve_spec_copy, serve_gemma2,
 serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, train, train --amp bf16,
-train --amp int8, and the sweep phase's sweep, sweep_serial, sweep_16,
+train --amp int8, train_gemma2 and its --amp bf16 and int8 runs, and the sweep phase's
+sweep, sweep_serial, sweep_16,
 algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1) and
 read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
@@ -369,6 +394,8 @@ INT8_LOOP_LOSS_RTOL = 1e-5
 # operand mode of the first step's control
 AMP_LIMITS = {"bf16": (AMP_LOSS_RTOL, AMP_GRAD_TOL, AMP_LOOP_LOSS_RTOL, "none"),
               "int8": (INT8_LOSS_RTOL, INT8_GRAD_TOL, INT8_LOOP_LOSS_RTOL, "bf16")}
+# the gemma2-2b train phases' paths (train_phase with arch "gemma2-2b")
+G2_TRAIN = ("train_gemma2", "train_gemma2_amp_bf16", "train_gemma2_amp_int8")
 SERVE_LOGIT_TOL = 1e-4   # atol and rtol, as the CPU tests hold logits
 TIE_GAP = 1e-5
 N_TIMED = 200
@@ -1583,14 +1610,21 @@ def rounded_err(got, want):
     return diff.max().item(), diff.mean().item()
 
 
+# B2 at gemma2-2b's train step: rows of 4 x 512 tokens (2,048) and twice
+# that, D 2304, past the widths whose 16-byte pieces stay in registers (up
+# to 1024): the scalar path
+G2_NORM_SHAPES = [(2048, 2304), (4096, 2304)]
+
+
 def rmsnorm_bwd_phase(rn, ref, F):
     """B2 against its plain version; timed at the train shape, a call and
     on the card a launch (one launch a call), beside the autograd backward
-    of F.rms_norm."""
+    of F.rms_norm; then at gemma2-2b's train shapes (G2_NORM_SHAPES)."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     # 16-byte pieces held in registers (D 48, 1024), and the scalar path (D
-    # 1030, not a multiple of 4 or 8)
-    shapes = [(8, 512, 1024)] + [(r, D) for r in (1, 7, 4097) for D in (48, 1024, 1030)]
+    # 1030, not a multiple of 4 or 8; D 2304, gemma2's)
+    shapes = ([(8, 512, 1024)] + [(r, D) for r in (1, 7, 4097) for D in (48, 1024, 1030)]
+              + G2_NORM_SHAPES)
     for shape in shapes:
         for dt in (torch.float32, torch.bfloat16):
             x = (3 * torch.randn(*shape, device="cuda")).to(dt)
@@ -1636,6 +1670,31 @@ def rmsnorm_bwd_phase(rn, ref, F):
         f"{bound_ms * 1e3 / dev:.1%} of it; target <= 20 us, not held); the autograd backward "
         f"of F.rms_norm {library_ms:.4f} ms a call, {lib_dev:.2f} us on the card in "
         f"{lib_launches:.0f} launches")
+    g2 = {}
+    for shape in G2_NORM_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn(*shape, device="cuda")).to(dt)
+            g = 0.5 * torch.randn(shape[-1], device="cuda")
+            dy = torch.randn(*shape, device="cuda").to(dt)
+            dx, _ = rn.rmsnorm_bwd(x, g, dy)
+            e = (dx.float() - ref.rmsnorm_bwd_ref(x, g, dy)[0].float()).abs().max().item()
+            xl = x.clone().requires_grad_(True)
+            wl = (1 + g).requires_grad_(True)
+            yl = F.rms_norm(xl, shape[-1:], weight=wl, eps=1e-6)
+            lib = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)  # noqa: E731
+            b = bound(3 * x.numel() * x.element_size() + 2 * shape[-1] * 4, 12 * x.numel())
+            t = dict(ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, g, dy)),
+                     device_us=device_us(lambda: rn.rmsnorm_bwd(x, g, dy), "rmsnorm_bwd"),
+                     plain_ms=cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, g, dy), n=20),
+                     library_ms=cuda_ms(lib), library_device_us=library_device_us(lib)[0],
+                     bound_ms=b[0], bound_by=b[1], max_abs_err=e)
+            g2[f"{shape} {str(dt)[6:]}"] = t
+            log(f"[kernels] rmsnorm_bwd at x {shape} {str(dt)[6:]} (gemma2-2b's train step, "
+                f"the scalar path): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
+                f"card (bound {b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / t['device_us']:.1%}"
+                f" of it); plain {t['plain_ms']:.4f} ms; the autograd backward of F.rms_norm "
+                f"{t['library_ms']:.4f} ms, {t['library_device_us']:.2f} us on the card")
+            del x, g, dy, dx, xl, wl, yl
     return dict(
         name="rmsnorm_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1644,7 +1703,7 @@ def rmsnorm_bwd_phase(rn, ref, F):
         max_abs_err=err, ms=ms, device_us=dev, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms, library_device_us=lib_dev,
         library="autograd backward of torch.nn.functional.rms_norm",
-        share_of_bound=bound_ms * 1e3 / dev,
+        share_of_bound=bound_ms * 1e3 / dev, gemma2_shapes=g2,
     )
 
 
@@ -1670,7 +1729,8 @@ def ce_phase(ce, ref, F):
     cases = [(4096, 2048, torch.float32), (4096, 49152, torch.float32),
              (1, 7, torch.float32), (37, 1000, torch.float32),
              (64, 50257, torch.float32), (256, 2048, torch.bfloat16),
-             (33, 3001, torch.bfloat16)]
+             (33, 3001, torch.bfloat16),
+             (2048, 256000, torch.float32)]
     worst = [0.0, 0.0]
     for i, (N, V, dt) in enumerate(cases):
         x, lab, g, mask = ce_case(N, V, dt, i)
@@ -1691,7 +1751,9 @@ def ce_phase(ce, ref, F):
         f"max loss err {worst[0]:.3g}, max dlogits err {worst[1]:.3g}")
 
     rows = {}
-    for N, V in ((4096, 2048), (4096, 49152)):
+    # the train shape, smollm's vocab, and gemma2-2b's train step (4 x 512
+    # tokens over vocab 256,000: logits of 2.1 GB)
+    for N, V in ((4096, 2048), (4096, 49152), (2048, 256000)):
         x, lab, g, _ = ce_case(N, V, torch.float32, 100 + V)
         loss, lse = ce.ce_fwd(x, lab)
         want_loss, want_lse = ref.softmax_cross_entropy_ref(x, lab)
@@ -1727,6 +1789,9 @@ def ce_phase(ce, ref, F):
     t, b3, b4, fwd_err, bwd_err = rows[2048]
     big = dict(rows[49152][0], ce_fwd_bound=rows[49152][1][0],
                ce_bwd_bound=rows[49152][2][0])
+    g2 = dict(rows[256000][0], ce_fwd_bound=rows[256000][1][0],
+              ce_bwd_bound=rows[256000][2][0], ce_fwd_max_abs_err=rows[256000][3],
+              ce_bwd_max_abs_err=rows[256000][4])
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/cross_entropy.cu",
                   shape="logits (4096, 2048) float32 (train step), 1/3 rows masked")
     return [
@@ -1736,6 +1801,9 @@ def ce_phase(ce, ref, F):
              library="torch.nn.functional.cross_entropy(reduction='none')",
              at_vocab_49152={k: big[k] for k in ("ce_fwd", "ce_fwd_plain",
                                                  "ce_fwd_library", "ce_fwd_bound")},
+             at_gemma2_2048_x_256000={k: g2[k] for k in (
+                 "ce_fwd", "ce_fwd_plain", "ce_fwd_library", "ce_fwd_bound",
+                 "ce_fwd_max_abs_err")},
              **common),
         dict(name="ce_bwd", replaces="src/repro/kernels/cross_entropy.py:74",
              max_abs_err=bwd_err, ms=t["ce_bwd"], plain_ms=t["ce_bwd_plain"],
@@ -1743,6 +1811,9 @@ def ce_phase(ce, ref, F):
              library="autograd backward of torch.nn.functional.cross_entropy",
              at_vocab_49152={k: big[k] for k in ("ce_bwd", "ce_bwd_plain",
                                                  "ce_bwd_library", "ce_bwd_bound")},
+             at_gemma2_2048_x_256000={k: g2[k] for k in (
+                 "ce_bwd", "ce_bwd_plain", "ce_bwd_library", "ce_bwd_bound",
+                 "ce_bwd_max_abs_err")},
              **common),
     ]
 
@@ -1764,9 +1835,27 @@ FLASH_CASES = [
     ("S = T = 1", 4, 1, 4, 2, 64, 0, 0.0, 0.125, torch.float32),
     ("S 129", 2, 129, 4, 2, 64, 0, 0.0, 0.125, torch.float32),
     ("d_head 20, bf16 storage", 2, 160, 4, 2, 20, 0, 0.0, 0.125, torch.bfloat16),
+    # DP 256, where each kernel's grid splits the output's d columns in two
+    # halves: gemma2-2b's heads (8/4 of 256), a window of 48 with its
+    # softcap 50 (scale 0.5: logits up to ~40), ragged S, bf16 storage,
+    # d_head 196 (f32 rows with a ragged last 8-value piece; bf16 rows read
+    # element by element), and gemma2's local layer at its published width:
+    # one sequence of 8,192 tokens under window 4,096, the one case where
+    # the window cuts the key range as it does in gemma2 (G2_FLASH_TIMED)
+    ("gemma2 heads 8/4 of 256", 2, 512, 8, 4, 256, 0, 0.0, 0.0625, torch.float32),
+    ("d_head 256, window 48, softcap 50", 2, 384, 4, 2, 256, 48, 50.0, 0.5, torch.float32),
+    ("d_head 256, ragged S 200", 2, 200, 8, 4, 256, 0, 0.0, 0.0625, torch.float32),
+    ("d_head 256, bf16 storage", 2, 256, 8, 4, 256, 0, 0.0, 0.0625, torch.bfloat16),
+    ("d_head 196", 1, 160, 4, 2, 196, 0, 0.0, 0.0625, torch.float32),
+    ("d_head 196, bf16 storage", 1, 160, 4, 2, 196, 0, 0.0, 0.0625, torch.bfloat16),
+    ("gemma2 local layer, S 8192, window 4096", 1, 8192, 8, 4, 256, 4096, 50.0, 0.0625,
+     torch.float32),
 ]
-# the bf16 operand mode of B5, B6 and B7 runs these kernels (flash_attention.cu)
+# the bf16 operand mode of B5, B6 and B7 runs these kernels (flash_attention.cu),
+# the f32 mode these, each at every padded d_head
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+FFMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+PADDED_D = (64, 128, 256)
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_OUTS = ("o", "lse", "dq", "dk", "dv")
 
@@ -1927,6 +2016,100 @@ def flash_case(ops, fa, ref, quant, case, seed):
     return out
 
 
+# B5-B7 timed at DP 256 (label, B, S, H, K, d, window, softcap, scale):
+# gemma2-2b's train step (its local layer's window 4096 is past S there)
+# and its local layer at the published width, S 8,192 under window 4,096
+G2_FLASH_TIMED = [
+    ("gemma2 train step", 4, 512, 8, 4, 256, 4096, 50.0, 0.0625),
+    ("gemma2 local layer, S 8192", 1, 8192, 8, 4, 256, 4096, 50.0, 0.0625),
+]
+
+
+def visible_pairs(S, window):
+    """(query, key) pairs a causal row set of S rows sees under ``window``
+    (0: none): what the kernels' work depends on."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def g2_flash_timing(ops, fa, quant, F):
+    """B5, B6 and B7 at DP 256 (G2_FLASH_TIMED), in each operand mode: a
+    call (CUDA events), the card's time a launch (the int8 mode's B5 and B6
+    / B7 without their pre-passes, which are timed apart), the plain
+    attention's forward and backward under autograd, and the bound from
+    this run's visible pairs and bytes; SDPA's bf16 forward and backward
+    (causal, without the window and the softcap, which it does not take)
+    for scale.  Returns {label: {mode: {kernel: timing}}, "sdpa": ...}."""
+    rates = {"none": F32_FLOP_PER_S, "bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}
+    out = {}
+    for label, B, S, H, K, d, window, cap, scale in G2_FLASH_TIMED:
+        q, k, v, do = flash_inputs(B, S, H, K, d, torch.float32, 200)
+        qs = (q * scale).contiguous()
+        pairs = B * H * visible_pairs(S, window)
+        ioq, iok, rows = q.numel() * 4, k.numel() * 4, B * H * S * 4
+        work = {"flash_fwd": (ioq + 2 * iok + ioq + rows, 4 * d * pairs),
+                "flash_bwd_dq": (2 * ioq + 2 * iok + 2 * rows + ioq, 6 * d * pairs),
+                "flash_bwd_dkv": (2 * ioq + 2 * iok + 2 * rows + 2 * iok, 8 * d * pairs)}
+        n = 20 if S > 1024 else N_TIMED
+        res = {}
+        for mode in FLASH_MODES:
+            policy = quant.QuantPolicy(mode)
+            kw = dict(causal=True, window=window, softcap=cap,
+                      policy=policy if policy.active else None)
+            o, lse = fa.flash_fwd(qs, k, v, **kw)
+            delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+            calls = {"flash_fwd": lambda: fa.flash_fwd(qs, k, v, **kw),
+                     "flash_bwd_dq": lambda: fa.flash_bwd_dq(qs, k, v, do, lse, delta, **kw),
+                     "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(qs, k, v, do, lse, delta, **kw)}
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            plain = lambda: ops.attention(  # noqa: E731
+                *leaves, scale=scale, causal=True, window=window, softcap=cap, policy=policy,
+                impl="ref")
+            with torch.no_grad():
+                p_fwd = cuda_ms(plain, n=5, warmup=1)
+            op = plain()
+            p_bwd = cuda_ms(lambda: torch.autograd.grad(op, leaves, do, retain_graph=True), n=5,
+                            warmup=1)
+            sfx = "_int8" if mode == "int8" else ""
+            res[mode] = {nm: dict(ms=cuda_ms(fn, n=n), device_us=device_us(fn, nm + sfx),
+                                  bound=bound(*work[nm], rates[mode]))
+                         for nm, fn in calls.items()}
+            res[mode]["plain_fwd_ms"], res[mode]["plain_fwd_bwd_ms"] = p_fwd, p_bwd
+            del o, lse, delta, leaves, op
+            torch.cuda.empty_cache()
+            log(f"[kernels] flash attention at DP 256, {label} ({B}, {S}, {H}/{K} heads of {d},"
+                f" window {window}, softcap {cap:g}), {mode} operands: "
+                + "; ".join(f"{nm} {r['ms']:.4f} ms, {r['device_us']:.1f} us on the card "
+                            f"(bound {r['bound'][0] * 1e3:.1f} us by {r['bound'][1]}, "
+                            f"{r['bound'][0] * 1e3 / r['device_us']:.1%})"
+                            for nm, r in res[mode].items() if nm in work)
+                + f"; plain attention forward {p_fwd:.3f} ms, its backward {p_bwd:.3f} ms")
+        qb, kb, vb, dob = (t.transpose(1, 2).bfloat16().contiguous().requires_grad_(t is not do)
+                           for t in (qs, k, v, do))
+        sdpa = lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        ob = sdpa()
+        fwd_ms = cuda_ms(sdpa, n=n)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True),
+                         n=n)
+        fwd_us = library_device_us(sdpa)[0]
+        bwd_us = library_device_us(
+            lambda: torch.autograd.grad(ob, (qb, kb, vb), dob, retain_graph=True))[0]
+        res["sdpa_bf16"] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_device_us=fwd_us,
+                                bwd_device_us=bwd_us)
+        bt = {n: r["device_us"] for n, r in res["bf16"].items() if n in work}
+        log(f"[kernels] SDPA bf16 at {label} (causal, no window, no softcap): forward "
+            f"{fwd_ms:.4f} ms, {fwd_us:.1f} us on the card; backward {bwd_ms:.4f} ms, "
+            f"{bwd_us:.1f} us on the card; the bf16 B5 {bt['flash_fwd'] / fwd_us:.2f}x its "
+            f"forward, B6 + B7 {(bt['flash_bwd_dq'] + bt['flash_bwd_dkv']) / bwd_us:.2f}x its "
+            f"backward (for scale, not held)")
+        out[label] = res
+        del q, k, v, do, qs, qb, kb, vb, dob, ob
+        torch.cuda.empty_cache()
+    return out
+
+
 def flash_phase(ops, fa, ref, quant, F):
     """B5-B7 against their plain versions in the three operand modes (see
     flash_case); timed at the train shape, with the card's time per launch
@@ -2063,6 +2246,17 @@ def flash_phase(ops, fa, ref, quant, F):
             **dict(common, shape="q, k, v, do (8, 512, 16, 64) f32, causal; int8 operands "
                                  "(the --amp int8 path)")))
     out += [prepass, fwd_prepass]
+    g2 = g2_flash_timing(ops, fa, quant, F)
+    for row in out:
+        name = row["name"]
+        base, mode = (name[:-5], "int8") if name.endswith("_int8") else (name, "bf16")
+        if base in FLASH_NAMES:
+            row["gemma2_shapes"] = {
+                label: dict({m: r[m][base] for m in FLASH_MODES} if mode == "bf16"
+                            else {"int8": r["int8"][base]}, sdpa_bf16=r["sdpa_bf16"],
+                            plain={m: (r[m]["plain_fwd_ms"], r[m]["plain_fwd_bwd_ms"])
+                                   for m in FLASH_MODES})
+                for label, r in g2.items()}
     return out
 
 
@@ -3662,11 +3856,36 @@ def max_rel(a, b):
     return err / scale if scale else err
 
 
-def train_phase(ops, quant, amp="", control_losses=None):
-    """mup-gpt at full width (``amp`` its mixed-precision policy, as
-    ``--amp`` sets it): the first step's loss and gradients with and without
-    the kernels, then 10 train_loop steps each way from the same init and
-    batches; launch counts of the kernel run, peak memory of both.
+# gemma2-2b's --amp limits.  bf16: mup-gpt's (AMP_LIMITS) are missed at 26
+# layers of heads of 256, where the kernels' f32 summation order (each B5-B7
+# output within the bf16 tiers of its plain version, mean error 1e-7 to
+# 7e-7 at DP 256) flips bf16 roundings in the layers after: the first step's
+# loss 6.0e-6 relative apart and gradients up to 6.3e-3 of a tensor's
+# largest entry (an H100 at 700 W), where the f32-operand control is 4.2e-5
+# (gradients 3.8e-3 to 1.1e-2: as on mup-gpt they cannot tell the modes
+# apart); the loss limit sits between the two.  int8: mup-gpt's, the
+# kernels equal their plain versions bit for bit.
+G2_AMP_LIMITS = {"bf16": (2e-5, 1.5e-2, 2e-5, "none"), "int8": AMP_LIMITS["int8"]}
+# the train phases' architectures: (batch, sequence, loop steps, the phase's
+# path name, the --amp limits, whether the amp loops' plain side keeps B1-B4's
+# kernels).  gemma2-2b at full width (26 layers, d_model 2304, vocab
+# 256,000, f32 weights): its weights, gradients and two Adam moments take 42
+# GB, so the batch is 4 x 512 (activations and the readout's logits near 20
+# GB more) and the loops 5 steps; nothing else is cut.  Its amp loops hold
+# B5-B7 as the first step does, against their plain versions with B1-B4's
+# kernels on both sides: at 26 layers B1-B4's plain versions' f32 ulps flip
+# int8 bytes downstream and move the step-0 loss 1.29e-4 (an H100 at 700
+# W), farther than the f32 run is (4.8e-5), so no limit could tell the modes
+# apart; the f32 phase holds B1-B4 in the loop.
+TRAIN_ARCHS = {"mup-gpt": (8, 512, 10, "train", AMP_LIMITS, False),
+               "gemma2-2b": (4, 512, 5, "train_gemma2", G2_AMP_LIMITS, True)}
+
+
+def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
+    """``arch`` (TRAIN_ARCHS) at full width (``amp`` its mixed-precision
+    policy, as ``--amp`` sets it): the first step's loss and gradients with
+    and without the kernels, then train_loop steps each way from the same
+    init and batches; launch counts of the kernel run, peak memory of both.
 
     Under amp the plain side's attention rounds (bf16) or quantizes (int8)
     where the kernels do (plain_flash): the policy's own plain attention
@@ -3677,7 +3896,9 @@ def train_phase(ops, quant, amp="", control_losses=None):
     operand mode on the first step (f32 for bf16, bf16 for int8),
     ``control_losses`` (the f32 phase's) at step 0 of the loop.  A third
     loop, through the policy's plain attention, gives the plain time and
-    peak memory; the gap of its last losses to the f32 run's is printed."""
+    peak memory; the gap of its last losses to the f32 run's is printed.
+    Where TRAIN_ARCHS says so (gemma2-2b), the amp loops' plain side keeps
+    B1-B4's kernels, as the first step does."""
     from repro_torch.configs import get_config
     from repro_torch.core.transfer import HParams, transfer
     from repro_torch.data.pipeline import make_pipeline
@@ -3685,11 +3906,12 @@ def train_phase(ops, quant, amp="", control_losses=None):
     from repro_torch.models.model import Model
     from repro_torch.optim.grad import value_and_grad
 
-    B, S, STEPS = 8, 512, 10
-    cfg = get_config("mup-gpt").replace(dtype="float32", amp=amp)
-    tag = f"[train {amp}]" if amp else "[train]"
+    B, S, STEPS, path, limits, isolate = TRAIN_ARCHS[arch]
+    isolate = isolate and bool(amp)
+    cfg = get_config(arch).replace(dtype="float32", amp=amp)
+    tag = f"[{path} --amp {amp}]" if amp else f"[{path}]"
     if amp:
-        loss_rtol, grad_tol, loop_rtol, control_mode = AMP_LIMITS[amp]
+        loss_rtol, grad_tol, loop_rtol, control_mode = limits[amp]
     else:
         loss_rtol = loop_rtol = TRAIN_LOSS_RTOL
     hps = HParams()
@@ -3703,9 +3925,11 @@ def train_phase(ops, quant, amp="", control_losses=None):
     batch0 = {k: torch.from_numpy(v).cuda() for k, v in
               make_pipeline(cfg.vocab_size, S, B, seed=0).batch(0).items()}
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{n_params / 1e6:.1f}M params; batch {B} x seq {S}, f32"
-        + (f", --amp {amp}" if amp else ""))
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.1f}M params; batch {B} x seq {S}, f32"
+        + (f", --amp {amp}" if amp else "") + f"; loops of {STEPS} steps; "
+        + ("the batch cut from 8 x 512, which does not fit beside 42 GB of weights, "
+           "gradients and moments; nothing else cut" if arch == "gemma2-2b" else "nothing cut"))
 
     loss_k, grads_k = value_and_grad(kern.loss_fn, params, batch0)
     # under amp the first step isolates B5-B7: B1-B4 run on both sides, so
@@ -3786,7 +4010,9 @@ def train_phase(ops, quant, amp="", control_losses=None):
     launches = ops.launch_counts()
     n_attn = cfg.n_layers if amp == "bf16" else 0   # B5-B7 only under --amp,
     n_int8 = cfg.n_layers if amp == "int8" else 0   # in its operand mode
-    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
+    # two norms a layer, four with gemma2's post-norms, and the final one
+    n_norm = (4 if cfg.post_attn_norm else 2) * cfg.n_layers + 1
+    per_step = {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
                 "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
                 "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0,
                 "flash_decode_multi": 0, "flash_decode_int8": 0,
@@ -3800,12 +4026,19 @@ def train_phase(ops, quant, amp="", control_losses=None):
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
 
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
     with models_attend_with(ops, plain_flash(ops) if amp else None):
-        out_p, peak_p = loop("ref")
+        out_p, peak_p = loop("auto" if isolate else "ref")
+    plain_launches = ops.launch_counts()
+    want_plain = {k: v if isolate and not k.startswith("flash") else 0 for k, v in want.items()}
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
     out_y, plain_peak_gib = loop("ref") if amp else (out_p, peak_p)
-    if set(ops.launch_counts().values()) != {0}:
-        raise AssertionError(f"plain runs launched kernels: {ops.launch_counts()}")
+    torch.cuda.empty_cache()
+    if plain_launches != want_plain or set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"plain runs launched {plain_launches}, then "
+                             f"{ops.launch_counts()}; expected {want_plain}, then none")
 
     lk, lp, ly = out_k["losses"], out_p["losses"], out_y["losses"]
     if not all(np.isfinite(lk + lp + ly)):
@@ -3835,7 +4068,8 @@ def train_phase(ops, quant, amp="", control_losses=None):
     batch_k = 1e3 * float(np.median(out_k["batch_seconds"][1:]))
     batch_p = 1e3 * float(np.median(out_y["batch_seconds"][1:]))
     log(f"{tag} losses with kernels {[round(v, 4) for v in lk]}")
-    log(f"{tag} losses plain        {[round(v, 4) for v in lp]}")
+    log(f"{tag} losses plain        {[round(v, 4) for v in lp]}"
+        + (" (B5-B7's plain versions, B1-B4's kernels)" if isolate else ""))
     if amp:
         log(f"{tag} losses through the policy's plain attention {[round(v, 4) for v in ly]}"
             f"; step 0 of the f32 run {control_losses[0]:.4f} (rel "
@@ -4365,7 +4599,7 @@ def tc_resources(build_log):
             out[inst] = rs
     log("[build] tensor-core flash kernels (registers, spill bytes): "
         + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
-    if len(out) != 2 * 2 * len(TC_KERNELS):
+    if len(out) != 2 * len(PADDED_D) * len(TC_KERNELS):
         raise AssertionError(f"ptxas -v reported {sorted(out)}, not every tensor-core kernel")
     spilled = {k: v for k, v in out.items() if v[1]}
     if spilled:
@@ -4375,7 +4609,7 @@ def tc_resources(build_log):
 
 def i8_resources(build_log):
     """{instance: (registers, spill bytes)} of the int8 mode's kernels (B5
-    in f32 and bf16 storage at DP 64 and 128, B6 and B7 at DP 64 and 128,
+    in f32 and bf16 storage at DP 64, 128 and 256, B6 and B7 at each DP,
     each pre-pass in f32 and bf16 at each) from ``ptxas -v``; raise if one
     is missing or B5, B6 or B7 spills."""
     out = {}
@@ -4385,11 +4619,30 @@ def i8_resources(build_log):
             out[inst] = rs
     log("[build] int8 kernels (registers, spill bytes): "
         + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
-    if len(out) != 4 + 2 * 2 + 2 * 4:
+    if len(out) != len(PADDED_D) * (2 + 2 + 2 * 2):
         raise AssertionError(f"ptxas -v reported {sorted(out)}, not every int8 kernel")
     spilled = {k: v for k, v in out.items() if v[1] and k.split("<")[0] in I8_MMA}
     if spilled:
         raise AssertionError(f"B5/B6/B7 int8 kernels spill: {spilled}")
+    return out
+
+
+def ffma_resources(build_log):
+    """{instance: (registers, spill bytes)} of the f32 mode's FFMA kernels
+    (B5, B6, B7 in f32 and bf16 storage at each DP) from ``ptxas -v``; raise
+    if one is missing or a DP 256 instance spills."""
+    out = {}
+    for name, rs in ptxas_entries(build_log).items():
+        inst = flash_instance(name)
+        if inst and inst.split("<")[0] in FFMA_KERNELS:
+            out[inst] = rs
+    log("[build] FFMA flash kernels (registers, spill bytes): "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out.items())))
+    if len(out) != 2 * len(PADDED_D) * len(FFMA_KERNELS):
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, not every FFMA kernel")
+    spilled = {k: v for k, v in out.items() if v[1] and k.endswith(" 256>")}
+    if spilled:
+        raise AssertionError(f"FFMA flash kernels spill at DP 256: {spilled}")
     return out
 
 
@@ -4506,14 +4759,14 @@ def sass_check(lib_path):
     for inst, c in sorted(counts.items()):
         log(f"[sass] {inst}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     tc = {k: c for k, c in counts.items() if k.split("<")[0] in TC_KERNELS}
-    if len(tc) != 2 * 2 * len(TC_KERNELS):
+    if len(tc) != 2 * len(PADDED_D) * len(TC_KERNELS):
         raise AssertionError(f"cuobjdump ({tool}) shows {sorted(tc)}, not every "
                              "tensor-core kernel")
     none = [k for k, c in tc.items() if c["HMMA"] + c["HGMMA"] == 0]
     if none:
         raise AssertionError(f"no tensor-core instruction in {none}")
     i8 = {k: c for k, c in counts.items() if k.split("<")[0] in I8_MMA}
-    if len(i8) != 4 + 2 * 2:
+    if len(i8) != len(PADDED_D) * (2 + 2):
         raise AssertionError(f"cuobjdump ({tool}) shows {sorted(i8)}, not every int8 B5/B6/B7")
     wrong = [k for k, c in i8.items() if c["IMMA"] == 0 or c["IDP"]]
     if wrong:
@@ -4560,6 +4813,7 @@ def main():
             log(f"[build] {line.strip()}")
     tc_regs = tc_resources(build.build_log)
     i8_regs = i8_resources(build.build_log)
+    ffma_regs = ffma_resources(build.build_log)
     b8_regs = decode_resources(build.build_log)
     b9_regs = multi_resources(build.build_log)
     b2_regs = b2_resources(build.build_log)
@@ -4601,6 +4855,14 @@ def main():
     done("train --amp bf16")
     amp8_launches, amp8 = train_phase(ops, quant, amp="int8", control_losses=train["losses"])
     done("train --amp int8")
+    g2t_launches, g2t = train_phase(ops, quant, arch="gemma2-2b")
+    done("train_gemma2")
+    g2t_amp_launches, g2t_amp = train_phase(ops, quant, amp="bf16",
+                                            control_losses=g2t["losses"], arch="gemma2-2b")
+    done("train_gemma2 --amp bf16")
+    g2t_amp8_launches, g2t_amp8 = train_phase(ops, quant, amp="int8",
+                                              control_losses=g2t["losses"], arch="gemma2-2b")
+    done("train_gemma2 --amp int8")
     sweep_rows, sweep_launches, sweep = sweep_phase(ops, rn, ref)
     rows += sweep_rows
     done("sweep")
@@ -4624,6 +4886,9 @@ def main():
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]],
                    "train_amp_int8": amp8_launches[row["name"]],
+                   "train_gemma2": g2t_launches[row["name"]],
+                   "train_gemma2_amp_bf16": g2t_amp_launches[row["name"]],
+                   "train_gemma2_amp_int8": g2t_amp8_launches[row["name"]],
                    **{path: launches[row["name"]] for path, launches in sweep_launches.items()}}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
@@ -4633,24 +4898,23 @@ def main():
                                       "serve_gemma2_int8", "serve_gemma2_int8_static"),
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
                                             "serve_gemma2_int8"),
-                "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8",
+                "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
                                 "spec_copy_train", "sweep_serial", "algorithm1_train"),
-                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train",
-                           *SWEEP_PATHS),
-                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", "spec_copy_train",
-                           *SWEEP_PATHS),
+                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
+                           "spec_copy_train", *SWEEP_PATHS),
+                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
+                           "spec_copy_train", *SWEEP_PATHS),
                 "rmsnorm_grouped": GROUPED_PATHS,
                 "rmsnorm_bwd_grouped": GROUPED_PATHS,
-                "flash_fwd_int8": ("train_amp_int8",),
-                "flash_bwd_dq_int8": ("train_amp_int8",),
-                "flash_bwd_dkv_int8": ("train_amp_int8",),
-                "flash_bwd_quant_int8": ("train_amp_int8",),
-                "flash_fwd_quant_int8": ("train_amp_int8",)}.get(row["name"])
+                **{n: ("train_amp_int8", "train_gemma2_amp_int8") for n in I8_ROWS}
+                }.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
         if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             tc = f"{row['name']}_tc_kernel"
             row["registers_spills"] = {k: v for k, v in tc_regs.items() if k.startswith(tc)}
+            row["ffma_registers_spills"] = {k: v for k, v in ffma_regs.items()
+                                            if k.startswith(f"{row['name']}_kernel<")}
             row["sass"] = (None if sass is None else
                            {k: v for k, v in sass.items() if k.startswith(tc)})
         if row["name"] in I8_ROWS:
@@ -4676,6 +4940,9 @@ def main():
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))
     log(json.dumps({"train_amp_int8": amp8}))
+    log(json.dumps({"train_gemma2": g2t}))
+    log(json.dumps({"train_gemma2_amp_bf16": g2t_amp}))
+    log(json.dumps({"train_gemma2_amp_int8": g2t_amp8}))
     log(json.dumps({"sweep": sweep}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

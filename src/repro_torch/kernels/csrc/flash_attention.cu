@@ -67,8 +67,8 @@
 //  - 256 threads as a 16 x 16 grid.  In a score tile of 64 rows by 64 or
 //    128 columns (queries by keys; B7 keys by queries) each thread owns rows
 //    ty + 16 i and columns tx + 16 j, and a 4 x d/16 block of the output
-//    accumulator.  Head dims up to 128 are zero-padded to DP = 64 or 128 in
-//    shared memory (zeros change no absmax).
+//    accumulator.  Head dims up to 256 are zero-padded to DP = 64, 128 or
+//    256 in shared memory (zeros change no absmax; DP 256 below).
 //  - Grids: B5 and B6 one block per (64-row q tile, head, batch), looping
 //    over the visible k tiles; B7 one block per (64-key k tile, kv head,
 //    batch), looping over the G query heads of the group and, inside, the
@@ -156,6 +156,39 @@
 //    all eight warps pass the same phases between the same barriers, so the
 //    tensor cores idle while the softmax runs.  Each item's epilogue (o = acc
 //    / l, two values a store) and q set-up cost most of a tile more.
+// DP = 256 (d_head 129 to 256; gemma2's heads of 256).  Every kernel and
+// pre-pass has a DP 256 instance; the layouts above would not fit (one f32
+// k tile of 128 keys x 256 is 128 KB; o's accumulator alone, 16 x 256 f32
+// a warp, 128 registers a thread).  What changes, nothing else does: the
+// contraction over d (q k^T, do v^T) stays one accumulator walking d from 0
+// to 255 (in steps of 16 on the tensor cores, ref._mma_dot's order; one
+// fma chain in FFMA), the 128-key (and int8 128-wide) tiles and the scales
+// over all 256 columns (the pre-passes) stay; only the output's d columns,
+// which are independent, are split.
+//  - The tensor-core and int8 kernels and B7's FFMA kernel split o, dq,
+//    dk and dv by columns: the grid's lowest index is one of two column
+//    halves (out_cols, col_halves), and each block forms the whole score
+//    tile, its softmax or p/ds step (the same bits in both halves) and the
+//    products for its 128 columns; B5's lse is stored by half 0.  The
+//    score work is done twice: the price of accumulators the size of DP
+//    128's.
+//  - The bf16 kernels have no staging tiles: round_rows reads k, v, q, do
+//    straight from device memory into the padded bf16 tiles (p.tma then
+//    flags rows of whole 16-byte pieces), and q's (B5, B6) and do's (B6)
+//    fragments come from those tiles by ldmatrix at each k-step (in
+//    registers they would take 64 more a thread).  B5-int8 quantizes q in
+//    two passes (absmax, then bytes) into shared memory (Q8) and reads its
+//    fragments the same way.
+//  - The FFMA kernels stage the d axis of their f32 tiles in pieces of 128
+//    columns: B5 k's pieces in turn for s and v's for the acc columns they
+//    feed, B6 k's and v's pieces for s and dp then k's again for dq, B7 q's
+//    and do's pieces for s^T and dp^T, then the piece of its columns.
+//  - Shared memory a block at DP 256 (227 KB at most): FFMA B5 193 KB, B6
+//    209 KB, B7 226 KB; bf16 B5 166 KB, B6 132 KB, B7 133 KB; int8 B5 123
+//    KB, B6 209 KB, B7 128 KB; the pre-passes 138 KB.  Registers (ptxas -v
+//    on an H100 build, f32 / bf16 storage; no spills): FFMA 202, 163/160,
+//    128; bf16 B5 239, B6 185/182, B7 238; int8 B5 254/252, B6 244, B7
+//    251; pre-passes 58-64.  One block an SM in every DP 256 kernel.
 // Left for later: wgmma with a warpgroup per 64 rows; ping-pong of two
 // warpgroups (one's softmax under the other's products); warp
 // specialisation with setmaxnreg (a producer warpgroup that stages and
@@ -174,18 +207,12 @@
 #include "dtype.cuh"
 #include "mma.cuh"
 
-namespace {
-
-using repro::from_f32;
-using repro::to_f32;
-
-constexpr int kBQ = 64;          // query rows per tile (B5, B6; B7 f32/bf16)
-constexpr int kBK = 64;          // keys per tile (B7; B6 f32/bf16)
-constexpr int kFwdBK = 128;      // B5's keys per tile, every mode
-constexpr int kI8 = 128;         // the int8 tile axis that carries scales:
-                                 // B6's keys, B7's queries
-constexpr int kThreads = 256;    // a 16 x 16 thread grid
-constexpr float kNegInf = -2.3819763e38f;   // the reference's NEG_INF
+// What crosses translation units: each padded d_head DP's kernels are
+// instantiated in one of their own (this file at DP 64, with the C entry
+// points; flash_attention_dp128.cu and flash_attention_dp256.cu include it
+// with REPRO_FLASH_DP set), so that nvcc builds the three at once; the
+// entry points reach a DP's launches through its DpLaunches.
+namespace repro_flash {
 
 struct Params {
   int B, S, T, H, K, d;
@@ -197,6 +224,56 @@ struct Params {
                 // int8 pre-passes: rows of whole 16-byte pieces; B5-int8: q rows
                 // of whole 4-value pieces
 };
+
+enum class Which { kFwd, kDq, kDkv };
+
+// One DP's launches, `dtype` the storage type (0 float32, 1 bfloat16):
+// B5, B6 or B7 in the f32 or bf16 operand mode; the int8 mode's backward
+// and forward pre-passes, B5, and B6 or B7 on the pre-passes' buffers
+struct DpLaunches {
+  cudaError_t (*flash)(Which, int dtype, const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta, void* out0,
+                       void* out1, const Params&, cudaStream_t);
+  cudaError_t (*quant_i8)(int dtype, const void* q, const void* k, const void* v,
+                          const void* dout, void* const* ops, const Params&, cudaStream_t);
+  cudaError_t (*quant_fwd_i8)(int dtype, const void* k, const void* v, void* const* ops,
+                              const Params&, cudaStream_t);
+  cudaError_t (*fwd_i8)(int dtype, const void* q, void* const* ops, void* o, void* lse,
+                        const Params&, cudaStream_t);
+  cudaError_t (*bwd_i8)(Which, void* const* ops, const float* lse, const float* delta,
+                        float* out0, float* out1, const Params&, cudaStream_t);
+};
+DpLaunches launches_dp64();    // flash_attention.cu
+DpLaunches launches_dp128();   // flash_attention_dp128.cu
+DpLaunches launches_dp256();   // flash_attention_dp256.cu
+
+}  // namespace repro_flash
+
+namespace {
+
+using repro::from_f32;
+using repro::to_f32;
+using repro_flash::DpLaunches;
+using repro_flash::Params;
+using repro_flash::Which;
+
+constexpr int kBQ = 64;          // query rows per tile (B5, B6; B7 f32/bf16)
+constexpr int kBK = 64;          // keys per tile (B7; B6 f32/bf16)
+constexpr int kFwdBK = 128;      // B5's keys per tile, every mode
+constexpr int kI8 = 128;         // the int8 tile axis that carries scales:
+                                 // B6's keys, B7's queries
+constexpr int kThreads = 256;    // a 16 x 16 thread grid
+constexpr float kNegInf = -2.3819763e38f;   // the reference's NEG_INF
+constexpr int kMaxD = 256;       // the widest d_head: DP = 64, 128 or 256
+
+// The output's d columns (o, dq, dk, dv) a block holds: all of DP up to
+// 128.  At DP = 256 the tensor-core and int8 kernels and B7's FFMA kernel
+// split them between two blocks of 128 each (the grid's column halves),
+// each forming the whole score tile over d, so the contraction over d stays
+// one accumulator walking d from 0 to DP - 1; the FFMA kernels stage the d
+// axis of their f32 tiles in pieces of this width.
+template <int DP> __host__ __device__ constexpr int out_cols() { return DP > 128 ? 128 : DP; }
+template <int DP> __host__ __device__ constexpr int col_halves() { return DP / out_cols<DP>(); }
 
 // _block_visible: could any (query, key) pair of the tile pair (nq query
 // rows from q0, nk keys from k0) be visible?
@@ -229,17 +306,17 @@ __device__ __forceinline__ float logit(float dot, const Params& p, float& t) {
   return x;
 }
 
-// rows [row0, row0 + n) of one head (rows `stride` elements apart) into a
-// (n, DP) f32 tile with leading dimension ld; zeros beyond `valid` rows and
-// beyond d columns
-template <typename T, int DP>
+// rows [row0, row0 + n) of one head (rows `stride` elements apart),
+// columns [c0, c0 + W), into a (n, W) f32 tile with leading dimension ld;
+// zeros beyond `valid` rows and beyond d columns
+template <typename T, int W>
 __device__ void load_rows(float* dst, int ld, const T* __restrict__ src,
-                          size_t stride, int row0, int n, int valid, int d) {
-  for (int i = threadIdx.x; i < n * DP; i += kThreads) {
-    const int r = i / DP;
-    const int c = i - r * DP;
+                          size_t stride, int row0, int n, int valid, int d, int c0 = 0) {
+  for (int i = threadIdx.x; i < n * W; i += kThreads) {
+    const int r = i / W;
+    const int c = i - r * W;
     float x = 0.f;
-    if (r < valid && c < d) x = to_f32(src[(size_t)(row0 + r) * stride + c]);
+    if (r < valid && c0 + c < d) x = to_f32(src[(size_t)(row0 + r) * stride + c0 + c]);
     dst[r * ld + c] = x;
   }
 }
@@ -256,17 +333,24 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// B5: q [BQ][DP + 1], k [FwdBK][DP + 1] (the p tile [BQ][FwdBK + 1] takes its
-// place once s is formed), v [FwdBK][DP]
+// The FFMA kernels' shared memory (DC = out_cols<DP>(), the width of a
+// staged piece of the d axis: all of DP up to 128).  B5: q [BQ][DP + 1], k
+// [FwdBK][DC + 1] (the p tile [BQ][FwdBK + 1] takes its place once s is
+// formed), v [FwdBK][DC].  B6: q, do [BQ][DP + 1], k, v [BK][DC + 1], ds
+// [BQ][BK + 1].  B7: k, v [BK][DP + 1], q, do [BQ][DC + 1], p^T, ds^T [BK][BQ
+// + 1], lse and delta.
 template <int DP> constexpr size_t fwd_smem_words() {
-  static_assert(kBQ * (kFwdBK + 1) <= kFwdBK * (DP + 1), "p tile must fit in k's space");
-  return (size_t)kBQ * (DP + 1) + (size_t)kFwdBK * (DP + 1) + (size_t)kFwdBK * DP;
+  constexpr int DC = out_cols<DP>();
+  static_assert(kBQ * (kFwdBK + 1) <= kFwdBK * (DC + 1), "p tile must fit in k's space");
+  return (size_t)kBQ * (DP + 1) + (size_t)kFwdBK * (DC + 1) + (size_t)kFwdBK * DC;
 }
 template <int DP> constexpr size_t dq_smem_words() {
-  return 4 * (size_t)kBQ * (DP + 1) + (size_t)kBQ * (kBK + 1);
+  return 2 * (size_t)kBQ * (DP + 1) + 2 * (size_t)kBK * (out_cols<DP>() + 1) +
+         (size_t)kBQ * (kBK + 1);
 }
 template <int DP> constexpr size_t dkv_smem_words() {
-  return 4 * (size_t)kBQ * (DP + 1) + 2 * (size_t)kBK * (kBQ + 1) + 2 * kBQ;
+  return 2 * (size_t)kBK * (DP + 1) + 2 * (size_t)kBQ * (out_cols<DP>() + 1) +
+         2 * (size_t)kBK * (kBQ + 1) + 2 * kBQ;
 }
 
 // B5's epilogue: o = acc / max(l, 1e-30) in o's type, lse = m + log(max(l,
@@ -309,12 +393,14 @@ __device__ __forceinline__ void store_dq(float* __restrict__ dq, const float (&a
   }
 }
 
-// B7's epilogue: this thread's rows of dk and dv among the tile's kvalid keys
+// B7's epilogue: this thread's rows of dk and dv among the tile's kvalid
+// keys, the block's columns from c0
 template <int NJ>
 __device__ __forceinline__ void store_dkv(float* __restrict__ dk, float* __restrict__ dv,
                                           const float (&dk_acc)[4][NJ],
                                           const float (&dv_acc)[4][NJ], int k0, int kvalid,
-                                          int kh, int b, int tx, int ty, const Params& p) {
+                                          int kh, int b, int tx, int ty, int c0,
+                                          const Params& p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kr = ty + 16 * i;
@@ -322,7 +408,7 @@ __device__ __forceinline__ void store_dkv(float* __restrict__ dk, float* __restr
     const size_t off = (((size_t)b * p.T + k0 + kr) * p.K + kh) * p.d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
+      const int c = c0 + tx + 16 * j;
       if (c < p.d) {
         dk[off + c] = dk_acc[i][j];
         dv[off + c] = dv_acc[i][j];
@@ -339,15 +425,19 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, Params p) {
-  constexpr int LD = DP + 1, LDP = kFwdBK + 1, NJ = DP / 16, KJ = kFwdBK / 16;
+  // d in NPC pieces of DC columns (one piece up to DP = 128): k's pieces in
+  // turn into ks for s, v's into vs for the acc columns they feed
+  constexpr int DC = out_cols<DP>(), NPC = DP / DC;
+  constexpr int LD = DP + 1, LDC = DC + 1, LDP = kFwdBK + 1, NJ = DP / 16, NJC = DC / 16,
+                KJ = kFwdBK / 16;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (p.H / p.K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   extern __shared__ float smem[];
   float* qs = smem;                 // [BQ][LD]
-  float* ks = qs + kBQ * LD;        // [FwdBK][LD]
+  float* ks = qs + kBQ * LD;        // [FwdBK][LDC]
   float* ps = ks;                   // [BQ][LDP] unnormalized p, once s is formed
-  float* vs = ks + kFwdBK * LD;     // [FwdBK][DP]
+  float* vs = ks + kFwdBK * LDC;    // [FwdBK][DC]
 
   const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
   const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
@@ -370,8 +460,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!tile_visible(q0, kBQ, k0, kFwdBK, p)) continue;   // uniform over the block
     __syncthreads();   // the previous tile's readers of ps (= ks) and vs are done
     const int kvalid = min(kFwdBK, p.T - k0);
-    load_rows<T, DP>(ks, LD, kb, kstride, k0, kFwdBK, kvalid, p.d);
-    load_rows<T, DP>(vs, DP, vb, kstride, k0, kFwdBK, kvalid, p.d);
+    load_rows<T, DC>(ks, LDC, kb, kstride, k0, kFwdBK, kvalid, p.d);
+    load_rows<T, DC>(vs, DC, vb, kstride, k0, kFwdBK, kvalid, p.d);
     __syncthreads();
 
     float s[4][KJ];
@@ -379,17 +469,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int pc = 0; pc < NPC; ++pc) {   // d from 0 to DP - 1, one fma chain
+      if (pc > 0) {
+        __syncthreads();   // every reader of the last piece is done
+        load_rows<T, DC>(ks, LDC, kb, kstride, k0, kFwdBK, kvalid, p.d, pc * DC);
+        __syncthreads();
+      }
 #pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      float a[4], kk[KJ];
+      for (int c = 0; c < DC; ++c) {
+        float a[4], kk[KJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * LD + c];
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * LD + pc * DC + c];
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) kk[j] = ks[(tx + 16 * j) * LD + c];
+        for (int j = 0; j < KJ; ++j) kk[j] = ks[(tx + 16 * j) * LDC + c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+          for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+      }
     }
     __syncthreads();   // every reader of ks is done: ps takes its place
 
@@ -420,17 +518,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+#pragma unroll
+    for (int pc = 0; pc < NPC; ++pc) {   // acc's columns pc DC.. from v's piece pc
+      if (pc > 0) {
+        __syncthreads();   // every reader of the last piece is done
+        load_rows<T, DC>(vs, DC, vb, kstride, k0, kFwdBK, kvalid, p.d, pc * DC);
+        __syncthreads();
+      }
 #pragma unroll 8
-    for (int kk = 0; kk < kFwdBK; ++kk) {
-      float pr[4], vv[NJ];
+      for (int kk = 0; kk < kFwdBK; ++kk) {
+        float pr[4], vv[NJC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * LDP + kk];
+        for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * LDP + kk];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = vs[kk * DP + tx + 16 * j];
+        for (int j = 0; j < NJC; ++j) vv[j] = vs[kk * DC + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
+          for (int j = 0; j < NJC; ++j)
+            acc[i][pc * NJC + j] = fmaf(pr[i], vv[j], acc[i][pc * NJC + j]);
+      }
     }
   }
 
@@ -446,16 +553,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, Params p) {
-  constexpr int LD = DP + 1, LDP = kBK + 1, NJ = DP / 16;
+  // d in NPC pieces of DC columns (one piece up to DP = 128): k's and v's
+  // pieces in turn for s and dp, then k's again for the dq columns they feed
+  constexpr int DC = out_cols<DP>(), NPC = DP / DC;
+  constexpr int LD = DP + 1, LDC = DC + 1, LDP = kBK + 1, NJ = DP / 16, NJC = DC / 16;
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (p.H / p.K);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   extern __shared__ float smem[];
   float* qs = smem;                 // [BQ][LD]
   float* dos = qs + kBQ * LD;       // [BQ][LD]
-  float* ks = dos + kBQ * LD;       // [BK][LD]
-  float* vs = ks + kBK * LD;        // [BK][LD]
-  float* dss = vs + kBK * LD;       // [BQ][LDP]
+  float* ks = dos + kBQ * LD;       // [BK][LDC]
+  float* vs = ks + kBK * LDC;       // [BK][LDC]
+  float* dss = vs + kBK * LDC;      // [BQ][LDP]
 
   const size_t qstride = (size_t)p.H * p.d, kstride = (size_t)p.K * p.d;
   const size_t qoff = ((size_t)b * p.S * p.H + h) * p.d;
@@ -482,35 +592,39 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!tile_visible(q0, kBQ, k0, kBK, p)) continue;
     __syncthreads();
     const int kvalid = min(kBK, p.T - k0);
-    load_rows<T, DP>(ks, LD, kb, kstride, k0, kBK, kvalid, p.d);
-    load_rows<T, DP>(vs, LD, vb, kstride, k0, kBK, kvalid, p.d);
-    __syncthreads();
 
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+    for (int pc = 0; pc < NPC; ++pc) {   // d from 0 to DP - 1, one fma chain
+      if (pc > 0) __syncthreads();       // every reader of the last piece is done
+      load_rows<T, DC>(ks, LDC, kb, kstride, k0, kBK, kvalid, p.d, pc * DC);
+      load_rows<T, DC>(vs, LDC, vb, kstride, k0, kBK, kvalid, p.d, pc * DC);
+      __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      float a[4], da[4], kk[4], vv[4];
+      for (int c = 0; c < DC; ++c) {
+        float a[4], da[4], kk[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(ty + 16 * i) * LD + c];
-        da[i] = dos[(ty + 16 * i) * LD + c];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kk[j] = ks[(tx + 16 * j) * LD + c];
-        vv[j] = vs[(tx + 16 * j) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = qs[(ty + 16 * i) * LD + pc * DC + c];
+          da[i] = dos[(ty + 16 * i) * LD + pc * DC + c];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-          dp[i][j] = fmaf(da[i], vv[j], dp[i][j]);
+          kk[j] = ks[(tx + 16 * j) * LDC + c];
+          vv[j] = vs[(tx + 16 * j) * LDC + c];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+            dp[i][j] = fmaf(da[i], vv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -528,17 +642,27 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+#pragma unroll
+    for (int n = 0; n < NPC; ++n) {   // the piece in ks first, then k's others
+      const int pc = NPC - 1 - n;
+      if (n > 0) {
+        __syncthreads();   // every reader of the last piece is done
+        load_rows<T, DC>(ks, LDC, kb, kstride, k0, kBK, kvalid, p.d, pc * DC);
+        __syncthreads();
+      }
 #pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float dsv[4], kv[NJ];
+      for (int kk = 0; kk < kBK; ++kk) {
+        float dsv[4], kv[NJC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * LDP + kk];
+        for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * LDP + kk];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = ks[kk * LD + tx + 16 * j];
+        for (int j = 0; j < NJC; ++j) kv[j] = ks[kk * LDC + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+          for (int j = 0; j < NJC; ++j)
+            acc[i][pc * NJC + j] = fmaf(dsv[i], kv[j], acc[i][pc * NJC + j]);
+      }
     }
   }
 
@@ -554,16 +678,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, Params p) {
-  constexpr int LD = DP + 1, LQ = kBQ + 1, NJ = DP / 16;
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+  // d in NPC pieces of DC columns (one piece up to DP = 128): q's and do's
+  // pieces in turn for s^T and dp^T; the block's columns of dk and dv are
+  // one piece, c0.. (the grid's column halves at DP = 256)
+  constexpr int DC = out_cols<DP>(), NPC = DP / DC;
+  constexpr int LD = DP + 1, LDC = DC + 1, LQ = kBQ + 1, NJ = DC / 16;
+  const int k0 = blockIdx.x / NPC * kBK, kh = blockIdx.y, b = blockIdx.z;
+  const int half = blockIdx.x % NPC, c0 = half * DC;
   const int G = p.H / p.K;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   extern __shared__ float smem[];
   float* ks = smem;                 // [BK][LD]
   float* vs = ks + kBK * LD;        // [BK][LD]
-  float* qs = vs + kBK * LD;        // [BQ][LD]
-  float* dos = qs + kBQ * LD;       // [BQ][LD]
-  float* pT = dos + kBQ * LD;       // [BK][LQ] p^T
+  float* qs = vs + kBK * LD;        // [BQ][LDC]
+  float* dos = qs + kBQ * LDC;      // [BQ][LDC]
+  float* pT = dos + kBQ * LDC;      // [BK][LQ] p^T
   float* dsT = pT + kBK * LQ;       // [BK][LQ] ds^T
   float* lse_s = dsT + kBK * LQ;    // [BQ]
   float* delta_s = lse_s + kBQ;     // [BQ]
@@ -592,13 +721,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!tile_visible(q0, kBQ, k0, kBK, p)) continue;
       __syncthreads();   // the previous tile's readers are done
       const int qvalid = min(kBQ, p.S - q0);
-      load_rows<T, DP>(qs, LD, q + qoff, qstride, q0, kBQ, qvalid, p.d);
-      load_rows<T, DP>(dos, LD, dout + qoff, qstride, q0, kBQ, qvalid, p.d);
       for (int r = threadIdx.x; r < kBQ; r += kThreads) {
         lse_s[r] = r < qvalid ? lse_b[q0 + r] : 0.f;
         delta_s[r] = r < qvalid ? delta_b[q0 + r] : 0.f;
       }
-      __syncthreads();
 
       // scores for query rows tx + 16 j and keys ty + 16 i
       float s[4][4], dp[4][4];
@@ -606,26 +732,33 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+      for (int pc = 0; pc < NPC; ++pc) {   // d from 0 to DP - 1, one fma chain
+        if (pc > 0) __syncthreads();       // every reader of the last piece is done
+        load_rows<T, DC>(qs, LDC, q + qoff, qstride, q0, kBQ, qvalid, p.d, pc * DC);
+        load_rows<T, DC>(dos, LDC, dout + qoff, qstride, q0, kBQ, qvalid, p.d, pc * DC);
+        __syncthreads();
 #pragma unroll 4
-      for (int c = 0; c < DP; ++c) {
-        float kk[4], vv[4], a[4], da[4];
+        for (int c = 0; c < DC; ++c) {
+          float kk[4], vv[4], a[4], da[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = ks[(ty + 16 * i) * LD + c];
-          vv[i] = vs[(ty + 16 * i) * LD + c];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          a[j] = qs[(tx + 16 * j) * LD + c];
-          da[j] = dos[(tx + 16 * j) * LD + c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            kk[i] = ks[(ty + 16 * i) * LD + pc * DC + c];
+            vv[i] = vs[(ty + 16 * i) * LD + pc * DC + c];
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(a[j], kk[i], s[i][j]);
-            dp[i][j] = fmaf(da[j], vv[i], dp[i][j]);
+            a[j] = qs[(tx + 16 * j) * LDC + c];
+            da[j] = dos[(tx + 16 * j) * LDC + c];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(a[j], kk[i], s[i][j]);
+              dp[i][j] = fmaf(da[j], vv[i], dp[i][j]);
+            }
+        }
       }
 
 #pragma unroll
@@ -646,6 +779,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       __syncthreads();
+      if (half != NPC - 1) {   // (uniform) the piece of this block's columns
+        load_rows<T, DC>(qs, LDC, q + qoff, qstride, q0, kBQ, qvalid, p.d, c0);
+        load_rows<T, DC>(dos, LDC, dout + qoff, qstride, q0, kBQ, qvalid, p.d, c0);
+        __syncthreads();
+      }
 
 #pragma unroll 4
       for (int r = 0; r < kBQ; ++r) {
@@ -657,8 +795,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          dov[j] = dos[r * LD + tx + 16 * j];
-          qv[j] = qs[r * LD + tx + 16 * j];
+          dov[j] = dos[r * LDC + tx + 16 * j];
+          qv[j] = qs[r * LDC + tx + 16 * j];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -671,7 +809,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  store_dkv(dk, dv, dk_acc, dv_acc, k0, kvalid, kh, b, tx, ty, p);
+  store_dkv(dk, dv, dk_acc, dv_acc, k0, kvalid, kh, b, tx, ty, c0, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -715,15 +853,21 @@ constexpr int kFwdTcThreads = 2 * kFwdTcBQ;
 template <typename T, int DP> __host__ __device__ constexpr bool fwd_tc_q_staged() {
   return sizeof(T) * kFwdTcBQ * DP <= 32768;
 }
+// (at DP = 256: no staging; the bf16 k and q tiles, DP wide, the bf16 v
+// tile of the block's 128 columns and the mbarriers, 166 KB)
 template <typename T, int DP> constexpr size_t fwd_tc_smem_bytes() {
+  if constexpr (DP > 128)
+    return 128 + 2 * smem_piece(2 * kFwdBK * tc_ld<DP>()) +
+           smem_piece(2 * kFwdBK * tc_ld<out_cols<DP>()>()) + smem_piece(16);
   return 128 + (fwd_tc_q_staged<T, DP>() ? 3 : 2) * smem_piece(sizeof(T) * kFwdBK * DP)
        + 2 * smem_piece(2 * kFwdBK * tc_ld<DP>()) + smem_piece(16);
 }
 // B7: staging for q and do (64 rows each) with lse and delta; bf16 k, v, q
 // and do tiles of 64 rows; lse and delta of the tile's queries; the
 // staging's mbarrier
+// (at DP = 256 no staging: 133 KB)
 template <typename T, int DP> constexpr size_t dkv_tc_smem_bytes() {
-  return 128 + smem_piece(sizeof(T) * 2 * kBQ * DP) + smem_piece(4 * 2 * kBQ)
+  return 128 + (DP > 128 ? 0 : smem_piece(sizeof(T) * 2 * kBQ * DP) + smem_piece(4 * 2 * kBQ))
        + 4 * smem_piece(2 * kBQ * tc_ld<DP>()) + 2 * smem_piece(4 * kBQ) + smem_piece(8);
 }
 
@@ -790,6 +934,38 @@ __device__ __forceinline__ void to_bf16_tile(bf16* X, const T* F, int ldf, int v
                      repro::pack_bf16(x[4], x[5]), repro::pack_bf16(x[6], x[7]));
     }
     *reinterpret_cast<uint4*>(X + r * tc_ld<DP>() + c) = w;
+  }
+}
+
+// Rows [row0, row0 + valid) of one head (rows `stride` elements apart),
+// columns [c0, c0 + W), rounded to bf16 (nearest even) straight from device
+// memory into X [N][W + 8], 16 bytes a thread at a time, zeros at rows >=
+// valid and columns >= d: the DP = 256 kernels' staging, which has no room
+// for a tile in the storage type.  `vec`: rows of whole 16-byte pieces, 16-byte
+// aligned (tma_rows), read 8 values at once; else element by element.
+template <typename T, int W, int N, int NTHR>
+__device__ __forceinline__ void round_rows(bf16* X, const T* __restrict__ src, size_t stride,
+                                           int row0, int valid, int d, int c0, bool vec,
+                                           int tid) {
+  constexpr int CPR = W / 8;
+  static_assert(N * CPR % NTHR == 0, "whole rounds of 16-byte stores");
+#pragma unroll 4
+  for (int it = 0; it < N * CPR / NTHR; ++it) {
+    const int i = it * NTHR + tid, r = i / CPR, c = (i % CPR) * 8;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid && c0 + c < d) {
+      const T* x8 = src + (size_t)(row0 + r) * stride + c0 + c;
+      float x[8];
+      if (vec && c0 + c + 8 <= d) {
+        load8(x8, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = c0 + c + e < d ? to_f32(x8[e]) : 0.f;
+      }
+      w = make_uint4(repro::pack_bf16(x[0], x[1]), repro::pack_bf16(x[2], x[3]),
+                     repro::pack_bf16(x[4], x[5]), repro::pack_bf16(x[6], x[7]));
+    }
+    *reinterpret_cast<uint4*>(X + r * tc_ld<W>() + c) = w;
   }
 }
 
@@ -908,17 +1084,21 @@ __device__ __forceinline__ void dq_grads(float (&s)[NT][4], const float (&dp)[NT
     }
 }
 
-// B5's work items, (q tile, head, batch), in the order the blocks take
-// them: the q tiles in reverse (under the causal mask the last rows see the
-// most keys, so the longest items start first); block c takes items c, c +
-// gridDim.x, ...
+// B5's work items, (q tile, head, batch) and, at DP = 256, the half of
+// the output's columns (nh halves of 128, the fastest index, so the halves
+// of an item run side by side), in the order the blocks take them: the q
+// tiles in reverse (under the causal mask the last rows see the most keys,
+// so the longest items start first); block c takes items c, c + gridDim.x,
+// ...
 struct FwdItem {
-  int q0, h, b, kh;
+  int q0, h, b, kh, c0;
   int2 kr;   // the visible key tiles
 };
-__device__ __forceinline__ FwdItem fwd_item(int i, const Params& p) {
+__device__ __forceinline__ FwdItem fwd_item(int i, int nh, const Params& p) {
   const int nq = (p.S + kFwdTcBQ - 1) / kFwdTcBQ, hb = p.H * p.B;
   FwdItem f;
+  f.c0 = i % nh * 128;
+  i /= nh;
   f.q0 = (nq - 1 - i / hb) * kFwdTcBQ;
   f.h = i % hb % p.H;
   f.b = i % hb / p.H;
@@ -938,24 +1118,34 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const __grid_constant__ CUtensorMap tmq,
                     const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv) {
-  constexpr int LD = tc_ld<DP>(), NT = kFwdBK / 8, DT = DP / 8, KS = DP / 16;
+  // kWide (DP = 256): the block's output columns are one half, DC = 128,
+  // of an item's (o's accumulator 16 x DP f32 a warp would take 128
+  // registers); no staging tiles (one f32 k tile would take 128 KB): k and v
+  // are rounded straight from device memory into Kb and Vb (v's DC columns
+  // only), and q into Qb, from which the warps read its fragments for each
+  // k-step; p.tma then flags rows of whole 16-byte pieces (round_rows).
+  constexpr bool kWide = DP > 128;
+  constexpr int DC = out_cols<DP>(), NH = DP / DC, LDV = tc_ld<DC>();
+  constexpr int LD = tc_ld<DP>(), NT = kFwdBK / 8, DT = DC / 8, KS = DP / 16;
   constexpr int BQ = kFwdTcBQ, NTHR = kFwdTcThreads;
-  const int items = (p.S + BQ - 1) / BQ * p.H * p.B, G = gridDim.x;
+  const int items = (p.S + BQ - 1) / BQ * p.H * p.B * NH, G = gridDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   Carve cv{align128(smem_tc)};
-  T* Fk = cv.take<T>(kFwdBK * DP);      // staging of k and v (128-byte aligned)
-  T* Fv = cv.take<T>(kFwdBK * DP);
-  T* Fq = fwd_tc_q_staged<T, DP>() ? cv.take<T>(BQ * DP) : nullptr;   // and of q
+  // staging of k and v (128-byte aligned), and of q where it fits
+  T* Fk = kWide ? nullptr : cv.take<T>(kFwdBK * DP);
+  T* Fv = kWide ? nullptr : cv.take<T>(kFwdBK * DP);
+  T* Fq = !kWide && fwd_tc_q_staged<T, DP>() ? cv.take<T>(BQ * DP) : nullptr;
   bf16* Kb = cv.take<bf16>(kFwdBK * LD);
-  bf16* Vb = cv.take<bf16>(kFwdBK * LD);
+  bf16* Vb = cv.take<bf16>(kFwdBK * LDV);
+  bf16* Qb = kWide ? cv.take<bf16>(BQ * LD) : nullptr;
   uint64_t* staged = cv.take<uint64_t>(2);   // k and v; q
   if (threadIdx.x == 0) {
     repro::mbar_init(&staged[0], 1);
     repro::mbar_init(&staged[1], 1);
   }
   __syncthreads();
-  const bool q_tma = p.tma && Fq != nullptr;
+  const bool q_tma = !kWide && p.tma && Fq != nullptr;
   const int ldf = p.tma ? p.d : DP;     // the staging's row pitch
 
   // The block's tiles form one stream, the visible key tiles of its items
@@ -967,7 +1157,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // by the whole block; then rounded to bf16 into Kb and Vb by the block.
   auto first_tile = [&](int i, int& kt) {   // from item i on: (item, kt), or items
     for (; i < items; i += G) {
-      const FwdItem f = fwd_item(i, p);
+      const FwdItem f = fwd_item(i, NH, p);
       if (f.kr.x < f.kr.y) {
         kt = f.kr.x;
         return i;
@@ -976,14 +1166,15 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return items;
   };
   auto next_tile = [&](int i, int kt, int& nkt) {
-    if (kt + 1 < fwd_item(i, p).kr.y) {
+    if (kt + 1 < fwd_item(i, NH, p).kr.y) {
       nkt = kt + 1;
       return i;
     }
     return first_tile(i + G, nkt);
   };
   auto stage_kv = [&](int i, int kt) {
-    const FwdItem f = fwd_item(i, p);
+    if constexpr (kWide) return;   // round_kv reads device memory itself
+    const FwdItem f = fwd_item(i, NH, p);
     const int k0 = kt * kFwdBK;
     if (!p.tma) {
       const size_t kstride = (size_t)p.K * p.d, off = ((size_t)f.b * p.T * p.K + f.kh) * p.d;
@@ -997,8 +1188,17 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
   uint32_t kv_phase = 0, q_phase = 0;
-  auto round_kv = [&](int kt) {   // after a barrier that follows the tile's stage_kv
+  auto round_kv = [&](int i, int kt) {   // after a barrier that follows the tile's stage_kv
     const int kvalid = min(kFwdBK, p.T - kt * kFwdBK);
+    if constexpr (kWide) {
+      const FwdItem f = fwd_item(i, NH, p);
+      const size_t kstride = (size_t)p.K * p.d, off = ((size_t)f.b * p.T * p.K + f.kh) * p.d;
+      round_rows<T, DP, kFwdBK, NTHR>(Kb, k + off, kstride, kt * kFwdBK, kvalid, p.d, 0, p.tma,
+                                       threadIdx.x);
+      round_rows<T, DC, kFwdBK, NTHR>(Vb, v + off, kstride, kt * kFwdBK, kvalid, p.d, f.c0,
+                                       p.tma, threadIdx.x);
+      return;
+    }
     if (p.tma) {
       repro::mbar_wait(&staged[0], kv_phase);
       kv_phase ^= 1;
@@ -1008,7 +1208,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   auto stage_q = [&](int i) {
     if (q_tma && threadIdx.x == 0 && i < items) {
-      const FwdItem f = fwd_item(i, p);
+      const FwdItem f = fwd_item(i, NH, p);
       repro::mbar_arrive_expect(&staged[1], BQ * p.d * sizeof(T));
       repro::tma_load_3d(Fq, &tmq, 0, f.h, f.b * p.S + f.q0, &staged[1]);
     }
@@ -1022,38 +1222,46 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int ni = items;
   if (ri < items) {
     __syncthreads();
-    round_kv(rkt);
+    round_kv(ri, rkt);
     __syncthreads();   // Kb and Vb ready, staging free
     ni = next_tile(ri, rkt, nkt);
     if (ni < items) stage_kv(ni, nkt);
   }
 
   for (int i = blockIdx.x; i < items; i += G) {
-    const FwdItem f = fwd_item(i, p);
+    const FwdItem f = fwd_item(i, NH, p);
     const int q0 = f.q0;
     // this warp's 16 q rows as A fragments for the item, rounded to bf16
     // (zeros beyond S and d): a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t +
     // 8..), a3 (g + 8, 2t + 8..) of each k-step; from the staged box, or
-    // straight from device memory
-    uint32_t qa[KS][4];
-    if (q_tma) {
-      repro::mbar_wait(&staged[1], q_phase);
-      q_phase ^= 1;
-    }
+    // straight from device memory; at DP = 256 the block rounds the item's
+    // q rows into Qb and the warps read the fragments at each k-step
+    uint32_t qa[kWide ? 1 : KS][4];
     const size_t qstride = (size_t)p.H * p.d;
     const T* qb = q + ((size_t)f.b * p.S * p.H + f.h) * p.d;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 16 * warp + g + 8 * (e & 1), c = 16 * ks + 8 * (e >> 1) + 2 * tq;
-        const bool in = q0 + r < p.S;
-        const T* qr = q_tma ? Fq + r * p.d : qb + (size_t)(q0 + r) * qstride;
-        qa[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(qr[c]) : 0.f,
-                                     in && c + 1 < p.d ? to_f32(qr[c + 1]) : 0.f);
+    if constexpr (kWide) {
+      __syncthreads();   // every warp is done with the last item's Qb
+      round_rows<T, DP, BQ, NTHR>(Qb, qb, qstride, q0, min(BQ, p.S - q0), p.d, 0, p.tma,
+                                  threadIdx.x);
+      __syncthreads();
+    } else {
+      if (q_tma) {
+        repro::mbar_wait(&staged[1], q_phase);
+        q_phase ^= 1;
       }
-    __syncthreads();   // every thread has read Fq
-    stage_q(i + G);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * warp + g + 8 * (e & 1), c = 16 * ks + 8 * (e >> 1) + 2 * tq;
+          const bool in = q0 + r < p.S;
+          const T* qr = q_tma ? Fq + r * p.d : qb + (size_t)(q0 + r) * qstride;
+          qa[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(qr[c]) : 0.f,
+                                       in && c + 1 < p.d ? to_f32(qr[c + 1]) : 0.f);
+        }
+      __syncthreads();   // every thread has read Fq
+      stage_q(i + G);
+    }
 
     // this thread's rows are q0 + 16 warp + g + 8 r (r = 0, 1); its columns
     // of each 8-wide n-tile j are 8 j + 2 tq + e (e = 0, 1)
@@ -1071,15 +1279,25 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      auto qk = [&](int ks, const uint32_t (&qf)[4]) {   // s += q k^T at k-step ks
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t kf[4];
           repro::ldmatrix_x4(kf, b_pair<LD>(Kb, 8 * j, 16 * ks, lane));
-          repro::mma_bf16(s[j], qa[ks], kf[0], kf[1]);
-          repro::mma_bf16(s[j + 1], qa[ks], kf[2], kf[3]);
+          repro::mma_bf16(s[j], qf, kf[0], kf[1]);
+          repro::mma_bf16(s[j + 1], qf, kf[2], kf[3]);
         }
+      };
+#pragma unroll (DP > 128 ? 4 : DP / 16)
+      for (int ks = 0; ks < KS; ++ks) {
+        if constexpr (kWide) {
+          uint32_t qf[4];
+          repro::ldmatrix_x4(qf, a_frag<LD>(Qb, 16 * warp, 16 * ks, lane));
+          qk(ks, qf);
+        } else {
+          qk(ks, qa[ks]);
+        }
+      }
 
       // the online softmax of each row over its four lanes; p = exp(s - m)
       // unrounded into l (summed over n-tiles j, then e, then lanes xor 1, 2:
@@ -1134,14 +1352,14 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < DT; j += 2) {
           uint32_t vf[4];
-          repro::ldmatrix_x4_trans(vf, bt_pair<LD>(Vb, 16 * kk, 8 * j, lane));
+          repro::ldmatrix_x4_trans(vf, bt_pair<LDV>(Vb, 16 * kk, 8 * j, lane));
           repro::mma_bf16(acc[j], pa, vf[0], vf[1]);
           repro::mma_bf16(acc[j + 1], pa, vf[2], vf[3]);
         }
       }
       if (ni < items) {   // the stream goes on: round the tile in flight, stage the next
         __syncthreads();   // every warp is done with Kb and Vb
-        round_kv(nkt);
+        round_kv(ni, nkt);
         __syncthreads();   // Kb and Vb ready, staging free
         const int ci = ni, ckt = nkt;
         ni = next_tile(ci, ckt, nkt);
@@ -1158,7 +1376,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* orow = o + (((size_t)f.b * p.S + row) * p.H + f.h) * p.d;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
-        const int c = 8 * j + 2 * tq;
+        const int c = f.c0 + 8 * j + 2 * tq;
         const float x0 = acc[j][2 * r] / lc, x1 = acc[j][2 * r + 1] / lc;
         if (c + 1 < p.d && p.d % 2 == 0) {
           store_pair(orow + c, x0, x1);
@@ -1167,7 +1385,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (c + 1 < p.d) orow[c + 1] = from_f32<T>(x1);
         }
       }
-      if (tq == 0) lse[((size_t)f.b * p.H + f.h) * p.S + row] = m[r] + logf(lc);
+      if (tq == 0 && f.c0 == 0) lse[((size_t)f.b * p.H + f.h) * p.S + row] = m[r] + logf(lc);
     }
   }
 }
@@ -1190,15 +1408,26 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const __grid_constant__ CUtensorMap tmv,
                         const __grid_constant__ CUtensorMap tmq,
                         const __grid_constant__ CUtensorMap tmdo) {
-  constexpr int LD = tc_ld<DP>(), QT = kQW / 8, DT = DP / 8, KS = DP / 16, QS = kQW / 16;
+  // kWide (DP = 256): the block's dk and dv columns are one half, DC = 128,
+  // c0.. (blockIdx.x's lowest index; dk and dv of 16 x DP f32 a warp would
+  // take 256 registers); no staging: k and v are rounded straight from
+  // device memory into Kb and Vb, q and do into Qb and Db at each tile,
+  // and lse and delta read into ls and dl; p.tma then flags rows of whole
+  // 16-byte pieces (round_rows)
+  constexpr bool kWide = DP > 128;
+  constexpr int DC = out_cols<DP>(), NH = DP / DC;
+  constexpr int LD = tc_ld<DP>(), QT = kQW / 8, DT = DC / 8, KS = DP / 16, QS = kQW / 16;
   static_assert(kTcThreads == 2 * kBQ, "one thread a row of lse or delta");
-  const int k0 = blockIdx.x * kBK, kh = blockIdx.y, b = blockIdx.z;
+  const int k0 = (int)blockIdx.x / NH * kBK, c0 = (int)blockIdx.x % NH * DC;
+  const int kh = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.K;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   Carve cv{align128(smem_tc)};
-  T* F = cv.take<T>(2 * kBQ * DP);      // staging: k and v, then q and do (128-byte aligned)
-  float* Fr = cv.take<float>(2 * kBQ);  // staging: lse and delta of the tile's queries
+  // staging: k and v, then q and do (128-byte aligned); lse and delta of the
+  // tile's queries
+  T* F = kWide ? nullptr : cv.take<T>(2 * kBQ * DP);
+  float* Fr = kWide ? nullptr : cv.take<float>(2 * kBQ);
   bf16* Kb = cv.take<bf16>(kBK * LD);
   bf16* Vb = cv.take<bf16>(kBK * LD);
   bf16* Qb = cv.take<bf16>(kBQ * LD);
@@ -1214,23 +1443,30 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // k and v: one box each (64 rows of one head) for the copy engine (the
   // barrier's phase 0; the q tile `it` below is its phase it + 1), or
   // element by element by the block
-  if (threadIdx.x == 0) {
-    repro::mbar_init(bar, 1);
-    if (p.tma) {
-      repro::mbar_arrive_expect(bar, 2 * kBK * p.d * sizeof(T));
-      repro::tma_load_3d(F, &tmk, 0, kh, b * p.T + k0, bar);
-      repro::tma_load_3d(F + kBK * DP, &tmv, 0, kh, b * p.T + k0, bar);
-    }
-  }
-  if (!p.tma) {
-    load_rows_plain<T, DP, kTcThreads>(F, k + koff, kstride, k0, kvalid, p.d, threadIdx.x);
-    load_rows_plain<T, DP, kTcThreads>(F + kBK * DP, v + koff, kstride, k0, kvalid, p.d,
+  if constexpr (kWide) {
+    round_rows<T, DP, kBK, kTcThreads>(Kb, k + koff, kstride, k0, kvalid, p.d, 0, p.tma,
                                        threadIdx.x);
+    round_rows<T, DP, kBK, kTcThreads>(Vb, v + koff, kstride, k0, kvalid, p.d, 0, p.tma,
+                                       threadIdx.x);
+  } else {
+    if (threadIdx.x == 0) {
+      repro::mbar_init(bar, 1);
+      if (p.tma) {
+        repro::mbar_arrive_expect(bar, 2 * kBK * p.d * sizeof(T));
+        repro::tma_load_3d(F, &tmk, 0, kh, b * p.T + k0, bar);
+        repro::tma_load_3d(F + kBK * DP, &tmv, 0, kh, b * p.T + k0, bar);
+      }
+    }
+    if (!p.tma) {
+      load_rows_plain<T, DP, kTcThreads>(F, k + koff, kstride, k0, kvalid, p.d, threadIdx.x);
+      load_rows_plain<T, DP, kTcThreads>(F + kBK * DP, v + koff, kstride, k0, kvalid, p.d,
+                                         threadIdx.x);
+    }
+    __syncthreads();   // the barrier initialised, the element-wise rows in
+    if (p.tma) repro::mbar_wait(bar, 0);
+    to_bf16_tile<T, DP, kBK, kTcThreads>(Kb, F, ldf, kvalid, p.d, threadIdx.x);
+    to_bf16_tile<T, DP, kBK, kTcThreads>(Vb, F + kBK * DP, ldf, kvalid, p.d, threadIdx.x);
   }
-  __syncthreads();   // the barrier initialised, the element-wise rows in
-  if (p.tma) repro::mbar_wait(bar, 0);
-  to_bf16_tile<T, DP, kBK, kTcThreads>(Kb, F, ldf, kvalid, p.d, threadIdx.x);
-  to_bf16_tile<T, DP, kBK, kTcThreads>(Vb, F + kBK * DP, ldf, kvalid, p.d, threadIdx.x);
   __syncthreads();
 
   // the work: the G query heads of the group in turn and, inside, the
@@ -1241,6 +1477,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   });
   const int nqt = qr.y - qr.x, n = G * nqt;
   auto stage = [&](int it) {
+    if constexpr (kWide) return;   // the loop reads device memory itself
     const int h = kh * G + it / nqt, q0 = (qr.x + it % nqt) * kBQ;
     const int qvalid = min(kBQ, p.S - q0);
     if (p.tma) {
@@ -1272,14 +1509,28 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n > 0) stage(0);
   for (int it = 0; it < n; ++it) {
     const int q0 = (qr.x + it % nqt) * kBQ, qvalid = min(kBQ, p.S - q0);
-    if (p.tma) repro::mbar_wait(bar, (it + 1) & 1);
-    repro::cp_async_wait_all();
-    __syncthreads();   // staged; every warp is done with the last tile's Qb, Db
-    to_bf16_tile<T, DP, kBQ, kTcThreads>(Qb, F, ldf, qvalid, p.d, threadIdx.x);
-    to_bf16_tile<T, DP, kBQ, kTcThreads>(Db, F + kBQ * DP, ldf, qvalid, p.d, threadIdx.x);
-    for (int r = threadIdx.x; r < kBQ; r += kTcThreads) {
-      ls[r] = r < qvalid ? Fr[r] : 0.f;
-      dl[r] = r < qvalid ? Fr[kBQ + r] : 0.f;
+    if constexpr (kWide) {
+      __syncthreads();   // every warp is done with the last tile's Qb, Db
+      const int h = kh * G + it / nqt;
+      const size_t qoff = ((size_t)b * p.S * p.H + h) * p.d, ro = ((size_t)b * p.H + h) * p.S;
+      round_rows<T, DP, kBQ, kTcThreads>(Qb, q + qoff, qstride, q0, qvalid, p.d, 0, p.tma,
+                                         threadIdx.x);
+      round_rows<T, DP, kBQ, kTcThreads>(Db, dout + qoff, qstride, q0, qvalid, p.d, 0, p.tma,
+                                         threadIdx.x);
+      for (int r = threadIdx.x; r < kBQ; r += kTcThreads) {
+        ls[r] = r < qvalid ? lse[ro + q0 + r] : 0.f;
+        dl[r] = r < qvalid ? delta[ro + q0 + r] : 0.f;
+      }
+    } else {
+      if (p.tma) repro::mbar_wait(bar, (it + 1) & 1);
+      repro::cp_async_wait_all();
+      __syncthreads();   // staged; every warp is done with the last tile's Qb, Db
+      to_bf16_tile<T, DP, kBQ, kTcThreads>(Qb, F, ldf, qvalid, p.d, threadIdx.x);
+      to_bf16_tile<T, DP, kBQ, kTcThreads>(Db, F + kBQ * DP, ldf, qvalid, p.d, threadIdx.x);
+      for (int r = threadIdx.x; r < kBQ; r += kTcThreads) {
+        ls[r] = r < qvalid ? Fr[r] : 0.f;
+        dl[r] = r < qvalid ? Fr[kBQ + r] : 0.f;
+      }
     }
     __syncthreads();   // tiles ready, staging free
     if (it + 1 < n) stage(it + 1);
@@ -1297,7 +1548,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < QT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
+#pragma unroll (DP > 128 ? 4 : DP / 16)
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t kf[4], vf[4];
         repro::ldmatrix_x4(kf, a_frag<LD>(Kb, 16 * warp, 16 * ks, lane));
@@ -1338,8 +1589,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < DT; j += 2) {
           uint32_t df[4], qf[4];
-          repro::ldmatrix_x4_trans(df, bt_pair<LD>(Db, qh + 16 * kk, 8 * j, lane));
-          repro::ldmatrix_x4_trans(qf, bt_pair<LD>(Qb, qh + 16 * kk, 8 * j, lane));
+          repro::ldmatrix_x4_trans(df, bt_pair<LD>(Db, qh + 16 * kk, c0 + 8 * j, lane));
+          repro::ldmatrix_x4_trans(qf, bt_pair<LD>(Qb, qh + 16 * kk, c0 + 8 * j, lane));
           repro::mma_bf16(dva[j], pa, df[0], df[1]);
           repro::mma_bf16(dva[j + 1], pa, df[2], df[3]);
           repro::mma_bf16(dka[j], da, qf[0], qf[1]);
@@ -1357,7 +1608,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = (((size_t)b * p.T + k0 + kr) * p.K + kh) * p.d;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
-      const int c = 8 * j + 2 * tq;
+      const int c = c0 + 8 * j + 2 * tq;
       if (c + 1 < p.d && p.d % 2 == 0) {
         store_pair(dk + off + c, dka[j][2 * r], dka[j][2 * r + 1]);
         store_pair(dv + off + c, dva[j][2 * r], dva[j][2 * r + 1]);
@@ -1399,29 +1650,42 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // idles the tensor cores.
 constexpr int kDqKW = 32;
 constexpr int kDqTcBQ = kTcThreads / 2;   // 4 warps of 16 rows
+// (at DP = 256: no staging; bf16 k, v, q and do tiles, 132 KB)
 template <typename T, int DP> constexpr size_t dq_tc_smem_bytes() {
+  if constexpr (DP > 128) return 128 + 4 * smem_piece(2 * kBK * tc_ld<DP>()) + smem_piece(8);
   return 128 + smem_piece(sizeof(T) * 2 * kBK * DP) + 2 * smem_piece(2 * kBK * tc_ld<DP>())
        + smem_piece(8);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kTcThreads, DP == 64 ? 3 : DP == 128 ? 2 : 1)
 flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        float* __restrict__ dq, Params p,
                        const __grid_constant__ CUtensorMap tmk,
                        const __grid_constant__ CUtensorMap tmv) {
-  constexpr int LD = tc_ld<DP>(), NT = kDqKW / 8, DT = DP / 8, KS = DP / 16, QS = kDqKW / 16;
+  // kWide (DP = 256): the block's dq columns are one half, DC = 128, c0..
+  // (blockIdx.x's lowest index); no staging: k and v are rounded straight
+  // from device memory into Kb and Vb at each tile, q and do into Qb and Db
+  // once, from which the warps read their fragments at each k-step (q's
+  // and do's 2 x DP / 4 registers would not fit beside dq's); p.tma then
+  // flags rows of whole 16-byte pieces (round_rows)
+  constexpr bool kWide = DP > 128;
+  constexpr int DC = out_cols<DP>(), NH = DP / DC;
+  constexpr int LD = tc_ld<DP>(), NT = kDqKW / 8, DT = DC / 8, KS = DP / 16, QS = kDqKW / 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int nq = (p.S + kDqTcBQ - 1) / kDqTcBQ, hb = p.H * p.B;
-  const int q0 = (nq - 1 - (int)blockIdx.x / hb) * kDqTcBQ;
-  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H, kh = h / (p.H / p.K);
+  const int item = (int)blockIdx.x / NH, c0 = (int)blockIdx.x % NH * DC;
+  const int q0 = (nq - 1 - item / hb) * kDqTcBQ;
+  const int h = item % hb % p.H, b = item % hb / p.H, kh = h / (p.H / p.K);
   extern __shared__ __align__(16) unsigned char smem_tc[];
   Carve cv{align128(smem_tc)};
-  T* F = cv.take<T>(2 * kBK * DP);      // staging: k, then v (128-byte aligned)
+  T* F = kWide ? nullptr : cv.take<T>(2 * kBK * DP);   // staging: k, then v (128-byte aligned)
   bf16* Kb = cv.take<bf16>(kBK * LD);
   bf16* Vb = cv.take<bf16>(kBK * LD);
+  bf16* Qb = kWide ? cv.take<bf16>(kDqTcBQ * LD) : nullptr;
+  bf16* Db = kWide ? cv.take<bf16>(kDqTcBQ * LD) : nullptr;
   uint64_t* bar = cv.take<uint64_t>(1);
 
   const size_t kstride = (size_t)p.K * p.d, koff = ((size_t)b * p.T * p.K + kh) * p.d;
@@ -1448,28 +1712,38 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   if (threadIdx.x == 0) repro::mbar_init(bar, 1);
   __syncthreads();
-  if (kr.x < kr.y) stage(kr.x);
+  if (!kWide && kr.x < kr.y) stage(kr.x);
 
   // this warp's 16 rows of q and do as A fragments for the item, rounded to
-  // bf16 (zeros beyond S and d), while the first tile flies; this thread's
-  // rows are q0 + 16 warp + g + 8 r (r = 0, 1), its columns of each 8-wide
-  // n-tile j 8 j + 2 tq + e (e = 0, 1)
-  uint32_t qa[KS][4], da[KS][4];
+  // bf16 (zeros beyond S and d), while the first tile flies (at DP = 256
+  // the block's rows into Qb and Db, ordered before their readers by the
+  // first tile's barrier); this thread's rows are q0 + 16 warp + g + 8 r (r
+  // = 0, 1), its columns of each 8-wide n-tile j c0 + 8 j + 2 tq + e (e = 0,
+  // 1)
+  uint32_t qa[kWide ? 1 : KS][4], da[kWide ? 1 : KS][4];
   const size_t qstride = (size_t)p.H * p.d;
   const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
   const T* db = dout + ((size_t)b * p.S * p.H + h) * p.d;
+  if constexpr (kWide) {
+    const int qvalid = min(kDqTcBQ, p.S - q0);
+    round_rows<T, DP, kDqTcBQ, kTcThreads>(Qb, qb, qstride, q0, qvalid, p.d, 0, p.tma,
+                                           threadIdx.x);
+    round_rows<T, DP, kDqTcBQ, kTcThreads>(Db, db, qstride, q0, qvalid, p.d, 0, p.tma,
+                                           threadIdx.x);
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * warp + g + 8 * (e & 1), c = 16 * ks + 8 * (e >> 1) + 2 * tq;
-      const bool in = q0 + r < p.S;
-      const size_t at = (size_t)(q0 + r) * qstride + c;
-      qa[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(qb[at]) : 0.f,
-                                   in && c + 1 < p.d ? to_f32(qb[at + 1]) : 0.f);
-      da[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(db[at]) : 0.f,
-                                   in && c + 1 < p.d ? to_f32(db[at + 1]) : 0.f);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * warp + g + 8 * (e & 1), c = 16 * ks + 8 * (e >> 1) + 2 * tq;
+        const bool in = q0 + r < p.S;
+        const size_t at = (size_t)(q0 + r) * qstride + c;
+        qa[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(qb[at]) : 0.f,
+                                     in && c + 1 < p.d ? to_f32(qb[at + 1]) : 0.f);
+        da[ks][e] = repro::pack_bf16(in && c < p.d ? to_f32(db[at]) : 0.f,
+                                     in && c + 1 < p.d ? to_f32(db[at + 1]) : 0.f);
+      }
+  }
   const float* lse_b = lse + ((size_t)b * p.H + h) * p.S;
   const float* delta_b = delta + ((size_t)b * p.H + h) * p.S;
   float lr[2], dr[2], acc[DT][4];
@@ -1489,15 +1763,22 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kr.x; kt < kr.y; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the element-wise rows in; every warp done with Kb and Vb
-    if (p.tma) {
-      repro::mbar_wait(bar, phase);
-      phase ^= 1;
-    }
     const int kvalid = min(kBK, p.T - k0);
-    to_bf16_tile<T, DP, kBK, kTcThreads>(Kb, F, ldf, kvalid, p.d, threadIdx.x);
-    to_bf16_tile<T, DP, kBK, kTcThreads>(Vb, F + kBK * DP, ldf, kvalid, p.d, threadIdx.x);
+    if constexpr (kWide) {
+      round_rows<T, DP, kBK, kTcThreads>(Kb, k + koff, kstride, k0, kvalid, p.d, 0, p.tma,
+                                         threadIdx.x);
+      round_rows<T, DP, kBK, kTcThreads>(Vb, v + koff, kstride, k0, kvalid, p.d, 0, p.tma,
+                                         threadIdx.x);
+    } else {
+      if (p.tma) {
+        repro::mbar_wait(bar, phase);
+        phase ^= 1;
+      }
+      to_bf16_tile<T, DP, kBK, kTcThreads>(Kb, F, ldf, kvalid, p.d, threadIdx.x);
+      to_bf16_tile<T, DP, kBK, kTcThreads>(Vb, F + kBK * DP, ldf, kvalid, p.d, threadIdx.x);
+    }
     __syncthreads();   // Kb and Vb ready, the staging free
-    if (kt + 1 < kr.y) stage(kt + 1);
+    if (!kWide && kt + 1 < kr.y) stage(kt + 1);
 
 #pragma unroll 1
     for (int kb = 0; kb < kBK; kb += kDqKW) {
@@ -1509,18 +1790,29 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      auto step = [&](int ks, const uint32_t (&qf)[4], const uint32_t (&df)[4]) {
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t kf[4], vf[4];
           repro::ldmatrix_x4(kf, b_pair<LD>(Kb, kb + 8 * j, 16 * ks, lane));
           repro::ldmatrix_x4(vf, b_pair<LD>(Vb, kb + 8 * j, 16 * ks, lane));
-          repro::mma_bf16(s[j], qa[ks], kf[0], kf[1]);
-          repro::mma_bf16(s[j + 1], qa[ks], kf[2], kf[3]);
-          repro::mma_bf16(dp[j], da[ks], vf[0], vf[1]);
-          repro::mma_bf16(dp[j + 1], da[ks], vf[2], vf[3]);
+          repro::mma_bf16(s[j], qf, kf[0], kf[1]);
+          repro::mma_bf16(s[j + 1], qf, kf[2], kf[3]);
+          repro::mma_bf16(dp[j], df, vf[0], vf[1]);
+          repro::mma_bf16(dp[j + 1], df, vf[2], vf[3]);
         }
+      };
+#pragma unroll (DP > 128 ? 4 : DP / 16)
+      for (int ks = 0; ks < KS; ++ks) {
+        if constexpr (kWide) {
+          uint32_t qf[4], df[4];
+          repro::ldmatrix_x4(qf, a_frag<LD>(Qb, 16 * warp, 16 * ks, lane));
+          repro::ldmatrix_x4(df, a_frag<LD>(Db, 16 * warp, 16 * ks, lane));
+          step(ks, qf, df);
+        } else {
+          step(ks, qa[ks], da[ks]);
+        }
+      }
       // ds in place of s (dq_grads); keys that every row of the warp sees
       // unmasked
       const bool whole = key0 + kDqKW <= p.T && (!p.causal || key0 + kDqKW - 1 <= r0) &&
@@ -1543,7 +1835,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < DT; j += 2) {
           uint32_t kf[4];
-          repro::ldmatrix_x4_trans(kf, bt_pair<LD>(Kb, kb + 16 * kk, 8 * j, lane));
+          repro::ldmatrix_x4_trans(kf, bt_pair<LD>(Kb, kb + 16 * kk, c0 + 8 * j, lane));
           repro::mma_bf16(acc[j], a, kf[0], kf[1]);
           repro::mma_bf16(acc[j + 1], a, kf[2], kf[3]);
         }
@@ -1559,7 +1851,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* drow = dq + (((size_t)b * p.S + row) * p.H + h) * p.d;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
-      const int c = 8 * j + 2 * tq;
+      const int c = c0 + 8 * j + 2 * tq;
       if (c + 1 < p.d && p.d % 2 == 0) {
         store_pair(drow + c, acc[j][2 * r], acc[j][2 * r + 1]);
       } else {
@@ -1684,7 +1976,7 @@ constexpr int kI8TLd = kI8 + 16;
 // memory, NTHR threads (this one `tid`), zeros at rows >= valid; the
 // caller commits the group.
 //  rows8: rows [0, n) of one head, `stride` bytes apart, DP bytes each
-//  tile8: a transposed tile, DP rows of 128 bytes, contiguous
+//  tile8: a transposed tile, R rows of 128 bytes, contiguous
 //  f32s:  n floats
 template <int DP, int NTHR>
 __device__ __forceinline__ void copy_rows8(int8_t* X, const int8_t* src, size_t stride, int n,
@@ -1696,9 +1988,9 @@ __device__ __forceinline__ void copy_rows8(int8_t* X, const int8_t* src, size_t 
     else *reinterpret_cast<uint4*>(X + r * LD + c) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
-template <int DP, int NTHR>
+template <int R, int NTHR>
 __device__ __forceinline__ void copy_tile8(int8_t* X, const int8_t* src, int tid) {
-  for (int i = tid; i < DP * (kI8 / 16); i += NTHR) {
+  for (int i = tid; i < R * (kI8 / 16); i += NTHR) {
     const int r = i / (kI8 / 16), c = (i % (kI8 / 16)) * 16;
     repro::cp_async16(X + r * kI8TLd + c, src + r * kI8 + c);
   }
@@ -1946,12 +2238,15 @@ flash_quant_fwd_i8_kernel(const T* __restrict__ k, const T* __restrict__ v, FwdI
 // ---------------------------------------------------------------------------
 constexpr int kI8Threads = 128;   // B5, B6: 4 warps of 16 rows; B7: 2 pairs of warps
 
-// B5's shared memory, byte offsets from its base: two stages of a key tile
-// (k8, vT8, sk, svc)
+// B5's shared memory, byte offsets from its base: at DP = 256 the item's
+// q bytes (Q8); two stages of a key tile (k8, vT8 and svc of the block's DC
+// columns, sk), from STAGES
 template <int DP> struct FwdI8Smem {
+  static constexpr int DC = out_cols<DP>();
+  static constexpr size_t Q8 = 0, STAGES = DP > 128 ? smem_piece(kBQ * i8_ld<DP>()) : 0;
   static constexpr size_t K8 = 0, VT = smem_piece(kI8 * i8_ld<DP>()),
-                          SK = VT + smem_piece(DP * kI8TLd), SV = SK + smem_piece(4 * kI8),
-                          STAGE = SV + smem_piece(4 * DP), BYTES = 2 * STAGE;
+                          SK = VT + smem_piece(DC * kI8TLd), SV = SK + smem_piece(4 * kI8),
+                          STAGE = SV + smem_piece(4 * DC), BYTES = STAGES + 2 * STAGE;
 };
 
 // 4 values of T at src (4-element aligned) as f32
@@ -1985,31 +2280,40 @@ __device__ __forceinline__ void fwd_i8_logits(float (&x)[4][4], const int (&si)[
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : DP == 128 ? 2 : 1)
 flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ out,
                     float* __restrict__ lse, Params p) {
-  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DT = DP / 8, NT = kI8 / 8, TS = kI8 / 32;
+  // kWide (DP = 256): the block's o columns are one half, DC = 128, c0..
+  // (blockIdx.x's lowest index), with vT8's and svc's rows of them; q's
+  // bytes go to shared memory (Q8), from which the warps read their
+  // fragments at each k-step (DP / 8 registers would not fit beside the
+  // score tile and o's)
+  constexpr bool kWide = DP > 128;
+  constexpr int DC = out_cols<DP>(), NH = DP / DC;
+  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DT = DC / 8, NT = kI8 / 8, TS = kI8 / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int nq = (p.S + kBQ - 1) / kBQ, hb = p.H * p.B, nT = (p.T + kI8 - 1) / kI8;
-  const int q0 = (nq - 1 - (int)blockIdx.x / hb) * kBQ;
-  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H, kh = h / (p.H / p.K);
+  const int item = (int)blockIdx.x / NH, c0 = (int)blockIdx.x % NH * DC;
+  const int q0 = (nq - 1 - item / hb) * kBQ;
+  const int h = item % hb % p.H, b = item % hb / p.H, kh = h / (p.H / p.K);
   using L = FwdI8Smem<DP>;
   extern __shared__ __align__(16) unsigned char smem_i8[];
+  int8_t* Q8 = reinterpret_cast<int8_t*>(smem_i8 + L::Q8);   // kWide only
 
   // each visible key tile into buffer (it & 1)
   const int2 kr = visible_range(nT, [&](int t) { return tile_visible(q0, kBQ, t * kI8, kI8, p); });
   auto stage = [&](int kt, int s) {
-    unsigned char* st = smem_i8 + s * L::STAGE;
+    unsigned char* st = smem_i8 + L::STAGES + s * L::STAGE;
     const int k0 = kt * kI8, kvalid = min(kI8, p.T - k0);
     const size_t krow = (((size_t)b * p.T + k0) * p.K + kh) * DP;
     const size_t kcol = ((size_t)b * p.K + kh) * nT + kt;
     copy_rows8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::K8), o.k8 + krow,
                                (size_t)p.K * DP, kI8, kvalid, threadIdx.x);
-    copy_tile8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::VT), o.vT8 + kcol * DP * kI8,
-                               threadIdx.x);
+    copy_tile8<DC, kI8Threads>(reinterpret_cast<int8_t*>(st + L::VT),
+                               o.vT8 + (kcol * DP + c0) * kI8, threadIdx.x);
     copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SK),
                           o.sk + ((size_t)b * p.K + kh) * p.T + k0, kI8, kvalid, threadIdx.x);
-    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SV), o.svc + kcol * DP, DP, DP,
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SV), o.svc + kcol * DP + c0, DC, DC,
                           threadIdx.x);
     repro::cp_async_commit();
   };
@@ -2023,48 +2327,85 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ o
   // scales sqr.  p.tma: d a multiple of 4 and q 16-byte aligned, so four
   // values load at once.
   const int r0 = q0 + 16 * warp;
-  uint32_t qa[KS][4];
+  uint32_t qa[kWide ? 1 : KS][4];
   float sqr[2];
   {
     const size_t qstride = (size_t)p.H * p.d;
     const T* qb = q + ((size_t)b * p.S * p.H + h) * p.d;
-    float x[2][KS][2][4], amax[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + g + 8 * r;
+    // the 4 values of row r (0, 1) at k-step ks, half hh (0, 1)
+    auto q_vals = [&](int r, int ks, int hh, float (&xv)[4]) {
+      const int row = r0 + g + 8 * r, c = 32 * ks + 16 * hh + 4 * tq;
       const T* qr = qb + (size_t)row * qstride;
+      if (row < p.S && p.tma && c < p.d) {
+        load4(qr + c, xv);
+      } else {
 #pragma unroll
+        for (int e = 0; e < 4; ++e) xv[e] = row < p.S && c + e < p.d ? to_f32(qr[c + e]) : 0.f;
+      }
+    };
+    float amax[2] = {0.f, 0.f};
+    auto q4 = [&](const float (&v)[4], const float2& qs) {
+      return pack_s8(quant_rcp(v[0], qs.x, qs.y), quant_rcp(v[1], qs.x, qs.y),
+                     quant_rcp(v[2], qs.x, qs.y), quant_rcp(v[3], qs.x, qs.y));
+    };
+    if constexpr (kWide) {
+      // two passes over the rows (2 x DP / 4 values would not fit in
+      // registers): the absmax, then the bytes into this warp's rows of Q8,
+      // where ldmatrix finds them in the fragments' layout
+#pragma unroll 4
       for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int c = 32 * ks + 16 * hh + 4 * tq;
-          float* xv = x[r][ks][hh];
-          if (row < p.S && p.tma && c < p.d) {
-            load4(qr + c, x[r][ks][hh]);
-          } else {
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) xv[e] = row < p.S && c + e < p.d ? to_f32(qr[c + e]) : 0.f;
+          for (int hh = 0; hh < 2; ++hh) {
+            float xv[4];
+            q_vals(r, ks, hh, xv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) amax[r] = fmaxf(amax[r], fabsf(xv[e]));
           }
+      float2 qs[2];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) amax[r] = fmaxf(amax[r], fabsf(xv[e]));
-        }
-    }
-    float2 qs[2];
+      for (int r = 0; r < 2; ++r) {
+        sqr[r] = quad_max(amax[r]) / 127.f;
+        qs[r] = quant_scale(sqr[r]);
+      }
+#pragma unroll 4
+      for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sqr[r] = quad_max(amax[r]) / 127.f;
-      qs[r] = quant_scale(sqr[r]);
-    }
-    auto q4 = [&](const float (&v)[4], int r) {
-      return pack_s8(quant_rcp(v[0], qs[r].x, qs[r].y), quant_rcp(v[1], qs[r].x, qs[r].y),
-                     quant_rcp(v[2], qs[r].x, qs[r].y), quant_rcp(v[3], qs[r].x, qs[r].y));
-    };
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      qa[ks][0] = q4(x[0][ks][0], 0);
-      qa[ks][1] = q4(x[1][ks][0], 1);
-      qa[ks][2] = q4(x[0][ks][1], 0);
-      qa[ks][3] = q4(x[1][ks][1], 1);
+          for (int hh = 0; hh < 2; ++hh) {
+            float xv[4];
+            q_vals(r, ks, hh, xv);
+            *reinterpret_cast<uint32_t*>(Q8 + (16 * warp + g + 8 * r) * LD + 32 * ks + 16 * hh +
+                                         4 * tq) = q4(xv, qs[r]);
+          }
+      __syncwarp();   // the warp reads only its own rows
+    } else {
+      float x[2][KS][2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            q_vals(r, ks, hh, x[r][ks][hh]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) amax[r] = fmaxf(amax[r], fabsf(x[r][ks][hh][e]));
+          }
+      float2 qs[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sqr[r] = quad_max(amax[r]) / 127.f;
+        qs[r] = quant_scale(sqr[r]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        qa[ks][0] = q4(x[0][ks][0], qs[0]);
+        qa[ks][1] = q4(x[1][ks][0], qs[1]);
+        qa[ks][2] = q4(x[0][ks][1], qs[0]);
+        qa[ks][3] = q4(x[1][ks][1], qs[1]);
+      }
     }
   }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[DT][4];
@@ -2085,7 +2426,7 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ o
     }
     __syncthreads();   // the tile's copies in
     // [probe] B5 tile staged
-    const unsigned char* st = smem_i8 + s * L::STAGE;
+    const unsigned char* st = smem_i8 + L::STAGES + s * L::STAGE;
     const int8_t* K8 = reinterpret_cast<const int8_t*>(st + L::K8);
     const int8_t* VT = reinterpret_cast<const int8_t*>(st + L::VT);
     const float* sk = reinterpret_cast<const float*>(st + L::SK);
@@ -2103,15 +2444,25 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ o
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) si[j][e] = 0;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
+        auto qk = [&](int ks, const uint32_t (&qf)[4]) {
 #pragma unroll
           for (int jp = 0; jp < 2; ++jp) {
             uint32_t kf[4];
             repro::ldmatrix_x4(kf, b8_pair(K8, LD, 32 * c + 16 * jp, 32 * ks, lane));
-            repro::mma_s8(si[2 * jp], qa[ks], kf[0], kf[1]);
-            repro::mma_s8(si[2 * jp + 1], qa[ks], kf[2], kf[3]);
+            repro::mma_s8(si[2 * jp], qf, kf[0], kf[1]);
+            repro::mma_s8(si[2 * jp + 1], qf, kf[2], kf[3]);
           }
+        };
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          if constexpr (kWide) {
+            uint32_t qf[4];
+            repro::ldmatrix_x4(qf, a8_frag(Q8, LD, 16 * warp, 32 * ks, lane));
+            qk(ks, qf);
+          } else {
+            qk(ks, qa[ks]);
+          }
+        }
         const bool whole = key0 + 32 <= p.T && (!p.causal || key0 + 31 <= r0) &&
                            (!p.window || r0 + 15 - key0 < p.window);
         if (p.softcap > 0.f) {
@@ -2209,7 +2560,7 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ o
     T* orow = out + (((size_t)b * p.S + row) * p.H + h) * p.d;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {   // a thread's two adjacent columns in one store
-      const int c = 8 * j + 2 * tq;
+      const int c = c0 + 8 * j + 2 * tq;
       const float x0 = acc[j][2 * r] / lc, x1 = acc[j][2 * r + 1] / lc;
       if (c + 1 < p.d && p.d % 2 == 0) {
         store_pair(orow + c, x0, x1);
@@ -2218,7 +2569,7 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ o
         if (c + 1 < p.d) orow[c + 1] = from_f32<T>(x1);
       }
     }
-    if (tq == 0) lse[((size_t)b * p.H + h) * p.S + row] = m[r] + logf(lc);
+    if (tq == 0 && c0 == 0) lse[((size_t)b * p.H + h) * p.S + row] = m[r] + logf(lc);
   }
 }
 
@@ -2246,12 +2597,14 @@ flash_fwd_i8_kernel(const T* __restrict__ q, const FwdI8Ops o, T* __restrict__ o
 // 204 registers, ran 136 us at the train shape against 98).
 // ---------------------------------------------------------------------------
 // B6's shared memory, byte offsets from its base: q8 and do8 of the item,
-// then two stages of a key tile (k8, v8, kT8, sk, sv, skc)
+// then two stages of a key tile (k8, v8, sk, sv; kT8 and skc of the block's
+// DC columns)
 template <int DP> struct DqI8Smem {
+  static constexpr int DC = out_cols<DP>();
   static constexpr size_t Q8 = 0, D8 = smem_piece(kBQ * i8_ld<DP>()), STAGES = 2 * D8;
   static constexpr size_t K8 = 0, V8 = smem_piece(kI8 * i8_ld<DP>()), KT = 2 * V8,
-                          SK = KT + smem_piece(DP * kI8TLd), SV = SK + smem_piece(4 * kI8),
-                          SKC = SV + smem_piece(4 * kI8), STAGE = SKC + smem_piece(4 * DP),
+                          SK = KT + smem_piece(DC * kI8TLd), SV = SK + smem_piece(4 * kI8),
+                          SKC = SV + smem_piece(4 * kI8), STAGE = SKC + smem_piece(4 * DC),
                           BYTES = STAGES + 2 * STAGE;
 };
 
@@ -2286,11 +2639,15 @@ template <int DP>
 __global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : 1)
 flash_bwd_dq_i8_kernel(const I8Ops o, const float* __restrict__ lse,
                        const float* __restrict__ delta, float* __restrict__ dq, Params p) {
-  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DT = DP / 8, NT = kI8 / 8, TS = kI8 / 32;
+  // at DP = 256 the block's dq columns are one half, DC = 128, c0..
+  // (blockIdx.x's lowest index), with kT8's and skc's rows of them
+  constexpr int DC = out_cols<DP>(), NH = DP / DC;
+  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DT = DC / 8, NT = kI8 / 8, TS = kI8 / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int nq = (p.S + kBQ - 1) / kBQ, hb = p.H * p.B, nT = (p.T + kI8 - 1) / kI8;
-  const int q0 = (nq - 1 - (int)blockIdx.x / hb) * kBQ;
-  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H, kh = h / (p.H / p.K);
+  const int item = (int)blockIdx.x / NH, c0 = (int)blockIdx.x % NH * DC;
+  const int q0 = (nq - 1 - item / hb) * kBQ;
+  const int h = item % hb % p.H, b = item % hb / p.H, kh = h / (p.H / p.K);
   using L = DqI8Smem<DP>;
   extern __shared__ __align__(16) unsigned char smem_i8[];
   int8_t* Q8 = reinterpret_cast<int8_t*>(smem_i8 + L::Q8);
@@ -2312,15 +2669,15 @@ flash_bwd_dq_i8_kernel(const I8Ops o, const float* __restrict__ lse,
                                (size_t)p.K * DP, kI8, kvalid, threadIdx.x);
     copy_rows8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::V8), o.v8 + krow,
                                (size_t)p.K * DP, kI8, kvalid, threadIdx.x);
-    copy_tile8<DP, kI8Threads>(reinterpret_cast<int8_t*>(st + L::KT), o.kT8 + kcol * DP * kI8,
-                               threadIdx.x);
+    copy_tile8<DC, kI8Threads>(reinterpret_cast<int8_t*>(st + L::KT),
+                               o.kT8 + (kcol * DP + c0) * kI8, threadIdx.x);
     const size_t ks = ((size_t)b * p.K + kh) * p.T + k0;
     copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SK), o.sk + ks, kI8, kvalid,
                           threadIdx.x);
     copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SV), o.sv + ks, kI8, kvalid,
                           threadIdx.x);
-    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SKC), o.skc + kcol * DP, DP, DP,
-                          threadIdx.x);
+    copy_f32s<kI8Threads>(reinterpret_cast<float*>(st + L::SKC), o.skc + kcol * DP + c0, DC,
+                          DC, threadIdx.x);
     repro::cp_async_commit();
   };
   if (kr.x < kr.y) stage(kr.x, 0);
@@ -2467,7 +2824,7 @@ flash_bwd_dq_i8_kernel(const I8Ops o, const float* __restrict__ lse,
     float* drow = dq + (((size_t)b * p.S + row) * p.H + h) * p.d;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
-      const int c = 8 * j + 2 * tq;
+      const int c = c0 + 8 * j + 2 * tq;
       if (c + 1 < p.d && p.d % 2 == 0) {
         store_pair(drow + c, acc[j][2 * r], acc[j][2 * r + 1]);
       } else {
@@ -2509,17 +2866,19 @@ flash_bwd_dq_i8_kernel(const I8Ops o, const float* __restrict__ lse,
 constexpr int kDkvI8Keys = 32;   // keys a block: 2 groups of 16, each held by a pair of warps
 
 // B7's shared memory, byte offsets from its base: k8 and v8 of the block's
-// keys; one query tile (q8, do8, qT8, doT8, sq, sdo, lse, delta, sqc,
-// sdoc); what the mates swap (each warp's two maxima of its 16 keys, and
-// its p^T and ds^T fragments of two chunks, a lane's word at a time)
+// keys; one query tile (q8, do8, sq, sdo, lse, delta; qT8, doT8, sqc and
+// sdoc of the block's DC columns); what the mates swap (each warp's two
+// maxima of its 16 keys, and its p^T and ds^T fragments of two chunks, a
+// lane's word at a time)
 template <int DP> struct DkvI8Smem {
+  static constexpr int DC = out_cols<DP>();
   static constexpr size_t K8 = 0, V8 = smem_piece(kDkvI8Keys * i8_ld<DP>()), Q8 = 2 * V8,
                           D8 = Q8 + smem_piece(kI8 * i8_ld<DP>()),
                           QT = D8 + smem_piece(kI8 * i8_ld<DP>()),
-                          DT = QT + smem_piece(DP * kI8TLd), SQ = DT + smem_piece(DP * kI8TLd),
+                          DT = QT + smem_piece(DC * kI8TLd), SQ = DT + smem_piece(DC * kI8TLd),
                           SDO = SQ + smem_piece(4 * kI8), LS = SDO + smem_piece(4 * kI8),
                           DL = LS + smem_piece(4 * kI8), SQC = DL + smem_piece(4 * kI8),
-                          SDOC = SQC + smem_piece(4 * DP), RED = SDOC + smem_piece(4 * DP),
+                          SDOC = SQC + smem_piece(4 * DC), RED = SDOC + smem_piece(4 * DC),
                           FRAG = RED + smem_piece(4 * 4 * 2 * 16),
                           BYTES = FRAG + smem_piece(4 * 4 * 2 * 2 * 4 * 32);
 };
@@ -2560,19 +2919,24 @@ __device__ __forceinline__ void pair_sync(int id) {
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kI8Threads, DP == 64 ? 3 : DP == 128 ? 2 : 1)
 flash_bwd_dkv_i8_kernel(const I8Ops o, const float* __restrict__ lse,
                         const float* __restrict__ delta, float* __restrict__ dk,
                         float* __restrict__ dv, Params p) {
-  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DW = DP / 2, DTW = DW / 8;
+  // at DP = 256 the block's dk and dv columns are one half, DC = 128, c0..
+  // (blockIdx.x's lowest index), with qT8's, doT8's, sqc's and sdoc's rows
+  // of them; a warp holds DW of them, from col0 within the block's
+  constexpr int DC = out_cols<DP>(), NH = DP / DC;
+  constexpr int LD = i8_ld<DP>(), KS = DP / 32, DW = DC / 2, DTW = DW / 8;
   using L = DkvI8Smem<DP>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int kg = warp & 1, qh = warp >> 1, mate = warp ^ 2, col0 = qh * DW;
   // one block a (32-key tile, kv head, batch) item, key tiles slowest: the
   // first key tiles, which the causal mask leaves the most query tiles,
   // start first
-  const int kb = p.K * p.B, k0 = (int)(blockIdx.x / kb) * kDkvI8Keys;
-  const int kh = blockIdx.x % kb % p.K, b = blockIdx.x % kb / p.K;
+  const int item = (int)blockIdx.x / NH, c0 = (int)blockIdx.x % NH * DC;
+  const int kb = p.K * p.B, k0 = item / kb * kDkvI8Keys;
+  const int kh = item % kb % p.K, b = item % kb / p.K;
   const int G = p.H / p.K, nS = (p.S + kI8 - 1) / kI8, kvalid = min(kDkvI8Keys, p.T - k0);
   extern __shared__ __align__(16) unsigned char smem_i8[];
   auto i8p = [&](size_t at) { return reinterpret_cast<int8_t*>(smem_i8 + at); };
@@ -2632,10 +2996,10 @@ flash_bwd_dkv_i8_kernel(const I8Ops o, const float* __restrict__ lse,
   auto copy_cols = [&](int it) {
     const int h = kh * G + it / nqt, qt = qr.x + it % nqt, tid = threadIdx.x;
     const size_t qcol = ((size_t)b * p.H + h) * nS + qt;
-    copy_tile8<DP, kI8Threads>(i8p(L::QT), o.qT8 + qcol * DP * kI8, tid);
-    copy_tile8<DP, kI8Threads>(i8p(L::DT), o.doT8 + qcol * DP * kI8, tid);
-    copy_f32s<kI8Threads>(f32p(L::SQC), o.sqc + qcol * DP, DP, DP, tid);
-    copy_f32s<kI8Threads>(f32p(L::SDOC), o.sdoc + qcol * DP, DP, DP, tid);
+    copy_tile8<DC, kI8Threads>(i8p(L::QT), o.qT8 + (qcol * DP + c0) * kI8, tid);
+    copy_tile8<DC, kI8Threads>(i8p(L::DT), o.doT8 + (qcol * DP + c0) * kI8, tid);
+    copy_f32s<kI8Threads>(f32p(L::SQC), o.sqc + qcol * DP + c0, DC, DC, tid);
+    copy_f32s<kI8Threads>(f32p(L::SDOC), o.sdoc + qcol * DP + c0, DC, DC, tid);
     repro::cp_async_commit();
   };
   if (n > 0) {
@@ -2815,7 +3179,7 @@ flash_bwd_dkv_i8_kernel(const I8Ops o, const float* __restrict__ lse,
     const size_t off = (((size_t)b * p.T + k0 + kr) * p.K + kh) * p.d;
 #pragma unroll
     for (int j = 0; j < DTW; ++j) {
-      const int c = col0 + 8 * j + 2 * tq;
+      const int c = c0 + col0 + 8 * j + 2 * tq;
       if (c + 1 < p.d && p.d % 2 == 0) {
         store_pair(dk + off + c, dka[j][2 * r], dka[j][2 * r + 1]);
         store_pair(dv + off + c, dva[j][2 * r], dva[j][2 * r + 1]);
@@ -2834,8 +3198,6 @@ flash_bwd_dkv_i8_kernel(const I8Ops o, const float* __restrict__ lse,
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-enum class Which { kFwd, kDq, kDkv };
 
 // opt the kernel in to `smem` bytes of dynamic shared memory, then launch it
 template <int Threads = kThreads, typename Kern, typename... Args>
@@ -2921,8 +3283,14 @@ template <typename T, int DP>
 cudaError_t launch(Which which, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse_in, const void* delta,
                    void* out0, void* out1, const Params& p, cudaStream_t s) {
+  // DP = 256: B5-B7 in the bf16 mode and B7 in the f32 mode take the
+  // output's columns in NH halves (the lowest index of blockIdx.x); the
+  // bf16 kernels then round their rows straight from device memory, and
+  // p.tma flags rows of whole 16-byte pieces (tma_rows), with no tensor map
+  constexpr bool kWide = DP > 128;
+  constexpr int NH = col_halves<DP>();
   const int nq = (p.S + kBQ - 1) / kBQ, nk = (p.T + kBK - 1) / kBK;
-  const dim3 rows(nq, p.H, p.B), keys(nk, p.K, p.B);
+  const dim3 rows(nq, p.H, p.B), keys(nk * NH, p.K, p.B);
   const bool i8 = p.mode == 2, bf = p.mode == 1;
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
@@ -2939,7 +3307,7 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
       Params pt = p;
       pt.tma = tma_rows<T>(p.d, q, k, v, q);
       CUtensorMap mq{}, mk{}, mv{};
-      if (pt.tma) {
+      if (pt.tma && !kWide) {
         cudaError_t err = rows_map<T>(&mq, q, p.B, p.S, p.H, p.d, kFwdTcBQ);
         if (err == cudaSuccess) err = rows_map<T>(&mk, k, p.B, p.T, p.K, p.d, kFwdBK);
         if (err == cudaSuccess) err = rows_map<T>(&mv, v, p.B, p.T, p.K, p.d, kFwdBK);
@@ -2950,7 +3318,7 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
       int sms = 0;
       cudaError_t err = sm_count(&sms);
       if (err != cudaSuccess) return err;
-      const long long items = (long long)((p.S + kFwdTcBQ - 1) / kFwdTcBQ) * p.H * p.B;
+      const long long items = (long long)((p.S + kFwdTcBQ - 1) / kFwdTcBQ) * p.H * p.B * NH;
       if (items >= (1ll << 31)) return cudaErrorInvalidValue;
       return start<kFwdTcThreads>(flash_fwd_tc_kernel<T, DP>,
                                   dim3((unsigned)(items < sms ? items : sms)),
@@ -2963,15 +3331,16 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
   if (which == Which::kDq) {
     if (bf) {
       Params pt = p;
-      pt.tma = tma_rows<T>(p.d, k, v, k, v);   // only k and v are staged
+      // only k and v are staged (at DP = 256 q and do are read as rows too)
+      pt.tma = kWide ? tma_rows<T>(p.d, q, k, v, dout) : tma_rows<T>(p.d, k, v, k, v);
       CUtensorMap mk{}, mv{};
-      if (pt.tma) {
+      if (pt.tma && !kWide) {
         cudaError_t err = rows_map<T>(&mk, k, p.B, p.T, p.K, p.d, kBK);
         if (err == cudaSuccess) err = rows_map<T>(&mv, v, p.B, p.T, p.K, p.d, kBK);
         if (err != cudaSuccess) return err;
       }
       // one block an item (q tile, head, batch), q tiles in reverse
-      const long long items = (long long)((p.S + kDqTcBQ - 1) / kDqTcBQ) * p.H * p.B;
+      const long long items = (long long)((p.S + kDqTcBQ - 1) / kDqTcBQ) * p.H * p.B * NH;
       if (items >= (1ll << 31)) return cudaErrorInvalidValue;
       return start<kTcThreads>(flash_bwd_dq_tc_kernel<T, DP>, dim3((unsigned)items),
                                dq_tc_smem_bytes<T, DP>(), s, qq, kk, vv, dd, ls, dl, f0, pt,
@@ -2984,7 +3353,7 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
     Params pt = p;
     pt.tma = tma_rows<T>(p.d, q, k, v, dout);
     CUtensorMap mk{}, mv{}, mq{}, mdo{};
-    if (pt.tma) {
+    if (pt.tma && !kWide) {
       cudaError_t err = rows_map<T>(&mk, k, p.B, p.T, p.K, p.d, kBK);
       if (err == cudaSuccess) err = rows_map<T>(&mv, v, p.B, p.T, p.K, p.d, kBK);
       if (err == cudaSuccess) err = rows_map<T>(&mq, q, p.B, p.S, p.H, p.d, kBQ);
@@ -2998,45 +3367,8 @@ cudaError_t launch(Which which, const void* q, const void* k, const void* v,
                qq, kk, vv, dd, ls, dl, f0, f1, p);
 }
 
-template <typename T>
-cudaError_t launch_d(Which which, const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse_in, const void* delta,
-                     void* out0, void* out1, const Params& p, cudaStream_t s) {
-  if (p.d <= 64) return launch<T, 64>(which, q, k, v, dout, lse_in, delta, out0, out1, p, s);
-  return launch<T, 128>(which, q, k, v, dout, lse_in, delta, out0, out1, p, s);
-}
-
-int dispatch(Which which, const void* q, const void* k, const void* v,
-             const void* dout, const void* lse_in, const void* delta,
-             void* out0, void* out1, int B, int S, int T, int H, int K, int d,
-             float scale, int causal, int window, float softcap, int mode,
-             int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || d <= 0 || d > 128 ||
-      B > 65535 || H > 65535 || mode < 0 || mode > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{B, S, T, H, K, d, scale, causal, window, softcap, mode};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_d<float>(which, q, k, v, dout, lse_in, delta, out0, out1, p, s);
-  } else if (dtype == 1) {
-    err = launch_d<__nv_bfloat16>(which, q, k, v, dout, lse_in, delta, out0, out1, p, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
-}
-
 // The int8 backward: the pre-pass over q, k, v, do into `ops` (the 14
 // pointers in I8Ops order), then B6 and B7 on them.
-int i8_params(Params* p, int B, int S, int T, int H, int K, int d, float scale, int causal,
-              int window, float softcap) {
-  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || d <= 0 || d > 128 || B > 65535 ||
-      H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *p = Params{B, S, T, H, K, d, scale, causal, window, softcap, 2};
-  return 0;
-}
 I8Ops i8_ops(void* const* a) {
   return I8Ops{static_cast<int8_t*>(a[0]), static_cast<int8_t*>(a[1]),
                static_cast<int8_t*>(a[2]), static_cast<int8_t*>(a[3]),
@@ -3082,8 +3414,9 @@ cudaError_t quant_fwd_i8(const void* k, const void* v, void* const* a, const Par
 template <typename T, int DP>
 cudaError_t fwd_i8(const void* q, void* const* a, void* o, void* lse, const Params& p,
                    cudaStream_t s) {
-  // one block an item (64-row q tile, head, batch), q tiles in reverse
-  const long long items = (long long)((p.S + kBQ - 1) / kBQ) * p.H * p.B;
+  // one block an item (64-row q tile, head, batch, and at DP = 256 the
+  // column half), q tiles in reverse
+  const long long items = (long long)((p.S + kBQ - 1) / kBQ) * p.H * p.B * col_halves<DP>();
   if (items >= (1ll << 31)) return cudaErrorInvalidValue;
   Params pt = p;
   pt.tma = p.d % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;   // q by 4 values
@@ -3095,17 +3428,109 @@ cudaError_t fwd_i8(const void* q, void* const* a, void* o, void* lse, const Para
 template <int DP>
 cudaError_t bwd_i8(Which which, void* const* a, const float* lse, const float* delta,
                    float* out0, float* out1, const Params& p, cudaStream_t s) {
+  constexpr int NH = col_halves<DP>();   // the column halves at DP = 256
   if (which == Which::kDq) {
     // one block an item (64-row q tile, head, batch), q tiles in reverse
-    const long long items = (long long)((p.S + kBQ - 1) / kBQ) * p.H * p.B;
+    const long long items = (long long)((p.S + kBQ - 1) / kBQ) * p.H * p.B * NH;
     if (items >= (1ll << 31)) return cudaErrorInvalidValue;
     return start<kI8Threads>(flash_bwd_dq_i8_kernel<DP>, dim3((unsigned)items),
                              DqI8Smem<DP>::BYTES, s, i8_ops(a), lse, delta, out0, p);
   }
-  const long long items = (long long)((p.T + kDkvI8Keys - 1) / kDkvI8Keys) * p.K * p.B;
+  const long long items = (long long)((p.T + kDkvI8Keys - 1) / kDkvI8Keys) * p.K * p.B * NH;
   if (items >= (1ll << 31)) return cudaErrorInvalidValue;
   return start<kI8Threads>(flash_bwd_dkv_i8_kernel<DP>, dim3((unsigned)items),
                            DkvI8Smem<DP>::BYTES, s, i8_ops(a), lse, delta, out0, out1, p);
+}
+
+// fn(type_tag<T>{}) for the storage type `dtype` (0 float32, 1 bfloat16)
+template <typename U> struct type_tag { using type = U; };
+template <typename Fn>
+cudaError_t by_type(int dtype, Fn fn) {
+  if (dtype == 0) return fn(type_tag<float>{});
+  if (dtype == 1) return fn(type_tag<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
+// DP's launches by storage type, as DpLaunches holds them
+template <int DP>
+cudaError_t flash_dp(Which which, int dtype, const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta, void* out0,
+                     void* out1, const Params& p, cudaStream_t s) {
+  return by_type(dtype, [&](auto t) {
+    return launch<typename decltype(t)::type, DP>(which, q, k, v, dout, lse, delta, out0,
+                                                  out1, p, s);
+  });
+}
+template <int DP>
+cudaError_t quant_i8_dp(int dtype, const void* q, const void* k, const void* v,
+                        const void* dout, void* const* ops, const Params& p, cudaStream_t s) {
+  return by_type(dtype, [&](auto t) {
+    return quant_i8<typename decltype(t)::type, DP>(q, k, v, dout, ops, p, s);
+  });
+}
+template <int DP>
+cudaError_t quant_fwd_i8_dp(int dtype, const void* k, const void* v, void* const* ops,
+                            const Params& p, cudaStream_t s) {
+  return by_type(dtype, [&](auto t) {
+    return quant_fwd_i8<typename decltype(t)::type, DP>(k, v, ops, p, s);
+  });
+}
+template <int DP>
+cudaError_t fwd_i8_dp(int dtype, const void* q, void* const* ops, void* o, void* lse,
+                      const Params& p, cudaStream_t s) {
+  return by_type(dtype, [&](auto t) {
+    return fwd_i8<typename decltype(t)::type, DP>(q, ops, o, lse, p, s);
+  });
+}
+template <int DP> DpLaunches dp_launches() {
+  return DpLaunches{flash_dp<DP>, quant_i8_dp<DP>, quant_fwd_i8_dp<DP>, fwd_i8_dp<DP>,
+                    bwd_i8<DP>};
+}
+
+}  // namespace
+
+#ifndef REPRO_FLASH_DP
+#define REPRO_FLASH_DP 64
+#define REPRO_FLASH_ENTRY_POINTS   // this translation unit holds the C entry points
+#endif
+#define REPRO_FLASH_CAT2(a, b) a##b
+#define REPRO_FLASH_CAT(a, b) REPRO_FLASH_CAT2(a, b)
+
+// this translation unit's DP
+repro_flash::DpLaunches repro_flash::REPRO_FLASH_CAT(launches_dp, REPRO_FLASH_DP)() {
+  return dp_launches<REPRO_FLASH_DP>();
+}
+
+#ifdef REPRO_FLASH_ENTRY_POINTS
+namespace {
+
+// the launches of d's padded width: 64, 128 or 256, the least that holds it
+DpLaunches by_dp(int d) {
+  return d <= 64 ? repro_flash::launches_dp64()
+                 : d <= 128 ? repro_flash::launches_dp128() : repro_flash::launches_dp256();
+}
+
+int dispatch(Which which, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse_in, const void* delta,
+             void* out0, void* out1, int B, int S, int T, int H, int K, int d,
+             float scale, int causal, int window, float softcap, int mode,
+             int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || d <= 0 || d > kMaxD ||
+      B > 65535 || H > 65535 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{B, S, T, H, K, d, scale, causal, window, softcap, mode};
+  return static_cast<int>(by_dp(d).flash(which, dtype, q, k, v, dout, lse_in, delta, out0,
+                                         out1, p, static_cast<cudaStream_t>(stream)));
+}
+
+// the int8 mode's Params, after the checks its entry points share
+int i8_params(Params* p, int B, int S, int T, int H, int K, int d, float scale, int causal,
+              int window, float softcap) {
+  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || d <= 0 || d > kMaxD ||
+      B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *p = Params{B, S, T, H, K, d, scale, causal, window, softcap, 2};
+  return 0;
 }
 
 int bwd_i8_dispatch(Which which, void* const* ops, const void* lse, const void* delta,
@@ -3113,13 +3538,10 @@ int bwd_i8_dispatch(Which which, void* const* ops, const void* lse, const void* 
                     float scale, int causal, int window, float softcap, void* stream) {
   Params p;
   if (const int err = i8_params(&p, B, S, T, H, K, d, scale, causal, window, softcap)) return err;
-  const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  float* f0 = static_cast<float*>(out0);
-  float* f1 = static_cast<float*>(out1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d <= 64 ? bwd_i8<64>(which, ops, ls, dl, f0, f1, p, s)
-                                  : bwd_i8<128>(which, ops, ls, dl, f0, f1, p, s));
+  return static_cast<int>(by_dp(d).bwd_i8(
+      which, ops, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(out0), static_cast<float*>(out1), p,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -3153,23 +3575,14 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
 // points below, on the pre-passes' operands.
 
 // The int8 forward's pre-pass: k, v (B, T, K, d) of `dtype` into the 4
-// buffers of `ops` (FwdI8Ops order, DP = 64 for d <= 64, else 128)
+// buffers of `ops` (FwdI8Ops order, DP = 64, 128 or 256: the least that
+// holds d)
 extern "C" int repro_flash_quant_fwd_i8(const void* k, const void* v, void* const* ops, int B,
                                         int T, int K, int d, int dtype, void* stream) {
   Params p;
   if (const int err = i8_params(&p, B, 1, T, K, K, d, 1.f, 0, 0, 0.f)) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = d <= 64 ? quant_fwd_i8<float, 64>(k, v, ops, p, s)
-                  : quant_fwd_i8<float, 128>(k, v, ops, p, s);
-  } else if (dtype == 1) {
-    err = d <= 64 ? quant_fwd_i8<__nv_bfloat16, 64>(k, v, ops, p, s)
-                  : quant_fwd_i8<__nv_bfloat16, 128>(k, v, ops, p, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      by_dp(d).quant_fwd_i8(dtype, k, v, ops, p, static_cast<cudaStream_t>(stream)));
 }
 
 // B5 in the int8 mode: o (B, S, H, d) in q's dtype, lse (B, H, S) f32, from
@@ -3180,40 +3593,20 @@ extern "C" int repro_flash_fwd_i8(const void* q, void* const* ops, void* o, void
   Params p;
   if (const int err = i8_params(&p, B, S, T, H, K, d, scale, causal, window, softcap))
     return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = d <= 64 ? fwd_i8<float, 64>(q, ops, o, lse, p, s)
-                  : fwd_i8<float, 128>(q, ops, o, lse, p, s);
-  } else if (dtype == 1) {
-    err = d <= 64 ? fwd_i8<__nv_bfloat16, 64>(q, ops, o, lse, p, s)
-                  : fwd_i8<__nv_bfloat16, 128>(q, ops, o, lse, p, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      by_dp(d).fwd_i8(dtype, q, ops, o, lse, p, static_cast<cudaStream_t>(stream)));
 }
 
 // The int8 backward's pre-pass: q, do (B, S, H, d) and k, v (B, T, K, d) of
-// `dtype` into the 14 buffers of `ops` (I8Ops order, DP = 64 for d <= 64,
-// else 128)
+// `dtype` into the 14 buffers of `ops` (I8Ops order, DP = 64, 128 or 256:
+// the least that holds d)
 extern "C" int repro_flash_quant_i8(const void* q, const void* k, const void* v,
                                     const void* dout, void* const* ops, int B, int S, int T,
                                     int H, int K, int d, int dtype, void* stream) {
   Params p;
   if (const int err = i8_params(&p, B, S, T, H, K, d, 1.f, 0, 0, 0.f)) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = d <= 64 ? quant_i8<float, 64>(q, k, v, dout, ops, p, s)
-                  : quant_i8<float, 128>(q, k, v, dout, ops, p, s);
-  } else if (dtype == 1) {
-    err = d <= 64 ? quant_i8<__nv_bfloat16, 64>(q, k, v, dout, ops, p, s)
-                  : quant_i8<__nv_bfloat16, 128>(q, k, v, dout, ops, p, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      by_dp(d).quant_i8(dtype, q, k, v, dout, ops, p, static_cast<cudaStream_t>(stream)));
 }
 
 // B6 in the int8 mode: dq (B, S, H, d) f32 from the pre-pass's `ops`
@@ -3245,3 +3638,5 @@ extern "C" int repro_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return dispatch(Which::kDkv, q, k, v, dout, lse, delta, dk, dv, B, S, T, H, K,
                   d, scale, causal, window, softcap, mode, dtype, stream);
 }
+
+#endif  // REPRO_FLASH_ENTRY_POINTS

@@ -40,7 +40,11 @@ tiles carry the scales, B6's 128-key and B7's 128-query tiles);
 ``kernels/ops.py::attention`` wires the kernels into a
 ``torch.autograd.Function`` and, for CPU tensors, runs the plain attention
 (``attention_ref`` / ``attention_policy_ref``) under autograd instead.  Any
-S and T: the kernels mask their ragged last tile.
+S and T: the kernels mask their ragged last tile.  d_head 1 to 256
+(``MAX_D_HEAD``), zero-padded to DP = 64, 128 or 256 (:func:`padded_d`); at
+DP 256 (gemma2's heads) the bf16 and int8 kernels' grids, and B7's in the
+f32 mode, split the output's d columns in two halves of 128, each block
+forming the whole score tile over d; a wider head raises.
 """
 from __future__ import annotations
 
@@ -49,10 +53,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import MAX_D_HEAD, padded_d
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"none": 0, "bf16": 1, "int8": 2}
-MAX_D_HEAD = 128
 
 fwd_launches = 0   # B5 launches in this process (reset by callers that count)
 dq_launches = 0    # B6
@@ -155,11 +159,6 @@ def flash_fwd(q, k, v, *, scale: float = 1.0, causal: bool = True,
     build.check(err, "flash_fwd kernel")
     fwd_launches += 1
     return o, lse
-
-
-def padded_d(d: int) -> int:
-    """d_head as the kernels pad it: 64 up to 64, else 128."""
-    return 64 if d <= 64 else 128
 
 
 def i8_shapes(B, S, T, H, K, d) -> dict:

@@ -311,20 +311,33 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, scale: float = 1.0,
 FRAG_PERM = tuple(8 * ((i & 3) >> 1) + 2 * (i >> 2) + (i & 1) for i in range(16))
 TILE_PERM = tuple(16 * (i // 16) + FRAG_PERM[i % 16] for i in range(128))
 I8_TILE = 128
+# d_head as the flash kernels pad it (csrc/flash_attention.cu instantiates
+# DP 64, 128 and 256); nothing wider is taken
+PADDED_D = (64, 128, 256)
+MAX_D_HEAD = PADDED_D[-1]
+
+
+def padded_d(d: int) -> int:
+    """d_head as the flash kernels zero-pad it: the least of 64, 128 and 256
+    that holds it.  Raises above 256: a narrower width would crop d."""
+    for DP in PADDED_D:
+        if 0 < d <= DP:
+            return DP
+    raise ValueError(f"the flash kernels take d_head 1 to {MAX_D_HEAD}, got {d}")
 
 
 def flash_quant_bwd_ref(q, k, v, do) -> dict:
     """The plain version of the int8 backward's pre-pass
     (``flash_attention.quantize_bwd``), the same names, shapes and bytes:
-    q, do, k and v quantized per row over d (zero-padded to DP = 64 or
-    128) with their (B, heads, rows) scales, and q, do and k per column
-    over each 128-row tile (rows past S or T zeros), stored (B, heads,
-    tiles, DP, 128) with each 16-group of a tile's rows in FRAG_PERM order,
+    q, do, k and v quantized per row over d (zero-padded to DP =
+    :func:`padded_d`) with their (B, heads, rows) scales, and q, do and k
+    per column over each 128-row tile (rows past S or T zeros), stored (B,
+    heads, tiles, DP, 128) with each 16-group of a tile's rows in FRAG_PERM order,
     their scales (B, heads, tiles, DP).  Each quantization is
     ``quant.quantize_int8``'s."""
     B, S, H, d = q.shape
     T = k.shape[1]
-    DP = 64 if d <= 64 else 128
+    DP = padded_d(d)
     F = torch.nn.functional
 
     def rows(x):
@@ -350,14 +363,14 @@ def flash_quant_bwd_ref(q, k, v, do) -> dict:
 def flash_quant_fwd_ref(k, v) -> dict:
     """The plain version of the int8 forward's pre-pass
     (``flash_attention.quantize_fwd``), the same names, shapes and bytes: k
-    per key over d (zero-padded to DP = 64 or 128), ``k8`` (B, T, K, DP)
-    with ``sk`` (B, K, T), :func:`flash_quant_bwd_ref`'s k8 and sk; v per
-    column over each 128-key tile (keys past T zeros), ``vT8`` (B, K, nT,
+    per key over d (zero-padded to DP = :func:`padded_d`), ``k8`` (B, T,
+    K, DP) with ``sk`` (B, K, T), :func:`flash_quant_bwd_ref`'s k8 and sk;
+    v per column over each 128-key tile (keys past T zeros), ``vT8`` (B, K, nT,
     DP, 128) with each 16-group of a tile's keys in FRAG_PERM order, its
     scales ``svc`` (B, K, nT, DP).  Each quantization is
     ``quant.quantize_int8``'s."""
     B, T, K, d = k.shape
-    DP = 64 if d <= 64 else 128
+    DP = padded_d(d)
     F = torch.nn.functional
     k8, sk = quantize_int8(F.pad(k.float(), (0, DP - d)), axis=-1)
     n = -(-T // I8_TILE)
@@ -381,6 +394,8 @@ def flash_fwd_i8_ref(ops, q, *, scale: float = 1.0, causal: bool = True, window:
     B, S, H, d = q.shape
     k8 = ops["k8"]
     T, K, DP = k8.shape[1], k8.shape[2], k8.shape[3]
+    if DP != padded_d(d):
+        raise ValueError(f"k8 is padded to {DP}, q's d_head {d} to {padded_d(d)}")
     G = H // K
     F = torch.nn.functional
     perm = list(TILE_PERM)

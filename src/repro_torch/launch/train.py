@@ -200,9 +200,8 @@ def main(argv=None):
     if args.width:
         cfg = cfg.scaled(args.width)
     if cfg.amp and cfg.d_head > MAX_D_HEAD and args.device != "cpu":
-        ap.error(f"--amp on {cfg.name}: its d_head {cfg.d_head} needs the flash "
-                 f"kernels (B5-B7) above d_head {MAX_D_HEAD}, not ported yet "
-                 f"(ROADMAP.md § A: gemma2 training under --amp)")
+        ap.error(f"--amp on {cfg.name}: its d_head {cfg.d_head} is past the flash "
+                 f"kernels' (B5-B7) range, d_head 1 to {MAX_D_HEAD}")
     hps = HParams(lr=args.lr, sigma=args.sigma)
 
     kw = dict(

@@ -77,6 +77,8 @@ ATTN_CASES = {
     "gqa": (2, 128, 4, 2, 32, 0, 0.0, 0.125),
     "window": (1, 128, 4, 2, 32, 48, 0.0, 0.125),
     "softcap": (1, 128, 4, 2, 32, 0, 20.0, 0.5),
+    # gemma2's heads of 256 (the kernels' DP 256), its softcap 50, a window
+    "d_head 256, window 48, softcap 50": (1, 256, 4, 2, 256, 48, 50.0, 0.0625),
 }
 # two 128-key tiles a row, so that the online softmax rescales between them
 # (at S = 128 a row has one tile at the reference model's 128 x 128 blocks)

@@ -171,6 +171,8 @@ INT8_CASES = {
     # the reference's blocks shrink to 80; the port's 128 tile pads with zeros
     "S 80": (2, 80, 4, 2, 32, 0, 0.0, 0.125),
     "d_head 128": (1, 256, 2, 2, 128, 0, 0.0, 0.125),
+    # gemma2's heads of 256 (the kernels' DP 256), its softcap 50, a window
+    "d_head 256, window 48, softcap 50": (1, 256, 4, 2, 256, 48, 50.0, 0.0625),
 }
 OUTS = ("o", "dq", "dk", "dv")
 
@@ -383,6 +385,7 @@ GPU_CASES = [
     (2, 200, 9, 3, 64, 48, 0.0, torch.float32),     # GQA, window, ragged S
     (1, 190, 4, 4, 128, 0, 20.0, torch.float32),    # softcap, d 128, ragged S
     (1, 192, 6, 2, 32, 0, 0.0, torch.bfloat16),
+    (1, 256, 8, 4, 256, 48, 50.0, torch.float32),   # gemma2's heads: DP 256
 ]
 
 

@@ -84,6 +84,7 @@ PREPASS_CASES = {
     "ragged S 200 / T 190, d 40 -> DP 64, GQA 9/3": (2, 200, 190, 9, 3, 40),
     "d 96 -> DP 128, S 130": (1, 130, 130, 4, 2, 96),
     "d 64, two whole tiles": (1, 256, 256, 2, 2, 64),
+    "d 256 -> DP 256, S 130 / T 120, gemma2's 8/4 heads": (1, 130, 120, 8, 4, 256),
 }
 
 
@@ -146,11 +147,14 @@ BWD_CASES = {
     "window 48, GQA 9/3": (1, 256, 9, 3, 64, 48, 0.0, 0.125),
     "softcap 20": (1, 256, 4, 2, 64, 0, 20.0, 0.5),
     "d_head 96 (DP 128)": (1, 256, 2, 2, 96, 0, 0.0, 0.125),
+    # gemma2's heads of 256 (DP 256) with its softcap 50 and a window
+    "d_head 256, window 48, softcap 50": (1, 256, 4, 2, 256, 48, 50.0, 0.0625),
 }
 # ragged rows and keys (no reference comparison: its blocks must divide S)
 RAGGED_CASES = {
     "ragged S 200, d 40, GQA 9/3": (2, 200, 9, 3, 40, 0, 0.0, 0.125),
     "ragged S 190, d 128, softcap": (1, 190, 4, 4, 128, 0, 20.0, 0.5),
+    "ragged S 130, d 200 (DP 256)": (1, 130, 4, 2, 200, 0, 0.0, 0.0625),
 }
 
 
@@ -308,7 +312,7 @@ def _chip_smoke():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11])
+@pytest.mark.parametrize("case", list(range(19)))
 def test_int8_backward_kernels_match_plain_on_card(case):
     """On chip_smoke.py's FLASH_CASES row ``case``: the pre-pass's bytes and
     scales equal its plain version's; B6 and B7 (one pre-pass, as
@@ -341,3 +345,22 @@ def test_int8_backward_kernels_match_plain_on_card(case):
         assert torch.equal(g, w), (label, name, float((g - w).abs().max()))
     dk, dv = fa.flash_bwd_dkv(qs, k, v, do, lse, delta, **kw)
     assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
+# ---------------------------------------------------------------------------
+# (e) the widest head
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_prepass_plain_versions_refuse_a_head_past_256(which):
+    """d_head 257 is past the kernels' widest padding (DP 256): both plain
+    pre-passes and padded_d raise, where a narrower width would crop d."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 2, 2, 257))
+    with pytest.raises(ValueError, match="d_head"):
+        if which == "forward":
+            ref.flash_quant_fwd_ref(k, v)
+        else:
+            ref.flash_quant_bwd_ref(q, k, v, q)
+    with pytest.raises(ValueError, match="d_head"):
+        fa.padded_d(257)
+    assert [fa.padded_d(d) for d in (1, 64, 65, 128, 129, 256)] == [64, 64, 128, 128, 256, 256]

@@ -81,6 +81,8 @@ PREPASS_CASES = {
     "ragged T 190, d 40 -> DP 64, 3 kv heads (GQA 9/3)": (2, 190, 3, 40),
     "d 96 -> DP 128, T 130": (1, 130, 2, 96),
     "d 64, two whole tiles": (1, 256, 2, 64),
+    "d 256 -> DP 256, T 130, gemma2's 4 kv heads": (1, 130, 4, 256),
+    "d 200 -> DP 256, T 90": (1, 90, 2, 200),
 }
 
 
@@ -135,11 +137,14 @@ FWD_CASES = {
     "window 48, GQA 9/3": (1, 256, 9, 3, 64, 48, 0.0, 0.125),
     "softcap 20": (1, 256, 4, 2, 64, 0, 20.0, 0.5),
     "d_head 96 (DP 128)": (1, 256, 2, 2, 96, 0, 0.0, 0.125),
+    # gemma2's heads of 256 (DP 256) with its softcap 50 and a window
+    "d_head 256, window 48, softcap 50": (1, 256, 4, 2, 256, 48, 50.0, 0.0625),
 }
 # ragged rows and keys (no reference comparison: its blocks must divide S)
 RAGGED_CASES = {
     "ragged S 200, d 40, GQA 9/3": (2, 200, 9, 3, 40, 0, 0.0, 0.125),
     "ragged S 190, d 128, softcap": (1, 190, 4, 4, 128, 0, 20.0, 0.5),
+    "ragged S 130, d 200 (DP 256)": (1, 130, 4, 2, 200, 0, 0.0, 0.0625),
     "S = T = 1": (2, 1, 4, 2, 64, 0, 0.0, 0.125),
     "S 129": (1, 129, 4, 2, 64, 0, 0.0, 0.125),
 }
@@ -225,7 +230,7 @@ def _chip_smoke():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11])
+@pytest.mark.parametrize("case", list(range(19)))
 def test_int8_forward_kernels_match_plain_on_card(case):
     """On chip_smoke.py's FLASH_CASES row ``case``: the forward pre-pass's
     bytes and scales equal its plain version's; B5 (one pre-pass and one

@@ -1,13 +1,18 @@
 """gemma2 in the port against the reference: the configs, the model's logits
 (local/global alternation, post-norms, softcaps, query-chunked attention
-with a cut band), both engines over a wrapped ring (f32 and int8 pools),
-speculative decoding with a windowed target and drafter, and the serve CLI.
+with a cut band), training (the loss and every gradient in f32, with and
+without query chunks, and under ``amp="bf16"`` and ``amp="int8"``, where
+attention takes the flash kernels' path; three f32 train steps), both
+engines over a wrapped ring (f32 and int8 pools), speculative decoding with
+a windowed target and drafter, and the serve CLI.
 
 On the reference's own windowed fixture, ``get_smoke_config("gemma2-2b")``
 with window 6 in f32 (``tests/test_serving.py``), with a random query
 projection (``zero_init_query=False``) so that attention is not uniform
 over the window; the reference's weights move over by
-``convert.params_from_numpy``.  Logits at f32 atol = rtol = 1e-4; greedy
+``convert.params_from_numpy``.  Logits at f32 atol = rtol = 1e-4; the
+loss and gradients at tests/test_torch_train.py's f32 bars and
+test_torch_amp*.py's amp bars (TRAIN_BARS); greedy
 serving token for token, with equal lengths and step counts (int8 pools:
 the near-tie rule of tests/test_torch_kv_int8.py).  Prompts are drawn with
 numpy from fixed seeds.
@@ -23,16 +28,25 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as j_config  # noqa: E402
 from repro.configs import get_smoke_config as j_smoke  # noqa: E402
+from repro.launch.steps import make_train_step as jmake_step  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
+from repro.optim import schedules as jsched  # noqa: E402
+from repro.optim.optimizer import Optimizer as JOptimizer  # noqa: E402
 from repro.serving.engine import DynamicEngine as JDynamicEngine  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro.serving.engine import EngineConfig as JEngineConfig  # noqa: E402
 from repro_torch.configs import get_config as t_config  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.data.pipeline import make_pipeline as tpipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.launch.steps import make_train_step as tmake_step  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
+from repro_torch.optim import grad as tgrad  # noqa: E402
+from repro_torch.optim import schedules as tsched  # noqa: E402
+from repro_torch.optim.optimizer import Optimizer as TOptimizer  # noqa: E402
+from repro_torch.quant import QuantPolicy  # noqa: E402
 from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig  # noqa: E402
 
 OVER = dict(dtype="float32", window_size=6, zero_init_query=False)
@@ -140,6 +154,125 @@ def test_logits_match_reference(models, S):
         for leaf in ("k", "v"):
             np.testing.assert_allclose(tcache["attn"][leaf].numpy(), np.asarray(jcache[leaf]),
                                        atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# the model's knobs, and (loss tolerance, gradient tolerance, largest error
+# as a share of the tensor's largest entry): tests/test_torch_train.py's f32
+# bars and test_torch_amp.py's / test_torch_amp_int8.py's amp bars
+TRAIN_MODES = {
+    "f32": dict(),
+    "f32, attn_chunk 8": dict(attn_chunk=8),
+    "amp bf16": dict(amp="bf16"),
+    "amp int8": dict(amp="int8"),
+}
+TRAIN_BARS = {
+    "f32": (dict(atol=2e-5, rtol=1e-6), dict(atol=2e-4, rtol=1e-3), None),
+    "f32, attn_chunk 8": (dict(atol=2e-5, rtol=1e-6), dict(atol=2e-4, rtol=1e-3), None),
+    "amp bf16": (dict(rtol=1e-3), dict(atol=5e-2, rtol=5e-2), 0.02),
+    "amp int8": (dict(rtol=1e-4), dict(atol=5e-2, rtol=5e-2), 0.02),
+}
+
+
+def _train_pair(**over):
+    """(reference model, its params, port model, the same params) of the
+    windowed fixture with ``over`` on both sides."""
+    over = dict(OVER, **over)
+    jm = jbuild(j_smoke("gemma2-2b", **over))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = tbuild(t_smoke("gemma2-2b", **over), device="cpu")
+    return jm, jp, tm, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+def _train_batch(V, B=2, S=24, seed=0):
+    """Tokens and labels with masked (-100) positions; S = 24 holds whole
+    query chunks of 8 (the reference's attend_chunked asks S % chunk == 0)
+    and runs past window 6."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, V, (B, S)).astype(np.int32)
+    labels = rng.integers(0, V, (B, S)).astype(np.int32)
+    labels[0, :3] = -100
+    labels[1, -1] = -100
+    return {"tokens": toks, "labels": labels}
+
+
+def _to(batch, side):
+    if side == "jax":
+        return {k: jnp.asarray(v) for k, v in batch.items()}
+    return {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("mode", sorted(TRAIN_MODES))
+def test_loss_and_grads_match_reference(mode):
+    """loss_fn and every gradient (post-norm gains, tied embedding, both
+    kinds of layer) against the reference's jit(value_and_grad(loss_fn)),
+    called outside its sharding context.  Under amp both sides' attention
+    takes the flash kernels' path (here their plain versions, the reference's
+    interpret-mode contract) and the readout rounds or quantizes."""
+    jm, jp, tm, tp = _train_pair(**TRAIN_MODES[mode])
+    batch = _train_batch(jm.cfg.vocab_size)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss_fn))(jp, _to(batch, "jax"))
+    tloss, tgrads = tgrad.value_and_grad(tm.loss_fn, tp, _to(batch, "torch"))
+    loss_tol, grad_tol, share = TRAIN_BARS[mode]
+    np.testing.assert_allclose(float(tloss), float(jloss), **loss_tol)
+    want = params_from_numpy(jax.tree_util.tree_map(np.asarray, jgrads), device="cpu")
+    assert sorted(tgrads) == sorted(want)
+    for name, w in want.items():
+        g = tgrads[name].detach()
+        torch.testing.assert_close(g, w, **grad_tol, msg=name)
+        if share is not None:
+            assert (g - w).abs().max().item() <= share * w.abs().max().item() + 1e-7, name
+
+
+@pytest.mark.parametrize("amp", ["bf16", "int8"])
+def test_amp_routes_every_layer_through_flash_attention(amp, monkeypatch):
+    """Under amp every layer's attention goes through ops.attention (B5-B7
+    on the card) with the policy, the local layers with their window and
+    the global ones with none, both with the softcap."""
+    _, _, tm, tp = _train_pair(amp=amp)
+    calls = []
+    real = ops.attention
+
+    def spy(*a, **kw):
+        calls.append((kw["window"], kw["softcap"], kw["policy"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "attention", spy)
+    tm.loss_fn(tp, _to(_train_batch(tm.cfg.vocab_size), "torch"))
+    cap = tm.cfg.attn_softcap
+    assert calls == [(6, cap, QuantPolicy(amp)), (0, cap, QuantPolicy(amp))] * 2
+
+
+def test_three_train_steps_match_reference():
+    """make_train_step (AdamW, linear schedule, clipping) for three f32 steps
+    from the same weights on the same batches (tests/test_torch_train.py's
+    test and bars: Adam's eps 1e-5, the losses and gradient norms within
+    1e-4 relative, the weights at atol 2e-4 / rtol 1e-3)."""
+    jm, jp, tm, tp = _train_pair()
+    kw = dict(weight_decay=0.01, eps=1e-5)
+    jopt = JOptimizer.create("adamw", 1e-2, jm.p13n, jm.meta,
+                             schedule=jsched.linear_decay(3, warmup_steps=1), **kw)
+    topt = TOptimizer.create("adamw", 1e-2, tm.p13n, tm.meta,
+                             schedule=tsched.linear_decay(3, warmup_steps=1), **kw)
+    jstep = jax.jit(jmake_step(jm, jopt))
+    tstep = tmake_step(tm, topt)
+    pipe = tpipeline(jm.cfg.vocab_size, 24, 2, seed=3)
+    jstate, tstate = jopt.init(jp), topt.init(tp)
+    for t in range(3):
+        b = pipe.batch(t)
+        jp, jstate, jm_ = jstep(jp, jstate, _to(b, "jax"))
+        tp, tstate, tm_ = tstep(tp, tstate, _to(b, "torch"))
+        np.testing.assert_allclose(float(tm_["loss"]), float(jm_["loss"]), rtol=1e-4)
+        np.testing.assert_allclose(float(tm_["grad_norm"]), float(jm_["grad_norm"]),
+                                   rtol=1e-4)
+    want = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    assert sorted(tp) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(tp[name].detach().numpy(), w.numpy(), atol=2e-4, rtol=1e-3,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("S", [12, 48])

@@ -439,6 +439,13 @@ FLASH_CASES = [
     (4, 1, 4, 2, 64, 0, 0.0, "float32", "bf16"),
     (2, 129, 4, 2, 64, 0, 0.0, "float32", "bf16"),
     (2, 160, 4, 2, 20, 0, 0.0, "bfloat16", "bf16"),
+    # DP 256 (gemma2's heads of 256): each kernel's grid in two column
+    # halves; a window with softcap 50, ragged S, and d 196 in bf16 storage
+    # (rows read element by element)
+    (2, 256, 8, 4, 256, 0, 0.0, "float32", "bf16"),
+    (2, 256, 8, 4, 256, 0, 0.0, "float32", "none"),
+    (1, 200, 4, 2, 256, 48, 50.0, "float32", "bf16"),
+    (1, 160, 4, 2, 196, 0, 0.0, "bfloat16", "bf16"),
 ]
 
 
