@@ -143,8 +143,10 @@ check:
   2e-5; each timed at its serve shape (a call, on the card, the plain
   version, SDPA over the slot's gathered pages with the visibility mask,
   the bound), kept under ``gemma2_shapes`` in the kernels' rows.
-- serve: smollm-135m at its published full width through the static engine
-  (random weights from a seed, ``zero_init_query=False``), once through the
+- serve: smollm-135m at its published full width, cut to 15 of its 30
+  layers (SERVE_DEPTH: the cut holds the run's time), through the static
+  engine (random weights from a seed, ``zero_init_query=False``), once
+  through the
   kernels and once through the plain versions: the same greedy tokens and
   steps, the first decode steps' logits within atol = rtol = 1e-4, and exact
   launch counts (B1 per forward, B8 per decode step, no B2/B3/B4); then a
@@ -159,8 +161,9 @@ check:
   prefix cache, which shares nothing where this one shares (a request past
   a near-tie, where a plain full-sequence forward's top-2 gap is below
   TIE_GAP, may differ after it); (d) a second serve on the same engine
-  shares more prompt tokens (a warm cache); (e) exact launch counts: B9 30
-  per chunk forward, B8 30 per decode step, B1 61 per forward, no B2-B7,
+  shares more prompt tokens (a warm cache); (e) exact launch counts: B9 15
+  (one a layer) per chunk forward, B8 15 per decode step, B1 31 per
+  forward, no B2-B7,
   with the chunk forwards counted from the model's calls and held against
   the chunk schedule recomputed from prefill_cached.
 - serve_int8: the same model with int8 paged KV pools (``--kv-dtype
@@ -168,15 +171,14 @@ check:
   the static engine on 8 of its requests: (a) tokens and steps equal with
   the kernels and through the plain versions on both engines; (b) the
   dynamic engine's tokens equal with the prefix cache off and (c) on a
-  warm cache that shares more; (d) exact launch counts: B8 int8 30 per
-  decode step, B9 int8 30 per chunk forward, B1 61 per forward, no f32/bf16
+  warm cache that shares more; (d) exact launch counts: B8 int8 15 per
+  decode step, B9 int8 15 per chunk forward, B1 31 per forward, no f32/bf16
   B8/B9, no B2-B7.  Prints tok/s, the pools' MiB against f32 pools and the
   greedy top-1 agreement with the f32 dynamic engine (not held).  Nothing
   is cut: the int8 static serve runs 8 requests where the dynamic one runs
   16, to keep the run short.
-- serve_spec: speculative decoding, draft_k 4, on the same model cut to
-  15 of its 30 layers (SPEC_DEPTH; full width; the cut holds the run's
-  time since the gemma2 phases came) (f32,
+- serve_spec: speculative decoding, draft_k 4, on the same model (15 of
+  its 30 layers, full width) (f32,
   seed 0).  Paths: serve_spec, the static engine with the serve CLI's
   drafter ``cfg.scaled(0.25, min_d_head=8)`` (15 layers, d_model 144, 9/3
   heads of 16, random weights from seed 7: near-chance acceptance, the
@@ -297,6 +299,42 @@ check:
   the d_model-1024 target (finite, falling losses), each with exact
   launches; Fig. 1, 8 lrs (5e-3 * 2^k) x 20 steps at d_model 256, 512 and
   1024, its best lr by width printed, not held.
+- sweep_amp: the sweep and Algorithm 1 under a mixed-precision policy,
+  B5-B7 over a candidate axis (ops.attention's vmap rule folds the
+  candidates into B).  In the f32, bf16 and int8 operand modes
+  (CAND_CASES: the proxy's batched attention, 16 candidates x (8, 64, 4
+  heads of 64), and gemma2's 8/4 heads of 256 at N 4 with a window of 48
+  and softcap 50, DP 256's column halves over a folded B), each with a
+  power-of-two scale per candidate: ops.attention under torch.func.vmap
+  makes exactly one launch of each of the mode's kernels (B5, B6, B7, and
+  in the int8 mode both pre-passes) for the N candidates, candidate i's
+  output and gradients equal ops.attention on candidate i alone bit for
+  bit, the folded outputs hold against the plain versions under the same
+  vmap at the mode's tiers (f32 atol 2e-5 / gradients 2e-4 + 1e-3
+  relative; bf16 and int8 by check_rounded), and the folded pre-passes'
+  bytes and scales equal their plain versions' and the candidates' own
+  launches.  At the proxy's shape each kernel is timed: a call, its
+  device time in one launch against 16 separate launches, the plain
+  version's ms, SDPA bf16 over the folded batch (the f32 and bf16 modes;
+  no PyTorch call is int8 attention) and the bound (kept under
+  ``candidate_axis`` in the kernels' rows).  Then the full-size proxy under
+  --amp bf16 and --amp int8 (paths sweep_amp_bf16, sweep_amp_int8 and
+  their serial loops): the reference's three candidates and lr 1e25, 6
+  steps at 8 x 64, batched and serial, each step within 4x the distance
+  at that step of the serial loop from itself started one ulp away, or
+  within rtol 1e-4 at step 0 and 2e-3 later (AMP_STEP0_RTOL,
+  AMP_NOISE_FACTOR say why), lr 1e25 pruned and frozen bit for bit, the
+  others within 2e-3 of the run without it, exact launches (a batched step: 17 grouped B1/B2, 1 B3, 1
+  B4, 8 of each B5-B7 mode and under int8 8 of each pre-pass, whatever
+  N); 16 candidates of ``sample_n(16, 0)`` x 10 steps batched and serial:
+  candidate-steps/s, speedup, busy share and peak memory printed.  Last,
+  algorithm1_amp: Experiment on mup-gpt under u-µP and --amp int8, the
+  coord check over lrs 1e-2, 2e-2, 4e-2 at d_model 256/512/1024 (lr
+  2e-2's logits.delta slope held below 0.1, the reference's bar), tune
+  (16 x 10 steps) and the d_model-1024 target trained 5 steps (finite,
+  falling losses), with exact launches.  The phase prints its seconds.
+  The kernel phase also times both int8 pre-passes at DP 256, gemma2-2b's
+  train step, with their bytes bound (``gemma2_shapes`` in their rows).
 - profile: torch.profiler over a short serve through each engine, a short
   int8 dynamic serve (with the card's time in the quantized writes of
   serving/kv_cache.py) and one train step, f32, --amp bf16 and --amp int8:
@@ -310,7 +348,9 @@ serve_spec_int8, spec_copy_train, serve_spec_copy, serve_gemma2,
 serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, train, train --amp bf16,
 train --amp int8, train_gemma2 and its --amp bf16 and int8 runs, and the sweep phase's
 sweep, sweep_serial, sweep_16,
-algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1) and
+algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1, and the
+sweep_amp phase's sweep_amp_bf16, sweep_amp_int8, their serial loops and
+algorithm1_amp) and
 read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
 catches no failure (the exit code is non-zero on any) and prints, last, one
@@ -433,11 +473,12 @@ def cuda_ms_turns(fns, rounds=5, n=N_TIMED):
     return {name: sorted(v)[len(v) // 2] for name, v in per.items()}, per
 
 
-def device_us(fn, name, n=20, tries=3):
+def device_us(fn, name, n=20, tries=6):
     """Microseconds on the card per launch of the port kernel ``name`` (see
     PORT_KERNELS), from torch.profiler over ``n`` calls of ``fn``; a profile
-    that caught none of its launches (the tracer drops one now and then)
-    is taken again, up to ``tries`` times."""
+    that caught none of its launches (the tracer drops events now and then,
+    once three profiles of the grouped B2 running: an H100 at 700 W) is
+    taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2257,6 +2298,48 @@ def flash_phase(ops, fa, ref, quant, F):
                             plain={m: (r[m]["plain_fwd_ms"], r[m]["plain_fwd_bwd_ms"])
                                    for m in FLASH_MODES})
                 for label, r in g2.items()}
+    pre = g2_prepass_timing(fa, ref)
+    for row in out:
+        if row["name"] in pre:
+            row["gemma2_shapes"] = {G2_FLASH_TIMED[0][0]: pre[row["name"]]}
+    return out
+
+
+def g2_prepass_timing(fa, ref):
+    """Both int8 pre-passes at DP 256, gemma2-2b's train step (G2_FLASH_TIMED's
+    first shape): bytes and scales equal to their plain versions', a call's
+    ms, the card's time a launch, the plain version's ms and the bound (the
+    bytes read and written; ~4 f32 operations a value quantized).  Returns
+    {row name: timing}."""
+    label, B, S, H, K, d, _, _, scale = G2_FLASH_TIMED[0]
+    q, k, v, do = flash_inputs(B, S, H, K, d, torch.float32, 210)
+    qs = (q * scale).contiguous()
+    out = {}
+    for name, call, plain, fields, n_in, n_ops in (
+            ("flash_fwd_quant_int8", lambda: fa.quantize_fwd(k, v),
+             lambda: ref.flash_quant_fwd_ref(k, v), fa.FWD_I8_FIELDS,
+             2 * k.numel(), 4 * 2 * k.numel()),
+            ("flash_bwd_quant_int8", lambda: fa.quantize_bwd(qs, k, v, do),
+             lambda: ref.flash_quant_bwd_ref(qs, k, v, do), fa.I8_FIELDS,
+             2 * q.numel() + 2 * k.numel(), 4 * (4 * q.numel() + 3 * q.numel()))):
+        got, want = call(), plain()
+        differ = [n for n in fields if not torch.equal(got[n], want[n])]
+        if differ:
+            raise AssertionError(f"{name} at {label}: {differ} differ from the plain version")
+        moved = n_in * 4 + sum(t.numel() * t.element_size() for t in got.values())
+        b = bound(moved, n_ops)
+        dev = device_us(call, name)
+        out[name] = dict(ms=cuda_ms(call), device_us=dev, plain_ms=cuda_ms(plain, n=5, warmup=1),
+                         bound_ms=b[0], bound_by=b[1], share_of_bound=b[0] * 1e3 / dev,
+                         mb_moved=moved / 1e6, max_abs_err=0.0)
+        del got, want
+        log(f"[kernels] {name} at DP 256, {label} (q, do ({B}, {S}, {H}, {d}), k, v ({B}, {S}, "
+            f"{K}, {d}) f32): bytes and scales equal to the plain version's; "
+            f"{out[name]['ms']:.4f} ms a call, {dev:.2f} us on the card (bound "
+            f"{b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / dev:.1%}; {moved / 1e6:.1f} MB "
+            f"moved); plain {out[name]['plain_ms']:.4f} ms")
+    del q, k, v, do, qs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2761,8 +2844,9 @@ def serve_int8_phase(cfg, Model, Engine, DynamicEngine, EngineConfig, ops, f32_d
     steps equal with the kernels and through the plain versions, on both
     engines (the serve phase's near-tie rule); (b) the dynamic engine's
     tokens equal with the prefix cache off; (c) a warm second serve shares
-    more; (d) exact launch counts: B8 int8 30 per decode step, B9 int8 30
-    per chunk forward, B1 61 per forward, no f32/bf16 B8/B9 and no B2-B7.
+    more; (d) exact launch counts: B8 int8 and B9 int8 one a layer per
+    decode step and chunk forward, B1 2 L + 1 per forward, no f32/bf16
+    B8/B9 and no B2-B7.
     Prints tok/s, the pools' MiB against f32 pools, and the top-1 agreement
     with the f32 dynamic engine on the same requests (``f32_dyn``: its
     tokens and tok/s in this run), which is printed, not held: at full width
@@ -3299,7 +3383,10 @@ def gemma2_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0):
 
 
 SPEC_K = 4                 # the serve CLI's --draft-k default
-SPEC_DEPTH = 15            # the speculative paths' layers (of smollm's 30)
+# smollm's serve paths run 15 of its 30 layers at full width: a cut of
+# depth that holds the run's time (the speculative paths' since the gemma2
+# phases came, the others' since the sweep_amp phase came)
+SERVE_DEPTH = 15
 # Adam's lr on the copy task: the reference's 1e-2 diverges at smollm-135m's
 # full width and vocabulary; 1e-4 trains both models best of 1e-2 .. 3e-5
 # (scripts/torch_copy_lr_probe.py)
@@ -3763,7 +3850,9 @@ def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None, ranges=()):
     requests that share a 128-token system prompt.  ``ranges``: functions
     of serving/kv_cache.py whose launches are summed under their own name
     (the int8 pools' quantized writes).  The profiler's own overhead
-    inflates the wall."""
+    inflates the wall; it traces the card's events only (as busy_profile)
+    unless ``ranges`` need the host's, whose post-processing costs tens of
+    seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import kv_cache
@@ -3783,8 +3872,8 @@ def profile_phase(cfg, Model, Engine, EngineConfig, dynamic=None, ranges=()):
     make().serve(params, prompts, lens)          # warm-up
     engine = make()
     torch.cuda.synchronize()
-    with labelled(kv_cache, ranges), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if ranges else []) + [ProfilerActivity.CUDA]
+    with labelled(kv_cache, ranges), profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = engine.serve(params, prompts, lens)
         torch.cuda.synchronize()
@@ -4539,6 +4628,435 @@ def sweep_phase(ops, rn, ref):
     return rows, paths, info
 
 # ---------------------------------------------------------------------------
+# sweep_amp: the HP sweep and Algorithm 1 under --amp, B5-B7 over a
+# candidate axis
+# ---------------------------------------------------------------------------
+
+# (label, candidates N, B, S, H, K, d, window, softcap): the proxy's batched
+# attention (16 candidates x 8 x 64 tokens, 4 heads of 64: mup-gpt 0.25x),
+# timed; and gemma2's heads at DP 256 (8/4 of 256, two key tiles a row, a
+# window and softcap), where each kernel's grid splits the output's columns
+# in halves, with the candidates folded into B
+CAND_CASES = [("the proxy's batched step", 16, 8, 64, 4, 4, 64, 0, 0.0),
+              ("gemma2 heads 8/4 of 256", 4, 1, 256, 8, 4, 256, 48, 50.0)]
+# the kernels' launch-count names by operand mode (int8: the pre-passes too)
+MODE_LAUNCHES = {"none": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                 "bf16": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                 "int8": ("flash_fwd_int8", "flash_bwd_dq_int8", "flash_bwd_dkv_int8",
+                          "flash_fwd_quant_int8", "flash_bwd_quant_int8")}
+AMPS = ("bf16", "int8")
+AMP_SWEEP_STEPS = 10        # the 16-candidate amp sweeps (30 in the f32 sweep)
+AMP_SWEEP_PATHS = ("sweep_amp_bf16", "sweep_amp_bf16_serial", "sweep_amp_int8",
+                   "sweep_amp_int8_serial", "algorithm1_amp")
+AMP_GROUPED_PATHS = ("sweep_amp_bf16", "sweep_amp_int8", "algorithm1_amp")
+CC_AMP_LRS = (1e-2, 2e-2, 4e-2)   # the u-µP int8 coord check's; 2e-2 is the reference's
+CC_AMP_LR = 2e-2
+# Under amp, batched and serial steps differ only in the f32 GEMMs' summation
+# order (cuBLAS batched against single GEMMs); a bf16 or int8 rounding on a
+# boundary then flips, and Adam (eps 1e-8) grows the flip step by step: the
+# bf16 curves stood 5.2e-6 apart at step 0 and 3.45e-3 at step 5, the
+# int8 ones 8.0e-5 and 1.05e-2 (an H100 at 700 W).  Each step is held
+# within AMP_NOISE_FACTOR times the distance, at that step, of the serial
+# loop from itself started 1 ulp away (every weight moved to a neighbouring
+# float32: the policy's own rounding noise, 7.3e-5 at int8's step 0), or
+# within a floor: at step 0, on equal weights, the CPU tests' bar for one
+# amp loss (1e-4), later SWEEP_RTOL.
+AMP_STEP0_RTOL = 1e-4
+AMP_NOISE_FACTOR = 4.0
+
+
+def cand_scales(n):
+    """A power-of-two scale per candidate (a swept alpha_attn times 1/d)."""
+    return torch.tensor([2.0 ** -(3 + i % 3) for i in range(n)], device="cuda")
+
+
+def fold(t):
+    """(N, B, ...) -> (N * B, ...), contiguous."""
+    return t.reshape(-1, *t.shape[2:]).contiguous()
+
+
+def candidate_case(ops, fa, ref, quant, case, mode, seed):
+    """One CAND_CASES row in one operand mode, through ops.attention under
+    torch.func.vmap (what the sweep runs): exactly one launch of each of the
+    mode's kernels for the N candidates; candidate i's output and gradients
+    equal ops.attention on candidate i alone, bit for bit; the folded
+    outputs against the plain versions (ops.attention_plain_flash under the
+    same vmap) at the mode's tiers; in the int8 mode both pre-passes of the
+    folded batch byte for byte against their plain versions and against
+    each candidate's own launch.  Returns (max errors, folded inputs)."""
+    label, N, B, S, H, K, d, window, cap = case
+    policy = quant.QuantPolicy(mode)
+    kw = dict(causal=True, window=window, softcap=cap, policy=policy)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(N, B, S, H, d, device="cuda", generator=gen) for _ in range(2))
+    k, v = (torch.randn(N, B, S, K, d, device="cuda", generator=gen) for _ in range(2))
+    scales = cand_scales(N)
+    what = f"flash attention over {N} candidates, {label}, {mode} operands"
+
+    def vmapped(attend):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = torch.func.vmap(lambda a, b, c, s: attend(a, b, c, scale=s, **kw))(*leaves, scales)
+        return [o.detach(), *torch.autograd.grad(o, leaves, do)]
+
+    ops.reset_launch_counts()
+    got = vmapped(ops.attention)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    if counts != dict.fromkeys(MODE_LAUNCHES[mode], 1):
+        raise AssertionError(f"{what}: launches {counts}, not one of each of "
+                             f"{MODE_LAUNCHES[mode]}")
+    for i in range(N):
+        leaves = [t[i].clone().requires_grad_(True) for t in (q, k, v)]
+        oi = ops.attention(*leaves, scale=float(scales[i]), **kw)
+        alone = [oi.detach(), *torch.autograd.grad(oi, leaves, do[i])]
+        differ = [n for n, g, a in zip(("o", "dq", "dk", "dv"), got, alone)
+                  if not torch.equal(g[i], a)]
+        if differ:
+            raise AssertionError(f"{what}: candidate {i}'s {differ} differ from its own launch")
+    want = vmapped(ops.attention_plain_flash)
+    errs = {}
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        if mode == "none":
+            errs[name] = check_close(f"{what} {name}", g, w,
+                                     *((ATOL[torch.float32],) if name == "o"
+                                       else GRAD_TOL[torch.float32]))
+        else:
+            errs[name] = check_rounded(what, name, g, w,
+                                       INT8_MAX_TOL if mode == "int8" else FLASH_MAX_TOL)[0]
+    qf = fold((q * scales.view(-1, 1, 1, 1, 1)))
+    kf, vf, dof = fold(k), fold(v), fold(do)
+    if mode == "int8":   # the pre-passes of the folded batch, byte for byte
+        for name, folded, plain, alone, fields in (
+                ("forward", fa.quantize_fwd(kf, vf), ref.flash_quant_fwd_ref(kf, vf),
+                 [fa.quantize_fwd(kf[i * B:(i + 1) * B], vf[i * B:(i + 1) * B])
+                  for i in range(N)], fa.FWD_I8_FIELDS),
+                ("backward", fa.quantize_bwd(qf, kf, vf, dof),
+                 ref.flash_quant_bwd_ref(qf, kf, vf, dof),
+                 [fa.quantize_bwd(*(t[i * B:(i + 1) * B] for t in (qf, kf, vf, dof)))
+                  for i in range(N)], fa.I8_FIELDS)):
+            differ = [n for n in fields if not torch.equal(folded[n], plain[n])
+                      or not torch.equal(folded[n], torch.cat([a[n] for a in alone]))]
+            if differ:
+                raise AssertionError(f"{what}: the {name} pre-pass's {differ} differ from "
+                                     f"the plain version or the candidates' own launches")
+    return errs, (qf, kf, vf, dof)
+
+
+def candidate_timing(ops, fa, ref, quant, F, case, mode, folded):
+    """The folded launch of each of the mode's kernels against N separate
+    launches (device us from the profiler: the folded launch's time and N
+    times a separate launch's), a call's ms on the card's clock, the plain
+    version over the folded batch, SDPA bf16 over the folded batch (the
+    f32 and bf16 modes' library call; none is int8) and the bound from this
+    run's bytes and visible pairs."""
+    label, N, B, S, H, K, d, window, cap = case
+    qf, kf, vf, dof = folded
+    kw = dict(causal=True, window=window, softcap=cap,
+              policy=quant.QuantPolicy(mode) if mode != "none" else None)
+    o, lse = fa.flash_fwd(qf, kf, vf, **kw)
+    delta = (dof * o).sum(-1).transpose(1, 2).contiguous()
+
+    def sl(t, i):
+        return t[i * B:(i + 1) * B]
+
+    calls = {"flash_fwd": lambda t: fa.flash_fwd(*t[:3], **kw),
+             "flash_bwd_dq": lambda t: fa.flash_bwd_dq(*t, **kw),
+             "flash_bwd_dkv": lambda t: fa.flash_bwd_dkv(*t, **kw)}
+    plain = {"flash_fwd": lambda t: ref.flash_fwd_ref(*t[:3], **kw),
+             "flash_bwd_dq": lambda t: ref.flash_bwd_ref(*t, **kw),
+             "flash_bwd_dkv": lambda t: ref.flash_bwd_ref(*t, **kw)}
+    args = (qf, kf, vf, dof, lse, delta)
+    if mode == "int8":
+        calls["flash_fwd_quant"] = lambda t: fa.quantize_fwd(t[1], t[2])
+        calls["flash_bwd_quant"] = lambda t: fa.quantize_bwd(*t[:4])
+        plain["flash_fwd_quant"] = lambda t: ref.flash_quant_fwd_ref(t[1], t[2])
+        plain["flash_bwd_quant"] = lambda t: ref.flash_quant_bwd_ref(*t[:4])
+    pairs = N * B * H * visible_pairs(S, window)
+    io, iok, rows = qf.numel() * 4, kf.numel() * 4, N * B * H * S * 4
+    rate = {"none": F32_FLOP_PER_S, "bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}[mode]
+    i8_out = {"flash_fwd_quant": sum(math.prod(s) * (1 if dt == torch.int8 else 4) for s, dt in
+                                     fa.fwd_i8_shapes(N * B, S, K, d).values()),
+              "flash_bwd_quant": sum(math.prod(s) * (1 if dt == torch.int8 else 4) for s, dt in
+                                     fa.i8_shapes(N * B, S, S, H, K, d).values())}
+    work = {"flash_fwd": (io + 2 * iok + io + rows, 4 * d * pairs, rate),
+            "flash_bwd_dq": (2 * io + 2 * iok + 2 * rows + io, 6 * d * pairs, rate),
+            "flash_bwd_dkv": (2 * io + 2 * iok + 2 * rows + 2 * iok, 8 * d * pairs, rate),
+            # ~4 f32 operations (abs-max, divide, round, clamp) a value quantized
+            "flash_fwd_quant": (2 * iok + i8_out["flash_fwd_quant"], 8 * kf.numel(),
+                                F32_FLOP_PER_S),
+            "flash_bwd_quant": (2 * io + 2 * iok + i8_out["flash_bwd_quant"],
+                                4 * (4 * qf.numel() + 3 * qf.numel()), F32_FLOP_PER_S)}
+    sfx = "_int8" if mode == "int8" else ""
+    out = {}
+    for name, call in calls.items():
+        key = name + sfx
+        one = lambda c=call: c(args)                                       # noqa: E731
+        apart = lambda c=call: [c(tuple(sl(t, i) for t in args)) for i in range(N)]  # noqa: E731
+        dev = device_us(one, key)
+        dev_apart = device_us(apart, key) * N
+        b = bound(*work[name])
+        out[key] = dict(ms=cuda_ms(one), device_us=dev, apart_device_us=dev_apart,
+                        apart_ms=cuda_ms(apart, n=20), plain_ms=cuda_ms(lambda p=plain[name]:
+                                                                          p(args), n=5, warmup=1),
+                        bound_ms=b[0], bound_by=b[1], share_of_bound=b[0] * 1e3 / dev)
+    if mode != "int8":   # SDPA over the folded batch, bf16, causal (no window, no softcap)
+        qb, kb, vb, dob = (t.transpose(1, 2).bfloat16().contiguous().requires_grad_(t is not dof)
+                           for t in (qf, kf, vf, dof))
+        sdpa = lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(sdpa)
+        lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qb, kb, vb), dob))
+        for key in out:
+            out[key]["library_ms"] = lib_fwd if key == "flash_fwd" else lib_fwd_bwd
+    log(f"[sweep_amp] {mode} operands over {N} candidates folded into B ({label}: "
+        f"({N} x {B}, {S}, {H}/{K} heads of {d}), causal"
+        + (f", window {window}, softcap {cap:g}" if window or cap else "") + "): "
+        + "; ".join(f"{k} {r['ms']:.4f} ms a call, {r['device_us']:.2f} us on the card in one "
+                    f"launch ({N} separate launches {r['apart_device_us']:.2f} us, "
+                    f"{r['apart_device_us'] / r['device_us']:.2f}x; {r['apart_ms']:.4f} ms "
+                    f"a call), bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+                    f"({r['share_of_bound']:.1%}), plain {r['plain_ms']:.4f} ms"
+                    + (f", SDPA bf16 {r['library_ms']:.4f} ms" if "library_ms" in r else "")
+                    for k, r in out.items()))
+    del o, lse, delta
+    return out
+
+
+def candidate_kernel_phase(ops, fa, ref, quant, F):
+    """B5, B6, B7 and the int8 pre-passes over a candidate axis in every
+    operand mode (CAND_CASES), checked by candidate_case; the proxy's shape
+    timed by candidate_timing.  Returns {mode: {kernel: timing}} and the
+    worst errors."""
+    timing, worst = {}, {}
+    for c, case in enumerate(CAND_CASES):
+        for mode in FLASH_MODES:
+            errs, folded = candidate_case(ops, fa, ref, quant, case, mode, 300 + c)
+            worst[(case[0], mode)] = errs
+            if c == 0:
+                timing[mode] = candidate_timing(ops, fa, ref, quant, F, case, mode, folded)
+                timing[mode]["max_abs_err"] = errs
+            del folded
+            torch.cuda.empty_cache()
+    log("[sweep_amp] B5-B7 over a candidate axis: one launch of each kernel (and pre-pass) "
+        "for N candidates through ops.attention under torch.func.vmap, each candidate's "
+        "slice bit-equal to its own launch, pre-passes byte for byte; max err against the "
+        "plain versions " + "; ".join(f"{label} {mode}: " + ", ".join(
+            f"{n} {e:.3g}" for n, e in errs.items()) for (label, mode), errs in worst.items()))
+    return timing
+
+
+def amp_step_launches(cfg, steps, grouped, forwards=1):
+    """step_launches plus B5-B7 (and under int8 both pre-passes), one a
+    layer a step, B5 ``forwards`` times a step."""
+    n = cfg.n_layers * steps
+    out = step_launches(cfg, steps, grouped)
+    for name in MODE_LAUNCHES[cfg.amp]:
+        out[name] = n * (forwards if name.startswith("flash_fwd") else 1)
+    return out
+
+
+def ulp_jittered_init(cfg):
+    """The engine's default init with every weight moved to a neighbouring
+    float32 (up or down, from a seeded draw): an init_fn one ulp away."""
+    from repro_torch.core import tuning
+    from repro_torch.models.model import Model
+
+    init = tuning._default_init(Model(cfg.replace(dtype="float32"), device="cuda"))
+
+    def jittered(gens, hp):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return {k: torch.nextafter(v, torch.where(
+            torch.rand(v.shape, device="cuda", generator=gen) < 0.5, -math.inf, math.inf))
+            for k, v in init(gens, hp).items()}
+    return jittered
+
+
+def sweep_amp_policy(ops, cfg, amp, paths):
+    """The proxy's sweep under one policy: the reference's three candidates
+    and lr 1e25 batched against serial (within the bar AMP_NOISE_FACTOR
+    sets, the diverging one pruned and frozen bit for bit, the others
+    unmoved by it), then 16
+    candidates batched and serial: candidate-steps/s, busy share, peak
+    memory; exact launches throughout."""
+    from repro_torch.core import tuning
+    from repro_torch.core.hpspace import mup_space
+    from repro_torch.core.transfer import HParams
+
+    acfg = cfg.replace(amp=amp)
+    cands = [HParams(**c) for c in SWEEP_CANDIDATES]
+    kw = dict(steps=SWEEP_STEPS, batch_size=SWEEP_BATCH, seq_len=SWEEP_SEQ, device="cuda")
+    tuning.train_proxy_batched(acfg, cands[:1], steps=1, batch_size=2, seq_len=8)  # warm-up
+    path = f"sweep_amp_{amp}"
+    bat, paths[path] = sweep_counts(
+        ops, f"batched sweep --amp {amp}, {len(cands)} candidates x {SWEEP_STEPS} steps",
+        lambda: tuning.train_proxy_batched(acfg, cands, **kw),
+        amp_step_launches(acfg, SWEEP_STEPS, grouped=True))
+    ser, paths[path + "_serial"] = sweep_counts(
+        ops, f"the serial loop --amp {amp}", lambda: tuning.train_proxy_serial(acfg, cands, **kw),
+        lambda res: amp_step_launches(
+            acfg, int(np.isfinite(res.curves).sum() + (~res.active).sum()), grouped=False))
+    alone = tuning.train_proxy_batched(acfg, cands[:3], **kw)
+    noisy = tuning.train_proxy_serial(acfg, cands[:3], init_fn=ulp_jittered_init(acfg), **kw)
+    fin = np.isfinite(ser.losses)
+    if not (np.array_equal(np.isfinite(bat.losses), fin) and fin[:3].all() and not fin[3]):
+        raise AssertionError(f"--amp {amp}: finite scores batched {bat.losses}, serial "
+                             f"{ser.losses}")
+    rel_by_step = np.abs(bat.curves[:, :3] / ser.curves[:, :3] - 1).max(axis=1)
+    noise_by_step = np.abs(noisy.curves / ser.curves[:, :3] - 1).max(axis=1)
+    floor = np.full_like(noise_by_step, SWEEP_RTOL)
+    floor[0] = AMP_STEP0_RTOL
+    bar = np.maximum(floor, AMP_NOISE_FACTOR * noise_by_step)
+    rel = float(rel_by_step.max())
+    moved = float(np.abs(bat.curves[:, :3] / alone.curves - 1).max())
+    if not ((rel_by_step <= bar).all() and moved <= SWEEP_RTOL):
+        raise AssertionError(
+            f"--amp {amp}: batched curves from serial by step {rel_by_step.tolist()} (limits "
+            f"{bar.tolist()}: the serial loop 1 ulp away by step {noise_by_step.tolist()}), "
+            f"{moved:.3g} from the run without the diverging candidate (rtol {SWEEP_RTOL})")
+    diverged = int(np.argmax(np.isinf(bat.curves[:, 3])))
+    if bat.active[3] or not np.isinf(bat.curves[diverged:, 3]).all():
+        raise AssertionError(f"--amp {amp}: the lr 1e25 candidate was not pruned for good")
+    frozen = frozen_check(acfg, cands)
+    log(f"[sweep_amp] --amp {amp}, the full-size proxy: batched curves within {rel:.3g} of "
+        f"the serial loop's (by step {np.round(rel_by_step, 7).tolist()}; limits "
+        f"{np.round(bar, 7).tolist()}: the serial loop started 1 ulp away moved by step "
+        f"{np.round(noise_by_step, 7).tolist()}); "
+        f"lr 1e25 pruned at step {diverged}, frozen bit for bit over {frozen} steps; the "
+        f"others {moved:.3g} from the run without it")
+
+    c16 = mup_space().sample_n(16, seed=0)
+    kw16 = dict(kw, steps=AMP_SWEEP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b16, launches = sweep_counts(
+        ops, f"batched sweep --amp {amp}, 16 candidates x {AMP_SWEEP_STEPS} steps",
+        lambda: tuning.train_proxy_batched(acfg, c16, **kw16),
+        amp_step_launches(acfg, AMP_SWEEP_STEPS, grouped=True))
+    t_bat = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in launches.items():
+        paths[path][k] += v
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s16, launches = sweep_counts(
+        ops, f"the serial loop --amp {amp}, 16 candidates",
+        lambda: tuning.train_proxy_serial(acfg, c16, **kw16),
+        lambda res: amp_step_launches(
+            acfg, int(np.isfinite(res.curves).sum() + (~res.active).sum()), grouped=False))
+    t_ser = time.perf_counter() - t0
+    speak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in launches.items():
+        paths[path + "_serial"][k] += v
+    both = np.isfinite(b16.curves) & np.isfinite(s16.curves)
+    rate_b = 16 * b16.steps_run / t_bat
+    rate_s = float(np.isfinite(s16.curves).sum() + (~s16.active).sum()) / t_ser
+    wall, busy, n_launch, top = busy_profile(
+        lambda: tuning.train_proxy_batched(acfg, c16, **dict(kw16, steps=5)))
+    swall, sbusy, _, _ = busy_profile(
+        lambda: tuning.train_proxy_serial(acfg, c16[:4], **dict(kw16, steps=5)))
+    log(f"[sweep_amp] --amp {amp}, 16 candidates x {AMP_SWEEP_STEPS} steps (sample_n(16, 0)): "
+        f"batched {t_bat:.2f} s ({rate_b:.1f} candidate-steps/s), serial {t_ser:.2f} s "
+        f"({rate_s:.1f}); speedup {rate_b / rate_s:.2f}x; {int(both.sum())} step losses "
+        f"finite in both, max rel diff {np.abs(b16.curves[both] / s16.curves[both] - 1).max():.3g}; "
+        f"peak memory batched {peak:.2f} GiB, serial {speak:.2f} GiB; card busy "
+        f"{busy / wall:.1%} of 5 batched steps under the profiler ({busy:.1f} of {wall:.1f} ms, "
+        f"{n_launch} launches), {sbusy / swall:.1%} of the serial loop's (4 candidates)")
+    for k, ms, cnt in top:
+        log(f"[sweep_amp]   {ms:9.3f} ms  x{cnt:<5d} {k}")
+    return dict(batched_vs_serial_rel=rel, rel_by_step=rel_by_step.tolist(),
+                ulp_noise_by_step=noise_by_step.tolist(),
+                moved_by_diverged=moved, frozen_steps=frozen, candidate_steps_per_s=rate_b,
+                serial_candidate_steps_per_s=rate_s, speedup=rate_b / rate_s, peak_gib=peak,
+                serial_peak_gib=speak, busy_share=busy / wall,
+                serial_busy_share=sbusy / swall, batched_s=t_bat, serial_s=t_ser,
+                best_batched=b16.best_index, best_serial=s16.best_index)
+
+
+def algorithm1_amp(ops, paths):
+    """Algorithm 1 under int8 u-µP through Experiment: the coord check
+    batched over CC_AMP_LRS at d_model 256/512/1024 (lr CC_AMP_LR's
+    logits.delta slope held below COORD_SLOPE_MAX), tune(n_samples=16,
+    steps=10) and the d_model-1024 target trained 5 steps (finite, falling
+    losses), with exact launches."""
+    from repro_torch.api import Experiment
+
+    exp = Experiment.from_config("mup-gpt", smoke=False, parametrization="umup", amp="int8")
+    proxy = exp.proxy(0.25, min_d_head=64)
+    cfg = proxy.cfg
+    L, norms = cfg.n_layers, 2 * cfg.n_layers + 1
+    # per width and step (9): the batched step, and B1, B3 and B5 once more
+    # for the initial params' activations (ungrouped, no backward)
+    want = amp_step_launches(cfg, 9, grouped=True, forwards=2)
+    want.update({"rmsnorm": 9 * norms, "ce_fwd": 18})
+    ops.reset_launch_counts()
+    cc = proxy.coord_check(lrs=CC_AMP_LRS, widths=(1.0, 2.0, 4.0))
+    tuned = proxy.tune(n_samples=16, steps=AMP_SWEEP_STEPS)
+    target = proxy.transfer(exp)
+    out = target.train(steps=5, log_every=0)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k, v in amp_step_launches(cfg, AMP_SWEEP_STEPS, grouped=True).items():
+        want[k] = want.get(k, 0) + v
+    for k, v in amp_step_launches(exp.cfg, 5, grouped=False).items():
+        want[k] = want.get(k, 0) + v
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    log(f"[sweep_amp] algorithm1_amp: launches {({k: v for k, v in launches.items() if v})}")
+    if launches != full:
+        raise AssertionError(f"algorithm1_amp: launch counts {launches} != {full}")
+    paths["algorithm1_amp"] = launches
+    slopes = {lr: cc.growth("logits.delta", candidate=i) for i, lr in enumerate(CC_AMP_LRS)}
+    losses = out["losses"]
+    h = tuned.best
+    log(f"[sweep_amp] u-µP coord check --amp int8 at d_model {sorted(cc.records)}: "
+        f"logits.delta slope by lr { {lr: round(s, 4) for lr, s in slopes.items()} } (lr "
+        f"{CC_AMP_LR} held < {COORD_SLOPE_MAX}); tune: best lr={h.lr:.3e} "
+        f"alpha_output={h.alpha_output:g} alpha_attn={h.alpha_attn:g} (score "
+        f"{tuned.best_loss:.4f}); the target (d_model {exp.cfg.d_model}) 5 steps: losses "
+        f"{np.round(losses, 4).tolist()}")
+    if not slopes[CC_AMP_LR] < COORD_SLOPE_MAX:
+        raise AssertionError(f"u-µP int8 coord check: logits.delta slope {slopes[CC_AMP_LR]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the int8 u-µP target's losses {losses} are not finite and falling")
+    return dict(coord_slopes={str(k): v for k, v in slopes.items()},
+                tuned_score=tuned.best_loss, target_losses=losses)
+
+
+def attach_candidate_axis(rows, timing):
+    """The candidate-axis timings under the rows of B5-B7 (f32 and bf16
+    modes), their int8 rows and the pre-passes' rows, as
+    ``candidate_axis``."""
+    label, N, B, S, H, K, d = CAND_CASES[0][:7]
+    shape = f"q, k, v, do ({N} candidates x {B}, {S}, {H}/{K} heads of {d}) f32, causal"
+    for row in rows:
+        name = row["name"]
+        if name in FLASH_NAMES:
+            row["candidate_axis"] = dict(shape=shape, bf16=timing["bf16"][name],
+                                         f32_operands=timing["none"][name])
+        elif name in timing["int8"]:
+            row["candidate_axis"] = dict(shape=shape, int8=timing["int8"][name])
+
+
+def sweep_amp_phase(ops, fa, ref, quant, F):
+    """B5-B7 over a candidate axis, the proxy's sweep under --amp bf16 and
+    --amp int8, and Algorithm 1 under int8 u-µP (see the module note).
+    Returns ({mode: {kernel: timing}}, {path: launches}, summary)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    timing = candidate_kernel_phase(ops, fa, ref, quant, F)
+    cfg = get_config("mup-gpt").proxy(0.25, min_d_head=64)
+    paths, info = {}, {}
+    for amp in AMPS:
+        info[amp] = sweep_amp_policy(ops, cfg, amp, paths)
+    info["algorithm1_amp"] = algorithm1_amp(ops, paths)
+    info["seconds"] = time.perf_counter() - t0
+    log(f"[sweep_amp] the phase took {info['seconds']:.1f} s")
+    return timing, paths, info
+
+# ---------------------------------------------------------------------------
 # what the compiler made of the flash kernels
 # ---------------------------------------------------------------------------
 
@@ -4834,7 +5352,8 @@ def main():
     rows.append(int8_multi_phase(ops, da, F))
     gemma2_kernel_phase(ops, da, F, {row["name"]: row for row in rows})
     done("B8-B9 kernel phases (f32/bf16 and int8 pools, gemma2's rings)")
-    cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
+    cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False,
+                                            n_layers=SERVE_DEPTH)
     serve_launches, serve = serve_phase(cfg, Model, Engine, EngineConfig, ops)
     done("serve")
     dyn_launches, dyn_tokens, dyn = dynamic_serve_phase(cfg, Model, Engine, DynamicEngine,
@@ -4844,7 +5363,7 @@ def main():
         cfg, Model, Engine, DynamicEngine, EngineConfig, ops,
         (dyn_tokens, dyn["tok_per_s"]))
     done("serve_int8")
-    spec_launches, spec = serve_spec_phase(cfg.replace(n_layers=SPEC_DEPTH), Model, Engine,
+    spec_launches, spec = serve_spec_phase(cfg, Model, Engine,
                                            DynamicEngine, EngineConfig, ops)
     done("serve_spec")
     g2_launches, g2 = gemma2_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0)
@@ -4866,6 +5385,10 @@ def main():
     sweep_rows, sweep_launches, sweep = sweep_phase(ops, rn, ref)
     rows += sweep_rows
     done("sweep")
+    cand_timing, amp_launches_by_path, sweep_amp = sweep_amp_phase(ops, fa, ref, quant, F)
+    sweep_launches.update(amp_launches_by_path)
+    attach_candidate_axis(rows, cand_timing)
+    done("sweep_amp")
     serve["profile"] = profile_phase(cfg, Model, Engine, EngineConfig)
     dyn["profile"] = profile_phase(cfg, Model, Engine, EngineConfig,
                                    dynamic=(DynamicEngine, 64))
@@ -4899,14 +5422,17 @@ def main():
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
                                             "serve_gemma2_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                                "spec_copy_train", "sweep_serial", "algorithm1_train"),
+                                "spec_copy_train", "sweep_serial", "algorithm1_train",
+                                "sweep_amp_bf16_serial", "sweep_amp_int8_serial",
+                                "algorithm1_amp"),
                 "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                           "spec_copy_train", *SWEEP_PATHS),
+                           "spec_copy_train", *SWEEP_PATHS, *AMP_SWEEP_PATHS),
                 "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                           "spec_copy_train", *SWEEP_PATHS),
-                "rmsnorm_grouped": GROUPED_PATHS,
-                "rmsnorm_bwd_grouped": GROUPED_PATHS,
-                **{n: ("train_amp_int8", "train_gemma2_amp_int8") for n in I8_ROWS}
+                           "spec_copy_train", *SWEEP_PATHS, *AMP_SWEEP_PATHS),
+                "rmsnorm_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS,
+                "rmsnorm_bwd_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS,
+                **{n: ("train_amp_int8", "train_gemma2_amp_int8", "sweep_amp_int8",
+                       "sweep_amp_int8_serial", "algorithm1_amp") for n in I8_ROWS}
                 }.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
@@ -4944,6 +5470,7 @@ def main():
     log(json.dumps({"train_gemma2_amp_bf16": g2t_amp}))
     log(json.dumps({"train_gemma2_amp_int8": g2t_amp8}))
     log(json.dumps({"sweep": sweep}))
+    log(json.dumps({"sweep_amp": sweep_amp}, default=str))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

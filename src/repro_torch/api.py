@@ -17,7 +17,11 @@ the device is the card unless the caller asks for the CPU
 (``device="cpu"``).  The parametrization is resolved from the config string
 through the registry (``repro_torch.core.parametrization``), so a rule added
 with ``register()`` — including the built-in u-µP — gets the whole workflow,
-with its own HP space (u-µP sweeps no ``sigma``).
+with its own HP space (u-µP sweeps no ``sigma``).  A config's ``amp``
+policy ("bf16" or "int8") holds through the whole workflow, as in the
+reference: the proxy keeps it, and ``coord_check``, ``tune`` and ``train``
+run under it (on the card the batched steps launch B5-B7 once a layer for
+all candidates).
 
 Not ported yet, and refused: ``serving_engine(mesh=...)`` (the multi-GPU
 slice, ROADMAP.md § A item 5) and ``train(obs=...)`` (the observability

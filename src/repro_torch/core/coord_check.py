@@ -15,10 +15,10 @@ the model's meta, and ``loss_fn(params, batch)`` returning ``(loss, acts)``,
 :func:`coord_check_batched` trains N of them at once from one init on one
 stream of batches, their params and moments stacked on a leading axis, the
 forward under ``torch.func.vmap`` and one backward for all (as
-core/tuning.py's engine does).  :func:`coord_check` is its one-lr view; a
-batch of one candidate calls ``loss_fn`` directly, which is what a vmap over
-one computes, so a single-lr check runs on any path the model does
-(flash attention under ``cfg.amp`` has no candidate axis yet).
+core/tuning.py's engine does, under ``cfg.amp`` too: the flash kernels and
+the policy matmuls take the candidate axis through their vmap rules).
+:func:`coord_check` is its one-lr view; a batch of one candidate calls
+``loss_fn`` directly, which is what a vmap over one computes.
 """
 from __future__ import annotations
 

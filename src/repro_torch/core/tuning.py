@@ -13,11 +13,15 @@ batch is shared.  One step is
 
   1. ``torch.func.vmap`` of the forward and the loss only, over the stacked
      params and the RuntimeHP leaves (``in_dims=None`` for the batch): the
-     (N,) losses.  B1 and B3 run through their autograd Functions' vmap
-     rules (kernels/ops.py): one launch each for all N candidates.
+     (N,) losses.  B1 and B3, and under ``cfg.amp`` B5 (with the int8
+     forward's pre-pass), run through their autograd Functions' vmap
+     rules (kernels/ops.py): one launch each for all N candidates; the
+     amp readout's and plain attention's policy matmuls
+     (``quant.quant_matmul``) make one batched call.
   2. One ordinary ``.backward()`` of their sum: the candidates share no
-     parameter, so each gets its own gradient; B2 and B4 run once each for
-     all N.  No transform runs over the backward.
+     parameter, so each gets its own gradient; B2 and B4, and under amp
+     B6 and B7 (with the int8 backward's pre-pass), run once each for all
+     N.  No transform runs over the backward.
   3. ``Optimizer.update`` on the stacked tensors, the lr an (N,) tensor.
 
 A candidate whose loss goes non-finite is frozen (its params and moments
@@ -36,9 +40,10 @@ Layers:
     HPs equal build-time ones, and the speed baseline.
   - :func:`random_search` — Sec. 7.1 random search, batched by default.
 
-``launch/sweep.py`` adds the CLI.  Sweeps under ``cfg.amp`` (B5-B7 over a
-candidate axis) and candidate sharding over several cards are not ported:
-they are refused (ROADMAP.md § A).
+``launch/sweep.py`` adds the CLI.  A config's ``amp`` policy holds in
+every path here, batched and serial; the models train in float32 master
+weights (``dtype="float32"``), as in the reference.  Candidate sharding
+over several cards is not ported (ROADMAP.md § A item 5).
 """
 from __future__ import annotations
 
@@ -125,14 +130,6 @@ def _bake_hp_config(cfg, hps: HParams):
         if getattr(hps, n) is not None
     }
     return cfg.replace(**kw)
-
-
-def _refuse_amp(cfg) -> None:
-    if cfg.amp:
-        raise NotImplementedError(
-            f"sweeps under cfg.amp={cfg.amp!r} are not ported: flash attention "
-            f"(B5-B7) has no candidate axis yet (ROADMAP.md § A); sweep in f32"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +373,6 @@ def train_proxy_batched(
     (the equivalence tests carry the reference's in through it).
     """
     candidates = list(candidates)
-    _refuse_amp(cfg)
     space = resolve(cfg.parametrization).hp_space()
     # shared (structural) axes must match across the batch; their names are
     # Optimizer.create kwargs by construction (b1/b2/momentum)
@@ -434,7 +430,6 @@ def train_proxy_serial(
     directly with :func:`train_proxy_batched` (the same init: candidate i's
     slice of ``init_fn(candidate_generators(seed, n), hp_stack)``)."""
     candidates = list(candidates)
-    _refuse_amp(cfg)
     _validate_candidates(resolve(cfg.parametrization).hp_space(), candidates)
     n = len(candidates)
     cfg = cfg.replace(dtype="float32")
@@ -489,7 +484,6 @@ def train_proxy(
 
     Single-candidate legacy path (own data stream per seed, ``Model.init``
     from the seed); sweeps should use :func:`train_proxy_batched`."""
-    _refuse_amp(cfg)
     _validate_candidates(resolve(cfg.parametrization).hp_space(), [hps])
     cfg = _bake_hp_config(cfg, hps).replace(dtype="float32")
     model = build_model(cfg, device=device)

@@ -44,11 +44,17 @@ S and T: the kernels mask their ragged last tile.  d_head 1 to 256
 (``MAX_D_HEAD``), zero-padded to DP = 64, 128 or 256 (:func:`padded_d`); at
 DP 256 (gemma2's heads) the bf16 and int8 kernels' grids, and B7's in the
 f32 mode, split the output's d columns in two halves of 128, each block
-forming the whole score tile over d; a wider head raises.
+forming the whole score tile over d; a wider head raises.  Under an HP
+sweep's ``torch.func.vmap`` ``ops.attention`` folds the candidate axis into
+B, one launch of each kernel for all N candidates (each (batch row, head)
+owns its tiles and its int8 scales, so the fold changes no bit);
+:func:`check_candidates` refuses a fold past the grid's or int32
+indexing's limits, naming the candidate count.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -103,9 +109,29 @@ def _check(what, q, k, v, extra=()):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what} kernel takes float32 or bfloat16 q, k, v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if B > 65535 or H > 65535 or q.numel() >= 2**31 or k.numel() >= 2**31:
+    if not _fits(B, H, q.numel(), k.numel()):
         raise ValueError(f"{what} kernel: sizes exceed its grid or int32 indexing")
     return B, S, T, H, K, d
+
+
+def _fits(B, H, q_numel, k_numel) -> bool:
+    """B and H within the grid's 65,535, q's and k's sizes within int32."""
+    return B <= 65535 and H <= 65535 and q_numel < 2**31 and k_numel < 2**31
+
+
+def check_candidates(n, q_shape, k_shape) -> None:
+    """Raise unless ``n`` candidates of q ``q_shape`` (B, S, H, d) and k, v
+    ``k_shape`` (B, T, K, d), folded into one batch of n * B (what
+    ``ops.attention`` does under ``torch.func.vmap``), fit the kernels'
+    grid and int32 indexing.  Nothing splits a fold over several launches
+    or falls back to the plain version: the sweep takes fewer candidates."""
+    B, H = q_shape[0], q_shape[2]
+    qn, kn = n * math.prod(q_shape), n * math.prod(k_shape)
+    if not _fits(n * B, H, qn, kn):
+        raise ValueError(
+            f"flash attention over {n} candidates: the folded batch {n} x {B} = {n * B} "
+            f"(q {qn:,} and k {kn:,} elements) exceeds the kernels' grid (65,535) or "
+            f"int32 indexing (2**31); sweep fewer candidates at once")
 
 
 def _check_bwd(what, q, k, v, do, lse, delta):

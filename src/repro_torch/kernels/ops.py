@@ -17,13 +17,15 @@ The differentiable ops (``fused_rmsnorm``, ``softmax_cross_entropy``,
 follow the same choice: on the card the backward is a kernel too.
 
 Under ``torch.func.vmap`` (an HP sweep's candidates, stacked on a leading
-axis: core/tuning.py), B1-B4's Functions run through their ``vmap`` rules,
+axis: core/tuning.py), B1-B7's Functions run through their ``vmap`` rules,
 the counterpart of ``jax.vmap`` turning a ``pallas_call`` into a grid axis:
 each unwraps the batch to its physical tensors and makes *one* call for all
 N candidates, which autograd then records as an ordinary node, so one
 ``.backward()`` outside the vmap runs B2 and B4 once for all N as well.
 RMSNorm gets a gain per candidate (a (N, D) gain over N groups of rows);
-the cross entropy folds the candidate axis into its rows.
+the cross entropy folds the candidate axis into its rows, flash attention
+into its batch (B5, and in the int8 mode its pre-pass, once a layer for
+all N; B6, B7 and the int8 backward's pre-pass once in the backward).
 ``attention_plain_flash`` is attention's kernel path over the plain
 versions of its kernels, for holding a model that runs them against one
 that rounds where they round.
@@ -327,19 +329,18 @@ class _FlashAttention(torch.autograd.Function):
     """The flash forward, then its backward from ``(q, k, v, o, lse)``: the
     backward recomputes p from lse, never saving an (S, T) matrix.  ``fwd``
     and ``bwd`` are B5 and B6 + B7 (:func:`_kernel_bwd`), or their plain
-    versions at the same contract."""
+    versions at the same contract.  Returns ``(o, lse)``, lse not
+    differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, policy, fwd, bwd):
-        kw = dict(causal=causal, window=window, softcap=softcap, policy=policy)
-        o, lse = fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw = kw
-        ctx.bwd = bwd
-        return o
+        inputs = (q, k, v, causal, window, softcap, policy, fwd, bwd)
+        out = _FlashAttentionVmap.forward(*inputs)
+        _FlashAttentionVmap.setup_context(ctx, inputs, out)
+        return out
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
         # softmax-jacobian correction rowsum(do * o), laid out (B, H, S) like
@@ -348,6 +349,45 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = ctx.bwd(q, k, v, do, lse, delta, **ctx.kw)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None, None, None)
+
+
+class _FlashAttentionVmap(_FlashAttention):
+    """:class:`_FlashAttention` in the ``setup_context`` form, for
+    ``torch.func`` transforms (as :class:`_RMSNormVmap`)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap, policy, fwd, bwd):
+        return fwd(q, k, v, causal=causal, window=window, softcap=softcap, policy=policy)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap, policy, fwd, bwd = inputs
+        lse = output[1]
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, output[0], lse)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, policy=policy)
+        ctx.bwd = bwd
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, softcap, policy, fwd, bwd):
+        """N candidates in one call: the candidate axis folds into the
+        batch, q (N, B, S, H, d) -> (N * B, S, H, d), k and v alike (an
+        unbatched one expanded to N first).  Exact in every operand mode:
+        each (batch row, head) owns its tiles, and the int8 scales lie
+        along S or T inside one.  The backward then runs once, outside the
+        vmap, on the folded tensors."""
+        n = info.batch_size
+        t = [x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
+             for x, d in zip((q, k, v), in_dims[:3])]
+        if q.is_cuda:
+            fa.check_candidates(n, t[0].shape[1:], t[1].shape[1:])
+        q, k, v = (x.reshape(-1, *x.shape[2:]).contiguous() for x in t)
+        o, lse = _flash_apply(q, k, v, causal, window, softcap, policy, fwd, bwd)
+        return (o.reshape(n, -1, *o.shape[1:]), lse.reshape(n, -1, *lse.shape[1:])), (0, 0)
+
+
+def _flash_apply(*args):
+    return (_FlashAttentionVmap if _transforms_active() else _FlashAttention).apply(*args)
 
 
 def _kernel_bwd(q, k, v, do, lse, delta, **kw):
@@ -369,12 +409,6 @@ def attention(q, k, v, *, scale, causal: bool = True, window: int = 0,
     """
     if policy is not None and not policy.active:
         policy = None
-    if _transforms_active() and (policy is not None or q.is_cuda):
-        raise NotImplementedError(
-            "flash attention (B5-B7) and the amp policy have no candidate axis "
-            "yet: sweeps and batched coord checks under cfg.amp are not ported "
-            "(ROADMAP.md § A)"
-        )
     if resolve_impl(impl, q) == "ref":
         if policy is not None:
             return ref.attention_policy_ref(
@@ -402,6 +436,8 @@ def attention_plain_flash(q, k, v, *, scale, causal: bool = True,
 
 
 def _flash(q, k, v, scale, causal, window, softcap, policy, fwd, bwd):
+    # a sweep's per-candidate scale (a batched 0-d tensor under vmap) is
+    # folded here too, so it reaches the Function as part of q
     qs = (q.float() * scale).to(q.dtype).contiguous()
-    return _FlashAttention.apply(qs, k.contiguous(), v.contiguous(), causal,
-                                 window, softcap, policy, fwd, bwd)
+    return _flash_apply(qs, k.contiguous(), v.contiguous(), causal, window,
+                        softcap, policy, fwd, bwd)[0]

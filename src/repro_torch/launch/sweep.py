@@ -11,8 +11,10 @@ stacked on a leading axis, B1-B4 launched once a step for all N) with
     candidates whose EMA loss exceeds factor x the running best (checked
     every ``--prune-every`` steps).
 
-The sweep runs on one card (``--device cpu`` for the CPU).  Not ported
-yet, and refused with a message: sharding the candidate axis over several
+The sweep runs on one card (``--device cpu`` for the CPU), under the
+config's own ``amp`` policy as the reference's does (no flag sets it: under
+amp, B5-B7 run once a layer a step for all candidates).  Not ported yet,
+and refused with a message: sharding the candidate axis over several
 cards (``--devices`` above 1, ``n_devices`` above 1; the multi-GPU slice,
 ROADMAP.md § A item 5) and the sweep's tracer events (``tracer=``; the
 observability slice, § A item 4).

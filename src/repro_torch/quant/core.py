@@ -10,7 +10,8 @@ of ``repro.quant.core``.
   - :func:`quant_matmul` — a straight-through ``torch.autograd.Function``
     for plain call sites (the readout logit matmul, the plain attention):
     forward runs the policy's dot, backward runs the same policy on
-    ``dX = g·Wᵀ`` and ``dW = Xᵀ·g``.
+    ``dX = g·Wᵀ`` and ``dW = Xᵀ·g``; under ``torch.func.vmap`` (a sweep's
+    candidates) its vmap rule makes one batched call for all of them.
 
 bf16 mode rounds each operand to bf16 and multiplies the rounded values in
 f32: each product of two bf16 values is exact in f32, so this is
@@ -34,6 +35,7 @@ import torch
 
 INT8_MAX = 127.0
 _EPS = 1e-12
+_transforms_active = torch._C._are_functorch_transforms_active   # vmap and kin
 
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -87,9 +89,8 @@ class _QuantMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, policy):
-        ctx.save_for_backward(x, w)
-        ctx.policy = policy
-        return kernel_dot(x, w, policy)
+        _QuantMatmulVmap.setup_context(ctx, (x, w, policy), None)
+        return _QuantMatmulVmap.forward(x, w, policy)
 
     @staticmethod
     def backward(ctx, g):
@@ -99,6 +100,43 @@ class _QuantMatmul(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype), None
 
 
+class _QuantMatmulVmap(_QuantMatmul):
+    """:class:`_QuantMatmul` under ``torch.func`` transforms (an HP sweep's
+    candidates), in the ``setup_context`` form they need; calls outside a
+    transform keep the cheaper ``ctx`` form, as ``kernels/ops.py``'s
+    Functions do."""
+
+    @staticmethod
+    def forward(x, w, policy):
+        return kernel_dot(x, w, policy)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, policy = inputs
+        ctx.save_for_backward(x, w)
+        ctx.policy = policy
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, policy):
+        """N candidates in one call: both operands take the candidate axis
+        first, an unbatched one expanded to N, and the call is the batched
+        ``kernel_dot`` (scales per candidate: an int8 group never straddles
+        two).  A shared ``w`` is never folded into x's rows: its gradient
+        is N per-candidate ``dW = xᵀ·g``, each quantized over its own rows,
+        summed by the expand's backward, as ``jax.vmap`` of the reference's
+        custom_vjp sums them."""
+        n = info.batch_size
+        xd, wd = in_dims[:2]
+        x = x.movedim(xd, 0) if xd is not None else x.expand(n, *x.shape)
+        w = w.movedim(wd, 0) if wd is not None else w.expand(n, *w.shape)
+        return _quant_matmul_apply(x, w, policy), 0
+
+
+def _quant_matmul_apply(x, w, policy):
+    cls = _QuantMatmulVmap if _transforms_active() else _QuantMatmul
+    return cls.apply(x, w, policy)
+
+
 def quant_matmul(x: torch.Tensor, w: torch.Tensor, policy=None) -> torch.Tensor:
     """Policy-routed matmul ``x @ w`` with straight-through gradients.
 
@@ -106,9 +144,11 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, policy=None) -> torch.Tensor:
     as in the reference).  A batched ``w`` takes an ``x`` with the same
     leading dims: one matmul per leading index, which is what the
     reference's ``vmap`` of ``quant_matmul`` computes.  The output is f32.
+    Under ``torch.func.vmap`` the Function's vmap rule makes one call for
+    all candidates.
     """
     if w.ndim == 2:
         lead = x.shape[:-1]
-        out = _QuantMatmul.apply(x.reshape(-1, x.shape[-1]), w, policy)
+        out = _quant_matmul_apply(x.reshape(-1, x.shape[-1]), w, policy)
         return out.reshape(*lead, w.shape[-1])
-    return _QuantMatmul.apply(x, w, policy)
+    return _quant_matmul_apply(x, w, policy)

@@ -121,14 +121,18 @@ def test_train_proxy_matches_reference(reference_init, hp):
     assert math.isinf(got) == (hp["lr"] > 1.0)
 
 
-def test_train_proxy_refusals():
+def test_train_proxy_refusals(reference_init):
+    """A fixed axis is refused; cfg.amp is not: train_proxy under bf16
+    matches the reference's on its init."""
     space = thpspace.umup_space()
     with pytest.raises(ValueError, match="fixed at 1.0"):
         ttuning.train_proxy(tsmoke("mup-gpt").replace(parametrization="umup"),
                             space.hparams(sigma=0.5), steps=1, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="cfg.amp"):
-        ttuning.train_proxy(tsmoke("mup-gpt").replace(amp="bf16"), space.hparams(),
-                            steps=1, device="cpu", **KW)
+    hps = thpspace.mup_space().hparams(lr=1e-2)
+    got = ttuning.train_proxy(tsmoke("mup-gpt").replace(amp="bf16"), hps, steps=2,
+                              device="cpu", **KW)
+    want = jtuning.train_proxy(jsmoke("mup-gpt").replace(amp="bf16"), hps, steps=2, **KW)
+    _same_scores([got], [want])
 
 
 # ---------------------------------------------------------------------------

@@ -116,7 +116,8 @@ def test_sample_grid_and_search_match_reference(space):
 
 def test_fixed_axis_refusals_match_reference():
     """u-µP fixes sigma: sweeping it is refused by with_search, grid and the
-    sweep's validation, with the reference's messages."""
+    sweep's validation, with the reference's messages; cfg.amp is not
+    refused (the sweep runs under it as the reference's does)."""
     t, j = thpspace.umup_space(), jhpspace.umup_space()
     for call in (lambda s: s.with_search(sigma=(0.5,)), lambda s: s.grid(sigma=(0.5, 1.0))):
         with pytest.raises(ValueError) as got:
@@ -133,9 +134,15 @@ def test_fixed_axis_refusals_match_reference():
     with pytest.raises(ValueError, match="not vectorized"):
         ttuning.train_proxy_batched(tsmoke("mup-gpt"), [t.hparams(b1=0.8), t.hparams()],
                                     device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="cfg.amp"):
-        ttuning.train_proxy_batched(tsmoke("mup-gpt").replace(amp="bf16"), [t.hparams()],
-                                    device="cpu", **KW)
+    # a config's amp policy is no refusal: the bf16 sweep runs and matches
+    # the reference's on its own init (tests/test_torch_sweep_amp.py holds
+    # both policies at 4 x 128 tokens)
+    hps = [t.hparams()]
+    init = params_from_numpy(_reference_init(jsmoke("mup-gpt"), hps), device="cpu")
+    got = ttuning.train_proxy_batched(tsmoke("mup-gpt").replace(amp="bf16"), hps, device="cpu",
+                                      init_fn=lambda gens, hp: init, **KW)
+    want = jtuning.train_proxy_batched(jsmoke("mup-gpt").replace(amp="bf16"), hps, **KW)
+    np.testing.assert_allclose(got.curves, want.curves, rtol=SWEEP_RTOL)
 
 
 # ---------------------------------------------------------------------------
