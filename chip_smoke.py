@@ -335,6 +335,36 @@ check:
   falling losses), with exact launches.  The phase prints its seconds.
   The kernel phase also times both int8 pre-passes at DP 256, gemma2-2b's
   train step, with their bytes bound (``gemma2_shapes`` in their rows).
+- obs: observability on the main paths (obs/: metrics, µP-health
+  telemetry, phase tracing), each check raising.  train_obs: mup-gpt full
+  width (8 layers, d_model 1024, batch 8 x 512), f32, 10 steps of
+  train_loop with TrainObs(metrics, telemetry=True, every=1, tracer), then
+  3 steps under --amp bf16, each against the same loop without obs: losses
+  and grad norms bit-equal, launches equal and exact (17 B1, 17 B2, 1 B3,
+  1 B4 a step; under bf16 8 of each B5-B7), the ring's records keyed as the
+  reference's (MUP_GPT_OBS_KEYS), one train_step span a step no shorter
+  than the CUDA-event time of its step's call, train_steps_total 10; step
+  times (host clock, and the step call's CUDA-event time) with and without
+  telemetry printed.  drift: µP, u-µP and SP at the
+  proxy's 0.25x (d_model 256) and at 1x (1024), 3 AdamW steps of 8 x 32 at
+  lr 1e-2 with telemetry, a DriftDetector (tol 0.25, activation keys) on
+  the 0.25x run observing the 1x run: SP flagged with a max |slope| above
+  0.5, µP and u-µP not.  serve_obs: smollm-135m (SERVE_DEPTH layers) over
+  the serve_dynamic workload through DynamicEngine and the serve phase's
+  through Engine, each with ServeObs(tracer=Tracer()) and without: tokens,
+  steps and launches equal; serve_tokens_total, serve_steps_total and
+  serve_requests_total equal the serve's; a step span a step with its
+  phase; prefill_cached_tokens_total equal to serve_dynamic's shared
+  prompt tokens; the TTFT histogram counts the requests; the static serve
+  span no shorter than the CUDA-event time of the serve's loop; tok/s with
+  and without obs (in turns, the best of 2 each) printed.  phase kernels: a region of decode,
+  chunk_prefill, verify and train_step each traced with
+  Tracer(profile_dir=build/obs_profiles).profile(); every name in
+  PHASE_KERNELS[phase] among the Chrome trace's kernels.  sweep_tracer:
+  run_sweep over the proxy, 4 candidates (one diverging) x 10 steps,
+  prune_factor 3: one sweep span, a prune event naming the diverged
+  candidate, sweep_done's best equal to the result's.  The phase prints its
+  seconds, the script its total.
 - profile: torch.profiler over a short serve through each engine, a short
   int8 dynamic serve (with the card's time in the quantized writes of
   serving/kv_cache.py) and one train step, f32, --amp bf16 and --amp int8:
@@ -5057,6 +5087,436 @@ def sweep_amp_phase(ops, fa, ref, quant, F):
     return timing, paths, info
 
 # ---------------------------------------------------------------------------
+# obs phase: metrics, µP-health telemetry and phase tracing on the main paths
+# ---------------------------------------------------------------------------
+
+# the flattened record of the reference's make_train_step(telemetry=True) for
+# mup-gpt (8 layers of "attn"), as the reference emits it on the CPU (its keys
+# do not depend on width; tests/test_torch_obs.py holds the port's keys to
+# the reference's live)
+MUP_GPT_OBS_KEYS = (
+    *(f"block/0_attn/{i}" for i in range(8)), "embed", "final_norm", "logits",
+    "u2w/embed", "u2w/final_norm",
+    *(f"u2w/groups/0_attn/{p}" for p in ("attn/wk", "attn/wo", "attn/wq", "attn/wv", "ln1",
+                                          "ln2", "mlp/wi", "mlp/wo")),
+)
+OBS_STEPS, OBS_AMP_STEPS = 10, 3
+# the reference's drift test (tests/test_obs.py) at mup-gpt's published
+# widths: the proxy's 0.25x (d_model 256, the base shape) against 1x (1024),
+# 3 Adam(W) steps of 8 x 32 at lr 1e-2, activation keys, tol 0.25; SP must
+# be flagged with a max |slope| above 0.5, µP and u-µP must not
+DRIFT_STEPS, DRIFT_BATCH, DRIFT_SEQ, DRIFT_LR, DRIFT_TOL, DRIFT_MIN_SLOPE = 3, 8, 32, 1e-2, 0.25, 0.5
+
+
+@contextlib.contextmanager
+def recorded_train_steps():
+    """While open, each train step that ``launch.steps.make_train_step``
+    builds keeps its grad norm (the 0-d tensor, no sync) and a CUDA-event
+    pair recorded inside the step's call (its device window: inside the
+    train loop's ``train_step`` span)."""
+    from repro_torch.launch import steps as steps_lib
+
+    real = steps_lib.make_train_step
+    rec = []
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(params, opt_state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(params, opt_state, batch)
+            end.record()
+            rec.append((out[2]["grad_norm"], start, end))
+            return out
+        return run
+
+    steps_lib.make_train_step = make
+    try:
+        yield rec
+    finally:
+        steps_lib.make_train_step = real
+
+
+def obs_train_run(ops, cfg, steps, obs):
+    """train_loop over mup-gpt's full width with ``obs`` (or none): losses,
+    grad norms, step windows' device ms, launches, host seconds a step and
+    the loop's wall."""
+    from repro_torch.core.transfer import HParams
+    from repro_torch.launch.train import train_loop
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with recorded_train_steps() as rec:
+        t0 = time.perf_counter()
+        out = train_loop(cfg, steps, HParams(), batch_size=8, seq_len=512, seed=0,
+                         log_every=0, device="cuda", obs=obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    del out["params"]
+    return dict(losses=out["losses"], grad_norms=torch.stack([g for g, _, _ in rec]).cpu(),
+                device_ms=[s.elapsed_time(e) for _, s, e in rec], launches=launches,
+                step_seconds=out["step_seconds"], wall_s=wall)
+
+
+def obs_train(ops, amp, steps):
+    """train_obs (amp "") or its --amp bf16 run: the loop with
+    TrainObs(metrics, telemetry=True, every=1, tracer) against the same loop
+    without obs."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs import MetricsRegistry, Tracer, TrainObs, parse_prometheus
+
+    cfg = get_config("mup-gpt").replace(dtype="float32", amp=amp)
+    tag = f"[obs train --amp {amp}]" if amp else "[obs train]"
+    plain = obs_train_run(ops, cfg, steps, None)
+    torch.cuda.empty_cache()
+    obs = TrainObs(metrics=MetricsRegistry(), telemetry=True, every=1, tracer=Tracer(),
+                   verbose=False)
+    got = obs_train_run(ops, cfg, steps, obs)
+    torch.cuda.empty_cache()
+    if got["losses"] != plain["losses"] or not torch.equal(got["grad_norms"],
+                                                           plain["grad_norms"]):
+        raise AssertionError(f"{tag} obs moved the run: losses {got['losses']} vs "
+                             f"{plain['losses']}, grad norms {got['grad_norms'].tolist()} vs "
+                             f"{plain['grad_norms'].tolist()}")
+    n_norm, n_attn = 2 * cfg.n_layers + 1, cfg.n_layers if amp == "bf16" else 0
+    per_step = {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm, "ce_fwd": 1, "ce_bwd": 1,
+                "flash_fwd": n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
+    want = {k: per_step.get(k, 0) * steps for k in plain["launches"]}
+    if got["launches"] != want or plain["launches"] != want:
+        raise AssertionError(f"{tag} launches with obs {got['launches']}, without "
+                             f"{plain['launches']}, expected {want}")
+    recs = obs.ring.records
+    if len(recs) != steps or any(tuple(r) != MUP_GPT_OBS_KEYS for r in recs):
+        raise AssertionError(f"{tag} ring: {len(recs)} records, keys "
+                             f"{[list(r) for r in recs[:1]]}, expected {MUP_GPT_OBS_KEYS}")
+    if not all(math.isfinite(v) for r in recs for v in r.values()):
+        raise AssertionError(f"{tag} non-finite telemetry: {recs[-1]}")
+    spans = [e for e in obs.tracer.events if e["name"] == "train_step"]
+    short = [(e["dur"] / 1e3, ms) for e, ms in zip(spans, got["device_ms"])
+             if not e["dur"] / 1e3 >= ms]
+    if len(spans) != steps or short:
+        raise AssertionError(f"{tag} {len(spans)} train_step spans; spans shorter than "
+                             f"their step's CUDA-event time (ms): {short}")
+    fams = parse_prometheus(obs.metrics.to_prometheus())
+    if fams["train_steps_total"] != steps or fams["train_tokens_total"] != steps * 8 * 512:
+        raise AssertionError(f"{tag} train_steps_total {fams['train_steps_total']}, "
+                             f"train_tokens_total {fams['train_tokens_total']}")
+    ms = lambda r: 1e3 * float(np.median(r["step_seconds"][1:]))  # noqa: E731
+    dev_ms = lambda r: float(np.median(r["device_ms"][1:]))  # noqa: E731
+    log(f"{tag} mup-gpt {cfg.n_layers} layers, d_model {cfg.d_model}, batch 8 x 512, "
+        f"{steps} steps: losses and grad norms bit-equal with and without obs; launches "
+        f"{ {k: v for k, v in got['launches'].items() if v} } both; {len(recs)} records of "
+        f"{len(MUP_GPT_OBS_KEYS)} keys; {len(spans)} train_step spans >= their step's "
+        f"CUDA-event time (min margin "
+        f"{min(e['dur'] / 1e3 - m for e, m in zip(spans, got['device_ms'])):.3f} ms); "
+        f"ms/step (median of steps 1-{steps - 1}) with telemetry {ms(got):.2f}, without "
+        f"{ms(plain):.2f} ({ms(got) / ms(plain) - 1:+.2%}), the step call's CUDA-event time "
+        f"{dev_ms(got):.2f} vs {dev_ms(plain):.2f} ({dev_ms(got) / dev_ms(plain) - 1:+.2%}); "
+        f"loop wall {got['wall_s']:.3f} s "
+        f"vs {plain['wall_s']:.3f} s (not held); last record: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in recs[-1].items() if not k.startswith("u2w/g")))
+    return dict(steps=steps, losses=got["losses"], ms_per_step=ms(got),
+                plain_ms_per_step=ms(plain), overhead=ms(got) / ms(plain) - 1,
+                step_device_ms_median=dev_ms(got), plain_step_device_ms_median=dev_ms(plain),
+                wall_s=got["wall_s"], plain_wall_s=plain["wall_s"],
+                step_seconds=got["step_seconds"], plain_step_seconds=plain["step_seconds"],
+                span_ms=[e["dur"] / 1e3 for e in spans], step_device_ms=got["device_ms"],
+                plain_step_device_ms=plain["device_ms"],
+                last_record=recs[-1])
+
+
+def drift_run(cfg, p13n):
+    """The reference drift test's run at ``cfg``'s width: telemetry on, the
+    last record."""
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.obs import RingBuffer
+    from repro_torch.obs.telemetry import to_host
+    from repro_torch.optim.optimizer import Optimizer
+
+    cfg = cfg.replace(dtype="float32", parametrization=p13n)
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0)
+    opt = Optimizer.create("adamw", DRIFT_LR, model.p13n, model.meta)
+    state = opt.init(params)
+    step = make_train_step(model, opt, telemetry=True)
+    pipe = make_pipeline(cfg.vocab_size, DRIFT_SEQ, DRIFT_BATCH, seed=0)
+    ring = RingBuffer()
+    for t in range(DRIFT_STEPS):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch(t).items()}
+        params, state, metrics = step(params, state, batch)
+        ring.append(to_host(metrics["obs"]))
+    return cfg.d_model, ring
+
+
+def obs_drift():
+    """The drift detector at mup-gpt's published widths: built on the
+    proxy's 0.25x run, observing the 1x run, for µP, u-µP and SP."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs import DriftDetector
+
+    full = get_config("mup-gpt")
+    out = {}
+    for p13n in ("mup", "umup", "sp"):
+        base_w, base_ring = drift_run(full.proxy(0.25, min_d_head=64), p13n)
+        keys = [k for k in base_ring.last()[0]
+                if k.startswith(("block/", "embed", "final_norm"))]
+        det = DriftDetector.from_ring(base_w, base_ring, last_n=1, keys=keys, tol=DRIFT_TOL)
+        wide_w, wide_ring = drift_run(full, p13n)
+        rep = det.observe(wide_w, wide_ring.last()[0])
+        worst = max(abs(s) for s in rep.slopes.values())
+        log(f"[obs drift] {p13n}: d_model {base_w} -> {wide_w}, {len(keys)} activation keys, "
+            f"max |slope| {worst:.3f}: {rep}")
+        if p13n == "sp" and (rep.ok or not max(abs(s) for s in rep.flagged.values())
+                             > DRIFT_MIN_SLOPE):
+            raise AssertionError(f"SP at {wide_w} escaped the drift detector: {rep.slopes}")
+        if p13n != "sp" and not rep.ok:
+            raise AssertionError(f"false positive on {p13n}: {rep.flagged}")
+        out[p13n] = dict(ok=rep.ok, slopes=rep.slopes, max_abs_slope=worst)
+    return out
+
+
+def obs_serve(ops, cfg, Model, Engine, DynamicEngine, EngineConfig, dyn_cached):
+    """serve_obs: smollm-135m through DynamicEngine (the serve_dynamic
+    workload) and Engine (the serve phase's), each with and without
+    ServeObs(tracer=Tracer())."""
+    from repro_torch.obs import ServeObs, Tracer, parse_prometheus
+
+    R, S, Pmax, Gmax, P, CH = 16, 4, 256, 64, 16, 64
+    kern = Model(cfg, device="cuda")
+    params = kern.init(seed=0)
+    kw = dict(n_slots=S, page_size=P, max_prompt_len=Pmax, max_gen_len=Gmax)
+    prompts, lens = shared_prefix_workload(cfg.vocab_size, R, Pmax, seed=2)
+    rng = np.random.default_rng(0)
+    slens = rng.integers(64, Pmax + 1, 8)
+    sprompts = rng.integers(0, cfg.vocab_size, (8, Pmax))
+    # warm-up outside the compared serves
+    DynamicEngine(kern, EngineConfig(prefill_chunk=CH, prefix_cache=True, **kw)).serve(
+        params, prompts[:2], lens[:2])
+
+    def run(make, prompts, lens, obs):
+        engine = make(obs)
+        window = []
+        if obs is not None and isinstance(engine, Engine) and not isinstance(
+                engine, DynamicEngine):
+            inner = engine._serve
+
+            def timed(*a):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inner(*a)
+                end.record()
+                window.append((start, end))
+                return out
+            engine._serve = timed
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.serve(params, prompts, lens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, ops.launch_counts(), wall, [s.elapsed_time(e) for s, e in window]
+
+    summary = {}
+    for what, make, P_, L_ in (
+            ("dynamic", lambda o: DynamicEngine(kern, EngineConfig(
+                prefill_chunk=CH, prefix_cache=True, **kw), obs=o), prompts, lens),
+            ("static", lambda o: Engine(kern, EngineConfig(**kw), obs=o), sprompts, slens)):
+        tag = f"[obs serve {what}]"
+        # in turns, without, with, with, without: each a fresh engine (a cold
+        # prefix cache); the tok/s compared are each side's best
+        base, base_l, base_wall, _ = run(make, P_, L_, None)
+        walls, base_walls = [], [base_wall]
+        for turn in ("obs", "obs", None):
+            obs_t = ServeObs(tracer=Tracer()) if turn else None
+            out_t, l_t, wall_t, win_t = run(make, P_, L_, obs_t)
+            if not torch.equal(out_t["tokens"], base["tokens"]) or out_t["steps"] != base["steps"]:
+                raise AssertionError(f"{tag} obs changed the tokens or the steps")
+            if l_t != base_l:
+                raise AssertionError(f"{tag} launches {'with' if turn else 'without'} obs "
+                                     f"{l_t}, without {base_l}")
+            if turn and not walls:
+                obs, got, window = obs_t, out_t, win_t
+            (walls if turn else base_walls).append(wall_t)
+        got_l, wall, base_wall = base_l, min(walls), min(base_walls)
+        n_tok = int(got["lengths"].sum())
+        fams = parse_prometheus(obs.metrics.to_prometheus())
+        if fams["serve_tokens_total"] != n_tok or fams["serve_steps_total"] != got["steps"] \
+                or fams["serve_requests_total"] != len(L_):
+            raise AssertionError(f"{tag} serve_tokens_total {fams['serve_tokens_total']} "
+                                 f"({n_tok}), serve_steps_total {fams['serve_steps_total']} "
+                                 f"({got['steps']})")
+        ev = obs.tracer.events
+        info = dict(tokens=n_tok, steps=got["steps"], tok_per_s=n_tok / wall,
+                    plain_tok_per_s=n_tok / base_wall, walls_s=walls, plain_walls_s=base_walls,
+                    launches={k: v for k, v in got_l.items() if v})
+        if what == "dynamic":
+            steps = [e for e in ev if e["name"] == "step"]
+            phases = {}
+            for e in steps:
+                phases[e["args"]["phase"]] = phases.get(e["args"]["phase"], 0) + 1
+            if len(steps) != got["steps"] or set(phases) - {"prefill", "chunk_prefill",
+                                                            "decode"}:
+                raise AssertionError(f"{tag} {len(steps)} step spans for {got['steps']} "
+                                     f"steps, phases {phases}")
+            if fams["prefill_cached_tokens_total"] != dyn_cached \
+                    or got["prefill_cached"] != dyn_cached:
+                raise AssertionError(
+                    f"{tag} prefill_cached_tokens_total {fams['prefill_cached_tokens_total']}, "
+                    f"the serve's {got['prefill_cached']}, serve_dynamic's {dyn_cached}")
+            if fams["serve_ttft_seconds"]["count"] != R:
+                raise AssertionError(f"{tag} TTFT count {fams['serve_ttft_seconds']['count']}")
+            n_adm = sum(e["name"] == "admission" for e in ev)
+            n_ret = sum(e["name"] == "retire" for e in ev)
+            if n_adm != R or n_ret != R:
+                raise AssertionError(f"{tag} {n_adm} admission, {n_ret} retire events")
+            info.update(phases=phases, prefill_cached=dyn_cached,
+                        ttft_ms=obs.metrics.get("serve_ttft_seconds").summary(
+                            unit=1e3, suffix="_ms"),
+                        kv_pages_free=fams["kv_pages_free"],
+                        prefix_cache_pages=fams["prefix_cache_pages"])
+            log(f"{tag} {R} requests: tokens, {got['steps']} steps and launches "
+                f"{info['launches']} equal without obs; {len(steps)} step spans {phases}; "
+                f"prefill_cached_tokens_total {dyn_cached} (serve_dynamic's); TTFT count {R}, "
+                f"p50/p95/p99 {info['ttft_ms']}; tok/s (best of 2 in turns) with obs "
+                f"{n_tok / wall:.1f}, without {n_tok / base_wall:.1f} "
+                f"({base_wall / wall - 1:+.2%}, not held)")
+        else:
+            spans = [e for e in ev if e["name"] == "serve"]
+            if len(spans) != 1 or len(window) != 1 or not spans[0]["dur"] / 1e3 >= window[0]:
+                raise AssertionError(f"{tag} serve spans {spans}, CUDA-event ms {window}")
+            info.update(span_ms=spans[0]["dur"] / 1e3, device_window_ms=window[0])
+            log(f"{tag} 8 requests: tokens, {got['steps']} steps and launches "
+                f"{info['launches']} equal without obs; serve span {info['span_ms']:.3f} ms >= "
+                f"its CUDA-event time {window[0]:.3f} ms; tok/s (best of 2 in turns) with obs "
+                f"{n_tok / wall:.1f}, without {n_tok / base_wall:.1f} "
+                f"({base_wall / wall - 1:+.2%}, not held)")
+        summary[what] = info
+    return summary
+
+
+def trace_kernels(path):
+    """The names of the device kernels (``"kernel"`` events) in a Chrome
+    trace that Tracer.profile wrote."""
+    with open(path) as f:
+        return [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+
+
+def obs_phase_kernels(cfg, Model, Engine, DynamicEngine, EngineConfig, out_dir):
+    """For decode, chunk_prefill, verify and train_step: one region of the
+    phase traced with Tracer(profile_dir=...).profile(); every name in
+    PHASE_KERNELS[phase] must be among the region's kernels in the Chrome
+    trace it writes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.obs import PHASE_KERNELS, Tracer
+    from repro_torch.optim.optimizer import Optimizer
+
+    kern = Model(cfg, device="cuda")
+    params = kern.init(seed=0)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 128))
+    lens = np.array([128, 96])
+    drafter = Model(cfg.scaled(0.25, min_d_head=8), device="cuda")   # the CLI's
+    dparams = drafter.init(seed=7)
+    kw = dict(n_slots=2, page_size=16, max_prompt_len=128)
+    tcfg = get_config("mup-gpt").replace(dtype="float32")
+    tmodel = Model(tcfg, device="cuda")
+    tparams = tmodel.init(seed=0)
+    opt = Optimizer.create("adamw", 1e-2, tmodel.p13n, tmodel.meta)
+    tstate = opt.init(tparams)
+    step = make_train_step(tmodel, opt)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             make_pipeline(tcfg.vocab_size, 512, 8, seed=0).batch(0).items()}
+    regions = {
+        # the static engine's decode steps (its prefills launch B1 alone)
+        "decode": lambda: Engine(kern, EngineConfig(max_gen_len=8, **kw)).serve(
+            params, prompts, lens),
+        # chunks alone: one token a request, sampled from the last chunk
+        "chunk_prefill": lambda: DynamicEngine(kern, EngineConfig(
+            max_gen_len=1, prefill_chunk=32, **kw)).serve(params, prompts, lens),
+        # speculative iterations after one-shot prefills (B1 alone)
+        "verify": lambda: DynamicEngine(kern, EngineConfig(max_gen_len=8, draft_k=SPEC_K, **kw),
+                                        draft_model=drafter).serve(
+            params, prompts, lens, draft_params=dparams),
+        "train_step": lambda: float(step(tparams, tstate, batch)[2]["loss"]),
+    }
+    out = {}
+    for phase, region in regions.items():
+        region()                                         # warm-up
+        torch.cuda.synchronize()
+        tracer = Tracer(profile_dir=str(out_dir))
+        with tracer.profile(phase):
+            region()
+            torch.cuda.synchronize()
+        path = tracer.events[-1]["args"]["path"]
+        names = trace_kernels(path)
+        want = PHASE_KERNELS[phase].split("+")
+        missing = [n for n in want if not any(re.search(rf"\b{n}\b", k) for k in names)]
+        if missing:
+            raise AssertionError(f"[obs phase kernels] {phase}: {missing} not among the "
+                                 f"region's {len(names)} kernels in {path}")
+        counts = {n: sum(bool(re.search(rf"\b{n}\b", k)) for k in names) for n in want}
+        log(f"[obs phase kernels] {phase}: {PHASE_KERNELS[phase]} all among the region's "
+            f"{len(names)} kernel launches (by name {counts}); {path}, "
+            f"{Path(path).stat().st_size / 2**20:.1f} MiB")
+        out[phase] = counts
+    return out
+
+
+def obs_sweep_tracer():
+    """sweep_tracer: run_sweep over the proxy with 4 candidates, one
+    diverging, prune_factor set."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hpspace import mup_space
+    from repro_torch.launch.sweep import run_sweep
+    from repro_torch.obs import Tracer
+
+    space = mup_space()
+    cands = [space.hparams(lr=5e-3), space.hparams(lr=1e25), space.hparams(lr=1e-2),
+             space.hparams(lr=2e-2)]
+    tracer = Tracer()
+    res = run_sweep(get_config("mup-gpt").proxy(0.25, min_d_head=64), cands, steps=10,
+                    batch_size=8, seq_len=64, prune_factor=3.0, prune_every=5,
+                    verbose=False, tracer=tracer, device="cuda")
+    ev = tracer.events
+    sweeps = [e for e in ev if e["name"] == "sweep"]
+    prunes = [e["args"] for e in ev if e["name"] == "prune"]
+    done = [e["args"] for e in ev if e["name"] == "sweep_done"]
+    if len(sweeps) != 1 or not any(1 in p["candidates"] for p in prunes) \
+            or len(done) != 1 or done[0]["best"] != res.best_index:
+        raise AssertionError(f"[obs sweep_tracer] events {ev}, best {res.best_index}")
+    log(f"[obs sweep_tracer] 4 candidates x 10 steps: one sweep span "
+        f"({sweeps[0]['dur'] / 1e3:.1f} ms), prune events {prunes}, sweep_done {done[0]}")
+    return dict(prunes=prunes, done=done[0], sweep_ms=sweeps[0]["dur"] / 1e3)
+
+
+def obs_phase(ops, cfg, Model, Engine, DynamicEngine, EngineConfig, dyn_cached):
+    """The obs phase (see the module note): train_obs (f32, then --amp
+    bf16), drift, serve_obs, phase kernels, sweep_tracer.  Returns its
+    summary."""
+    t0 = time.perf_counter()
+    out = {"train_obs": obs_train(ops, "", OBS_STEPS)}
+    out["train_obs_amp_bf16"] = obs_train(ops, "bf16", OBS_AMP_STEPS)
+    out["drift"] = obs_drift()
+    torch.cuda.empty_cache()
+    out["serve_obs"] = obs_serve(ops, cfg, Model, Engine, DynamicEngine, EngineConfig,
+                                 dyn_cached)
+    out["phase_kernels"] = obs_phase_kernels(cfg, Model, Engine, DynamicEngine, EngineConfig,
+                                             ROOT / "build" / "obs_profiles")
+    out["sweep_tracer"] = obs_sweep_tracer()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[obs] the phase took {out['seconds']:.1f} s")
+    return out
+
+# ---------------------------------------------------------------------------
 # what the compiler made of the flash kernels
 # ---------------------------------------------------------------------------
 
@@ -5389,6 +5849,9 @@ def main():
     sweep_launches.update(amp_launches_by_path)
     attach_candidate_axis(rows, cand_timing)
     done("sweep_amp")
+    obs = obs_phase(ops, cfg, Model, Engine, DynamicEngine, EngineConfig,
+                    dyn["prefill_cached"])
+    done("obs")
     serve["profile"] = profile_phase(cfg, Model, Engine, EngineConfig)
     dyn["profile"] = profile_phase(cfg, Model, Engine, EngineConfig,
                                    dynamic=(DynamicEngine, 64))
@@ -5471,6 +5934,8 @@ def main():
     log(json.dumps({"train_gemma2_amp_int8": g2t_amp8}))
     log(json.dumps({"sweep": sweep}))
     log(json.dumps({"sweep_amp": sweep_amp}, default=str))
+    log(json.dumps({"obs": obs}, default=str))
+    log(f"[time] the whole script took {time.perf_counter() - t0:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,10 @@ reference: the proxy keeps it, and ``coord_check``, ``tune`` and ``train``
 run under it (on the card the batched steps launch B5-B7 once a layer for
 all candidates).
 
-Not ported yet, and refused: ``serving_engine(mesh=...)`` (the multi-GPU
-slice, ROADMAP.md § A item 5) and ``train(obs=...)`` (the observability
-slice, § A item 4).  Lower-level handles (``build()``, ``optimizer()``)
+``train(obs=...)`` threads an ``obs.TrainObs`` (metrics, µP-health
+telemetry, drift detection, tracer) through the train loop.  Not ported
+yet, and refused: ``serving_engine(mesh=...)`` (the multi-GPU slice,
+ROADMAP.md § A item 5).  Lower-level handles (``build()``, ``optimizer()``)
 stay available for custom training loops.
 """
 from __future__ import annotations
@@ -294,17 +295,16 @@ class Experiment:
         the end-to-end train loop (``launch.train.train_loop``: B1-B4 on
         the card, checkpointing, watchdog).  Returns the loop's metrics
         dict.
-        ``obs`` is refused: observability is not ported yet (ROADMAP.md § A
-        item 4)."""
-        if obs is not None:
-            raise NotImplementedError(
-                "train(obs=...) is not ported yet: it comes with the "
-                "observability slice (ROADMAP.md § A item 4)")
+
+        ``obs``: an :class:`repro_torch.obs.TrainObs`, the metrics registry
+        and, with ``telemetry=True``, the online µP-health statistics
+        (activation/logit coordinate sizes + update-to-weight ratios) with
+        optional drift detection against a proxy baseline."""
         from repro_torch.launch.train import train_loop  # deferred: heavy imports
 
         hps = hps or self.hps or self.space.hparams()
         kw.setdefault("device", self.device)
         return train_loop(
             self.cfg, steps=steps, hps=hps, batch_size=batch_size,
-            seq_len=seq_len, **kw,
+            seq_len=seq_len, obs=obs, **kw,
         )

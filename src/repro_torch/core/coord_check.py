@@ -92,6 +92,13 @@ def _loglog_slope(widths: Sequence[int], ys: Sequence[float]) -> float:
     return sum((x - xbar) * (y - ybar) for x, y in zip(xs, ly)) / denom
 
 
+def _coord_size(x: torch.Tensor) -> torch.Tensor:
+    """0-d mean |x| in float32 (the µP-health telemetry's statistic,
+    obs/telemetry.py; a tensor on x's device, so reading it is the
+    caller's choice)."""
+    return torch.mean(torch.abs(x.float()))
+
+
 def _coord_sizes(x: torch.Tensor) -> torch.Tensor:
     """(N,) mean |x| of each candidate of a stacked (N, ...) tensor."""
     return torch.mean(torch.abs(x.float()).reshape(x.shape[0], -1), dim=1)

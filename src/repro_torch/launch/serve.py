@@ -12,10 +12,12 @@ either engine.  ``--draft-width W`` serves speculatively with the target's
 gemma2 (``--arch gemma2-2b``, ``gemma2-27b``) serves its sliding-window
 layers from rings of pages on both engines; ``--prefix-cache`` there runs
 with sharing off, as in the reference (ring pages are overwritten in
-place).  Flags of parts not ported yet (the mesh, observability, the
-dense-loop driver) exit with an error saying so, and so does a model whose
-float32 weights do not fit the card (gemma2-27b: bf16 weights or several
-cards are not ported yet).
+place).  ``--obs`` attaches a ``ServeObs`` (metrics and a phase tracer,
+host-side only: the same tokens, launches and syncs) and prints the trace's
+event count and the metrics as Prometheus text after the serve.  Flags of
+parts not ported yet (the mesh, the dense-loop driver) exit with an error
+saying so, and so does a model whose float32 weights do not fit the card
+(gemma2-27b: bf16 weights or several cards are not ported yet).
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
@@ -26,6 +28,8 @@ Usage:
         --kv-dtype int8
     python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
         --draft-width 0.25 --draft-k 4 --adaptive-draft
+    python -m repro_torch.launch.serve --arch smollm-135m --smoke --device cpu \
+        --prefix-cache --prefill-chunk 16 --obs
     python -m repro_torch.launch.serve --arch gemma2-2b --prompt-len 6400 \
         --prefill-chunk 256 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-27b --smoke --device cpu
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.model import build_model
+from repro_torch.obs import ServeObs, Tracer
 from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig
 from repro_torch.serving.kv_cache import kv_dtype_of, pool_bytes
 
@@ -98,7 +103,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="multi-device serving (not ported yet)")
     ap.add_argument("--obs", action="store_true",
-                    help="serving metrics and phase trace (not ported yet)")
+                    help="attach serving metrics and the phase tracer; "
+                         "print the Prometheus text after the serve")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: the card)")
     args = ap.parse_args(argv)
@@ -106,7 +112,6 @@ def main(argv=None):
     not_ported = {
         "--dense": args.dense,
         "--mesh": args.mesh is not None,
-        "--obs": args.obs,
     }
     for flag, used in not_ported.items():
         if used:
@@ -160,8 +165,9 @@ def main(argv=None):
         prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
         n_pages=args.pool_pages, adaptive_draft=args.adaptive_draft,
     )
+    obs = ServeObs(tracer=Tracer()) if args.obs else None
     cls = Engine if args.static else DynamicEngine
-    engine = cls(model, ecfg, draft_model=draft_model)
+    engine = cls(model, ecfg, draft_model=draft_model, obs=obs)
     n_global = getattr(engine, "n_pages", None)
     spec = engine.spec
     print(f"[serve] paged KV pools ({kv_dtype_of(cfg)}): "
@@ -194,6 +200,9 @@ def main(argv=None):
     print(f"[serve:engine] generated {tuple(toks.shape)} ({n_tok} tokens) "
           f"in {dt:.2f}s ({n_tok/dt:.1f} tok/s) on {dev}")
     print(toks[:, :16])
+    if obs is not None:
+        print(f"[obs] {len(obs.tracer.events)} trace events")
+        print(obs.metrics.to_prometheus(), end="")
     return toks
 
 

@@ -13,11 +13,12 @@ stacked on a leading axis, B1-B4 launched once a step for all N) with
 
 The sweep runs on one card (``--device cpu`` for the CPU), under the
 config's own ``amp`` policy as the reference's does (no flag sets it: under
-amp, B5-B7 run once a layer a step for all candidates).  Not ported yet,
-and refused with a message: sharding the candidate axis over several
-cards (``--devices`` above 1, ``n_devices`` above 1; the multi-GPU slice,
-ROADMAP.md § A item 5) and the sweep's tracer events (``tracer=``; the
-observability slice, § A item 4).
+amp, B5-B7 run once a layer a step for all candidates).  ``run_sweep``'s
+``tracer`` (an ``obs.Tracer``) records the candidate lifecycle: one
+``sweep`` span, ``prune`` events naming the pruned candidates and a
+``sweep_done`` event with the best one.  Not ported yet, and refused with a
+message: sharding the candidate axis over several cards (``--devices``
+above 1, ``n_devices`` above 1; the multi-GPU slice, ROADMAP.md § A item 5).
 
 Usage:
     python -m repro_torch.launch.sweep --arch mup-gpt --full --n 16 --steps 30
@@ -27,6 +28,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import List, Optional, Sequence
 
@@ -39,8 +41,6 @@ from repro_torch.core.tuning import SweepResult, grid_candidates, train_proxy_ba
 
 MULTI_CARD = ("candidate sharding over several cards is not ported yet: it "
               "comes with the multi-GPU slice (ROADMAP.md § A item 5)")
-TRACER = ("the sweep's tracer events are not ported yet: they come with the "
-          "observability slice (ROADMAP.md § A item 4)")
 
 
 def run_sweep(
@@ -62,13 +62,15 @@ def run_sweep(
 ) -> SweepResult:
     """Run a batched HP sweep on one device, streaming its progress.
 
-    ``n_devices`` (above 1) and ``tracer`` are refused: candidate sharding
-    over several cards and the tracer's events are not ported yet.
+    ``tracer`` (an ``obs.Tracer``) records the candidate lifecycle: one
+    ``sweep`` span for the run, a ``prune`` instant event whenever the
+    alive count drops (with the pruned candidate indices), and a final
+    ``sweep_done`` event carrying the best candidate.  ``n_devices``
+    (above 1) is refused: candidate sharding over several cards is not
+    ported yet.
     """
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError(MULTI_CARD)
-    if tracer is not None:
-        raise NotImplementedError(TRACER)
     candidates = list(candidates)
     if not candidates:
         raise ValueError("run_sweep: empty candidate list")
@@ -77,20 +79,38 @@ def run_sweep(
         print(f"[sweep] {n} candidates x {steps} steps on 1 device ({device}); "
               f"optimizer={optimizer}")
 
+    prev_active = np.ones((n,), bool)
+
     def stream(t: int, losses: np.ndarray, active: np.ndarray):
+        nonlocal prev_active
         if verbose and log_every and (t % log_every == 0 or t == steps - 1):
             alive = losses[active]
             best = float(alive.min()) if alive.size else float("inf")
             print(f"[sweep] step {t:4d}  best loss {best:.4f}  "
                   f"alive {int(active.sum())}/{n}", flush=True)
+        if tracer is not None:
+            act = np.asarray(active, bool)
+            pruned = np.nonzero(prev_active & ~act)[0]
+            if pruned.size:
+                tracer.event("prune", step=t,
+                             candidates=[int(i) for i in pruned],
+                             alive=int(act.sum()))
+            prev_active = act
 
     t0 = time.time()
-    res = train_proxy_batched(
-        cfg, candidates, steps=steps, batch_size=batch_size, seq_len=seq_len,
-        seed=seed, optimizer=optimizer, prune_factor=prune_factor,
-        prune_every=prune_every, stream=stream, device=device,
-    )
+    span = (tracer.span("sweep", candidates=n, steps=steps, devices=1)
+            if tracer is not None else contextlib.nullcontext())
+    with span:
+        res = train_proxy_batched(
+            cfg, candidates, steps=steps, batch_size=batch_size,
+            seq_len=seq_len, seed=seed, optimizer=optimizer,
+            prune_factor=prune_factor, prune_every=prune_every, stream=stream,
+            device=device,
+        )
     dt = time.time() - t0
+    if tracer is not None:
+        tracer.event("sweep_done", best=res.best_index,
+                     best_loss=res.best_loss, steps_run=int(res.steps_run))
     if verbose:
         rate = n * res.steps_run / max(dt, 1e-9)
         print(f"[sweep] done in {dt:.1f}s — {rate:.1f} candidate-steps/sec")

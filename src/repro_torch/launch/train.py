@@ -17,19 +17,31 @@ On the card by default (``--device cpu`` for the CPU):
   - per-step wall-clock watchdog (straggler detection),
   - optional bf16 gradient compression and microbatch accumulation.
 
-Flags of parts not ported yet (``--model-parallel`` above 1, ``--fsdp``,
-``--telemetry``, ``--obs-dir``) exit with an error naming the slice that
-brings them.
+  - observability: ``--telemetry`` builds the step with the µP-health
+    statistics (obs/telemetry.py: activation coordinate sizes and
+    update-to-weight ratios, drained into a ring once a step in one
+    device-to-host copy); ``--obs-dir DIR`` records the step metrics and a
+    ``train_step`` span a step and writes ``DIR/metrics.prom`` (Prometheus
+    text), ``DIR/metrics.json`` (the registry's snapshot), ``DIR/trace.jsonl``
+    (the spans) and, with ``--telemetry``, ``DIR/telemetry.jsonl`` (one
+    health record a step).
+
+Flags of parts not ported yet (``--model-parallel`` above 1, ``--fsdp``)
+exit with an error naming the slice that brings them.
 
 Usage:
     python -m repro_torch.launch.train --arch mup-gpt --steps 20 --seq-len 512
     python -m repro_torch.launch.train --arch mup-gpt --amp bf16 --steps 20 --seq-len 512
     python -m repro_torch.launch.train --arch mup-gpt --amp int8 --steps 20 --seq-len 512
     python -m repro_torch.launch.train --arch mup-gpt --smoke --steps 20 --device cpu
+    python -m repro_torch.launch.train --arch mup-gpt --smoke --steps 20 --device cpu \
+        --telemetry --obs-dir /tmp/obs
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 from typing import Any, Dict, Optional
 
@@ -44,6 +56,8 @@ from repro_torch.core.transfer import HParams, transfer
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model import build_model
+from repro_torch.obs import MetricsRegistry, TrainObs, Tracer
+from repro_torch.obs.telemetry import to_host
 from repro_torch.optim import schedules as sched_lib
 from repro_torch.optim.optimizer import Optimizer
 
@@ -70,6 +84,7 @@ def train_loop(
     seed: int = 0,
     device="cuda",
     impl: str = "auto",
+    obs: Optional[TrainObs] = None,
 ) -> Dict[str, Any]:
     """One training run (possibly resuming).  Returns the final metrics:
     ``final_loss``, ``losses``, ``params``, ``steps_run``,
@@ -80,6 +95,12 @@ def train_loop(
 
     ``impl`` is the kernel dispatch of every norm and the loss
     (kernels/ops.py): ``"ref"`` runs the plain versions on the card too.
+
+    ``obs`` (an obs.TrainObs) records each step's metrics after its loss
+    is read back; with ``obs.tracer`` a ``train_step`` span a step, closed
+    after that read-back (so it covers the step's device work); with
+    ``obs.telemetry`` the step emits the µP-health statistics, read in one
+    copy every ``obs.every`` steps into ``obs.ring``.
     """
     xfer = transfer(hps, cfg)
     cfg = cfg.replace(**xfer["model"])
@@ -92,9 +113,10 @@ def train_loop(
         "adamw", parametrization=model.p13n, meta=model.meta,
         schedule=schedule, weight_decay=hps.weight_decay, **xfer["optim"],
     )
+    telemetry = obs is not None and obs.telemetry
     step_fn = steps_lib.make_train_step(
         model, opt, num_microbatches=num_microbatches,
-        compress_grads=compress_grads,
+        compress_grads=compress_grads, telemetry=telemetry,
     )
 
     params = model.init(seed)
@@ -120,12 +142,25 @@ def train_loop(
         t0 = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(t).items()}
         t1 = time.perf_counter()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
+        if obs is not None and obs.tracer is not None:
+            with obs.tracer.span("train_step", phase="train_step", step=t):
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+                loss = float(metrics["loss"])
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         step_times.append(dt)
         batch_times.append(t1 - t0)
         losses.append(loss)
+        if obs is not None:
+            aux = None
+            if telemetry and t % max(obs.every, 1) == 0:
+                aux = to_host(metrics["obs"])
+            obs.record_step(
+                t, loss=loss, grad_norm=float(metrics["grad_norm"]), dt=dt,
+                tokens=batch_size * seq_len, width=cfg.d_model, aux=aux,
+            )
         # straggler watchdog: flag steps >> median
         if len(step_times) > 10:
             med = float(np.median(step_times[-50:]))
@@ -175,9 +210,13 @@ def main(argv=None):
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-3 weight sharding (not ported yet)")
     ap.add_argument("--telemetry", action="store_true",
-                    help="µP-health aux from the train step (not ported yet)")
+                    help="emit the µP-health statistics from the train step "
+                         "(activation coord sizes, logit scale, update/"
+                         "weight ratios)")
     ap.add_argument("--obs-dir", default=None,
-                    help="metrics and trace output (not ported yet)")
+                    help="write metrics.prom / metrics.json / trace.jsonl "
+                         "(+ telemetry.jsonl with --telemetry) here at exit; "
+                         "implies metrics collection")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: the card)")
@@ -187,8 +226,6 @@ def main(argv=None):
     not_ported = {
         "--model-parallel": (args.model_parallel != 1, "the multi-GPU slice"),
         "--fsdp": (args.fsdp, "the multi-GPU slice"),
-        "--telemetry": (args.telemetry, "the observability slice"),
-        "--obs-dir": (args.obs_dir is not None, "the observability slice"),
     }
     for flag, (used, where) in not_ported.items():
         if used:
@@ -204,11 +241,17 @@ def main(argv=None):
                  f"kernels' (B5-B7) range, d_head 1 to {MAX_D_HEAD}")
     hps = HParams(lr=args.lr, sigma=args.sigma)
 
+    obs = None
+    if args.telemetry or args.obs_dir:
+        obs = TrainObs(metrics=MetricsRegistry(), telemetry=args.telemetry,
+                       tracer=Tracer() if args.obs_dir else None)
+
     kw = dict(
         steps=args.steps, hps=hps, ckpt_dir=args.ckpt_dir,
         batch_size=args.batch_size, seq_len=args.seq_len,
         ckpt_every=args.ckpt_every, num_microbatches=args.microbatches,
         compress_grads=args.compress_grads, seed=args.seed, device=args.device,
+        obs=obs,
     )
     try:
         out = train_loop(cfg, simulate_failure_at=args.simulate_failure, **kw)
@@ -217,6 +260,16 @@ def main(argv=None):
         if not args.ckpt_dir:
             raise
         out = train_loop(cfg, simulate_failure_at=None, **kw)
+    if obs is not None and args.obs_dir:
+        os.makedirs(args.obs_dir, exist_ok=True)
+        obs.metrics.write_prometheus(os.path.join(args.obs_dir, "metrics.prom"))
+        obs.metrics.write_json(os.path.join(args.obs_dir, "metrics.json"))
+        if obs.ring is not None:
+            with open(os.path.join(args.obs_dir, "telemetry.jsonl"), "w") as f:
+                for rec in obs.ring.records:
+                    f.write(json.dumps(rec) + "\n")
+        obs.tracer.dump(os.path.join(args.obs_dir, "trace.jsonl"))
+        print(f"[obs] wrote {args.obs_dir}/metrics.prom")
     print(f"[train] done: final loss {out['final_loss']:.4f}")
     return out
 

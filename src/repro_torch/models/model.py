@@ -153,6 +153,7 @@ class Model:
         hp=None,
         full_cache: bool = False,
         readout: Optional[torch.Tensor] = None,
+        collect_stats: bool = False,
     ) -> Tuple[torch.Tensor, Optional[Dict]]:
         """Logits (B, S, V) f32 (f64 in a float64 forward) and the new cache.
 
@@ -177,6 +178,14 @@ class Model:
         matmul's order of summation; an engine that samples from one row of
         a long prefill or chunk saves the (S, vocab) logits (6.6 GB for
         gemma2-2b's 6,400 tokens).
+
+        ``collect_stats`` switches the return to ``(logits, new_cache,
+        stats)``: ``stats`` holds the coordinate sizes (mean |x|, 0-d
+        tensors on the device) of the embedding (``embed``), the residual
+        stream after every block (``block/<i>_<kind>``, (n_groups,)), the
+        final norm's output (``final_norm``) and the logits (``logits``),
+        the reference's µP-health telemetry (obs/telemetry.py).  They are
+        read from detached tensors, so the backward is unchanged.
         """
         cfg = self.cfg
         B, S = tokens.shape
@@ -186,10 +195,11 @@ class Model:
             positions = positions[None].expand(B, S)
         tree = unflatten(params)
         x = self._embed(tree, tokens, hp=hp)
+        stats = {"embed": tfm.coord_size(x.detach())} if collect_stats else None
         ctx = tfm.Ctx(
             positions=positions, mode=mode, cache_len=cache_len,
             paged=paged, impl=self.impl, aligned_positions=aligned, hp=hp,
-            full_prefill_cache=full_cache,
+            full_prefill_cache=full_cache, stats=stats,
         )
         x, new_cache = tfm.run_stack(
             cfg, tree["groups"], self.layer_meta, x, ctx, cache,
@@ -197,25 +207,42 @@ class Model:
         if readout is not None:
             x = x[:, readout]
         x = rmsnorm(x, tree["final_norm"], cfg.norm_eps, impl=self.impl)
-        return self._readout(tree, x, hp=hp), new_cache
+        logits = self._readout(tree, x, hp=hp)
+        if collect_stats:
+            stats["final_norm"] = tfm.coord_size(x.detach())
+            stats["logits"] = tfm.coord_size(logits.detach())
+            return logits, new_cache, stats
+        return logits, new_cache
 
-    def loss_fn(self, params, batch, collect_acts: bool = False, hp=None):
+    def loss_fn(self, params, batch, collect_acts: bool = False, hp=None,
+                collect_stats: bool = False):
         """Next-token CE.  batch: tokens (B, S), labels (B, S) (-100 = masked).
 
         The per-token CE goes through ops.softmax_cross_entropy: the chunked
         CUDA kernels on the card (never a (B, S, V) log-prob tensor or its
         autograd residual), the plain version on the CPU.  Masked rows get
         zero weight here and so a zero cotangent: their dlogits vanish.
-        ``collect_acts`` returns ``(loss, {"logits": logits})``; ``hp`` is
-        :meth:`forward`'s.
+        ``collect_acts`` returns ``(loss, {"logits": logits})``;
+        ``collect_stats`` returns ``(loss, stats)`` with :meth:`forward`'s
+        µP-health statistics (the two are exclusive, as in the reference);
+        ``hp`` is :meth:`forward`'s.
         """
-        logits, _ = self.forward(params, batch["tokens"], mode="train", hp=hp)
+        if collect_acts and collect_stats:
+            raise ValueError("collect_acts and collect_stats are exclusive")
+        stats = None
+        if collect_stats:
+            logits, _, stats = self.forward(params, batch["tokens"], mode="train",
+                                            hp=hp, collect_stats=True)
+        else:
+            logits, _ = self.forward(params, batch["tokens"], mode="train", hp=hp)
         labels = batch["labels"]
         mask = (labels >= 0).float()
         losses = ops.softmax_cross_entropy(logits, labels, impl=self.impl)
         loss = torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
         if collect_acts:
             return loss, {"logits": logits}
+        if collect_stats:
+            return loss, stats
         return loss
 
     def prefill(self, params, tokens, cache_len: int = 0):

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.coord_check import _coord_size as coord_size
 from repro_torch.core.infshape import InfDim, InfShape
 from repro_torch.core.meta import ParamMeta
 from repro_torch.core.parametrization import resolve
@@ -75,6 +76,15 @@ class Ctx:
     hp: Optional[Any] = None             # core.hp.RuntimeHP: per-candidate
                                          # HPs of a sweep (None -> the cfg's
                                          # baked floats)
+    stats: Optional[Dict[str, Any]] = None
+                                         # µP-health telemetry sink: when a
+                                         # dict, run_stack records the
+                                         # residual stream's coordinate size
+                                         # (mean |x|) after every block, each
+                                         # group key's stacked to an
+                                         # (n_groups,) tensor, as the
+                                         # reference's scan stacks it (None
+                                         # under a sweep's vmap)
 
 
 def _alpha_attn(cfg, ctx: Ctx):
@@ -347,6 +357,9 @@ def run_stack(
                 paged.page_size, ring=True,
             )
     emitted = {k: [] for k in keys}
+    # the statistics read detached activations: no autograd node, the
+    # backward unchanged
+    stats = {k: [] for k in keys} if ctx.stats is not None else None
     # each stacked tensor split into its layers once per forward: under
     # autograd one UnbindBackward stacks the layers' gradients, where a
     # ``t[layer]`` per layer would write a stack-sized gradient per layer
@@ -362,6 +375,11 @@ def run_stack(
             x, c_out = apply_block(cfg, kind, p, layer_meta[k], x, ctx, c_in)
             if ctx.mode == "prefill":
                 emitted[k].append(c_out)
+            if stats is not None:
+                stats[k].append(coord_size(x.detach()))
+    if stats is not None:
+        for k in keys:
+            ctx.stats[f"block/{k}"] = torch.stack(stats[k])
     if ctx.mode == "prefill":
         stacked = {
             k: {"attn": {

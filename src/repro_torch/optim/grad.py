@@ -10,7 +10,7 @@ params themselves never require grad.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -40,12 +40,17 @@ def compress_bf16(grads: Tensors, residual: Optional[Tensors]) -> Tuple[Tensors,
     return q, {n: g - q[n] for n, g in grads.items()}
 
 
-def value_and_grad(loss_fn: Callable, params: Tensors, batch) -> Tuple[torch.Tensor, Tensors]:
-    """``(loss, {name: dloss/dparam})`` of ``loss_fn(params, batch)``."""
+def value_and_grad(loss_fn: Callable, params: Tensors, batch,
+                   has_aux: bool = False) -> Tuple[Any, Tensors]:
+    """``(loss, {name: dloss/dparam})`` of ``loss_fn(params, batch)``;
+    with ``has_aux`` the loss_fn returns ``(loss, aux)`` and the first
+    item is ``(loss, aux)``, as ``jax.value_and_grad(has_aux=True)``."""
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-    loss = loss_fn(leaves, batch)
+    out = loss_fn(leaves, batch)
+    loss = out[0] if has_aux else out
     grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    value = (loss.detach(), out[1]) if has_aux else loss.detach()
+    return value, dict(zip(leaves, grads))
 
 
 def accumulate_gradients(

@@ -70,9 +70,22 @@ output is the target's, token for token; sampled output follows the
 target's distribution.  ``DynamicEngine`` with ``adaptive_draft`` picks each
 slot's draft length from an EMA of its acceptance (host control; the chain
 is cut by the accept mask, zeroed drafter rows and positions at -1).
+
+Observability (``obs``, an ``obs.ServeObs``) is host-side only: the
+engines record counters, gauges and histograms into its registry and
+spans into its tracer around the read-backs they already make, so with
+obs attached every token, kernel launch and host sync is the same.  The
+static engine wraps ``serve`` in one ``serve`` span (closed after the
+loop's last read-back); the dynamic one records ``admission`` and
+``retire`` events and a ``step`` span per iteration with its phase
+(``prefill``, ``chunk_prefill``, ``decode`` or ``verify``), from the
+loop's own ``time.monotonic()`` stamps.  A step that ends in no read-back
+(a chunk that is neither the admission's last nor followed by a decode)
+times its dispatch; the next read-back's step carries its device work.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Optional
@@ -225,7 +238,7 @@ class Engine:
     µP proxy) with ``ecfg.draft_k >= 1`` for speculative decoding."""
 
     def __init__(self, model, ecfg: EngineConfig = EngineConfig(),
-                 draft_model=None):
+                 draft_model=None, obs=None):
         if ecfg.prefix_cache or ecfg.prefill_chunk or ecfg.adaptive_draft or (
             ecfg.n_pages is not None or ecfg.n_window_pages is not None
         ):
@@ -237,6 +250,7 @@ class Engine:
         # earliest query: the windowed ring covers window + draft_k before
         # it wraps (kv_cache.build_spec)
         self._init_common(model, ecfg, draft_model, lookahead=ecfg.draft_k)
+        self.obs = obs
         self.gtable, self.wtable = kv_cache.make_tables(self.spec, model.device)
 
     def _init_common(self, model, ecfg: EngineConfig, draft_model,
@@ -287,6 +301,34 @@ class Engine:
         if draft_params is None:
             raise ValueError("speculative engine: serve() needs draft_params")
         return _Draft(draft_params, pools)
+
+    def _record_serve(self, *, duration, requests, tokens, steps,
+                      accepted, proposed):
+        """End-of-serve aggregate metrics (shared by both engines).  The
+        reference's ``serve_compile_count`` gauge has no counterpart: the
+        port compiles no serve program."""
+        m = self.obs.metrics
+        m.counter("serve_requests_total", "requests served").inc(requests)
+        m.counter("serve_tokens_total", "tokens generated").inc(tokens)
+        m.counter(
+            "serve_steps_total", "engine loop iterations run"
+        ).inc(steps)
+        m.histogram(
+            "serve_duration_seconds", "wall time per serve() call"
+        ).observe(duration)
+        m.gauge(
+            "serve_tokens_per_second", "last serve() decode throughput"
+        ).set(tokens / max(duration, 1e-9))
+        if proposed:
+            m.counter(
+                "spec_drafts_proposed_total", "speculative drafts proposed"
+            ).inc(proposed)
+            m.counter(
+                "spec_drafts_accepted_total", "speculative drafts accepted"
+            ).inc(accepted)
+            m.gauge(
+                "spec_acceptance_rate", "last serve() draft acceptance rate"
+            ).set(accepted / proposed)
 
     def _is_eos(self, tok: np.ndarray) -> np.ndarray:
         if self.eos < 0:
@@ -501,6 +543,27 @@ class Engine:
         "lengths": (R,) int32} as CPU tensors, "steps": the loop-iteration
         count, and "accepted" / "proposed": the speculative drafts (0 for a
         plain engine).  Generated tokens include the EOS, if hit."""
+        if self.obs is None:
+            return self._serve(params, prompts, prompt_lens, temperature,
+                               top_k, top_p, seed, draft_params)
+        tracer = self.obs.tracer
+        t_start = time.monotonic()
+        # every iteration ends in a read-back of its sampled tokens, so the
+        # span closes after the serve's device work
+        span = (tracer.span("serve", engine="static", requests=len(prompt_lens))
+                if tracer is not None else contextlib.nullcontext())
+        with span:
+            out = self._serve(params, prompts, prompt_lens, temperature,
+                              top_k, top_p, seed, draft_params)
+        self._record_serve(
+            duration=time.monotonic() - t_start, requests=len(prompt_lens),
+            tokens=int(out["lengths"].sum()), steps=out["steps"],
+            accepted=out["accepted"], proposed=out["proposed"],
+        )
+        return out
+
+    def _serve(self, params, prompts, prompt_lens, temperature, top_k, top_p,
+               seed, draft_params):
         S, Gmax = self.spec.n_slots, self.ecfg.max_gen_len
         draft = self._draft(draft_params, None)
         q = _Queue(prompts, prompt_lens, self.ecfg.max_prompt_len,
@@ -567,7 +630,7 @@ class DynamicEngine(Engine):
     """
 
     def __init__(self, model, ecfg: EngineConfig = EngineConfig(),
-                 draft_model=None):
+                 draft_model=None, obs=None):
         C = ecfg.prefill_chunk
         if C < 0 or (C and C % ecfg.page_size):
             raise ValueError(
@@ -584,6 +647,8 @@ class DynamicEngine(Engine):
         # ring needs that margin (kv_cache.build_spec)
         self._init_common(model, ecfg, draft_model,
                           lookahead=max(ecfg.draft_k, C - 1 if C else 0))
+        self.obs = obs
+        self._evicted_seen = 0      # prefix-cache eviction counter watermark
         spec = self.spec
         self.n_pages = ecfg.n_pages or spec.n_global_pages
         self.n_window_pages = ((ecfg.n_window_pages or spec.n_window_pages)
@@ -615,6 +680,46 @@ class DynamicEngine(Engine):
         self._gtab_d = torch.as_tensor(self._gtab, device=dev)
         self._wtab_d = (None if self._wtab is None
                         else torch.as_tensor(self._wtab, device=dev))
+
+    def _record_dynamic(self, metrics, token_times, arr, prefill_total,
+                        prefill_cached):
+        """The dynamic engine's end-of-serve metrics: TTFT and inter-token
+        latency from the per-token stamps, prompt tokens admitted and
+        served from the prefix cache, and the allocator's page gauges."""
+        blocks = self.blocks
+        ttft_vals, itl_vals = [], []
+        for r, ts in enumerate(token_times):
+            if ts:
+                ttft_vals.append(ts[0] - arr[r])
+                itl_vals.extend(np.diff(ts))
+        metrics.histogram(
+            "serve_ttft_seconds", "arrival to first generated token"
+        ).observe_many(ttft_vals)
+        metrics.histogram(
+            "serve_itl_seconds", "inter-token latency"
+        ).observe_many(itl_vals)
+        metrics.counter(
+            "prefill_prompt_tokens_total", "prompt tokens admitted"
+        ).inc(prefill_total)
+        metrics.counter(
+            "prefill_cached_tokens_total",
+            "prompt tokens served from the prefix cache",
+        ).inc(prefill_cached)
+        if blocks.cache is not None:
+            metrics.counter(
+                "prefix_cache_evicted_pages_total",
+                "pages LRU-evicted from the prefix cache",
+            ).inc(blocks.cache.n_evicted - self._evicted_seen)
+            self._evicted_seen = blocks.cache.n_evicted
+            metrics.gauge(
+                "prefix_cache_pages", "pages resident in the prefix cache",
+            ).set(len(blocks.cache))
+        metrics.gauge(
+            "kv_pages_free", "free pages in the global pool"
+        ).set(blocks.galloc.n_free)
+        metrics.gauge(
+            "kv_pages_allocated", "allocated pages (incl. cached)"
+        ).set(blocks.galloc.n_allocated)
 
     # ------------------------------------------------------------------
     def _admit_chunk(self, params, q: _Queue, st: _Slots, cur, s0: int,
@@ -676,7 +781,8 @@ class DynamicEngine(Engine):
         ``prefill_total`` (prompt tokens served from shared pages vs total)
         and, with ``record_times``, ``token_times`` (per request, the
         ``time.monotonic()`` stamp relative to serve start of each emitted
-        token) and the ``arrivals`` vector.
+        token) and the ``arrivals`` vector.  With ``obs`` attached the same
+        stamps feed its TTFT and inter-token-latency histograms.
         """
         spec, blocks = self.spec, self.blocks
         S, Gmax, C = spec.n_slots, self.ecfg.max_gen_len, self.ecfg.prefill_chunk
@@ -703,6 +809,14 @@ class DynamicEngine(Engine):
         steps = 0
         chunks_bound = (Pmax // C + 2) if C else 2
         max_steps = R * (Gmax + chunks_bound + 2) + S + 8
+        obs = self.obs
+        metrics = obs.metrics if obs is not None else None
+        tracer = obs.tracer if obs is not None else None
+        step_hist = (
+            metrics.histogram(
+                "serve_step_seconds", "wall time per dynamic-engine step"
+            ) if metrics is not None else None
+        )
         t0 = time.monotonic()
 
         while pending or cur is not None or occupied:
@@ -746,9 +860,16 @@ class DynamicEngine(Engine):
                     cur = {"req": req, "slot": slot, "plen": plen,
                            "prompt": prompt, "chunks": chunks, "i": 0,
                            "adm": adm}
+                    if tracer is not None:
+                        tracer.event(
+                            "admission", req=req, slot=slot, plen=plen,
+                            cached=c, chunks=len(chunks) if chunks else 0,
+                        )
             # ---- this step's admission work ----
             finishing = None
+            phase = "verify" if draft is not None else "decode"
             if cur is not None:
+                phase = "prefill" if cur["chunks"] is None else "chunk_prefill"
                 if cur["chunks"] is None:
                     slot = cur["slot"]
                     self._admit_full(
@@ -782,6 +903,10 @@ class DynamicEngine(Engine):
                                   k_eff=k_cur if adaptive else None)
             steps += 1
             tnow = time.monotonic() - t0
+            if tracer is not None:
+                tracer.complete("step", t0 + now, t0 + tnow, phase=phase)
+            if step_hist is not None:
+                step_hist.observe(tnow - now)
             # ---- host bookkeeping ----
             if finishing is not None:
                 # prompt fully resident: publish its full pages to the
@@ -805,6 +930,8 @@ class DynamicEngine(Engine):
                 k_cur[shrink] = np.maximum(k_cur[shrink] - 1, 1)
             for slot in sorted(occupied):
                 if not st.active[slot]:
+                    if tracer is not None:
+                        tracer.event("retire", slot=slot, req=occupied[slot])
                     blocks.retire(slot)
                     del occupied[slot]
                     free.append(slot)
@@ -826,6 +953,14 @@ class DynamicEngine(Engine):
             "prefill_cached": prefill_cached,
             "prefill_total": prefill_total,
         }
+        if obs is not None:
+            self._record_serve(
+                duration=time.monotonic() - t0, requests=R,
+                tokens=int(sum(len(ts) for ts in token_times)),
+                steps=steps, accepted=st.accepted, proposed=st.proposed,
+            )
+            self._record_dynamic(metrics, token_times, arr, prefill_total,
+                                 prefill_cached)
         if record_times:
             out["token_times"] = token_times
             out["arrivals"] = arr

@@ -91,8 +91,6 @@ def test_unported_options_are_refused():
     exp = Experiment.from_config("mup-gpt", device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         exp.serving_engine(mesh=object())
-    with pytest.raises(NotImplementedError, match="observability"):
-        exp.train(steps=1, obs=object())
     with pytest.raises(ValueError, match="unknown parametrization"):
         Experiment.from_config("mup-gpt", parametrization="nope")
     with pytest.raises(RuntimeError if not torch.cuda.is_available() else Exception):
@@ -166,7 +164,5 @@ def test_run_sweep_refuses_unported_options():
     cands = mup_space().sample_n(2, 0)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         sweep.run_sweep(cfg, cands, n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="observability"):
-        sweep.run_sweep(cfg, cands, tracer=object(), device="cpu")
     with pytest.raises(ValueError, match="empty"):
         sweep.run_sweep(cfg, [], device="cpu")

@@ -55,6 +55,9 @@ def test_port_imports_without_jax_or_reference():
                "repro_torch.serving.kv_cache", "repro_torch.kernels.decode_attention",
                "repro_torch.serving.sampling", "repro_torch.data.copy_task"}
     assert serving <= mods, serving - mods
+    obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+           "repro_torch.obs.telemetry"}
+    assert obs <= mods, obs - mods
 
 
 @pytest.mark.parametrize("path", sorted(

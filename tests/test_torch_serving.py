@@ -277,6 +277,6 @@ def test_serve_cli_on_cpu_and_unported_flags(capsys):
         assert torch.equal(out, toks)
     for flag in (["--dense"], ["--adaptive-draft"], ["--static", "--adaptive-draft"],
                  ["--static", "--adaptive-draft", *spec],
-                 ["--mesh", "1,2"], ["--obs"], ["--static", "--prefix-cache"]):
+                 ["--mesh", "1,2"], ["--static", "--prefix-cache"]):
         with pytest.raises(SystemExit):
             tserve.main(["--smoke", "--device", "cpu", *flag])

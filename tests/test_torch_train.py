@@ -374,8 +374,7 @@ def test_cli_refuses_to_run_without_a_card():
         ttrain.main(["--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--model-parallel", "2"], ["--fsdp"], ["--telemetry"],
-                                   ["--obs-dir", "x"]])
+@pytest.mark.parametrize("flags", [["--model-parallel", "2"], ["--fsdp"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         ttrain.main(["--smoke", "--device", "cpu", *flags])
