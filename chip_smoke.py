@@ -142,7 +142,16 @@ check:
   holds positions out of logical order: checked), held by multi_held at
   2e-5; each timed at its serve shape (a call, on the card, the plain
   version, SDPA over the slot's gathered pages with the visibility mask,
-  the bound), kept under ``gemma2_shapes`` in the kernels' rows.
+  the bound), kept under ``gemma2_shapes`` in the kernels' rows.  Then
+  mixtral-8x22b's shapes (``mixtral_shapes`` in the rows): B1 at D 6144, x
+  (4, 1, 6144) and (4608, 6144) in f32 and bf16, held as at gemma2's width
+  and timed beside F.rms_norm and the bound; B8 and B9 over its rings
+  (MX_RING_CASES: 48/8 heads of 128, a GQA group of 6, window 4096, no
+  softcap, f32 and int8 pools): the decode steps of 4 slots at positions
+  4,608-4,639 over the 257-page ring, a chunk of 256 at 4,352-4,607 over
+  the 273-page ring and a verify of T = 5 over the 258-page ring, each
+  held as gemma2's (B9's plan equal to its mirror at the card's SM count)
+  and timed at its serve shape.
 - serve: smollm-135m at its published full width, cut to 15 of its 30
   layers (SERVE_DEPTH: the cut holds the run's time), through the static
   engine (random weights from a seed, ``zero_init_query=False``), once
@@ -229,6 +238,32 @@ check:
   static one's against a float64 forward too, the int8 ones measured,
   with control serves through the plain versions but B1 (gemma2_phases
   says why).
+- serve_mixtral, serve_mixtral_dynamic, serve_mixtral_int8: mixtral-8x22b
+  (configs/mixtral_8x22b.py, arXiv:2401.04088: every layer "local_moe",
+  window 4096, d_model 6144, 48/8 heads of 128, 8 experts of d_ff 16384,
+  silu GLU, top-2, capacity factor 1.25, vocab 32768, untied embeddings)
+  at full width over 4 of its 56 layers (MX_DEPTH: 56 layers of f32
+  weights are 564 GB, 4 are 41.7 GB), f32 weights from seed 0 with a
+  random query projection and a random readout (under µP the untied
+  readout starts at zero), 4 slots, page 16, 6 requests of seed 0: 2
+  prompts of 4,608 tokens (the 257-page ring wraps) and 4 of 64-512, 32
+  tokens each, greedy; the static engine (one-shot prefills of the
+  4,608-token buffer), DynamicEngine with chunks of 256 and the prefix
+  cache requested (nothing shared on a ring config), and int8 pools
+  through DynamicEngine.  Each as the gemma2 serves: kernels against the
+  plain versions (tokens and steps by the near-tie rule, and each layer's
+  expert choices, request by request: a flip only where the plain
+  probabilities of the k-th and (k+1)-th experts lie within the tie
+  limit, ROUTE_TIE over f32 pools and over int8 ones twice what a
+  control serve with the quantizer's inputs moved by one ulp makes, each
+  flip printed with its margin and parting that request alone; the other
+  rows' router probabilities held at ROUTE_PROB_TOL / _INT8), exact
+  launches (B1 2 L + 1 a forward, B8 L a decode step, B9 L a chunk
+  forward, their int8 modes over int8 pools), the ring's wrap, the first
+  8 decode steps' logits of the requests not parted held at MX_LOGIT_TOL
+  (int8: MX_LOGIT_TOL_INT8), the real slots
+  each mode drops past its capacity, tok/s, the card's busy share, peak
+  memory, pool MiB and the phase's seconds (mixtral_phases).
 - train: mup-gpt at full width (8 layers, d_model 1024, vocab 2048), f32,
   batch 8 x seq 512.  The first step's loss (1e-5 relative) and every
   gradient (atol 2e-4 / rtol 1e-3) with the kernels against the plain
@@ -375,7 +410,8 @@ check:
 Launch counts are set to 0 just before each main path (serve,
 serve_dynamic, serve_int8 dynamic and static, serve_spec, serve_spec_dynamic,
 serve_spec_int8, spec_copy_train, serve_spec_copy, serve_gemma2,
-serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, train, train --amp bf16,
+serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, serve_mixtral,
+serve_mixtral_dynamic, serve_mixtral_int8, train, train --amp bf16,
 train --amp int8, train_gemma2 and its --amp bf16 and int8 runs, and the sweep phase's
 sweep, sweep_serial, sweep_16,
 algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1, and the
@@ -1513,12 +1549,12 @@ G2_RING_CASES = [
 ]
 
 
-def g2_args(case, seed, int8):
-    """(args, kw) of a G2_RING_CASES case: f32 pools, or int8 ones with
-    their scales."""
+def g2_args(case, seed, int8, heads=G2_HEADS, softcap=G2_SOFTCAP):
+    """(args, kw) of a G2_RING_CASES case (or MX_RING_CASES' with mixtral's
+    ``heads`` and no softcap): f32 pools, or int8 ones with their scales."""
     label, B, T, C, ends, window, ring = case
-    args = ring_case(B, T, *G2_HEADS, 16, C, ends, seed, ring=ring)
-    kw = dict(scale=G2_HEADS[2] ** -0.5, window=window, softcap=G2_SOFTCAP)
+    args = ring_case(B, T, *heads, 16, C, ends, seed, ring=ring)
+    kw = dict(scale=heads[2] ** -0.5, window=window, softcap=softcap)
     if int8:
         kq, vq, scales = int8_pools(args[1], args[2], seed)
         args = (args[0], kq, vq, *args[3:])
@@ -1532,16 +1568,18 @@ def as_multi(args):
     return (q[:, None], kp, vp, pos, tab, q_pos[:, None])
 
 
-def check_g2_cases(ops, da):
+def check_g2_cases(ops, da, cases=G2_RING_CASES, heads=G2_HEADS, softcap=G2_SOFTCAP,
+                   tag="gemma2", seed=400):
     """B8 and B9 against their plain versions over gemma2-2b's rings and
-    global tables (G2_RING_CASES), f32 and int8 pools, held by multi_held
-    (B8 as B9 at T = 1) at the f32 tier; the wrapped tables must hold
-    pages out of logical order.  Returns {name: worst error}."""
+    global tables (G2_RING_CASES; or mixtral's, MX_RING_CASES, with its
+    ``heads`` and no softcap), f32 and int8 pools, held by multi_held (B8 as
+    B9 at T = 1) at the f32 tier; the wrapped tables must hold pages out of
+    logical order.  Returns {name: worst error}."""
     worst = {}
     for int8 in (False, True):
-        for i, case in enumerate(G2_RING_CASES):
+        for i, case in enumerate(cases):
             label, B, T, C, ends, window, ring = case
-            args, kw = g2_args(case, 400 + i, int8)
+            args, kw = g2_args(case, seed + i, int8, heads, softcap)
             if ring and not ring_wrapped(args[3], args[4], 16):
                 raise AssertionError(f"{label}: the ring holds its positions in order")
             if T is None:
@@ -1549,11 +1587,11 @@ def check_g2_cases(ops, da):
                 got = ops.decode_attention(*args, impl="kernel", **kw)
                 err, against, note = multi_held(name, label, got[:, None], as_multi(args),
                                                 kw, ATOL[f32])
-                log(f"[kernels] {name} gemma2 {label}: max err {err:.3g} from {against} "
-                    f"(atol {ATOL[f32]}; {note}), {da.decode_splits(B, 4, C)} splits")
+                log(f"[kernels] {name} {tag} {label}: max err {err:.3g} from {against} "
+                    f"(atol {ATOL[f32]}; {note}), {da.decode_splits(B, heads[0], C)} splits")
             else:
                 name = "flash_decode_multi_int8" if int8 else "flash_decode_multi"
-                err, _ = check_multi(ops, da, f"gemma2 {label}", args, kw, ATOL[f32], ())
+                err, _ = check_multi(ops, da, f"{tag} {label}", args, kw, ATOL[f32], ())
             worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -1565,7 +1603,7 @@ G2_TIMED = {"flash_decode": [("decode over the 257-page ring", 0),
                                    ("a chunk of 256 over the 404-page global table", 5)]}
 
 
-def g2_row(ops, da, F, name, label, args, kw):
+def g2_row(ops, da, F, name, label, args, kw, model="gemma2-2b"):
     """B8's or B9's time at a gemma2 shape: a call (CUDA events) and on the
     card, beside its plain version, SDPA over each slot's pre-gathered
     (dequantized) pages with the visibility mask (position, causality,
@@ -1622,7 +1660,7 @@ def g2_row(ops, da, F, name, label, args, kw):
                  f"{plan.slots} slot(s) of {plan.stage_pages} pages")
     else:
         extra = f"; {da.decode_splits(B, K, C)} splits"
-    log(f"[kernels] {name} at gemma2-2b's {label}: {ms:.5f} ms a call, {dev_us:.2f} us a "
+    log(f"[kernels] {name} at {model}'s {label}: {ms:.5f} ms a call, {dev_us:.2f} us a "
         f"launch on the card ({share:.1%} of the {bound_by} bound){extra}; plain "
         f"{plain_ms:.5f} ms; SDPA {library_ms:.5f} ms a call and {lib_us:.2f} us on the "
         f"card ({lib_n:g} kernels); bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, "
@@ -1632,7 +1670,9 @@ def g2_row(ops, da, F, name, label, args, kw):
                 library_ms=library_ms, library_device_us=lib_us,
                 library="torch.nn.functional.scaled_dot_product_attention over each "
                         "slot's pre-gathered " + ("dequantized " if scales else "")
-                        + "pages with the visibility mask (attention only, no softcap)")
+                        + "pages with the visibility mask (attention only, no softcap)",
+                shape=f"q {tuple(q.shape)}, pools {tuple(kp.shape)} "
+                      f"{'int8 + scales' if scales else str(kp.dtype)[6:]}, {C}-page table")
 
 
 def gemma2_kernel_phase(ops, da, F, rows):
@@ -1647,6 +1687,88 @@ def gemma2_kernel_phase(ops, da, F, rows):
             args, kw = g2_args(G2_RING_CASES[i], 450 + i, name.endswith("_int8"))
             out[label] = g2_row(ops, da, F, name, label, args, kw)
         rows[name]["gemma2_shapes"] = out
+
+
+# mixtral-8x22b's attention: 8 kv heads, 6 queries each (48 heads), d_head
+# 128, every layer windowed (4,096), no softcap; d_model 6144
+MX_HEADS = (8, 6, 128)
+MX_WINDOW, MX_D = 4096, 6144
+# (label, B, T, C, ends, window, ring), page 16, as in G2_RING_CASES: the
+# static engine's decode steps of 4 slots at positions 4,608-4,639 over
+# its 257-page ring (window + 1 page); the dynamic engine's chunk of 256 at
+# 4,352-4,607 over its 273-page ring (255 written ahead); a speculative
+# verify of draft_k + 1 = 5 over the static engine's 258-page ring (4 ahead)
+MX_RING_CASES = [
+    ("decode over the 257-page ring", 4, None, 257, [4608, 4618, 4629, 4639], MX_WINDOW,
+     True),
+    ("a chunk of 256 over the 273-page ring", 1, 256, 273, [4607], MX_WINDOW, True),
+    ("a verify of T = 5 over the 258-page ring", 4, 5, 258, [4612, 4620, 4631, 4639],
+     MX_WINDOW, True),
+]
+MX_TIMED = {"flash_decode": [0], "flash_decode_multi": [1, 2]}
+
+
+def mx_rmsnorm_rows(ops, F):
+    """B1 at mixtral's D 6144: x (4, 1, 6144), a decode step's, and (4608,
+    6144), a 4,608-token prefill's, f32 and bf16, against the plain version
+    (f32 atol 2e-5; bf16 within the tier or one bf16 step, rmsnorm_phase's
+    rule) and F.rms_norm, each timed: a call (CUDA events), the card's time a
+    launch, the plain version's and F.rms_norm's, and the bytes bound."""
+    out = {}
+    for shape in ((4, 1, MX_D), (4608, MX_D)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn(*shape, device="cuda")).to(dt)
+            g = 0.5 * torch.randn(MX_D, device="cuda")
+            w = (1 + g).to(dt)
+            got = ops.fused_rmsnorm(x, g, impl="kernel").double()
+            want = ops.fused_rmsnorm(x, g, impl="ref").double()
+            lib = F.rms_norm(x, (MX_D,), weight=w, eps=1e-6).double()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            lim = torch.full_like(want, ATOL[dt])
+            if dt == torch.bfloat16:
+                lim = torch.maximum(lim, bf16_step(want))
+            if not bool((diff <= lim).all()):
+                raise AssertionError(f"rmsnorm {shape} {dt}: max err {diff.max().item()}, "
+                                     f"{int((diff > lim).sum())} values past their limit")
+            ms = cuda_ms(lambda: ops.fused_rmsnorm(x, g, impl="kernel"))
+            plain_ms = cuda_ms(lambda: ops.fused_rmsnorm(x, g, impl="ref"), n=50)
+            library_ms = cuda_ms(lambda: F.rms_norm(x, (MX_D,), weight=w, eps=1e-6))
+            dev_us = device_us(lambda: ops.fused_rmsnorm(x, g, impl="kernel"), "rmsnorm")
+            lib_us, _ = library_device_us(lambda: F.rms_norm(x, (MX_D,), weight=w, eps=1e-6))
+            nbytes = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
+            bound_ms, bound_by = bound(nbytes, 4 * x.numel())
+            key = f"{'x'.join(map(str, shape))} {str(dt)[6:]}"
+            out[key] = dict(max_abs_err=diff.max().item(),
+                            from_f_rms_norm=(got - lib).abs().max().item(), ms=ms,
+                            device_us=dev_us, plain_ms=plain_ms, library_ms=library_ms,
+                            library_device_us=lib_us, bound_ms=bound_ms, bound_by=bound_by,
+                            bound_share=bound_ms * 1e3 / dev_us)
+            log(f"[kernels] rmsnorm at mixtral's x {shape} {str(dt)[6:]}: max err "
+                f"{diff.max().item():.3g} from the plain version, "
+                f"{out[key]['from_f_rms_norm']:.3g} from F.rms_norm; {ms:.5f} ms a call, "
+                f"{dev_us:.2f} us a launch on the card ({out[key]['bound_share']:.1%} of the "
+                f"{bound_by} bound {bound_ms:.6f} ms); plain {plain_ms:.5f} ms; F.rms_norm "
+                f"{library_ms:.5f} ms a call, {lib_us:.2f} us on the card")
+    return out
+
+
+def mixtral_kernel_phase(ops, da, F, rows):
+    """B1 at D 6144 (mx_rmsnorm_rows), then B8 and B9 over mixtral-8x22b's
+    rings (MX_RING_CASES: 48/8 heads of 128, a GQA group of 6; f32 and int8
+    pools; check_g2_cases, whose B9 checks hold the kernel's plan equal to
+    decode_multi_plan at this card's SM count), each timed at its serve
+    shape (g2_row), kept under ``mixtral_shapes`` in the rows of ``rows``."""
+    rows["rmsnorm"]["mixtral_shapes"] = mx_rmsnorm_rows(ops, F)
+    worst = check_g2_cases(ops, da, MX_RING_CASES, MX_HEADS, 0.0, "mixtral", seed=600)
+    for name in ("flash_decode", "flash_decode_multi", "flash_decode_int8",
+                 "flash_decode_multi_int8"):
+        out = {"worst_err": worst[name]}
+        for i in MX_TIMED[name.replace("_int8", "")]:
+            label = MX_RING_CASES[i][0]
+            args, kw = g2_args(MX_RING_CASES[i], 650 + i, name.endswith("_int8"), MX_HEADS, 0.0)
+            out[label] = g2_row(ops, da, F, name, label, args, kw, model="mixtral-8x22b")
+        rows[name]["mixtral_shapes"] = out
 
 
 def check_close(what, got, want, atol, rtol=0.0):
@@ -2593,6 +2715,53 @@ def compare_calls(what, kern, plain, out_k, out_r, logit_tol=SERVE_LOGIT_TOL):
     return tie_at, worst, scale
 
 
+def compare_requests(what, kern, plain, out_k, out_r, logit_tol, parted):
+    """compare_calls request by request, for calls that carry each row's
+    request (``req``, -1 for an idle slot; make_routing_recorder): a
+    request's rows are left out from the forward where it parted
+    (``parted``, {request: forward}, mx_routing's: an MoE routing near-tie,
+    or a sampled token that differs), the other requests' rows compared
+    through the whole serve.  Every sampled row still compared gives the
+    same greedy token unless the plain top-2 gap there is below TIE_GAP
+    (mx_routing has parted that request from the next forward on); the
+    first 8 decode steps' logits of the served rows still compared lie
+    within atol = rtol = ``logit_tol`` (None: measured, not held); the
+    requests that never parted end with the same tokens.  Returns (the
+    first forward where a request parted or None, worst, scale)."""
+    if out_k["steps"] != out_r["steps"] or len(kern.calls) != len(plain.calls):
+        raise AssertionError(f"{what}: steps differ: {out_k['steps']} vs "
+                             f"{out_r['steps']}")
+    worst = excess = scale = 0.0
+    for i, (ck, cr) in enumerate(zip(kern.calls, plain.calls)):
+        live = torch.tensor([r >= 0 and parted.get(r, i + 1) > i for r in cr["req"]],
+                            device=cr["arg"].device)
+        differ = (ck["arg"] != cr["arg"]) & cr["active"] & live
+        for j in differ.nonzero()[:, 0].tolist():
+            gap = float(cr["top2"][j, 0] - cr["top2"][j, 1])
+            if gap >= TIE_GAP:
+                raise AssertionError(
+                    f"{what}: greedy token differs at forward {i} ({cr['mode']}, "
+                    f"T={cr['T']}) row {j} (request {cr['req'][j]}), plain top-2 gap {gap}")
+            log(f"[{what}] tie: forward {i} ({cr['mode']}) row {j} (request "
+                f"{cr['req'][j]}), plain top-2 gap {gap:.3g} < {TIE_GAP}; that request's "
+                f"later rows are left out")
+        if ck["rows"] is not None and bool(live.any()):
+            diff = (ck["rows"] - cr["rows"]).abs()[live]
+            worst = max(worst, diff.max().item())
+            scale = max(scale, cr["rows"][live].abs().max().item())
+            if logit_tol is not None:
+                excess = max(excess, (diff - logit_tol * (1 + cr["rows"][live].abs()))
+                             .max().item())
+    if not excess <= 0:
+        raise AssertionError(f"{what}: decode logits differ by {worst} "
+                             f"(|logit| <= {scale})")
+    same = [r for r in range(len(out_r["tokens"])) if r not in parted]
+    if not torch.equal(out_k["tokens"][same], out_r["tokens"][same]):
+        raise AssertionError(f"{what}: greedy tokens of requests {same} differ with and "
+                             f"without the kernels")
+    return (min(parted.values()) if parted else None), worst, scale
+
+
 def serve_phase(cfg_f32, Model, Engine, EngineConfig, ops):
     R, S, Pmax, Gmax, P = 8, 4, 256, 64, 16
     rng = np.random.default_rng(0)
@@ -3069,16 +3238,17 @@ def gemma2_workload(V):
     return prompts, lens
 
 
-def g2_expect(L, n_dec, n_chunk, n_fwd, int8=False):
+def g2_expect(L, n_dec, n_chunk, n_fwd, int8=False, norms=4):
     """Exact launches of a gemma2 serve: B8 once a layer a decode step, B9
     once a layer a chunk forward (the ring layers' and the global ones'
-    alike), B1 four times a layer (pre- and post-norms) and once more a
-    forward, nothing else."""
+    alike), B1 four times a layer (pre- and post-norms; ``norms`` 2 for
+    mixtral, which has no post-norms) and once more a forward, nothing
+    else."""
     sfx = "_int8" if int8 else ""
     want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
     want["flash_decode" + sfx] = L * n_dec
     want["flash_decode_multi" + sfx] = L * n_chunk
-    want["rmsnorm"] = (4 * L + 1) * n_fwd
+    want["rmsnorm"] = (norms * L + 1) * n_fwd
     return want
 
 
@@ -3154,7 +3324,8 @@ def g2_float64(what, cfg, params, prompts, lens, kern, plain, out, tie_at):
 
 
 def g2_serve(what, ops, kern, plain, make, params, prompts, lens, want_fn, int8=False,
-             b1_control=False, profile=True, logit_tol=None, float64=False):
+             b1_control=False, profile=True, logit_tol=None, float64=False, gmax=G2_GMAX,
+             routing=None):
     """One gemma2 serve through the kernels (launches counted, peak memory,
     tok/s) and one through the plain versions (no launch), compared by
     compare_calls: the same steps and the same greedy token at every
@@ -3169,13 +3340,17 @@ def g2_serve(what, ops, kern, plain, make, params, prompts, lens, want_fn, int8=
     post-processing takes ~0.2 ms an event, and a whole serve launches
     170,000-500,000 kernels).  ``make(model, gen_len)`` builds the engine;
     ``want_fn(calls)`` gives the exact launches from the recorded
-    forwards.  Returns (launches, kernel serve, summary)."""
+    forwards.  ``gmax`` is the serve's generation budget; ``routing(kern,
+    plain, plain serve)`` (mixtral: mx_routing) compares the recorded MoE routings and
+    returns the requests it parted, which compare_requests leaves out from
+    there on in place of compare_calls.  Returns (launches, kernel serve,
+    summary)."""
     for m in (kern, plain):
         m.calls.clear()
         m.n_decode = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    engine = make(kern, G2_GMAX)
+    engine = make(kern, gmax)
     ops.reset_launch_counts()
     out_k, wall_k = timed_serve(engine, params, prompts, lens)
     launches = ops.launch_counts()
@@ -3189,11 +3364,17 @@ def g2_serve(what, ops, kern, plain, make, params, prompts, lens, want_fn, int8=
     if launches != want:
         raise AssertionError(f"{what}: launch counts {launches} != {want}")
     ops.reset_launch_counts()
-    out_r, wall_r = timed_serve(make(plain, G2_GMAX), params, prompts, lens)
+    out_r, wall_r = timed_serve(make(plain, gmax), params, prompts, lens)
     if set(ops.launch_counts().values()) != {0}:
         raise AssertionError(f"{what}: the plain serve launched kernels: "
                              f"{ops.launch_counts()}")
-    tie_at, worst, scale = compare_calls(what, kern, plain, out_k, out_r, logit_tol=logit_tol)
+    route = routing(kern, plain, out_r) if routing is not None else None
+    if route is None:
+        tie_at, worst, scale = compare_calls(what, kern, plain, out_k, out_r,
+                                             logit_tol=logit_tol)
+    else:
+        tie_at, worst, scale = compare_requests(what, kern, plain, out_k, out_r, logit_tol,
+                                                route["parted"])
     n_tok = int(out_k["lengths"].sum())
     log(f"[{what}] kernels: {n_tok} tokens in {wall_k:.3f} s ({n_tok / wall_k:.1f} tok/s), "
         f"peak memory {peak:.2f} GiB; plain: {int(out_r['lengths'].sum())} tokens in "
@@ -3207,6 +3388,8 @@ def g2_serve(what, ops, kern, plain, make, params, prompts, lens, want_fn, int8=
                    plain_tok_per_s=int(out_r["lengths"].sum()) / wall_r,
                    logit_max_abs_diff=worst, logit_scale=scale, logit_tol=logit_tol,
                    tie=tie_at, peak_gib=peak)
+    if route is not None:
+        summary["routing"] = route
     if float64:
         summary["float64"] = g2_float64(what, kern.cfg, params, prompts, lens, kern, plain,
                                         out_r, tie_at)
@@ -3216,7 +3399,7 @@ def g2_serve(what, ops, kern, plain, make, params, prompts, lens, want_fn, int8=
         ops.fused_rmsnorm = lambda x, gain, *, eps=1e-6, impl="auto": plain_rms(
             x, gain, eps=eps, impl="kernel")
         try:
-            out_c, _ = timed_serve(make(ctrl, G2_GMAX), params, prompts, lens)
+            out_c, _ = timed_serve(make(ctrl, gmax), params, prompts, lens)
         finally:
             ops.fused_rmsnorm = plain_rms
         try:
@@ -3407,6 +3590,412 @@ def gemma2_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0):
     log(f"[serve_gemma2_int8] pools {mib8:.1f} MiB int8 against {mib32:.1f} MiB f32 "
         f"({mib32 / mib8:.2f}x); greedy top-1 agreement with the f32 dynamic serve "
         f"{agree:.1%} (printed, not held); phase {time.perf_counter() - t_ph:.1f} s")
+    del kern, plain, kern8, plain8, params, made
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+# mixtral-8x22b's serve phases: 4 of its 56 layers (MX_DEPTH; f32 weights
+# of 4 layers are 41.7 GB, of 56 layers 564 GB), 6 requests of seed 0: 2
+# prompts of 4,608 tokens (past the 257-page ring's 4,112 positions: it
+# wraps) and 4 of 64-512, 32 tokens each, 4 slots, page 16; the dynamic
+# engine's chunks of 256
+MX_DEPTH, MX_R, MX_S, MX_GMAX, MX_P, MX_CH, MX_LONG = 4, 6, 4, 32, 16, 256, 4608
+MX_SHORT = (64, 512)
+# the first 8 decode steps' logits of the rows still compared, kernels
+# against the plain versions: three times the largest gap read (H100 at
+# 700 W, |logit| <= 4.84), f32 pools 9.54e-6 (static) and 8.88e-6
+# (dynamic), int8 pools 3.13e-3 (the one-ulp control's: 2.22e-3)
+MX_LOGIT_TOL = 3e-5
+MX_LOGIT_TOL_INT8 = 1e-2
+# an expert choice may flip between two serves only where the plain
+# probabilities of the k-th and (k+1)-th experts lie within the tie limit:
+# over f32 pools ROUTE_TIE (B1's and B8/B9's last bits move the router's
+# input); over int8 pools an f32 ulp upstream of the quantizer flips a
+# byte and a k or v moves by 1/127 of its page's absmax, so the limit is
+# twice the largest probability difference that a control makes, a plain
+# serve whose quantizer inputs are moved by one ulp (moved_quantizer_inputs),
+# and never below ROUTE_TIE
+ROUTE_TIE = 1e-5
+# the router probabilities of the rows that did not flip, kernels against
+# the plain versions, held at a fixed ceiling: three times the largest
+# difference read (H100 at 700 W), f32 pools 1.61e-6, int8 pools 9.72e-4
+# (the one-ulp control's: 9.40e-4)
+ROUTE_PROB_TOL = 5e-6
+ROUTE_PROB_TOL_INT8 = 3e-3
+
+
+def make_routing_recorder(Model):
+    """make_recording_model's recorder that also keeps, for every recorded
+    forward, each MoE layer's router logits and expert choices (the
+    models/moe.py ``route`` of that forward, in layer order), which rows
+    are real tokens (not a prefill's padding at position Pmax, not a row at
+    -1) and the request each row serves (``row_req``, set by
+    tag_requests)."""
+    from repro_torch.models import moe as moe_lib
+
+    Rec = make_recording_model(Model)
+
+    class RoutingRecorder(Rec):
+        row_req = None
+
+        def forward(self, params, tokens, positions=None, mode="train", **kw):
+            sink, real = [], moe_lib.route
+
+            def route(*a, **k):
+                out = real(*a, **k)
+                sink.append((out[0], out[2]))
+                return out
+
+            moe_lib.route = route
+            try:
+                out = super().forward(params, tokens, positions=positions, mode=mode, **kw)
+            finally:
+                moe_lib.route = real
+            if positions is not None:
+                valid = positions >= 0
+                if mode == "prefill":
+                    valid = valid & (positions < tokens.shape[1])
+                self.calls[-1].update(routes=sink, valid=valid, req=self.row_req)
+            return out
+
+    return RoutingRecorder
+
+
+def tag_requests(engine):
+    """``engine`` with its forwards wrapped so that its model (a
+    make_routing_recorder model) knows the request each row serves: a
+    decode step's slots (-1 where idle), a prefill's or a chunk's one
+    request.  Returns the engine."""
+    m = engine.model
+    decode, prefill, chunk = engine._decode, engine._prefill, getattr(
+        engine, "_admit_chunk", None)
+
+    def _decode(params, q, st, *a, **kw):
+        m.row_req = np.where(st.active, st.req, -1).tolist()
+        return decode(params, q, st, *a, **kw)
+
+    def _prefill(model, params, q, req):
+        model.row_req = [int(req)]
+        return prefill(model, params, q, req)
+
+    def _admit_chunk(params, q, st, cur, *a, **kw):
+        m.row_req = [int(cur["req"])]
+        return chunk(params, q, st, cur, *a, **kw)
+
+    engine._decode, engine._prefill = _decode, _prefill
+    if chunk is not None:
+        engine._admit_chunk = _admit_chunk
+    return engine
+
+
+@contextlib.contextmanager
+def moved_quantizer_inputs():
+    """serving/kv_cache.py's _quantized_write with every value it quantizes
+    moved by one f32 ulp, up at even flat indices and down at odd ones:
+    the int8 routing control (mixtral_phases), a plain serve whose pools
+    part from the plain serve's as an f32 difference in the last bit makes
+    them part."""
+    from repro_torch.serving import kv_cache
+
+    real = kv_cache._quantized_write
+
+    def moved(store, scale, x_new, pg, off):
+        xf = x_new.float()
+        toward = torch.full_like(xf, math.inf)
+        toward.view(-1)[1::2] = -math.inf
+        return real(store, scale, torch.nextafter(xf, toward), pg, off)
+
+    kv_cache._quantized_write = moved
+    try:
+        yield
+    finally:
+        kv_cache._quantized_write = real
+
+
+def mx_routing(what, cfg, tie=ROUTE_TIE, prob_tol=ROUTE_PROB_TOL):
+    """routing(a, b, b's serve) for g2_serve: the expert choices of a serve ``a`` (the
+    kernels', or a control's) against the plain serve ``b``'s, forward by
+    forward and layer by layer over the real rows of each request until
+    it parts.  A request parts where one of its rows takes another set of
+    k experts, which must be a near-tie: the plain probabilities of the
+    k-th and (k+1)-th experts within ``tie`` (each flip printed with its
+    margin; that sequence's capacity ranks shift, so its later rows may
+    differ); and after a forward whose sampled token differs for it
+    (compare_requests judges that token).  The other requests are compared
+    through the whole serve: the largest difference between the two
+    router probabilities on rows that did not flip must stay within
+    ``prob_tol`` (None: measured, not held).  Also counts, from ``a``'s
+    routings, the real slots each kind of forward dropped past its
+    capacity.  Returns {parted: {request: forward}, flips, rows compared,
+    the smallest margin, the largest probability difference, drops}."""
+    from repro_torch.models import moe as moe_lib
+
+    k, E = cfg.top_k, cfg.n_experts
+
+    def check(kern, plain, out_r):
+        flips, compared, min_margin, noise = [], 0, float("inf"), 0.0
+        parted, drops = {}, {}
+        for i, (ck, cr) in enumerate(zip(kern.calls, plain.calls)):
+            kind = ("prefill" if cr["mode"] == "prefill" else
+                    "chunk" if cr["T"] > 1 else "decode")
+            S = cr["valid"].shape[1]
+            C = moe_lib._capacity(cfg, S)
+            for layer, ((lk, ik), (lr, ir)) in enumerate(zip(ck["routes"], cr["routes"])):
+                live = torch.tensor([parted.get(r, i + 1) > i for r in cr["req"]],
+                                    device=lr.device)
+                valid = cr["valid"] & live[:, None]
+                pr = torch.softmax(lr, dim=-1)
+                p = pr.sort(dim=-1, descending=True).values
+                margin = p[..., k - 1] - p[..., k]
+                differ = (ik.sort(-1).values != ir.sort(-1).values).any(-1) & valid
+                if bool(valid.any()):
+                    compared += int(valid.sum())
+                    min_margin = min(min_margin, margin[valid].min().item())
+                    dp = (torch.softmax(lk, dim=-1) - pr).abs().amax(-1)
+                    if bool((valid & ~differ).any()):
+                        noise = max(noise, dp[valid & ~differ].max().item())
+                flat = ik.reshape(ik.shape[0], -1)
+                rank = (torch.nn.functional.one_hot(flat, E).cumsum(1)
+                        .gather(-1, flat[..., None])[..., 0] - 1)
+                d = drops.setdefault(kind, [0, 0])
+                d[0] += int(((rank >= C).reshape(ik.shape) & cr["valid"][..., None]).sum())
+                d[1] += int(cr["valid"].sum()) * k
+                for b, t in differ.nonzero().tolist():
+                    m, r = margin[b, t].item(), cr["req"][b]
+                    flips.append(dict(forward=i, mode=kind, layer=layer, row=[b, t],
+                                      request=r, margin=m))
+                    log(f"[{what}] routing flip: forward {i} ({kind}), layer {layer}, row "
+                        f"({b}, {t}) of request {r}: experts {ik[b, t].tolist()} against "
+                        f"{ir[b, t].tolist()} plain, plain top-{k} margin {m:.3g} (the near-tie "
+                        f"limit {tie:.3g}); that request's later rows are left out")
+                    if not m < tie:
+                        raise AssertionError(f"{what}: expert choice differs at forward {i} "
+                                             f"layer {layer} row ({b}, {t}), margin {m} >= "
+                                             f"{tie}")
+                    parted.setdefault(r, i)
+            for b in ((ck["arg"] != cr["arg"]) & cr["active"]).nonzero()[:, 0].tolist():
+                parted.setdefault(cr["req"][b], i + 1)
+        log(f"[{what}] routing: {compared} real rows x layers compared, {len(flips)} flip(s)"
+            + (f" (near-ties below {tie:.3g}, margins {[f['margin'] for f in flips]})"
+               if flips else "") + f"; requests parted (request: forward) {parted}; "
+            f"smallest plain top-{k} margin {min_margin:.3g}; largest probability difference "
+            f"on rows that did not flip {noise:.3g} ("
+            + ("measured" if prob_tol is None else f"held at {prob_tol:.3g}")
+            + "); real slots dropped past capacity (dropped / slots): "
+            + ", ".join(f"{kd} {a} / {b}" for kd, (a, b) in drops.items()))
+        if prob_tol is not None and not noise <= prob_tol:
+            raise AssertionError(f"{what}: router probabilities differ by {noise} > "
+                                 f"{prob_tol} on rows that did not flip")
+        return dict(parted=parted, flips=flips, rows_compared=compared, min_margin=min_margin,
+                    prob_noise=noise, prob_tol=prob_tol,
+                    tie=tie if math.isfinite(tie) else None, dropped_slots=drops)
+
+    return check
+
+
+def mixtral_workload(V):
+    """6 requests from seed 0: 2 prompts of 4,608 tokens and 4 of 64-512,
+    in a shuffled order."""
+    rng = np.random.default_rng(0)
+    lens = np.concatenate([[MX_LONG, MX_LONG],
+                           rng.integers(MX_SHORT[0], MX_SHORT[1] + 1, MX_R - 2)])
+    lens = lens[rng.permutation(MX_R)]
+    prompts = rng.integers(0, V, (MX_R, MX_LONG))
+    return prompts, lens
+
+
+def mixtral_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0):
+    """mixtral-8x22b (configs/mixtral_8x22b.py, arXiv:2401.04088: every
+    layer ``local_moe``, window 4,096; d_model 6144, 48/8 heads of 128, 8
+    experts of d_ff 16384 (silu GLU), top-2, capacity factor 1.25; vocab
+    32768, untied embeddings) at full width over MX_DEPTH = 4 of its 56
+    layers, f32 weights from seed 0 with a random query projection and a
+    random readout (``zero_init_query=False``, ``zero_init_readout=False``:
+    under µP the readout starts at zero and every logit would be 0), on the
+    mixtral_workload requests, greedy, 4 slots, page 16.
+
+    - serve_mixtral: the static engine (one-shot prefills of the 4,608-token
+      buffer: the MoE's capacity over S 4,608, 1,440 places an expert).
+    - serve_mixtral_dynamic: DynamicEngine, chunks of 256 (capacity 80),
+      the prefix cache requested (sharing off on a ring config: nothing
+      shared; no global pool on the card, the config having no global
+      layer).
+    - serve_mixtral_int8: int8 pools through DynamicEngine, chunks of 256;
+      the pools' MiB against f32 and the top-1 agreement with the f32
+      dynamic serve printed.
+
+    Each: kernels against the plain versions request by request
+    (tag_requests; mx_routing: expert choices, flips only at near-ties,
+    counted with their margins, each parting its request, the other rows'
+    router probabilities held at ROUTE_PROB_TOL / _INT8; compare_requests:
+    tokens and steps by the near-tie rule, the first 8 decode steps'
+    logits of the requests not parted held at MX_LOGIT_TOL / _INT8).  Over
+    int8 pools the tie limit is twice the largest probability difference
+    of a control, the plain versions with the quantizer's inputs moved by
+    one ulp (moved_quantizer_inputs), against the plain serve: a measure of
+    how far int8 pools part two serves that differ in f32's last bit,
+    taken apart from the kernels.  Exact launches (B1 2L + 1 a forward, B8
+    L a decode step, B9 L a chunk forward, their int8 modes over int8
+    pools, nothing else), the ring's wrap shown (g2_wrap), tok/s, the
+    card's busy share, peak memory, pool MiB and the phase's seconds.  One-shot and chunked prefill drop different slots
+    (capacity over another S), in the reference too: a mode is compared
+    only with itself.  Returns ({path: launches}, {path: summary})."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.kv_cache import pool_bytes
+
+    cfg = get_config("mixtral-8x22b").replace(
+        dtype="float32", zero_init_query=False, zero_init_readout=False, n_layers=MX_DEPTH)
+    cfg8 = cfg.replace(kv_dtype="int8")
+    L = cfg.n_layers
+    prompts, lens = mixtral_workload(cfg.vocab_size)
+    kw = dict(n_slots=MX_S, page_size=MX_P, max_prompt_len=MX_LONG, max_gen_len=MX_GMAX)
+    dyn_kw = dict(prefill_chunk=MX_CH, prefix_cache=True, **kw)
+    Rec = make_routing_recorder(Model)
+    kern, plain = Rec(cfg, device="cuda", impl="auto"), Rec(cfg, device="cuda", impl="ref")
+    params = kern.init(seed=0)
+    n_params = sum(p.numel() for p in params.values())
+    log(f"[serve_mixtral] {cfg.name}: {L} of its 56 layers (the cut: 56 layers of f32 "
+        f"weights are 564 GB) {cfg.pattern} x {cfg.n_groups}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, {cfg.n_experts} experts of "
+        f"d_ff {cfg.d_ff} ({cfg.act}), top-{cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}, vocab {cfg.vocab_size} untied, window {cfg.window_size}, "
+        f"{n_params / 1e9:.3f}B params ({4 * n_params / 1e9:.2f} GB f32); {MX_R} requests, "
+        f"prompt lens {lens.tolist()}, {MX_GMAX} tokens each, {MX_S} slots, page {MX_P}")
+    short = int(np.argmin(lens))
+    Engine(kern, EngineConfig(**{**kw, "n_slots": 1, "max_gen_len": 2})).serve(
+        params, prompts[short:short + 1], lens[short:short + 1])
+    DynamicEngine(kern, EngineConfig(**{**dyn_kw, "n_slots": 1, "max_gen_len": 2})).serve(
+        params, prompts[short:short + 1], lens[short:short + 1])
+    launches, summary = {}, {}
+
+    def chunks_of(calls):
+        return sum(c["mode"] == "decode" and c["T"] > 1 for c in calls)
+
+    def decodes_of(calls):
+        return sum(c["mode"] == "decode" and c["T"] == 1 for c in calls)
+
+    def make_static(m, gen_len):
+        return tag_requests(Engine(m, EngineConfig(**{**kw, "max_gen_len": gen_len})))
+
+    made = []
+
+    def make_dyn(m, gen_len):
+        e = tag_requests(DynamicEngine(m, EngineConfig(**{**dyn_kw, "max_gen_len": gen_len})))
+        if e.blocks.cache is not None:
+            raise AssertionError("a prefix cache on a ring config")
+        if any("0_local_moe" != k for k in e._pools["groups"]):
+            raise AssertionError(f"pools {list(e._pools['groups'])} beside the ring's")
+        made.append(e)
+        return e
+
+    def want_dyn(calls, int8=False):
+        n_chunk, n_dec = chunks_of(calls), decodes_of(calls)
+        want_chunks = int(sum(-(-int(n) // MX_CH) for n in lens))
+        if n_chunk != want_chunks or any(c["mode"] == "prefill" for c in calls) or any(
+                c["T"] != MX_CH for c in calls if c["mode"] == "decode" and c["T"] > 1):
+            raise AssertionError(f"chunk forwards {n_chunk} against the schedule "
+                                 f"{want_chunks} (none shared)")
+        return g2_expect(L, n_dec, n_chunk, n_chunk + n_dec, int8, norms=2)
+
+    serve = dict(ops=ops, kern=kern, plain=plain, params=params, prompts=prompts, lens=lens,
+                 gmax=MX_GMAX)
+
+    # ---- the static engine ----
+    t_ph = time.perf_counter()
+    spec = make_static(kern, MX_GMAX).spec
+    launches["serve_mixtral"], out_s, summary["serve_mixtral"] = g2_serve(
+        "serve_mixtral", make=make_static, logit_tol=MX_LOGIT_TOL,
+        want_fn=lambda calls: g2_expect(L, decodes_of(calls), 0, len(calls), norms=2),
+        routing=mx_routing("serve_mixtral", cfg), **serve)
+    summary["serve_mixtral"].update(
+        wrap=g2_wrap("serve_mixtral", cfg, spec, lens, out_s),
+        pool_mib=pool_bytes(cfg, spec) / 2**20, seconds=time.perf_counter() - t_ph)
+    log(f"[serve_mixtral] pools {summary['serve_mixtral']['pool_mib']:.1f} MiB f32 "
+        f"({spec.n_slots} slots x {spec.wp_cols} ring pages; the {spec.gp_cols}-page global "
+        f"table has no pool: no global layer); phase "
+        f"{summary['serve_mixtral']['seconds']:.1f} s")
+    log(f"[time] serve_mixtral done at {time.perf_counter() - t0:.0f} s")
+
+    # ---- the dynamic engine, chunks of 256, the prefix cache requested ----
+    t_ph = time.perf_counter()
+    launches["serve_mixtral_dynamic"], out_d, summary["serve_mixtral_dynamic"] = g2_serve(
+        "serve_mixtral_dynamic", make=make_dyn, want_fn=want_dyn, logit_tol=MX_LOGIT_TOL,
+        routing=mx_routing("serve_mixtral_dynamic", cfg), **serve)
+    dspec = made[0].spec
+    if out_d["prefill_cached"] != 0:
+        raise AssertionError(f"{out_d['prefill_cached']} prompt tokens shared on a ring "
+                             f"config")
+    ring_pos = made[0]._pools["groups"]["0_local_moe"]["attn"]["pos"]
+    if int(ring_pos.max()) < dspec.wp_cols * dspec.page_size:
+        raise AssertionError("the dynamic engine's ring pools never wrapped")
+    summary["serve_mixtral_dynamic"].update(
+        wrap=g2_wrap("serve_mixtral_dynamic", cfg, dspec, lens, out_d),
+        ring_pool_top_position=int(ring_pos.max()), prefill_cached=out_d["prefill_cached"],
+        prefill_total=out_d["prefill_total"], host_global_pages=made[0].n_pages,
+        pool_mib=pool_bytes(cfg, dspec) / 2**20, seconds=time.perf_counter() - t_ph)
+    log(f"[serve_mixtral_dynamic] prefix cache requested: {out_d['prefill_cached']}/"
+        f"{out_d['prefill_total']} prompt tokens shared (sharing off on rings); ring pools "
+        f"hold positions up to {int(ring_pos.max())}; pools "
+        f"{summary['serve_mixtral_dynamic']['pool_mib']:.1f} MiB ({dspec.wp_cols} ring pages "
+        f"a slot; {made[0].n_pages} global pages on the host allocator only); phase "
+        f"{summary['serve_mixtral_dynamic']['seconds']:.1f} s")
+    log(f"[time] serve_mixtral_dynamic done at {time.perf_counter() - t0:.0f} s")
+
+    # ---- int8 pools through the dynamic engine ----
+    t_ph = time.perf_counter()
+    kern8, plain8 = Rec(cfg8, device="cuda", impl="auto"), Rec(cfg8, device="cuda", impl="ref")
+    made.clear()
+    control = {}
+
+    def route8(kern, plain, out_r):
+        # the control first: a plain serve with the quantizer's inputs
+        # moved by one ulp, against the plain serve; its largest
+        # probability difference sets the int8 tie limit
+        ctrl = Rec(cfg8, device="cuda", impl="ref")
+        with moved_quantizer_inputs():
+            out_c, _ = timed_serve(make_dyn(ctrl, MX_GMAX), params, prompts, lens)
+        c = mx_routing("serve_mixtral_int8 control", cfg8, tie=math.inf,
+                       prob_tol=None)(ctrl, plain, out_r)
+        try:
+            _, c["logit_max_abs_diff"], _ = compare_requests(
+                "serve_mixtral_int8 control", ctrl, plain, out_c, out_r, None, c["parted"])
+        except AssertionError as e:
+            # a measurement, not a check of the port
+            c["parted_tokens"] = str(e)
+            log(f"[serve_mixtral_int8] control: {e}")
+        control.update(c)
+        tie = max(ROUTE_TIE, 2 * c["prob_noise"])
+        log(f"[serve_mixtral_int8] control, the plain versions with the quantizer's inputs "
+            f"moved by one ulp: largest probability difference {c['prob_noise']:.3g}, "
+            f"{len(c['flips'])} flip(s), first 8 decode steps' logits max abs diff "
+            f"{c.get('logit_max_abs_diff', math.nan):.3g}; the kernels' tie limit "
+            f"{tie:.3g}")
+        del ctrl
+        return mx_routing("serve_mixtral_int8", cfg8, tie=tie,
+                          prob_tol=ROUTE_PROB_TOL_INT8)(kern, plain, out_r)
+
+    launches["serve_mixtral_int8"], out_8, summary["serve_mixtral_int8"] = g2_serve(
+        "serve_mixtral_int8", make=make_dyn, want_fn=lambda calls: want_dyn(calls, int8=True),
+        int8=True, logit_tol=MX_LOGIT_TOL_INT8, routing=route8,
+        **dict(serve, kern=kern8, plain=plain8))
+    flips = pool_diff(made[0]._pools, made[1]._pools)
+    moved = pool_diff(made[2]._pools, made[1]._pools)
+    control["pools_vs_plain"] = moved
+    summary["serve_mixtral_int8"]["routing"]["control"] = control
+    valid = torch.arange(MX_GMAX)[None] < out_8["lengths"][:, None]
+    agree = float((out_8["tokens"][valid] == out_d["tokens"][valid]).float().mean())
+    mib8, mib32 = pool_bytes(cfg8, dspec) / 2**20, pool_bytes(cfg, dspec) / 2**20
+    summary["serve_mixtral_int8"].update(
+        wrap=g2_wrap("serve_mixtral_int8", cfg, dspec, lens, out_8), pool_mib=mib8,
+        pool_mib_f32=mib32, top1_agreement_with_f32=agree, pools_vs_plain=flips,
+        seconds=time.perf_counter() - t_ph)
+    log(f"[serve_mixtral_int8] int8 pools against the plain serve's: {flips['bytes_differ']} "
+        f"of {flips['bytes']} bytes differ, by at most {flips['max_byte_diff']} step(s) (the "
+        f"control's: {moved['bytes_differ']}, by at most {moved['max_byte_diff']}); "
+        f"pools {mib8:.1f} MiB int8 against {mib32:.1f} MiB f32 ({mib32 / mib8:.2f}x); greedy "
+        f"top-1 agreement with the f32 dynamic serve {agree:.1%} (printed, not held); phase "
+        f"{time.perf_counter() - t_ph:.1f} s")
     del kern, plain, kern8, plain8, params, made
     torch.cuda.empty_cache()
     return launches, summary
@@ -5811,7 +6400,8 @@ def main():
     rows.append(int8_decode_phase(ops, da, F))
     rows.append(int8_multi_phase(ops, da, F))
     gemma2_kernel_phase(ops, da, F, {row["name"]: row for row in rows})
-    done("B8-B9 kernel phases (f32/bf16 and int8 pools, gemma2's rings)")
+    mixtral_kernel_phase(ops, da, F, {row["name"]: row for row in rows})
+    done("B8-B9 kernel phases (f32/bf16 and int8 pools, gemma2's and mixtral's rings)")
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False,
                                             n_layers=SERVE_DEPTH)
     serve_launches, serve = serve_phase(cfg, Model, Engine, EngineConfig, ops)
@@ -5828,6 +6418,8 @@ def main():
     done("serve_spec")
     g2_launches, g2 = gemma2_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0)
     done("serve_gemma2, serve_gemma2_dynamic, serve_gemma2_int8")
+    mx_launches, mx = mixtral_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0)
+    done("serve_mixtral, serve_mixtral_dynamic, serve_mixtral_int8")
     train_launches, train = train_phase(ops, quant)
     done("train")
     amp_launches, amp = train_phase(ops, quant, amp="bf16", control_losses=train["losses"])
@@ -5869,6 +6461,7 @@ def main():
                    "serve_int8_static": int8_static_launches[row["name"]],
                    **{path: launches[row["name"]] for path, launches in spec_launches.items()},
                    **{path: launches[row["name"]] for path, launches in g2_launches.items()},
+                   **{path: launches[row["name"]] for path, launches in mx_launches.items()},
                    "train": train_launches[row["name"]],
                    "train_amp_bf16": amp_launches[row["name"]],
                    "train_amp_int8": amp8_launches[row["name"]],
@@ -5879,11 +6472,13 @@ def main():
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
         only = {"flash_decode_multi": ("serve_dynamic", "serve_spec", "serve_spec_dynamic",
-                                       "serve_spec_copy", "serve_gemma2_dynamic"),
+                                       "serve_spec_copy", "serve_gemma2_dynamic",
+                                       "serve_mixtral_dynamic"),
                 "flash_decode_int8": ("serve_int8", "serve_int8_static", "serve_spec_int8",
-                                      "serve_gemma2_int8", "serve_gemma2_int8_static"),
+                                      "serve_gemma2_int8", "serve_gemma2_int8_static",
+                                      "serve_mixtral_int8"),
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
-                                            "serve_gemma2_int8"),
+                                            "serve_gemma2_int8", "serve_mixtral_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
                                 "spec_copy_train", "sweep_serial", "algorithm1_train",
                                 "sweep_amp_bf16_serial", "sweep_amp_int8_serial",
@@ -5924,7 +6519,7 @@ def main():
     log(json.dumps({"serve_dynamic": dyn}))
     log(json.dumps({"serve_int8": srv8}))
     log(json.dumps({"serve_spec": spec}))
-    for path, summary in g2.items():
+    for path, summary in (*g2.items(), *mx.items()):
         log(json.dumps({path: summary}, default=str))
     log(json.dumps({"train": train}))
     log(json.dumps({"train_amp_bf16": amp}))

@@ -1,8 +1,9 @@
 """Config registry: ``get_config("<arch-id>")`` for every ported arch.
 
-The port carries the dense decoder-only architectures: the all-``attn``
-ones and gemma2's local/global alternation (2b and 27b).  The others
-(MoE, SSM, recurrent, encoder-decoder, VLM) arrive with their block kinds.
+The port carries the decoder-only architectures: the all-``attn`` ones,
+gemma2's local/global alternation (2b and 27b) and the MoE ones with
+untied embeddings (mixtral-8x22b, llama4-scout).  The others (SSM,
+recurrent, encoder-decoder, VLM) arrive with their block kinds.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ ARCHS = (
     "gemma2_2b",
     "smollm_360m",
     "smollm_135m",
+    "mixtral_8x22b",
+    "llama4_scout_17b_a16e",
     # paper models
     "mup_gpt",
 )
@@ -24,6 +27,8 @@ _ALIASES = {
     "gemma2-2b": "gemma2_2b",
     "smollm-360m": "smollm_360m",
     "smollm-135m": "smollm_135m",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "mup-gpt": "mup_gpt",
 }
 

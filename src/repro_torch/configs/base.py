@@ -1,19 +1,20 @@
 """Config system: one frozen dataclass describing a model + its muP base shape.
 
 The port's copy of ``repro.configs.base``, cut to the fields that the
-dense decoder-only architectures the port serves and trains read: the
-all-``attn`` ones and gemma2's ``("local", "attn")`` alternation with its
-sliding window, query-chunked attention and post-norms.  Width fields have
-parallel ``base_*`` fields: the muP base shape (Eq. 4).  By default
+decoder-only architectures the port serves and trains read: the
+all-``attn`` ones, gemma2's ``("local", "attn")`` alternation with its
+sliding window, query-chunked attention and post-norms, and the MoE
+blocks (``"moe"``, ``"local_moe"``) with untied embeddings.  Width fields
+have parallel ``base_*`` fields: the muP base shape (Eq. 4).  By default
 ``base_* == *`` (pure SP compatibility at own width); `scaled(...)` derives
 wider/narrower family members sharing the same base.
 
 Fields of the reference left out, because nothing the port runs reads
 them: the lowering and memory knobs of its JAX training (``remat``,
 ``scan_layers``, ``bf16_param_gather``, ``parallelism``, ``attn_acc``,
-``use_pallas``, ``naive_loss``, ``zero_init_readout``, ``use_qk_norm``)
-and the fields of block kinds not ported yet (MoE, SSM, RG-LRU,
-encoder-decoder, VLM).  A reference config carries over by dropping them.
+``use_pallas``, ``naive_loss``, ``use_qk_norm``) and the fields of block
+kinds not ported yet (SSM, RG-LRU, encoder-decoder, VLM).  A reference
+config carries over by dropping them.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from typing import Optional, Tuple
 #   "attn"        global self-attention + MLP
 #   "local"       sliding-window self-attention + MLP (a ring of pages when
 #                 served: serving/kv_cache.py)
-# The other kinds of the reference ("cross", "moe", "local_moe",
-# "recurrent", "ssd") arrive with their blocks.
+#   "moe"         global self-attention + MoE FFN (models/moe.py)
+#   "local_moe"   sliding-window self-attention + MoE FFN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,11 @@ class ModelConfig:
     final_softcap: float = 0.0        # softcap on output logits
     rope_theta: float = 10000.0
 
+    # ---- MoE --------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
     # paged-KV pool storage dtype for serving; "" inherits `dtype`; "int8"
     # stores quantized pages + per-page-per-head f32 scales (quant/kv.py)
     kv_dtype: str = ""
@@ -74,6 +80,7 @@ class ModelConfig:
     alpha_output: float = 1.0
     alpha_attn: float = 1.0
     alpha_embed: float = 1.0          # embedding multiplier (App F.4)
+    zero_init_readout: bool = True    # App. D.2 (the untied readout)
     zero_init_query: bool = True      # App. D.2
     tie_embeddings: bool = True
 
@@ -156,3 +163,36 @@ class ModelConfig:
             base_d_head=self.d_head,
             base_d_ff=self.d_ff,
         )
+
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Approximate parameter count N (for 6ND model-FLOPs accounting):
+        the reference's formula, over the block kinds the port runs."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        total = v * d * (1 if self.tie_embeddings else 2)
+        blocks = list(self.pattern) * self.n_groups + list(self.tail)
+        glu = self.act.endswith("_glu")
+        mlp = d * f * (3 if glu else 2)
+        attn = d * (self.n_heads * self.d_head) * 2 + d * (
+            self.n_kv_heads * self.d_head
+        ) * 2
+        for b in blocks:
+            if b in ("attn", "local"):
+                total += attn + mlp
+            elif b in ("moe", "local_moe"):
+                total += attn + self.n_experts * mlp + d * self.n_experts
+            else:
+                raise ValueError(b)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """N_active for MoE (top_k of n_experts in MoE FFNs)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        mlp = d * f * (3 if self.act.endswith("_glu") else 2)
+        n_moe = sum(
+            1 for b in list(self.pattern) * self.n_groups + list(self.tail)
+            if b.endswith("moe")
+        )
+        return int(self.param_count() - n_moe * (self.n_experts - self.top_k) * mlp)

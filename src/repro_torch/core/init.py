@@ -40,7 +40,9 @@ def init_one(
         raise ValueError(f"unknown init kind {meta.init!r} for {meta.name}")
     std = meta.rule(parametrization, sigma).init_std
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    return (w * std).to(dtype)
+    # in place: one copy of a large tensor (mixtral's experts are 25.8 GB a
+    # 4-layer stack)
+    return w.mul_(std).to(dtype)
 
 
 def init_params(

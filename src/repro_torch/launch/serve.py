@@ -12,12 +12,16 @@ either engine.  ``--draft-width W`` serves speculatively with the target's
 gemma2 (``--arch gemma2-2b``, ``gemma2-27b``) serves its sliding-window
 layers from rings of pages on both engines; ``--prefix-cache`` there runs
 with sharing off, as in the reference (ring pages are overwritten in
-place).  ``--obs`` attaches a ``ServeObs`` (metrics and a phase tracer,
-host-side only: the same tokens, launches and syncs) and prints the trace's
-event count and the metrics as Prometheus text after the serve.  Flags of
+place).  The MoE configs (``--arch mixtral-8x22b``, whose every layer is
+windowed, and ``llama4-scout-17b-a16e``) serve through the same engines,
+their FFNs through models/moe.py.  ``--obs`` attaches a ``ServeObs``
+(metrics and a phase tracer, host-side only: the same tokens, launches and
+syncs) and prints the trace's event count and the metrics as Prometheus
+text after the serve.  Flags of
 parts not ported yet (the mesh, the dense-loop driver) exit with an error
 saying so, and so does a model whose float32 weights do not fit the card
-(gemma2-27b: bf16 weights or several cards are not ported yet).
+(gemma2-27b, mixtral-8x22b's 56 layers: bf16 weights or several cards are
+not ported yet).
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
@@ -33,6 +37,7 @@ Usage:
     python -m repro_torch.launch.serve --arch gemma2-2b --prompt-len 6400 \
         --prefill-chunk 256 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-27b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -134,7 +139,7 @@ def main(argv=None):
         if need > have:
             ap.error(f"{cfg.name}'s float32 weights need {need / 1e9:.1f} GB and "
                      f"the card has {have / 1e9:.1f} GB: serving it needs bf16 "
-                     f"weights or several cards, not ported yet (ROADMAP.md § A)")
+                     f"weights or several cards, not ported yet (ROADMAP.md § A 5)")
     params = model.init(args.seed)
     dev = model.device
     draft_model = draft_params = None

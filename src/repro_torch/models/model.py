@@ -1,9 +1,11 @@
 """Top-level model: ``build_model(cfg, device)`` -> Model (init / forward /
 loss / prefill).
 
-The port's counterpart of ``repro.models.model`` for the dense decoder-only
-("lm") architectures: all-"attn" stacks and gemma2's "local"/"attn"
-alternation with post-norms and a final softcap.  Params are a flat ``{dotted name:
+The port's counterpart of ``repro.models.model`` for the decoder-only ("lm")
+architectures: all-"attn" stacks, gemma2's "local"/"attn" alternation with
+post-norms and a final softcap, and the MoE stacks ("moe", "local_moe")
+with an untied readout (``unembed``, zero-init under µP per App. D.2 when
+``cfg.zero_init_readout``).  Params are a flat ``{dotted name:
 tensor}`` dict with the reference's names and shapes (see core/meta.py), so
 ``convert.params_from_numpy`` carries reference weights over 1:1.
 """
@@ -53,16 +55,24 @@ def _readout_view_meta(cfg) -> ParamMeta:
 
 
 def build_meta(cfg) -> Dict[str, Any]:
-    if cfg.family != "lm" or cfg.tail or not cfg.tie_embeddings:
+    if cfg.family != "lm" or cfg.tail:
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only configs with tied embeddings and "
-            f"no tail are ported"
+            f"{cfg.name}: only decoder-only configs with no tail are ported"
         )
-    return {
+    D, bD = cfg.d_model, cfg.base_d_model
+    meta = {
         "embed": _embed_meta(cfg),
         "groups": tfm.stack_group_meta(cfg),
-        "final_norm": gain_meta("final_norm", cfg.d_model, cfg.base_d_model),
+        "final_norm": gain_meta("final_norm", D, bD),
     }
+    if not cfg.tie_embeddings:
+        meta["unembed"] = wmeta(
+            "unembed", (D, cfg.vocab_size), (bD, cfg.vocab_size), width_axes=(0,),
+            fan_in_axes=(0,), fan_out_axes=(1,),
+            init=("zeros" if cfg.zero_init_readout and cfg.parametrization != "sp"
+                  else "normal"),
+        )
+    return meta
 
 
 def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -92,7 +102,9 @@ class Model:
             k: tfm.tree_map(tfm.unstack_meta, m)
             for k, m in self.meta["groups"].items()
         }
-        self.readout_meta = _readout_view_meta(cfg)
+        # the readout's own meta (untied) or the tied embedding's view
+        self.readout_meta = (_readout_view_meta(cfg) if cfg.tie_embeddings
+                             else self.meta["unembed"])
 
     @property
     def p13n(self) -> AbcParametrization:
@@ -130,13 +142,13 @@ class Model:
         cfg = self.cfg
         alpha = cfg.alpha_output if hp is None else hp.alpha_output
         m = alpha * mult_of(self.readout_meta, self.p13n)
+        w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
         if cfg.amp:
             # the logit matmul under the mixed-precision policy, straight
             # through; master weights stay f32
-            logits = quant_matmul(x.float(), params["embed"].t().float(),
-                                  policy_of(cfg))
+            logits = quant_matmul(x.float(), w.float(), policy_of(cfg))
         else:
-            logits = torch.matmul(x, params["embed"].t().to(x.dtype))
+            logits = torch.matmul(x, w.to(x.dtype))
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32)) * m
         return softcap(logits, cfg.final_softcap)
 

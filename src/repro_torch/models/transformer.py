@@ -6,17 +6,22 @@ parameters of each block position in the group are stacked over
 transfer 1:1 by dotted name; where the reference scans over the stack, the
 port runs a Python loop over the layers of every stacked tensor.
 
-The port runs two block kinds: "attn" (global self-attention + MLP) and
+The port runs four block kinds: "attn" (global self-attention + MLP),
 "local" (the same over a sliding window of ``cfg.window_size`` positions;
-gemma2 alternates the two), each with gemma2's post-norms when
-``cfg.post_attn_norm`` is set.  Two modes: full sequence ("train" /
+gemma2 alternates the two), and "moe" / "local_moe" (the same attention
+with the MLP replaced by models/moe.py's top-k expert FFN: mixtral,
+llama4-scout), each with gemma2's post-norms when ``cfg.post_attn_norm``
+is set.  Two modes: full sequence ("train" /
 "prefill"; prefill also emits a cache) and paged decode (one token per slot
 through the flash-decode kernel, a chunk of tokens per slot through the
 multi-query one; windowed layers read and write a ring of pages through
 the window table).  Full sequences go through the flash-attention kernels
 when ``cfg.amp`` is set and the positions are 0..S-1, through plain
 attention otherwise (in query chunks of ``cfg.attn_chunk`` past that
-length), as in the reference.  The other kinds arrive with their blocks.
+length), as in the reference.  The MoE FFN runs on whatever (B, S) block
+the mode gives it (a padded prefill buffer, a chunk, one decode token a
+slot), which sets its capacity, as in the reference.  The other kinds
+arrive with their blocks.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.core.meta import ParamMeta
 from repro_torch.core.parametrization import resolve
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     activation,
     apply_w,
@@ -43,7 +49,7 @@ from repro_torch.models.rope import rope_cos_sin, rotate
 from repro_torch.quant import policy_of
 from repro_torch.serving import kv_cache as paged_kv
 
-BLOCK_KINDS = ("attn", "local")
+BLOCK_KINDS = ("attn", "local", "moe", "local_moe")
 
 
 @dataclasses.dataclass
@@ -147,7 +153,10 @@ def block_meta(cfg, kind: str, name: str) -> Dict[str, Any]:
     if cfg.post_attn_norm:
         m["ln1_post"] = gain_meta(f"{name}.ln1_post", d, bd)
     m["ln2"] = gain_meta(f"{name}.ln2", d, bd)
-    m["mlp"] = _mlp_meta(cfg, f"{name}.mlp")
+    if kind.endswith("moe"):
+        m["mlp"] = moe_lib.moe_meta(cfg, f"{name}.moe")
+    else:
+        m["mlp"] = _mlp_meta(cfg, f"{name}.mlp")
     if cfg.post_attn_norm:
         m["ln2_post"] = gain_meta(f"{name}.ln2_post", d, bd)
     return m
@@ -314,7 +323,11 @@ def apply_block(
         out = rmsnorm(out, params["ln1_post"], eps, impl=ctx.impl)
     x = x + out
     h2 = rmsnorm(x, params["ln2"], eps, impl=ctx.impl)
-    mout = _mlp(cfg, params["mlp"], meta["mlp"], h2, p13n)
+    if kind.endswith("moe"):
+        act = activation(cfg.act.replace("_glu", ""))
+        mout = moe_lib.moe_ffn(cfg, params["mlp"], meta["mlp"], h2, p13n, act)
+    else:
+        mout = _mlp(cfg, params["mlp"], meta["mlp"], h2, p13n)
     if cfg.post_attn_norm:
         mout = rmsnorm(mout, params["ln2_post"], eps, impl=ctx.impl)
     x = x + mout

@@ -1,7 +1,7 @@
 """Slot-mapped paged KV cache: fixed block pool + per-slot page tables.
 
 The port's counterpart of ``repro.serving.kv_cache`` for global and
-sliding-window attention layers with float32, bfloat16 or int8 pools.
+sliding-window attention layers (the MoE kinds' attention included) with float32, bfloat16 or int8 pools.
 Each attention layer's cache is a *pool* of fixed-size pages shared by
 every decode slot::
 
@@ -54,9 +54,9 @@ import torch
 
 from repro_torch.quant.core import _EPS, INT8_MAX, int8_scale
 
-# block kinds the paged engine serves in the port (self-attention KV caches;
-# the reference also serves its MoE kinds, which the port has not yet)
-SERVABLE_KINDS = ("attn", "local")
+# block kinds the paged engine serves (self-attention KV caches), as in the
+# reference
+SERVABLE_KINDS = ("attn", "local", "moe", "local_moe")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8}

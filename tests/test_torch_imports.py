@@ -38,7 +38,7 @@ def test_port_imports_without_jax_or_reference():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
-    assert len(mods) >= 41
+    assert len(mods) >= 44
     training = {
         "repro_torch.core.hpspace", "repro_torch.core.transfer",
         "repro_torch.kernels.cross_entropy", "repro_torch.optim.optimizer",
@@ -58,6 +58,9 @@ def test_port_imports_without_jax_or_reference():
     obs = {"repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
            "repro_torch.obs.telemetry"}
     assert obs <= mods, obs - mods
+    moe = {"repro_torch.models.moe", "repro_torch.configs.mixtral_8x22b",
+           "repro_torch.configs.llama4_scout_17b_a16e"}
+    assert moe <= mods, moe - mods
 
 
 @pytest.mark.parametrize("path", sorted(
