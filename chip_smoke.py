@@ -34,12 +34,14 @@ check:
   repeated), one launch a call in the profiler, its card time beside the
   autograd backward of F.rms_norm's, and at gemma2-2b's train shapes x
   (2048, 2304) and (4096, 2304), f32 and bf16 (the scalar path), each
-  held, timed and bounded; B3/B4 chunked cross entropy at logits
+  held, timed and bounded, and at mixtral-8x22b's, x (4608, 6144) f32;
+  B3/B4 chunked cross entropy at logits
   (4096, 2048) (the train shape), (4096, 49152) (smollm's vocab), (2048,
-  256000) (gemma2-2b's train step, held and timed) and
-  ragged V, with masked rows and a cotangent of order 1 on the others (loss
-  and lse at atol 2e-5, dlogits at atol 2e-4 / rtol 1e-3, bf16 2e-2,
-  masked rows exactly zero); B5/B6/B7 flash attention forward, dq and dk/dv
+  256000) (gemma2-2b's train step) and (4608, 32768) (mixtral-8x22b's;
+  both held and timed) and ragged V, with masked rows and a cotangent of
+  order 1 on the others (loss and lse at atol 2e-5, dlogits at atol 2e-4
+  / rtol 1e-3, bf16 2e-2, masked rows exactly zero); B5/B6/B7 flash
+  attention forward, dq and dk/dv
   in the f32, bf16 and int8 operand modes at the train shape (8, 512, 16
   heads of 64, causal), smollm's 9/3 heads (GQA), a window of 48, softcap
   20 (logits up to ~20), ragged S (200, 190), bf16 storage, d_head 128,
@@ -48,7 +50,8 @@ check:
   256 (each kernel's grid in two column halves): gemma2-2b's 8/4 heads of
   256, a window of 48 with softcap 50, ragged S 200, bf16 storage, d_head
   196 in f32 and bf16, and gemma2's local layer (B 1, S 8,192, window
-  4,096, softcap 50), with a
+  4,096, softcap 50), and mixtral-8x22b's train step (B 1, S 4,608, 48/8
+  heads of 128, window 4,096), with a
   cotangent of order 1: each kernel against its plain version at
   its own contract (kernels/ref.py flash_fwd_ref, flash_bwd_ref, which
   round or quantize where the kernels do, over the same tiles) on the same
@@ -84,7 +87,8 @@ check:
   layer at S 8,192 under window 4,096, softcap 50) a call and on the card,
   beside the bound from the visible pairs, the plain attention's forward
   and backward and SDPA's bf16 forward and backward (causal, no window,
-  no softcap) for scale; B8 paged flash decode,
+  no softcap) for scale, and the same at mixtral's train step
+  (MX_FLASH_TIMED, kept under ``mixtral_shapes``); B8 paged flash decode,
   split over a cluster of decode_splits() blocks (DECODE_CASES, 19 cases:
   engine shape, MHA/MQA, window, softcap, all four f32/bf16 (q, pool)
   pairs, d_head 128, d_head 256 with gemma2-2b's 8/4 heads in f32 and
@@ -306,6 +310,24 @@ check:
   B3, 1 B4, under amp 26 each of B5, B6 and B7 in its operand mode and
   under int8 26 of each pre-pass), ms per step, the host batch's share
   and peak memory.
+- train_mixtral, train_mixtral --amp bf16, train_mixtral --amp int8:
+  mixtral-8x22b (arXiv:2401.04088: d_model 6144, 48/8 heads of 128, 8
+  experts of d_ff 16384 top-2, capacity factor 1.25, window 4,096, vocab
+  32,768, untied) at full width over 1 of its 56 layers (one layer's f32
+  weights, gradients and Adam moments take 46.5 GB, two layers' 86.6 GB),
+  one sequence of 4,608 tokens (capacity 1,440 an expert), loops of 3
+  steps at lr 1e-4 (TRAIN_ARCHS), from a random readout and query
+  projection: the first step as above, plus each layer's expert choices
+  kernels against plain (train_routing: a flip only at a near-tie,
+  ROUTE_TIE; the slots dropped past capacity printed), the kernels' first
+  step run twice and held bit-equal, and after a flip the gradients it
+  moved printed and the rest held (hold_grads); the plain side's flash
+  attention two kv heads a call (the same bits in less memory).  The
+  loops' step 0 is the first step bit for bit; under --amp the loop runs
+  through the kernels only (the first step holds B5-B7 against their plain
+  versions and the controls); exact launches per step (3 B1, 3 B2, 1 B3, 1
+  B4, under amp 1 of each B5-B7 mode and under int8 1 of each pre-pass),
+  ms per step, the host batch's share and peak memory.
 - sweep: the batched HP sweep and Algorithm 1 (core/tuning.py, api.py) on
   one card.  B1 and B2 with a gain per group ((G, D) over G equal groups of
   rows, the candidates of a batched step) at G 1, 4 and 16, x (16, 8, 64,
@@ -334,6 +356,13 @@ check:
   the d_model-1024 target (finite, falling losses), each with exact
   launches; Fig. 1, 8 lrs (5e-3 * 2^k) x 20 steps at d_model 256, 512 and
   1024, its best lr by width printed, not held.
+- sweep_moe: the batched sweep over mixtral-8x22b's µP proxy (2 layers at
+  1/24 width, d_head kept at 64: d_model 256, 4/4 heads of 64, d_ff 683, 8
+  experts top-2, vocab 32,768, base d_model 6144), 8 candidates (4 lrs x 2
+  output multipliers: 1e-5 to 8e-5, where training is stable) x 10 steps of
+  8 x 64, batched and serial: falling losses, curves within rtol 2e-3,
+  exact launches (a batched step: 5 grouped B1 and B2, 1 B3, 1 B4 for all
+  8), candidate-steps/s of both printed.
 - sweep_amp: the sweep and Algorithm 1 under a mixed-precision policy,
   B5-B7 over a candidate axis (ops.attention's vmap rule folds the
   candidates into B).  In the f32, bf16 and int8 operand modes
@@ -412,10 +441,11 @@ serve_dynamic, serve_int8 dynamic and static, serve_spec, serve_spec_dynamic,
 serve_spec_int8, spec_copy_train, serve_spec_copy, serve_gemma2,
 serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, serve_mixtral,
 serve_mixtral_dynamic, serve_mixtral_int8, train, train --amp bf16,
-train --amp int8, train_gemma2 and its --amp bf16 and int8 runs, and the sweep phase's
+train --amp int8, train_gemma2 and its --amp bf16 and int8 runs,
+train_mixtral and its --amp bf16 and int8 runs, the sweep phase's
 sweep, sweep_serial, sweep_16,
-algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1, and the
-sweep_amp phase's sweep_amp_bf16, sweep_amp_int8, their serial loops and
+algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1,
+sweep_moe and its serial loop, and the sweep_amp phase's sweep_amp_bf16, sweep_amp_int8, their serial loops and
 algorithm1_amp) and
 read just after; launches made to compare or time a kernel do not count.
 It needs one card, imports nothing of JAX or of the reference package,
@@ -502,6 +532,8 @@ AMP_LIMITS = {"bf16": (AMP_LOSS_RTOL, AMP_GRAD_TOL, AMP_LOOP_LOSS_RTOL, "none"),
               "int8": (INT8_LOSS_RTOL, INT8_GRAD_TOL, INT8_LOOP_LOSS_RTOL, "bf16")}
 # the gemma2-2b train phases' paths (train_phase with arch "gemma2-2b")
 G2_TRAIN = ("train_gemma2", "train_gemma2_amp_bf16", "train_gemma2_amp_int8")
+# mixtral-8x22b's (train_phase with arch "mixtral-8x22b")
+MX_TRAIN = ("train_mixtral", "train_mixtral_amp_bf16", "train_mixtral_amp_int8")
 SERVE_LOGIT_TOL = 1e-4   # atol and rtol, as the CPU tests hold logits
 TIE_GAP = 1e-5
 N_TIMED = 200
@@ -1807,6 +1839,9 @@ def rounded_err(got, want):
 # that, D 2304, past the widths whose 16-byte pieces stay in registers (up
 # to 1024): the scalar path
 G2_NORM_SHAPES = [(2048, 2304), (4096, 2304)]
+# and at mixtral-8x22b's (train_mixtral: 4,608 tokens of D 6144, f32; the
+# scalar path)
+MX_NORM_SHAPES = [(4608, 6144)]
 
 
 def rmsnorm_bwd_phase(rn, ref, F):
@@ -1817,7 +1852,7 @@ def rmsnorm_bwd_phase(rn, ref, F):
     # 16-byte pieces held in registers (D 48, 1024), and the scalar path (D
     # 1030, not a multiple of 4 or 8; D 2304, gemma2's)
     shapes = ([(8, 512, 1024)] + [(r, D) for r in (1, 7, 4097) for D in (48, 1024, 1030)]
-              + G2_NORM_SHAPES)
+              + G2_NORM_SHAPES + MX_NORM_SHAPES)
     for shape in shapes:
         for dt in (torch.float32, torch.bfloat16):
             x = (3 * torch.randn(*shape, device="cuda")).to(dt)
@@ -1863,31 +1898,33 @@ def rmsnorm_bwd_phase(rn, ref, F):
         f"{bound_ms * 1e3 / dev:.1%} of it; target <= 20 us, not held); the autograd backward "
         f"of F.rms_norm {library_ms:.4f} ms a call, {lib_dev:.2f} us on the card in "
         f"{lib_launches:.0f} launches")
-    g2 = {}
-    for shape in G2_NORM_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
-            x = (3 * torch.randn(*shape, device="cuda")).to(dt)
-            g = 0.5 * torch.randn(shape[-1], device="cuda")
-            dy = torch.randn(*shape, device="cuda").to(dt)
-            dx, _ = rn.rmsnorm_bwd(x, g, dy)
-            e = (dx.float() - ref.rmsnorm_bwd_ref(x, g, dy)[0].float()).abs().max().item()
-            xl = x.clone().requires_grad_(True)
-            wl = (1 + g).requires_grad_(True)
-            yl = F.rms_norm(xl, shape[-1:], weight=wl, eps=1e-6)
-            lib = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)  # noqa: E731
-            b = bound(3 * x.numel() * x.element_size() + 2 * shape[-1] * 4, 12 * x.numel())
-            t = dict(ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, g, dy)),
-                     device_us=device_us(lambda: rn.rmsnorm_bwd(x, g, dy), "rmsnorm_bwd"),
-                     plain_ms=cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, g, dy), n=20),
-                     library_ms=cuda_ms(lib), library_device_us=library_device_us(lib)[0],
-                     bound_ms=b[0], bound_by=b[1], max_abs_err=e)
-            g2[f"{shape} {str(dt)[6:]}"] = t
-            log(f"[kernels] rmsnorm_bwd at x {shape} {str(dt)[6:]} (gemma2-2b's train step, "
-                f"the scalar path): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
-                f"card (bound {b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / t['device_us']:.1%}"
-                f" of it); plain {t['plain_ms']:.4f} ms; the autograd backward of F.rms_norm "
-                f"{t['library_ms']:.4f} ms, {t['library_device_us']:.2f} us on the card")
-            del x, g, dy, dx, xl, wl, yl
+    g2, mx = {}, {}
+    for shape, dt in itertools.chain(
+            itertools.product(G2_NORM_SHAPES, (torch.float32, torch.bfloat16)),
+            itertools.product(MX_NORM_SHAPES, (torch.float32,))):
+        x = (3 * torch.randn(*shape, device="cuda")).to(dt)
+        g = 0.5 * torch.randn(shape[-1], device="cuda")
+        dy = torch.randn(*shape, device="cuda").to(dt)
+        dx, _ = rn.rmsnorm_bwd(x, g, dy)
+        e = (dx.float() - ref.rmsnorm_bwd_ref(x, g, dy)[0].float()).abs().max().item()
+        xl = x.clone().requires_grad_(True)
+        wl = (1 + g).requires_grad_(True)
+        yl = F.rms_norm(xl, shape[-1:], weight=wl, eps=1e-6)
+        lib = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)  # noqa: E731
+        b = bound(3 * x.numel() * x.element_size() + 2 * shape[-1] * 4, 12 * x.numel())
+        t = dict(ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, g, dy)),
+                 device_us=device_us(lambda: rn.rmsnorm_bwd(x, g, dy), "rmsnorm_bwd"),
+                 plain_ms=cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, g, dy), n=20),
+                 library_ms=cuda_ms(lib), library_device_us=library_device_us(lib)[0],
+                 bound_ms=b[0], bound_by=b[1], max_abs_err=e)
+        model = "gemma2-2b" if shape in G2_NORM_SHAPES else "mixtral-8x22b"
+        (g2 if model == "gemma2-2b" else mx)[f"{shape} {str(dt)[6:]}"] = t
+        log(f"[kernels] rmsnorm_bwd at x {shape} {str(dt)[6:]} ({model}'s train step, "
+            f"the scalar path): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
+            f"card (bound {b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / t['device_us']:.1%}"
+            f" of it); plain {t['plain_ms']:.4f} ms; the autograd backward of F.rms_norm "
+            f"{t['library_ms']:.4f} ms, {t['library_device_us']:.2f} us on the card")
+        del x, g, dy, dx, xl, wl, yl
     return dict(
         name="rmsnorm_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1896,7 +1933,7 @@ def rmsnorm_bwd_phase(rn, ref, F):
         max_abs_err=err, ms=ms, device_us=dev, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms, library_device_us=lib_dev,
         library="autograd backward of torch.nn.functional.rms_norm",
-        share_of_bound=bound_ms * 1e3 / dev, gemma2_shapes=g2,
+        share_of_bound=bound_ms * 1e3 / dev, gemma2_shapes=g2, mixtral_shapes=mx,
     )
 
 
@@ -1923,7 +1960,7 @@ def ce_phase(ce, ref, F):
              (1, 7, torch.float32), (37, 1000, torch.float32),
              (64, 50257, torch.float32), (256, 2048, torch.bfloat16),
              (33, 3001, torch.bfloat16),
-             (2048, 256000, torch.float32)]
+             (2048, 256000, torch.float32), (4608, 32768, torch.float32)]
     worst = [0.0, 0.0]
     for i, (N, V, dt) in enumerate(cases):
         x, lab, g, mask = ce_case(N, V, dt, i)
@@ -1944,9 +1981,10 @@ def ce_phase(ce, ref, F):
         f"max loss err {worst[0]:.3g}, max dlogits err {worst[1]:.3g}")
 
     rows = {}
-    # the train shape, smollm's vocab, and gemma2-2b's train step (4 x 512
-    # tokens over vocab 256,000: logits of 2.1 GB)
-    for N, V in ((4096, 2048), (4096, 49152), (2048, 256000)):
+    # the train shape, smollm's vocab, gemma2-2b's train step (4 x 512
+    # tokens over vocab 256,000: logits of 2.1 GB) and mixtral-8x22b's (one
+    # sequence of 4,608 over vocab 32,768)
+    for N, V in ((4096, 2048), (4096, 49152), (2048, 256000), (4608, 32768)):
         x, lab, g, _ = ce_case(N, V, torch.float32, 100 + V)
         loss, lse = ce.ce_fwd(x, lab)
         want_loss, want_lse = ref.softmax_cross_entropy_ref(x, lab)
@@ -1982,9 +2020,9 @@ def ce_phase(ce, ref, F):
     t, b3, b4, fwd_err, bwd_err = rows[2048]
     big = dict(rows[49152][0], ce_fwd_bound=rows[49152][1][0],
                ce_bwd_bound=rows[49152][2][0])
-    g2 = dict(rows[256000][0], ce_fwd_bound=rows[256000][1][0],
-              ce_bwd_bound=rows[256000][2][0], ce_fwd_max_abs_err=rows[256000][3],
-              ce_bwd_max_abs_err=rows[256000][4])
+    g2, mx = (dict(rows[V][0], ce_fwd_bound=rows[V][1][0], ce_bwd_bound=rows[V][2][0],
+                   ce_fwd_max_abs_err=rows[V][3], ce_bwd_max_abs_err=rows[V][4])
+              for V in (256000, 32768))
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/cross_entropy.cu",
                   shape="logits (4096, 2048) float32 (train step), 1/3 rows masked")
     return [
@@ -1997,6 +2035,9 @@ def ce_phase(ce, ref, F):
              at_gemma2_2048_x_256000={k: g2[k] for k in (
                  "ce_fwd", "ce_fwd_plain", "ce_fwd_library", "ce_fwd_bound",
                  "ce_fwd_max_abs_err")},
+             at_mixtral_4608_x_32768={k: mx[k] for k in (
+                 "ce_fwd", "ce_fwd_plain", "ce_fwd_library", "ce_fwd_bound",
+                 "ce_fwd_max_abs_err")},
              **common),
         dict(name="ce_bwd", replaces="src/repro/kernels/cross_entropy.py:74",
              max_abs_err=bwd_err, ms=t["ce_bwd"], plain_ms=t["ce_bwd_plain"],
@@ -2005,6 +2046,9 @@ def ce_phase(ce, ref, F):
              at_vocab_49152={k: big[k] for k in ("ce_bwd", "ce_bwd_plain",
                                                  "ce_bwd_library", "ce_bwd_bound")},
              at_gemma2_2048_x_256000={k: g2[k] for k in (
+                 "ce_bwd", "ce_bwd_plain", "ce_bwd_library", "ce_bwd_bound",
+                 "ce_bwd_max_abs_err")},
+             at_mixtral_4608_x_32768={k: mx[k] for k in (
                  "ce_bwd", "ce_bwd_plain", "ce_bwd_library", "ce_bwd_bound",
                  "ce_bwd_max_abs_err")},
              **common),
@@ -2042,6 +2086,11 @@ FLASH_CASES = [
     ("d_head 196", 1, 160, 4, 2, 196, 0, 0.0, 0.0625, torch.float32),
     ("d_head 196, bf16 storage", 1, 160, 4, 2, 196, 0, 0.0, 0.0625, torch.bfloat16),
     ("gemma2 local layer, S 8192, window 4096", 1, 8192, 8, 4, 256, 4096, 50.0, 0.0625,
+     torch.float32),
+    # mixtral-8x22b's train step (train_mixtral): one sequence of 4,608
+    # under window 4,096, 48/8 heads of 128 (a GQA group of 6), µP's scale
+    # at the base width, 128^-0.5
+    ("mixtral train step, S 4608, window 4096", 1, 4608, 48, 8, 128, 4096, 0.0, 128 ** -0.5,
      torch.float32),
 ]
 # the bf16 operand mode of B5, B6 and B7 runs these kernels (flash_attention.cu),
@@ -2216,6 +2265,8 @@ G2_FLASH_TIMED = [
     ("gemma2 train step", 4, 512, 8, 4, 256, 4096, 50.0, 0.0625),
     ("gemma2 local layer, S 8192", 1, 8192, 8, 4, 256, 4096, 50.0, 0.0625),
 ]
+# and at DP 128, mixtral-8x22b's train step (train_mixtral)
+MX_FLASH_TIMED = [("mixtral train step", 1, 4608, 48, 8, 128, 4096, 0.0, 128 ** -0.5)]
 
 
 def visible_pairs(S, window):
@@ -2226,8 +2277,9 @@ def visible_pairs(S, window):
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def g2_flash_timing(ops, fa, quant, F):
-    """B5, B6 and B7 at DP 256 (G2_FLASH_TIMED), in each operand mode: a
+def g2_flash_timing(ops, fa, quant, F, timed=G2_FLASH_TIMED):
+    """B5, B6 and B7 at the shapes of ``timed`` (G2_FLASH_TIMED: DP 256;
+    MX_FLASH_TIMED: mixtral's train step), in each operand mode: a
     call (CUDA events), the card's time a launch (the int8 mode's B5 and B6
     / B7 without their pre-passes, which are timed apart), the plain
     attention's forward and backward under autograd, and the bound from
@@ -2236,7 +2288,7 @@ def g2_flash_timing(ops, fa, quant, F):
     for scale.  Returns {label: {mode: {kernel: timing}}, "sdpa": ...}."""
     rates = {"none": F32_FLOP_PER_S, "bf16": BF16_TC_FLOP_PER_S, "int8": INT8_TC_OP_PER_S}
     out = {}
-    for label, B, S, H, K, d, window, cap, scale in G2_FLASH_TIMED:
+    for label, B, S, H, K, d, window, cap, scale in timed:
         q, k, v, do = flash_inputs(B, S, H, K, d, torch.float32, 200)
         qs = (q * scale).contiguous()
         pairs = B * H * visible_pairs(S, window)
@@ -2271,7 +2323,9 @@ def g2_flash_timing(ops, fa, quant, F):
             res[mode]["plain_fwd_ms"], res[mode]["plain_fwd_bwd_ms"] = p_fwd, p_bwd
             del o, lse, delta, leaves, op
             torch.cuda.empty_cache()
-            log(f"[kernels] flash attention at DP 256, {label} ({B}, {S}, {H}/{K} heads of {d},"
+            dp = next(p for p in PADDED_D if d <= p)
+            log(f"[kernels] flash attention at DP {dp}, {label} ({B}, {S}, {H}/{K} heads "
+                f"of {d},"
                 f" window {window}, softcap {cap:g}), {mode} operands: "
                 + "; ".join(f"{nm} {r['ms']:.4f} ms, {r['device_us']:.1f} us on the card "
                             f"(bound {r['bound'][0] * 1e3:.1f} us by {r['bound'][1]}, "
@@ -2439,17 +2493,18 @@ def flash_phase(ops, fa, ref, quant, F):
             **dict(common, shape="q, k, v, do (8, 512, 16, 64) f32, causal; int8 operands "
                                  "(the --amp int8 path)")))
     out += [prepass, fwd_prepass]
-    g2 = g2_flash_timing(ops, fa, quant, F)
-    for row in out:
-        name = row["name"]
-        base, mode = (name[:-5], "int8") if name.endswith("_int8") else (name, "bf16")
-        if base in FLASH_NAMES:
-            row["gemma2_shapes"] = {
-                label: dict({m: r[m][base] for m in FLASH_MODES} if mode == "bf16"
-                            else {"int8": r["int8"][base]}, sdpa_bf16=r["sdpa_bf16"],
-                            plain={m: (r[m]["plain_fwd_ms"], r[m]["plain_fwd_bwd_ms"])
-                                   for m in FLASH_MODES})
-                for label, r in g2.items()}
+    for key, timed in (("gemma2_shapes", G2_FLASH_TIMED), ("mixtral_shapes", MX_FLASH_TIMED)):
+        at = g2_flash_timing(ops, fa, quant, F, timed)
+        for row in out:
+            name = row["name"]
+            base, mode = (name[:-5], "int8") if name.endswith("_int8") else (name, "bf16")
+            if base in FLASH_NAMES:
+                row[key] = {
+                    label: dict({m: r[m][base] for m in FLASH_MODES} if mode == "bf16"
+                                else {"int8": r["int8"][base]}, sdpa_bf16=r["sdpa_bf16"],
+                                plain={m: (r[m]["plain_fwd_ms"], r[m]["plain_fwd_bwd_ms"])
+                                       for m in FLASH_MODES})
+                    for label, r in at.items()}
     pre = g2_prepass_timing(fa, ref)
     for row in out:
         if row["name"] in pre:
@@ -3713,6 +3768,34 @@ def moved_quantizer_inputs():
         kv_cache._quantized_write = real
 
 
+def route_diff(k, lk, ik, lr, ir, valid):
+    """One MoE layer's routing, a run's (router logits ``lk``, expert ids
+    ``ik``) against the plain run's (``lr``, ``ir``), over the rows of
+    ``valid``: (the rows whose set of k experts differs, the plain
+    probability margin of the k-th over the (k+1)-th expert, the largest
+    router probability difference on valid rows that did not flip (0.0 if
+    none))."""
+    pr = torch.softmax(lr, dim=-1)
+    p = pr.sort(dim=-1, descending=True).values
+    margin = p[..., k - 1] - p[..., k]
+    differ = (ik.sort(-1).values != ir.sort(-1).values).any(-1) & valid
+    same = valid & ~differ
+    noise = 0.0
+    if bool(same.any()):
+        noise = (torch.softmax(lk, dim=-1) - pr).abs().amax(-1)[same].max().item()
+    return differ, margin, noise
+
+
+def dropped_slots(ik, valid, E, C):
+    """The slots of the rows of ``valid`` that expert ids ``ik`` (B, S, k)
+    rank at or past the capacity C of their expert (models/moe.py's
+    dispatch: a cumsum over the flattened slots of each sequence)."""
+    flat = ik.reshape(ik.shape[0], -1)
+    rank = (torch.nn.functional.one_hot(flat, E).cumsum(1)
+            .gather(-1, flat[..., None])[..., 0] - 1)
+    return int(((rank >= C).reshape(ik.shape) & valid[..., None]).sum())
+
+
 def mx_routing(what, cfg, tie=ROUTE_TIE, prob_tol=ROUTE_PROB_TOL):
     """routing(a, b, b's serve) for g2_serve: the expert choices of a serve ``a`` (the
     kernels', or a control's) against the plain serve ``b``'s, forward by
@@ -3745,21 +3828,13 @@ def mx_routing(what, cfg, tie=ROUTE_TIE, prob_tol=ROUTE_PROB_TOL):
                 live = torch.tensor([parted.get(r, i + 1) > i for r in cr["req"]],
                                     device=lr.device)
                 valid = cr["valid"] & live[:, None]
-                pr = torch.softmax(lr, dim=-1)
-                p = pr.sort(dim=-1, descending=True).values
-                margin = p[..., k - 1] - p[..., k]
-                differ = (ik.sort(-1).values != ir.sort(-1).values).any(-1) & valid
+                differ, margin, dp = route_diff(k, lk, ik, lr, ir, valid)
                 if bool(valid.any()):
                     compared += int(valid.sum())
                     min_margin = min(min_margin, margin[valid].min().item())
-                    dp = (torch.softmax(lk, dim=-1) - pr).abs().amax(-1)
-                    if bool((valid & ~differ).any()):
-                        noise = max(noise, dp[valid & ~differ].max().item())
-                flat = ik.reshape(ik.shape[0], -1)
-                rank = (torch.nn.functional.one_hot(flat, E).cumsum(1)
-                        .gather(-1, flat[..., None])[..., 0] - 1)
+                    noise = max(noise, dp)
                 d = drops.setdefault(kind, [0, 0])
-                d[0] += int(((rank >= C).reshape(ik.shape) & cr["valid"][..., None]).sum())
+                d[0] += dropped_slots(ik, cr["valid"], E, C)
                 d[1] += int(cr["valid"].sum()) * k
                 for b, t in differ.nonzero().tolist():
                     m, r = margin[b, t].item(), cr["req"][b]
@@ -4544,10 +4619,23 @@ def models_attend_with(ops, attention):
     ops.attention = real
 
 
-def plain_flash(ops):
+def plain_flash(ops, kv_heads=0):
     """Attention's kernel path over B5-B7's plain versions, which round where
-    the kernels round (ops.attention_plain_flash); launches nothing."""
-    return lambda q, k, v, *, impl="auto", **kw: ops.attention_plain_flash(q, k, v, **kw)
+    the kernels round (ops.attention_plain_flash); launches nothing.  With
+    ``kv_heads``, a call takes that many kv heads and their query heads at
+    a time: every rounding and quantization group lies within a head, so
+    the outputs are the same, and a call's (S, S) tensors a fraction of
+    the whole's (mixtral's 48 heads at S 4,608: 3.8 GiB a tensor)."""
+    def attend(q, k, v, *, impl="auto", **kw):
+        K = k.shape[2]
+        if not kv_heads or kv_heads >= K:
+            return ops.attention_plain_flash(q, k, v, **kw)
+        G = q.shape[2] // K
+        return torch.cat([ops.attention_plain_flash(
+            q[:, :, i * G:(i + kv_heads) * G], k[:, :, i:i + kv_heads],
+            v[:, :, i:i + kv_heads], **kw) for i in range(0, K, kv_heads)], dim=2)
+
+    return attend
 
 
 def mode_kernels(ops, policy):
@@ -4555,6 +4643,99 @@ def mode_kernels(ops, policy):
     real = ops.attention
     return lambda q, k, v, *, impl="auto", policy=None, _p=policy, **kw: real(
         q, k, v, impl="kernel", policy=_p, **kw)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While open, every models/moe.py ``route`` call appends (router
+    logits, expert ids), detached, to the list it yields: one entry a MoE
+    layer a forward, in layer order."""
+    from repro_torch.models import moe as moe_lib
+
+    sink, real = [], moe_lib.route
+
+    def route(*a, **kw):
+        out = real(*a, **kw)
+        sink.append((out[0].detach(), out[2]))
+        return out
+
+    moe_lib.route = route
+    try:
+        yield sink
+    finally:
+        moe_lib.route = real
+
+
+def train_routing(tag, cfg, routes_k, routes_p, tie=ROUTE_TIE):
+    """A train step's expert choices, the kernels' (``routes_k``) against
+    the plain side's, layer by layer over every token (a train batch has no
+    padding): a row may take another set of k experts only where the plain
+    probabilities of the k-th and (k+1)-th experts lie within ``tie``
+    (mx_routing's near-tie rule), each flip printed with its margin.
+    Returns the flips, the experts they touch by layer (both sides'
+    choices at a flipped row: their capacity ranks shift, so their dropped
+    slots may too), the smallest margin, the largest router probability
+    difference on rows that did not flip, and the kernels' slots dropped
+    past capacity."""
+    from repro_torch.models import moe as moe_lib
+
+    k, E = cfg.top_k, cfg.n_experts
+    flips, touched, min_margin, noise, dropped, slots = [], {}, math.inf, 0.0, 0, 0
+    if len(routes_k) != cfg.n_layers or len(routes_p) != cfg.n_layers:
+        raise AssertionError(f"{tag} routed {len(routes_k)} / {len(routes_p)} layers, "
+                             f"not {cfg.n_layers}")
+    for layer, ((lk, ik), (lr, ir)) in enumerate(zip(routes_k, routes_p)):
+        Bq, Sq = ik.shape[:2]
+        valid = torch.ones(Bq, Sq, dtype=torch.bool, device=ik.device)
+        differ, margin, dp = route_diff(k, lk, ik, lr, ir, valid)
+        min_margin = min(min_margin, margin.min().item())
+        noise = max(noise, dp)
+        dropped += dropped_slots(ik, valid, E, moe_lib._capacity(cfg, Sq))
+        slots += Bq * Sq * k
+        for b, t in differ.nonzero().tolist():
+            m = margin[b, t].item()
+            flips.append(dict(layer=layer, row=[b, t], margin=m,
+                              experts=ik[b, t].tolist(), plain=ir[b, t].tolist()))
+            touched.setdefault(layer, set()).update(ik[b, t].tolist() + ir[b, t].tolist())
+            log(f"{tag} routing flip: layer {layer}, token ({b}, {t}): experts "
+                f"{ik[b, t].tolist()} against {ir[b, t].tolist()} plain, plain top-{k} "
+                f"margin {m:.3g} (the near-tie limit {tie:.3g})")
+            if not m < tie:
+                raise AssertionError(f"{tag} expert choice differs at layer {layer} token "
+                                     f"({b}, {t}), margin {m} >= {tie}")
+    log(f"{tag} routing: {slots // k} tokens x {len(routes_k)} layer(s) compared, "
+        f"{len(flips)} flip(s); smallest plain top-{k} margin {min_margin:.3g}; largest "
+        f"router probability difference on rows that did not flip {noise:.3g}; slots "
+        f"dropped past capacity (C {moe_lib._capacity(cfg, routes_k[0][1].shape[1])}) "
+        f"{dropped} of {slots} ({dropped / slots:.2%})")
+    return dict(flips=flips, touched={lay: sorted(e) for lay, e in touched.items()},
+                min_margin=min_margin, prob_noise=noise, dropped_slots=dropped, slots=slots)
+
+
+def hold_grads(tag, grads_k, grads_p, touched, within):
+    """The first step's gradients after a routing flip (``touched``: the
+    experts a flip touched, by layer).  An expert tensor (an MoE ``wi`` /
+    ``wo``: the layer axis, then the expert axis) is held, by ``within(got,
+    want)``, on the slices of the experts no flip touched, which only
+    their own tokens' unchanged cotangents feed; any other tensor past its
+    limit is printed as moved by the flip.  Returns ({held name: max rel
+    err} past the limit, [moved names])."""
+    bad, moved = {}, []
+    for n, w in grads_p.items():
+        g = grads_k[n]
+        if n.endswith((".mlp.wi", ".mlp.wo")) and w.ndim == 4:
+            for layer in range(w.shape[0]):
+                for e in range(w.shape[1]):
+                    if e in touched.get(layer, ()):
+                        continue
+                    if not within(g[layer, e], w[layer, e]):
+                        bad[f"{n}[{layer}, {e}]"] = max_rel(g[layer, e], w[layer, e])
+        elif not within(g, w):
+            moved.append(n)
+    log(f"{tag} after the routing flip(s): gradients moved past their limit {moved}; "
+        f"held: the rest, and the expert slices no flip touched (touched by layer "
+        f"{ {lay: sorted(e) for lay, e in touched.items()} })")
+    return bad, moved
 
 
 def max_rel(a, b):
@@ -4574,9 +4755,17 @@ def max_rel(a, b):
 # apart); the loss limit sits between the two.  int8: mup-gpt's, the
 # kernels equal their plain versions bit for bit.
 G2_AMP_LIMITS = {"bf16": (2e-5, 1.5e-2, 2e-5, "none"), "int8": AMP_LIMITS["int8"]}
-# the train phases' architectures: (batch, sequence, loop steps, the phase's
-# path name, the --amp limits, whether the amp loops' plain side keeps B1-B4's
-# kernels).  gemma2-2b at full width (26 layers, d_model 2304, vocab
+# mixtral-8x22b's --amp limits.  Its loops' step 0 is the first step (the
+# same weights and batch), so the loop's limit is the first step's.  bf16:
+# the kernels 1.75e-7 from the plain side, the f32-operand control 1.16e-5,
+# the f32 run at the loop's step 0 6.04e-6 (an H100 at 700 W); gradients
+# within 1.2e-4 of a tensor's largest entry (the control up to 9.3e-3).
+# int8: the kernels equal their plain versions (0 apart), the controls
+# 2.74e-5 and 2.02e-5, the f32 run 1.15e-5.
+MX_AMP_LIMITS = {"bf16": (2e-6, AMP_GRAD_TOL, 2e-6, "none"),
+                 "int8": (INT8_LOSS_RTOL, INT8_GRAD_TOL, INT8_LOSS_RTOL, "bf16")}
+# the train phases' architectures (the tuple's fields below).  gemma2-2b at
+# full width (26 layers, d_model 2304, vocab
 # 256,000, f32 weights): its weights, gradients and two Adam moments take 42
 # GB, so the batch is 4 x 512 (activations and the readout's logits near 20
 # GB more) and the loops 5 steps; nothing else is cut.  Its amp loops hold
@@ -4585,8 +4774,29 @@ G2_AMP_LIMITS = {"bf16": (2e-5, 1.5e-2, 2e-5, "none"), "int8": AMP_LIMITS["int8"
 # int8 bytes downstream and move the step-0 loss 1.29e-4 (an H100 at 700
 # W), farther than the f32 run is (4.8e-5), so no limit could tell the modes
 # apart; the f32 phase holds B1-B4 in the loop.
-TRAIN_ARCHS = {"mup-gpt": (8, 512, 10, "train", AMP_LIMITS, False),
-               "gemma2-2b": (4, 512, 5, "train_gemma2", G2_AMP_LIMITS, True)}
+#
+# mixtral-8x22b (arXiv:2401.04088) at full width over 1 of its 56 layers:
+# one layer's f32 weights, gradients and two Adam moments take 46.5 GB,
+# two layers' 86.6 GB (train_state_bytes), more than the card holds.  One
+# sequence of 4,608 tokens, so that the window of 4,096 masks keys for the
+# last 512 queries (the serve phases' prompts); the MoE capacity is then
+# 1,440 places an expert.  Loops of 3 steps (the run's time); nothing else
+# cut.  Its loops start from the first step's weights (a random query
+# projection too), so that their step 0 is the first step, bit for bit;
+# under --amp they run through the kernels only (None: the first step
+# holds B5-B7 against their plain versions), for the run's time.  AdamW at
+# lr 1e-4, a fine-tuning rate: at the default 1e-2 (µP's base width is
+# mixtral's own) the loss rose from 10.88 to 40.5 in one step on an H100 at
+# 700 W.
+#
+# (batch, sequence, loop steps, the phase's path name, the --amp limits,
+# the amp loops' plain side (False: B1-B7's plain versions; True: B1-B4's
+# kernels; None: no plain loop), config overrides, the loops' lr)
+TRAIN_ARCHS = {"mup-gpt": (8, 512, 10, "train", AMP_LIMITS, False, {}, 1e-2),
+               "gemma2-2b": (4, 512, 5, "train_gemma2", G2_AMP_LIMITS, True, {}, 1e-2),
+               "mixtral-8x22b": (1, 4608, 3, "train_mixtral", MX_AMP_LIMITS, None,
+                                 {"n_layers": 1, "zero_init_query": False,
+                                  "zero_init_readout": False}, 1e-4)}
 
 
 def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
@@ -4605,47 +4815,94 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     ``control_losses`` (the f32 phase's) at step 0 of the loop.  A third
     loop, through the policy's plain attention, gives the plain time and
     peak memory; the gap of its last losses to the f32 run's is printed.
-    Where TRAIN_ARCHS says so (gemma2-2b), the amp loops' plain side keeps
-    B1-B4's kernels, as the first step does."""
+    Where TRAIN_ARCHS says so (gemma2-2b, mixtral-8x22b), the amp loops'
+    plain side keeps B1-B4's kernels, as the first step does.
+
+    An untied readout (mixtral-8x22b) starts random here, in the first step
+    and the loops: under µP's zero readout every gradient but the readout's
+    is exactly 0 at step 0 and every step-0 loss is ln V whatever the
+    kernels do.  On an MoE arch the first step also records each layer's
+    expert choices on both sides (train_routing: a flip only at a near-tie,
+    ROUTE_TIE; the slots dropped past capacity printed), holds the kernels'
+    first step bit-equal when run again (the expert dispatch's
+    index_put/index_add give each row at most k = 2 adds, to an exact
+    zero), and, where a flip occurs, prints the gradients it moved and
+    holds the rest (hold_grads)."""
     from repro_torch.configs import get_config
     from repro_torch.core.transfer import HParams, transfer
     from repro_torch.data.pipeline import make_pipeline
-    from repro_torch.launch.train import train_loop
+    from repro_torch.launch.train import train_loop, train_state_bytes
     from repro_torch.models.model import Model
     from repro_torch.optim.grad import value_and_grad
 
-    B, S, STEPS, path, limits, isolate = TRAIN_ARCHS[arch]
-    isolate = isolate and bool(amp)
-    cfg = get_config(arch).replace(dtype="float32", amp=amp)
+    B, S, STEPS, path, limits, isolate, over, lr = TRAIN_ARCHS[arch]
+    isolate = isolate if amp else False
+    cfg = get_config(arch).replace(dtype="float32", amp=amp, **over)
+    moe = bool(cfg.n_experts)
     tag = f"[{path} --amp {amp}]" if amp else f"[{path}]"
     if amp:
         loss_rtol, grad_tol, loop_rtol, control_mode = limits[amp]
     else:
         loss_rtol = loop_rtol = TRAIN_LOSS_RTOL
-    hps = HParams()
+    hps = HParams(lr=lr)
     # the first-step check starts from a random query projection, so that
     # attention is not uniform (zero-init q makes it so at step 0)
-    model_cfg = cfg.replace(**transfer(hps, cfg)["model"], zero_init_query=False)
+    model_cfg = cfg.replace(**transfer(hps, cfg)["model"], zero_init_query=False,
+                            zero_init_readout=False)
     kern = Model(model_cfg, device="cuda", impl="auto")
     plain = Model(model_cfg, device="cuda", impl="ref")
     params = kern.init(seed=0)
     n_params = sum(p.numel() for p in params.values())
     batch0 = {k: torch.from_numpy(v).cuda() for k, v in
               make_pipeline(cfg.vocab_size, S, B, seed=0).batch(0).items()}
+    if arch == "gemma2-2b":
+        cut = ("the batch cut from 8 x 512, which does not fit beside 42 GB of weights, "
+               "gradients and moments; nothing else cut")
+    elif over:
+        full = get_config(arch)
+        two = train_state_bytes(Model(cfg.replace(n_layers=2), device="cuda"))
+        cut = (f"the depth cut to {cfg.n_layers} of {full.n_layers} layers: f32 weights, "
+               f"gradients and two Adam moments take {4 * n_params * 4 / 1e9:.1f} GB at "
+               f"{cfg.n_layers}, {two / 1e9:.1f} GB at 2; a random readout; nothing else "
+               f"cut")
+    else:
+        cut = "nothing cut"
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {n_params / 1e6:.1f}M params; batch {B} x seq {S}, f32"
-        + (f", --amp {amp}" if amp else "") + f"; loops of {STEPS} steps; "
-        + ("the batch cut from 8 x 512, which does not fit beside 42 GB of weights, "
-           "gradients and moments; nothing else cut" if arch == "gemma2-2b" else "nothing cut"))
+        + (f", --amp {amp}" if amp else "") + f"; loops of {STEPS} steps; " + cut)
 
-    loss_k, grads_k = value_and_grad(kern.loss_fn, params, batch0)
+    with recorded_routes() as routes_k:
+        loss_k, grads_k = value_and_grad(kern.loss_fn, params, batch0)
+    first = {}
+    if moe:
+        # the same step again: its gradients bit for bit; freed before the
+        # plain side runs
+        loss_a, grads_a = value_and_grad(kern.loss_fn, params, batch0)
+        differ = [n for n in grads_k if not same_bits(grads_a[n], grads_k[n])]
+        if differ or not same_bits(loss_a, loss_k):
+            raise AssertionError(f"{tag} the kernels' first step run twice: loss "
+                                 f"{float(loss_k)} / {float(loss_a)}, gradients differ "
+                                 f"in {differ}")
+        del grads_a
+        torch.cuda.empty_cache()
+        log(f"{tag} the kernels' first step run twice: loss and all {len(grads_k)} "
+            f"gradients bit-equal")
+        first["repeat_bit_equal"] = True
     # under amp the first step isolates B5-B7: B1-B4 run on both sides, so
     # that attention's inputs are the same bits
-    with models_attend_with(ops, plain_flash(ops) if amp else None):
+    # the plain flash versions over as many kv heads a call as keep a call's
+    # f32 (S, S) scores near 1 GiB (mixtral: 2 of its 8; the others: all)
+    group = cfg.n_heads // cfg.n_kv_heads
+    pf = plain_flash(ops, kv_heads=max(1, 2**30 // (S * S * 4 * group)))
+    with models_attend_with(ops, pf if amp else None), recorded_routes() as routes_p:
         loss_p, grads_p = value_and_grad((kern if amp else plain).loss_fn, params, batch0)
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     grad_rel = {n: max_rel(grads_k[n], grads_p[n]) for n in grads_p}
+    touched = {}
+    if moe:
+        first["routing"] = train_routing(tag, cfg, routes_k, routes_p)
+        touched = first["routing"]["touched"]
     if amp:
         # the controls: attention's kernels in another operand mode and, under
         # int8, its plain versions tiled 64 wide (scales over other tiles)
@@ -4656,8 +4913,7 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
                     (contextlib.nullcontext(),
                      mode_kernels(ops, other if other.active else None))}
         if amp == "int8":
-            controls["the plain versions tiled 64 wide"] = (int8_tiles(ref, 64),
-                                                            plain_flash(ops))
+            controls["the plain versions tiled 64 wide"] = (int8_tiles(ref, 64), pf)
         ctrl = {}
         for what, (tiles, attention) in controls.items():
             with tiles, models_attend_with(ops, attention):
@@ -4665,23 +4921,38 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
             ctrl[what] = (abs(float(loss_c) - float(loss_p)) / abs(float(loss_p)),
                           {n: max_rel(grads_c[n], grads_p[n]) for n in grads_p})
             del grads_c
-        loss_q, grads_q = value_and_grad(plain.loss_fn, params, batch0)
-        rel_q = abs(float(loss_k) - float(loss_q)) / abs(float(loss_q))
-        policy_rel = {n: max_rel(grads_k[n], grads_q[n]) for n in grads_q}
-        del grads_q
+        rel_q = policy_rel = None
+        if isolate is not None:
+            # the policy's own plain attention (not held; mixtral's S 4,608
+            # x 48 heads would hold whole (S, S) tensors: left out)
+            loss_q, grads_q = value_and_grad(plain.loss_fn, params, batch0)
+            rel_q = abs(float(loss_k) - float(loss_q)) / abs(float(loss_q))
+            policy_rel = {n: max_rel(grads_k[n], grads_q[n]) for n in grads_q}
+            del grads_q
         log(f"{tag} first step, max abs err over each tensor's largest plain entry: "
             f"kernels loss rel {rel:.3g}, "
             + ", ".join(f"{n} {e:.2g}" for n, e in grad_rel.items())
             + "".join(f"; control, {what}: loss rel {c[0]:.3g}, "
                       + ", ".join(f"{n} {e:.2g}" for n, e in c[1].items())
                       for what, c in ctrl.items())
-            + f"; kernels against the policy's plain attention (not held): loss "
-            f"rel {rel_q:.3g}, " + ", ".join(f"{n} {e:.2g}" for n, e in policy_rel.items()))
+            + ("" if rel_q is None else
+               f"; kernels against the policy's plain attention (not held): loss "
+               f"rel {rel_q:.3g}, "
+               + ", ".join(f"{n} {e:.2g}" for n, e in policy_rel.items())))
         for what, (rel_c, _) in ctrl.items():
             if not rel_c > loss_rtol:
                 raise AssertionError(f"the control, {what}, passes the loss limit: "
                                      f"rel {rel_c}")
-        bad = {n: e for n, e in grad_rel.items() if not e <= grad_tol}
+        if touched:
+            bad, first["moved_by_flips"] = hold_grads(
+                tag, grads_k, grads_p, touched, lambda g, w: max_rel(g, w) <= grad_tol)
+        else:
+            bad = {n: e for n, e in grad_rel.items() if not e <= grad_tol}
+    elif touched:
+        atol, rtol = GRAD_TOL[torch.float32]
+        bad, first["moved_by_flips"] = hold_grads(
+            tag, grads_k, grads_p, touched,
+            lambda g, w: bool(((g - w).abs() <= atol + rtol * w.abs()).all()))
     else:
         for n in grads_p:
             check_close(f"first-step grad {n}", grads_k[n], grads_p[n],
@@ -4694,13 +4965,14 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     log(f"{tag} first step: loss {float(loss_k):.6f} vs plain {float(loss_p):.6f} "
         f"(rel {rel:.3g}); gradients agree, max abs err per tensor "
         + ", ".join(f"{n} {e:.2g}" for n, e in grad_err.items()))
-    first = dict(first_step_loss_rel_diff=rel, first_step_grad_max_abs_err=grad_err,
+    first.update(first_step_loss_rel_diff=rel, first_step_grad_max_abs_err=grad_err,
                  first_step_grad_rel_err=grad_rel)
     if amp:
         first.update(controls={what: dict(loss_rel_diff=c[0], grad_rel_err=c[1])
                                for what, c in ctrl.items()},
                      policy_plain_loss_rel_diff=rel_q, policy_plain_grad_rel_err=policy_rel)
     # the loops make their own weights: nothing of this step stays on the card
+    first_loss = float(loss_k)
     del grads_k, grads_p, params, batch0
 
     def loop(impl, log_every=0):
@@ -4735,67 +5007,95 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
         raise AssertionError(f"train launch counts {launches} != {want}")
 
     torch.cuda.empty_cache()
-    ops.reset_launch_counts()
-    with models_attend_with(ops, plain_flash(ops) if amp else None):
-        out_p, peak_p = loop("auto" if isolate else "ref")
-    plain_launches = ops.launch_counts()
-    want_plain = {k: v if isolate and not k.startswith("flash") else 0 for k, v in want.items()}
-    torch.cuda.empty_cache()
-    ops.reset_launch_counts()
-    out_y, plain_peak_gib = loop("ref") if amp else (out_p, peak_p)
-    torch.cuda.empty_cache()
-    if plain_launches != want_plain or set(ops.launch_counts().values()) != {0}:
-        raise AssertionError(f"plain runs launched {plain_launches}, then "
-                             f"{ops.launch_counts()}; expected {want_plain}, then none")
+    out_p = out_y = plain_peak_gib = None
+    if not (amp and isolate is None):
+        ops.reset_launch_counts()
+        with models_attend_with(ops, plain_flash(ops) if amp else None):
+            out_p, peak_p = loop("auto" if isolate else "ref")
+        plain_launches = ops.launch_counts()
+        want_plain = {k: v if isolate and not k.startswith("flash") else 0
+                      for k, v in want.items()}
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        out_y, plain_peak_gib = loop("ref") if amp else (out_p, peak_p)
+        torch.cuda.empty_cache()
+        if plain_launches != want_plain or set(ops.launch_counts().values()) != {0}:
+            raise AssertionError(f"plain runs launched {plain_launches}, then "
+                                 f"{ops.launch_counts()}; expected {want_plain}, then none")
 
-    lk, lp, ly = out_k["losses"], out_p["losses"], out_y["losses"]
-    if not all(np.isfinite(lk + lp + ly)):
+    lk = out_k["losses"]
+    lp, ly = (None, None) if out_p is None else (out_p["losses"], out_y["losses"])
+    runs = [r for r in (lk, lp, ly) if r is not None]
+    if not all(np.isfinite(sum(runs, []))):
         raise AssertionError(f"non-finite losses: {lk} / {lp} / {ly}")
-    if not (lk[-1] < lk[0] and lp[-1] < lp[0] and ly[-1] < ly[0]):
+    if not all(r[-1] < r[0] for r in runs):
         raise AssertionError(f"loss did not fall: {lk} / {lp} / {ly}")
-    rel0 = abs(lk[0] - lp[0]) / abs(lp[0])
-    if not rel0 <= loop_rtol:
-        raise AssertionError(f"step-0 loss {lk[0]} vs plain {lp[0]} (rel {rel0})")
-    rel_all = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    if not cfg.zero_init_query and lk[0] != first_loss:
+        # the loop starts from the first step's weights and batch
+        raise AssertionError(f"the loop's step-0 loss {lk[0]} is not the first step's "
+                             f"{first_loss}")
+    rel0 = rel_all = None
+    if lp is not None:
+        rel0 = abs(lk[0] - lp[0]) / abs(lp[0])
+        if not rel0 <= loop_rtol:
+            raise AssertionError(f"step-0 loss {lk[0]} vs plain {lp[0]} (rel {rel0})")
+        rel_all = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
     extra = {}
     if amp:
-        ctrl0 = abs(control_losses[0] - lp[0]) / abs(lp[0])
+        base0 = lk[0] if lp is None else lp[0]
+        ctrl0 = abs(control_losses[0] - base0) / abs(base0)
         if not ctrl0 > loop_rtol:
             raise AssertionError(f"the f32 run's step-0 loss {control_losses[0]} passes "
                                  f"the amp loop's limit (rel {ctrl0})")
         # the reference's amp bar (tests/test_quant.py): the mean of the last 3
         # losses against the f32 run's; printed, not held on the card
         f32_last = float(np.mean(control_losses[-3:]))
-        extra = dict(control_step0_rel_diff=ctrl0, policy_plain_losses=ly,
-                     policy_plain_step0_rel_diff=abs(lk[0] - ly[0]) / abs(ly[0]),
+        extra = dict(control_step0_rel_diff=ctrl0,
                      last3_gap_to_f32=(float(np.mean(lk[-3:])) - f32_last) / f32_last)
+        if ly is not None:
+            extra.update(policy_plain_losses=ly,
+                         policy_plain_step0_rel_diff=abs(lk[0] - ly[0]) / abs(ly[0]))
     # steady state: the first step builds cuBLAS handles and the allocator
     ms_k = 1e3 * float(np.median(out_k["step_seconds"][1:]))
-    ms_p = 1e3 * float(np.median(out_y["step_seconds"][1:]))
     # the part of a step spent making the batch on the host and copying it
     batch_k = 1e3 * float(np.median(out_k["batch_seconds"][1:]))
-    batch_p = 1e3 * float(np.median(out_y["batch_seconds"][1:]))
+    ms_p = batch_p = None
+    if out_y is not None:
+        ms_p = 1e3 * float(np.median(out_y["step_seconds"][1:]))
+        batch_p = 1e3 * float(np.median(out_y["batch_seconds"][1:]))
     log(f"{tag} losses with kernels {[round(v, 4) for v in lk]}")
-    log(f"{tag} losses plain        {[round(v, 4) for v in lp]}"
-        + (" (B5-B7's plain versions, B1-B4's kernels)" if isolate else ""))
+    if lp is None:
+        log(f"{tag} no plain loop under --amp (the first step holds B5-B7 against their "
+            f"plain versions; the loop's step 0 is that step, bit for bit)")
+    else:
+        log(f"{tag} losses plain        {[round(v, 4) for v in lp]}"
+            + (" (B5-B7's plain versions, B1-B4's kernels)" if isolate else ""))
     if amp:
-        log(f"{tag} losses through the policy's plain attention {[round(v, 4) for v in ly]}"
-            f"; step 0 of the f32 run {control_losses[0]:.4f} (rel "
-            f"{extra['control_step0_rel_diff']:.3g} from the plain amp run); mean of the "
+        log(f"{tag} "
+            + ("" if ly is None else
+               f"losses through the policy's plain attention {[round(v, 4) for v in ly]}; ")
+            + f"step 0 of the f32 run {control_losses[0]:.4f} (rel "
+            f"{extra['control_step0_rel_diff']:.3g} from the "
+            f"{'kernels' if lp is None else 'plain'} amp run); mean of the "
             f"last 3 losses {extra['last3_gap_to_f32']:+.3%} from the f32 run's (not held)")
-    log(f"{tag} step-0 loss rel diff {rel0:.3g}, max over steps {rel_all:.3g}; "
-        f"ms/step (median of steps 1-{STEPS - 1}, batch generation included) "
+    plain_text = ("not run" if ms_p is None else
+                  f"{ms_p:.2f} ({B * S / ms_p * 1e3:.0f} tok/s, batch {batch_p:.2f} ms)")
+    log(f"{tag} step-0 loss rel diff "
+        + ("-" if rel0 is None else f"{rel0:.3g}, max over steps {rel_all:.3g}")
+        + f"; ms/step (median of steps 1-{STEPS - 1}, batch generation included) "
         f"kernels {ms_k:.2f} ({B * S / ms_k * 1e3:.0f} tok/s, of which batch "
-        f"{batch_k:.2f} ms), plain {ms_p:.2f} ({B * S / ms_p * 1e3:.0f} tok/s, "
-        f"batch {batch_p:.2f} ms); peak memory {peak_gib:.2f} GiB with the "
-        f"kernels, {plain_peak_gib:.2f} GiB plain")
+        f"{batch_k:.2f} ms), plain {plain_text}; peak memory {peak_gib:.2f} GiB with the "
+        f"kernels, " + ("plain not run" if plain_peak_gib is None
+                        else f"{plain_peak_gib:.2f} GiB plain"))
     return launches, dict(
         steps=STEPS, batch=B, seq=S, tokens_per_step=B * S,
         losses=lk, plain_losses=lp, step0_rel_diff=rel0, max_rel_diff=rel_all,
         ms_per_step=ms_k, plain_ms_per_step=ms_p,
         batch_ms=batch_k, plain_batch_ms=batch_p,
-        tok_per_s=B * S / ms_k * 1e3, plain_tok_per_s=B * S / ms_p * 1e3,
-        step_seconds=out_k["step_seconds"], plain_step_seconds=out_y["step_seconds"],
+        tok_per_s=B * S / ms_k * 1e3,
+        plain_tok_per_s=None if ms_p is None else B * S / ms_p * 1e3,
+        step_seconds=out_k["step_seconds"],
+        plain_step_seconds=None if out_y is None else out_y["step_seconds"],
         batch_seconds=out_k["batch_seconds"],
         peak_memory_gib=peak_gib, plain_peak_memory_gib=plain_peak_gib,
         **first, **extra,
@@ -5245,6 +5545,74 @@ def sweep_phase(ops, rn, ref):
             f"{grid[res.best_index]:.3g}")
     info["fig1"] = {str(w): v for w, v in fig1.items()}
     return rows, paths, info
+
+# the MoE sweep: mixtral-8x22b's µP proxy (2 layers at 1/24 width with
+# d_head kept at 64: d_model 256, 4/4 heads of 64, d_ff 683, 8 experts
+# top-2, vocab 32768, µP base d_model 6144), 8 candidates (4 lrs x 2
+# output multipliers) x 10 steps of 8 x 64 tokens.  At 1/24 of the base
+# width µP's hidden Adam rates are 24x the master lr, so the lrs sit below
+# the full model's fine-tuning rate (TRAIN_ARCHS): the loss falls at each.
+# Batched and serial steps differ in the f32 GEMMs' summation order
+# (cuBLAS batched against single GEMMs; one candidate batched equals the
+# serial loop bit for bit), and on the edge of stability training grows
+# that: at lr 2e-4 (the loss rising 8.56 -> 9.43 in a step) the two stood
+# 3.37e-2 apart at step 9, at 1e-4 2.9e-4, at these lrs 6.9e-5 at most
+# (an H100 at 700 W), as PR 24's candidates that blow up part
+MOE_SWEEP_LRS, MOE_SWEEP_ALPHAS, MOE_SWEEP_STEPS = (1e-5, 2e-5, 4e-5, 8e-5), (1.0, 2.0), 10
+MOE_SWEEP_PATHS = ("sweep_moe", "sweep_moe_serial")
+
+
+def moe_sweep_phase(ops):
+    """The batched HP sweep (core/tuning.py) over an MoE proxy: under
+    torch.func.vmap models/moe.py's dispatch and combine run out of place.
+    8 candidates x 10 steps batched and serial: falling losses, every
+    curve within SWEEP_RTOL of the serial loop's (MOE_SWEEP_LRS says where
+    training parts the two), exact launches (a batched step: one grouped B1
+    and B2 a norm and one B3 and B4 for all 8 candidates),
+    candidate-steps/s of both printed.  Returns ({path: launches},
+    summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tuning
+
+    cfg = get_config("mixtral-8x22b").replace(n_layers=2).scaled(1 / 24, min_d_head=64)
+    cands = tuning.grid_candidates(lr=MOE_SWEEP_LRS, alpha_output=MOE_SWEEP_ALPHAS)
+    n, steps = len(cands), MOE_SWEEP_STEPS
+    kw = dict(steps=steps, batch_size=SWEEP_BATCH, seq_len=SWEEP_SEQ, device="cuda")
+    log(f"[sweep_moe] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, vocab {cfg.vocab_size}, µP base d_model "
+        f"{cfg.base_d_model}; {n} candidates x {steps} steps of {SWEEP_BATCH} x {SWEEP_SEQ}")
+    tuning.train_proxy_batched(cfg, cands[:1], steps=1, batch_size=2, seq_len=8)  # warm-up
+    paths = {}
+    t0 = time.perf_counter()
+    bat, paths["sweep_moe"] = sweep_counts(
+        ops, f"MoE batched sweep, {n} candidates x {steps} steps",
+        lambda: tuning.train_proxy_batched(cfg, cands, **kw),
+        step_launches(cfg, steps, grouped=True))
+    t_bat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ser, paths["sweep_moe_serial"] = sweep_counts(
+        ops, "the MoE serial loop", lambda: tuning.train_proxy_serial(cfg, cands, **kw),
+        step_launches(cfg, n * steps, grouped=False))
+    t_ser = time.perf_counter() - t0
+    if not (np.isfinite(bat.curves).all() and np.isfinite(ser.curves).all()):
+        raise AssertionError(f"non-finite MoE sweep curves: {bat.curves} / {ser.curves}")
+    if not (bat.curves[-1] < bat.curves[0]).all():
+        raise AssertionError(f"a candidate's loss did not fall: {bat.curves}")
+    rel_by_step = np.abs(bat.curves / ser.curves - 1).max(axis=1)
+    if not rel_by_step.max() <= SWEEP_RTOL:
+        raise AssertionError(f"MoE batched curves {rel_by_step.tolist()} from serial by "
+                             f"step (rtol {SWEEP_RTOL})")
+    rate_b, rate_s = n * steps / t_bat, n * steps / t_ser
+    log(f"[sweep_moe] batched curves from the serial loop's by step "
+        f"{np.round(rel_by_step, 8).tolist()} (rtol {SWEEP_RTOL}); best batched "
+        f"{bat.best_index}, serial {ser.best_index}; batched {t_bat:.2f} s "
+        f"({rate_b:.1f} candidate-steps/s), serial {t_ser:.2f} s ({rate_s:.1f}): "
+        f"{rate_b / rate_s:.2f}x; scores {np.round(bat.losses, 4).tolist()}")
+    return paths, dict(batched_vs_serial_rel_by_step=rel_by_step.tolist(),
+                       best_batched=bat.best_index, best_serial=ser.best_index,
+                       candidate_steps_per_s=rate_b, serial_candidate_steps_per_s=rate_s,
+                       batched_s=t_bat, serial_s=t_ser, scores=bat.losses.tolist())
 
 # ---------------------------------------------------------------------------
 # sweep_amp: the HP sweep and Algorithm 1 under --amp, B5-B7 over a
@@ -6434,9 +6802,20 @@ def main():
     g2t_amp8_launches, g2t_amp8 = train_phase(ops, quant, amp="int8",
                                               control_losses=g2t["losses"], arch="gemma2-2b")
     done("train_gemma2 --amp int8")
+    torch.cuda.empty_cache()
+    mxt, mxt_launches = {}, {}
+    for amp_mode, path in zip(("", "bf16", "int8"), MX_TRAIN):
+        mxt_launches[path], mxt[path] = train_phase(
+            ops, quant, amp=amp_mode, arch="mixtral-8x22b",
+            control_losses=mxt["train_mixtral"]["losses"] if amp_mode else None)
+        torch.cuda.empty_cache()
+        done(f"train_mixtral{' --amp ' + amp_mode if amp_mode else ''}")
     sweep_rows, sweep_launches, sweep = sweep_phase(ops, rn, ref)
     rows += sweep_rows
     done("sweep")
+    moe_sweep_launches, moe_sweep = moe_sweep_phase(ops)
+    sweep_launches.update(moe_sweep_launches)
+    done("sweep_moe")
     cand_timing, amp_launches_by_path, sweep_amp = sweep_amp_phase(ops, fa, ref, quant, F)
     sweep_launches.update(amp_launches_by_path)
     attach_candidate_axis(rows, cand_timing)
@@ -6468,6 +6847,7 @@ def main():
                    "train_gemma2": g2t_launches[row["name"]],
                    "train_gemma2_amp_bf16": g2t_amp_launches[row["name"]],
                    "train_gemma2_amp_int8": g2t_amp8_launches[row["name"]],
+                   **{path: launches[row["name"]] for path, launches in mxt_launches.items()},
                    **{path: launches[row["name"]] for path, launches in sweep_launches.items()}}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
@@ -6480,17 +6860,21 @@ def main():
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
                                             "serve_gemma2_int8", "serve_mixtral_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                                "spec_copy_train", "sweep_serial", "algorithm1_train",
+                                *MX_TRAIN, "spec_copy_train", "sweep_serial",
+                                "algorithm1_train", "sweep_moe_serial",
                                 "sweep_amp_bf16_serial", "sweep_amp_int8_serial",
                                 "algorithm1_amp"),
-                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                           "spec_copy_train", *SWEEP_PATHS, *AMP_SWEEP_PATHS),
-                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                           "spec_copy_train", *SWEEP_PATHS, *AMP_SWEEP_PATHS),
-                "rmsnorm_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS,
-                "rmsnorm_bwd_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS,
-                **{n: ("train_amp_int8", "train_gemma2_amp_int8", "sweep_amp_int8",
-                       "sweep_amp_int8_serial", "algorithm1_amp") for n in I8_ROWS}
+                "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN, *MX_TRAIN,
+                           "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
+                           *AMP_SWEEP_PATHS),
+                "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN, *MX_TRAIN,
+                           "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
+                           *AMP_SWEEP_PATHS),
+                "rmsnorm_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS + ("sweep_moe",),
+                "rmsnorm_bwd_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS + ("sweep_moe",),
+                **{n: ("train_amp_int8", "train_gemma2_amp_int8", "train_mixtral_amp_int8",
+                       "sweep_amp_int8", "sweep_amp_int8_serial", "algorithm1_amp")
+                   for n in I8_ROWS}
                 }.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
             raise AssertionError(f"{row['name']} launched off the {only} paths: {by_path}")
@@ -6527,7 +6911,10 @@ def main():
     log(json.dumps({"train_gemma2": g2t}))
     log(json.dumps({"train_gemma2_amp_bf16": g2t_amp}))
     log(json.dumps({"train_gemma2_amp_int8": g2t_amp8}))
+    for path, summary in mxt.items():
+        log(json.dumps({path: summary}))
     log(json.dumps({"sweep": sweep}))
+    log(json.dumps({"sweep_moe": moe_sweep}))
     log(json.dumps({"sweep_amp": sweep_amp}, default=str))
     log(json.dumps({"obs": obs}, default=str))
     log(f"[time] the whole script took {time.perf_counter() - t0:.0f} s")

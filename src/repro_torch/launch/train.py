@@ -36,6 +36,13 @@ Usage:
     python -m repro_torch.launch.train --arch mup-gpt --smoke --steps 20 --device cpu
     python -m repro_torch.launch.train --arch mup-gpt --smoke --steps 20 --device cpu \
         --telemetry --obs-dir /tmp/obs
+    python -m repro_torch.launch.train --arch mixtral-8x22b --smoke --steps 5 --device cpu \
+        --amp bf16
+
+On the card the CLI refuses a config whose float32 weights, gradients and
+AdamW moments (train_state_bytes) exceed the card's memory: mixtral-8x22b
+at its 56 layers needs 2,250 GB, llama4-scout-17b-a16e at its 48 1,628 GB
+and at 4 (its smallest legal depth, one pattern group) 166 GB.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from repro_torch.core.parametrization import available_parametrizations
 from repro_torch.core.transfer import HParams, transfer
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.serve import weight_bytes
 from repro_torch.models.model import build_model
 from repro_torch.obs import MetricsRegistry, TrainObs, Tracer
 from repro_torch.obs.telemetry import to_host
@@ -67,6 +75,13 @@ WATCHDOG_FACTOR = 10.0   # a step this many times the recent median is flagged
 
 class SimulatedFailure(RuntimeError):
     pass
+
+
+def train_state_bytes(model) -> int:
+    """Bytes a train step keeps on the device at the least: the model's
+    float32 weights, their gradients and AdamW's two moments, 4x the
+    weights' bytes (activations and the step's temporaries come on top)."""
+    return 4 * weight_bytes(model)
 
 
 def train_loop(
@@ -239,6 +254,15 @@ def main(argv=None):
     if cfg.amp and cfg.d_head > MAX_D_HEAD and args.device != "cpu":
         ap.error(f"--amp on {cfg.name}: its d_head {cfg.d_head} is past the flash "
                  f"kernels' (B5-B7) range, d_head 1 to {MAX_D_HEAD}")
+    model = build_model(cfg, device=args.device)
+    if model.device.type == "cuda":
+        need = train_state_bytes(model)
+        have = torch.cuda.get_device_properties(model.device).total_memory
+        if need > have:
+            ap.error(f"{cfg.name}'s float32 weights, gradients and two AdamW moments need "
+                     f"{need / 1e9:.1f} GB and the card has {have / 1e9:.1f} GB: training "
+                     f"it needs sharded state over several cards, not ported yet "
+                     f"(ROADMAP.md § A 5)")
     hps = HParams(lr=args.lr, sigma=args.sigma)
 
     obs = None

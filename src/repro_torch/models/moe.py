@@ -91,7 +91,9 @@ def dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int) -> torch.T
     dest = torch.where(keep, flat_e * C + rank, E * C)
     d_idx = torch.full((B, E * C + 1), T, dtype=torch.long, device=expert_idx.device)
     t_ix = torch.arange(T, device=expert_idx.device).expand(B, T)
-    d_idx.scatter_(1, dest, t_ix)
+    # out of place: under torch.func.vmap the fresh table is unbatched and
+    # ``dest`` batched, which an in-place scatter_ refuses
+    d_idx = d_idx.scatter(1, dest, t_ix)
     return d_idx[:, :E * C].reshape(B, E, C)
 
 
@@ -132,10 +134,10 @@ def moe_ffn(
     ys = ys * slot_gate.permute(1, 0, 2).reshape(E, B * C, 1).to(ys.dtype)
     # each token gets at most k contributions, each added to an exact 0:
     # for k <= 2 any order of the adds gives the same bits (a + b = b + a),
-    # so index_add_'s unordered adds on the card are deterministic; a
-    # larger k would need an ordered sum
-    out = ys.new_zeros(B * (S + 1), D)
-    out.index_add_(0, rows.reshape(-1), ys.reshape(E * B * C, D))
+    # so index_add's unordered adds on the card are deterministic; a
+    # larger k would need an ordered sum.  Out of place, as in dispatch
+    out = ys.new_zeros(B * (S + 1), D).index_add(
+        0, rows.reshape(-1), ys.reshape(E * B * C, D))
     return out.reshape(B, S + 1, D)[:, :S].to(x.dtype)
 
 

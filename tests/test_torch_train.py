@@ -319,19 +319,22 @@ def test_three_train_steps_match_reference(pair):
     _assert_trees_close(tp, _flat(jp), **GRAD_TOL)
 
 
-def _small_run(tmp_path=None, **kw):
-    cfg = tconfigs.get_smoke_config("mup-gpt").replace(dtype="float32")
+def _small_run(tmp_path=None, arch="mup-gpt", **kw):
+    cfg = tconfigs.get_smoke_config(arch).replace(dtype="float32")
     return ttrain.train_loop(
         cfg, steps=6, hps=ttrain.HParams(lr=1e-2), batch_size=2, seq_len=16,
         ckpt_every=2, log_every=0, device="cpu",
         ckpt_dir=None if tmp_path is None else str(tmp_path), **kw)
 
 
-def test_checkpoint_resume_ends_where_uninterrupted_run_ends(tmp_path):
-    full = _small_run()
+@pytest.mark.parametrize("arch", ["mup-gpt", "mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_checkpoint_resume_ends_where_uninterrupted_run_ends(tmp_path, arch):
+    """The MoE archs' checkpoints carry the expert stacks, the router, the
+    untied readout and their AdamW moments."""
+    full = _small_run(arch=arch)
     with pytest.raises(ttrain.SimulatedFailure):
-        _small_run(tmp_path, simulate_failure_at=3)
-    resumed = _small_run(tmp_path)
+        _small_run(tmp_path, arch=arch, simulate_failure_at=3)
+    resumed = _small_run(tmp_path, arch=arch)
     assert resumed["steps_run"] == 4          # from the step-2 checkpoint
     assert resumed["losses"] == full["losses"][2:]
     for name, p in full["params"].items():
