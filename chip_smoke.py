@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-``nvcc`` per source, all at once) and checks what the compiler made of
+``nvcc`` per source, all at once, in the background: a library a group of
+sources, kernels.build.GROUPS, so that the phases that reach B1-B4 only
+-- the B1-B4 kernel phases and mamba2's -- run while the attention kernels
+still compile) and checks what the compiler made of
 B8's twelve instances (six (q, pool) type pairs, with and without 16-byte
 loads: registers printed, no spills in ``ptxas -v``), of B9's twelve (six
 type pairs, 64- and 256-column slices: the same), of the
@@ -328,6 +331,38 @@ check:
   versions and the controls); exact launches per step (3 B1, 3 B2, 1 B3, 1
   B4, under amp 1 of each B5-B7 mode and under int8 1 of each pre-pass),
   ms per step, the host batch's share and peak memory.
+- serve_mamba2: mamba2-130m (arXiv:2405.21060: 24 ``ssd`` layers, d_model
+  768, d_inner 1536 in 24 SSD heads of 64, state 128, chunk 256, vocab
+  50,280, tied embeddings; 129.0 M parameters) at full width, f32 weights
+  from seed 0, served through the dense-loop driver (launch/serve.py
+  ``generate``, what the serve CLI falls back to for an ssd pattern): 8
+  requests of 512 tokens (two SSD chunks), 256 generated each, greedy, no
+  stop token.  Exact launches (B1 25 a forward, 256 forwards: 6,400;
+  nothing else); the plain versions over the prefill and the 8 decode
+  steps whose logits are held (M2_PLAIN_GEN forwards): the same tokens by
+  the near-tie rule, logits within M2_LOGIT_TOL beside a B1-alone control;
+  the logits that picked each token against one chunked forward over the
+  768 tokens in float64: the same decode in float64 at the reference's
+  1e-4 of max |logit| (the state h and the conv inputs carried right), the
+  kernels' f32 decode at M2_F32_DECODE_BAR, the held steps of both f32
+  serves within M2_LOGIT_TOL of the float64 decode's; tok/s, peak memory,
+  the card's busy share and the state a request holds (h 18.9 MB, conv 0.5
+  MB).
+- serve_dense: smollm-135m at SERVE_DEPTH through the dense-loop driver
+  against the static engine on the same 8 prompts of 256 tokens, 64
+  generated: the same greedy tokens request by request (near-tie rule),
+  exact launches (B1 31 a forward; no B8 or B9: the dense driver attends
+  in plain PyTorch, as the reference's does), tok/s of both.
+- train_mamba2, train_mamba2 --amp bf16, train_mamba2 --amp int8: the
+  train phases on mamba2-130m at full width, batch 8 x 512, loops of 3
+  steps (TRAIN_ARCHS): the first step kernels against plain (under amp
+  the readout, the only matmul the policy changes in an attention-free
+  model, in the policy on both sides; the control is the readout in the
+  other operand mode), the loop's step 0 the first step bit for bit, exact
+  launches per step (25 B1, 25 B2 -- one norm a layer and the final one
+  -- 1 B3, 1 B4, no B5-B7), ms per step, the host batch's share and peak
+  memory.  The kernel phase holds and times B1 at (8, 1, 768) and (8, 512,
+  768), B2 at (4096, 768) and B3/B4 at (4096, 50280), mamba2's shapes.
 - sweep: the batched HP sweep and Algorithm 1 (core/tuning.py, api.py) on
   one card.  B1 and B2 with a gain per group ((G, D) over G equal groups of
   rows, the candidates of a batched step) at G 1, 4 and 16, x (16, 8, 64,
@@ -442,7 +477,8 @@ serve_spec_int8, spec_copy_train, serve_spec_copy, serve_gemma2,
 serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, serve_mixtral,
 serve_mixtral_dynamic, serve_mixtral_int8, train, train --amp bf16,
 train --amp int8, train_gemma2 and its --amp bf16 and int8 runs,
-train_mixtral and its --amp bf16 and int8 runs, the sweep phase's
+train_mixtral and its --amp bf16 and int8 runs, serve_mamba2,
+serve_dense, train_mamba2 and its --amp bf16 and int8 runs, the sweep phase's
 sweep, sweep_serial, sweep_16,
 algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1,
 sweep_moe and its serial loop, and the sweep_amp phase's sweep_amp_bf16, sweep_amp_int8, their serial loops and
@@ -460,6 +496,7 @@ TOP/s of dense int8 for their int8 mode.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import itertools
 import json
@@ -468,6 +505,8 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1740,21 +1779,22 @@ MX_RING_CASES = [
 MX_TIMED = {"flash_decode": [0], "flash_decode_multi": [1, 2]}
 
 
-def mx_rmsnorm_rows(ops, F):
-    """B1 at mixtral's D 6144: x (4, 1, 6144), a decode step's, and (4608,
-    6144), a 4,608-token prefill's, f32 and bf16, against the plain version
-    (f32 atol 2e-5; bf16 within the tier or one bf16 step, rmsnorm_phase's
-    rule) and F.rms_norm, each timed: a call (CUDA events), the card's time a
-    launch, the plain version's and F.rms_norm's, and the bytes bound."""
+def rmsnorm_rows(ops, F, model, shapes, dtypes=(torch.float32, torch.bfloat16)):
+    """B1 at a model's shapes (``shapes``, each x's shape, the last dim D),
+    in each of ``dtypes``, against the plain version (f32 atol 2e-5; bf16
+    within the tier or one bf16 step, rmsnorm_phase's rule) and F.rms_norm,
+    each timed: a call (CUDA events), the card's time a launch, the plain
+    version's and F.rms_norm's, and the bytes bound."""
     out = {}
-    for shape in ((4, 1, MX_D), (4608, MX_D)):
-        for dt in (torch.float32, torch.bfloat16):
+    for shape in shapes:
+        D = shape[-1]
+        for dt in dtypes:
             x = (3 * torch.randn(*shape, device="cuda")).to(dt)
-            g = 0.5 * torch.randn(MX_D, device="cuda")
+            g = 0.5 * torch.randn(D, device="cuda")
             w = (1 + g).to(dt)
             got = ops.fused_rmsnorm(x, g, impl="kernel").double()
             want = ops.fused_rmsnorm(x, g, impl="ref").double()
-            lib = F.rms_norm(x, (MX_D,), weight=w, eps=1e-6).double()
+            lib = F.rms_norm(x, (D,), weight=w, eps=1e-6).double()
             torch.cuda.synchronize()
             diff = (got - want).abs()
             lim = torch.full_like(want, ATOL[dt])
@@ -1765,9 +1805,9 @@ def mx_rmsnorm_rows(ops, F):
                                      f"{int((diff > lim).sum())} values past their limit")
             ms = cuda_ms(lambda: ops.fused_rmsnorm(x, g, impl="kernel"))
             plain_ms = cuda_ms(lambda: ops.fused_rmsnorm(x, g, impl="ref"), n=50)
-            library_ms = cuda_ms(lambda: F.rms_norm(x, (MX_D,), weight=w, eps=1e-6))
+            library_ms = cuda_ms(lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6))
             dev_us = device_us(lambda: ops.fused_rmsnorm(x, g, impl="kernel"), "rmsnorm")
-            lib_us, _ = library_device_us(lambda: F.rms_norm(x, (MX_D,), weight=w, eps=1e-6))
+            lib_us, _ = library_device_us(lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6))
             nbytes = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
             bound_ms, bound_by = bound(nbytes, 4 * x.numel())
             key = f"{'x'.join(map(str, shape))} {str(dt)[6:]}"
@@ -1776,7 +1816,7 @@ def mx_rmsnorm_rows(ops, F):
                             device_us=dev_us, plain_ms=plain_ms, library_ms=library_ms,
                             library_device_us=lib_us, bound_ms=bound_ms, bound_by=bound_by,
                             bound_share=bound_ms * 1e3 / dev_us)
-            log(f"[kernels] rmsnorm at mixtral's x {shape} {str(dt)[6:]}: max err "
+            log(f"[kernels] rmsnorm at {model}'s x {shape} {str(dt)[6:]}: max err "
                 f"{diff.max().item():.3g} from the plain version, "
                 f"{out[key]['from_f_rms_norm']:.3g} from F.rms_norm; {ms:.5f} ms a call, "
                 f"{dev_us:.2f} us a launch on the card ({out[key]['bound_share']:.1%} of the "
@@ -1786,12 +1826,13 @@ def mx_rmsnorm_rows(ops, F):
 
 
 def mixtral_kernel_phase(ops, da, F, rows):
-    """B1 at D 6144 (mx_rmsnorm_rows), then B8 and B9 over mixtral-8x22b's
+    """B1 at D 6144 (rmsnorm_rows), then B8 and B9 over mixtral-8x22b's
     rings (MX_RING_CASES: 48/8 heads of 128, a GQA group of 6; f32 and int8
     pools; check_g2_cases, whose B9 checks hold the kernel's plan equal to
     decode_multi_plan at this card's SM count), each timed at its serve
     shape (g2_row), kept under ``mixtral_shapes`` in the rows of ``rows``."""
-    rows["rmsnorm"]["mixtral_shapes"] = mx_rmsnorm_rows(ops, F)
+    rows["rmsnorm"]["mixtral_shapes"] = rmsnorm_rows(
+        ops, F, "mixtral", ((4, 1, MX_D), (4608, MX_D)))
     worst = check_g2_cases(ops, da, MX_RING_CASES, MX_HEADS, 0.0, "mixtral", seed=600)
     for name in ("flash_decode", "flash_decode_multi", "flash_decode_int8",
                  "flash_decode_multi_int8"):
@@ -1842,17 +1883,20 @@ G2_NORM_SHAPES = [(2048, 2304), (4096, 2304)]
 # and at mixtral-8x22b's (train_mixtral: 4,608 tokens of D 6144, f32; the
 # scalar path)
 MX_NORM_SHAPES = [(4608, 6144)]
+# mamba2-130m's train step: 8 x 512 rows of d_model 768 (the register path)
+M2_NORM_SHAPES = [(4096, 768)]
 
 
 def rmsnorm_bwd_phase(rn, ref, F):
     """B2 against its plain version; timed at the train shape, a call and
     on the card a launch (one launch a call), beside the autograd backward
-    of F.rms_norm; then at gemma2-2b's train shapes (G2_NORM_SHAPES)."""
+    of F.rms_norm; then at gemma2-2b's, mixtral-8x22b's and mamba2-130m's
+    train shapes (G2_NORM_SHAPES, MX_NORM_SHAPES, M2_NORM_SHAPES)."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     # 16-byte pieces held in registers (D 48, 1024), and the scalar path (D
     # 1030, not a multiple of 4 or 8; D 2304, gemma2's)
     shapes = ([(8, 512, 1024)] + [(r, D) for r in (1, 7, 4097) for D in (48, 1024, 1030)]
-              + G2_NORM_SHAPES + MX_NORM_SHAPES)
+              + G2_NORM_SHAPES + MX_NORM_SHAPES + M2_NORM_SHAPES)
     for shape in shapes:
         for dt in (torch.float32, torch.bfloat16):
             x = (3 * torch.randn(*shape, device="cuda")).to(dt)
@@ -1898,10 +1942,11 @@ def rmsnorm_bwd_phase(rn, ref, F):
         f"{bound_ms * 1e3 / dev:.1%} of it; target <= 20 us, not held); the autograd backward "
         f"of F.rms_norm {library_ms:.4f} ms a call, {lib_dev:.2f} us on the card in "
         f"{lib_launches:.0f} launches")
-    g2, mx = {}, {}
+    g2, mx, m2 = {}, {}, {}
     for shape, dt in itertools.chain(
             itertools.product(G2_NORM_SHAPES, (torch.float32, torch.bfloat16)),
-            itertools.product(MX_NORM_SHAPES, (torch.float32,))):
+            itertools.product(MX_NORM_SHAPES, (torch.float32,)),
+            itertools.product(M2_NORM_SHAPES, (torch.float32,))):
         x = (3 * torch.randn(*shape, device="cuda")).to(dt)
         g = 0.5 * torch.randn(shape[-1], device="cuda")
         dy = torch.randn(*shape, device="cuda").to(dt)
@@ -1917,10 +1962,13 @@ def rmsnorm_bwd_phase(rn, ref, F):
                  plain_ms=cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, g, dy), n=20),
                  library_ms=cuda_ms(lib), library_device_us=library_device_us(lib)[0],
                  bound_ms=b[0], bound_by=b[1], max_abs_err=e)
-        model = "gemma2-2b" if shape in G2_NORM_SHAPES else "mixtral-8x22b"
-        (g2 if model == "gemma2-2b" else mx)[f"{shape} {str(dt)[6:]}"] = t
+        model, into, path = (("gemma2-2b", g2, "the scalar path") if shape in G2_NORM_SHAPES
+                             else ("mixtral-8x22b", mx, "the scalar path")
+                             if shape in MX_NORM_SHAPES
+                             else ("mamba2-130m", m2, "the register path"))
+        into[f"{shape} {str(dt)[6:]}"] = t
         log(f"[kernels] rmsnorm_bwd at x {shape} {str(dt)[6:]} ({model}'s train step, "
-            f"the scalar path): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
+            f"{path}): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
             f"card (bound {b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / t['device_us']:.1%}"
             f" of it); plain {t['plain_ms']:.4f} ms; the autograd backward of F.rms_norm "
             f"{t['library_ms']:.4f} ms, {t['library_device_us']:.2f} us on the card")
@@ -1934,6 +1982,7 @@ def rmsnorm_bwd_phase(rn, ref, F):
         bound_by=bound_by, library_ms=library_ms, library_device_us=lib_dev,
         library="autograd backward of torch.nn.functional.rms_norm",
         share_of_bound=bound_ms * 1e3 / dev, gemma2_shapes=g2, mixtral_shapes=mx,
+        mamba2_shapes=m2,
     )
 
 
@@ -1960,7 +2009,8 @@ def ce_phase(ce, ref, F):
              (1, 7, torch.float32), (37, 1000, torch.float32),
              (64, 50257, torch.float32), (256, 2048, torch.bfloat16),
              (33, 3001, torch.bfloat16),
-             (2048, 256000, torch.float32), (4608, 32768, torch.float32)]
+             (2048, 256000, torch.float32), (4608, 32768, torch.float32),
+             (4096, 50280, torch.float32)]
     worst = [0.0, 0.0]
     for i, (N, V, dt) in enumerate(cases):
         x, lab, g, mask = ce_case(N, V, dt, i)
@@ -1982,9 +2032,11 @@ def ce_phase(ce, ref, F):
 
     rows = {}
     # the train shape, smollm's vocab, gemma2-2b's train step (4 x 512
-    # tokens over vocab 256,000: logits of 2.1 GB) and mixtral-8x22b's (one
-    # sequence of 4,608 over vocab 32,768)
-    for N, V in ((4096, 2048), (4096, 49152), (2048, 256000), (4608, 32768)):
+    # tokens over vocab 256,000: logits of 2.1 GB), mixtral-8x22b's (one
+    # sequence of 4,608 over vocab 32,768) and mamba2-130m's (8 x 512 over
+    # vocab 50,280, ragged to the vocab chunks)
+    for N, V in ((4096, 2048), (4096, 49152), (2048, 256000), (4608, 32768),
+                 (4096, 50280)):
         x, lab, g, _ = ce_case(N, V, torch.float32, 100 + V)
         loss, lse = ce.ce_fwd(x, lab)
         want_loss, want_lse = ref.softmax_cross_entropy_ref(x, lab)
@@ -2020,9 +2072,9 @@ def ce_phase(ce, ref, F):
     t, b3, b4, fwd_err, bwd_err = rows[2048]
     big = dict(rows[49152][0], ce_fwd_bound=rows[49152][1][0],
                ce_bwd_bound=rows[49152][2][0])
-    g2, mx = (dict(rows[V][0], ce_fwd_bound=rows[V][1][0], ce_bwd_bound=rows[V][2][0],
-                   ce_fwd_max_abs_err=rows[V][3], ce_bwd_max_abs_err=rows[V][4])
-              for V in (256000, 32768))
+    g2, mx, m2 = (dict(rows[V][0], ce_fwd_bound=rows[V][1][0], ce_bwd_bound=rows[V][2][0],
+                       ce_fwd_max_abs_err=rows[V][3], ce_bwd_max_abs_err=rows[V][4])
+                  for V in (256000, 32768, 50280))
     common = dict(route="cuda", source="src/repro_torch/kernels/csrc/cross_entropy.cu",
                   shape="logits (4096, 2048) float32 (train step), 1/3 rows masked")
     return [
@@ -2038,6 +2090,9 @@ def ce_phase(ce, ref, F):
              at_mixtral_4608_x_32768={k: mx[k] for k in (
                  "ce_fwd", "ce_fwd_plain", "ce_fwd_library", "ce_fwd_bound",
                  "ce_fwd_max_abs_err")},
+             at_mamba2_4096_x_50280={k: m2[k] for k in (
+                 "ce_fwd", "ce_fwd_plain", "ce_fwd_library", "ce_fwd_bound",
+                 "ce_fwd_max_abs_err")},
              **common),
         dict(name="ce_bwd", replaces="src/repro/kernels/cross_entropy.py:74",
              max_abs_err=bwd_err, ms=t["ce_bwd"], plain_ms=t["ce_bwd_plain"],
@@ -2049,6 +2104,9 @@ def ce_phase(ce, ref, F):
                  "ce_bwd", "ce_bwd_plain", "ce_bwd_library", "ce_bwd_bound",
                  "ce_bwd_max_abs_err")},
              at_mixtral_4608_x_32768={k: mx[k] for k in (
+                 "ce_bwd", "ce_bwd_plain", "ce_bwd_library", "ce_bwd_bound",
+                 "ce_bwd_max_abs_err")},
+             at_mamba2_4096_x_50280={k: m2[k] for k in (
                  "ce_bwd", "ce_bwd_plain", "ce_bwd_library", "ce_bwd_bound",
                  "ce_bwd_max_abs_err")},
              **common),
@@ -2686,20 +2744,29 @@ def make_recording_model(Model):
         row, a chunk's last real row: the one row the engine reads out),
         and the full rows and the slots' positions of the first 8
         single-token decodes.  Forwards
-        without positions (the tie oracle's) are not recorded."""
+        without positions (the tie oracle's) are not recorded, but for the
+        dense-loop driver's prefill (its last row: every prompt at full
+        width).  With ``keep_all`` set, every recorded forward's sampled
+        rows are kept too (``all_rows``)."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.calls = []
             self.n_decode = 0
+            self.keep_all = False
+            self.all_rows = []
 
         def forward(self, params, tokens, positions=None, mode="train", **kw):
             logits, cache = super().forward(params, tokens, positions=positions,
                                             mode=mode, **kw)
-            if positions is None:
+            if positions is None and mode != "prefill":
                 return logits, cache
             T = tokens.shape[1]
-            if kw.get("readout") is not None:
+            if positions is None:
+                # the dense-loop driver's prefill: it samples the last row
+                rows = logits[:, -1]
+                active = torch.ones(1, dtype=torch.bool, device=rows.device)
+            elif kw.get("readout") is not None:
                 # the engine read out only the row it samples from (a
                 # prefill's last prompt row, a chunk's last real row)
                 rows = logits[:, -1]
@@ -2723,6 +2790,8 @@ def make_recording_model(Model):
                                    arg=top2.indices[:, 0], active=active,
                                    rows=rows.clone() if keep else None,
                                    pos=positions[:, 0].tolist() if keep else None))
+            if self.keep_all:
+                self.all_rows.append(rows.clone())
             return logits, cache
 
     return RecordingModel
@@ -4076,6 +4145,287 @@ def mixtral_phases(Model, Engine, DynamicEngine, EngineConfig, ops, t0):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# the dense-loop driver: mamba2-130m served, and smollm's dense serve
+# ---------------------------------------------------------------------------
+
+# serve_mamba2: requests, prompt tokens (two SSD chunks of 256) and tokens
+# generated each (prompt plus output is then 768, three whole chunks: a
+# forward over any other length past one chunk raises, as the reference's
+# assertion does)
+M2_R, M2_PROMPT, M2_GEN = 8, 512, 256
+# decode against the chunked forward, the largest gap over max |logit|: the
+# reference's bar (tests/test_smoke_archs.py), held in float64, where it
+# tests that h and the conv inputs are carried right.  The kernels' f32
+# decode is held against the float64 forward at three times the 2.02e-4
+# read (H100 at 700 W).  The f32 chunked forward's own distance from
+# float64, 1.01e-3 there, is printed, not held: on the CPU, at 12 of the
+# 24 layers on a served row, the reference's f32 forward and the port's lie
+# as far from float64 as each other (1.54e-5, 1.39e-5:
+# tests/test_torch_ssd.py::test_f32_forward_drifts_from_float64_as_the_references)
+M2_DECODE_BAR = 1e-4
+M2_F32_DECODE_BAR = 6e-4
+# the first 8 decode steps' logits, kernels against the plain versions and
+# each against the same steps in float64, as an absolute distance: three
+# times the largest read of an f32 path from float64 (6.49e-3 at |logit|
+# <= 209, the kernels' 5.67e-3; kernels against plain 5.17e-3, all of it
+# B1's, the B1-alone control's the same; H100 at 700 W): f32 rounding over
+# 24 layers of logits this large
+M2_LOGIT_TOL = 2e-2
+# the plain serve: the prefill and the 8 decode steps whose logits are held
+M2_PLAIN_GEN = 9
+# serve_dense: smollm-135m at SERVE_DEPTH, full-width prompts
+DENSE_R, DENSE_PROMPT, DENSE_GEN = 8, 256, 64
+
+
+class DenseServe:
+    """The dense-loop driver (launch/serve.py ``generate``, what the serve
+    CLI falls back to) behind an engine's ``serve(params, prompts, lens)``:
+    every prompt at full width, no stop token; returns the engine's keys
+    (``tokens`` on the host, ``lengths``, ``steps``: one a token)."""
+
+    def __init__(self, model, gen_len):
+        self.model, self.gen_len = model, gen_len
+
+    def serve(self, params, prompts, lens):
+        from repro_torch.launch.serve import generate
+
+        if not (np.asarray(lens) == prompts.shape[1]).all():
+            raise ValueError("the dense-loop driver serves full-width prompts only")
+        toks = generate(self.model, params, torch.as_tensor(prompts, device="cuda"),
+                        self.gen_len, eos_token_id=-1)
+        return dict(tokens=toks.cpu(), lengths=torch.full((len(lens),), self.gen_len),
+                    steps=self.gen_len)
+
+
+def dense_expect(cfg, n_fwd):
+    """Exact launches of a dense-loop serve: B1 once a norm a forward (one
+    an ssd layer, two an attention one, and the final norm), nothing else:
+    the dense driver attends in plain PyTorch, as the reference's does."""
+    kinds = list(cfg.pattern) * cfg.n_groups
+    want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
+    want["rmsnorm"] = (sum(1 if k == "ssd" else 2 for k in kinds) + 1) * n_fwd
+    return want
+
+
+
+def mamba2_serve_phase(Model, ops):
+    """serve_mamba2: mamba2-130m (configs/mamba2_130m.py, arXiv:2405.21060:
+    24 ``ssd`` layers, d_model 768, d_inner 1536 in 24 SSD heads of 64,
+    state 128, chunk 256, conv width 4, vocab 50,280, tied embeddings) at
+    full width, f32 weights from seed 0, through the dense-loop driver the
+    serve CLI falls back to: M2_R requests of M2_PROMPT tokens, M2_GEN
+    generated each, greedy, no stop token.
+
+    - The kernels' serve: exact launches (B1 25 a forward, 256 forwards:
+      6,400; nothing else), tok/s, peak memory.
+    - The plain versions' serve over its first M2_PLAIN_GEN forwards (the
+      prefill and the 8 decode steps whose logits are held): the same
+      greedy tokens by the near-tie rule (compare_calls), the logits within
+      M2_LOGIT_TOL of the kernels', beside a B1-alone control over the same
+      forwards.
+    - Against one chunked forward over the 768 tokens of prompt and output
+      in float64, at the rows of the logits that picked each generated
+      token (511-766): the same decode in float64 within M2_DECODE_BAR of
+      max |logit| (the SSD state h and the conv inputs carried right), the
+      kernels' f32 decode within M2_F32_DECODE_BAR; the 8 held steps of
+      both f32 serves within M2_LOGIT_TOL of the float64 decode's; the f32
+      forward's distance and the kernels' tokens that are not the float64
+      argmax printed.
+    - The card's busy share under the profiler.
+
+    Returns (launches, summary)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m").replace(dtype="float32", eos_token_id=-1)
+    Rec = make_recording_model(Model)
+    kern = Rec(cfg, device="cuda", impl="auto")
+    plain = Rec(cfg, device="cuda", impl="ref")
+    params = kern.init(seed=0)
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (M2_R, M2_PROMPT))
+    lens = np.full(M2_R, M2_PROMPT)
+    state = {k: math.prod(s) * torch.tensor([], dtype=d).element_size()
+             for k, (s, d) in kern.cache_shapes(1, M2_PROMPT + M2_GEN)["groups"]["0_ssd"]
+             .items()}
+    log(f"[serve_mamba2] {cfg.name}: {cfg.n_layers} ssd layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.1f}M params, f32; {M2_R} requests of "
+        f"{M2_PROMPT} tokens, {M2_GEN} generated each, through the dense-loop driver; a "
+        f"request's state: h {state['h'] / 1e6:.1f} MB, conv {state['conv'] / 1e6:.2f} MB "
+        f"over the {cfg.n_layers} layers")
+    want = dense_expect(cfg, M2_GEN)   # one prefill, then M2_GEN - 1 decode steps
+    kern.keep_all = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out_k, wall_k = timed_serve(DenseServe(kern, M2_GEN), params, prompts, lens)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kern.keep_all = False
+    n_pre = sum(c["mode"] == "prefill" for c in kern.calls)
+    log(f"[serve_mamba2] kernels: {len(kern.calls)} forwards, {n_pre} prefills; launches "
+        f"{launches}, expected {want}")
+    if launches != want or (n_pre, len(kern.calls)) != (1, M2_GEN):
+        raise AssertionError(f"serve_mamba2: launch counts {launches} != {want}, or "
+                             f"{n_pre} prefills and {len(kern.calls)} forwards, not 1 and "
+                             f"{M2_GEN}")
+
+    ops.reset_launch_counts()
+    out_r, wall_r = timed_serve(DenseServe(plain, M2_PLAIN_GEN), params, prompts, lens)
+    if set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"serve_mamba2: the plain serve launched kernels: "
+                             f"{ops.launch_counts()}")
+    head = SimpleNamespace(calls=kern.calls[:M2_PLAIN_GEN])
+    out_head = dict(out_k, tokens=out_k["tokens"][:, :M2_PLAIN_GEN], steps=M2_PLAIN_GEN)
+    tie_at, worst, scale8 = compare_calls("serve_mamba2", head, plain, out_head, out_r,
+                                          logit_tol=None)
+    if not worst <= M2_LOGIT_TOL:
+        raise AssertionError(f"serve_mamba2: decode logits differ by {worst} "
+                             f"(|logit| <= {scale8}), past {M2_LOGIT_TOL}")
+    # the B1-alone control over the same forwards
+    ctrl = Rec(cfg, device="cuda", impl="ref")
+    plain_rms = ops.fused_rmsnorm
+    ops.fused_rmsnorm = lambda x, gain, *, eps=1e-6, impl="auto": plain_rms(
+        x, gain, eps=eps, impl="kernel")
+    try:
+        DenseServe(ctrl, M2_PLAIN_GEN).serve(params, prompts, lens)
+    finally:
+        ops.fused_rmsnorm = plain_rms
+    worst_c = 0.0
+    for ck, cr in zip(ctrl.calls, plain.calls):
+        if ck["rows"] is not None:
+            worst_c = max(worst_c, (ck["rows"] - cr["rows"]).abs().max().item())
+        if not torch.equal(ck["arg"], cr["arg"]):
+            break   # later rows would see other tokens
+    del ctrl
+    n_tok = M2_R * M2_GEN
+    log(f"[serve_mamba2] kernels: {n_tok} tokens in {wall_k:.3f} s ({n_tok / wall_k:.1f} "
+        f"tok/s), peak memory {peak:.2f} GiB; plain, the first {M2_PLAIN_GEN} forwards: "
+        f"{M2_R * M2_PLAIN_GEN} tokens in {wall_r:.3f} s; greedy tokens identical: "
+        f"{tie_at is None}; first 8 decode steps' logits max abs diff {worst:.3g} at "
+        f"|logit| <= {scale8:.3g} (held at {M2_LOGIT_TOL}); control, the plain versions but "
+        f"B1 on the card: {worst_c:.3g}")
+
+    got = torch.stack(kern.all_rows[:M2_GEN], dim=1)           # (R, 256, V)
+    kern.all_rows.clear()
+    seq = torch.as_tensor(np.concatenate([prompts, out_k["tokens"].numpy()], axis=1),
+                          device="cuda")
+    rows = torch.arange(M2_PROMPT - 1, M2_PROMPT + M2_GEN - 1, device="cuda")
+    m64 = Model(cfg.replace(dtype="float64"), device="cuda", impl="ref")
+    p64 = {k: v.double() for k, v in params.items()}
+    with torch.no_grad():
+        full, _ = kern.forward(params, seq, readout=rows)
+        exact, _ = m64.forward(p64, seq, readout=rows)
+        # the same decode in float64 over the served tokens (a step's time
+        # is the host's, ~40 ms)
+        last, cache = m64.prefill(p64, seq[:, :M2_PROMPT], cache_len=M2_PROMPT + M2_GEN)
+        dec64 = [last]
+        for p in range(M2_PROMPT, M2_PROMPT + M2_GEN - 1):
+            pos = torch.full((M2_R, 1), p, dtype=torch.int32, device="cuda")
+            logits, cache = m64.decode_step(p64, seq[:, p:p + 1], pos, cache)
+            dec64.append(logits[:, 0])
+    dec64 = torch.stack(dec64, dim=1)
+    del cache, m64, p64
+    # the 8 held steps of both f32 serves against the float64 decode's (the
+    # plain serve's up to a tie: past it its tokens are others)
+    held = dict(kernel_from_f64=0.0, plain_from_f64=0.0)
+    for i, (ck, cr) in enumerate(zip(kern.calls[:M2_PLAIN_GEN], plain.calls)):
+        for key, c in (("kernel_from_f64", ck), ("plain_from_f64", cr)):
+            if c["rows"] is not None and (key == "kernel_from_f64" or tie_at is None
+                                          or i < tie_at):
+                held[key] = max(held[key],
+                                (c["rows"].double() - dec64[:, i]).abs().max().item())
+    scale = exact.abs().max().item()
+    err = dict(f64_decode=(dec64 - exact).abs().max().item(),
+               f32_decode=(got.double() - exact).abs().max().item(),
+               f32_decode_vs_f32_forward=(got - full).abs().max().item(),
+               f32_forward=(full.double() - exact).abs().max().item())
+    off_argmax = int((got.argmax(-1) != exact.argmax(-1)).sum())
+    del got, full, exact, dec64
+    torch.cuda.empty_cache()
+    log(f"[serve_mamba2] against the same decode in float64: the first 8 decode steps' "
+        f"logits max abs diff, the kernels {held['kernel_from_f64']:.3g}, the plain "
+        f"versions {held['plain_from_f64']:.3g} (held at {M2_LOGIT_TOL})")
+    log(f"[serve_mamba2] decode against one chunked forward in float64 over the "
+        f"{seq.shape[1]} tokens of prompt and output ({M2_R} x {M2_GEN} rows, |logit| <= "
+        f"{scale:.3g}), max abs diff over max |logit|: the same decode in float64 "
+        f"{err['f64_decode'] / scale:.3g} (held at {M2_DECODE_BAR}), the kernels' f32 "
+        f"decode {err['f32_decode'] / scale:.3g} (held at {M2_F32_DECODE_BAR}); not held: "
+        f"the kernels' decode against the f32 forward "
+        f"{err['f32_decode_vs_f32_forward'] / scale:.3g}, the f32 forward "
+        f"{err['f32_forward'] / scale:.3g}; {off_argmax} of the kernels' "
+        f"{M2_R * M2_GEN} tokens are not the float64 forward's argmax (printed)")
+    if not (err["f64_decode"] <= M2_DECODE_BAR * scale
+            and err["f32_decode"] <= M2_F32_DECODE_BAR * scale
+            and max(held.values()) <= M2_LOGIT_TOL):
+        raise AssertionError(f"serve_mamba2: decode logits off the float64 ones: {err}, "
+                             f"the held steps {held} (|logit| <= {scale})")
+
+    wall_ms, busy, n_launch, top = busy_profile(
+        lambda: DenseServe(kern, G2_PROFILED).serve(params, prompts[:3], lens[:3]))
+    log(f"[serve_mamba2] under the profiler, 3 requests x {G2_PROFILED} tokens: "
+        f"{wall_ms:.0f} ms, card busy {busy:.1f} ms ({busy / wall_ms:.1%}), {n_launch} "
+        f"launches; top {top}")
+    summary = dict(requests=M2_R, steps=M2_GEN, prefills=n_pre, decode_steps=M2_GEN - 1,
+                   tokens=n_tok, wall_s=wall_k, tok_per_s=n_tok / wall_k, peak_gib=peak,
+                   plain_forwards=M2_PLAIN_GEN, plain_wall_s=wall_r,
+                   logit_max_abs_diff=worst, logit_scale=scale8, logit_tol=M2_LOGIT_TOL,
+                   tie=tie_at, logit_max_abs_diff_b1_alone=worst_c, float64=held,
+                   decode_vs_forward_scale=scale,
+                   decode_vs_forward_rel={k: v / scale for k, v in err.items()},
+                   tokens_off_float64_argmax=off_argmax, profile_wall_ms=wall_ms,
+                   busy_ms=busy, busy_share=busy / wall_ms, profile_launches=n_launch,
+                   top_kernels=top, forwards=M2_GEN, state_h_bytes=state["h"],
+                   state_conv_bytes=state["conv"], params_m=n_params / 1e6)
+    return launches, summary
+
+
+def dense_serve_phase(cfg, Model, Engine, EngineConfig, ops):
+    """serve_dense: smollm-135m at SERVE_DEPTH through the dense-loop driver
+    (``generate``) against the static engine on the same full-width prompts
+    and weights: the same greedy tokens request by request under the
+    near-tie rule (greedy_agree) -- the port's version of the reference's
+    engine-against-the-dense-oracle test, at full width on the card.  Exact
+    launches (B1 2L + 1 a forward; no B8 or B9: the dense driver attends in
+    plain PyTorch); tok/s of both.  Returns (launches, summary)."""
+    Rec = make_recording_model(Model)
+    kern = Rec(cfg, device="cuda", impl="auto")
+    params = kern.init(seed=0)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (DENSE_R, DENSE_PROMPT))
+    lens = np.full(DENSE_R, DENSE_PROMPT)
+    ops.reset_launch_counts()
+    out_d, wall_d = timed_serve(DenseServe(kern, DENSE_GEN), params, prompts, lens)
+    launches = ops.launch_counts()
+    want = dense_expect(cfg, DENSE_GEN)
+    log(f"[serve_dense] {cfg.name} at {cfg.n_layers} layers: {DENSE_R} requests of "
+        f"{DENSE_PROMPT} tokens, {DENSE_GEN} generated each; {len(kern.calls)} forwards; "
+        f"launches {launches}, expected {want}")
+    if launches != want or len(kern.calls) != DENSE_GEN:
+        raise AssertionError(f"serve_dense: launch counts {launches} != {want} "
+                             f"({len(kern.calls)} forwards)")
+    ecfg = EngineConfig(n_slots=4, page_size=16, max_prompt_len=DENSE_PROMPT,
+                        max_gen_len=DENSE_GEN)
+    out_e, wall_e = timed_serve(Engine(Model(cfg, device="cuda"), ecfg), params, prompts,
+                                lens)
+    oracle = Model(cfg, device="cuda", impl="ref")
+    ties = greedy_agree("serve_dense", oracle, params, prompts, lens, out_d, out_e)
+    n_tok = DENSE_R * DENSE_GEN
+    log(f"[serve_dense] the dense driver: {n_tok} tokens in {wall_d:.3f} s "
+        f"({n_tok / wall_d:.1f} tok/s); the static engine: {int(out_e['lengths'].sum())} "
+        f"tokens in {wall_e:.3f} s ({int(out_e['lengths'].sum()) / wall_e:.1f} tok/s); "
+        f"greedy tokens equal request by request, {ties} parted at a near-tie")
+    return launches, dict(requests=DENSE_R, prompt=DENSE_PROMPT, gen=DENSE_GEN,
+                          tokens=n_tok, wall_s=wall_d, tok_per_s=n_tok / wall_d,
+                          engine_wall_s=wall_e,
+                          engine_tok_per_s=int(out_e["lengths"].sum()) / wall_e,
+                          ties=ties)
+
+
 SPEC_K = 4                 # the serve CLI's --draft-k default
 # smollm's serve paths run 15 of its 30 layers at full width: a cut of
 # depth that holds the run's time (the speculative paths' since the gemma2
@@ -4789,6 +5139,25 @@ MX_AMP_LIMITS = {"bf16": (2e-6, AMP_GRAD_TOL, 2e-6, "none"),
 # mixtral's own) the loss rose from 10.88 to 40.5 in one step on an H100 at
 # 700 W.
 #
+#
+# mamba2-130m (arXiv:2405.21060) at full width, all 24 layers, f32: 8 x 512
+# tokens (two SSD chunks of 256 a sequence, so the inter-chunk recurrence
+# runs), loops of 3 steps (the run's time); nothing else cut.  It has no
+# attention, so --amp changes only its readout (the tied embedding's logit
+# matmul): the first step holds B1-B4 against their plain versions under the
+# same readout policy, and the control is the readout in the other operand
+# mode (f32 for bf16, bf16 for int8).  Its loops run through the kernels
+# only under --amp (None), the first step being the loop's step 0 bit for
+# bit (zero_init_query changes nothing in an attention-free model and turns
+# that check on).  Measured (H100 at 700 W): bf16, kernels against plain
+# 1.49e-6 (gradients up to 1.1e-3 of a tensor's largest entry), the f32
+# readout control 2.75e-5, the f32 run's step 0 2.9e-5; int8 3.18e-6 (up to
+# 2.6e-3), the bf16 readout control 7.59e-5 (2.3e-2 to 3.5e-2), the f32 run
+# 5.02e-5: B1-B4's f32 ulps move a few readout roundings.
+M2_AMP_LIMITS = {"bf16": (5e-6, AMP_GRAD_TOL, 5e-6, "none"),
+                 "int8": (1e-5, 1e-2, 1e-5, "bf16")}
+M2_TRAIN = ("train_mamba2", "train_mamba2_amp_bf16", "train_mamba2_amp_int8")
+#
 # (batch, sequence, loop steps, the phase's path name, the --amp limits,
 # the amp loops' plain side (False: B1-B7's plain versions; True: B1-B4's
 # kernels; None: no plain loop), config overrides, the loops' lr)
@@ -4796,7 +5165,9 @@ TRAIN_ARCHS = {"mup-gpt": (8, 512, 10, "train", AMP_LIMITS, False, {}, 1e-2),
                "gemma2-2b": (4, 512, 5, "train_gemma2", G2_AMP_LIMITS, True, {}, 1e-2),
                "mixtral-8x22b": (1, 4608, 3, "train_mixtral", MX_AMP_LIMITS, None,
                                  {"n_layers": 1, "zero_init_query": False,
-                                  "zero_init_readout": False}, 1e-4)}
+                                  "zero_init_readout": False}, 1e-4),
+               "mamba2-130m": (8, 512, 3, "train_mamba2", M2_AMP_LIMITS, None,
+                               {"zero_init_query": False}, 1e-2)}
 
 
 def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
@@ -4839,6 +5210,8 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     isolate = isolate if amp else False
     cfg = get_config(arch).replace(dtype="float32", amp=amp, **over)
     moe = bool(cfg.n_experts)
+    kinds = list(cfg.pattern) * cfg.n_groups
+    n_att_layers = sum(k != "ssd" for k in kinds)   # ssd layers: no attention
     tag = f"[{path} --amp {amp}]" if amp else f"[{path}]"
     if amp:
         loss_rtol, grad_tol, loop_rtol, control_mode = limits[amp]
@@ -4858,7 +5231,7 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     if arch == "gemma2-2b":
         cut = ("the batch cut from 8 x 512, which does not fit beside 42 GB of weights, "
                "gradients and moments; nothing else cut")
-    elif over:
+    elif "n_layers" in over:
         full = get_config(arch)
         two = train_state_bytes(Model(cfg.replace(n_layers=2), device="cuda"))
         cut = (f"the depth cut to {cfg.n_layers} of {full.n_layers} layers: f32 weights, "
@@ -4867,8 +5240,11 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
                f"cut")
     else:
         cut = "nothing cut"
-    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+    mixer = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}"
+             if n_att_layers else
+             f"SSD d_inner {cfg.d_inner}, {cfg.d_inner // cfg.ssm_head_dim} heads of "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {mixer}, vocab "
         f"{cfg.vocab_size}, {n_params / 1e6:.1f}M params; batch {B} x seq {S}, f32"
         + (f", --amp {amp}" if amp else "") + f"; loops of {STEPS} steps; " + cut)
 
@@ -4890,13 +5266,15 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
             f"gradients bit-equal")
         first["repeat_bit_equal"] = True
     # under amp the first step isolates B5-B7: B1-B4 run on both sides, so
-    # that attention's inputs are the same bits
+    # that attention's inputs are the same bits (an arch with no attention
+    # holds B1-B4 against their plain versions instead)
     # the plain flash versions over as many kv heads a call as keep a call's
     # f32 (S, S) scores near 1 GiB (mixtral: 2 of its 8; the others: all)
     group = cfg.n_heads // cfg.n_kv_heads
     pf = plain_flash(ops, kv_heads=max(1, 2**30 // (S * S * 4 * group)))
+    first_plain = kern if amp and n_att_layers else plain
     with models_attend_with(ops, pf if amp else None), recorded_routes() as routes_p:
-        loss_p, grads_p = value_and_grad((kern if amp else plain).loss_fn, params, batch0)
+        loss_p, grads_p = value_and_grad(first_plain.loss_fn, params, batch0)
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     grad_rel = {n: max_rel(grads_k[n], grads_p[n]) for n in grads_p}
     touched = {}
@@ -4909,15 +5287,24 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
         from repro_torch.kernels import ref
 
         other = quant.QuantPolicy(control_mode)
-        controls = {f"attention's kernels in the {control_mode} operand mode":
-                    (contextlib.nullcontext(),
-                     mode_kernels(ops, other if other.active else None))}
-        if amp == "int8":
-            controls["the plain versions tiled 64 wide"] = (int8_tiles(ref, 64), pf)
+        if n_att_layers:
+            controls = {f"attention's kernels in the {control_mode} operand mode":
+                        (contextlib.nullcontext(),
+                         mode_kernels(ops, other if other.active else None), kern)}
+            if amp == "int8":
+                controls["the plain versions tiled 64 wide"] = (int8_tiles(ref, 64), pf,
+                                                                kern)
+        else:
+            # no attention: the readout is all that the policy changes
+            ctrl_model = Model(model_cfg.replace(amp=control_mode if other.active else ""),
+                               device="cuda", impl="auto")
+            controls = {f"the readout in the {control_mode.replace('none', 'f32')} "
+                        f"operand mode":
+                        (contextlib.nullcontext(), None, ctrl_model)}
         ctrl = {}
-        for what, (tiles, attention) in controls.items():
+        for what, (tiles, attention, model) in controls.items():
             with tiles, models_attend_with(ops, attention):
-                loss_c, grads_c = value_and_grad(kern.loss_fn, params, batch0)
+                loss_c, grads_c = value_and_grad(model.loss_fn, params, batch0)
             ctrl[what] = (abs(float(loss_c) - float(loss_p)) / abs(float(loss_p)),
                           {n: max_rel(grads_c[n], grads_p[n]) for n in grads_p})
             del grads_c
@@ -4988,10 +5375,11 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     ops.reset_launch_counts()
     out_k, peak_gib = loop("auto", log_every=1)
     launches = ops.launch_counts()
-    n_attn = cfg.n_layers if amp == "bf16" else 0   # B5-B7 only under --amp,
-    n_int8 = cfg.n_layers if amp == "int8" else 0   # in its operand mode
-    # two norms a layer, four with gemma2's post-norms, and the final one
-    n_norm = (4 if cfg.post_attn_norm else 2) * cfg.n_layers + 1
+    n_attn = n_att_layers if amp == "bf16" else 0   # B5-B7 only under --amp,
+    n_int8 = n_att_layers if amp == "int8" else 0   # in its operand mode
+    # two norms a layer, four with gemma2's post-norms, one an ssd layer,
+    # and the final one
+    n_norm = sum(1 if k == "ssd" else 4 if cfg.post_attn_norm else 2 for k in kinds) + 1
     per_step = {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
                 "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
                 "ce_fwd": 1, "ce_bwd": 1, "flash_decode": 0,
@@ -5065,8 +5453,9 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
         batch_p = 1e3 * float(np.median(out_y["batch_seconds"][1:]))
     log(f"{tag} losses with kernels {[round(v, 4) for v in lk]}")
     if lp is None:
-        log(f"{tag} no plain loop under --amp (the first step holds B5-B7 against their "
-            f"plain versions; the loop's step 0 is that step, bit for bit)")
+        log(f"{tag} no plain loop under --amp (the first step holds "
+            f"{'B5-B7' if n_att_layers else 'B1-B4'} against their plain versions; the "
+            f"loop's step 0 is that step, bit for bit)")
     else:
         log(f"{tag} losses plain        {[round(v, 4) for v in lp]}"
             + (" (B5-B7's plain versions, B1-B4's kernels)" if isolate else ""))
@@ -6675,17 +7064,48 @@ def find_cuobjdump():
     return next((c for c in cands if c and Path(c).exists()), None)
 
 
-def sass_check(lib_path):
-    """Per flash kernel instance, its count of tensor-core (HMMA, HGMMA),
-    ldmatrix (LDSM) and asynchronous-copy (LDGSTS, UTMALDG) instructions in
-    the built library.  Raise if cuobjdump is there and a tensor-core kernel
-    has no tensor-core instruction; None where cuobjdump is not."""
+def sass_dump(lib_path):
+    """``cuobjdump -sass`` of a built library, started in the background
+    (it takes tens of seconds) with its output to a temporary file, and
+    killed if the script ends first; sass_check reads it.  None where
+    cuobjdump is not."""
     tool = find_cuobjdump()
     if tool is None:
+        return None
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([tool, "-sass", str(lib_path)], stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    t0 = time.perf_counter()
+    took = []
+
+    def watch():
+        proc.wait()
+        took.append(time.perf_counter() - t0)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return tool, proc, out, watcher, took
+
+
+def sass_check(job):
+    """Per flash kernel instance (``job``: sass_dump's of the flash
+    library), its count of tensor-core (HMMA, HGMMA), ldmatrix (LDSM) and
+    asynchronous-copy (LDGSTS, UTMALDG) instructions.  Raise if cuobjdump
+    is there and a tensor-core kernel has no tensor-core instruction; None
+    where cuobjdump is not."""
+    if job is None:
         log("[sass] flash kernels' instructions: not available (no cuobjdump)")
         return None
-    dump = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          timeout=600, check=True).stdout
+    tool, proc, out, watcher, took = job
+    watcher.join(timeout=600)
+    failed = proc.wait(timeout=1)
+    out.seek(0)
+    dump = out.read()
+    out.close()
+    if failed:
+        raise RuntimeError(f"{tool} -sass exited with {failed}: {dump[-2000:]}")
+    log(f"[sass] cuobjdump -sass took {took[0]:.1f} s, beside the phases")
     counts = {}
     for chunk in re.split(r"\n\s*Function : ", dump)[1:]:
         inst = flash_instance(chunk.split("\n", 1)[0].strip())
@@ -6739,10 +7159,47 @@ def main():
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
+    # nvcc builds every kernel in the background, one process a source; the
+    # phases that reach B1-B4 only run as soon as their libraries are
+    # linked, beside the attention kernels' builds, and the rest waits for
+    # all
     t0 = time.perf_counter()
-    build.library()
-    log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc: {build.build_seconds if build.build_seconds is not None else 'cached'})")
+    build.start()
+
+    def done(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t0:.0f} s")
+
+    torch.manual_seed(0)
+    rows = [rmsnorm_phase(ops, rn, F), rmsnorm_bwd_phase(rn, ref, F),
+            *ce_phase(ce, ref, F)]
+    done("B1-B4 kernel phases")
+    # mamba2-130m has no attention: its phases reach B1-B4 only and run
+    # beside the attention kernels' builds too (the random state the later
+    # phases draw from is kept as it was)
+    rng_state = torch.get_rng_state(), torch.cuda.get_rng_state_all()
+    # B1 at mamba2-130m's decode step and train step (D 768); its B2 and
+    # B3/B4 shapes are in their phases above
+    rows[0]["mamba2_shapes"] = rmsnorm_rows(ops, F, "mamba2", ((8, 1, 768), (8, 512, 768)),
+                                            (torch.float32,))
+    done("B1 at mamba2's shapes")
+    m2s_launches, m2s = mamba2_serve_phase(Model, ops)
+    done("serve_mamba2")
+    m2t, m2t_launches = {}, {}
+    for amp_mode, path in zip(("", "bf16", "int8"), M2_TRAIN):
+        m2t_launches[path], m2t[path] = train_phase(
+            ops, quant, amp=amp_mode, arch="mamba2-130m",
+            control_losses=m2t["train_mamba2"]["losses"] if amp_mode else None)
+        torch.cuda.empty_cache()
+        done(f"train_mamba2{' --amp ' + amp_mode if amp_mode else ''}")
+    torch.set_rng_state(rng_state[0])
+    torch.cuda.set_rng_state_all(rng_state[1])
+    build.wait()
+    log(f"[build] kernels ready at {time.perf_counter() - t0:.1f} s (nvcc: "
+        f"{build.build_seconds if build.build_seconds is not None else 'cached'}; "
+        f"a library a group of sources, ready after "
+        f"{ {g: s if s is None else round(s, 1) for g, s in build.group_seconds.items()} } "
+        f"s: the B1-B4 kernel phases and mamba2's phases ran beside the attention kernels' "
+        f"builds)")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -6752,15 +7209,7 @@ def main():
     b8_regs = decode_resources(build.build_log)
     b9_regs = multi_resources(build.build_log)
     b2_regs = b2_resources(build.build_log)
-    sass = sass_check(build.library_path())
-
-    def done(phase):
-        log(f"[time] {phase} done at {time.perf_counter() - t0:.0f} s")
-
-    torch.manual_seed(0)
-    rows = [rmsnorm_phase(ops, rn, F), rmsnorm_bwd_phase(rn, ref, F),
-            *ce_phase(ce, ref, F)]
-    done("B1-B4 kernel phases")
+    sass_job = sass_dump(build.library_path("flash_attention"))
     rows += flash_phase(ops, fa, ref, quant, F)
     done("B5-B7 kernel phase")
     rows.append(decode_phase(ops, da, F))
@@ -6810,6 +7259,8 @@ def main():
             control_losses=mxt["train_mixtral"]["losses"] if amp_mode else None)
         torch.cuda.empty_cache()
         done(f"train_mixtral{' --amp ' + amp_mode if amp_mode else ''}")
+    dense_launches, dense = dense_serve_phase(cfg, Model, Engine, EngineConfig, ops)
+    done("serve_dense")
     sweep_rows, sweep_launches, sweep = sweep_phase(ops, rn, ref)
     rows += sweep_rows
     done("sweep")
@@ -6833,6 +7284,7 @@ def main():
     amp["profile"] = train_profile_phase(amp="bf16")
     amp8["profile"] = train_profile_phase(amp="int8")
     done("profiles")
+    sass = sass_check(sass_job)
     for row in rows:
         by_path = {"serve": serve_launches[row["name"]],
                    "serve_dynamic": dyn_launches[row["name"]],
@@ -6848,6 +7300,9 @@ def main():
                    "train_gemma2_amp_bf16": g2t_amp_launches[row["name"]],
                    "train_gemma2_amp_int8": g2t_amp8_launches[row["name"]],
                    **{path: launches[row["name"]] for path, launches in mxt_launches.items()},
+                   "serve_mamba2": m2s_launches[row["name"]],
+                   "serve_dense": dense_launches[row["name"]],
+                   **{path: launches[row["name"]] for path, launches in m2t_launches.items()},
                    **{path: launches[row["name"]] for path, launches in sweep_launches.items()}}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
@@ -6860,15 +7315,15 @@ def main():
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
                                             "serve_gemma2_int8", "serve_mixtral_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                                *MX_TRAIN, "spec_copy_train", "sweep_serial",
+                                *MX_TRAIN, *M2_TRAIN, "spec_copy_train", "sweep_serial",
                                 "algorithm1_train", "sweep_moe_serial",
                                 "sweep_amp_bf16_serial", "sweep_amp_int8_serial",
                                 "algorithm1_amp"),
                 "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN, *MX_TRAIN,
-                           "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
+                           *M2_TRAIN, "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
                            *AMP_SWEEP_PATHS),
                 "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN, *MX_TRAIN,
-                           "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
+                           *M2_TRAIN, "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
                            *AMP_SWEEP_PATHS),
                 "rmsnorm_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS + ("sweep_moe",),
                 "rmsnorm_bwd_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS + ("sweep_moe",),
@@ -6912,6 +7367,10 @@ def main():
     log(json.dumps({"train_gemma2_amp_bf16": g2t_amp}))
     log(json.dumps({"train_gemma2_amp_int8": g2t_amp8}))
     for path, summary in mxt.items():
+        log(json.dumps({path: summary}))
+    log(json.dumps({"serve_mamba2": m2s}, default=str))
+    log(json.dumps({"serve_dense": dense}))
+    for path, summary in m2t.items():
         log(json.dumps({path: summary}))
     log(json.dumps({"sweep": sweep}))
     log(json.dumps({"sweep_moe": moe_sweep}))

@@ -44,7 +44,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip(), flush=True)
-    build.library()
+    build.wait()
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
     pcfg = make_proxy(cfg, 0.125, depth=1, min_d_head=8)
     prompts = copy_batch(np.random.RandomState(2), cfg.vocab_size, 8, 8)

@@ -462,8 +462,8 @@ def sass(out):
     if tool is None:
         log("[sass] not available (no cuobjdump)")
         return
-    dump = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
-                          text=True, timeout=600, check=True).stdout
+    dump = subprocess.run([tool, "-sass", str(build.library_path("decode_attention"))],
+                          capture_output=True, text=True, timeout=600, check=True).stdout
     out.mkdir(parents=True, exist_ok=True)
     lines = []
     for chunk in re.split(r"\n\s*Function : ", dump)[1:]:
@@ -498,7 +498,7 @@ def main():
                        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
     from repro_torch.kernels import build
 
-    build.library()
+    build.wait()
     entry = None
     for line in build.build_log.splitlines():
         if "Compiling entry function" in line:

@@ -155,7 +155,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    build.library()
+    build.wait()
     print(json.dumps({"moe_train_probe": [probe(a) for a in args.amp]}))
 
 

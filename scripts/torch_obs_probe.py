@@ -206,7 +206,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    build.library()
+    build.wait()
     gcc = GcClock()
     out = {"serve": serve_pairs(args, gcc, "fresh")}
     if args.ballast:

@@ -42,7 +42,7 @@ def one(tree: Path, repeats: int, profile: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build.library()
+    build.wait()
     cfg = get_config("smollm-135m").replace(dtype="float32", zero_init_query=False)
     rng = np.random.default_rng(0)
     lens = rng.integers(64, PMAX + 1, R)

@@ -1,9 +1,10 @@
 """Config registry: ``get_config("<arch-id>")`` for every ported arch.
 
 The port carries the decoder-only architectures: the all-``attn`` ones,
-gemma2's local/global alternation (2b and 27b) and the MoE ones with
-untied embeddings (mixtral-8x22b, llama4-scout).  The others (SSM,
-recurrent, encoder-decoder, VLM) arrive with their block kinds.
+gemma2's local/global alternation (2b and 27b), the MoE ones with untied
+embeddings (mixtral-8x22b, llama4-scout) and mamba2-130m's ``ssd`` blocks.
+The others (recurrentgemma's ``recurrent`` blocks, whisper's ``dec`` and
+llama-3.2-vision's ``cross``) arrive with their block kinds.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ ARCHS = (
     "smollm_135m",
     "mixtral_8x22b",
     "llama4_scout_17b_a16e",
+    "mamba2_130m",
     # paper models
     "mup_gpt",
 )
@@ -29,6 +31,7 @@ _ALIASES = {
     "smollm-135m": "smollm_135m",
     "mixtral-8x22b": "mixtral_8x22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "mamba2-130m": "mamba2_130m",
     "mup-gpt": "mup_gpt",
 }
 

@@ -3,9 +3,10 @@
 The port's copy of ``repro.configs.base``, cut to the fields that the
 decoder-only architectures the port serves and trains read: the
 all-``attn`` ones, gemma2's ``("local", "attn")`` alternation with its
-sliding window, query-chunked attention and post-norms, and the MoE
-blocks (``"moe"``, ``"local_moe"``) with untied embeddings.  Width fields
-have parallel ``base_*`` fields: the muP base shape (Eq. 4).  By default
+sliding window, query-chunked attention and post-norms, the MoE
+blocks (``"moe"``, ``"local_moe"``) with untied embeddings, and mamba2's
+SSD blocks (``"ssd"``: the ``ssm_*`` and ``conv_width`` fields).  Width
+fields have parallel ``base_*`` fields: the muP base shape (Eq. 4).  By default
 ``base_* == *`` (pure SP compatibility at own width); `scaled(...)` derives
 wider/narrower family members sharing the same base.
 
@@ -13,8 +14,8 @@ Fields of the reference left out, because nothing the port runs reads
 them: the lowering and memory knobs of its JAX training (``remat``,
 ``scan_layers``, ``bf16_param_gather``, ``parallelism``, ``attn_acc``,
 ``use_pallas``, ``naive_loss``, ``use_qk_norm``) and the fields of block
-kinds not ported yet (SSM, RG-LRU, encoder-decoder, VLM).  A reference
-config carries over by dropping them.
+kinds not ported yet (RG-LRU's ``lru_width``, encoder-decoder, VLM).  A
+reference config carries over by dropping them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ from typing import Optional, Tuple
 #                 served: serving/kv_cache.py)
 #   "moe"         global self-attention + MoE FFN (models/moe.py)
 #   "local_moe"   sliding-window self-attention + MoE FFN
+#   "ssd"         Mamba-2 SSD mixer, no MLP (models/ssm.py; served by the
+#                 dense-loop driver only)
+# Not ported yet: "recurrent" (RG-LRU), "cross" and "dec" (cross-attention).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +68,14 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+
+    # ---- SSM (mamba2) -----------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_n_heads: int = 0              # mamba2 heads (d_inner / head_dim)
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    conv_width: int = 4
 
     # paged-KV pool storage dtype for serving; "" inherits `dtype`; "int8"
     # stores quantized pages + per-page-per-head f32 scales (quant/kv.py)
@@ -113,6 +125,11 @@ class ModelConfig:
     @property
     def n_groups(self) -> int:
         return (self.n_layers - len(self.tail)) // len(self.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        """SSD inner width."""
+        return self.ssm_expand * self.d_model
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -181,6 +198,11 @@ class ModelConfig:
                 total += attn + mlp
             elif b in ("moe", "local_moe"):
                 total += attn + self.n_experts * mlp + d * self.n_experts
+            elif b == "ssd":
+                di = self.d_inner
+                nh = self.ssm_n_heads or di // self.ssm_head_dim
+                total += d * (2 * di + 2 * self.ssm_state + nh) + di * d
+                total += self.conv_width * (di + 2 * self.ssm_state)
             else:
                 raise ValueError(b)
         return int(total)

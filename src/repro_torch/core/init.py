@@ -3,7 +3,8 @@
 ``init_params(generator, meta, parametrization, sigma)`` materializes the
 flat parameter dict from a ParamMeta tree.  The per-tensor std comes from
 the abc-rule, so switching parametrization is a single argument.  Metas with
-``init="zeros"`` (query weights per App. D.2, norm gains) are zeroed
+``init="zeros"`` (query weights per App. D.2, norm gains) are zeroed and
+those with ``init="ones"`` (the SSD skip gain ``D_skip``) set to one,
 regardless of parametrization.
 
 Draws come from one ``torch.Generator`` on the target device, in the
@@ -36,6 +37,8 @@ def init_one(
     device = generator.device
     if meta.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
+    if meta.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
     if meta.init != "normal":
         raise ValueError(f"unknown init kind {meta.init!r} for {meta.name}")
     std = meta.rule(parametrization, sigma).init_std

@@ -29,8 +29,9 @@ class ParamMeta:
     name:       dotted path, for logging / per-layer HP overrides.
     infshape:   width bookkeeping (see core.infshape).
     role:       Appendix-B class; inferred from infshape if None.
-    init:       "normal" | "zeros"  (zeros for query weights per App. D.2
-                and for norm gains under the (1 + gain) convention).
+    init:       "normal" | "zeros" | "ones"  (zeros for query weights per
+                App. D.2 and for norm gains under the (1 + gain)
+                convention; ones for the SSD skip gain).
     init_scale: extra per-tensor sigma factor (per-layer HP, Table 2).
     lr_scale:   extra per-tensor LR factor (per-layer HP, Table 2).
     lr_axis:    which LR drives this tensor: "lr" (master) or "lr_embed"

@@ -1,4 +1,5 @@
-"""Serving CLI: the continuous-batching engines on the card.
+"""Serving CLI: the continuous-batching engines and the dense-loop driver
+on the card.
 
 The port's counterpart of ``python -m repro.launch.serve``, with the same
 flags and printout.  By default the dynamic engine (host-side page
@@ -17,11 +18,16 @@ windowed, and ``llama4-scout-17b-a16e``) serve through the same engines,
 their FFNs through models/moe.py.  ``--obs`` attaches a ``ServeObs``
 (metrics and a phase tracer, host-side only: the same tokens, launches and
 syncs) and prints the trace's event count and the metrics as Prometheus
-text after the serve.  Flags of
-parts not ported yet (the mesh, the dense-loop driver) exit with an error
-saying so, and so does a model whose float32 weights do not fit the card
-(gemma2-27b, mixtral-8x22b's 56 layers: bf16 weights or several cards are
-not ported yet).
+text after the serve.  ``--dense`` serves through the dense-loop driver
+(``generate``: a prefill, then one ``Model.decode_step`` a token over a
+dense per-request cache; the engines' correctness oracle), and the CLI
+falls back to it, saying so, for a pattern the paged engines cannot serve
+(mamba2-130m's ``ssd`` blocks); under it ``--mixed-lens``,
+``--draft-width`` and ``--top-k/--top-p`` are ignored with a message, as in
+the reference.  ``--mesh`` (not ported yet) exits with an error saying so,
+and so does a model whose float32 weights do not fit the card (gemma2-27b,
+mixtral-8x22b's 56 layers: bf16 weights or several cards are not ported
+yet).
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-135m \
@@ -38,6 +44,9 @@ Usage:
         --prefill-chunk 256 --gen-len 64
     python -m repro_torch.launch.serve --arch gemma2-27b --smoke --device cpu
     python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
+    python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu --dense
+    python -m repro_torch.launch.serve --arch mamba2-130m --prompt-len 512 --gen-len 256
 """
 from __future__ import annotations
 
@@ -45,18 +54,92 @@ import argparse
 import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.model import build_model
 from repro_torch.obs import ServeObs, Tracer
-from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig
-from repro_torch.serving.kv_cache import kv_dtype_of, pool_bytes
+from repro_torch.serving import sampling
+from repro_torch.serving.engine import _TAG_SAMPLE, DynamicEngine, Engine, EngineConfig
+from repro_torch.serving.kv_cache import SERVABLE_KINDS, kv_dtype_of, pool_bytes
 
 
 def weight_bytes(model) -> int:
     """Bytes of the model's float32 weights, from its parameter metas."""
     return 4 * sum(math.prod(m.infshape.shape) for m in model.flat_meta.values())
+
+
+@torch.no_grad()
+def generate(model, params, prompts, gen_len: int, temperature: float = 0.0,
+             seed: int = 0, eos_token_id=None) -> torch.Tensor:
+    """Dense-loop driver: prompts (B, P) -> generated tokens (B, gen_len)
+    int32, on the model's device.
+
+    A prefill with a cache of P + gen_len positions, then one
+    ``decode_step`` a token (the dispatch overhead the engines exist to
+    remove).  Stops early once every row has emitted the stop token
+    (``eos_token_id``, default the config's knob; -1 disables); rows that
+    finish first are padded with the stop token.  With a temperature each
+    draw is a pure function of (seed, input position, row), by the
+    engines' counter-based hash (serving/sampling.py), so a row draws what
+    an engine's request of the same index draws from the same logits;
+    torch cannot replay the reference's ``jax.random`` keys.  The reference's
+    ``memory_inputs`` (encoder-decoder, VLM) are not ported.
+    """
+    dev = model.device
+    prompts = torch.as_tensor(prompts, device=dev).long()
+    B, P = prompts.shape
+    eos = model.cfg.eos_token_id if eos_token_id is None else int(eos_token_id)
+    rows = torch.arange(B, device=dev)
+    temp = torch.full((B,), float(temperature), device=dev)
+    no_k = torch.zeros((B,), dtype=torch.int32, device=dev)
+    no_p = torch.ones((B,), device=dev)
+
+    def sample(logits, pos):
+        if temperature == 0.0:
+            return logits.argmax(dim=-1).to(torch.int32)
+        keys = sampling.event_key(seed, pos, rows, _TAG_SAMPLE, dev)
+        return sampling.sample(logits, temp, no_k, no_p, keys)
+
+    last_logits, cache = model.prefill(params, prompts, cache_len=P + gen_len)
+    tok = sample(last_logits, P - 1)[:, None]                     # (B, 1)
+    done = (tok[:, 0] == eos) if eos >= 0 else torch.zeros(B, dtype=torch.bool,
+                                                            device=dev)
+    out = [tok]
+    for i in range(gen_len - 1):
+        if eos >= 0 and bool(done.all()):
+            break
+        pos = torch.full((B, 1), P + i, dtype=torch.int32, device=dev)
+        logits, cache = model.decode_step(params, tok, pos, cache)
+        tok = sample(logits[:, 0], P + i)[:, None]
+        if eos >= 0:
+            tok = torch.where(done[:, None], eos, tok)
+            done = done | (tok[:, 0] == eos)
+        out.append(tok)
+    toks = torch.cat(out, dim=1)
+    if toks.shape[1] < gen_len:  # early stop: pad with the stop token
+        pad = torch.full((B, gen_len - toks.shape[1]), eos, dtype=torch.int32,
+                         device=dev)
+        toks = torch.cat([toks, pad], dim=1)
+    return toks
+
+
+def _servable(cfg) -> bool:
+    return all(k in SERVABLE_KINDS for k in (*cfg.pattern, *cfg.tail))
+
+
+def _count_generated(toks, eos: int) -> int:
+    """Real generated tokens in a dense ``generate`` output: everything up
+    to and including each row's first stop token -- the EOS padding after an
+    early stop is not generation (the engines' ``lengths`` count the same
+    way, so the two drivers' tok/s are comparable)."""
+    toks = toks.cpu().numpy()
+    if eos < 0:
+        return toks.size
+    hit = toks == eos
+    first = np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, toks.shape[1])
+    return int(first.sum())
 
 
 def main(argv=None):
@@ -102,7 +185,7 @@ def main(argv=None):
                     help="adapt per-slot draft length from measured "
                          "acceptance (dynamic engine + --draft-width)")
     ap.add_argument("--dense", action="store_true",
-                    help="the dense per-token-loop driver (not ported yet)")
+                    help="force the dense per-token-loop driver")
     ap.add_argument("--mixed-lens", action="store_true",
                     help="random per-request prompt lengths")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
@@ -114,24 +197,23 @@ def main(argv=None):
                     help="torch device to serve on (default: the card)")
     args = ap.parse_args(argv)
 
-    not_ported = {
-        "--dense": args.dense,
-        "--mesh": args.mesh is not None,
-    }
-    for flag, used in not_ported.items():
-        if used:
-            ap.error(f"{flag} is not ported yet in the PyTorch port")
+    if args.mesh is not None:
+        ap.error("--mesh is not ported yet in the PyTorch port")
     if args.static and (args.prefix_cache or args.prefill_chunk
                         or args.adaptive_draft
                         or args.pool_pages is not None):
         ap.error("--prefix-cache/--prefill-chunk/--pool-pages/"
                  "--adaptive-draft need the dynamic engine (drop --static)")
-    speculate = args.draft_width > 0
-    if args.adaptive_draft and not speculate:
-        ap.error("--adaptive-draft needs a drafter (set --draft-width)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(dtype="float32", kv_dtype=args.kv_dtype)
+    use_engine = not args.dense and _servable(cfg)
+    if not args.dense and not use_engine:
+        print(f"[serve] {cfg.name}: pattern {cfg.pattern} not paged-servable "
+              f"yet; falling back to the dense-loop driver")
+    speculate = use_engine and args.draft_width > 0
+    if args.adaptive_draft and not speculate:
+        ap.error("--adaptive-draft needs a drafter (set --draft-width)")
     model = build_model(cfg, device=args.device)
     if model.device.type == "cuda":
         need = weight_bytes(model)
@@ -142,7 +224,24 @@ def main(argv=None):
                      f"weights or several cards, not ported yet (ROADMAP.md § A 5)")
     params = model.init(args.seed)
     dev = model.device
+
+    R, P = args.requests, args.prompt_len
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (R, P), generator=gen, device=dev)
+    # default workload: every prompt at full width
+    lens = torch.full((R,), P, dtype=torch.int64)
+    if args.mixed_lens:
+        if not use_engine:
+            print("[serve] --mixed-lens ignored: the dense driver pads all "
+                  "prompts to --prompt-len")
+        else:
+            gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+            lens = torch.randint(max(1, P // 4), P + 1, (R,), generator=gen,
+                                 device=dev).cpu()
     draft_model = draft_params = None
+    if args.draft_width > 0 and not use_engine:
+        print("[serve] --draft-width ignored: speculation needs the paged "
+              "engine")
     if speculate:
         # the narrow proxy shares the target's µP base shape (and its
         # kv_dtype): a distribution-matched drafter by construction
@@ -152,17 +251,37 @@ def main(argv=None):
         print(f"[serve] drafter {dcfg.name}: d_model {dcfg.d_model}, "
               f"{dcfg.n_heads} heads, draft_k={args.draft_k}")
 
-    R, P = args.requests, args.prompt_len
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (R, P), generator=gen, device=dev)
-    # default workload: every prompt at full width
-    lens = torch.full((R,), P, dtype=torch.int64)
-    if args.mixed_lens:
-        gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-        lens = torch.randint(max(1, P // 4), P + 1, (R,), generator=gen,
-                             device=dev).cpu()
-
+    obs = ServeObs(tracer=Tracer()) if args.obs else None
     t0 = time.time()
+    if use_engine:
+        toks, n_tok = _serve_engine(args, cfg, model, params, prompts, lens,
+                                    draft_model, draft_params, obs)
+    else:
+        if args.top_k or args.top_p < 1.0:
+            print("[serve] --top-k/--top-p ignored: the dense driver "
+                  "samples with temperature only")
+        toks = generate(model, params, prompts, args.gen_len,
+                        temperature=args.temperature, seed=args.seed,
+                        eos_token_id=args.eos)
+        eos = cfg.eos_token_id if args.eos is None else args.eos
+        n_tok = _count_generated(toks, eos)   # its copy to the host waits for the card
+    dt = time.time() - t0
+    mode = "engine" if use_engine else "dense"
+    print(f"[serve:{mode}] generated {tuple(toks.shape)} ({n_tok} tokens) "
+          f"in {dt:.2f}s ({n_tok/dt:.1f} tok/s) on {dev}")
+    print(toks[:, :16])
+    if obs is not None:
+        print(f"[obs] {len(obs.tracer.events)} trace events")
+        print(obs.metrics.to_prometheus(), end="")
+    return toks
+
+
+def _serve_engine(args, cfg, model, params, prompts, lens, draft_model,
+                  draft_params, obs):
+    """One serve through the dynamic (or, with --static, the static) engine;
+    returns (tokens, generated count)."""
+    R, P = args.requests, args.prompt_len
+    speculate = draft_model is not None
     ecfg = EngineConfig(
         n_slots=args.slots, page_size=args.page_size,
         max_prompt_len=P, max_gen_len=args.gen_len, eos_token_id=args.eos,
@@ -170,7 +289,6 @@ def main(argv=None):
         prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
         n_pages=args.pool_pages, adaptive_draft=args.adaptive_draft,
     )
-    obs = ServeObs(tracer=Tracer()) if args.obs else None
     cls = Engine if args.static else DynamicEngine
     engine = cls(model, ecfg, draft_model=draft_model, obs=obs)
     n_global = getattr(engine, "n_pages", None)
@@ -201,14 +319,7 @@ def main(argv=None):
         print(f"[serve] prefix cache: {out['prefill_cached']}/"
               f"{out['prefill_total']} prompt tokens served from shared pages "
               f"({out['prefill_cached']/out['prefill_total']:.1%})")
-    dt = time.time() - t0
-    print(f"[serve:engine] generated {tuple(toks.shape)} ({n_tok} tokens) "
-          f"in {dt:.2f}s ({n_tok/dt:.1f} tok/s) on {dev}")
-    print(toks[:, :16])
-    if obs is not None:
-        print(f"[obs] {len(obs.tracer.events)} trace events")
-        print(obs.metrics.to_prometheus(), end="")
-    return toks
+    return toks, n_tok
 
 
 if __name__ == "__main__":

@@ -38,6 +38,7 @@ Usage:
         --telemetry --obs-dir /tmp/obs
     python -m repro_torch.launch.train --arch mixtral-8x22b --smoke --steps 5 --device cpu \
         --amp bf16
+    python -m repro_torch.launch.train --arch mamba2-130m --steps 5 --seq-len 512 --amp int8
 
 On the card the CLI refuses a config whose float32 weights, gradients and
 AdamW moments (train_state_bytes) exceed the card's memory: mixtral-8x22b

@@ -50,14 +50,18 @@ def wmeta(
 
 
 def dense_meta(
-    name: str, d_in: int, d_out: int, base_in: int, base_out: int
+    name: str, d_in: int, d_out: int, base_in: int, base_out: int,
+    in_is_width: bool = True, out_is_width: bool = True,
 ) -> ParamMeta:
-    """A (d_in, d_out) hidden (width -> width) kernel."""
+    """A (d_in, d_out) kernel; its role follows from which of its dims grow
+    with width (both: hidden; only the input: output-like, as the SSD's
+    width -> ssm_state projections)."""
+    width_axes = [a for a, w in ((0, in_is_width), (1, out_is_width)) if w]
     return wmeta(
         name,
         (d_in, d_out),
         (base_in, base_out),
-        width_axes=(0, 1),
+        width_axes=width_axes,
         fan_in_axes=(0,),
         fan_out_axes=(1,),
     )
@@ -78,6 +82,22 @@ def gain_meta(name: str, d: int, base_d: int) -> ParamMeta:
         init="zeros",
         role=Role.INPUT,
         owns_scale=False,   # applied raw by rmsnorm (no multiplier)
+    )
+
+
+def bias_meta(name: str, d: int, base_d: int) -> ParamMeta:
+    """A bias or raw per-channel vector: vector-like, zero-initialized, added
+    (or applied) raw with no multiplier."""
+    return wmeta(
+        name,
+        (d,),
+        (base_d,),
+        width_axes=(0,),
+        fan_in_axes=(0,),
+        fan_out_axes=(0,),
+        init="zeros",
+        role=Role.INPUT,
+        owns_scale=False,
     )
 
 

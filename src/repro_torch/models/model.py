@@ -1,13 +1,14 @@
 """Top-level model: ``build_model(cfg, device)`` -> Model (init / forward /
-loss / prefill).
+loss / prefill / decode_step / init_cache).
 
 The port's counterpart of ``repro.models.model`` for the decoder-only ("lm")
 architectures: all-"attn" stacks, gemma2's "local"/"attn" alternation with
-post-norms and a final softcap, and the MoE stacks ("moe", "local_moe")
+post-norms and a final softcap, the MoE stacks ("moe", "local_moe")
 with an untied readout (``unembed``, zero-init under µP per App. D.2 when
-``cfg.zero_init_readout``).  Params are a flat ``{dotted name:
-tensor}`` dict with the reference's names and shapes (see core/meta.py), so
-``convert.params_from_numpy`` carries reference weights over 1:1.
+``cfg.zero_init_readout``), and mamba2's "ssd" stack.  Params are a flat
+``{dotted name: tensor}`` dict with the reference's names and shapes (see
+core/meta.py), so ``convert.params_from_numpy`` carries reference weights
+over 1:1.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core.parametrization import AbcParametrization, Role, resolve
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import gain_meta, mult_of, rmsnorm, softcap, wmeta
+from repro_torch.models.ssm import ssd_heads
 from repro_torch.quant import policy_of, quant_matmul
 
 # float64 runs the plain versions only: the reference that a float32
@@ -183,6 +185,8 @@ class Model:
         into the paged pools ``cache`` in place and attends through the
         flash-decode kernel (one token per slot) or the multi-query one (a
         chunk per slot; positions -1 mark rows that neither write nor see).
+        Without ``paged`` it decodes over a dense cache (prefill's, or
+        :meth:`init_cache`'s), which it updates in place.
 
         ``readout`` (an index along S: an int tensor (n,)) reads out only
         those rows: logits (B, n, V).  The final norm and the logit matmul
@@ -263,6 +267,49 @@ class Model:
             params, tokens, mode="prefill", cache_len=cache_len,
         )
         return logits[:, -1], cache
+
+    def decode_step(self, params, tokens, positions, cache):
+        """tokens (B, 1), positions (B, 1) -> (logits (B, 1, V), cache): one
+        step of the dense-loop driver over the dense ``cache`` (prefill's or
+        init_cache's), which is updated in place and returned."""
+        return self.forward(params, tokens, positions=positions, mode="decode",
+                            cache=cache)
+
+    # ------------------------------------------------------------------
+    def _block_cache_spec(self, kind, batch: int, cache_len: int):
+        """{leaf: (shape, dtype)} of one layer's dense decode cache."""
+        cfg = self.cfg
+        act = self.act_dtype
+        if kind == "ssd":
+            nh, hd = ssd_heads(cfg)
+            return {"h": ((batch, nh, hd, cfg.ssm_state), torch.float32),
+                    "conv": ((batch, cfg.conv_width - 1,
+                              cfg.d_inner + 2 * cfg.ssm_state), act)}
+        length = (min(cfg.window_size, cache_len) if kind.startswith("local")
+                  else cache_len)
+        kv = (batch, length, cfg.n_kv_heads, cfg.d_head)
+        return {"attn": {"k": (kv, act), "v": (kv, act),
+                         "pos": ((batch, length), torch.int32)}}
+
+    def cache_shapes(self, batch: int, cache_len: int) -> Dict[str, Any]:
+        """{"groups": {key: {leaf: (shape, dtype)}}} of the dense decode
+        cache, each leaf stacked over the layers; see init_cache."""
+        cfg = self.cfg
+        return {"groups": {
+            f"{i}_{kind}": tfm.tree_map(
+                lambda sd: ((cfg.n_groups,) + sd[0], sd[1]),
+                self._block_cache_spec(kind, batch, cache_len))
+            for i, kind in enumerate(cfg.pattern)}}
+
+    def init_cache(self, batch: int, cache_len: int) -> Dict[str, Any]:
+        """An empty dense decode cache: positions -1 (empty), the rest 0."""
+        def make(sd):
+            shape, dtype = sd
+            if dtype == torch.int32:
+                return torch.full(shape, -1, dtype=dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        return tfm.tree_map(make, self.cache_shapes(batch, cache_len))
 
 
 def build_model(cfg, device="cuda", impl: str = "auto") -> Model:

@@ -6,22 +6,27 @@ parameters of each block position in the group are stacked over
 transfer 1:1 by dotted name; where the reference scans over the stack, the
 port runs a Python loop over the layers of every stacked tensor.
 
-The port runs four block kinds: "attn" (global self-attention + MLP),
+The port runs five block kinds: "attn" (global self-attention + MLP),
 "local" (the same over a sliding window of ``cfg.window_size`` positions;
-gemma2 alternates the two), and "moe" / "local_moe" (the same attention
+gemma2 alternates the two), "moe" / "local_moe" (the same attention
 with the MLP replaced by models/moe.py's top-k expert FFN: mixtral,
 llama4-scout), each with gemma2's post-norms when ``cfg.post_attn_norm``
-is set.  Two modes: full sequence ("train" /
-"prefill"; prefill also emits a cache) and paged decode (one token per slot
-through the flash-decode kernel, a chunk of tokens per slot through the
-multi-query one; windowed layers read and write a ring of pages through
-the window table).  Full sequences go through the flash-attention kernels
-when ``cfg.amp`` is set and the positions are 0..S-1, through plain
+is set, and "ssd" (mamba2: one norm and models/ssm.py's SSD mixer, no
+MLP).  Three modes: full sequence ("train" / "prefill"; prefill also emits
+a cache), paged decode (one token per slot through the flash-decode
+kernel, a chunk of tokens per slot through the multi-query one; windowed
+layers read and write a ring of pages through the window table), and
+dense decode (the dense-loop driver's: each layer's position-tagged cache,
+a ring for windowed layers, written in place and attended in plain
+PyTorch, as the reference attends it; an ssd layer's state h and conv
+inputs carried into the stacked cache).  Full sequences go through the
+flash-attention kernels when ``cfg.amp`` is set and the positions are
+0..S-1, through plain
 attention otherwise (in query chunks of ``cfg.attn_chunk`` past that
 length), as in the reference.  The MoE FFN runs on whatever (B, S) block
 the mode gives it (a padded prefill buffer, a chunk, one decode token a
 slot), which sets its capacity, as in the reference.  The other kinds
-arrive with their blocks.
+("recurrent", "cross", "dec") arrive with their blocks.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.parametrization import resolve
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     activation,
     apply_w,
@@ -49,7 +55,7 @@ from repro_torch.models.rope import rope_cos_sin, rotate
 from repro_torch.quant import policy_of
 from repro_torch.serving import kv_cache as paged_kv
 
-BLOCK_KINDS = ("attn", "local", "moe", "local_moe")
+BLOCK_KINDS = ("attn", "local", "moe", "local_moe", "ssd")
 
 
 @dataclasses.dataclass
@@ -148,8 +154,11 @@ def block_meta(cfg, kind: str, name: str) -> Dict[str, Any]:
             f"block kind {kind!r} is not ported yet (ported: {BLOCK_KINDS})"
         )
     d, bd = cfg.d_model, cfg.base_d_model
-    m = {"ln1": gain_meta(f"{name}.ln1", d, bd),
-         "attn": _attn_meta(cfg, f"{name}.attn")}
+    m = {"ln1": gain_meta(f"{name}.ln1", d, bd)}
+    if kind == "ssd":
+        m["mixer"] = ssm_lib.ssd_meta(cfg, f"{name}.ssd")
+        return m  # mamba blocks: a single norm, no separate MLP
+    m["attn"] = _attn_meta(cfg, f"{name}.attn")
     if cfg.post_attn_norm:
         m["ln1_post"] = gain_meta(f"{name}.ln1_post", d, bd)
     m["ln2"] = gain_meta(f"{name}.ln2", d, bd)
@@ -167,6 +176,14 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _stack_trees(trees):
+    """Nested dicts of tensors, one per layer -> one nested dict of the
+    tensors stacked on a leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def stack_meta(meta: Any, n: int) -> Any:
@@ -264,10 +281,15 @@ def _self_attention(cfg, params, meta, x, ctx: Ctx, windowed: bool, cache,
         else:
             mask = attn_lib.make_mask(ctx.positions, ctx.positions, True, window)
             out = attn_lib.attend(q, k, v, mask, scale, cfg.attn_softcap)
+    elif ctx.mode == "decode" and ctx.paged is None:
+        # the dense-loop driver: the position-tagged cache (a ring for a
+        # windowed layer) written in place, plain attention over it
+        new_cache = attn_lib.cache_write(cache, k, v, ctx.positions, bool(window))
+        mask = attn_lib.make_mask(ctx.positions, new_cache["pos"], True, window)
+        out = attn_lib.attend(q, new_cache["k"], new_cache["v"], mask, scale,
+                              cfg.attn_softcap)
     elif ctx.mode == "decode":
         paged = ctx.paged
-        if paged is None:
-            raise NotImplementedError("the port decodes over the paged pool only")
         table = paged.window_table if windowed else paged.global_table
         new_cache = paged_kv.paged_cache_write(
             cache, k, v, ctx.positions, table, paged.active, paged.page_size,
@@ -315,6 +337,10 @@ def apply_block(
     p13n = resolve(cfg.parametrization)
     eps = cfg.norm_eps
     h = rmsnorm(x, params["ln1"], eps, impl=ctx.impl)
+    if kind == "ssd":
+        out, ssd_cache = ssm_lib.ssd_block(cfg, params["mixer"], meta["mixer"], h,
+                                           p13n, cache, mode=ctx.mode)
+        return x + out, ssd_cache
     out, attn_cache = _self_attention(
         cfg, params["attn"], meta["attn"], h, ctx, paged_kv.windowed(kind),
         None if cache is None else cache.get("attn"), p13n,
@@ -349,7 +375,9 @@ def run_stack(
     Prefill returns the emitted per-layer caches stacked over the layer
     axis.  Decode writes the paged pools in place — each layer's pool, int8
     scales included, is a view into the stacked pool — and returns
-    ``caches`` itself.
+    ``caches`` itself; so does dense decode, where an attention layer's
+    cache is written in place through its view and an ssd layer's new
+    state is copied into its slice of the stack.
     """
     keys = [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
     if cfg.rope_theta > 0:
@@ -388,18 +416,14 @@ def run_stack(
             x, c_out = apply_block(cfg, kind, p, layer_meta[k], x, ctx, c_in)
             if ctx.mode == "prefill":
                 emitted[k].append(c_out)
+            elif kind == "ssd" and caches is not None:
+                for name, t in c_out.items():
+                    caches["groups"][k][name][layer].copy_(t)
             if stats is not None:
                 stats[k].append(coord_size(x.detach()))
     if stats is not None:
         for k in keys:
             ctx.stats[f"block/{k}"] = torch.stack(stats[k])
     if ctx.mode == "prefill":
-        stacked = {
-            k: {"attn": {
-                name: torch.stack([c["attn"][name] for c in emitted[k]])
-                for name in emitted[k][0]["attn"]
-            }}
-            for k in keys
-        }
-        return x, {"groups": stacked}
+        return x, {"groups": {k: _stack_trees(emitted[k]) for k in keys}}
     return x, caches

@@ -83,8 +83,9 @@ def check_servable(cfg) -> None:
     bad = [k for k in (*cfg.pattern, *cfg.tail) if k not in SERVABLE_KINDS]
     if bad:
         raise ValueError(
-            f"{cfg.name}: the port's paged serving engine supports block "
-            f"kinds {SERVABLE_KINDS}, got {bad} (not ported yet)"
+            f"{cfg.name}: paged serving engine supports block kinds "
+            f"{SERVABLE_KINDS}, got {bad}; use the dense-loop driver "
+            f"(launch/serve.py --dense) for this architecture"
         )
 
 

@@ -130,8 +130,10 @@ def test_admit_slot_matches_reference_and_resets_the_slot():
 
 
 def test_non_attn_blocks_are_refused():
+    """The paged engines refuse an ``ssd`` pattern with the reference's
+    message, which points at the dense-loop driver."""
     _, tcfg = _cfgs()
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="paged serving.*dense-loop driver"):
         tkv.check_servable(tcfg.replace(pattern=("ssd",)))
 
 
@@ -250,7 +252,8 @@ def test_serve_cli_on_cpu_and_unported_flags(capsys):
     pools on both; speculation with the µP proxy drafter (--draft-width,
     with --adaptive-draft on the dynamic engine) gives the same greedy
     tokens and prints its acceptance; --adaptive-draft without a drafter or
-    with --static, and flags of parts not ported yet, are refused."""
+    with --static, and flags of parts not ported yet, are refused; --dense
+    gives the engines' greedy tokens through the dense-loop driver."""
     base = ["--smoke", "--device", "cpu", "--requests", "3", "--prompt-len",
             "8", "--gen-len", "4", "--slots", "2", "--page-size", "4",
             "--mixed-lens"]
@@ -275,7 +278,11 @@ def test_serve_cli_on_cpu_and_unported_flags(capsys):
         assert "[serve] drafter" in printed
         assert "[serve] speculation: " in printed and "drafts accepted" in printed
         assert torch.equal(out, toks)
-    for flag in (["--dense"], ["--adaptive-draft"], ["--static", "--adaptive-draft"],
+    dense = tserve.main([*base, "--dense"])
+    printed = capsys.readouterr().out
+    assert "[serve] --mixed-lens ignored" in printed and "[serve:dense]" in printed
+    assert tuple(dense.shape) == (3, 4)
+    for flag in (["--adaptive-draft"], ["--static", "--adaptive-draft"],
                  ["--static", "--adaptive-draft", *spec],
                  ["--mesh", "1,2"], ["--static", "--prefix-cache"]):
         with pytest.raises(SystemExit):
