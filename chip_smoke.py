@@ -363,6 +363,40 @@ check:
   -- 1 B3, 1 B4, no B5-B7), ms per step, the host batch's share and peak
   memory.  The kernel phase holds and times B1 at (8, 1, 768) and (8, 512,
   768), B2 at (4096, 768) and B3/B4 at (4096, 50280), mamba2's shapes.
+- serve_recurrentgemma: recurrentgemma-9b (arXiv:2402.19427: 38 layers,
+  (recurrent, recurrent, local) x 12 and a (recurrent, recurrent) tail,
+  d_model 4096, RG-LRU width 4096, conv width 4, 16 query heads over one kv
+  head of 256, window 2,048, d_ff 12,288, vocab 256,000, tied embeddings;
+  9.396 B parameters by its metas, 37.6 GB in f32) whole, f32 weights from
+  seed 0, through the dense-loop driver the serve CLI falls back to: 2
+  requests of 1,920 tokens, 160 generated each (the local layers' ring of
+  2,048 wraps at decode step 128), greedy, no stop token.  Exact launches
+  (B1 77 a forward, 160 forwards: 12,320; nothing else); the plain
+  versions over the prefill and the first 8 decode steps (RG_PLAIN_GEN):
+  the same tokens by the near-tie rule, their logits within
+  RG_CONTROL_FACTOR times a control's distance (the plain serve again with
+  B1's plain version replaced by F.rms_norm, the same function rounded
+  another way); the kernels' 160 picking rows against one f32 forward over
+  the 2,080 tokens at the reference's 1e-4 of max |logit| (h, the conv
+  inputs and the ring carried right across 38 layers); a float64 witness
+  at 5 layers (the first group and the tail, 2.17 B parameters), one
+  request: decode against forward at 1e-9, the same in f32 at 1e-4; tok/s,
+  the prefill's and a decode step's time, the card's busy share over
+  decode steps, peak memory and the parameter counts (metas against
+  param_count()).
+- train_recurrentgemma, train_recurrentgemma --amp bf16, train_recurrentgemma
+  --amp int8: the train phases on recurrentgemma-9b at full width over 5
+  of its 38 layers (one group and the tail: 2.17 B parameters, a 34.8 GB
+  train state), one sequence of 2,560 tokens (the window of 2,048 binds
+  inside B5-B7), loops of 2 steps at lr 1e-2 (TRAIN_ARCHS): the first step
+  kernels against plain (under amp gemma2's controls at RG_AMP_LIMITS, the
+  amp loops' plain side B1-B4's kernels), exact launches per step (11 B1, 11
+  B2, 1 B3, 1 B4, under amp 1 of each B5-B7 mode -- 16 query heads over
+  one kv head of 256 -- and under int8 1 of each pre-pass), ms per step,
+  the host batch's share and peak memory.  The kernel phases hold and time
+  B1 at (4, 1, 4096) and (7680, 4096), B2 at (2560, 4096), B3/B4 at (2560,
+  256000) and B5-B7 at (1, 2560, 16/1 heads of 256) under window 2,048 in
+  every operand mode, recurrentgemma's shapes.
 - sweep: the batched HP sweep and Algorithm 1 (core/tuning.py, api.py) on
   one card.  B1 and B2 with a gain per group ((G, D) over G equal groups of
   rows, the candidates of a batched step) at G 1, 4 and 16, x (16, 8, 64,
@@ -478,7 +512,9 @@ serve_gemma2_dynamic, serve_gemma2_int8 and its static serve, serve_mixtral,
 serve_mixtral_dynamic, serve_mixtral_int8, train, train --amp bf16,
 train --amp int8, train_gemma2 and its --amp bf16 and int8 runs,
 train_mixtral and its --amp bf16 and int8 runs, serve_mamba2,
-serve_dense, train_mamba2 and its --amp bf16 and int8 runs, the sweep phase's
+serve_dense, train_mamba2 and its --amp bf16 and int8 runs,
+serve_recurrentgemma, train_recurrentgemma and its --amp bf16 and int8
+runs, the sweep phase's
 sweep, sweep_serial, sweep_16,
 algorithm1_coord_check, algorithm1_tune, algorithm1_train and fig1,
 sweep_moe and its serial loop, and the sweep_amp phase's sweep_amp_bf16, sweep_amp_int8, their serial loops and
@@ -630,6 +666,7 @@ def device_us(fn, name, n=20, tries=6):
                 and any(is_kernel(name, k, e.key) for k in PORT_KERNELS[name])]
         if hits:
             return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits)
+        empty_profile(prof)
     raise AssertionError(f"the profiler saw no kernel of {name!r} in {tries} tries")
 
 
@@ -653,7 +690,19 @@ def library_device_us(fn, n=20, tries=3):
         if hits:
             return (sum(e.self_device_time_total for e in hits) / n,
                     sum(e.count for e in hits) / n)
+        empty_profile(prof)
     raise AssertionError(f"the profiler saw no kernel of the call in {tries} tries")
+
+
+def empty_profile(prof):
+    """After a profile that caught no kernel: print what it did catch and
+    the allocator's state, and hand the allocator's cached blocks back to
+    the driver before the next try."""
+    log(f"[profiler] a profile caught no kernel: {len(prof.events())} events; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; retaken")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -1947,32 +1996,11 @@ def rmsnorm_bwd_phase(rn, ref, F):
             itertools.product(G2_NORM_SHAPES, (torch.float32, torch.bfloat16)),
             itertools.product(MX_NORM_SHAPES, (torch.float32,)),
             itertools.product(M2_NORM_SHAPES, (torch.float32,))):
-        x = (3 * torch.randn(*shape, device="cuda")).to(dt)
-        g = 0.5 * torch.randn(shape[-1], device="cuda")
-        dy = torch.randn(*shape, device="cuda").to(dt)
-        dx, _ = rn.rmsnorm_bwd(x, g, dy)
-        e = (dx.float() - ref.rmsnorm_bwd_ref(x, g, dy)[0].float()).abs().max().item()
-        xl = x.clone().requires_grad_(True)
-        wl = (1 + g).requires_grad_(True)
-        yl = F.rms_norm(xl, shape[-1:], weight=wl, eps=1e-6)
-        lib = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)  # noqa: E731
-        b = bound(3 * x.numel() * x.element_size() + 2 * shape[-1] * 4, 12 * x.numel())
-        t = dict(ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, g, dy)),
-                 device_us=device_us(lambda: rn.rmsnorm_bwd(x, g, dy), "rmsnorm_bwd"),
-                 plain_ms=cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, g, dy), n=20),
-                 library_ms=cuda_ms(lib), library_device_us=library_device_us(lib)[0],
-                 bound_ms=b[0], bound_by=b[1], max_abs_err=e)
         model, into, path = (("gemma2-2b", g2, "the scalar path") if shape in G2_NORM_SHAPES
                              else ("mixtral-8x22b", mx, "the scalar path")
                              if shape in MX_NORM_SHAPES
                              else ("mamba2-130m", m2, "the register path"))
-        into[f"{shape} {str(dt)[6:]}"] = t
-        log(f"[kernels] rmsnorm_bwd at x {shape} {str(dt)[6:]} ({model}'s train step, "
-            f"{path}): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
-            f"card (bound {b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / t['device_us']:.1%}"
-            f" of it); plain {t['plain_ms']:.4f} ms; the autograd backward of F.rms_norm "
-            f"{t['library_ms']:.4f} ms, {t['library_device_us']:.2f} us on the card")
-        del x, g, dy, dx, xl, wl, yl
+        into[f"{shape} {str(dt)[6:]}"] = b2_timing(rn, ref, F, shape, dt, model, path)
     return dict(
         name="rmsnorm_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1984,6 +2012,34 @@ def rmsnorm_bwd_phase(rn, ref, F):
         share_of_bound=bound_ms * 1e3 / dev, gemma2_shapes=g2, mixtral_shapes=mx,
         mamba2_shapes=m2,
     )
+
+
+def b2_timing(rn, ref, F, shape, dt, model, path):
+    """B2 at a model's train-step shape: its largest dx error from the plain
+    version, a call (CUDA events), the card's time a launch, the plain
+    version's and the autograd backward of F.rms_norm's, and the bytes
+    bound."""
+    x = (3 * torch.randn(*shape, device="cuda")).to(dt)
+    g = 0.5 * torch.randn(shape[-1], device="cuda")
+    dy = torch.randn(*shape, device="cuda").to(dt)
+    dx, _ = rn.rmsnorm_bwd(x, g, dy)
+    e = (dx.float() - ref.rmsnorm_bwd_ref(x, g, dy)[0].float()).abs().max().item()
+    xl = x.clone().requires_grad_(True)
+    wl = (1 + g).requires_grad_(True)
+    yl = F.rms_norm(xl, shape[-1:], weight=wl, eps=1e-6)
+    lib = lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True)  # noqa: E731
+    b = bound(3 * x.numel() * x.element_size() + 2 * shape[-1] * 4, 12 * x.numel())
+    t = dict(ms=cuda_ms(lambda: rn.rmsnorm_bwd(x, g, dy)),
+             device_us=device_us(lambda: rn.rmsnorm_bwd(x, g, dy), "rmsnorm_bwd"),
+             plain_ms=cuda_ms(lambda: ref.rmsnorm_bwd_ref(x, g, dy), n=20),
+             library_ms=cuda_ms(lib), library_device_us=library_device_us(lib)[0],
+             bound_ms=b[0], bound_by=b[1], max_abs_err=e)
+    log(f"[kernels] rmsnorm_bwd at x {shape} {str(dt)[6:]} ({model}'s train step, "
+        f"{path}): {t['ms']:.4f} ms a call, {t['device_us']:.2f} us on the "
+        f"card (bound {b[0] * 1e3:.2f} us by {b[1]}, {b[0] * 1e3 / t['device_us']:.1%}"
+        f" of it); plain {t['plain_ms']:.4f} ms; the autograd backward of F.rms_norm "
+        f"{t['library_ms']:.4f} ms, {t['library_device_us']:.2f} us on the card")
+    return t
 
 
 def ce_case(N, V, dt, seed):
@@ -2002,6 +2058,86 @@ def ce_case(N, V, dt, seed):
     return x, labels.clamp(0, V - 1), g.float(), mask
 
 
+def ce_timing(ce, ref, F, N, V):
+    """B3 and B4 at (N, V) f32: (timings, B3's bound, B4's bound, B3's and
+    B4's largest error from their plain versions); each timed a call (CUDA
+    events) beside its plain version and F.cross_entropy (its autograd
+    backward for B4)."""
+    x, lab, g, _ = ce_case(N, V, torch.float32, 100 + V)
+    loss, lse = ce.ce_fwd(x, lab)
+    want_loss, want_lse = ref.softmax_cross_entropy_ref(x, lab)
+    fwd_err = (loss - want_loss).abs().max().item()
+    bwd_err = (ce.ce_bwd(x, lab, lse, g)
+               - ref.softmax_cross_entropy_bwd_ref(x, lab, lse, g)).abs().max().item()
+    t = {
+        "ce_fwd": cuda_ms(lambda: ce.ce_fwd(x, lab)),
+        "ce_fwd_plain": cuda_ms(lambda: ref.softmax_cross_entropy_ref(x, lab)),
+        "ce_bwd": cuda_ms(lambda: ce.ce_bwd(x, lab, lse, g)),
+        "ce_bwd_plain": cuda_ms(
+            lambda: ref.softmax_cross_entropy_bwd_ref(x, lab, lse, g)),
+    }
+    lab64 = lab.long()
+    t["ce_fwd_library"] = cuda_ms(
+        lambda: F.cross_entropy(x, lab64, reduction="none"))
+    xl = x.clone().requires_grad_(True)
+    yl = F.cross_entropy(xl, lab64, reduction="none")
+    t["ce_bwd_library"] = cuda_ms(
+        lambda: torch.autograd.grad(yl, xl, g, retain_graph=True))
+    del xl, yl
+    b3 = bound(N * V * 4 + N * 4 + 2 * N * 4, 5 * N * V)
+    b4 = bound(2 * N * V * 4 + 3 * N * 4, 4 * N * V)
+    log(f"[kernels] cross entropy ({N}, {V}) f32: ce_fwd {t['ce_fwd']:.4f} ms "
+        f"(plain {t['ce_fwd_plain']:.4f}, F.cross_entropy {t['ce_fwd_library']:.4f},"
+        f" bound {b3[0]:.4f}); ce_bwd {t['ce_bwd']:.4f} ms (plain "
+        f"{t['ce_bwd_plain']:.4f}, its autograd backward {t['ce_bwd_library']:.4f},"
+        f" bound {b4[0]:.4f})")
+    del x, g, lse, loss, want_loss, want_lse
+    torch.cuda.empty_cache()
+    return t, b3, b4, fwd_err, bwd_err
+
+
+# recurrentgemma-9b's shapes: B1 at a decode step of 4 requests and at the
+# 4 x 1,920-token prefill (D 4096), B2 at the train step's 2,560 rows (the
+# scalar path: D > 1024), B3/B4 at 2,560 rows over vocab 256,000
+RG_NORM_ROWS = ((4, 1, 4096), (7680, 4096))
+RG_NORM_SHAPES = [(2560, 4096)]
+RG_CE = (2560, 256000)
+
+
+def recurrentgemma_kernel_rows(ops, rn, ce, ref, F, rows):
+    """B1, B2, B3 and B4 at recurrentgemma-9b's shapes (RG_NORM_ROWS,
+    RG_NORM_SHAPES, RG_CE), held against their plain versions and timed
+    beside their bounds and the PyTorch calls; kept under each row's
+    ``recurrentgemma_shapes``.  (B3/B4 at RG_CE are held among ce_phase's
+    cases.)"""
+    by = {row["name"]: row for row in rows}
+    by["rmsnorm"]["recurrentgemma_shapes"] = rmsnorm_rows(ops, F, "recurrentgemma",
+                                                          RG_NORM_ROWS, (torch.float32,))
+    b2 = by["rmsnorm_bwd"].setdefault("recurrentgemma_shapes", {})
+    for shape in RG_NORM_SHAPES:
+        x = 3 * torch.randn(*shape, device="cuda")
+        g = 0.5 * torch.randn(shape[-1], device="cuda")
+        dy = torch.randn(*shape, device="cuda")
+        dx, dg = rn.rmsnorm_bwd(x, g, dy)
+        want_dx, want_dg = ref.rmsnorm_bwd_ref(x, g, dy)
+        what = f"rmsnorm_bwd {shape} float32"
+        check_close(what + " dx", dx, want_dx, *GRAD_TOL[torch.float32])
+        check_close(what + " dgain", dg, want_dg, *GRAD_TOL[torch.float32])
+        if not torch.equal(rn.rmsnorm_bwd(x, g, dy)[1], dg):
+            raise AssertionError(f"{what}: dgain differs between two calls")
+        del x, g, dy, dx, dg, want_dx, want_dg
+        b2[f"{shape} float32"] = b2_timing(rn, ref, F, shape, torch.float32,
+                                           "recurrentgemma-9b", "the scalar path")
+    t, b3, b4, fwd_err, bwd_err = ce_timing(ce, ref, F, *RG_CE)
+    key = f"at_recurrentgemma_{RG_CE[0]}_x_{RG_CE[1]}"
+    by["ce_fwd"][key] = dict(ce_fwd=t["ce_fwd"], ce_fwd_plain=t["ce_fwd_plain"],
+                             ce_fwd_library=t["ce_fwd_library"], ce_fwd_bound=b3[0],
+                             ce_fwd_max_abs_err=fwd_err)
+    by["ce_bwd"][key] = dict(ce_bwd=t["ce_bwd"], ce_bwd_plain=t["ce_bwd_plain"],
+                             ce_bwd_library=t["ce_bwd_library"], ce_bwd_bound=b4[0],
+                             ce_bwd_max_abs_err=bwd_err)
+
+
 def ce_phase(ce, ref, F):
     """B3 and B4 against their plain versions; timed at the train shape
     (4096 rows x vocab 2048) and at smollm's vocab (49152)."""
@@ -2010,7 +2146,7 @@ def ce_phase(ce, ref, F):
              (64, 50257, torch.float32), (256, 2048, torch.bfloat16),
              (33, 3001, torch.bfloat16),
              (2048, 256000, torch.float32), (4608, 32768, torch.float32),
-             (4096, 50280, torch.float32)]
+             (4096, 50280, torch.float32), (2560, 256000, torch.float32)]
     worst = [0.0, 0.0]
     for i, (N, V, dt) in enumerate(cases):
         x, lab, g, mask = ce_case(N, V, dt, i)
@@ -2037,37 +2173,7 @@ def ce_phase(ce, ref, F):
     # vocab 50,280, ragged to the vocab chunks)
     for N, V in ((4096, 2048), (4096, 49152), (2048, 256000), (4608, 32768),
                  (4096, 50280)):
-        x, lab, g, _ = ce_case(N, V, torch.float32, 100 + V)
-        loss, lse = ce.ce_fwd(x, lab)
-        want_loss, want_lse = ref.softmax_cross_entropy_ref(x, lab)
-        fwd_err = (loss - want_loss).abs().max().item()
-        bwd_err = (ce.ce_bwd(x, lab, lse, g)
-                   - ref.softmax_cross_entropy_bwd_ref(x, lab, lse, g)).abs().max().item()
-        t = {
-            "ce_fwd": cuda_ms(lambda: ce.ce_fwd(x, lab)),
-            "ce_fwd_plain": cuda_ms(lambda: ref.softmax_cross_entropy_ref(x, lab)),
-            "ce_bwd": cuda_ms(lambda: ce.ce_bwd(x, lab, lse, g)),
-            "ce_bwd_plain": cuda_ms(
-                lambda: ref.softmax_cross_entropy_bwd_ref(x, lab, lse, g)),
-        }
-        lab64 = lab.long()
-        t["ce_fwd_library"] = cuda_ms(
-            lambda: F.cross_entropy(x, lab64, reduction="none"))
-        xl = x.clone().requires_grad_(True)
-        yl = F.cross_entropy(xl, lab64, reduction="none")
-        t["ce_bwd_library"] = cuda_ms(
-            lambda: torch.autograd.grad(yl, xl, g, retain_graph=True))
-        del xl, yl
-        b3 = bound(N * V * 4 + N * 4 + 2 * N * 4, 5 * N * V)
-        b4 = bound(2 * N * V * 4 + 3 * N * 4, 4 * N * V)
-        log(f"[kernels] cross entropy ({N}, {V}) f32: ce_fwd {t['ce_fwd']:.4f} ms "
-            f"(plain {t['ce_fwd_plain']:.4f}, F.cross_entropy {t['ce_fwd_library']:.4f},"
-            f" bound {b3[0]:.4f}); ce_bwd {t['ce_bwd']:.4f} ms (plain "
-            f"{t['ce_bwd_plain']:.4f}, its autograd backward {t['ce_bwd_library']:.4f},"
-            f" bound {b4[0]:.4f})")
-        rows[V] = (t, b3, b4, fwd_err, bwd_err)
-        del x, g, lse, loss, want_loss, want_lse
-        torch.cuda.empty_cache()
+        rows[V] = ce_timing(ce, ref, F, N, V)
 
     t, b3, b4, fwd_err, bwd_err = rows[2048]
     big = dict(rows[49152][0], ce_fwd_bound=rows[49152][1][0],
@@ -2150,6 +2256,11 @@ FLASH_CASES = [
     # at the base width, 128^-0.5
     ("mixtral train step, S 4608, window 4096", 1, 4608, 48, 8, 128, 4096, 0.0, 128 ** -0.5,
      torch.float32),
+    # recurrentgemma-9b's train step (train_recurrentgemma): one sequence of
+    # 2,560 under window 2,048, 16 query heads over one kv head of 256 (MQA:
+    # a GQA group of 16, B7 summing 16 heads into each dk, dv)
+    ("recurrentgemma train step, S 2560, window 2048", 1, 2560, 16, 1, 256, 2048, 0.0,
+     0.0625, torch.float32),
 ]
 # the bf16 operand mode of B5, B6 and B7 runs these kernels (flash_attention.cu),
 # the f32 mode these, each at every padded d_head
@@ -2325,6 +2436,8 @@ G2_FLASH_TIMED = [
 ]
 # and at DP 128, mixtral-8x22b's train step (train_mixtral)
 MX_FLASH_TIMED = [("mixtral train step", 1, 4608, 48, 8, 128, 4096, 0.0, 128 ** -0.5)]
+# and at DP 256, recurrentgemma-9b's (train_recurrentgemma): MQA, window 2,048
+RG_FLASH_TIMED = [("recurrentgemma train step", 1, 2560, 16, 1, 256, 2048, 0.0, 0.0625)]
 
 
 def visible_pairs(S, window):
@@ -2551,7 +2664,8 @@ def flash_phase(ops, fa, ref, quant, F):
             **dict(common, shape="q, k, v, do (8, 512, 16, 64) f32, causal; int8 operands "
                                  "(the --amp int8 path)")))
     out += [prepass, fwd_prepass]
-    for key, timed in (("gemma2_shapes", G2_FLASH_TIMED), ("mixtral_shapes", MX_FLASH_TIMED)):
+    for key, timed in (("gemma2_shapes", G2_FLASH_TIMED), ("mixtral_shapes", MX_FLASH_TIMED),
+                       ("recurrentgemma_shapes", RG_FLASH_TIMED)):
         at = g2_flash_timing(ops, fa, quant, F, timed)
         for row in out:
             name = row["name"]
@@ -4200,9 +4314,10 @@ class DenseServe:
 
 def dense_expect(cfg, n_fwd):
     """Exact launches of a dense-loop serve: B1 once a norm a forward (one
-    an ssd layer, two an attention one, and the final norm), nothing else:
-    the dense driver attends in plain PyTorch, as the reference's does."""
-    kinds = list(cfg.pattern) * cfg.n_groups
+    an ssd layer, two an attention or recurrent one, the tail's too, and
+    the final norm), nothing else: the dense driver attends in plain
+    PyTorch, as the reference's does."""
+    kinds = list(cfg.pattern) * cfg.n_groups + list(cfg.tail)
     want = dict.fromkeys((*PORT_KERNELS, *GROUPED), 0)
     want["rmsnorm"] = (sum(1 if k == "ssd" else 2 for k in kinds) + 1) * n_fwd
     return want
@@ -4381,6 +4496,275 @@ def mamba2_serve_phase(Model, ops):
                    busy_ms=busy, busy_share=busy / wall_ms, profile_launches=n_launch,
                    top_kernels=top, forwards=M2_GEN, state_h_bytes=state["h"],
                    state_conv_bytes=state["conv"], params_m=n_params / 1e6)
+    return launches, summary
+
+
+# serve_recurrentgemma: requests, prompt tokens and tokens generated each:
+# prompt plus output is 2,080, so the local layers' ring of 2,048 wraps at
+# decode step 128.  Cut from 4 requests and 256 tokens (and the train
+# phases' loops from 3 steps to 2) for the script's time: 945 s with them on
+# an H100 80GB HBM3 at 700.00 W whose nvcc built the sources in 59.3 s
+RG_R, RG_PROMPT, RG_GEN = 2, 1920, 160
+# the plain serve: the prefill and the 8 decode steps whose logits are held
+RG_PLAIN_GEN = 9
+# the kernels' first 8 decode steps' logits against the plain versions', as
+# an absolute distance, within this factor of a control's: the plain serve
+# with B1's plain version replaced by F.rms_norm (the same function rounded
+# another way; B1 is the only kernel on this path, so a B1-alone control
+# would be the path itself)
+RG_CONTROL_FACTOR = 3.0
+# decode against one f32 forward over the same tokens at full depth, the
+# largest gap over max |logit|: the reference's bar (tests/test_smoke_archs.py)
+RG_DECODE_BAR = 1e-4
+# the float64 witness at 5 layers (the first group and the tail): decode
+# against forward in float64, and the same in f32 at the reference's bar
+RG_WITNESS_LAYERS = 5
+RG_F64_BAR = 1e-9
+# decode steps under the profiler (the card's busy share while decoding)
+RG_PROFILED = 16
+
+
+def rg_forward_rows(model, params, seq, P):
+    """One forward over the token rows ``seq`` (B, T), read out at rows
+    P-1..T-2: the logits that pick tokens P..T-1."""
+    rows = torch.arange(P - 1, seq.shape[1] - 1, device=seq.device)
+    with torch.no_grad():
+        return model.forward(params, seq, readout=rows)[0]
+
+
+def rg_decode_vs_forward(model, params, seq, P):
+    """(decode rows, forward rows) of ``model`` on the token rows ``seq``
+    (B, T): a prefill of the first P tokens, then decode_step at positions
+    P..T-2 with the given tokens (teacher-forced), against rg_forward_rows."""
+    B, T = seq.shape
+    full = rg_forward_rows(model, params, seq, P)
+    with torch.no_grad():
+        last, cache = model.prefill(params, seq[:, :P], cache_len=T)
+        dec = [last]
+        for p in range(P, T - 1):
+            pos = torch.full((B, 1), p, dtype=torch.int32, device=seq.device)
+            logits, cache = model.decode_step(params, seq[:, p:p + 1], pos, cache)
+            dec.append(logits[:, 0])
+    return torch.stack(dec, dim=1), full
+
+
+def recurrentgemma_serve_phase(Model, ops):
+    """serve_recurrentgemma: recurrentgemma-9b (configs/recurrentgemma_9b.py,
+    arXiv:2402.19427) whole, all 38 layers at full width, f32 weights from
+    seed 0 and a random query projection, through the dense-loop driver the
+    serve CLI falls back to: RG_R requests of RG_PROMPT tokens, RG_GEN
+    generated each, greedy, no stop token.
+
+    - The kernels' serve: exact launches (B1 77 a forward, 160 forwards:
+      12,320; nothing else), tok/s, the prefill's time and a decode step's,
+      peak memory.
+    - The plain versions' serve over its first RG_PLAIN_GEN forwards: the
+      same greedy tokens by the near-tie rule (compare_calls), the 8 held
+      decode steps' logits within RG_CONTROL_FACTOR times the control's
+      distance (the plain serve with B1's plain version replaced by
+      F.rms_norm).
+    - Decode against forward at full depth: the kernels' RG_GEN picking rows
+      (the prefill's last row, then the decode steps) against one f32
+      forward over the 2,080 tokens of prompt and output, within
+      RG_DECODE_BAR of max |logit|.
+    - The float64 witness at RG_WITNESS_LAYERS layers (the same weights'
+      first group and tail), request 0's tokens: the plain decode against
+      the plain forward in float64 within RG_F64_BAR, the kernels' f32
+      decode against their f32 forward within RG_DECODE_BAR, and the f32
+      decode's distance from the float64 forward printed.
+    - The card's busy share over RG_PROFILED decode steps.
+
+    Returns (launches, summary)."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.meta import flatten_tree
+
+    cfg = get_config("recurrentgemma-9b").replace(dtype="float32", eos_token_id=-1,
+                                                  zero_init_query=False)
+    Rec = make_recording_model(Model)
+    kern = Rec(cfg, device="cuda", impl="auto")
+    plain = Rec(cfg, device="cuda", impl="ref")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = kern.init(seed=0)
+    n_params = sum(p.numel() for p in params.values())
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (RG_R, RG_PROMPT))
+    lens = np.full(RG_R, RG_PROMPT)
+    T = RG_PROMPT + RG_GEN
+    # a request's dense cache, leaf by leaf: {dotted name: (shape, dtype)}
+    spec = flatten_tree(kern.cache_shapes(1, T),
+                        lambda x: isinstance(x, tuple) and isinstance(x[0], tuple))
+    state = {what: sum(math.prod(shape) * torch.tensor([], dtype=dt).element_size()
+                       for name, (shape, dt) in spec.items() if part in name)
+             for what, part in (("h", ".mixer.h"), ("conv", ".mixer.conv"),
+                                ("rings", ".attn."))}
+    log(f"[serve_recurrentgemma] {cfg.name}: {cfg.n_layers} layers ({cfg.pattern} x "
+        f"{cfg.n_groups} + tail {cfg.tail}), d_model {cfg.d_model}, RG-LRU width "
+        f"{cfg.lru_width}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, window "
+        f"{cfg.window_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+        f"params by the metas ({4 * n_params / 1e9:.1f} GB f32), param_count() "
+        f"{cfg.param_count() / 1e9:.3f} B (the reference's formula leaves out w_a and w_x); "
+        f"{RG_R} requests of {RG_PROMPT} tokens, {RG_GEN} generated each, through the "
+        f"dense-loop driver; a request's state: h {state['h'] / 1e3:.0f} KB, conv "
+        f"{state['conv'] / 1e6:.2f} MB, rings {state['rings'] / 1e6:.1f} MB")
+    want = dense_expect(cfg, RG_GEN)   # one prefill, then RG_GEN - 1 decode steps
+    timing = {}
+    real_prefill = kern.prefill
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        timing["prefill_s"] = time.perf_counter() - t
+        return out
+
+    kern.prefill = timed_prefill
+    kern.keep_all = True
+    ops.reset_launch_counts()
+    out_k, wall_k = timed_serve(DenseServe(kern, RG_GEN), params, prompts, lens)
+    launches = ops.launch_counts()
+    del kern.prefill
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kern.keep_all = False
+    n_pre = sum(c["mode"] == "prefill" for c in kern.calls)
+    log(f"[serve_recurrentgemma] kernels: {len(kern.calls)} forwards, {n_pre} prefills; "
+        f"launches {launches}, expected {want}")
+    if launches != want or (n_pre, len(kern.calls)) != (1, RG_GEN):
+        raise AssertionError(f"serve_recurrentgemma: launch counts {launches} != {want}, "
+                             f"or {n_pre} prefills and {len(kern.calls)} forwards, not 1 "
+                             f"and {RG_GEN}")
+    n_tok = RG_R * RG_GEN
+    step_ms = 1e3 * (wall_k - timing["prefill_s"]) / (RG_GEN - 1)
+
+    ops.reset_launch_counts()
+    out_r, wall_r = timed_serve(DenseServe(plain, RG_PLAIN_GEN), params, prompts, lens)
+    if set(ops.launch_counts().values()) != {0}:
+        raise AssertionError(f"serve_recurrentgemma: the plain serve launched kernels: "
+                             f"{ops.launch_counts()}")
+    head = SimpleNamespace(calls=kern.calls[:RG_PLAIN_GEN])
+    out_head = dict(out_k, tokens=out_k["tokens"][:, :RG_PLAIN_GEN], steps=RG_PLAIN_GEN)
+    tie_at, worst, scale8 = compare_calls("serve_recurrentgemma", head, plain, out_head,
+                                          out_r, logit_tol=None)
+    # the control: the plain serve again, B1's plain version replaced by
+    # F.rms_norm over the same (1 + gain)
+    ctrl = Rec(cfg, device="cuda", impl="ref")
+    plain_rms = ops.fused_rmsnorm
+    ops.fused_rmsnorm = lambda x, gain, *, eps=1e-6, impl="auto": F.rms_norm(
+        x, (x.shape[-1],), weight=(1 + gain).to(x.dtype), eps=eps)
+    try:
+        DenseServe(ctrl, RG_PLAIN_GEN).serve(params, prompts, lens)
+    finally:
+        ops.fused_rmsnorm = plain_rms
+    worst_c = 0.0
+    for ck, cr in zip(ctrl.calls, plain.calls):
+        if ck["rows"] is not None:
+            worst_c = max(worst_c, (ck["rows"] - cr["rows"]).abs().max().item())
+        if not torch.equal(ck["arg"], cr["arg"]):
+            break   # later rows would see other tokens
+    del ctrl
+    log(f"[serve_recurrentgemma] kernels: {n_tok} tokens in {wall_k:.3f} s "
+        f"({n_tok / wall_k:.1f} tok/s); the prefill {timing['prefill_s']:.3f} s, a decode "
+        f"step {step_ms:.2f} ms; peak memory {peak:.2f} GiB; plain, the first "
+        f"{RG_PLAIN_GEN} forwards: {RG_R * RG_PLAIN_GEN} tokens in {wall_r:.3f} s; greedy "
+        f"tokens identical: {tie_at is None}; the first 8 decode steps' logits, kernels "
+        f"against plain, max abs diff {worst:.3g} at |logit| <= {scale8:.3g}; the control "
+        f"(F.rms_norm for B1's plain version) {worst_c:.3g} (held at "
+        f"{RG_CONTROL_FACTOR:g}x: {RG_CONTROL_FACTOR * worst_c:.3g})")
+    if not worst <= RG_CONTROL_FACTOR * worst_c:
+        raise AssertionError(f"serve_recurrentgemma: decode logits differ by {worst} "
+                             f"(|logit| <= {scale8}), past {RG_CONTROL_FACTOR} x the "
+                             f"control's {worst_c}")
+
+    got = torch.stack(kern.all_rows[:RG_GEN], dim=1)            # (R, RG_GEN, V)
+    kern.all_rows.clear()
+    seq = torch.as_tensor(np.concatenate([prompts, out_k["tokens"].numpy()], axis=1),
+                          device="cuda")
+    full = rg_forward_rows(kern, params, seq, RG_PROMPT)
+    scale = full.abs().max().item()
+    err_full = (got - full).abs().max().item()
+    off_argmax = int((got.argmax(-1) != full.argmax(-1)).sum())
+    del got, full
+    torch.cuda.empty_cache()
+    log(f"[serve_recurrentgemma] decode against one f32 forward over the {T} tokens of "
+        f"prompt and output, all {cfg.n_layers} layers ({RG_R} x {RG_GEN} rows, |logit| <= "
+        f"{scale:.3g}): max abs diff over max |logit| {err_full / scale:.3g} (held at "
+        f"{RG_DECODE_BAR}); {off_argmax} picked tokens not the forward's argmax")
+    if not err_full <= RG_DECODE_BAR * scale:
+        raise AssertionError(f"serve_recurrentgemma: decode off the forward by "
+                             f"{err_full / scale} of max |logit| {scale}")
+
+    # the card's busy share over decode steps (a short prompt's prefill
+    # outside the profiler)
+    dec_model = Model(cfg, device="cuda", impl="auto")
+    pt = torch.as_tensor(prompts[:, :64], device="cuda")
+    with torch.no_grad():
+        last, cache = dec_model.prefill(params, pt, cache_len=64 + RG_PROFILED)
+        tok = last.argmax(-1).to(torch.int32)[:, None]
+
+        def steps():
+            nonlocal tok, cache
+            for i in range(RG_PROFILED):
+                pos = torch.full((RG_R, 1), 64 + i, dtype=torch.int32, device="cuda")
+                logits, cache = dec_model.decode_step(params, tok, pos, cache)
+                tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+
+        wall_ms, busy, n_launch, top = busy_profile(steps)
+    del cache, dec_model
+    log(f"[serve_recurrentgemma] under the profiler, {RG_PROFILED} decode steps of "
+        f"{RG_R} requests: {wall_ms:.0f} ms, card busy {busy:.1f} ms ({busy / wall_ms:.1%}), "
+        f"{n_launch} launches; top {top}")
+
+    # the witness at RG_WITNESS_LAYERS layers: the first group and the tail
+    # of the same weights, request 0
+    cfg5 = cfg.replace(n_layers=RG_WITNESS_LAYERS)
+    p5 = {k: (v[:cfg5.n_groups].clone() if k.startswith("groups.") else v)
+          for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    n5 = sum(v.numel() for v in p5.values())
+    seq0 = seq[:1]
+    k5 = Model(cfg5, device="cuda", impl="auto")
+    dec32, full32 = rg_decode_vs_forward(k5, p5, seq0, RG_PROMPT)
+    p64 = {k: v.double() for k, v in p5.items()}
+    del p5
+    m64 = Model(cfg5.replace(dtype="float64"), device="cuda", impl="ref")
+    dec64, full64 = rg_decode_vs_forward(m64, p64, seq0, RG_PROMPT)
+    del p64
+    s5 = full64.abs().max().item()
+    err5 = dict(f64_decode=(dec64 - full64).abs().max().item() / s5,
+                f32_decode=(dec32 - full32).abs().max().item() / s5,
+                f32_decode_from_f64=(dec32.double() - full64).abs().max().item() / s5,
+                f32_forward_from_f64=(full32.double() - full64).abs().max().item() / s5)
+    del dec32, full32, dec64, full64
+    torch.cuda.empty_cache()
+    log(f"[serve_recurrentgemma] the witness at {RG_WITNESS_LAYERS} layers ({n5 / 1e9:.2f} B "
+        f"params), request 0, decode against forward over max |logit| {s5:.3g}: float64 "
+        f"{err5['f64_decode']:.3g} (held at {RG_F64_BAR}), the kernels' f32 "
+        f"{err5['f32_decode']:.3g} (held at {RG_DECODE_BAR}); not held: the f32 decode "
+        f"from the float64 forward {err5['f32_decode_from_f64']:.3g}, the f32 forward "
+        f"{err5['f32_forward_from_f64']:.3g}")
+    if not (err5["f64_decode"] <= RG_F64_BAR and err5["f32_decode"] <= RG_DECODE_BAR):
+        raise AssertionError(f"serve_recurrentgemma: the {RG_WITNESS_LAYERS}-layer "
+                             f"witness off: {err5}")
+    summary = dict(requests=RG_R, prompt=RG_PROMPT, steps=RG_GEN, prefills=n_pre,
+                   decode_steps=RG_GEN - 1, tokens=n_tok, wall_s=wall_k,
+                   tok_per_s=n_tok / wall_k, prefill_s=timing["prefill_s"],
+                   decode_step_ms=step_ms, peak_gib=peak, plain_forwards=RG_PLAIN_GEN,
+                   plain_wall_s=wall_r, logit_max_abs_diff=worst, logit_scale=scale8,
+                   control_max_abs_diff=worst_c, control_factor=RG_CONTROL_FACTOR,
+                   tie=tie_at, decode_vs_forward_rel=err_full / scale,
+                   decode_vs_forward_scale=scale, tokens_off_forward_argmax=off_argmax,
+                   witness_layers=RG_WITNESS_LAYERS, witness=err5, witness_scale=s5,
+                   profile_wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                   profile_launches=n_launch, top_kernels=top, forwards=RG_GEN,
+                   params_b=n_params / 1e9, param_count_b=cfg.param_count() / 1e9,
+                   state_h_bytes=state["h"], state_conv_bytes=state["conv"],
+                   state_ring_bytes=state["rings"])
     return launches, summary
 
 
@@ -5158,6 +5542,31 @@ M2_AMP_LIMITS = {"bf16": (5e-6, AMP_GRAD_TOL, 5e-6, "none"),
                  "int8": (1e-5, 1e-2, 1e-5, "bf16")}
 M2_TRAIN = ("train_mamba2", "train_mamba2_amp_bf16", "train_mamba2_amp_int8")
 #
+# recurrentgemma-9b (arXiv:2402.19427) at full width over 5 of its 38 layers:
+# the first (recurrent, recurrent, local) group and the (recurrent,
+# recurrent) tail, 2.17 B parameters, whose f32 weights, gradients and two
+# Adam moments take 34.8 GB (the 38 layers' 150 GB, which the train CLI
+# refuses on one card).  One sequence of 2,560 tokens, so that the local
+# layer's window of 2,048 binds inside B5-B7; loops of 2 steps (the run's
+# time: RG_R above); nothing else cut.  Its amp loops' plain side keeps B1-B4's
+# kernels, as gemma2-2b's does, at RG_AMP_LIMITS below; the loops' step 0 is
+# the first step bit for bit (a random query projection in both).
+RG_TRAIN = ("train_recurrentgemma", "train_recurrentgemma_amp_bf16",
+            "train_recurrentgemma_amp_int8")
+# recurrentgemma-9b's --amp limits.  gemma2's are missed the other way: the
+# step-0 loss is ~2,134 (tied embeddings at vocab 256,000), and the one
+# local layer's attention moves it little, so the bf16 control (attention's
+# kernels in the f32 operand mode) lands 6.86e-7 from the plain side, inside
+# gemma2's 2e-5, and under int8 the f32 run's step 0 lands 8.9e-6 from the
+# int8 run's, inside 1e-5 (an H100 80GB HBM3, this PR's first probe).  The
+# kernels are 0 from their plain versions in both modes (B1-B4's kernels on
+# both sides), the int8 controls 2.52e-6 (bf16 operand mode) and 1.6e-6
+# (tiles 64 wide): the loss limits sit between.  Gradients: bf16 kernels
+# within 1.3e-4 of a tensor's largest entry (the control up to 1.2e-3),
+# int8 bit-equal.
+RG_AMP_LIMITS = {"bf16": (2e-7, AMP_GRAD_TOL, 2e-7, "none"),
+                 "int8": (5e-7, INT8_GRAD_TOL, 5e-7, "bf16")}
+#
 # (batch, sequence, loop steps, the phase's path name, the --amp limits,
 # the amp loops' plain side (False: B1-B7's plain versions; True: B1-B4's
 # kernels; None: no plain loop), config overrides, the loops' lr)
@@ -5167,7 +5576,9 @@ TRAIN_ARCHS = {"mup-gpt": (8, 512, 10, "train", AMP_LIMITS, False, {}, 1e-2),
                                  {"n_layers": 1, "zero_init_query": False,
                                   "zero_init_readout": False}, 1e-4),
                "mamba2-130m": (8, 512, 3, "train_mamba2", M2_AMP_LIMITS, None,
-                               {"zero_init_query": False}, 1e-2)}
+                               {"zero_init_query": False}, 1e-2),
+               "recurrentgemma-9b": (1, 2560, 2, "train_recurrentgemma", RG_AMP_LIMITS, True,
+                                     {"n_layers": 5, "zero_init_query": False}, 1e-2)}
 
 
 def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
@@ -5210,8 +5621,9 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     isolate = isolate if amp else False
     cfg = get_config(arch).replace(dtype="float32", amp=amp, **over)
     moe = bool(cfg.n_experts)
-    kinds = list(cfg.pattern) * cfg.n_groups
-    n_att_layers = sum(k != "ssd" for k in kinds)   # ssd layers: no attention
+    kinds = list(cfg.pattern) * cfg.n_groups + list(cfg.tail)
+    # ssd and recurrent layers: no attention
+    n_att_layers = sum(k not in ("ssd", "recurrent") for k in kinds)
     tag = f"[{path} --amp {amp}]" if amp else f"[{path}]"
     if amp:
         loss_rtol, grad_tol, loop_rtol, control_mode = limits[amp]
@@ -5233,14 +5645,19 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
                "gradients and moments; nothing else cut")
     elif "n_layers" in over:
         full = get_config(arch)
-        two = train_state_bytes(Model(cfg.replace(n_layers=2), device="cuda"))
+        # one pattern group more
+        more = cfg.n_layers + len(cfg.pattern)
+        two = train_state_bytes(Model(cfg.replace(n_layers=more), device="cuda"))
         cut = (f"the depth cut to {cfg.n_layers} of {full.n_layers} layers: f32 weights, "
                f"gradients and two Adam moments take {4 * n_params * 4 / 1e9:.1f} GB at "
-               f"{cfg.n_layers}, {two / 1e9:.1f} GB at 2; a random readout; nothing else "
-               f"cut")
+               f"{cfg.n_layers}, {two / 1e9:.1f} GB at {more}; "
+               + ("a random readout; " if "zero_init_readout" in over else "")
+               + "nothing else cut")
     else:
         cut = "nothing cut"
     mixer = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}"
+             + (f", RG-LRU width {cfg.lru_width}, pattern {cfg.pattern} x {cfg.n_groups} "
+                f"+ tail {cfg.tail}" if "recurrent" in kinds else "")
              if n_att_layers else
              f"SSD d_inner {cfg.d_inner}, {cfg.d_inner // cfg.ssm_head_dim} heads of "
              f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
@@ -5377,8 +5794,8 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
     launches = ops.launch_counts()
     n_attn = n_att_layers if amp == "bf16" else 0   # B5-B7 only under --amp,
     n_int8 = n_att_layers if amp == "int8" else 0   # in its operand mode
-    # two norms a layer, four with gemma2's post-norms, one an ssd layer,
-    # and the final one
+    # two norms a layer (an attention or recurrent one, the tail's too), four
+    # with gemma2's post-norms, one an ssd layer, and the final one
     n_norm = sum(1 if k == "ssd" else 4 if cfg.post_attn_norm else 2 for k in kinds) + 1
     per_step = {"rmsnorm": n_norm, "rmsnorm_bwd": n_norm,
                 "rmsnorm_grouped": 0, "rmsnorm_bwd_grouped": 0,
@@ -5466,7 +5883,8 @@ def train_phase(ops, quant, amp="", control_losses=None, arch="mup-gpt"):
             + f"step 0 of the f32 run {control_losses[0]:.4f} (rel "
             f"{extra['control_step0_rel_diff']:.3g} from the "
             f"{'kernels' if lp is None else 'plain'} amp run); mean of the "
-            f"last 3 losses {extra['last3_gap_to_f32']:+.3%} from the f32 run's (not held)")
+            f"last {min(3, STEPS)} losses {extra['last3_gap_to_f32']:+.3%} from the f32 "
+            f"run's (not held)")
     plain_text = ("not run" if ms_p is None else
                   f"{ms_p:.2f} ({B * S / ms_p * 1e3:.0f} tok/s, batch {batch_p:.2f} ms)")
     log(f"{tag} step-0 loss rel diff "
@@ -7182,6 +7600,8 @@ def main():
     rows[0]["mamba2_shapes"] = rmsnorm_rows(ops, F, "mamba2", ((8, 1, 768), (8, 512, 768)),
                                             (torch.float32,))
     done("B1 at mamba2's shapes")
+    recurrentgemma_kernel_rows(ops, rn, ce, ref, F, rows)
+    done("B1-B4 at recurrentgemma's shapes")
     m2s_launches, m2s = mamba2_serve_phase(Model, ops)
     done("serve_mamba2")
     m2t, m2t_launches = {}, {}
@@ -7191,6 +7611,15 @@ def main():
             control_losses=m2t["train_mamba2"]["losses"] if amp_mode else None)
         torch.cuda.empty_cache()
         done(f"train_mamba2{' --amp ' + amp_mode if amp_mode else ''}")
+    # recurrentgemma-9b's serve and f32 train reach B1-B4 only too
+    rgs_launches, rgs = recurrentgemma_serve_phase(Model, ops)
+    torch.cuda.empty_cache()
+    done("serve_recurrentgemma")
+    rgt, rgt_launches = {}, {}
+    rgt_launches[RG_TRAIN[0]], rgt[RG_TRAIN[0]] = train_phase(ops, quant,
+                                                              arch="recurrentgemma-9b")
+    torch.cuda.empty_cache()
+    done("train_recurrentgemma")
     torch.set_rng_state(rng_state[0])
     torch.cuda.set_rng_state_all(rng_state[1])
     build.wait()
@@ -7198,8 +7627,8 @@ def main():
         f"{build.build_seconds if build.build_seconds is not None else 'cached'}; "
         f"a library a group of sources, ready after "
         f"{ {g: s if s is None else round(s, 1) for g, s in build.group_seconds.items()} } "
-        f"s: the B1-B4 kernel phases and mamba2's phases ran beside the attention kernels' "
-        f"builds)")
+        f"s: the B1-B4 kernel phases, mamba2's phases, serve_recurrentgemma and "
+        f"train_recurrentgemma ran beside the attention kernels' builds)")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -7259,6 +7688,12 @@ def main():
             control_losses=mxt["train_mixtral"]["losses"] if amp_mode else None)
         torch.cuda.empty_cache()
         done(f"train_mixtral{' --amp ' + amp_mode if amp_mode else ''}")
+    for amp_mode, path in zip(("bf16", "int8"), RG_TRAIN[1:]):
+        rgt_launches[path], rgt[path] = train_phase(
+            ops, quant, amp=amp_mode, arch="recurrentgemma-9b",
+            control_losses=rgt[RG_TRAIN[0]]["losses"])
+        torch.cuda.empty_cache()
+        done(f"train_recurrentgemma --amp {amp_mode}")
     dense_launches, dense = dense_serve_phase(cfg, Model, Engine, EngineConfig, ops)
     done("serve_dense")
     sweep_rows, sweep_launches, sweep = sweep_phase(ops, rn, ref)
@@ -7303,6 +7738,8 @@ def main():
                    "serve_mamba2": m2s_launches[row["name"]],
                    "serve_dense": dense_launches[row["name"]],
                    **{path: launches[row["name"]] for path, launches in m2t_launches.items()},
+                   "serve_recurrentgemma": rgs_launches[row["name"]],
+                   **{path: launches[row["name"]] for path, launches in rgt_launches.items()},
                    **{path: launches[row["name"]] for path, launches in sweep_launches.items()}}
         if not sum(by_path.values()):
             raise AssertionError(f"{row['name']} was launched on no main path")
@@ -7315,20 +7752,22 @@ def main():
                 "flash_decode_multi_int8": ("serve_int8", "serve_spec_int8",
                                             "serve_gemma2_int8", "serve_mixtral_int8"),
                 "rmsnorm_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN,
-                                *MX_TRAIN, *M2_TRAIN, "spec_copy_train", "sweep_serial",
+                                *MX_TRAIN, *M2_TRAIN, *RG_TRAIN, "spec_copy_train",
+                                "sweep_serial",
                                 "algorithm1_train", "sweep_moe_serial",
                                 "sweep_amp_bf16_serial", "sweep_amp_int8_serial",
                                 "algorithm1_amp"),
                 "ce_fwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN, *MX_TRAIN,
-                           *M2_TRAIN, "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
-                           *AMP_SWEEP_PATHS),
+                           *M2_TRAIN, *RG_TRAIN, "spec_copy_train", *SWEEP_PATHS,
+                           *MOE_SWEEP_PATHS, *AMP_SWEEP_PATHS),
                 "ce_bwd": ("train", "train_amp_bf16", "train_amp_int8", *G2_TRAIN, *MX_TRAIN,
-                           *M2_TRAIN, "spec_copy_train", *SWEEP_PATHS, *MOE_SWEEP_PATHS,
-                           *AMP_SWEEP_PATHS),
+                           *M2_TRAIN, *RG_TRAIN, "spec_copy_train", *SWEEP_PATHS,
+                           *MOE_SWEEP_PATHS, *AMP_SWEEP_PATHS),
                 "rmsnorm_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS + ("sweep_moe",),
                 "rmsnorm_bwd_grouped": GROUPED_PATHS + AMP_GROUPED_PATHS + ("sweep_moe",),
                 **{n: ("train_amp_int8", "train_gemma2_amp_int8", "train_mixtral_amp_int8",
-                       "sweep_amp_int8", "sweep_amp_int8_serial", "algorithm1_amp")
+                       "train_recurrentgemma_amp_int8", "sweep_amp_int8",
+                       "sweep_amp_int8_serial", "algorithm1_amp")
                    for n in I8_ROWS}
                 }.get(row["name"])
         if only and sum(by_path.values()) != sum(by_path[p] for p in only):
@@ -7371,6 +7810,9 @@ def main():
     log(json.dumps({"serve_mamba2": m2s}, default=str))
     log(json.dumps({"serve_dense": dense}))
     for path, summary in m2t.items():
+        log(json.dumps({path: summary}))
+    log(json.dumps({"serve_recurrentgemma": rgs}, default=str))
+    for path, summary in rgt.items():
         log(json.dumps({path: summary}))
     log(json.dumps({"sweep": sweep}))
     log(json.dumps({"sweep_moe": moe_sweep}))

@@ -2,9 +2,10 @@
 
 The port carries the decoder-only architectures: the all-``attn`` ones,
 gemma2's local/global alternation (2b and 27b), the MoE ones with untied
-embeddings (mixtral-8x22b, llama4-scout) and mamba2-130m's ``ssd`` blocks.
-The others (recurrentgemma's ``recurrent`` blocks, whisper's ``dec`` and
-llama-3.2-vision's ``cross``) arrive with their block kinds.
+embeddings (mixtral-8x22b, llama4-scout), mamba2-130m's ``ssd`` blocks and
+recurrentgemma-9b's ``recurrent`` blocks with their ``tail``.  The others
+(whisper's ``dec`` and llama-3.2-vision's ``cross``) arrive with their
+block kinds.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ ARCHS = (
     "mixtral_8x22b",
     "llama4_scout_17b_a16e",
     "mamba2_130m",
+    "recurrentgemma_9b",
     # paper models
     "mup_gpt",
 )
@@ -32,6 +34,7 @@ _ALIASES = {
     "mixtral-8x22b": "mixtral_8x22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "mup-gpt": "mup_gpt",
 }
 

@@ -4,8 +4,10 @@ The port's copy of ``repro.configs.base``, cut to the fields that the
 decoder-only architectures the port serves and trains read: the
 all-``attn`` ones, gemma2's ``("local", "attn")`` alternation with its
 sliding window, query-chunked attention and post-norms, the MoE
-blocks (``"moe"``, ``"local_moe"``) with untied embeddings, and mamba2's
-SSD blocks (``"ssd"``: the ``ssm_*`` and ``conv_width`` fields).  Width
+blocks (``"moe"``, ``"local_moe"``) with untied embeddings, mamba2's
+SSD blocks (``"ssd"``: the ``ssm_*`` and ``conv_width`` fields) and
+recurrentgemma's RG-LRU blocks (``"recurrent"``: ``lru_width`` and
+``conv_width``) with a non-repeating ``tail``.  Width
 fields have parallel ``base_*`` fields: the muP base shape (Eq. 4).  By default
 ``base_* == *`` (pure SP compatibility at own width); `scaled(...)` derives
 wider/narrower family members sharing the same base.
@@ -14,7 +16,7 @@ Fields of the reference left out, because nothing the port runs reads
 them: the lowering and memory knobs of its JAX training (``remat``,
 ``scan_layers``, ``bf16_param_gather``, ``parallelism``, ``attn_acc``,
 ``use_pallas``, ``naive_loss``, ``use_qk_norm``) and the fields of block
-kinds not ported yet (RG-LRU's ``lru_width``, encoder-decoder, VLM).  A
+kinds not ported yet (encoder-decoder, VLM).  A
 reference config carries over by dropping them.
 """
 from __future__ import annotations
@@ -31,7 +33,9 @@ from typing import Optional, Tuple
 #   "local_moe"   sliding-window self-attention + MoE FFN
 #   "ssd"         Mamba-2 SSD mixer, no MLP (models/ssm.py; served by the
 #                 dense-loop driver only)
-# Not ported yet: "recurrent" (RG-LRU), "cross" and "dec" (cross-attention).
+#   "recurrent"   RG-LRU temporal-mixing block + MLP (models/rglru.py;
+#                 served by the dense-loop driver only)
+# Not ported yet: "cross" and "dec" (cross-attention).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,13 +73,14 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
 
-    # ---- SSM (mamba2) -----------------------------------------------------
+    # ---- SSM (mamba2) / RG-LRU (recurrentgemma) ---------------------------
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_n_heads: int = 0              # mamba2 heads (d_inner / head_dim)
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
     conv_width: int = 4
+    lru_width: Optional[int] = None   # RG-LRU recurrence width (default d_model)
 
     # paged-KV pool storage dtype for serving; "" inherits `dtype`; "int8"
     # stores quantized pages + per-page-per-head f32 scales (quant/kv.py)
@@ -157,6 +162,7 @@ class ModelConfig:
             n_heads=n_heads,
             n_kv_heads=n_kv,
             d_head=d_head,
+            lru_width=None if self.lru_width is None else r(self.lru_width),
             name=f"{self.name}@{width_factor}x",
         )
 
@@ -198,6 +204,10 @@ class ModelConfig:
                 total += attn + mlp
             elif b in ("moe", "local_moe"):
                 total += attn + self.n_experts * mlp + d * self.n_experts
+            elif b == "recurrent":
+                # the reference's term: it leaves out w_a and w_x (2 w^2)
+                w = self.lru_width or d
+                total += 2 * d * w + w * d + 2 * w * (self.conv_width + 2) + mlp
             elif b == "ssd":
                 di = self.d_inner
                 nh = self.ssm_n_heads or di // self.ssm_head_dim

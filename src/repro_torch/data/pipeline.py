@@ -40,8 +40,19 @@ class SyntheticLM:
         ranks = np.arange(1, V + 1, dtype=np.float64)
         self.unigram = ranks ** (-cfg.zipf_a)
         self.unigram /= self.unigram.sum()
+        # the unigram's CDF, formed once: ``_draw`` is numpy's legacy
+        # ``RandomState.choice(V, size, p=unigram)`` step for step (the same
+        # random stream, the same tokens), which forms and checks this CDF
+        # over all of V at every call (~1 s a batch of 2,048 positions at
+        # vocab 256,000)
+        self.cdf = self.unigram.cumsum()
+        self.cdf /= self.cdf[-1]
         # planted successor table: token v -> k preferred successors
         self.successors = rng.randint(0, V, size=(V, cfg.markov_k)).astype(np.int32)
+
+    def _draw(self, rng: np.random.RandomState, size: int) -> np.ndarray:
+        """``size`` unigram draws: ``rng.choice(V, size=size, p=self.unigram)``."""
+        return self.cdf.searchsorted(rng.random_sample(size), side="right")
 
     # ------------------------------------------------------------------
     def batch(self, step: int) -> Dict[str, np.ndarray]:
@@ -50,17 +61,16 @@ class SyntheticLM:
         rng = np.random.RandomState(
             (cfg.seed * 1_000_003 + step) % (2**31 - 1)
         )
-        V = cfg.vocab_size
         B, S = cfg.global_batch, cfg.seq_len
         toks = np.empty((B, S + 1), np.int32)
-        toks[:, 0] = rng.choice(V, size=B, p=self.unigram)
+        toks[:, 0] = self._draw(rng, B)
         for t in range(S):
             prev = toks[:, t]
             use_markov = rng.random_sample(B) < cfg.markov_p
             succ_pick = self.successors[
                 prev, rng.randint(0, cfg.markov_k, size=B)
             ]
-            indep = rng.choice(V, size=B, p=self.unigram)
+            indep = self._draw(rng, B)
             toks[:, t + 1] = np.where(use_markov, succ_pick, indep)
         return {
             "tokens": toks[:, :-1],

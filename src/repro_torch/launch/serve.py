@@ -22,7 +22,8 @@ text after the serve.  ``--dense`` serves through the dense-loop driver
 (``generate``: a prefill, then one ``Model.decode_step`` a token over a
 dense per-request cache; the engines' correctness oracle), and the CLI
 falls back to it, saying so, for a pattern the paged engines cannot serve
-(mamba2-130m's ``ssd`` blocks); under it ``--mixed-lens``,
+(mamba2-130m's ``ssd`` blocks, recurrentgemma-9b's ``recurrent`` ones and
+their tail); under it ``--mixed-lens``,
 ``--draft-width`` and ``--top-k/--top-p`` are ignored with a message, as in
 the reference.  ``--mesh`` (not ported yet) exits with an error saying so,
 and so does a model whose float32 weights do not fit the card (gemma2-27b,
@@ -47,6 +48,9 @@ Usage:
     python -m repro_torch.launch.serve --arch mamba2-130m --smoke --device cpu
     python -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu --dense
     python -m repro_torch.launch.serve --arch mamba2-130m --prompt-len 512 --gen-len 256
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --requests 4 \
+        --prompt-len 1920 --gen-len 256
 """
 from __future__ import annotations
 

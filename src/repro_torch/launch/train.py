@@ -39,11 +39,15 @@ Usage:
     python -m repro_torch.launch.train --arch mixtral-8x22b --smoke --steps 5 --device cpu \
         --amp bf16
     python -m repro_torch.launch.train --arch mamba2-130m --steps 5 --seq-len 512 --amp int8
+    python -m repro_torch.launch.train --arch recurrentgemma-9b --smoke --steps 3 --device cpu \
+        --amp bf16
 
 On the card the CLI refuses a config whose float32 weights, gradients and
 AdamW moments (train_state_bytes) exceed the card's memory: mixtral-8x22b
 at its 56 layers needs 2,250 GB, llama4-scout-17b-a16e at its 48 1,628 GB
-and at 4 (its smallest legal depth, one pattern group) 166 GB.
+and at 4 (its smallest legal depth, one pattern group) 166 GB,
+recurrentgemma-9b at its 38 150 GB (at 5, one group and the tail, 34.8 GB
+fit).
 """
 from __future__ import annotations
 

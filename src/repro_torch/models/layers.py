@@ -146,6 +146,12 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def softplus(v: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^v) with no linear cutoff, as ``jax.nn.softplus`` computes it
+    (``F.softplus`` returns v itself above 20)."""
+    return torch.logaddexp(v, torch.zeros_like(v))
+
+
 def activation(name: str):
     return {
         "relu": F.relu,

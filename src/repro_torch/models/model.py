@@ -5,10 +5,11 @@ The port's counterpart of ``repro.models.model`` for the decoder-only ("lm")
 architectures: all-"attn" stacks, gemma2's "local"/"attn" alternation with
 post-norms and a final softcap, the MoE stacks ("moe", "local_moe")
 with an untied readout (``unembed``, zero-init under µP per App. D.2 when
-``cfg.zero_init_readout``), and mamba2's "ssd" stack.  Params are a flat
-``{dotted name: tensor}`` dict with the reference's names and shapes (see
-core/meta.py), so ``convert.params_from_numpy`` carries reference weights
-over 1:1.
+``cfg.zero_init_readout``), mamba2's "ssd" stack, and recurrentgemma's
+"recurrent"/"local" groups with their non-repeating tail (``tail.*``).
+Params are a flat ``{dotted name: tensor}`` dict with the reference's
+names and shapes (see core/meta.py), so ``convert.params_from_numpy``
+carries reference weights over 1:1.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.core.parametrization import AbcParametrization, Role, resolve
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import gain_meta, mult_of, rmsnorm, softcap, wmeta
+from repro_torch.models.rglru import lru_width
 from repro_torch.models.ssm import ssd_heads
 from repro_torch.quant import policy_of, quant_matmul
 
@@ -57,14 +59,15 @@ def _readout_view_meta(cfg) -> ParamMeta:
 
 
 def build_meta(cfg) -> Dict[str, Any]:
-    if cfg.family != "lm" or cfg.tail:
+    if cfg.family != "lm":
         raise NotImplementedError(
-            f"{cfg.name}: only decoder-only configs with no tail are ported"
+            f"{cfg.name}: only decoder-only configs are ported"
         )
     D, bD = cfg.d_model, cfg.base_d_model
     meta = {
         "embed": _embed_meta(cfg),
         "groups": tfm.stack_group_meta(cfg),
+        "tail": tfm.tail_meta(cfg),
         "final_norm": gain_meta("final_norm", D, bD),
     }
     if not cfg.tie_embeddings:
@@ -104,6 +107,8 @@ class Model:
             k: tfm.tree_map(tfm.unstack_meta, m)
             for k, m in self.meta["groups"].items()
         }
+        # the tail's blocks are not stacked: their metas as they are
+        self.tail_meta = self.meta["tail"]
         # the readout's own meta (untied) or the tied embedding's view
         self.readout_meta = (_readout_view_meta(cfg) if cfg.tie_embeddings
                              else self.meta["unembed"])
@@ -198,9 +203,9 @@ class Model:
         ``collect_stats`` switches the return to ``(logits, new_cache,
         stats)``: ``stats`` holds the coordinate sizes (mean |x|, 0-d
         tensors on the device) of the embedding (``embed``), the residual
-        stream after every block (``block/<i>_<kind>``, (n_groups,)), the
-        final norm's output (``final_norm``) and the logits (``logits``),
-        the reference's µP-health telemetry (obs/telemetry.py).  They are
+        stream after every block (``block/<i>_<kind>``, (n_groups,); a tail
+        block's ``block/tail/<i>_<kind>``, 0-d), the final norm's output
+        (``final_norm``) and the logits (``logits``), the reference's µP-health telemetry (obs/telemetry.py).  They are
         read from detached tensors, so the backward is unchanged.
         """
         cfg = self.cfg
@@ -219,6 +224,7 @@ class Model:
         )
         x, new_cache = tfm.run_stack(
             cfg, tree["groups"], self.layer_meta, x, ctx, cache,
+            tail_params=tree.get("tail", {}), tmeta=self.tail_meta,
         )
         if readout is not None:
             x = x[:, readout]
@@ -285,6 +291,12 @@ class Model:
             return {"h": ((batch, nh, hd, cfg.ssm_state), torch.float32),
                     "conv": ((batch, cfg.conv_width - 1,
                               cfg.d_inner + 2 * cfg.ssm_state), act)}
+        if kind == "recurrent":
+            # h f32 as in the reference (float64 in a float64 model)
+            w = lru_width(cfg)
+            return {"mixer": {
+                "h": ((batch, w), torch.promote_types(act, torch.float32)),
+                "conv": ((batch, cfg.conv_width - 1, w), act)}}
         length = (min(cfg.window_size, cache_len) if kind.startswith("local")
                   else cache_len)
         kv = (batch, length, cfg.n_kv_heads, cfg.d_head)
@@ -292,14 +304,18 @@ class Model:
                          "pos": ((batch, length), torch.int32)}}
 
     def cache_shapes(self, batch: int, cache_len: int) -> Dict[str, Any]:
-        """{"groups": {key: {leaf: (shape, dtype)}}} of the dense decode
-        cache, each leaf stacked over the layers; see init_cache."""
+        """{"groups": {key: {leaf: (shape, dtype)}}, "tail": {key: ...}} of
+        the dense decode cache, the reference's layout: each group leaf
+        stacked over the layers, the tail's not ({} with no tail); see
+        init_cache."""
         cfg = self.cfg
         return {"groups": {
             f"{i}_{kind}": tfm.tree_map(
                 lambda sd: ((cfg.n_groups,) + sd[0], sd[1]),
                 self._block_cache_spec(kind, batch, cache_len))
-            for i, kind in enumerate(cfg.pattern)}}
+            for i, kind in enumerate(cfg.pattern)},
+            "tail": {f"{i}_{kind}": self._block_cache_spec(kind, batch, cache_len)
+                     for i, kind in enumerate(cfg.tail)}}
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, Any]:
         """An empty dense decode cache: positions -1 (empty), the rest 0."""

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.meta import ParamMeta
 from repro_torch.core.parametrization import Role
-from repro_torch.models.layers import apply_w, bias_meta, dense_meta, wmeta
+from repro_torch.models.layers import apply_w, bias_meta, dense_meta, softplus, wmeta
 
 
 def ssd_heads(cfg) -> Tuple[int, int]:
@@ -172,12 +172,6 @@ def ssd_decode_step(x, dt, A, Bm, Cm, h):
     return y[:, None], h_new
 
 
-def _softplus(v: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^v) with no linear cutoff, as ``jax.nn.softplus`` computes it
-    (``F.softplus`` returns v itself above 20)."""
-    return torch.logaddexp(v, torch.zeros_like(v))
-
-
 def ssd_block(
     cfg, params, meta, x, parametrization, cache=None, mode: str = "train",
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -193,7 +187,7 @@ def ssd_block(
     Cm = apply_w(x, params["w_C"], meta["w_C"], p13n, "bsd,dn->bsn")
     dt_raw = apply_w(x, params["w_dt"], meta["w_dt"], p13n, "bsd,dh->bsh")
     acc = torch.promote_types(x.dtype, torch.float32)
-    dt = _softplus(dt_raw.to(acc) + params["dt_bias"].to(acc))
+    dt = softplus(dt_raw.to(acc) + params["dt_bias"].to(acc))
     A = -torch.exp(params["A_log"].to(acc))               # (nh,) < 0
 
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)

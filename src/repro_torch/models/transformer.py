@@ -1,32 +1,35 @@
 """Block assembly: pattern-based decoder stacks over stacked layer groups.
 
-A config declares a repeating *group* of blocks (``cfg.pattern``).  The
-parameters of each block position in the group are stacked over
-``n_groups`` on a leading layer axis, exactly as in the reference, so weights
-transfer 1:1 by dotted name; where the reference scans over the stack, the
-port runs a Python loop over the layers of every stacked tensor.
+A config declares a repeating *group* of blocks (``cfg.pattern``) plus an
+optional non-repeating ``cfg.tail``.  The parameters of each block position
+in the group are stacked over ``n_groups`` on a leading layer axis, exactly
+as in the reference, so weights transfer 1:1 by dotted name; where the
+reference scans over the stack, the port runs a Python loop over the
+layers of every stacked tensor.  The tail's blocks (``tail.<i>_<kind>``,
+not stacked) run unrolled after the groups, as in the reference.
 
-The port runs five block kinds: "attn" (global self-attention + MLP),
+The port runs six block kinds: "attn" (global self-attention + MLP),
 "local" (the same over a sliding window of ``cfg.window_size`` positions;
 gemma2 alternates the two), "moe" / "local_moe" (the same attention
 with the MLP replaced by models/moe.py's top-k expert FFN: mixtral,
 llama4-scout), each with gemma2's post-norms when ``cfg.post_attn_norm``
-is set, and "ssd" (mamba2: one norm and models/ssm.py's SSD mixer, no
-MLP).  Three modes: full sequence ("train" / "prefill"; prefill also emits
-a cache), paged decode (one token per slot through the flash-decode
+is set, "ssd" (mamba2: one norm and models/ssm.py's SSD mixer, no
+MLP) and "recurrent" (recurrentgemma: models/rglru.py's RG-LRU mixer in
+place of attention, then the MLP).  Three modes: full sequence ("train" /
+"prefill"; prefill also emits a cache), paged decode (one token per slot through the flash-decode
 kernel, a chunk of tokens per slot through the multi-query one; windowed
 layers read and write a ring of pages through the window table), and
 dense decode (the dense-loop driver's: each layer's position-tagged cache,
 a ring for windowed layers, written in place and attended in plain
-PyTorch, as the reference attends it; an ssd layer's state h and conv
-inputs carried into the stacked cache).  Full sequences go through the
-flash-attention kernels when ``cfg.amp`` is set and the positions are
+PyTorch, as the reference attends it; an ssd or recurrent layer's state
+h and conv inputs carried into the stacked cache).  Full sequences go
+through the flash-attention kernels when ``cfg.amp`` is set and the positions are
 0..S-1, through plain
 attention otherwise (in query chunks of ``cfg.attn_chunk`` past that
 length), as in the reference.  The MoE FFN runs on whatever (B, S) block
 the mode gives it (a padded prefill buffer, a chunk, one decode token a
 slot), which sets its capacity, as in the reference.  The other kinds
-("recurrent", "cross", "dec") arrive with their blocks.
+("cross", "dec") arrive with their blocks.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.core.parametrization import resolve
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     activation,
@@ -55,7 +59,9 @@ from repro_torch.models.rope import rope_cos_sin, rotate
 from repro_torch.quant import policy_of
 from repro_torch.serving import kv_cache as paged_kv
 
-BLOCK_KINDS = ("attn", "local", "moe", "local_moe", "ssd")
+BLOCK_KINDS = ("attn", "local", "moe", "local_moe", "ssd", "recurrent")
+# kinds whose mixer carries a recurrent state (h, conv inputs), not a KV cache
+STATE_KINDS = ("ssd", "recurrent")
 
 
 @dataclasses.dataclass
@@ -158,7 +164,10 @@ def block_meta(cfg, kind: str, name: str) -> Dict[str, Any]:
     if kind == "ssd":
         m["mixer"] = ssm_lib.ssd_meta(cfg, f"{name}.ssd")
         return m  # mamba blocks: a single norm, no separate MLP
-    m["attn"] = _attn_meta(cfg, f"{name}.attn")
+    if kind == "recurrent":
+        m["mixer"] = rglru_lib.rglru_meta(cfg, f"{name}.rglru")
+    else:
+        m["attn"] = _attn_meta(cfg, f"{name}.attn")
     if cfg.post_attn_norm:
         m["ln1_post"] = gain_meta(f"{name}.ln1_post", d, bd)
     m["ln2"] = gain_meta(f"{name}.ln2", d, bd)
@@ -225,6 +234,14 @@ def stack_group_meta(cfg) -> Dict[str, Any]:
             block_meta(cfg, kind, f"group.{i}.{kind}"), cfg.n_groups
         )
         for i, kind in enumerate(cfg.pattern)
+    }
+
+
+def tail_meta(cfg) -> Dict[str, Any]:
+    """Meta for the non-repeating tail: {"<i>_<kind>": block meta}."""
+    return {
+        f"{i}_{kind}": block_meta(cfg, kind, f"tail.{i}.{kind}")
+        for i, kind in enumerate(cfg.tail)
     }
 
 
@@ -341,10 +358,18 @@ def apply_block(
         out, ssd_cache = ssm_lib.ssd_block(cfg, params["mixer"], meta["mixer"], h,
                                            p13n, cache, mode=ctx.mode)
         return x + out, ssd_cache
-    out, attn_cache = _self_attention(
-        cfg, params["attn"], meta["attn"], h, ctx, paged_kv.windowed(kind),
-        None if cache is None else cache.get("attn"), p13n,
-    )
+    if kind == "recurrent":
+        out, mixer_cache = rglru_lib.rglru_block(
+            cfg, params["mixer"], meta["mixer"], h, p13n,
+            None if cache is None else cache.get("mixer"), mode=ctx.mode,
+        )
+        cache_key = "mixer"
+    else:
+        out, mixer_cache = _self_attention(
+            cfg, params["attn"], meta["attn"], h, ctx, paged_kv.windowed(kind),
+            None if cache is None else cache.get("attn"), p13n,
+        )
+        cache_key = "attn"
     if cfg.post_attn_norm:
         out = rmsnorm(out, params["ln1_post"], eps, impl=ctx.impl)
     x = x + out
@@ -357,7 +382,17 @@ def apply_block(
     if cfg.post_attn_norm:
         mout = rmsnorm(mout, params["ln2_post"], eps, impl=ctx.impl)
     x = x + mout
-    return x, (None if attn_cache is None else {"attn": attn_cache})
+    return x, (None if mixer_cache is None else {cache_key: mixer_cache})
+
+
+def _copy_state(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+    """Copy a recurrent layer's new state (nested dicts of tensors) into its
+    slot of the dense cache."""
+    for name, t in src.items():
+        if isinstance(t, dict):
+            _copy_state(dst[name], t)
+        else:
+            dst[name].copy_(t)
 
 
 def run_stack(
@@ -367,22 +402,31 @@ def run_stack(
     x: torch.Tensor,
     ctx: Ctx,
     caches: Optional[Dict[str, Any]] = None,
+    tail_params: Optional[Dict[str, Any]] = None,
+    tmeta: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Loop over the stacked groups.  ``layer_meta`` holds the unstacked meta
-    of each group key.  ``caches`` mirrors the params layout,
-    {"groups": {key: stacked cache}}.
+    """Loop over the stacked groups, then the unrolled tail.  ``layer_meta``
+    holds the unstacked meta of each group key, ``tail_params`` / ``tmeta``
+    the tail's params and metas by key.  ``caches`` mirrors the params
+    layout, {"groups": {key: stacked cache}, "tail": {key: cache}}.
 
-    Prefill returns the emitted per-layer caches stacked over the layer
-    axis.  Decode writes the paged pools in place — each layer's pool, int8
-    scales included, is a view into the stacked pool — and returns
-    ``caches`` itself; so does dense decode, where an attention layer's
-    cache is written in place through its view and an ssd layer's new
-    state is copied into its slice of the stack.
+    Prefill returns the emitted per-layer caches, each group key's stacked
+    over the layer axis, the tail's as they are.  Decode writes the paged
+    pools in place — each layer's pool, int8 scales included, is a view
+    into the stacked pool — and returns ``caches`` itself; so does dense
+    decode, where an attention layer's cache is written in place through
+    its view and an ssd or recurrent layer's new state is copied into its
+    slice of the stack (into the tail's own tensors for a tail layer).
     """
     keys = [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
+    tail_keys = [f"{i}_{kind}" for i, kind in enumerate(cfg.tail)]
     if cfg.rope_theta > 0:
         ctx.rope = rope_cos_sin(ctx.positions, cfg.d_head, cfg.rope_theta)
     if ctx.mode == "decode" and ctx.paged is not None:
+        if cfg.tail:
+            raise NotImplementedError(
+                f"{cfg.name}: the paged pools hold no tail; serve it with the "
+                f"dense-loop driver")
         # where the tokens land, once a forward for all layers of a kind:
         # global layers through the global table, windowed ones through the
         # ring of the window table
@@ -416,14 +460,24 @@ def run_stack(
             x, c_out = apply_block(cfg, kind, p, layer_meta[k], x, ctx, c_in)
             if ctx.mode == "prefill":
                 emitted[k].append(c_out)
-            elif kind == "ssd" and caches is not None:
-                for name, t in c_out.items():
-                    caches["groups"][k][name][layer].copy_(t)
+            elif kind in STATE_KINDS and caches is not None:
+                _copy_state(c_in, c_out)
             if stats is not None:
                 stats[k].append(coord_size(x.detach()))
     if stats is not None:
         for k in keys:
             ctx.stats[f"block/{k}"] = torch.stack(stats[k])
+    new_tail = {}
+    for k, kind in zip(tail_keys, cfg.tail):
+        c_in = None if caches is None else caches["tail"][k]
+        x, c_out = apply_block(cfg, kind, tail_params[k], tmeta[k], x, ctx, c_in)
+        if ctx.mode == "prefill":
+            new_tail[k] = c_out
+        elif kind in STATE_KINDS and caches is not None:
+            _copy_state(c_in, c_out)
+        if ctx.stats is not None:
+            ctx.stats[f"block/tail/{k}"] = coord_size(x.detach())
     if ctx.mode == "prefill":
-        return x, {"groups": {k: _stack_trees(emitted[k]) for k in keys}}
+        return x, {"groups": {k: _stack_trees(emitted[k]) for k in keys},
+                   "tail": new_tail}
     return x, caches

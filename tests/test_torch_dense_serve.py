@@ -1,7 +1,7 @@
 """The dense-loop serve driver in the port against the reference: ``generate``
 (a prefill, then one ``Model.decode_step`` a token over a dense cache) on
 mamba2's ``ssd`` stack, smollm's global attention, gemma2's sliding-window
-ring and mixtral's MoE layers; its cache layout (``cache_shapes`` /
+ring, mixtral's MoE layers and recurrentgemma's RG-LRU groups and tail; its cache layout (``cache_shapes`` /
 ``init_cache``); the port's dense driver against its static engine; the
 temperature draws; and the serve CLI's fallback and ``--dense``.
 
@@ -31,10 +31,10 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.model import build_model as tbuild  # noqa: E402
 from repro_torch.serving.engine import DynamicEngine, Engine, EngineConfig  # noqa: E402
 
-ARCHS = ["mamba2-130m", "smollm-135m", "gemma2-2b", "mixtral-8x22b"]
+ARCHS = ["mamba2-130m", "smollm-135m", "gemma2-2b", "mixtral-8x22b", "recurrentgemma-9b"]
 OVER = dict(dtype="float32", zero_init_query=False, zero_init_readout=False)
-# prompts of one SSD chunk (16), 12 generated: gemma2's and mixtral's
-# windows of 8 wrap their rings while decoding
+# prompts of one SSD chunk (16), 12 generated: gemma2's, mixtral's and
+# recurrentgemma's windows of 8 wrap their rings while decoding
 P, GEN = 16, 12
 
 _MODELS = {}
@@ -95,19 +95,23 @@ def test_generate_matches_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_layout_matches_the_reference(arch):
-    """cache_shapes equals the reference's groups (shapes and dtypes: ring
-    lengths for windowed layers, h in f32 and the conv state in the
-    activation dtype for ssd ones); init_cache is empty (positions -1) and
-    prefill emits the same layout."""
+    """cache_shapes equals the reference's whole layout, {"groups", "tail"}
+    (shapes and dtypes: ring lengths for windowed layers, h in f32 and the
+    conv state in the activation dtype for ssd and recurrent ones, the
+    tail's unstacked; an empty tail where the config has none); init_cache
+    is empty (positions -1) and prefill emits the same layout."""
     jm, jp, tm, tp = _models(arch)
     want = jax.tree_util.tree_map(
         lambda sd: (tuple(sd[0]), str(jnp.dtype(sd[1]))),
-        jm.cache_shapes(2, P + GEN)["groups"],
+        jm.cache_shapes(2, P + GEN),
         is_leaf=lambda x: isinstance(x, tuple) and isinstance(x[0], tuple))
     shapes = tm.cache_shapes(2, P + GEN)
-    got = {k: {n: (tuple(s), str(d).replace("torch.", "")) for n, (s, d) in
-               _leaves(v).items()} for k, v in shapes["groups"].items()}
-    assert got == {k: _leaves(v) for k, v in want.items()}
+    assert sorted(shapes) == sorted(want) == ["groups", "tail"]
+    for part in ("groups", "tail"):
+        got = {k: {n: (tuple(s), str(d).replace("torch.", "")) for n, (s, d) in
+                   _leaves(v).items()} for k, v in shapes[part].items()}
+        assert got == {k: _leaves(v) for k, v in want[part].items()}, part
+    assert bool(shapes["tail"]) == bool(tm.cfg.tail)
     cache = tm.init_cache(2, P + GEN)
     for name, t in _leaves(cache).items():
         assert t.dtype != torch.int32 or bool((t == -1).all()), name
@@ -174,16 +178,36 @@ def test_engines_refuse_mamba2_like_the_reference():
                                   max_gen_len=GEN))
 
 
+def test_engines_refuse_recurrentgemma_like_the_reference():
+    """Both engines refuse recurrentgemma's recurrent blocks, as the
+    reference's engine does; the paged decode path refuses a tail, which
+    the paged pools do not hold."""
+    jm, _, tm, tp = _models("recurrentgemma-9b")
+    for cls in (Engine, DynamicEngine):
+        with pytest.raises(ValueError, match="paged serving.*dense-loop driver"):
+            cls(tm, EngineConfig(n_slots=2, page_size=4, max_prompt_len=P,
+                                 max_gen_len=GEN))
+    with pytest.raises(ValueError, match="paged serving"):
+        JEngine(jm, JEngineConfig(n_slots=2, page_size=4, max_prompt_len=P,
+                                  max_gen_len=GEN))
+    with pytest.raises(NotImplementedError, match="dense-loop driver"):
+        tm.forward(tp, torch.zeros((1, 1), dtype=torch.long),
+                   positions=torch.zeros((1, 1), dtype=torch.int32), mode="decode",
+                   cache={}, paged=object())
+
+
 def _lines(text, starts):
     return [ln for ln in text.splitlines() if ln.startswith(starts)]
 
 
 @pytest.mark.parametrize("arch,extra", [("mamba2-130m", []),
-                                        ("gemma2-2b", ["--dense"])],
-                         ids=["mamba2_fallback", "gemma2_dense"])
+                                        ("gemma2-2b", ["--dense"]),
+                                        ("recurrentgemma-9b", [])],
+                         ids=["mamba2_fallback", "gemma2_dense",
+                              "recurrentgemma_fallback"])
 def test_serve_cli_prints_the_reference_lines(arch, extra, capsys):
-    """The serve CLI on a smoke: mamba2 falls back to the dense driver with
-    the reference's line, --dense forces it on gemma2; the ignored flags'
+    """The serve CLI on a smoke: mamba2 and recurrentgemma fall back to the
+    dense driver with the reference's line, --dense forces it on gemma2; the ignored flags'
     messages and the [serve:dense] line's shape and count are the
     reference's (its time and tokens aside: each package draws its own
     weights and prompts)."""

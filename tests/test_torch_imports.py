@@ -61,6 +61,9 @@ def test_port_imports_without_jax_or_reference():
     moe = {"repro_torch.models.moe", "repro_torch.configs.mixtral_8x22b",
            "repro_torch.configs.llama4_scout_17b_a16e"}
     assert moe <= mods, moe - mods
+    recurrent = {"repro_torch.models.ssm", "repro_torch.models.rglru",
+                 "repro_torch.configs.mamba2_130m", "repro_torch.configs.recurrentgemma_9b"}
+    assert recurrent <= mods, recurrent - mods
 
 
 @pytest.mark.parametrize("path", sorted(

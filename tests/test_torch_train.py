@@ -246,6 +246,22 @@ def test_synthetic_batches_equal_bit_for_bit(vocab, seq, batch, seed):
     assert tp_.markov_entropy_bound() == jp_.markov_entropy_bound()
 
 
+@pytest.mark.parametrize("vocab", [2048, 32768, 256000])
+def test_synthetic_batches_equal_at_published_vocabs(vocab):
+    """The port draws its unigram tokens from a CDF formed once (numpy's
+    legacy ``RandomState.choice`` step by step): its batches equal the
+    reference's bit for bit at mup-gpt's, mixtral's and gemma2's /
+    recurrentgemma's vocab sizes, the random stream unchanged."""
+    jp_, tp_ = jpipeline(vocab, 96, 4, seed=3), tpipeline(vocab, 96, 4, seed=3)
+    for step in (0, 5):
+        jb, tb = jp_.batch(step), tp_.batch(step)
+        for k in ("tokens", "labels"):
+            assert jb[k].dtype == tb[k].dtype
+            np.testing.assert_array_equal(tb[k], jb[k])
+    # draws from the whole range, the rare tail included
+    assert tb["tokens"].max() > vocab // 64
+
+
 HPARAMS = [
     {},
     dict(lr=3e-3, sigma=0.5, alpha_output=4.0, alpha_attn=2.0, lr_embed=1e-3),
@@ -327,10 +343,12 @@ def _small_run(tmp_path=None, arch="mup-gpt", **kw):
         ckpt_dir=None if tmp_path is None else str(tmp_path), **kw)
 
 
-@pytest.mark.parametrize("arch", ["mup-gpt", "mixtral-8x22b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["mup-gpt", "mixtral-8x22b", "llama4-scout-17b-a16e",
+                                  "recurrentgemma-9b"])
 def test_checkpoint_resume_ends_where_uninterrupted_run_ends(tmp_path, arch):
     """The MoE archs' checkpoints carry the expert stacks, the router, the
-    untied readout and their AdamW moments."""
+    untied readout and their AdamW moments; recurrentgemma's the unstacked
+    tail (``tail.<i>_recurrent.*``) and its moments."""
     full = _small_run(arch=arch)
     with pytest.raises(ttrain.SimulatedFailure):
         _small_run(tmp_path, arch=arch, simulate_failure_at=3)
